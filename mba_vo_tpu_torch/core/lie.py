@@ -1,0 +1,157 @@
+"""Quaternion and Lie-group primitives on tensors (batched over leading dims).
+
+Counterpart of ``mba_vo_tpu/core/lie.py``, with the same conventions:
+  * quaternions are stored ``[x, y, z, w]``;
+  * ``quat_log`` maps a unit quaternion to the rotation vector and
+    ``quat_exp`` is its inverse, each with a small-angle Taylor branch whose
+    threshold depends on the dtype;
+  * SE(3) exp/log use the tangent order ``[translation, rotation]``.
+
+Small-angle branches are ``torch.where`` over safe operands, so forward-mode
+AD (``torch.func.jacfwd``) stays finite through them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _small_threshold(dtype: torch.dtype) -> float:
+    """Squared-norm threshold below which the Taylor branches are used:
+    1e-20 in float64, 1e-10 in narrower types."""
+    if torch.finfo(dtype).bits >= 64:
+        return 1e-20
+    return 1e-10
+
+
+def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack(
+        [a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1
+    )
+
+
+def quat_multiply(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Hamilton product q*p, xyzw layout."""
+    qx, qy, qz, qw = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    px, py, pz, pw = p[..., 0], p[..., 1], p[..., 2], p[..., 3]
+    return torch.stack(
+        [
+            qw * px + qx * pw + qy * pz - qz * py,
+            qw * py + qy * pw + qz * px - qx * pz,
+            qw * pz + qz * pw + qx * py - qy * px,
+            qw * pw - qx * px - qy * py - qz * pz,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    sign = torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
+    return q * sign
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v by unit quaternion(s) q (two-cross-product form)."""
+    xyz = q[..., :3]
+    w = q[..., 3:4]
+    t = 2.0 * _cross(xyz, v)
+    return v + w * t + _cross(xyz, t)
+
+
+def quat_log(q: torch.Tensor) -> torch.Tensor:
+    """Rotation-vector log of a unit quaternion: ``lambda * [x, y, z]`` with
+    lambda = 2 atan2(n, w) / n, or its Taylor form 2/w - (2/3) n^2/w^3 near
+    n = |imag| = 0."""
+    xyz = q[..., :3]
+    w = q[..., 3]
+    sq = torch.sum(xyz * xyz, dim=-1)
+    small = sq < _small_threshold(q.dtype)
+    sq_safe = torch.where(small, torch.ones_like(sq), sq)
+    n = torch.sqrt(sq_safe)
+    lam_big = 2.0 * torch.atan2(n, w) / n
+    w_safe = torch.where(torch.abs(w) < 1e-6, torch.sign(w) + (w == 0).to(w.dtype), w)
+    lam_small = 2.0 / w_safe - (2.0 / 3.0) * sq / (w_safe ** 3)
+    lam = torch.where(small, lam_small, lam_big)
+    return lam[..., None] * xyz
+
+
+def quat_exp(omega: torch.Tensor) -> torch.Tensor:
+    """Rotation vector -> unit quaternion (inverse of :func:`quat_log`)."""
+    theta_sq = torch.sum(omega * omega, dim=-1)
+    small = theta_sq < _small_threshold(omega.dtype)
+    theta_sq_safe = torch.where(small, torch.ones_like(theta_sq), theta_sq)
+    theta = torch.sqrt(theta_sq_safe)
+    imag_big = torch.sin(0.5 * theta) / theta
+    real_big = torch.cos(0.5 * theta)
+    theta_po4 = theta_sq * theta_sq
+    imag_small = 0.5 - theta_sq / 48.0 + theta_po4 / 3840.0
+    real_small = 1.0 - theta_sq / 8.0 + theta_po4 / 384.0
+    imag = torch.where(small, imag_small, imag_big)
+    real = torch.where(small, real_small, real_big)
+    return torch.cat([imag[..., None] * omega, real[..., None]], dim=-1)
+
+
+def so3_hat(omega: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix of a 3-vector."""
+    ox, oy, oz = omega[..., 0], omega[..., 1], omega[..., 2]
+    zero = torch.zeros_like(ox)
+    m = torch.stack([zero, -oz, oy, oz, zero, -ox, -oy, ox, zero], dim=-1)
+    return m.reshape(omega.shape[:-1] + (3, 3))
+
+
+def _eye_like(OO: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=OO.dtype, device=OO.device).expand(OO.shape)
+
+
+def _se3_V(omega: torch.Tensor) -> torch.Tensor:
+    """Left Jacobian V of SO(3) such that t = V @ rho in SE(3) exp."""
+    theta_sq = torch.sum(omega * omega, dim=-1)
+    small = theta_sq < _small_threshold(omega.dtype)
+    theta_sq_safe = torch.where(small, torch.ones_like(theta_sq), theta_sq)
+    theta = torch.sqrt(theta_sq_safe)
+    O = so3_hat(omega)
+    OO = O @ O
+    a_big = (1.0 - torch.cos(theta)) / theta_sq_safe
+    b_big = (theta - torch.sin(theta)) / (theta_sq_safe * theta)
+    a_small = 0.5 - theta_sq / 24.0
+    b_small = 1.0 / 6.0 - theta_sq / 120.0
+    a = torch.where(small, a_small, a_big)
+    b = torch.where(small, b_small, b_big)
+    return _eye_like(OO) + a[..., None, None] * O + b[..., None, None] * OO
+
+
+def _se3_V_inv(omega: torch.Tensor) -> torch.Tensor:
+    theta_sq = torch.sum(omega * omega, dim=-1)
+    small = theta_sq < _small_threshold(omega.dtype)
+    theta_sq_safe = torch.where(small, torch.ones_like(theta_sq), theta_sq)
+    theta = torch.sqrt(theta_sq_safe)
+    O = so3_hat(omega)
+    OO = O @ O
+    half_theta = 0.5 * theta
+    c_big = (1.0 - half_theta * torch.cos(half_theta) / torch.sin(half_theta)) / theta_sq_safe
+    c_small = 1.0 / 12.0 + theta_sq / 720.0
+    c = torch.where(small, c_small, c_big)
+    return _eye_like(OO) - 0.5 * O + c[..., None, None] * OO
+
+
+def se3_exp(tangent: torch.Tensor):
+    """SE(3) exponential of ``[rho(3), omega(3)]``; returns (t, q_xyzw)."""
+    rho = tangent[..., :3]
+    omega = tangent[..., 3:]
+    q = quat_exp(omega)
+    t = torch.einsum("...ij,...j->...i", _se3_V(omega), rho)
+    return t, q
+
+
+def se3_log(t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """SE(3) log, inverse of :func:`se3_exp`."""
+    omega = quat_log(q)
+    rho = torch.einsum("...ij,...j->...i", _se3_V_inv(omega), t)
+    return torch.cat([rho, omega], dim=-1)
+
