@@ -168,12 +168,52 @@ def spline_transform_to(knots: SplineKnots, time, target: Pose, degree: int) -> 
     return spline_transform_by_right(knots, Pose(t=dt, q=dq))
 
 
+def spline_transform_by(knots: SplineKnots, d: Pose) -> SplineKnots:
+    """Left-compose every knot with d: t_i <- R_d t_i + t_d ; R_i <- R_d R_i."""
+    return knots._replace(
+        t=quat_rotate(d.q[None, :], knots.t) + d.t[None, :],
+        q=quat_multiply(d.q[None, :].expand(knots.q.shape), knots.q),
+    )
+
+
 def spline_transform_by_right(knots: SplineKnots, d: Pose) -> SplineKnots:
     """Right-compose every knot with d: t_i += R_i d_t ; R_i <- R_i d_R."""
     return knots._replace(
         t=knots.t + quat_rotate(knots.q, d.t.expand(knots.t.shape)),
         q=quat_multiply(knots.q, d.q.expand(knots.q.shape)),
     )
+
+
+def insert_control_knot(knots: SplineKnots, t_new, q_new) -> SplineKnots:
+    """Append one control knot at the window end (the knot count grows)."""
+    opts = dict(dtype=knots.t.dtype, device=knots.t.device)
+    return knots._replace(
+        t=torch.cat([knots.t, torch.as_tensor(t_new, **opts)[None]], dim=0),
+        q=torch.cat([knots.q, torch.as_tensor(q_new, **opts)[None]], dim=0),
+    )
+
+
+def pop_front_control_knot(knots: SplineKnots) -> SplineKnots:
+    """Drop the first control knot and advance the spline start time by one
+    knot interval."""
+    return knots._replace(t=knots.t[1:], q=knots.q[1:], t0=knots.t0 + knots.dt)
+
+
+def slide_control_window(knots: SplineKnots, t_new, q_new) -> SplineKnots:
+    """Pop-front + append at constant knot count: the steady-state advance
+    of the joint multi-frame window."""
+    return insert_control_knot(pop_front_control_knot(knots), t_new, q_new)
+
+
+def extrapolate_knot(knots: SplineKnots) -> Pose:
+    """Constant-velocity prediction of the knot one interval past the window
+    end: the relative transform between the last two knots, applied again on
+    the right of the last knot."""
+    t_a, q_a = knots.t[-2], knots.q[-2]
+    t_b, q_b = knots.t[-1], knots.q[-1]
+    dq = quat_multiply(quat_conjugate(q_a), q_b)
+    dt_local = quat_rotate(quat_conjugate(q_a), t_b - t_a)
+    return Pose(t=t_b + quat_rotate(q_b, dt_local), q=quat_multiply(q_b, dq))
 
 
 def virtual_pose_times(cap_time, exp_time, num_vir: int) -> torch.Tensor:

@@ -91,12 +91,13 @@ __global__ void window_bilinear_kernel(const T* __restrict__ win,
 
 template <typename T>
 int launch(const void* win, const void* xy, const void* valid, void* out,
-           int N, int C, int win_h, int win_w, int S, void* stream) {
+           int N, int C, int win_h, int win_w, int S, int threads,
+           void* stream) {
   const long long total = (long long)N * S;
   if (total == 0 || C == 0) return (int)cudaSuccess;
-  const int threads = 128;
+  if (threads < 1) return (int)cudaErrorInvalidValue;
   const long long blocks = (total + threads - 1) / threads;
-  window_bilinear_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  window_bilinear_kernel<T><<<(unsigned)blocks, (unsigned)threads, 0, (cudaStream_t)stream>>>(
       (const T*)win, (const T*)xy, (const T*)valid, (T*)out, N, C, win_h,
       win_w, S);
   return (int)cudaGetLastError();
@@ -106,12 +107,14 @@ int launch(const void* win, const void* xy, const void* valid, void* out,
 
 extern "C" int window_bilinear_f32(const void* win, const void* xy,
                                    const void* valid, void* out, int N, int C,
-                                   int win_h, int win_w, int S, void* stream) {
-  return launch<float>(win, xy, valid, out, N, C, win_h, win_w, S, stream);
+                                   int win_h, int win_w, int S, int threads,
+                                   void* stream) {
+  return launch<float>(win, xy, valid, out, N, C, win_h, win_w, S, threads, stream);
 }
 
 extern "C" int window_bilinear_f64(const void* win, const void* xy,
                                    const void* valid, void* out, int N, int C,
-                                   int win_h, int win_w, int S, void* stream) {
-  return launch<double>(win, xy, valid, out, N, C, win_h, win_w, S, stream);
+                                   int win_h, int win_w, int S, int threads,
+                                   void* stream) {
+  return launch<double>(win, xy, valid, out, N, C, win_h, win_w, S, threads, stream);
 }

@@ -63,6 +63,10 @@ def install_tracker_state(tracker: BlurAwareTracker, arrays: Mapping) -> None:
     neigh_velocity:  [6]
     prev_timestamp:  float
     keyframe_levels: sequence of per-level mappings (keyframe_levels_from_arrays)
+    joint_knots:     mapping with t, q, t0, dt: the joint multi-frame window
+    joint_dt:        float, the host-side knot interval that window was
+                     created with (track_frames_joint keeps a live window
+                     only when both are present)
 
     Installing knots or keyframe levels ends the tracker's bootstrap, so the
     next ``track_frame`` tracks against this state. Any pending keyframe
@@ -81,6 +85,11 @@ def install_tracker_state(tracker: BlurAwareTracker, arrays: Mapping) -> None:
         tracker.neigh_velocity = _tensor(arrays["neigh_velocity"], dt, dev)
     if "prev_timestamp" in arrays:
         tracker.prev_timestamp = float(arrays["prev_timestamp"])
+    if "joint_knots" in arrays:
+        k = arrays["joint_knots"]
+        tracker._joint_knots = knots_from_arrays(k["t"], k["q"], k["t0"], k["dt"], dt, dev)
+    if "joint_dt" in arrays:
+        tracker._joint_dt = float(arrays["joint_dt"])
     if "keyframe_levels" in arrays:
         tracker.keyframe_levels = keyframe_levels_from_arrays(
             arrays["keyframe_levels"], dt, dev)

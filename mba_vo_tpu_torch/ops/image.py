@@ -4,12 +4,18 @@ Counterpart of ``mba_vo_tpu/ops/image.py``:
   * pyramid levels come from an exact 2x2 box filter that drops an odd last
     row or column;
   * gradients are central differences with zeroed one-pixel borders;
-  * out-of-bounds bilinear samples return 0 (masking in place of branches).
+  * out-of-bounds bilinear samples return 0 (masking in place of branches);
+  * ``sample_lk`` is bilinear sampling whose derivative with respect to the
+    position is the bilinearly sampled gradient image (the Lucas-Kanade
+    convention), not the derivative of the bilinear interpolant.
+
+``remap``, ``build_undistort_map`` and ``undistort_image`` are not ported
+yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import torch
 
@@ -85,3 +91,62 @@ def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
         + dxdy * v11
     )
     return torch.where(in_bounds(xy, h, w), val, torch.zeros_like(val))
+
+
+def sample_lk_with_gradient(
+    img: torch.Tensor, grad_img: torch.Tensor, xy: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(value, d/dx, d/dy) of the Lucas-Kanade sample at ``xy`` [..., 2]: the
+    bilinear samples of ``img`` [H, W] and of the two channels of
+    ``grad_img`` [H, W, 2], taken in one gather. All three are 0 out of
+    bounds."""
+    chans = torch.stack([img, grad_img[..., 0], grad_img[..., 1]], dim=0)
+    out = bilinear_sample(chans, xy)
+    return out[0], out[1], out[2]
+
+
+class _SampleLK(torch.autograd.Function):
+    """bilinear_sample(img, xy) with the Lucas-Kanade derivative rule."""
+
+    @staticmethod
+    def forward(img, grad_img, xy):
+        return bilinear_sample(img, xy)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _img, grad_img, xy = inputs
+        ctx.save_for_backward(grad_img, xy)
+        ctx.save_for_forward(grad_img, xy)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grad_img, xy = ctx.saved_tensors
+        gx = bilinear_sample(grad_img[..., 0], xy)
+        gy = bilinear_sample(grad_img[..., 1], xy)
+        return None, None, torch.stack([grad_out * gx, grad_out * gy], dim=-1)
+
+    @staticmethod
+    def jvp(ctx, dimg, _dgrad, dxy):
+        grad_img, xy = ctx.saved_tensors
+        out = torch.zeros(xy.shape[:-1], dtype=xy.dtype, device=xy.device)
+        if dxy is not None:
+            gx = bilinear_sample(grad_img[..., 0], xy)
+            gy = bilinear_sample(grad_img[..., 1], xy)
+            out = out + gx * dxy[..., 0] + gy * dxy[..., 1]
+        if dimg is not None:
+            out = out + bilinear_sample(dimg, xy)
+        return out
+
+
+def sample_lk(img: torch.Tensor, grad_img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample whose position derivative is the sampled gradient image.
+
+    Value: ``bilinear_sample(img, xy)``. Under ``torch.autograd`` (backward
+    and forward mode) the derivative with respect to ``xy`` is
+    ``bilinear_sample(grad_img, xy)``, the smoothed central-difference
+    gradient; a tangent of ``grad_img`` is ignored and a forward-mode tangent
+    of ``img`` passes through the (linear) interpolation. Backward mode
+    gives no gradient for ``img``. Out of bounds: value 0, gradient 0.
+    img: [H, W]; grad_img: [H, W, 2]; xy: [..., 2].
+    """
+    return _SampleLK.apply(img, grad_img, xy)

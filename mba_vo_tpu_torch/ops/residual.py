@@ -1,5 +1,4 @@
-"""Blur-aware photometric residual, Jacobian and normal-equation assembly
-(windowed sampling path).
+"""Blur-aware photometric residual, Jacobian and normal-equation assembly.
 
 Counterpart of ``mba_vo_tpu/ops/residual.py``. A blurred frame is the
 temporal average of V virtual sharp images along the spline inside the
@@ -19,8 +18,19 @@ value and Lucas-Kanade gradient; and
 J = mean_v(dI/dx * dx/d(delta) + dI/dy * dy/d(delta)), masked by the
 patch-pixel validity. No derivative passes through the sampler kernel.
 
-Not ported yet (see ROADMAP.md): the direct per-sample-gather path
-(``sampling="direct"``), ``affine_correct`` and keypoint sharding.
+The direct path (``sampling="direct"``, :func:`compute_residuals`) gathers
+every sample from the whole keyframe image instead of a window: the warp
+JVP over the 7 pose components gives G = dI/d(pose7) per sample, and
+J = mean_v(G . d(pose7)/d(delta)).
+
+``affine=True`` eliminates a per-frame gain and bias in closed form
+(:func:`affine_correct`). The windowed path carries the Jacobian through
+the elimination (:func:`affine_correct_jvp`); the direct path pairs the
+corrected residual with the Jacobian at frozen gain and bias, as the
+reference does.
+
+Not ported yet (see ROADMAP.md): keypoint sharding (the reference's
+``axis_name``).
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ from ..core.spline import (
     spline_retract,
     virtual_pose_times,
 )
-from .image import in_bounds
+from .image import in_bounds, sample_lk_with_gradient
 from .warp import frontoparallel_warp, frontoparallel_warp_jvp
 from .window_sampling import (
     extract_windows,
@@ -87,11 +97,6 @@ class Evaluation(NamedTuple):
     gradient: Optional[torch.Tensor]
     hessian: Optional[torch.Tensor]
     patch_costs: torch.Tensor
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to mba_vo_tpu_torch yet (see ROADMAP.md)")
 
 
 # ----------------------------------------------------------------- virtual poses
@@ -185,6 +190,112 @@ def _current_intensity(cur_imgs: torch.Tensor, pix: torch.Tensor) -> torch.Tenso
 # -------------------------------------------------------------------- residuals
 
 
+def _affine_fit(pred, obs, valid):
+    """Per-frame least-squares gain/bias of ``pred ~ a * obs + b`` over the
+    valid pixels, and the moments the derivative reuses."""
+    v = valid.to(pred.dtype)
+    n = torch.clamp(v.sum(dim=(1, 2)), min=1.0)                    # [F]
+    mx = (obs * v).sum(dim=(1, 2)) / n
+    my = (pred * v).sum(dim=(1, 2)) / n
+    dx = (obs - mx[:, None, None]) * v
+    dy = (pred - my[:, None, None]) * v
+    var = (dx * dx).sum(dim=(1, 2)) / n
+    cov = (dx * dy).sum(dim=(1, 2)) / n
+    ok = var > 1e-6
+    a = torch.where(ok, cov / torch.where(ok, var, torch.ones_like(var)),
+                    torch.ones_like(var))
+    b = torch.where(ok, my - a * mx, torch.zeros_like(var))
+    return a, b, (v, n, mx, dx, var, ok)
+
+
+def affine_correct(pred: torch.Tensor, obs: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """Per-frame affine-brightness-eliminated residual.
+
+    For each frame f, (a, b) = argmin sum_valid (pred - a*obs - b)^2 in
+    closed form, then r = pred - a*obs - b: the profile likelihood over a
+    per-frame gain and bias, which absorbs exposure drift without adding
+    unknowns to the LM state. A textureless frame (variance of obs <= 1e-6)
+    keeps (a, b) = (1, 0), the uncorrected residual.
+
+    pred, obs, valid: [F, N, P]. Returns [F, N, P] residuals (0 where
+    invalid).
+    """
+    a, b, _ = _affine_fit(pred, obs, valid)
+    r = pred - a[:, None, None] * obs - b[:, None, None]
+    return torch.where(valid, r, torch.zeros_like(r))
+
+
+def affine_correct_jvp(pred: torch.Tensor, obs: torch.Tensor,
+                       valid: torch.Tensor, dpred: torch.Tensor):
+    """:func:`affine_correct` and its derivative along D tangents of ``pred``.
+
+    dpred: [F, N, P, D]. Returns (r [F, N, P], dr [F, N, P, D]). The fitted
+    gain and bias depend on ``pred``, so the tangents pass through them:
+    dmy = sum(dpred v)/n, dcov = sum(dx dpred)/n, da = dcov/var and
+    db = dmy - da*mx where the fit is live (0 where it fell back to
+    (1, 0)), and dr = dpred - da*obs - db on the valid pixels.
+    """
+    a, b, (v, n, mx, dx, var, ok) = _affine_fit(pred, obs, valid)
+    r = pred - a[:, None, None] * obs - b[:, None, None]
+    r = torch.where(valid, r, torch.zeros_like(r))
+    dmy = (dpred * v[..., None]).sum(dim=(1, 2)) / n[:, None]       # [F, D]
+    dcov = (dpred * dx[..., None]).sum(dim=(1, 2)) / n[:, None]
+    safe_var = torch.where(ok, var, torch.ones_like(var))
+    da = torch.where(ok[:, None], dcov / safe_var[:, None], torch.zeros_like(dcov))
+    db = torch.where(ok[:, None], dmy - da * mx[:, None], torch.zeros_like(dmy))
+    dr = dpred - da[:, None, None, :] * obs[..., None] - db[:, None, None, :]
+    return r, torch.where(valid[..., None], dr, torch.zeros_like(dr))
+
+
+def compute_residuals(
+    knots: SplineKnots, data: TrackingLevelData, num_vir: int, degree: int,
+    with_jacobian: bool, affine: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """Residuals r [F,N,P], Jacobian J [F,N,P,6K] (or None) and the
+    valid-pixel mask [F,N,P], gathering every sample from the whole
+    keyframe image (``sampling="direct"``).
+
+    The prediction and the Jacobian are averaged over the V virtual poses;
+    patch pixels outside the current image are masked out. With ``affine``
+    the residual is gain/bias-corrected and J is the Jacobian at frozen
+    gain and bias: it is not carried through :func:`affine_correct`.
+    """
+    pt, pq = sample_virtual_poses(
+        knots, data.cap_times, data.exp_times, num_vir, degree
+    )  # [F, V, 3], [F, V, 4]
+    pix, valid, obs = prepare_frame_layout(knots, data, num_vir, degree)
+
+    warp_args = (
+        pt[:, None, None, :, :],            # [F,1,1,V,3]
+        pq[:, None, None, :, :],            # [F,1,1,V,4]
+        data.kp_z[None, :, None, None],     # [1,N,1,1]
+        data.K,
+        pix[:, :, :, None, :],              # [F,N,P,1,2]
+    )
+    if with_jacobian:
+        # the 7 unit tangents of the pose vector (t; q): [7, 1,1,1,1, 3|4]
+        eye = torch.eye(7, dtype=pt.dtype, device=pt.device)[:, None, None, None, None]
+        ref_xy, dxy = frontoparallel_warp_jvp(
+            *warp_args, dpose_t=eye[..., :3], dpose_q=eye[..., 3:])
+        I, gx, gy = sample_lk_with_gradient(data.img_ref, data.grad_ref, ref_xy)
+        G = (gx * dxy[..., 0] + gy * dxy[..., 1]).permute(1, 2, 3, 4, 0)  # [F,N,P,V,7]
+        Jp = pose_jacobians(knots, data.cap_times, data.exp_times, num_vir, degree)
+        J = torch.einsum("fnpvc,fvck->fnpk", G, Jp) / num_vir
+        J = torch.where(valid[..., None], J, torch.zeros_like(J))
+    else:
+        ref_xy = frontoparallel_warp(*warp_args)          # [F,N,P,V,2]
+        I, _gx, _gy = sample_lk_with_gradient(data.img_ref, data.grad_ref, ref_xy)
+        J = None
+
+    pred = I.mean(dim=-1)  # [F, N, P]
+    if affine:
+        r = affine_correct(pred, obs, valid)
+    else:
+        r = torch.where(valid, pred - obs, torch.zeros_like(pred))
+    return r, J, valid
+
+
 def prepare_window_cache(
     data: TrackingLevelData, window: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -223,10 +334,9 @@ def compute_residuals_windowed(
 
     ``cache``: (windows, starts) from :func:`prepare_window_cache`;
     ``layout``: (pix, valid_center, obs) from :func:`prepare_frame_layout`.
-    None recomputes either here.
+    None recomputes either here. With ``affine`` the residual and the
+    Jacobian both pass through the per-frame gain/bias elimination.
     """
-    if affine:
-        raise _not_ported("affine_brightness (affine_correct)")
     F = data.cur_imgs.shape[0]
     H, W = data.img_ref.shape
     N = data.kp_xy.shape[0]
@@ -276,15 +386,22 @@ def compute_residuals_windowed(
     else:
         val = sample_windows(windows, loc, vs)
     pred = val.reshape(N, F, P, num_vir).mean(dim=-1)       # [N,F,P]
+    if with_jacobian:
+        dxy = dxy.reshape(N, S, 2, 6 * Kk)
+        tangent = gx[..., None] * dxy[:, :, 0] + gy[..., None] * dxy[:, :, 1]
+        dpred = tangent.reshape(N, F, P, num_vir, 6 * Kk).mean(dim=3)
+    if affine:
+        pred_fn = pred.permute(1, 0, 2)                     # [F,N,P]
+        if not with_jacobian:
+            return affine_correct(pred_fn, obs, valid_center), None, valid_center
+        r, J = affine_correct_jvp(pred_fn, obs, valid_center,
+                                  dpred.permute(1, 0, 2, 3))
+        return r, J, valid_center
     r_nf = torch.where(vc_nf, pred - obs_nf, torch.zeros_like(pred))
     r = r_nf.permute(1, 0, 2)                               # [F,N,P]
     if not with_jacobian:
         return r, None, valid_center
-
-    dxy = dxy.reshape(N, S, 2, 6 * Kk)
-    tangent = gx[..., None] * dxy[:, :, 0] + gy[..., None] * dxy[:, :, 1]
-    J_nf = tangent.reshape(N, F, P, num_vir, 6 * Kk).mean(dim=3)
-    J_nf = torch.where(vc_nf[..., None], J_nf, torch.zeros_like(J_nf))
+    J_nf = torch.where(vc_nf[..., None], dpred, torch.zeros_like(dpred))
     return r, J_nf.permute(1, 0, 2, 3), valid_center
 
 
@@ -320,13 +437,17 @@ def compute_rjv(
     affine: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """Residuals r [F,N,P], Jacobian J [F,N,P,6K] (or None), valid mask.
-    Independent of the outlier mask, which only reweights the reductions."""
-    if sampling != "windowed":
-        raise _not_ported(f"sampling={sampling!r} (compute_residuals)")
-    return compute_residuals_windowed(
-        knots, data, num_vir, degree, with_jacobian, window, cache=cache,
-        layout=layout, affine=affine,
-    )
+    Independent of the outlier mask, which only reweights the reductions.
+    ``sampling``: "windowed" or "direct"; ``affine``: per-frame gain/bias
+    elimination (see the module docstring for how each path differentiates
+    it)."""
+    if sampling == "windowed":
+        return compute_residuals_windowed(
+            knots, data, num_vir, degree, with_jacobian, window, cache=cache,
+            layout=layout, affine=affine,
+        )
+    return compute_residuals(knots, data, num_vir, degree, with_jacobian,
+                             affine=affine)
 
 
 def _kahan_chunked_normal_eq(Jw: torch.Tensor, rw: torch.Tensor,

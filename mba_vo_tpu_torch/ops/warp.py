@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..core.lie import _cross, quat_rotate
+from .image import sample_lk
 
 
 def unit_ray(xy: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
@@ -43,6 +44,22 @@ def frontoparallel_warp(
     return torch.stack(
         [K[0] * P[..., 0] * iz + K[2], K[1] * P[..., 1] * iz + K[3]], dim=-1
     )
+
+
+def warp_and_sample(
+    img_ref: torch.Tensor,
+    grad_ref: torch.Tensor,
+    pose_t: torch.Tensor,
+    pose_q: torch.Tensor,
+    plane_depth: torch.Tensor,
+    K: torch.Tensor,
+    xy: torch.Tensor,
+) -> torch.Tensor:
+    """Warp + Lucas-Kanade sample: the intensity of each (pixel, virtual
+    pose). A warp that leaves the reference image contributes intensity 0
+    with zero gradient."""
+    ref_xy = frontoparallel_warp(pose_t, pose_q, plane_depth, K, xy)
+    return sample_lk(img_ref, grad_ref, ref_xy)
 
 
 def frontoparallel_warp_jvp(

@@ -57,7 +57,7 @@ class LMOptions:
     huber_a: float = 20.0
     max_chi_square_error: float = 3.0
     solver: str = "cholesky"  # "cholesky" | "lu" | "svd"
-    sampling: str = "direct"  # only "windowed" is ported
+    sampling: str = "direct"  # "direct" | "windowed" (see ops.residual)
     window: int = 32
     # True = standard trust-region retry of a rejected step instead of the
     # reference's terminate-on-reject (the per-frame tracker keeps False)
@@ -66,7 +66,8 @@ class LMOptions:
     compensated_sum: bool = False
     # constant-velocity knot prior weight (0 = off; needs > 2 knots)
     knot_prior_weight: float = 0.0
-    affine_brightness: bool = False  # not ported
+    # per-frame closed-form gain/bias elimination (ops.residual.affine_correct)
+    affine_brightness: bool = False
     # evaluate every iteration of a level against the level-entry patch layout
     hoist_layout: bool = False
 
@@ -298,10 +299,6 @@ def optimize_level(
 
     ``cache``: the level's keyframe window cache (extracted here when None).
     """
-    if opts.affine_brightness:
-        raise NotImplementedError(
-            "affine_brightness is not ported to mba_vo_tpu_torch yet "
-            "(see ROADMAP.md)")
     dtype = knots.t.dtype
     N = data.kp_mask.shape[0]
     mask0 = torch.ones((N,), dtype=dtype, device=knots.t.device)
@@ -316,7 +313,7 @@ def optimize_level(
     ev0 = evaluate(knots, data, num_vir, degree, opts.huber_a, mask0, True,
                    sampling=opts.sampling, window=opts.window,
                    precision=opts.precision, compensated=opts.compensated_sum,
-                   cache=cache, layout=layout)
+                   cache=cache, layout=layout, affine=opts.affine_brightness)
     cp0, gp0, Hp0 = _prior(knots, opts)
     s = _LMState(
         knots=knots,

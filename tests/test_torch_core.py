@@ -194,3 +194,69 @@ def test_virtual_pose_times(num_vir):
     got = tsp.virtual_pose_times(t64(caps), t64(exps), num_vir)
     for f in range(2):
         close(jsp.virtual_pose_times(jnp.asarray(caps[f]), exps[f], num_vir), got[f], 1e-15)
+
+
+# ------------------------------------------------ the joint window's knot ops
+
+
+def _same_knots(kj, kt, tol=TOL):
+    assert kt.num_knots == kj.num_knots
+    for name in ("t", "q", "t0", "dt"):
+        close(getattr(kj, name), getattr(kt, name), tol)
+
+
+@pytest.mark.parametrize("name", ["insert_control_knot", "slide_control_window"])
+def test_knot_window_ops_with_a_new_knot(name):
+    kj, kt = knots_pair(knots_arrays(seed=11, num_knots=5))
+    t_new, q_new = RNG.normal(0, 0.01, 3), random_quats(RNG, 1, 0.01)[0]
+    aj = getattr(jsp, name)(kj, jnp.asarray(t_new), jnp.asarray(q_new))
+    at = getattr(tsp, name)(kt, t64(t_new), t64(q_new))
+    _same_knots(aj, at)
+    assert at.num_knots == (6 if name == "insert_control_knot" else 5)
+    close(at.t[-1], t_new)
+
+
+def test_pop_front_and_extrapolate_knot():
+    kj, kt = knots_pair(knots_arrays(seed=12, num_knots=5))
+    _same_knots(jsp.pop_front_control_knot(kj), tsp.pop_front_control_knot(kt))
+    assert float(tsp.pop_front_control_knot(kt).t0) == pytest.approx(0.185)
+    pj, pt = jsp.extrapolate_knot(kj), tsp.extrapolate_knot(kt)
+    close(pj.t, pt.t)
+    close(pj.q, pt.q)
+    # constant velocity: the new knot repeats the last relative transform
+    slid = tsp.slide_control_window(kt, pt.t, pt.q)
+    rel = lambda k, i: ttf.pose_compose(  # noqa: E731
+        ttf.pose_inverse(ttf.Pose(k.t[i], k.q[i])), ttf.Pose(k.t[i + 1], k.q[i + 1]))
+    close(rel(slid, 3).t, rel(kt, 3).t)
+    close(rel(slid, 3).q, rel(kt, 3).q)
+
+
+def test_spline_transform_by_left():
+    kj, kt = knots_pair(knots_arrays(seed=13, num_knots=4))
+    dj, dt_ = _pose_pair(1, 14)
+    aj = jsp.spline_transform_by(kj, jtf.Pose(dj.t[0], dj.q[0]))
+    at = tsp.spline_transform_by(kt, ttf.Pose(dt_.t[0], dt_.q[0]))
+    _same_knots(aj, at)
+
+
+def test_degree_four_window_of_seven_knots():
+    """The joint window at chunk 4, degree 4: values across all four
+    segments, the clamped ends included, and the [F, V, 7, 42] pose
+    Jacobian of four frames."""
+    from mba_vo_tpu.ops import residual as jres
+    from mba_vo_tpu_torch.ops import residual as tres
+    import jax
+
+    kj, kt = knots_pair(knots_arrays(seed=15, num_knots=7, t0=0.085, dt=0.1))
+    times = np.linspace(0.05, 0.55, 23)
+    pj = jsp.spline_pose_at_times(kj, jnp.asarray(times), 4)
+    pt = tsp.spline_pose_at_times(kt, t64(times), 4)
+    close(pj.t, pt.t)
+    close(pj.q, pt.q)
+    caps, exps = 0.1 + 0.1 * np.arange(4), np.full(4, 0.03)
+    Jj = jax.jit(jres.pose_jacobians, static_argnums=(3, 4))(
+        kj, jnp.asarray(caps), jnp.asarray(exps), 5, 4)
+    Jt = tres.pose_jacobians(kt, t64(caps), t64(exps), 5, 4)
+    assert tuple(Jt.shape) == (4, 5, 7, 42)
+    close(Jj, Jt)
+    assert np.abs(npy(Jt)).max() > 0.1

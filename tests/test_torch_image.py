@@ -123,3 +123,75 @@ def test_blurred_image_forward_model(quantize):
                                    2.0, jnp.asarray(K))),
         atol=1e-9, rtol=0)
     assert got.dtype == torch.float64
+
+
+# ------------------------------------------------- the Lucas-Kanade sampler
+
+
+def _lk_inputs(seed=3, n=40):
+    rng = np.random.default_rng(seed)
+    img = smooth_texture(64, 80, seed=seed)
+    xy = rng.uniform([-3, -3], [82, 66], (n, 2))      # some out of bounds
+    xy[:3] = [[10.0, 20.0], [0.0, 0.0], [79.0, 63.0]]  # integers and corners
+    return img, xy, rng.normal(0, 1, (n, 2))
+
+
+def test_sample_lk_value_and_tangent():
+    """The value is the bilinear sample; the tangent along dxy is the
+    bilinearly sampled gradient image dotted with dxy, not the derivative
+    of the bilinear interpolant. Forward and backward mode agree with
+    jax.jvp through the reference's custom JVP."""
+    img, xy, dxy = _lk_inputs()
+    ij, it = jnp.asarray(img), t64(img)
+    gj, gt = jim.image_gradients(ij), tim.image_gradients(it)
+    val_j, tan_j = jax.jvp(lambda p: jim.sample_lk(ij, gj, p), (jnp.asarray(xy),),
+                           (jnp.asarray(dxy),))
+    val_t, tan_t = torch.func.jvp(lambda p: tim.sample_lk(it, gt, p), (t64(xy),), (t64(dxy),))
+    np.testing.assert_allclose(npy(val_t), np.asarray(val_j), atol=TOL, rtol=0)
+    np.testing.assert_allclose(npy(tan_t), np.asarray(tan_j), atol=1e-11, rtol=0)
+    np.testing.assert_array_equal(npy(val_t), npy(tim.bilinear_sample(it, t64(xy))))
+    # the written-out form the residual uses
+    v, gx, gy = tim.sample_lk_with_gradient(it, gt, t64(xy))
+    np.testing.assert_array_equal(npy(v), npy(val_t))
+    np.testing.assert_allclose(npy(gx * t64(dxy)[:, 0] + gy * t64(dxy)[:, 1]), npy(tan_t),
+                               atol=1e-12, rtol=0)
+    # backward mode
+    p = t64(xy).requires_grad_(True)
+    tim.sample_lk(it, gt, p).sum().backward()
+    np.testing.assert_allclose(npy(p.grad), np.stack([npy(gx), npy(gy)], -1), atol=1e-12, rtol=0)
+    # it is not the interpolant's own derivative, and it is 0 out of bounds
+    p2 = t64(xy).requires_grad_(True)
+    tim.bilinear_sample(it, p2).sum().backward()
+    assert np.abs(npy(p2.grad) - npy(p.grad)).max() > 1e-3
+    oob = ~npy(tim.in_bounds(t64(xy), 64, 80))
+    assert oob.any() and np.all(npy(p.grad)[oob] == 0) and np.all(npy(val_t)[oob] == 0)
+
+
+def test_sample_lk_image_tangent():
+    """A forward-mode tangent of the image passes through the (linear)
+    interpolation, as in the reference."""
+    img, xy, _ = _lk_inputs(seed=4)
+    dimg = np.random.default_rng(5).normal(0, 1, img.shape)
+    ij, it = jnp.asarray(img), t64(img)
+    gj, gt = jim.image_gradients(ij), tim.image_gradients(it)
+    _, tan_j = jax.jvp(lambda im: jim.sample_lk(im, gj, jnp.asarray(xy)), (ij,),
+                       (jnp.asarray(dimg),))
+    _, tan_t = torch.func.jvp(lambda im: tim.sample_lk(im, gt, t64(xy)), (it,), (t64(dimg),))
+    np.testing.assert_allclose(npy(tan_t), np.asarray(tan_j), atol=1e-12, rtol=0)
+
+
+def test_warp_and_sample():
+    t, q, z, xy = _warp_inputs(seed=6, n=50)
+    img = smooth_texture(64, 80, seed=7)
+    ij, it = jnp.asarray(img), t64(img)
+    gj, gt = jim.image_gradients(ij), tim.image_gradients(it)
+    want = jwarp.warp_and_sample(ij, gj, *map(jnp.asarray, (t, q, z, KVEC, xy)))
+    got = twarp.warp_and_sample(it, gt, t64(t), t64(q), t64(z), t64(KVEC), t64(xy))
+    np.testing.assert_allclose(npy(got), np.asarray(want), atol=1e-9, rtol=0)
+    assert np.abs(npy(got)).max() > 10.0
+    # its pose gradient follows the Lucas-Kanade convention on both sides
+    gj_t = jax.grad(lambda tt: jwarp.warp_and_sample(
+        ij, gj, tt, *map(jnp.asarray, (q, z, KVEC, xy))).sum())(jnp.asarray(t))
+    tt = t64(t).requires_grad_(True)
+    twarp.warp_and_sample(it, gt, tt, t64(q), t64(z), t64(KVEC), t64(xy)).sum().backward()
+    np.testing.assert_allclose(npy(tt.grad), np.asarray(gj_t), atol=1e-8, rtol=1e-10)

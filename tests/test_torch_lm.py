@@ -57,8 +57,8 @@ def level():
 
 def run_both(level, **overrides):
     (kj, kt), (dj, dt) = level
-    jo = jlm.LMOptions(sampling="windowed", huber_a=10.0, min_abs_cost_decrease=1e-6,
-                       **overrides)
+    jo = jlm.LMOptions(**{**dict(sampling="windowed", huber_a=10.0,
+                                 min_abs_cost_decrease=1e-6), **overrides})
     k1, s1 = jlm.optimize_level_jit(kj, dj, 5, 2, jo)
     k2, s2 = tlm.optimize_level(kt, dt, 5, 2, to_port(jo))
     return (k1, s1), (k2, s2)
@@ -219,7 +219,76 @@ def test_knot_prior_terms():
 
 
 def test_affine_brightness_is_not_ported(level):
-    (_, kt), (_, dt) = level
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.optimize_level(kt, dt, 5, 2, tlm.LMOptions(sampling="windowed",
-                                                       affine_brightness=True))
+    """affine_brightness is ported: under a gain and a bias on the current
+    frame both packages take the same steps, on either sampling path, and
+    the plain residual cannot reach that cost."""
+    (kj, kt), (dj, dt) = level
+    dj2 = dj._replace(cur_imgs=1.2 * dj.cur_imgs + 9.0)
+    dt2 = dt._replace(cur_imgs=1.2 * dt.cur_imgs + 9.0)
+    for sampling in ("windowed", "direct"):
+        jo = jlm.LMOptions(sampling=sampling, huber_a=10.0, min_abs_cost_decrease=1e-6,
+                           affine_brightness=True)
+        k1, s1 = jlm.optimize_level_jit(kj, dj2, 5, 2, jo)
+        k2, s2 = tlm.optimize_level(kt, dt2, 5, 2, to_port(jo))
+        assert s2.num_iterations == int(s1.num_iterations) >= 2
+        np.testing.assert_allclose(npy(k2.t), np.asarray(k1.t), atol=1e-9, rtol=0)
+        np.testing.assert_allclose(npy(k2.q), np.asarray(k1.q), atol=1e-9, rtol=0)
+        np.testing.assert_allclose(float(s2.final_cost), float(s1.final_cost), rtol=1e-9)
+        _, s3 = tlm.optimize_level(kt, dt2, 5, 2, to_port(dataclasses.replace(
+            jo, affine_brightness=False)))
+        assert float(s2.final_cost) < 0.1 * float(s3.final_cost)
+
+
+def test_direct_sampling_matches(level):
+    (k1, s1), (k2, s2) = run_both(level, sampling="direct")
+    assert s2.num_iterations == int(s1.num_iterations) >= 2
+    np.testing.assert_allclose(npy(k2.t), np.asarray(k1.t), atol=1e-9, rtol=0)
+    np.testing.assert_allclose(npy(k2.q), np.asarray(k1.q), atol=1e-9, rtol=0)
+    np.testing.assert_allclose(float(s2.final_cost), float(s1.final_cost), rtol=1e-9)
+
+
+@pytest.fixture(scope="module")
+def joint_level():
+    """The joint window's problem at chunk 4, degree 4: four frames rendered
+    from a 7-knot cubic spline, started from perturbed knots."""
+    t_true, q_true, t0, dt = knots_arrays(seed=31, num_knots=7, t0=0.1 - EXPOSURE / 2 - 0.1,
+                                          dt=0.1)
+    a = level_arrays(seed=9, n_kp=32, dead=3, border=False, frames=4)
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+    a["img_ref"] = (128.0 + 60.0 * np.sin(xs / 7.0) * np.cos(ys / 9.0)
+                    + 40.0 * np.sin(xs / 13.0 + ys / 11.0))
+    truth = jmake(jnp.asarray(t_true), jnp.asarray(q_true), t0, dt)
+    a["cur_imgs"] = np.stack([np.asarray(synthesize_blurred_image(
+        jnp.asarray(a["img_ref"]), truth, 4, float(c), EXPOSURE, 5, DEPTH, jnp.asarray(KVEC)))
+        for c in a["cap_times"]])
+    a["kp_z"] = np.full_like(a["kp_z"], DEPTH)
+    rng = np.random.default_rng(32)
+    init = (t_true + rng.normal(0, 2e-3, t_true.shape), q_true, t0, dt)
+    return knots_pair(init), level_pair(a, PATTERN)
+
+
+def test_joint_problem_with_retry_and_knot_prior(joint_level):
+    """The joint path's LM options on a joint problem (F = 4, K = 7, degree
+    4): retry_rejected_steps, the knot prior (K > 2) and hoist_layout=False.
+    Both packages take the same steps, and LMSummary.patch_costs comes back
+    [F, N] (the joint tracker sums it per frame)."""
+    (kj, kt), (dj, dt) = joint_level
+    jo = jlm.LMOptions(sampling="windowed", huber_a=10.0, min_abs_cost_decrease=1e-6,
+                       retry_rejected_steps=True, knot_prior_weight=1.0, hoist_layout=False,
+                       max_iterations=8)
+    k1, s1 = jlm.optimize_level_jit(kj, dj, 5, 4, jo)
+    k2, s2 = tlm.optimize_level(kt, dt, 5, 4, to_port(jo))
+    assert s2.num_iterations == int(s1.num_iterations) >= 3
+    np.testing.assert_allclose(npy(k2.t), np.asarray(k1.t), atol=1e-9, rtol=0)
+    np.testing.assert_allclose(npy(k2.q), np.asarray(k1.q), atol=1e-9, rtol=0)
+    np.testing.assert_allclose(float(s2.final_cost), float(s1.final_cost), rtol=1e-9)
+    assert tuple(s2.patch_costs.shape) == (4, 32) == s1.patch_costs.shape
+    np.testing.assert_allclose(npy(s2.patch_costs), np.asarray(s1.patch_costs),
+                               atol=1e-9, rtol=0)
+    start = tlm.evaluate(kt, dt, 5, 4, 10.0, torch.ones(32, dtype=torch.float64),
+                         sampling="windowed").cost
+    assert float(s2.final_cost) < float(start)
+    # without the prior the same options take another path
+    k3, _ = tlm.optimize_level(kt, dt, 5, 4, to_port(dataclasses.replace(
+        jo, knot_prior_weight=0.0)))
+    assert np.abs(npy(k3.t) - npy(k2.t)).max() > 1e-9

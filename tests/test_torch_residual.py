@@ -1,5 +1,6 @@
-"""The port's ops/residual.py (windowed path) against the JAX package on the
-CPU in float64.
+"""The port's ops/residual.py (windowed and direct paths, with and without
+the affine-brightness elimination) against the JAX package on the CPU in
+float64.
 
 JAX builds J with ``jax.linearize`` through the custom JVP of
 ``sample_windows_lk``; the port writes that chain rule out (pose Jacobian,
@@ -180,12 +181,110 @@ def test_evaluate(one_frame, compensated):
 
 
 def test_unported_paths_raise(one_frame):
-    _, (_, dt) = one_frame
-    kt = one_frame[0][1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tres.compute_rjv(kt, dt, 5, 2, True, sampling="direct")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tres.compute_rjv(kt, dt, 5, 2, True, sampling="windowed", affine=True)
+    """Both residual paths that used to raise are ported: compute_rjv takes
+    sampling="direct" and affine=True on either path. An unknown sampling
+    name falls to the direct path, as in the reference."""
+    (kj, kt), (dj, dt) = one_frame
+    for kw in (dict(sampling="direct"), dict(sampling="windowed", affine=True),
+               dict(sampling="direct", affine=True)):
+        r, J, valid = tres.compute_rjv(kt, dt, 5, 2, True, **kw)
+        assert r.shape == valid.shape and J.shape == r.shape + (12,)
+        assert torch.isfinite(r).all() and torch.isfinite(J).all()
+    assert not hasattr(tres, "_not_ported")
+
+
+j_direct = jax.jit(jres.compute_residuals, static_argnums=(2, 3, 4, 5))
+j_windowed_affine = jax.jit(
+    lambda k, d, wj: jres.compute_residuals_windowed(k, d, 5, 2, wj, 32, affine=True),
+    static_argnums=(2,))
+
+
+@pytest.mark.parametrize("frames", ["one_frame", "two_frames"])
+@pytest.mark.parametrize("affine", [False, True])
+def test_direct_residuals_and_jacobian(frames, affine, request):
+    """sampling="direct": JAX differentiates warp_and_sample per sample and
+    contracts with the pose Jacobian; the port writes G = gx dx/dpose7 +
+    gy dy/dpose7 out. With affine, J is the frozen-(a, b) Jacobian on both
+    sides: the same J as without."""
+    (kj, kt), (dj, dt) = request.getfixturevalue(frames)
+    rj, Jj, vj = j_direct(kj, dj, 5, 2, True, affine)
+    rt, Jt, vt = tres.compute_residuals(kt, dt, 5, 2, True, affine)
+    np.testing.assert_array_equal(npy(vt), np.asarray(vj))
+    close(rj, rt)
+    close(Jj, Jt)
+    assert np.abs(npy(Jt)).max() > 1.0
+    r0, J0, _ = tres.compute_residuals(kt, dt, 5, 2, True, False)
+    np.testing.assert_array_equal(npy(Jt), npy(J0))
+    assert affine == (np.abs(npy(rt) - npy(r0)).max() > 1e-3)
+    # the cost-only branch samples the same values
+    rc, Jc, _ = tres.compute_residuals(kt, dt, 5, 2, False, affine)
+    assert Jc is None
+    np.testing.assert_array_equal(npy(rc), npy(rt))
+    close(j_direct(kj, dj, 5, 2, False, affine)[0], rc)
+
+
+def test_direct_affine_jacobian_is_not_the_profile_likelihoods(two_frames):
+    """The reference's known fault, reproduced: on the direct path the
+    corrected residual is paired with a Jacobian that ignores how the fitted
+    gain and bias move with the prediction. The windowed path carries J
+    through the elimination, so the two paths' Jacobians differ under
+    affine=True although they agree without it (away from the window edge)."""
+    (_, kt), (_, dt) = two_frames
+    _, Jd, _ = tres.compute_rjv(kt, dt, 5, 2, True, sampling="direct", affine=True)
+    _, Jw, _ = tres.compute_rjv(kt, dt, 5, 2, True, sampling="windowed", affine=True)
+    _, Jd0, _ = tres.compute_rjv(kt, dt, 5, 2, True, sampling="direct")
+    _, Jw0, _ = tres.compute_rjv(kt, dt, 5, 2, True, sampling="windowed")
+    close(Jd0, Jw0)
+    assert np.abs(npy(Jd) - npy(Jw)).max() > 1e-2
+
+
+@pytest.mark.parametrize("frames", ["one_frame", "two_frames"])
+def test_windowed_affine_residuals_and_jacobian(frames, request):
+    """JAX linearizes through affine_correct (the full profile likelihood);
+    the port's affine_correct_jvp writes that derivative out."""
+    (kj, kt), (dj, dt) = request.getfixturevalue(frames)
+    rj, Jj, vj = j_windowed_affine(kj, dj, True)
+    rt, Jt, vt = tres.compute_residuals_windowed(kt, dt, 5, 2, True, 32, affine=True)
+    np.testing.assert_array_equal(npy(vt), np.asarray(vj))
+    close(rj, rt)
+    close(Jj, Jt)
+    rc, Jc, _ = tres.compute_residuals_windowed(kt, dt, 5, 2, False, 32, affine=True)
+    assert Jc is None
+    close(j_windowed_affine(kj, dj, False)[0], rc)
+    # the eliminated residual has zero mean and no component along obs
+    _, _, obs = tres.prepare_frame_layout(kt, dt, 5, 2)
+    v = npy(vt)
+    for f in range(rt.shape[0]):
+        assert abs(npy(rt)[f][v[f]].sum()) < 1e-8
+        assert abs((npy(rt)[f] * npy(obs)[f])[v[f]].sum()) < 1e-6
+
+
+def test_affine_correct_and_its_jvp():
+    """affine_correct against JAX, its derivative against jax.jvp, and a
+    textureless frame (variance of obs <= 1e-6), which keeps
+    (a, b) = (1, 0): the plain residual, with a plain derivative."""
+    rng = np.random.default_rng(8)
+    F, N, P, D = 3, 10, 8, 5
+    pred = rng.uniform(0, 255, (F, N, P))
+    obs = 1.3 * pred + 11.0 + rng.normal(0, 2.0, (F, N, P))
+    obs[2] = 77.0                                    # textureless
+    valid = rng.uniform(size=(F, N, P)) > 0.2
+    dpred = rng.normal(0, 1, (F, N, P, D))
+    want = jres.affine_correct(jnp.asarray(pred), jnp.asarray(obs), jnp.asarray(valid))
+    got = tres.affine_correct(t64(pred), t64(obs), torch.as_tensor(valid))
+    close(want, got, 1e-10)
+    r, dr = tres.affine_correct_jvp(t64(pred), t64(obs), torch.as_tensor(valid), t64(dpred))
+    np.testing.assert_array_equal(npy(r), npy(got))
+    for d in range(D):
+        _, tan = jax.jvp(lambda p: jres.affine_correct(p, jnp.asarray(obs), jnp.asarray(valid)),
+                         (jnp.asarray(pred),), (jnp.asarray(dpred[..., d]),))
+        close(tan, dr[..., d], 1e-10)
+    np.testing.assert_allclose(npy(got)[2], np.where(valid[2], pred[2] - obs[2], 0.0),
+                               atol=1e-12)
+    np.testing.assert_allclose(npy(dr)[2], np.where(valid[2][..., None], dpred[2], 0.0),
+                               atol=1e-12)
+    # the gain and bias are fitted out of the first two frames
+    assert np.abs(npy(got)[:2]).max() < 12.0 < np.abs(pred - obs)[:2].max()
 
 
 def test_layout_matches_jax_from_a_standing_start():

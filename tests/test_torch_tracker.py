@@ -273,18 +273,33 @@ def test_config_defaults_and_fields():
     (dict(), "track_frames_joint"),
 ])
 def test_unported_entry_points_raise(kw, call):
+    """What is left unported raises by name (a backend, keypoint sharding);
+    what has been ported since constructs and runs: sampling="direct",
+    affine_brightness, track_frames and track_frames_joint."""
     cfg = tbt.TrackerConfig(**kw)
     if call == "backend":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match=r"backend.*ROADMAP"):
             tbt.BlurAwareTracker(cfg, KVEC, (H, W), backend=object(), device="cpu")
         return
-    if call is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if kw.get("shard_devices"):
+        with pytest.raises(NotImplementedError, match=r"shard_devices > 1.*ROADMAP"):
             tbt.BlurAwareTracker(cfg, KVEC, (H, W), device="cpu")
         return
     tracker = tbt.BlurAwareTracker(cfg, KVEC, (H, W), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(tracker, call)([], [], [])
+    opts = tracker.cfg.lm_options()
+    assert opts.sampling == kw.get("sampling", "windowed")
+    assert opts.affine_brightness == kw.get("affine_brightness", False)
+    if call is not None:
+        img = smooth_texture(H, W, seed=5)
+        poses = getattr(tracker, call)([img], [0.0], [EXPOSURE], sharp_imgs=[img],
+                                       depth_maps=[np.full((H, W), DEPTH)])
+        assert len(poses) == 1 and not tracker.is_first_frame
+        np.testing.assert_array_equal(tracker.last_track_stats, [[0.0, 0.0]])
+
+
+def test_unknown_sampling_is_refused():
+    with pytest.raises(ValueError, match="unknown sampling"):
+        tbt.BlurAwareTracker(tbt.TrackerConfig(sampling="nearest"), KVEC, (H, W), device="cpu")
 
 
 def test_cuda_device_without_a_card_raises():

@@ -149,6 +149,67 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         cuda_sampling.window_bilinear_cuda(t64(w), t64(xy), t64(v))
 
 
+def test_tiled_cuda_wrapper_refuses_cpu_tensors():
+    """K1-v's wrapper has no plain path of its own at all: a CPU tensor is
+    an error, it counts no launch, and the tracker's window_bilinear never
+    routes to it."""
+    w, xy, v = problem(2, 1, 8, 8, 3)
+    before = cuda_sampling.LAUNCHES_TILED
+    with pytest.raises(ValueError, match="window_bilinear_tiled_cuda: windows is on cpu"):
+        cuda_sampling.window_bilinear_tiled_cuda(t64(w), t64(xy), t64(v), 4, 128)
+    assert cuda_sampling.LAUNCHES_TILED == before
+    tws.window_bilinear(t64(w), t64(xy), t64(v))
+    assert cuda_sampling.LAUNCHES_TILED == before
+
+
+def test_shared_memory_budget_of_the_sweeps_tiles():
+    """Every tile of the sweep fits a block's 232,448 bytes at the tracker's
+    window set [3, 32, 32], in float32 and float64; 18 float32 windows are
+    the most that fit."""
+    from mba_vo_tpu_torch.experiments import kernel_variants as kv
+
+    per_window = 3 * 32 * 32
+    assert max(kv.TILES) * per_window * 8 <= cuda_sampling.MAX_SHARED_BYTES
+    assert 18 * per_window * 4 <= cuda_sampling.MAX_SHARED_BYTES < 19 * per_window * 4
+    assert kv.TILES == (1, 2, 4, 8) and kv.THREADS == (64, 128, 256)
+
+
+@pytest.mark.parametrize("c,win_h,win_w,s", [(3, 8, 8, 5), (1, 6, 9, 40), (3, 32, 32, 40)])
+def test_sweeps_bound_counts_the_bytes_these_inputs_need(c, win_h, win_w, s):
+    """The sweep's bound reads, per keypoint, the distinct pixels under a tap
+    of non-zero weight of an unmasked sample, times the channels: held
+    against a loop over the samples. Integer coordinates need one tap, a
+    NaN or masked sample none, and ``staged`` counts every window."""
+    from mba_vo_tpu_torch.experiments import kernel_variants as kv
+
+    w, xy, v = problem(4, c, win_h, win_w, s)
+    xy[0, 0] = [2.0, 3.0]            # on a pixel: one tap
+    xy[1, 1] = [np.nan, 1.5]
+    xy[2, 2] = [win_w - 1.0, 0.5]    # on the last column: two taps
+    v[0, 0] = v[2, 2] = 1.0
+    want = 0
+    for n in range(xy.shape[0]):
+        px = set()
+        for (x, y), m in zip(xy[n], v[n]):
+            if m == 0 or np.isnan(x) or np.isnan(y):
+                continue
+            for ty in (np.floor(y), np.floor(y) + 1):
+                for tx in (np.floor(x), np.floor(x) + 1):
+                    if (0 <= tx <= win_w - 1 and 0 <= ty <= win_h - 1
+                            and abs(x - tx) < 1 and abs(y - ty) < 1):
+                        px.add((int(ty), int(tx)))
+        want += len(px) * c
+    args = (t64(w), t64(xy), t64(v))
+    assert kv.needed_window_elements(*args) == want
+    assert 0 < want < w.size
+    moved = (want + xy.size + v.size + 4 * c * s) * 8
+    ms, by = kv.bound_ms(*args)
+    assert by == "bytes" and ms == pytest.approx(1e3 * moved / kv.HBM_BYTES_PER_S, rel=1e-12)
+    staged, _ = kv.bound_ms(*args, staged=True)
+    assert staged == pytest.approx(
+        1e3 * (moved + (w.size - want) * 8) / kv.HBM_BYTES_PER_S, rel=1e-12)
+
+
 # --------------------------------------------------------- extract_windows
 
 

@@ -11,6 +11,11 @@ import torch
 
 from mba_vo_tpu.data.synthetic import _box_filter_1d
 
+# the tests run several to a machine (one worker process per file): one
+# intra-op thread each keeps them from oversubscribing the cores, and the
+# tensors here are too small to gain from more
+torch.set_num_threads(1)
+
 H, W = 64, 80
 FX = 60.0
 KVEC = np.array([FX, FX, (W - 1) / 2, (H - 1) / 2])
@@ -102,3 +107,76 @@ def level_pair(arrays, pattern):
                pattern=torch.as_tensor(np.asarray(pattern)), K=t64(a["K"]),
                **{k: t64(a[k]) for k in fields})
     return jd, td
+
+
+# ------------------------------------------------------------ whole trackers
+
+VEL = np.array([0.06, -0.04, 0.02, 0.02, 0.05, -0.08])   # [translation; rotation] per s
+
+
+def moving_scene(n_frames, seed=5, knot_noise_seed=None, h=H, w=W, kvec=KVEC,
+                 caps=None, exps=None):
+    """A smooth texture on a plane at DEPTH seen by a camera moving at VEL
+    (with ``knot_noise_seed``, perturbed at every knot): the sharp keyframe,
+    `n_frames` blurred frames rendered by the JAX forward model, and per-frame
+    sharp/depth keyframe candidates, all numpy."""
+    import jax
+
+    from mba_vo_tpu.core import lie as jlie
+    from mba_vo_tpu.core.spline import make_knots, spline_pose_at
+    from mba_vo_tpu.data.synthetic import synthesize_blurred_image, warp_image
+
+    img = smooth_texture(h, w, seed=seed)
+    rng = None if knot_noise_seed is None else np.random.default_rng(knot_noise_seed)
+    kt, kq = [np.zeros(3)], [np.array([0.0, 0.0, 0.0, 1.0])]
+    for _ in range(n_frames + 4):
+        d = VEL * FRAME_DT
+        if rng is not None:
+            d = d + np.concatenate([rng.normal(0, 3e-4, 3), rng.normal(0, 5e-4, 3)])
+        kt.append(kt[-1] + d[:3])
+        q = np.asarray(jlie.quat_multiply(jnp.asarray(kq[-1]), jlie.quat_exp(jnp.asarray(d[3:]))))
+        kq.append(q / np.linalg.norm(q))
+    traj = make_knots(jnp.asarray(np.array(kt)), jnp.asarray(np.array(kq)), 0.0, FRAME_DT)
+    K, img_j = jnp.asarray(kvec), jnp.asarray(img)
+    caps = [FRAME_DT * i for i in range(1, n_frames + 1)] if caps is None else list(caps)
+    exps = [EXPOSURE] * len(caps) if exps is None else list(exps)
+    blur = jax.jit(lambda c, e: synthesize_blurred_image(img_j, traj, 2, c, e, 5, DEPTH, K))
+    sharp_at = jax.jit(lambda c: warp_image(img_j, *spline_pose_at(traj, c, 2), DEPTH, K))
+    return dict(
+        img=img, traj=traj, caps=caps, exps=exps, hw=(h, w), kvec=np.asarray(kvec),
+        blurred=[np.asarray(blur(c, e)) for c, e in zip(caps, exps)],
+        sharp=[np.asarray(sharp_at(c)) for c in caps],
+        depth=[np.full((h, w), DEPTH - float(spline_pose_at(traj, c, 2).t[2])) for c in caps])
+
+
+def bootstrap_pair(cfg, scene, exposure=EXPOSURE):
+    """(JAX tracker, port tracker on the CPU) after their first (keyframe)
+    frame, with the same non-zero velocity installed: from a standing start
+    the first patch anchors sit on integer pixels up to the last bit, and
+    the jitted JAX tracker and eager torch may floor them differently."""
+    from mba_vo_tpu.tracker import blur_tracker as jbt
+    from mba_vo_tpu_torch import interop
+    from mba_vo_tpu_torch.tracker import blur_tracker as tbt
+
+    h, w = scene["hw"]
+    j = jbt.BlurAwareTracker(cfg, scene["kvec"], (h, w))
+    t = tbt.BlurAwareTracker(interop.config_from_fields(cfg), scene["kvec"], (h, w),
+                             device="cpu")
+    for tr in (j, t):
+        tr.track_frame(scene["img"], scene["img"], 0.0, exposure, np.full((h, w), DEPTH))
+    j.neigh_velocity = jnp.asarray(VEL)
+    interop.install_tracker_state(t, {"neigh_velocity": VEL})
+    return j, t
+
+
+def poses_array(poses) -> np.ndarray:
+    """[T, 7] (t; q) rows of a list of JAX or port Poses."""
+    return np.stack([np.concatenate([npy(p.t), npy(p.q)]) for p in poses])
+
+
+def scene_ate(poses, scene, skip=()) -> float:
+    from mba_vo_tpu.core.spline import spline_pose_at
+
+    errs = [np.linalg.norm(p[:3] - np.asarray(spline_pose_at(scene["traj"], c, 2).t))
+            for i, (p, c) in enumerate(zip(poses, scene["caps"])) if i not in skip]
+    return float(np.sqrt(np.mean(np.square(errs))))
