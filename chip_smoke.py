@@ -6,12 +6,20 @@ Run from the root of the repository, with no arguments:
 
 Phases (any failed check raises and the exit code is non-zero):
   1. device: require CUDA, print the card's name and power limit, TF32 off;
-  2. build kernels K1 (csrc/window_bilinear.cu) and K1-v
-     (csrc/window_bilinear_tiled.cu) with nvcc for sm_90a, both at once, and
-     print each kernel's registers, shared memory and spills;
-  3. K1, and K1-v at every (tile, threads) the sweep harness runs, against
-     the plain PyTorch version at the tracker's shapes (S = 40 per frame,
-     160 and 320 per joint chunk) and on edge cases, f32 and f64;
+  2. build kernels K1 (csrc/window_bilinear.cu: one thread a sample, which
+     the tracker launches, and the band design) and K1-v
+     (csrc/window_bilinear_tiled.cu: the ring design and the staged first
+     design) with nvcc for sm_90a, both sources at once, and print each
+     kernel's registers, shared memory and spills;
+  3. record the sampler's inputs as the tracker gives them on the bench
+     scenario (16 frames of track_frame from rest, one chunk of
+     track_frames_joint from a moving window, f32); then both designs of K1
+     and of K1-v, K1-v at every (tile, threads) the sweep harness runs,
+     against the plain PyTorch version: f32 and f64, C = 1 and 3, S = 1,
+     40, 160 and 320, windows 32x32, 20x32, 20x30, 21x31 and 6x9, the
+     strided C = 1 slice, a ragged last tile, an all-zero mask, coordinates
+     off the staged band and off the window, and every recorded call;
+     whether K1's two designs agree bit for bit;
   4. the tracker in f64 on CUDA against the same tracker on the CPU, on the
      bench scenario (VGA, 512 keypoints, 3 levels, 5 virtual poses);
   5. the per-frame main path: the tracker in f32 on CUDA under bench.py's
@@ -28,8 +36,12 @@ Phases (any failed check raises and the exit code is non-zero):
      chunk; (d) sampling="direct" and affine_brightness in f64 on CUDA
      against the CPU;
   7. the sampler sweep (mba_vo_tpu_torch.experiments.kernel_variants), the
-     path that runs K1-v: every variant timed beside K1, the plain version
-     and torch's grid_sample at S = 40, 160 and 320;
+     path that runs K1-v: every variant timed beside K1, K1's band design,
+     K1-v's staged design, the plain version and torch's grid_sample at
+     S = 40, 160 and 320 on the sweep's synthetic inputs; then the two designs of each
+     kernel, K1-v's best and worst variant, plain and grid_sample on phase
+     3's recorded inputs ("tracker S=40", "tracker S=160") with the
+     histogram of their tap rows; and the floor row (N = 1, S = 1, C = 3);
 then one JSON line of kernel results, the card line again, and the final
 status line {"ok": true, "device": {...}}.
 """
@@ -37,6 +49,7 @@ status line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import sys
 import time
@@ -50,6 +63,7 @@ N_KP, WIN, S_MAIN = 512, 32, 40   # S = frames x patch x virtual poses = 1 x 8 x
 S_JOINT = (160, 320)              # joint chunks of 4 and of 8 frames
 CPU_FRAMES = 4                    # phase 4: the CPU f64 run is the slow one
 LONG_FRAMES = 16                  # phase 5
+JCHUNK = 4                        # phase 6c: frames a joint chunk
 
 
 def kernel_launches(fn) -> int:
@@ -72,7 +86,7 @@ def check(cond: bool, msg: str):
 # ------------------------------------------------------------------ phase 3
 
 
-def kernel_problem(rng, n, c, win_h, win_w, s, dtype, special=False):
+def kernel_problem(rng, n, c, win_h, win_w, s, dtype, special=False, band_edges=False):
     import torch
 
     windows = rng.normal(0.0, 50.0, (n, c, win_h, win_w))
@@ -86,6 +100,11 @@ def kernel_problem(rng, n, c, win_h, win_w, s, dtype, special=False):
         xy[:, 2 * q:3 * q] += np.where(rng.random((n, q, 1)) < 0.5, -40.0, 40.0)  # far out
         xy[::7, 3 * q, 0] = np.nan                                     # NaN x
         xy[::11, 3 * q + 1, 1] = np.nan                                # NaN y
+    if band_edges:
+        # rows inside the window but off K1's staged band, and just off the window
+        top = rng.uniform(-1.5, 4.0, (n, s))
+        bottom = rng.uniform(win_h - 5.0, win_h + 0.5, (n, s))
+        xy[..., 1] = np.where(rng.random((n, s)) < 0.5, top, bottom)
     dev = dict(dtype=dtype, device="cuda")
     return (torch.tensor(windows, **dev), torch.tensor(xy, **dev),
             torch.tensor(valid, **dev))
@@ -103,52 +122,103 @@ def compare(out, ref, windows, dtype, label):
     return err
 
 
-def phase_kernel(cs, kv):
-    """K1 and every K1-v variant against the plain version; returns the
-    largest f32 error of each kernel."""
+KINDS = ("K1", "K1 band", "K1-v", "K1-v staged")
+
+
+def phase_kernel(kv, recorded):
+    """Every kernel row of the sweep (both designs of K1 and of K1-v, every
+    K1-v variant) against the plain version on the cases of the module
+    docstring and on every recorded tracker call; returns (the largest f32
+    error of each kind, [(case, K1 and K1 band equal bit for bit, their
+    largest difference)])."""
     import torch
     from mba_vo_tpu_torch.ops.window_sampling import window_bilinear_plain
 
-    variants = kv.variants()
+    rows = kv.variants()
     rng = np.random.default_rng(1234)
-    max_err = {"K1": 0.0, "K1-v": 0.0}
+    max_err = {kind: 0.0 for kind in KINDS}
+    bitwise = []
 
-    def hold(win, xy, valid, dtype, label):
+    def hold(win, xy, valid, label):
+        dtype = win.dtype
         ref = window_bilinear_plain(win, xy, valid)
-        worst = {"K1": 0.0, "K1-v": 0.0}
-        outs = []
-        for name, _tile, _threads, fn in variants:
-            out = fn(win, xy, valid)
+        worst = {kind: 0.0 for kind in KINDS}
+        outs = {}
+        for row in rows:
+            out = row.fn(win, xy, valid)
             torch.cuda.synchronize()
-            err = compare(out, ref, win, dtype, f"{label}: {name}")
-            kind = "K1-v" if name.startswith("K1-v") else "K1"
-            worst[kind] = max(worst[kind], err)
-            outs.append(out)
-        print(f"  {label}: max|kernel - plain| K1 {worst['K1']:.3e}, K1-v "
-              f"{worst['K1-v']:.3e} over {len(variants)} variants, NaN outputs "
-              f"{int(torch.isnan(ref).sum())}")
+            err = compare(out, ref, win, dtype, f"{label}: {row.name}")
+            worst[row.kind] = max(worst[row.kind], err)
+            outs[row.name] = out
+        k1, band = outs["K1 threads=128"], outs["K1 band threads=128"]
+        same = torch.equal(torch.nan_to_num(k1, nan=-1.0), torch.nan_to_num(band, nan=-1.0))
+        bitwise.append((label, same, compare(band, k1, win, dtype, f"{label}: K1 band "
+                                             "against K1")))
         if dtype == torch.float32:
-            for kind in worst:
+            for kind in KINDS:
                 max_err[kind] = max(max_err[kind], worst[kind])
-        return outs
+        return outs, ref, worst
 
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).split(".")[-1]
-        cases = [
-            (f"{name} C=1 N=512 win=32 S=40", dict(c=1, win_h=WIN, win_w=WIN, s=S_MAIN), False),
-            (f"{name} C=3 N=512 win=32 S=40", dict(c=3, win_h=WIN, win_w=WIN, s=S_MAIN), False),
-            (f"{name} C=3 rectangular 20x32", dict(c=3, win_h=20, win_w=WIN, s=S_MAIN), False),
-            (f"{name} C=3 edge cases", dict(c=3, win_h=WIN, win_w=WIN, s=S_MAIN), True),
-        ] + [(f"{name} C=3 N=512 win=32 S={s}", dict(c=3, win_h=WIN, win_w=WIN, s=s), True)
-             for s in S_JOINT]
-        for label, shape, special in cases:
-            win, xy, valid = kernel_problem(rng, N_KP, dtype=dtype, special=special, **shape)
-            hold(win, xy, valid, dtype, label)
+        cases = [(f"C=1 S={S_MAIN}", dict(c=1, win_h=WIN, win_w=WIN, s=S_MAIN), {})]
+        cases += [(f"C=3 S={s}", dict(c=3, win_h=WIN, win_w=WIN, s=s), dict(special=s >= 40))
+                  for s in (1, S_MAIN) + S_JOINT]
+        cases += [(f"C=3 {h}x{w}", dict(c=3, win_h=h, win_w=w, s=S_MAIN), dict(special=True))
+                  for h, w in ((20, WIN), (20, 30), (21, 31), (6, 9))]
+        cases += [("C=1 20x30", dict(c=1, win_h=20, win_w=30, s=S_MAIN), {}),
+                  ("C=3 off the band", dict(c=3, win_h=WIN, win_w=WIN, s=S_MAIN),
+                   dict(band_edges=True))]
+        summary = []
+        for label, shape, extra in cases:
+            win, xy, valid = kernel_problem(rng, N_KP, dtype=dtype, **shape, **extra)
+            _, ref, worst = hold(win, xy, valid, f"{name} {label}")
+            summary.append((label, worst, int(torch.isnan(ref).sum())))
+        # the C = 1 slice of a C = 3 cache, read in place; a ragged last tile
         win, xy, valid = kernel_problem(rng, N_KP, 3, WIN, WIN, S_MAIN, dtype, True)
-        for out in hold(win, xy, torch.zeros_like(valid), dtype, f"{name} all-zero valid"):
+        _, ref, worst = hold(win[:, :1], xy, valid, f"{name} strided C=1 slice")
+        summary.append(("strided C=1 slice", worst, int(torch.isnan(ref).sum())))
+        win, xy, valid = kernel_problem(rng, N_KP - 3, 3, WIN, WIN, S_MAIN, dtype, True)
+        _, ref, worst = hold(win, xy, valid, f"{name} N={N_KP - 3} (ragged last tile)")
+        summary.append((f"N={N_KP - 3}", worst, int(torch.isnan(ref).sum())))
+        win, xy, valid = kernel_problem(rng, N_KP, 3, WIN, WIN, S_MAIN, dtype, True)
+        outs, ref, worst = hold(win, xy, torch.zeros_like(valid), f"{name} all-zero valid")
+        for out in outs.values():
             finite = out[~torch.isnan(out)]
             check(bool((finite == 0).all()), "all-zero valid left a non-zero sample")
-    return max_err
+        summary.append(("all-zero valid", worst, int(torch.isnan(ref).sum())))
+        for label, worst, nans in summary:
+            print(f"  {name} {label}: max|kernel - plain| " + ", ".join(
+                f"{k} {v:.3e}" for k, v in worst.items()) + f"; NaN outputs {nans}")
+
+    for label, calls in recorded.items():
+        worst = {kind: 0.0 for kind in KINDS}
+        for i, call in enumerate(calls):
+            _, _, w = hold(*call.args, f"{label} call {i} (C={call.C}, level {call.level})")
+            worst = {k: max(worst[k], w[k]) for k in KINDS}
+        print(f"  {label}: {len(calls)} recorded calls (C = "
+              f"{sorted({c.C for c in calls})}, S = {sorted({c.S for c in calls})}): "
+              f"max|kernel - plain| " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return max_err, bitwise
+
+
+def record_tracker_calls(img, traj, frames) -> dict:
+    """The sampler's inputs as the tracker gives them on the bench scenario
+    in f32: "tracker S=40", the calls of 16 frames of track_frame from rest
+    (bench.py's options); "tracker S=160", those of one chunk of
+    track_frames_joint(chunk=4) from a moving window (the bootstrap frame's
+    S = 40 calls left out)."""
+    from mba_vo_tpu_torch.experiments import kernel_variants as kv
+
+    with kv.record_sampler_calls() as per_frame:
+        run_tracker(bench_config("float32"), "cuda", img, frames)
+    with kv.record_sampler_calls() as joint:
+        run_batch(bench_config("float32"), "cuda", img, frames[:JCHUNK],
+                  method="track_frames_joint", chunk=JCHUNK, inflight=3,
+                  window=moving_window(traj, frames, JCHUNK, DEG))
+    s_joint = JCHUNK * S_MAIN
+    return {"tracker S=40": [c for c in per_frame if c.S == S_MAIN],
+            f"tracker S={s_joint}": [c for c in joint if c.S == s_joint]}
 
 
 # ------------------------------------------------------------- phases 4-5
@@ -358,7 +428,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = kv.card_line()
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     print(f"[1] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # ---- 2. build
@@ -367,34 +437,52 @@ def main() -> int:
     print(f"[2] built K1 and K1-v in {time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(str(p) for p in libs.values())}")
     for name, log in cs.BUILD_LOG.items():
-        # ptxas -v: one block of lines per instantiation (IdE = double, IfE = float)
-        dtype = "?"
+        # ptxas -v: one block of lines per kernel instantiation (IfE float,
+        # IdE double)
+        kernel = "?"
         for ln in log.splitlines():
-            if "Compiling entry function" in ln:
-                dtype = "f64" if "kernelIdE" in ln else "f32"
-            elif "registers" in ln or "spill" in ln or "smem" in ln:
-                print(f"    {name} {dtype}: {ln.replace('ptxas info    : ', '').strip()}")
-    per_window = 3 * WIN * WIN
-    print("    K1 uses no shared memory; K1-v's is dynamic, tile x C x win_h x win_w x "
-          "itemsize: at C=3, 32x32 " + ", ".join(
-              f"tile {t}: {t * per_window * 4} B f32 / {t * per_window * 8} B f64"
-              for t in kv.TILES) + f" (a block may use {cs.MAX_SHARED_BYTES} B)")
+            m = re.search(r"(window_bilinear(?:_[a-z]+)?_kernel)I([fd])", ln)
+            if "Compiling entry function" in ln and m:
+                kernel = f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'f64'}"
+            elif any(w in ln for w in ("registers", "spill", "smem")) and "extern" not in ln:
+                print(f"    {kernel}: {ln.replace('ptxas info    : ', '').strip()}")
+    item = dict(f32=4, f64=8)
+    print(f"    dynamic shared memory at C=3, 32x32, S={S_MAIN}: K1 band ({cs.TOP_ROWS} + "
+          f"{cs.BAND_ROWS} rows a plane and warp, 128 threads) " + " / ".join(
+              f"{cs.band_shared_bytes(128, 3, WIN, WIN, b)} B {t}" for t, b in item.items())
+          + "; K1-v (a ring of 2 stages, whatever the tile) " + " / ".join(
+              f"{cs.ring_shared_bytes(3, WIN, WIN, S_MAIN, b)} B {t}" for t, b in item.items())
+          + "; K1-v staged, tile x C x win_h x win_w x itemsize: " + ", ".join(
+              f"tile {t}: {t * 3 * WIN * WIN * 4} B f32" for t in kv.TILES)
+          + f"; K1 none (a block may use {cs.MAX_SHARED_BYTES} B)")
 
-    # ---- 3. kernels against plain
-    print("[3] K1 and K1-v against the plain version")
-    max_err = phase_kernel(cs, kv)
-
-    # ---- 4. slice, f64: CUDA against CPU
+    # ---- 3. kernels against plain, on the cases and on the tracker's inputs
     t0 = time.perf_counter()
     img, traj, frames = make_scenario("cuda", LONG_FRAMES)
-    print(f"[4] scenario: {LONG_FRAMES} blurred VGA frames rendered in "
-          f"{time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    recorded = record_tracker_calls(img, traj, frames)
+    print(f"[3] scenario: {LONG_FRAMES} blurred VGA frames rendered in {t1 - t0:.1f} s; "
+          f"sampler calls recorded in {time.perf_counter() - t1:.1f} s: " + ", ".join(
+              f"{label} {len(calls)} (C=3: {sum(c.C == 3 for c in calls)}, levels "
+              f"{sorted({c.level for c in calls})})" for label, calls in recorded.items()))
+    print("    K1 (and its band design) and K1-v (ring, every variant; staged) against "
+          "the plain version")
+    t0 = time.perf_counter()
+    max_err, bitwise = phase_kernel(kv, recorded)
+    equal = [label for label, same, _ in bitwise if same]
+    differ = [(label, d) for label, same, d in bitwise if not same]
+    print(f"    K1 band against K1: equal bit for bit on {len(equal)} of "
+          f"{len(bitwise)} cases; " + ("differ on " + ", ".join(
+              f"{label} (max {d:.3e})" for label, d in differ) if differ else "no case differs")
+          + f"; phase 3 in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 4. slice, f64: CUDA against CPU
     launches0 = cs.LAUNCHES
     p64, s64, _ = run_tracker(bench_config("float64"), "cuda", img, frames)
     check(cs.LAUNCHES > launches0, "the f64 CUDA run did not launch K1")
     pcpu, scpu, _ = run_tracker(bench_config("float64"), "cpu", img, frames[:CPU_FRAMES])
     diff = float(np.abs(p64[:CPU_FRAMES] - pcpu).max())
-    print(f"    f64 CUDA {LONG_FRAMES} frames in {sum(s64):.2f} s; f64 CPU "
+    print(f"[4] f64 CUDA {LONG_FRAMES} frames in {sum(s64):.2f} s; f64 CPU "
           f"{CPU_FRAMES} frames in {sum(scpu):.2f} s; max |pose CUDA - pose CPU| "
           f"over {CPU_FRAMES} frames = {diff:.3e} (bound 1e-8)")
     check(np.isfinite(p64).all() and np.isfinite(pcpu).all(), "non-finite poses")
@@ -509,7 +597,6 @@ def main() -> int:
     # window that already moves, as a tracker that has been running would: a
     # cold identity window loses this scenario's 5 px a frame within its
     # first chunk, in the reference as in the port (PERF.md section 7)
-    JCHUNK = 4
     for deg in (4, 2):
         t0 = time.perf_counter()
         cfg_j = bench_config("float64", spline_degree=deg, max_num_iterations=4)
@@ -567,29 +654,52 @@ def main() -> int:
 
     # ---- 7. the sampler sweep: the path that runs K1-v
     print("[7] sampler sweep (mba_vo_tpu_torch.experiments.kernel_variants)")
-    cs.LAUNCHES_TILED = 0
-    rows = kv.run_sweep(out=lambda line: print("    " + line))
-    tiled = [r for r in rows if r["tile"] is not None]
-    swept = sum(r["launches"] for r in tiled)
-    replayed = sum(r["replayed_launches"] for r in tiled)
-    # one more launch per row was compared with the plain version; a call
-    # recorded into a graph is no launch, and a replay's launches pass no wrapper
-    check(cs.LAUNCHES_TILED == swept + len(tiled), "the sweep's K1-v launch count is off")
-    print(f"    K1-v launches in the sweep: {swept} through the wrapper to time it, "
-          f"{len(tiled)} more compared with the plain version, {replayed} by graph replays")
-    check(all(r["launches"] > 0 for r in tiled), "a K1-v variant was never launched")
+    t0 = time.perf_counter()
+
+    def indent(line):
+        print("    " + line)
+
+    counters = dict(zip(KINDS, ("LAUNCHES", "LAUNCHES_BAND", "LAUNCHES_TILED",
+                                "LAUNCHES_STAGED")))
+    for counter in counters.values():
+        setattr(cs, counter, 0)
+    rows = kv.run_sweep(out=indent)
+    swept, replayed = {}, {}
+    for kind, counter in counters.items():
+        mine = [r for r in rows if r["kind"] == kind]
+        swept[kind] = sum(r["launches"] for r in mine)
+        replayed[kind] = sum(r["replayed_launches"] for r in mine)
+        # one more launch per row was compared with the plain version; a call
+        # recorded into a graph is no launch, and a replay's launches pass no
+        # wrapper
+        check(getattr(cs, counter) == swept[kind] + len(mine),
+              f"the sweep's {kind} launch count is off")
+        check(all(r["launches"] > 0 for r in mine), f"a {kind} row was never launched")
+    print("    launches in the synthetic sweep (through the wrapper to time it, one more "
+          "a row compared with the plain version, by graph replays): " + "; ".join(
+              f"{k} {swept[k]} + {sum(r['kind'] == k for r in rows)} + {replayed[k]}"
+              for k in KINDS))
     # f32 against 1e-5 max|W|; the sweep's standard-normal windows stay under 6
     check(all(r["max_abs_err"] <= 6e-5 for r in rows if r["name"] != "grid_sample"),
           "a sweep row disagrees with the plain version")
+    kernels = kv.pick_kernels(rows)
+    for label, calls in recorded.items():
+        rows += kv.tracker_rows(label, [c for c in calls if c.C == 3], kernels, out=indent)
+    floor = {r["name"]: r for r in kv.floor_rows(kernels, out=indent)}
+    print(f"    phase 7 in {time.perf_counter() - t0:.1f} s")
 
-    def row(S, name):
-        return next(r for r in rows if r["S"] == S and r["C"] == 3 and r["name"] == name)
+    shapes = ([("synthetic", S) for S in kv.SAMPLES]
+              + [(label, calls[0].S) for label, calls in recorded.items()])
 
-    def entry(S, r, **more):
-        plain, lib = row(S, "plain"), row(S, "grid_sample")
-        return dict(S=S, name=r["name"], ms=r["ms"], device_ms=r["device_ms"],
-                    device_cold_ms=r["device_cold_ms"], plain_ms=plain["ms"],
-                    plain_device_ms=plain["device_ms"],
+    def row(inputs, S, name):
+        return next(r for r in rows if r["inputs"] == inputs and r["S"] == S
+                    and r["C"] == 3 and r["name"] == name)
+
+    def entry(r, **more):
+        plain, lib = row(r["inputs"], r["S"], "plain"), row(r["inputs"], r["S"], "grid_sample")
+        return dict(inputs=r["inputs"], S=r["S"], name=r["name"], ms=r["ms"],
+                    device_ms=r["device_ms"], device_cold_ms=r["device_cold_ms"],
+                    plain_ms=plain["ms"], plain_device_ms=plain["device_ms"],
                     plain_device_cold_ms=plain["device_cold_ms"], library_ms=lib["ms"],
                     library_device_ms=lib["device_ms"],
                     library_device_cold_ms=lib["device_cold_ms"], bound_ms=r["bound_ms"],
@@ -599,43 +709,64 @@ def main() -> int:
         return (f"{1e3 * r['ms']:.2f} us a call / {1e3 * r['device_ms']:.2f} warm / "
                 f"{1e3 * r['device_cold_ms']:.2f} cold on the device")
 
-    by_shape = {"K1": [], "K1-v": []}
-    for S in kv.SAMPLES:
-        by_shape["K1"].append(entry(S, row(S, "K1 threads=128")))
+    by_shape = {k: [] for k in KINDS}
+    for inputs, S in shapes:
+        for kind in ("K1", "K1 band", "K1-v staged"):
+            name = next(k.name for k in kernels if k.kind == kind)
+            by_shape[kind].append(entry(row(inputs, S, name)))
         # ranked on the device's cold time: the time a call takes is the host's
-        ranked = sorted((r for r in tiled if r["S"] == S and r["C"] == 3),
-                        key=lambda r: r["device_cold_ms"])
-        by_shape["K1-v"].append(entry(S, ranked[0], worst_name=ranked[-1]["name"],
+        ranked = sorted((r for r in rows if r["kind"] == "K1-v" and r["inputs"] == inputs
+                         and r["S"] == S and r["C"] == 3), key=lambda r: r["device_cold_ms"])
+        by_shape["K1-v"].append(entry(ranked[0], worst_name=ranked[-1]["name"],
                                       worst_ms=ranked[-1]["ms"],
                                       worst_device_ms=ranked[-1]["device_ms"],
                                       worst_device_cold_ms=ranked[-1]["device_cold_ms"]))
-        print(f"    S={S} C=3: K1 {us(row(S, 'K1 threads=128'))}; K1-v best "
-              f"{ranked[0]['name']} {us(ranked[0])}, worst {ranked[-1]['name']} "
-              f"{us(ranked[-1])}; plain {us(row(S, 'plain'))}; grid_sample "
-              f"{us(row(S, 'grid_sample'))}; bound {1e3 * ranked[0]['bound_ms']:.2f} us, "
-              f"staging every window {1e3 * ranked[0]['staged_bound_ms']:.2f} us")
+        b = by_shape["K1"][-1]
+        print(f"    {inputs} S={S} C=3: K1 {us(b)}; K1 band {us(by_shape['K1 band'][-1])}; "
+              f"K1-v best {ranked[0]['name']} {us(ranked[0])}, worst {ranked[-1]['name']} "
+              f"{us(ranked[-1])}; K1-v staged {us(by_shape['K1-v staged'][-1])}; plain "
+              f"{us(row(inputs, S, 'plain'))}; grid_sample {us(row(inputs, S, 'grid_sample'))}; "
+              f"bound {1e3 * b['bound_ms']:.3f} us, staging every window "
+              f"{1e3 * b['staged_bound_ms']:.2f} us")
+    main_shape = len(kv.SAMPLES)   # tracker S=40: the per-frame path's own inputs
+    k1, k1b = by_shape["K1"][main_shape], by_shape["K1 band"][main_shape]
+    print(f"    the tracker's own S={S_MAIN} inputs, cold: K1 "
+          f"{1e3 * k1['device_cold_ms']:.2f} us, its band design "
+          f"{1e3 * k1b['device_cold_ms']:.2f} us; floor of one launch (N=1, S=1, C=3) cold: "
+          + ", ".join(f"{n} {1e3 * r['device_cold_ms']:.2f} us" for n, r in floor.items()))
 
-    def kernel_entry(name, source, replaces, n_launches, err, shapes, **more):
-        main = shapes[0]   # S = 40, C = 3: the per-frame shape
+    def design(kind):
+        fl = floor[by_shape[kind][0]["name"]]
+        return dict(name=by_shape[kind][0]["name"], max_abs_err=max_err[kind],
+                    floor_ms=fl["device_cold_ms"], floor_warm_ms=fl["device_ms"],
+                    by_shape=by_shape[kind])
+
+    def kernel_entry(name, source, replaces, kind, n_launches, **more):
+        main, d = by_shape[kind][main_shape], design(kind)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=n_launches, max_abs_err=err, ms=main["ms"],
+                    launches=n_launches, max_abs_err=d["max_abs_err"], ms=main["ms"],
                     device_ms=main["device_ms"], device_cold_ms=main["device_cold_ms"],
                     plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                     bound_by=main["bound_by"], library_ms=main["library_ms"],
-                    by_shape=shapes, **more)
+                    floor_ms=d["floor_ms"], floor_warm_ms=d["floor_warm_ms"],
+                    by_shape=d["by_shape"], **more)
 
+    # K1: the tracker launches the one-thread-a-sample design; the band
+    # redesign, slower cold on the tracker's S = 40 inputs when the tracker's
+    # design was chosen (PERF.md section 6), is reported beside it
     print(json.dumps({"kernels": [
         kernel_entry("window_bilinear", "mba_vo_tpu_torch/csrc/window_bilinear.cu",
-                     "mba_vo_tpu/ops/pallas_sampling.py:118", sum(launches.values()),
-                     max_err["K1"], by_shape["K1"], launches_by_path=launches),
+                     "mba_vo_tpu/ops/pallas_sampling.py:118", "K1", sum(launches.values()),
+                     launches_by_path=launches, before=design("K1"),
+                     redesign=dict(design("K1 band"), launches=swept["K1 band"])),
         kernel_entry("window_bilinear_tiled", "mba_vo_tpu_torch/csrc/window_bilinear_tiled.cu",
-                     "experiments/kernel_variants_r04.py:133",
-                     swept, max_err["K1-v"], by_shape["K1-v"],
-                     variant=by_shape["K1-v"][0]["name"], replayed_launches=replayed),
+                     "experiments/kernel_variants_r04.py:133", "K1-v", swept["K1-v"],
+                     variant=by_shape["K1-v"][main_shape]["name"],
+                     replayed_launches=replayed["K1-v"], before=design("K1-v staged")),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_kind, "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -85,7 +85,7 @@ def window_bilinear(
     if windows.is_cuda:
         dtype = windows.dtype
         return cuda_sampling.window_bilinear_cuda(
-            windows.contiguous(),
+            cuda_sampling.kernel_windows(windows),
             local_xy.to(dtype).contiguous(),
             valid.to(dtype).contiguous(),
         )
@@ -111,5 +111,7 @@ def sample_windows_lk(
 def sample_windows(
     windows: torch.Tensor, local_xy: torch.Tensor, valid: torch.Tensor
 ) -> torch.Tensor:
-    """Intensity samples [N, S] only: one C = 1 call (the cost-only path)."""
+    """Intensity samples [N, S] only: one C = 1 call (the cost-only path).
+    The slice ``windows[:, :1]`` is not contiguous; the kernel reads it in
+    place through its keypoint stride."""
     return window_bilinear(windows[:, :1], local_xy, valid)[:, 0]

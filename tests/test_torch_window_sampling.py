@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from mba_vo_tpu.ops import window_sampling as jws
 from mba_vo_tpu.ops.image import image_gradients as jgrad
@@ -163,15 +164,190 @@ def test_tiled_cuda_wrapper_refuses_cpu_tensors():
 
 
 def test_shared_memory_budget_of_the_sweeps_tiles():
-    """Every tile of the sweep fits a block's 232,448 bytes at the tracker's
-    window set [3, 32, 32], in float32 and float64; 18 float32 windows are
-    the most that fit."""
+    """Every variant of the sweep fits a block's 232,448 bytes at the
+    tracker's window set [3, 32, 32], in float32 and float64: K1-v's ring
+    holds 2 stages of one window and its samples whatever the tile (up to
+    S = 320); K1's bands fit at up to 1024 threads in float32 and 512 in
+    float64; the staged first design of K1-v holds a whole tile, at most 18
+    float32 windows."""
     from mba_vo_tpu_torch.experiments import kernel_variants as kv
 
     per_window = 3 * 32 * 32
+    for item in (4, 8):
+        ring = cuda_sampling.ring_shared_bytes(3, 32, 32, max(kv.SAMPLES), item)
+        assert ring == 128 + 2 * (per_window * item + 3 * max(kv.SAMPLES) * item)
+        assert ring <= cuda_sampling.MAX_SHARED_BYTES
+    # K1's bands: float32 at up to 1024 threads, float64 at up to 512
+    bands = cuda_sampling.band_shared_bytes
+    assert bands(1024, 3, 32, 32, 4) <= cuda_sampling.MAX_SHARED_BYTES
+    assert bands(512, 3, 32, 32, 8) <= cuda_sampling.MAX_SHARED_BYTES < bands(1024, 3, 32, 32, 8)
     assert max(kv.TILES) * per_window * 8 <= cuda_sampling.MAX_SHARED_BYTES
     assert 18 * per_window * 4 <= cuda_sampling.MAX_SHARED_BYTES < 19 * per_window * 4
     assert kv.TILES == (1, 2, 4, 8) and kv.THREADS == (64, 128, 256)
+
+
+@pytest.mark.parametrize("threads,c,win_h,win_w,item,want", [
+    (128, 3, 32, 32, 4, 32 + 4 * 3 * 12 * 32 * 4),    # the tracker's shape
+    (64, 1, 20, 30, 4, 16 + 2 * 1 * 12 * 30 * 4),     # 1,440-byte planes
+    (32, 3, 6, 9, 4, 16 + 3 * 92 * 4),                # (4 + 6) x 9 = 90 -> 92
+    (96, 3, 5, 7, 8, 32 + 3 * 3 * 64 * 8),            # (4 + 5) x 7 = 63 -> 64
+])
+def test_band_shared_bytes(threads, c, win_h, win_w, item, want):
+    """K1's block holds an mbarrier per warp (padded to 16 bytes), then per
+    warp C planes of min(TOP_ROWS, win_h) + min(BAND_ROWS, win_h) rows, each
+    padded to 16 bytes."""
+    assert (cuda_sampling.TOP_ROWS, cuda_sampling.BAND_ROWS) == (4, 8)
+    assert cuda_sampling.band_shared_bytes(threads, c, win_h, win_w, item) == want
+
+
+def test_keypoint_stride_reads_the_c1_slice_in_place():
+    """The cost-only call's slice windows[:, :1] goes to the kernels as it
+    is, with the C = 3 cache's keypoint stride; a layout whose keypoint
+    blocks are not contiguous is copied by kernel_windows and refused by
+    keypoint_stride."""
+    w = torch.zeros((5, 3, 6, 7), dtype=torch.float64)
+    assert cuda_sampling.keypoint_stride(w) == 3 * 6 * 7
+    one = w[:, :1]
+    assert not one.is_contiguous()
+    assert cuda_sampling.keypoint_stride(one) == 3 * 6 * 7
+    assert cuda_sampling.kernel_windows(one) is one
+    assert cuda_sampling.keypoint_stride(w[2:4]) == 3 * 6 * 7
+    assert cuda_sampling.keypoint_stride(w[:1, 1:]) == 2 * 6 * 7
+    for bad in (w[:, ::2], w[..., :5], w.transpose(2, 3)):
+        with pytest.raises(ValueError, match="contiguous"):
+            cuda_sampling.keypoint_stride(bad)
+        copy = cuda_sampling.kernel_windows(bad)
+        assert copy.is_contiguous() and torch.equal(copy, bad)
+    with pytest.raises(ValueError, match="win_h, win_w"):
+        cuda_sampling.keypoint_stride(w[0])
+
+
+def _small_tracker(virtual_poses=(5, 3)):
+    """A two-level CPU tracker on a 48x64 scene after its keyframe, and the
+    next blurred frame."""
+    from mba_vo_tpu_torch.core.spline import make_knots
+    from mba_vo_tpu_torch.data.synthetic import smooth_shapes_image, synthesize_blurred_image
+    from mba_vo_tpu_torch.tracker.blur_tracker import BlurAwareTracker, TrackerConfig
+    from mba_vo_tpu_torch.tracker.detector import DetectorOptions
+
+    h, w = 48, 64
+    K = np.array([45.0, 45.0, (w - 1) / 2, (h - 1) / 2])
+    img = smooth_shapes_image(h, w, sigma=3.0, dtype=np.float64)
+    traj = make_knots(t64([[0.0, 0, 0], [0.004, -0.002, 0.001]]),
+                      t64([[0.0, 0, 0, 1], [0.0, 0, 0, 1]]), 0.0, 0.1)
+    cfg = TrackerConfig(num_pyramid_levels=2, num_virtual_poses=virtual_poses,
+                        max_num_iterations=3,
+                        detector=DetectorOptions(score_threshold=5.0, cell_h=8, cell_w=8,
+                                                 max_keypoints=32))
+    tracker = BlurAwareTracker(cfg, K, (h, w), device="cpu")
+    tracker.track_frame(img, img, 0.0, 0.03, np.full((h, w), 2.0))
+    blur = synthesize_blurred_image(t64(img), traj, 2, 0.1, 0.03, 5, 2.0, t64(K)).numpy()
+    return tracker, blur
+
+
+def test_recorder_records_the_trackers_sampler_calls():
+    """Recording one tracked frame: one C = 3 call of S = P x V per LM
+    evaluation (V of the call's level), one shared windows copy per level;
+    the tracker's result is unchanged and window_bilinear is restored."""
+    from mba_vo_tpu_torch.experiments import kernel_variants as kv
+
+    original = tws.window_bilinear
+    tracker, blur = _small_tracker()
+    with kv.record_sampler_calls() as calls:
+        pose = tracker.track_frame(None, blur, 0.1, 0.03)
+    assert tws.window_bilinear is original
+    again, blur = _small_tracker()
+    plain_pose = again.track_frame(None, blur, 0.1, 0.03)
+    assert torch.equal(pose.t, plain_pose.t) and torch.equal(pose.q, plain_pose.q)
+
+    evaluations = {lv: 1 + s.num_iterations for lv, s in tracker.last_summaries}
+    assert [c.C for c in calls] == [3] * len(calls)
+    assert {lv: sum(c.level == lv for c in calls) for lv in evaluations} == evaluations
+    for c in calls:
+        assert c.S == 8 * (5, 3)[c.level] and c.valid.shape == (c.windows.shape[0], c.S)
+        assert c.local_xy.shape == (c.windows.shape[0], c.S, 2)
+    per_level = {lv: {c.windows.data_ptr() for c in calls if c.level == lv} for lv in (0, 1)}
+    assert all(len(ptrs) == 1 for ptrs in per_level.values())
+    # the copies replay to the tracker's own samples
+    for c in calls[:3]:
+        np.testing.assert_array_equal(
+            npy(tws.window_bilinear(*c.args)), npy(tws.window_bilinear_plain(*c.args)))
+
+
+def test_recorder_restores_window_bilinear_on_an_exception():
+    from mba_vo_tpu_torch.experiments import kernel_variants as kv
+
+    original = tws.window_bilinear
+    with pytest.raises(RuntimeError, match="inside"):
+        with kv.record_sampler_calls() as calls:
+            assert tws.window_bilinear is not original
+            w, xy, v = problem(2, 3, 8, 8, 4)
+            tws.sample_windows_lk(t64(w), t64(xy), t64(v))
+            raise RuntimeError("inside")
+    assert tws.window_bilinear is original
+    assert len(calls) == 1 and calls[0].level is None
+
+
+def test_recorder_keeps_the_c1_slice_strided():
+    """A cost-only call records windows[:, :1] as a strided slice of a copy
+    of the C = 3 cache, which the kernels read in place as they would the
+    tracker's."""
+    from mba_vo_tpu_torch.experiments import kernel_variants as kv
+
+    w, xy, v = problem(4, 3, 8, 8, 5)
+    with kv.record_sampler_calls() as calls:
+        tws.sample_windows(t64(w), t64(xy), t64(v))
+        tws.sample_windows_lk(t64(w), t64(xy), t64(v))
+    one, three = calls
+    assert one.windows.stride() == (3 * 64, 64, 8, 1) and one.C == 1
+    assert cuda_sampling.keypoint_stride(one.windows) == 3 * 64
+    np.testing.assert_array_equal(npy(one.windows), w[:, :1])
+    np.testing.assert_array_equal(npy(three.windows), w)
+
+
+def test_needed_bytes_of_the_trackers_inputs_are_few():
+    """On the tracker's own inputs the function needs a small share of the
+    window elements (the samples cluster around the keypoint), so its bound
+    lies well below the whole-window copy, and the tap rows cluster at the
+    window's centre: the band K1 stages holds most of them."""
+    from mba_vo_tpu_torch.experiments import kernel_variants as kv
+
+    tracker, blur = _small_tracker(virtual_poses=(5, 5))
+    with kv.record_sampler_calls() as calls:
+        tracker.track_frame(None, blur, 0.1, 0.03)
+    fine = [c for c in calls if c.level == 0]
+    for c in fine:
+        need = kv.needed_window_elements(*c.args)
+        assert 0 < need < c.windows.numel() // 4
+        assert kv.needed_bytes(*c.args) < c.windows.numel() * c.windows.element_size()
+        assert kv.bound_ms(*c.args)[0] < kv.bound_ms(*c.args, staged=True)[0]
+    hist, cover = kv.tap_row_histogram(fine)
+    assert sum(hist.values()) == sum(2 * int((~torch.isnan(c.local_xy).any(-1)).sum())
+                                     for c in fine)
+    assert max(hist, key=hist.get) in (-2, -1, 0, 1)
+    assert len(cover) == len(kv.TOPS) * len(kv.BANDS)
+    assert cover[0, 16] > cover[0, 2] > 0.2 and cover[4, 8] >= cover[0, 8]
+
+
+def test_tap_row_histogram_and_staged_rows():
+    """Rows as the kernels read them: two taps a sample, a row outside the
+    window reads row 0, NaN samples read none; the centre band is centred on
+    the keypoint's own two tap rows and clamped into the window, and merges
+    with the top band where the two meet."""
+    from mba_vo_tpu_torch.experiments import kernel_variants as kv
+
+    assert [kv.staged_rows(32, 0, b) for b in (2, 8, 16)] == [(0, 16, 2), (0, 13, 8),
+                                                              (0, 9, 16)]
+    assert kv.staged_rows(32, 4, 8) == (4, 13, 8)
+    assert kv.staged_rows(6, 4, 8) == (0, 0, 6) and kv.staged_rows(12, 4, 8) == (0, 0, 11)
+    assert kv.staged_rows(9, 0, 8) == (0, 1, 8) and kv.staged_rows(20, 2, 8) == (2, 7, 8)
+    w = torch.zeros((1, 1, 32, 32), dtype=torch.float64)
+    xy = t64([[[3.0, 16.5], [3.0, 13.0], [3.0, 31.5], [3.0, -3.0], [np.nan, 4.0]]])
+    call = kv.SamplerCall(w, xy, torch.ones((1, 5), dtype=torch.float64), 0)
+    hist, cover = kv.tap_row_histogram([call], bands=(2, 8), tops=(0, 4))
+    # rows 16, 17 | 13, 14 | 31, (32 -> 0) | (-3 -> 0), (-2 -> 0)
+    assert hist == {-16: 3, -3: 1, -2: 1, 0: 1, 1: 1, 15: 1}
+    assert cover == {(0, 2): 2 / 8, (0, 8): 4 / 8, (4, 2): 5 / 8, (4, 8): 7 / 8}
 
 
 @pytest.mark.parametrize("c,win_h,win_w,s", [(3, 8, 8, 5), (1, 6, 9, 40), (3, 32, 32, 40)])
