@@ -42,16 +42,36 @@ Phases (any failed check raises and the exit code is non-zero):
      kernel, K1-v's best and worst variant, plain and grid_sample on phase
      3's recorded inputs ("tracker S=40", "tracker S=160") with the
      histogram of their tap rows; and the floor row (N = 1, S = 1, C = 3);
+  8. the command line and the keyframe backend: (a) float64 on CUDA against
+     the CPU at full width: detect_sparse + match_descriptors on a VGA frame
+     of the bench scenario with BackendConfig's default detector (differing
+     descriptor bits counted, float32 too), run_bundle_adjustment at window
+     7 with 512 landmark slots, optimize_pose_graph at 64 nodes, solve_pnp;
+     (b) `cli track --backend ba+pg` on a small loop sequence (float64
+     config) with --device cuda against --device cpu: every keyframe's
+     BA/PG iterations, loop edges and landmarks, and the TUM files (1e-8
+     until BA's roundoff amplification reaches it, 1e-6 over the run),
+     beside the same run on the CPU with one thread; (c) the loop benchmark at bench_loop.py's
+     defaults through experiments/loop_bench.py on the card, its ATE rule
+     (ba+pg cuts the final-quarter ATE by >= 50 %) beside LOOP_r05.json's
+     JAX-on-CPU figures, wall time, frames/s, K1 launches and the backend's
+     ms per keyframe by stage; (d) `cli synth` at VGA, then `cli track` in
+     float32 under bench options (TrackerConfig's keyframe thresholds) with
+     --chunk 8, with and without --backend ba+pg: frames/s of both;
 then one JSON line of kernel results, the card line again, and the final
 status line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import re
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -413,6 +433,330 @@ def ate(poses, traj, frames) -> float:
     return float(np.sqrt(np.mean(np.square(frame_errors(poses, traj, frames)))))
 
 
+# ------------------------------------------------------------------ phase 8
+
+LOOP_REFERENCE = "LOOP_r05.json"     # bench_loop.py's JAX-on-CPU figures
+
+
+def median_ms(fn, reps=5) -> float:
+    """Median wall ms of fn() between device synchronisations (one warm-up
+    call first)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(out)
+
+
+def ba_problem_arrays(W=7, M=512, live=300, seed=0):
+    """A BA window of W cameras over M landmark slots (`live` of them
+    observed, the rest padding): noisy, partly missing observations,
+    odometry priors, perturbed starts."""
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-1.5, 1.5, M), rng.uniform(-1, 1, M), rng.uniform(3, 6, M)], -1)
+    ts = np.stack([[0.15 * w, 0.02 * w, 0.05 * w] for w in range(W)])
+    K = np.array([480.0, 480.0, 319.5, 239.5])
+    obs = np.stack([np.stack([(X[:, 0] - t[0]) / (X[:, 2] - t[2]) * K[0] + K[2],
+                              (X[:, 1] - t[1]) / (X[:, 2] - t[2]) * K[1] + K[3]], -1)
+                    for t in ts]) + rng.normal(0, 0.5, (W, M, 2))
+    point_mask = (np.arange(M) < live).astype(np.float64)
+    obs_mask = (rng.random((W, M)) > 0.2) * point_mask[None]
+    odom = (np.diff(ts, axis=0) + rng.normal(0, 1e-3, (W - 1, 3)),
+            np.tile([0.0, 0.0, 0.0, 1.0], (W - 1, 1)), np.full(W - 1, 1e6))
+    return dict(pose_t=ts + rng.normal(0, 0.02, ts.shape) * (np.arange(W) > 0)[:, None],
+                pose_q=np.tile([0.0, 0.0, 0.0, 1.0], (W, 1)),
+                points=X + rng.normal(0, 0.05, X.shape), obs_xy=obs, obs_mask=obs_mask, K=K,
+                point_mask=point_mask, odom=odom, pose_mask=np.ones(W))
+
+
+def pose_graph_arrays(n=64, seed=1):
+    """A drifted chain of n keyframes with noisy consecutive edges and two
+    loop edges of weight 5."""
+    rng = np.random.default_rng(seed)
+    t = np.cumsum(rng.normal(0, 0.1, (n, 3)), axis=0)
+    q = np.tile([0.0, 0.0, 0.0, 1.0], (n, 1))
+    i = np.concatenate([np.arange(n - 1), [0, 5]])
+    j = np.concatenate([np.arange(1, n), [n - 1, n - 2]])
+    t_ij = t[j] - t[i] + rng.normal(0, 0.01, (len(i), 3))
+    w = np.concatenate([np.ones(n - 1), [5.0, 5.0]])
+    return (t, q), (i, j, t_ij, np.tile(q[:1], (len(i), 1)), w)
+
+
+def phase_backend_solvers(img, other):
+    """8a: the backend's device work, float64 on CUDA against the CPU at
+    full width, and its times on the card. Returns a dict of results."""
+    import torch
+    from mba_vo_tpu_torch import interop
+    from mba_vo_tpu_torch.backend import ba, geometry, pose_graph
+    from mba_vo_tpu_torch.backend.vo_backend import BackendConfig
+    from mba_vo_tpu_torch.core.transform import Pose
+    from mba_vo_tpu_torch.tracker.sparse_features import detect_sparse, match_descriptors
+
+    det = BackendConfig().detector
+    res = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        feats = {}
+        for dev in ("cuda", "cpu"):
+            feats[dev] = [detect_sparse(torch.tensor(x, dtype=dtype, device=dev), det)
+                          for x in (img, other)]
+        bits = sum(int((a.descriptors.cpu() != b.descriptors).sum())
+                   for a, b in zip(feats["cuda"], feats["cpu"]))
+        kp = max(float((a.kp_xy.cpu() - b.kp_xy).abs().max())
+                 for a, b in zip(feats["cuda"], feats["cpu"]))
+        masks = all(torch.equal(a.mask.cpu(), b.mask) for a, b in zip(feats["cuda"], feats["cpu"]))
+        mc, _ = match_descriptors(*feats["cuda"], 96.0, 0.85)
+        mh, _ = match_descriptors(*feats["cpu"], 96.0, 0.85)
+        n_live = int(feats["cpu"][0].mask.sum())
+        res[name] = dict(desc_bits_differ=bits, kp_max_diff=kp, masks_equal=masks,
+                         matches_differ=int((mc.cpu() != mh).sum()),
+                         matches=int((mh >= 0).sum()), keypoints=n_live)
+        print(f"[8a] detect_sparse + match_descriptors, {name}, VGA, BackendConfig's "
+              f"detector: {n_live} corners, {res[name]['matches']} matches; CUDA against "
+              f"CPU: descriptor bits differing {bits} (of {2 * 256 * det.max_keypoints}), "
+              f"max |kp| {kp:.3e} px, masks equal {masks}, matches differing "
+              f"{res[name]['matches_differ']}")
+        check(masks and res[name]["matches_differ"] == 0 and bits == 0,
+              f"{name} detection on CUDA differs from the CPU")
+        check(kp <= (1e-9 if dtype == torch.float64 else 0.0), f"{name} keypoints differ by {kp}")
+    f32 = [torch.tensor(x, dtype=torch.float32, device="cuda") for x in (img, other)]
+    res["detect_ms"] = median_ms(lambda: detect_sparse(f32[0], det))
+    fa, fb = (detect_sparse(x, det) for x in f32)
+    res["match_ms"] = median_ms(lambda: match_descriptors(fa, fb, 96.0, 0.85))
+
+    a = ba_problem_arrays()
+    (rc, sc), (rh, sh) = (ba.run_bundle_adjustment(
+        interop.ba_problem_from_arrays(**a, device=d), ba.BAOptions()) for d in ("cuda", "cpu"))
+    dpose = float((rc.poses.t.cpu() - rh.poses.t).abs().max())
+    dpts = float((rc.map.points.cpu() - rh.map.points).abs().max())
+    prob = interop.ba_problem_from_arrays(**a, device="cuda")
+    res["ba_ms"] = median_ms(lambda: ba.run_bundle_adjustment(prob, ba.BAOptions()), reps=3)
+    res["ba_iterations"] = (sc.num_iterations, sh.num_iterations)
+    print(f"[8a] run_bundle_adjustment, f64, window 7, 512 landmark slots (300 live): "
+          f"iterations CUDA {sc.num_iterations} / CPU {sh.num_iterations}; max |pose CUDA - "
+          f"CPU| {dpose:.3e}, points {dpts:.3e} (bound 1e-8); {res['ba_ms']:.1f} ms on the card "
+          f"({res['ba_ms'] / max(sc.num_iterations, 1):.2f} ms an iteration, one flag read each)")
+    check(sc.num_iterations == sh.num_iterations, "BA iteration counts differ")
+    check(dpose <= 1e-8 and dpts <= 1e-8, f"BA CUDA and CPU differ by {dpose}, {dpts}")
+
+    (t, q), e = pose_graph_arrays()
+    outs = []
+    for d in ("cuda", "cpu"):
+        f = lambda x: torch.tensor(x, dtype=torch.float64, device=d)  # noqa: E731
+        edges = interop.pose_graph_edges_from_arrays(*e, device=d)
+        outs.append(pose_graph.optimize_pose_graph_counted(Pose(f(t), f(q)), edges))
+    dpg = float((outs[0][0].t.cpu() - outs[1][0].t).abs().max())
+    edges = interop.pose_graph_edges_from_arrays(*e, device="cuda")
+    start = Pose(torch.tensor(t, device="cuda"), torch.tensor(q, device="cuda"))
+    res["pg_ms"] = median_ms(lambda: pose_graph.optimize_pose_graph(start, edges), reps=3)
+    print(f"[8a] optimize_pose_graph, f64, 64 nodes, 65 edges: iterations CUDA {outs[0][2]} / "
+          f"CPU {outs[1][2]}; max |pose CUDA - CPU| {dpg:.3e} (bound 1e-8); "
+          f"{res['pg_ms']:.1f} ms on the card")
+    check(outs[0][2] == outs[1][2] and dpg <= 1e-8, f"pose graph CUDA and CPU differ by {dpg}")
+
+    pts = a["points"][:256] - np.array([0.3, 0.0, 0.0])
+    obs = a["obs_xy"][2, :256]
+    msk = np.ones(256)
+    pnp = []
+    for d in ("cuda", "cpu"):
+        f = lambda x: torch.tensor(x, dtype=torch.float64, device=d)  # noqa: E731
+        p, c = geometry.solve_pnp(f(pts), f(obs), f(msk), f(a["K"]),
+                                  Pose(f([0.0, 0.0, 0.0]), f([0.0, 0.0, 0.0, 1.0])))
+        pnp.append(torch.cat([p.t, p.q, c[None]]).cpu())
+    dpnp = float((pnp[0] - pnp[1]).abs().max())
+    fd = lambda x: torch.tensor(x, dtype=torch.float64, device="cuda")  # noqa: E731
+    args = (fd(pts), fd(obs), fd(msk), fd(a["K"]), Pose(fd([0.0] * 3), fd([0.0, 0.0, 0.0, 1.0])))
+    res["pnp_ms"] = median_ms(lambda: geometry.solve_pnp(*args))
+    print(f"[8a] solve_pnp, f64, 256 correspondences, 30 iterations: max |CUDA - CPU| "
+          f"{dpnp:.3e} (bound 1e-8); {res['pnp_ms']:.1f} ms on the card, no host read; "
+          f"detect {res['detect_ms']:.1f} ms, match {res['match_ms']:.2f} ms (f32, VGA)")
+    check(dpnp <= 1e-8, f"PnP CUDA and CPU differ by {dpnp}")
+    return res
+
+
+def run_cli(argv):
+    """mba_vo_tpu_torch.cli.main(argv) with its per-frame lines captured;
+    returns (wall seconds between device synchronisations, output)."""
+    import torch
+    from mba_vo_tpu_torch import cli
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    check(rc == 0, f"cli {argv[0]} returned {rc}")
+    return time.perf_counter() - t0, out.getvalue()
+
+
+def track_argv(seq, out, device, config, extra=()):
+    intr = open(os.path.join(seq, "intrinsics.txt")).read().strip()
+    return ["track", "--images", os.path.join(seq, "images"),
+            "--sharp-images", os.path.join(seq, "sharp"),
+            "--depths", os.path.join(seq, "depths"), "--dataset-type", "eth3d",
+            "--times", os.path.join(seq, "times.txt"), "--intrinsics", intr,
+            "--output", out, "--config", config, "--device", device, *extra]
+
+
+CLI_TOL = 1e-8          # TUM files print 9 decimals
+CLI_TAIL_TOL = 1e-6     # the last frames, after loop closures (PERF.md section 7)
+
+
+def phase_cli_cuda_vs_cpu(root, cs, launches):
+    """8b: `cli track --backend ba+pg` (float64 config) on a small loop
+    sequence, --device cuda against --device cpu: every keyframe's BA and
+    pose-graph iterations, loop edges and landmarks equal; the TUM files
+    equal to CLI_TOL until the roundoff that BA's ill-conditioned normal
+    equations amplify reaches it (printed), and to CLI_TAIL_TOL over the
+    whole run. The same run on the CPU with one thread (the CPU's own sums
+    in another order) shows the amplification without a device change."""
+    from mba_vo_tpu_torch.data import datasets as ds
+    from mba_vo_tpu_torch.experiments import loop_bench as lb
+
+    seq = os.path.join(root, "loop_small")
+    run_cli(["synth", "--output", seq, "--num-frames", "24", "--height", "120", "--width",
+             "160", "--num-samples", "7", "--trajectory", "loop", "--texture", "random",
+             "--noise", "1.5", "--device", "cuda"])
+    config, bconfig = os.path.join(seq, "config.json"), os.path.join(seq, "backend.json")
+    with open(config, "w") as f:
+        json.dump(lb.TRACKER_CONFIG, f)
+    with open(bconfig, "w") as f:
+        json.dump(lb.BACKEND_CONFIG, f)
+    import torch
+
+    out = {}
+    threads = torch.get_num_threads()
+    for run in ("cuda", "cpu", "cpu 1 thread"):
+        dev = run.split()[0]
+        cs.LAUNCHES = 0
+        torch.set_num_threads(1 if run == "cpu 1 thread" else threads)
+        try:
+            wall, _ = run_cli(track_argv(seq, os.path.join(root, f"est_{len(run)}.txt"), dev,
+                                         config, ["--backend", "ba+pg", "--backend-config",
+                                                  bconfig, "--backend-stats",
+                                                  os.path.join(root, f"stats_{len(run)}.json")]))
+        finally:
+            torch.set_num_threads(threads)
+        if dev == "cuda":
+            launches["cli track --backend ba+pg (8b)"] = cs.LAUNCHES
+        with open(os.path.join(root, f"stats_{len(run)}.json")) as f:
+            stats = json.load(f)
+        _, t, q = ds.load_tum_trajectory(os.path.join(root, f"est_{len(run)}.txt"))
+        out[run] = dict(wall=wall, poses=np.concatenate([t, q], 1), stats=stats)
+    per_frame = np.abs(out["cuda"]["poses"] - out["cpu"]["poses"]).max(axis=1)
+    over = np.flatnonzero(per_frame > CLI_TOL)
+    fields = ("ba_iterations", "pg_iterations", "loop_edges", "landmarks")
+    counts = [tuple(s[f] for f in fields) for s in out["cuda"]["stats"]]
+    same = counts == [tuple(s[f] for f in fields) for s in out["cpu"]["stats"]]
+    cost = max((abs(a["ba_cost"] - b["ba_cost"]) / abs(b["ba_cost"])
+                for a, b in zip(out["cuda"]["stats"], out["cpu"]["stats"]) if "ba_cost" in b),
+               default=0.0)
+    print(f"[8b] cli track --backend ba+pg, f64 config, {len(per_frame)} frames of a 120x160 "
+          f"loop: {len(counts)} keyframes, {counts[-1][3]} landmarks, "
+          f"{sum(c[2] for c in counts)} loop edges, BA/PG iterations, loop edges and landmarks "
+          f"equal at every keyframe on CUDA and CPU: {same}; max relative BA cost difference "
+          f"{cost:.2e}; max |TUM CUDA - TUM CPU| {per_frame.max():.3e}, first frame over "
+          f"{CLI_TOL:g}: {int(over[0]) if len(over) else None}; per frame " + " ".join(
+              f"{d:.0e}" for d in per_frame))
+    threads_diff = np.abs(out["cpu"]["poses"] - out["cpu 1 thread"]["poses"]).max(axis=1)
+    print(f"    the same run on the CPU with {threads} threads against 1 thread (another order "
+          f"of the same sums): max |TUM| difference {threads_diff.max():.3e}; per frame " + " ".join(
+              f"{d:.0e}" for d in threads_diff))
+    print(f"    wall CUDA {out['cuda']['wall']:.1f} s, CPU {out['cpu']['wall']:.1f} s, CPU 1 thread "
+          f"{out['cpu 1 thread']['wall']:.1f} s; K1 launches "
+          f"{launches['cli track --backend ba+pg (8b)']}")
+    check(np.isfinite(out["cuda"]["poses"]).all(), "non-finite CLI poses")
+    check(same, "the backend's control flow differs between CUDA and the CPU")
+    check(len(counts) >= 10 and sum(c[2] for c in counts) > 0, "no loop closure in 8b")
+    check(per_frame.max() <= CLI_TAIL_TOL, f"cli track on CUDA and CPU differ by {per_frame.max()}")
+    check(len(over) == 0 or over[0] >= len(per_frame) - 5,
+          f"cli track on CUDA and CPU differ by more than {CLI_TOL} from frame {over[:1]}")
+    return dict(per_frame=per_frame, counts=counts)
+
+
+def phase_loop_benchmark(cs, launches):
+    """8c: the loop benchmark at bench_loop.py's defaults on the card."""
+    from mba_vo_tpu_torch.experiments import loop_bench as lb
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = lb.run(device="cuda")
+    wall = time.perf_counter() - t0
+    ref = None
+    if os.path.exists(LOOP_REFERENCE):
+        with open(LOOP_REFERENCE) as f:
+            ref = json.load(f)
+    launches["loop benchmark ba+pg (8c)"] = summary["runs"]["ba_pg"]["k1_launches"]
+    launches["loop benchmark tracker-only (8c)"] = summary["runs"]["tracker_only"]["k1_launches"]
+    for name, r in summary["runs"].items():
+        jr = ref["runs"][name] if ref else {}
+        print(f"[8c] loop benchmark ({summary['num_frames']} frames, {summary['image']}, "
+              f"noise {summary['noise_sigma']}), {name}: ATE full {r['ate_full_m']:.6f} m, final "
+              f"quarter {r['ate_final_quarter_m']:.6f} m (JAX on CPU, {LOOP_REFERENCE}: "
+              f"{jr.get('ate_full_m')} / {jr.get('ate_final_quarter_m')}); {r['wall_s']:.2f} s "
+              f"= {r['frames_per_s']:.3f} frames/s; K1 launches {r['k1_launches']}")
+    b = summary["runs"]["ba_pg"]["backend"]
+    print(f"    backend: {b['keyframes']} keyframes, {b['loop_edges']} loop edges in "
+          f"{b['pose_graph_runs']} pose-graph runs; ms per keyframe by stage (each stage ended "
+          f"by a synchronisation) " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                                b["ms_per_keyframe"].items())
+          + f", total {b['ms_per_keyframe_total']:.2f}; BA iterations "
+          f"{b['ba_iterations_per_keyframe']:.2f} and PG iterations "
+          f"{b['pg_iterations_per_keyframe']:.2f} a keyframe; host reads "
+          f"{b['host_reads_per_keyframe']:.2f} a keyframe")
+    imp = summary["final_segment_improvement_frac"]
+    print(f"    final-quarter improvement {imp:.3f} (JAX on CPU "
+          f"{ref.get('final_segment_improvement_frac') if ref else None}; rule >= 0.5, "
+          f"tests/test_loop_benchmark.py); synth {summary['synth_s']:.1f} s, phase {wall:.1f} s")
+    check(imp >= 0.5, f"ba+pg cut the final-quarter ATE by only {imp}")
+    return summary
+
+
+def phase_vga_cli(root, cs, launches):
+    """8d: cli synth at its VGA default, cli track in f32 under bench options
+    (TrackerConfig's keyframe thresholds) with --chunk 8, with and without
+    --backend ba+pg at BackendConfig's defaults."""
+    import dataclasses
+
+    from mba_vo_tpu_torch.utils.config import tracker_config_to_dict
+
+    seq = os.path.join(root, "vga")
+    synth_s, _ = run_cli(["synth", "--output", seq, "--device", "cuda"])
+    cfg = dataclasses.replace(bench_config("float32"), keyframe_max_flow_mag0=15.0,
+                              keyframe_max_flow_mag1=30.0)
+    config = os.path.join(seq, "config.json")
+    with open(config, "w") as f:
+        json.dump(tracker_config_to_dict(cfg), f)
+    # a short untimed run first: the first pass through the command line
+    # reads the sequence's files from disk
+    run_cli(track_argv(seq, os.path.join(root, "vga_warm.txt"), "cuda", config,
+                       ["--chunk", "8", "--max-frames", "9"]))
+    res = {}
+    for name, extra in (("tracker only", []), ("ba+pg", [
+            "--backend", "ba+pg", "--backend-stats", os.path.join(root, "vga_stats.json")])):
+        cs.LAUNCHES = 0
+        wall, _ = run_cli(track_argv(seq, os.path.join(root, f"vga_{len(extra)}.txt"), "cuda",
+                                     config, ["--chunk", "8", *extra]))
+        launches[f"cli track VGA --chunk 8, {name} (8d)"] = cs.LAUNCHES
+        res[name] = dict(wall=wall, fps=21 / wall, launches=cs.LAUNCHES)
+    with open(os.path.join(root, "vga_stats.json")) as f:
+        stats = json.load(f)
+    ms = sum(sum(s.get("ms", {}).values()) for s in stats) / max(len(stats), 1)
+    print(f"[8d] cli synth VGA (21 frames, 31 samples) {synth_s:.1f} s; cli track f32, bench "
+          f"options, --chunk 8: tracker only {res['tracker only']['fps']:.3f} frames/s, "
+          f"--backend ba+pg {res['ba+pg']['fps']:.3f} frames/s ({len(stats)} keyframes, "
+          f"{ms:.1f} ms of backend a keyframe); K1 launches "
+          f"{res['tracker only']['launches']} / {res['ba+pg']['launches']}")
+    check(all(r["launches"] > 0 for r in res.values()), "the VGA CLI never launched K1")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -750,6 +1094,21 @@ def main() -> int:
                     bound_by=main["bound_by"], library_ms=main["library_ms"],
                     floor_ms=d["floor_ms"], floor_warm_ms=d["floor_warm_ms"],
                     by_shape=d["by_shape"], **more)
+
+    # ---- 8. the command line and the keyframe backend
+    t8 = time.perf_counter()
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "runtime"))
+    import bindings
+
+    print("    the runtime library (k-d tree) "
+          + ("is built" if bindings.native_available() else
+             "could not be built: the k-d tree's pure-Python path serves the same indices"))
+    phase_backend_solvers(img, cand[0][3])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        phase_cli_cuda_vs_cpu(root, cs, launches)
+        phase_loop_benchmark(cs, launches)
+        phase_vga_cli(root, cs, launches)
+    print(f"    phase 8 in {time.perf_counter() - t8:.1f} s")
 
     # K1: the tracker launches the one-thread-a-sample design; the band
     # redesign, slower cold on the tracker's S = 40 inputs when the tracker's

@@ -52,8 +52,9 @@ def quat_multiply(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
-    sign = torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
-    return q * sign
+    # negation is exact: the same values as q * (-1, -1, -1, 1), without
+    # copying a sign vector from the host (a stream sync on a GPU) each call
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -34,8 +34,13 @@ finished when its dispatch returns and ``inflight > 1`` overlaps nothing
 yet: the protocol and its results are kept, and which mechanism (streams,
 CUDA graphs) makes speculation pay on a GPU is left to a profile.
 
-Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-``shard_devices > 1`` and a ``backend``.
+With a ``backend`` (``backend.vo_backend.VOBackend``) every new keyframe
+is handed to it: the first keyframe without taking a result back, every
+later one adopting the backend's refined pose as the keyframe anchor, from
+the per-frame, the chunked and the joint path alike.
+
+Not ported yet (raises ``NotImplementedError``; see ROADMAP.md):
+``shard_devices > 1``.
 """
 
 from __future__ import annotations
@@ -402,8 +407,6 @@ class BlurAwareTracker:
 
     def __init__(self, config: TrackerConfig, K: np.ndarray,
                  im_hw: Tuple[int, int], backend=None, device="cuda"):
-        if backend is not None:
-            raise _not_ported("a VO backend (backend=)")
         if config.shard_devices and config.shard_devices > 1:
             raise _not_ported("keypoint sharding (shard_devices > 1)")
         if config.sampling not in ("windowed", "direct"):
@@ -417,6 +420,7 @@ class BlurAwareTracker:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.cfg = config
+        self.backend = backend
         self.dtype = torch.float32 if config.dtype == "float32" else torch.float64
         self.K0 = torch.as_tensor(np.asarray(K), dtype=self.dtype, device=self.device)
         self.im_hw = im_hw
@@ -494,6 +498,9 @@ class BlurAwareTracker:
                 max(2, cfg.spline_degree), t0=cap_time,
                 dt=max(exp_time, 1e-3), dtype=self.dtype, device=self.device,
             )
+            if self.backend is not None:
+                # the first keyframe anchors the chain: nothing to adopt
+                self.backend.on_keyframe(sharp_img, depth_map, self.T_keyframe, cap_time)
             return self.T_keyframe
 
         # resolve the previous frame's keyframe/failure decision first
@@ -672,6 +679,7 @@ class BlurAwareTracker:
                     cfg.spline_degree,
                 )
                 self.T_prev_b2w = pose_identity(self.dtype, device=self.device)
+                self._backend_keyframe(get_sharp(j), get_depth(j), float(cap_times[j]))
                 pending.clear()
                 i_next = i + commit
             # no event: the optimistic advance is the committed state
@@ -906,6 +914,7 @@ class BlurAwareTracker:
                 self._joint_knots = spline_transform_to(
                     knots_fin, cap_j,
                     pose_identity(self.dtype, device=self.device), deg)
+                self._backend_keyframe(get_sharp(j), get_depth(j), float(cap_times[j]))
                 pending.clear()
                 i_next = i + commit
             # no event: the optimistic knot advance is the committed state
@@ -976,5 +985,15 @@ class BlurAwareTracker:
                 cfg.spline_degree,
             )
             self.T_prev_b2w = pose_identity(self.dtype, device=self.device)
+            self._backend_keyframe(sharp_img, depth_map, cap_time)
             return True
         return False
+
+    def _backend_keyframe(self, sharp_img, depth_map, cap_time: float):
+        """Hand the freshly installed keyframe to the backend and adopt its
+        refined pose (float64 arrays) as the new chain anchor."""
+        if self.backend is None:
+            return
+        refined = self.backend.on_keyframe(sharp_img, depth_map, self.T_keyframe, cap_time)
+        if refined is not None:
+            self.T_keyframe = Pose(t=self._tensor(refined.t), q=self._tensor(refined.q))

@@ -4,6 +4,8 @@ Counterpart of ``mba_vo_tpu/tracker/detector.py``: every pixel whose
 gradient magnitude exceeds a threshold is a candidate; grid NMS keeps the
 strongest candidate per cell (cells shrink by 1/sqrt(2) per level); the
 result is a fixed-size [max_keypoints] array plus a validity mask.
+``refine_subpixel`` moves corners to the peak of a parabola through the
+response along each axis.
 """
 
 from __future__ import annotations
@@ -84,3 +86,34 @@ def detect_semidense(
     mask = (top_val > 1e-6).to(grad_mag.dtype)
     kp_xy = torch.stack([xs, ys], dim=-1) * mask[:, None]
     return kp_xy, top_val, mask
+
+
+def refine_subpixel(
+    resp: torch.Tensor, kp_xy: torch.Tensor, mask: torch.Tensor
+) -> torch.Tensor:
+    """Sub-pixel corner refinement by a per-axis parabola through the
+    response: the quadratic through (r[-1], r[0], r[+1]) peaks at
+    -0.5 (r[+1] - r[-1]) / (r[+1] - 2 r[0] + r[-1]); offsets are clamped to
+    +-0.5 px and zeroed where the denominator is flat, and masked slots keep
+    their position. The integer pixel is clamped one pixel inside the
+    image."""
+    H, W = resp.shape
+    xi = torch.clamp(kp_xy[:, 0].to(torch.int32), 1, W - 2).long()
+    yi = torch.clamp(kp_xy[:, 1].to(torch.int32), 1, H - 2).long()
+
+    def at(dy, dx):
+        return resp[yi + dy, xi + dx]
+
+    def axis_offset(rm, r0, rp):
+        denom = rp - 2.0 * r0 + rm
+        flat = torch.abs(denom) > 1e-12
+        # the quotient in float64, rounded back, as on every device
+        num = (-0.5 * (rp - rm)).double()
+        off = (num / torch.where(flat, denom, 1.0).double()).to(denom.dtype)
+        off = torch.where(flat, off, torch.zeros_like(denom))
+        return torch.clamp(off, -0.5, 0.5)
+
+    ox = axis_offset(at(0, -1), at(0, 0), at(0, 1))
+    oy = axis_offset(at(-1, 0), at(0, 0), at(1, 0))
+    refined = kp_xy + torch.stack([ox, oy], dim=-1).to(kp_xy.dtype)
+    return torch.where(mask[:, None] > 0, refined, kp_xy)

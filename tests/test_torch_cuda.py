@@ -345,3 +345,94 @@ def test_trackers_recorded_inputs(cuda):
         for i, call in enumerate(calls):
             assert call.windows.is_cuda
             _hold(*call.args, f"{dtype} call {i}")
+
+
+# ------------------------------------------------------------- the backend
+
+
+def _ba_arrays(W=7, M=512, seed=0):
+    """A window of W cameras over M landmark slots (60 live) with noisy
+    observations, odometry priors and perturbed starts (numpy only)."""
+    rng = np.random.default_rng(seed)
+    live = 60
+    X = np.stack([rng.uniform(-1.5, 1.5, M), rng.uniform(-1, 1, M), rng.uniform(3, 6, M)], -1)
+    ts = np.stack([[0.15 * w, 0.02 * w, 0.05 * w] for w in range(W)])
+    K = np.array([400.0, 400.0, 319.5, 239.5])
+    obs = np.stack([np.stack([(X[:, 0] - t[0]) / (X[:, 2] - t[2]) * K[0] + K[2],
+                              (X[:, 1] - t[1]) / (X[:, 2] - t[2]) * K[1] + K[3]], -1)
+                    for t in ts]) + rng.normal(0, 0.5, (W, M, 2))
+    point_mask = (np.arange(M) < live).astype(np.float64)
+    obs_mask = (rng.random((W, M)) > 0.2) * point_mask[None]
+    q = np.tile([0.0, 0.0, 0.0, 1.0], (W, 1))
+    odom = (np.diff(ts, axis=0) + rng.normal(0, 1e-3, (W - 1, 3)),
+            np.tile([0.0, 0.0, 0.0, 1.0], (W - 1, 1)), np.full(W - 1, 1e3))
+    return dict(pose_t=ts + rng.normal(0, 0.02, ts.shape) * (np.arange(W) > 0)[:, None],
+                pose_q=q, points=X + rng.normal(0, 0.05, X.shape), obs_xy=obs,
+                obs_mask=obs_mask, K=K, point_mask=point_mask, odom=odom,
+                pose_mask=np.ones(W))
+
+
+def test_backend_solvers_f64_cuda_match_cpu(cuda):
+    """BA at window 7 with 512 landmark slots, the pose graph at 64 nodes and
+    PnP: float64 on the card against the CPU, iteration counts exact."""
+    from mba_vo_tpu_torch import interop
+    from mba_vo_tpu_torch.backend import ba, geometry, pose_graph
+    from mba_vo_tpu_torch.core.transform import Pose
+
+    a = _ba_arrays()
+    runs = [ba.run_bundle_adjustment(interop.ba_problem_from_arrays(**a, device=d),
+                                     ba.BAOptions()) for d in ("cuda", "cpu")]
+    (rc, sc), (rh, sh) = runs
+    assert sc.num_iterations == sh.num_iterations
+    for x, y in ((rc.poses.t, rh.poses.t), (rc.map.points, rh.map.points)):
+        assert (x.cpu() - y).abs().max().item() <= 1e-8
+
+    rng = np.random.default_rng(1)
+    n = 64
+    t = np.cumsum(rng.normal(0, 0.1, (n, 3)), axis=0)
+    q = np.tile([0.0, 0.0, 0.0, 1.0], (n, 1))
+    i = np.concatenate([np.arange(n - 1), [0, 5]])
+    j = np.concatenate([np.arange(1, n), [n - 1, n - 2]])
+    t_ij = t[j] - t[i] + rng.normal(0, 0.01, (len(i), 3))
+    w = np.concatenate([np.ones(n - 1), [5.0, 5.0]])
+    outs = []
+    for d in ("cuda", "cpu"):
+        e = interop.pose_graph_edges_from_arrays(i, j, t_ij, np.tile(q[:1], (len(i), 1)), w,
+                                                 device=d)
+        outs.append(pose_graph.optimize_pose_graph_counted(
+            Pose(*(torch.tensor(x, dtype=torch.float64, device=d) for x in (t, q))), e))
+    assert outs[0][2] == outs[1][2]
+    assert (outs[0][0].t.cpu() - outs[1][0].t).abs().max().item() <= 1e-8
+
+    pts = a["points"][:60] - np.array([0.3, 0.0, 0.0])
+    obs = a["obs_xy"][2, :60]
+    poses = []
+    for d in ("cuda", "cpu"):
+        f = lambda x: torch.tensor(x, dtype=torch.float64, device=d)  # noqa: E731
+        p, c = geometry.solve_pnp(f(pts), f(obs), f(np.ones(60)), f(a["K"]),
+                                  Pose(f([0.0, 0.0, 0.0]), f([0.0, 0.0, 0.0, 1.0])))
+        poses.append(torch.cat([p.t, p.q]).cpu())
+    assert (poses[0] - poses[1]).abs().max().item() <= 1e-8
+
+
+def test_match_ties_take_the_first_index_on_cuda(cuda):
+    """Duplicated descriptors make exact Hamming ties; torch.argmin on the
+    card returns the first index of a tie as on the CPU (and as jnp.argmin)."""
+    from mba_vo_tpu_torch.tracker.sparse_features import SparseFeatures, match_descriptors
+
+    rng = np.random.default_rng(0)
+    base = np.where(rng.random((8, 256)) < 0.5, 1.0, -1.0)
+    a, b = base[rng.integers(0, 8, 300)], base[rng.integers(0, 8, 300)].copy()
+    b[::3, :2] *= -1
+    outs = []
+    for d in ("cuda", "cpu"):
+        f = lambda x: torch.tensor(x, dtype=torch.float32, device=d)  # noqa: E731
+        mk = lambda desc: SparseFeatures(f(np.zeros((300, 2))), f(np.ones(300)),  # noqa: E731
+                                         f(np.ones(300)), f(np.zeros(300)), f(desc))
+        m, dist = match_descriptors(mk(a), mk(b), 96.0, 1.0)
+        outs.append((m.cpu(), dist.cpu()))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    ham = torch.cdist(torch.tensor(a), torch.tensor(b), p=1) / 2
+    first = torch.argmin(ham, dim=1)
+    assert bool((ham == ham.min(dim=1, keepdim=True).values).sum(dim=1).gt(1).any())
+    assert torch.equal(torch.argmin(ham.cuda(), dim=1).cpu(), first)

@@ -1,7 +1,10 @@
 """The port imports torch and numpy only: importing every module of
-mba_vo_tpu_torch loads neither JAX nor the JAX package, nor builds or loads
-a kernel. That holds for ops/cuda_sampling.py (two kernels) and for the sweep
-harness experiments/kernel_variants.py as for every other module."""
+mba_vo_tpu_torch loads neither JAX nor the JAX package, nor PIL or orbax
+(the port reads and writes its PNGs with data/png.py and checkpoints with
+torch.save), nor builds or loads a kernel. That holds for
+ops/cuda_sampling.py (two kernels), the sweep harness
+experiments/kernel_variants.py, the backend, the command line and the loop
+benchmark as for every other module."""
 
 import pkgutil
 import subprocess
@@ -20,12 +23,14 @@ for name in names:
     importlib.import_module(name)
 from mba_vo_tpu_torch.ops import cuda_sampling
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "mba_vo_tpu", "triton"))
+             if m.split(".")[0] in ("jax", "jaxlib", "mba_vo_tpu", "triton", "PIL", "orbax"))
 from mba_vo_tpu_torch.experiments import kernel_variants
 import os
 built = os.path.exists(cuda_sampling._BUILD_DIR)
 print(len(names), bad, cuda_sampling._libs, cuda_sampling.BUILD_LOG, built,
-      "mba_vo_tpu_torch.experiments.kernel_variants" in names)
+      all(f"mba_vo_tpu_torch.{m}" in names for m in (
+          "experiments.kernel_variants", "experiments.loop_bench", "cli",
+          "backend.vo_backend", "utils.checkpoint", "data.png")))
 """
 
 
@@ -38,11 +43,11 @@ def test_every_module_imports_without_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad, rest = out.stdout.split(maxsplit=2)
-    assert int(n) >= 23
+    assert int(n) >= 36
     # no library loaded, nothing compiled, the harness among the modules
     assert bad == "[]" and rest.split() == ["{}", "{}", EXPECT_BUILT, "True"], out.stdout
 
 
 def test_package_layout_mirrors_the_reference():
     subpackages = {m.name for m in pkgutil.iter_modules(mba_vo_tpu_torch.__path__) if m.ispkg}
-    assert {"core", "ops", "solver", "tracker", "utils", "data"} <= subpackages
+    assert {"core", "ops", "solver", "tracker", "utils", "data", "backend"} <= subpackages

@@ -273,13 +273,19 @@ def test_config_defaults_and_fields():
     (dict(), "track_frames_joint"),
 ])
 def test_unported_entry_points_raise(kw, call):
-    """What is left unported raises by name (a backend, keypoint sharding);
-    what has been ported since constructs and runs: sampling="direct",
-    affine_brightness, track_frames and track_frames_joint."""
+    """What is left unported raises by name (keypoint sharding); what has
+    been ported since constructs and runs: sampling="direct",
+    affine_brightness, track_frames, track_frames_joint and a backend (the
+    bootstrap keyframe reaches it)."""
     cfg = tbt.TrackerConfig(**kw)
     if call == "backend":
-        with pytest.raises(NotImplementedError, match=r"backend.*ROADMAP"):
-            tbt.BlurAwareTracker(cfg, KVEC, (H, W), backend=object(), device="cpu")
+        from mba_vo_tpu_torch.backend.vo_backend import BackendConfig, VOBackend
+
+        backend = VOBackend(BackendConfig(), KVEC, device="cpu")
+        tracker = tbt.BlurAwareTracker(cfg, KVEC, (H, W), backend=backend, device="cpu")
+        img = smooth_texture(H, W, seed=5)
+        tracker.track_frame(img, img, 0.0, EXPOSURE, np.full((H, W), DEPTH))
+        assert len(backend.keyframes) == 1 and tracker.backend is backend
         return
     if kw.get("shard_devices"):
         with pytest.raises(NotImplementedError, match=r"shard_devices > 1.*ROADMAP"):
