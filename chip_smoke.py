@@ -58,6 +58,26 @@ Phases (any failed check raises and the exit code is non-zero):
      ms per keyframe by stage; (d) `cli synth` at VGA, then `cli track` in
      float32 under bench options (TrackerConfig's keyframe thresholds) with
      --chunk 8, with and without --backend ba+pg: frames/s of both;
+  9. the models, the non-planar scene, undistortion and overlays, each
+     stage under the port's StageTimer: (a) at VGA, the undistortion maps
+     (rad-tan pinhole, unified xi = 0.8) in f64 CUDA against the CPU and
+     f32 against f64, ms a map, the f32 remap of a bench frame and of a
+     depth map through the rounded map, a profile_trace of one map and
+     remap; IMU synthesis at 1 kHz over 2 s of a bench-style spline
+     (degree 4) CUDA against the CPU and its strapdown re-integration
+     (tests/test_sensors_navstate.py's bounds); fit_scene_flow at M = 512,
+     T = 8; MultiCameraFrame with two VGA cameras (f64 keypoints equal on
+     CUDA and the CPU, responses to an ulp, with the count of f64 square
+     roots each rounds otherwise); (b) `cli synth --scene 3d` at its
+     defaults on the card and at 3 frames on the CPU (grey levels and
+     depth compared), then `cli track` on it in f32 under bench options
+     with --chunk 8 --viz-dir: frames/s, K1 launches, ATE (4e-2), overlay
+     count and ms; (c) rad-tan and unified copies of 8d's VGA sequence
+     tracked with --distortion=... and --camera-model unified --xi 0.8
+     (ATE 8e-3) beside the original; (d) the realism ladder of
+     tests/test_scene3d.py in f64 and f32 through track_frame, at the
+     test's recipe (its bounds checked on f64) and at VGA, and the
+     recipe's f32 run on the CPU beside it;
 then one JSON line of kernel results, the card line again, and the final
 status line {"ok": true, "device": {...}}.
 """
@@ -244,6 +264,42 @@ def record_tracker_calls(img, traj, frames) -> dict:
 # ------------------------------------------------------------- phases 4-5
 
 
+def smooth_texture(h, w, seed):
+    """A uniform random texture box-filtered twice along each axis."""
+    from mba_vo_tpu_torch.data.synthetic import _box_filter_1d
+
+    img = np.random.default_rng(seed).uniform(0, 255, (h, w))
+    for _ in range(2):
+        img = _box_filter_1d(img, 2, 0)
+        img = _box_filter_1d(img, 2, 1)
+    return img
+
+
+def bench_knots(device, n_knots, knot_noise_seed=None):
+    """The bench scenario's generating spline (float64): constant velocity,
+    knots FRAME_DT apart from the identity at t = 0; with
+    `knot_noise_seed`, every knot perturbed as tests/test_tracker.py's
+    world_spline perturbs it."""
+    import torch
+    from mba_vo_tpu_torch.core import lie
+    from mba_vo_tpu_torch.core.spline import make_knots
+
+    rng = None if knot_noise_seed is None else np.random.default_rng(knot_noise_seed)
+    vel_t = np.array([0.06, -0.04, 0.02])
+    vel_w = np.array([0.02, 0.05, -0.08])
+    kt, kq = [np.zeros(3)], [torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float64)]
+    for _ in range(1, n_knots):
+        dt, dw = vel_t * FRAME_DT, vel_w * FRAME_DT
+        if rng is not None:
+            dt = dt + rng.normal(0, 3e-4, 3)
+            dw = dw + rng.normal(0, 5e-4, 3)
+        kt.append(kt[-1] + dt)
+        q = lie.quat_multiply(kq[-1], lie.quat_exp(torch.tensor(dw, dtype=torch.float64)))
+        kq.append(q / torch.linalg.norm(q))
+    return make_knots(torch.tensor(np.array(kt), dtype=torch.float64, device=device),
+                      torch.stack(kq).to(device), 0.0, FRAME_DT)
+
+
 def make_scenario(device, n_frames, h=H, w=W, kvec=KVEC, texture_seed=0,
                   knot_noise_seed=None, samples=5):
     """A smoothed random texture on a plane at 2 m seen along a generating
@@ -254,29 +310,11 @@ def make_scenario(device, n_frames, h=H, w=W, kvec=KVEC, texture_seed=0,
     `knot_noise_seed`, every knot is perturbed as tests/test_tracker.py's
     world_spline perturbs it (the scenario of tests/test_precision.py)."""
     import torch
-    from mba_vo_tpu_torch.core import lie
-    from mba_vo_tpu_torch.core.spline import make_knots
-    from mba_vo_tpu_torch.data.synthetic import _box_filter_1d, synthesize_blurred_image
+    from mba_vo_tpu_torch.data.synthetic import synthesize_blurred_image
 
-    img = np.random.default_rng(texture_seed).uniform(0, 255, (h, w))
-    for _ in range(2):
-        img = _box_filter_1d(img, 2, 0)
-        img = _box_filter_1d(img, 2, 1)
+    img = smooth_texture(h, w, texture_seed)
     f64 = dict(dtype=torch.float64, device=device)
-    rng = None if knot_noise_seed is None else np.random.default_rng(knot_noise_seed)
-    vel_t = np.array([0.06, -0.04, 0.02])
-    vel_w = np.array([0.02, 0.05, -0.08])
-    kt, kq = [np.zeros(3)], [torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float64)]
-    for _ in range(1, n_frames + 4):
-        dt, dw = vel_t * FRAME_DT, vel_w * FRAME_DT
-        if rng is not None:
-            dt = dt + rng.normal(0, 3e-4, 3)
-            dw = dw + rng.normal(0, 5e-4, 3)
-        kt.append(kt[-1] + dt)
-        q = lie.quat_multiply(kq[-1], lie.quat_exp(torch.tensor(dw, dtype=torch.float64)))
-        kq.append(q / torch.linalg.norm(q))
-    traj = make_knots(torch.tensor(np.array(kt), **f64),
-                      torch.stack(kq).to(device), 0.0, FRAME_DT)
+    traj = bench_knots(device, n_frames + 4, knot_noise_seed)
     img0 = torch.tensor(img, **f64)
     K = torch.tensor(kvec, **f64)
     frames = []
@@ -757,6 +795,459 @@ def phase_vga_cli(root, cs, launches):
     return res
 
 
+# ------------------------------------------------------------------ phase 9
+
+DIST = (-0.12, 0.04, 0.001, -0.002)     # tests/test_cli_e2e.py's rad-tan coefficients
+XI = 0.8                                # tests/test_image_camera.py's unified mirror
+CLI_ATE_3D = 4e-2                       # tests/test_cli_e2e.py::test_synth_3d_scene_tracks
+CLI_ATE_UNDISTORTED = 8e-3              # tests/test_cli_e2e.py's --distortion bound
+SYNTH3D_FRAMES_CPU = 3
+
+
+def vga_cameras(device, dtype):
+    """(rad-tan pinhole, unified xi = 0.8, clean pinhole) at VGA, fx 480."""
+    import torch
+    from mba_vo_tpu_torch.models.camera import PinholeCamera, RadTanDistortion, UnifiedCamera
+
+    f = dict(dtype=dtype, device=device)
+    K = torch.tensor(KVEC, **f)
+    dist = RadTanDistortion(*(torch.tensor(c, **f) for c in DIST))
+    return (PinholeCamera(K=K, height=H, width=W, distortion=dist),
+            UnifiedCamera(K=K, xi=torch.tensor(XI, **f), height=H, width=W),
+            PinholeCamera(K=K, height=H, width=W))
+
+
+def max_diff(a, b) -> float:
+    return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+
+def sampled_scene_depth():
+    """The 3D scene's depth map at VGA from the identity (float32 on the
+    CPU): a depth map with silhouettes to remap."""
+    import torch
+    from mba_vo_tpu_torch.data import scene3d
+
+    scene = scene3d.default_scene(smooth_texture(H, W, 0), depth=DEPTH)
+    f = dict(dtype=torch.float32)
+    return scene3d.scene_depth_map(scene, torch.zeros(3, **f),
+                                   torch.tensor([0.0, 0.0, 0.0, 1.0], **f),
+                                   torch.tensor(KVEC, **f), H, W)
+
+
+def phase_models(timer, frame):
+    """9a: the models at VGA, CUDA against the CPU (float64 unless said)."""
+    import torch
+    from mba_vo_tpu_torch.backend import dynamic_points as dp
+    from mba_vo_tpu_torch.core import lie
+    from mba_vo_tpu_torch.core import navstate as nav
+    from mba_vo_tpu_torch.models import sensors, trajectory
+    from mba_vo_tpu_torch.ops.image import build_undistort_map, remap
+    from mba_vo_tpu_torch.tracker.detector import DetectorOptions
+
+    f64, f32 = torch.float64, torch.float32
+    # undistortion maps: f64 CUDA against the CPU, f32 CUDA against f64
+    gpu64, cpu64, gpu32 = (vga_cameras("cuda", f64), vga_cameras("cpu", f64),
+                           vga_cameras("cuda", f32))
+    depth = sampled_scene_depth()
+    for k, name in enumerate(("pinhole rad-tan", "unified xi=0.8")):
+        with timer.stage(f"9a undistort map {name}", sync_on=gpu64[k].K):
+            m64 = build_undistort_map(gpu64[k], gpu64[2])
+            m32 = build_undistort_map(gpu32[k], gpu32[2])
+        mc = build_undistort_map(cpu64[k], cpu64[2])
+        d_dev, d_32 = max_diff(m64, mc), max_diff(m32, m64)
+        ms64 = median_ms(lambda: build_undistort_map(gpu64[k], gpu64[2]))
+        ms32 = median_ms(lambda: build_undistort_map(gpu32[k], gpu32[2]))
+        # the command line's float32 remap of a bench frame, and of a depth
+        # map through the rounded map (nearest neighbour)
+        m32c = build_undistort_map(vga_cameras("cpu", f32)[k], vga_cameras("cpu", f32)[2])
+        img = torch.tensor(frame, dtype=f32)
+        r_dev = max_diff(remap(img.cuda(), m32), remap(img, m32c))
+        ms_remap = median_ms(lambda: remap(img.cuda(), m32))
+        nn_g, nn_c = remap(depth.cuda(), torch.round(m32)).cpu(), remap(depth, torch.round(m32c))
+        n_depth = int((nn_g != nn_c).sum())
+        n_map = int((m32.cpu() != m32c).any(dim=-1).sum())
+        print(f"[9a] undistort map {name} (VGA): f64 |CUDA - CPU| {d_dev:.3e} px (bound 1e-10), "
+              f"f32 CUDA - f64 {d_32:.3e} px; {ms64:.3f} ms f64 / {ms32:.3f} ms f32 a map; f32 map "
+              f"entries CUDA != CPU {n_map} of {H * W}; remap of a bench frame (f32) |CUDA - CPU| "
+              f"{r_dev:.3e}, {ms_remap:.3f} ms; depth pixels differing after the nearest-neighbour "
+              f"remap {n_depth} of {H * W}")
+        check(d_dev <= 1e-10, f"{name}: f64 map CUDA and CPU differ by {d_dev}")
+        check(d_32 <= 1e-2, f"{name}: f32 map is {d_32} px off the f64 map")
+        check(r_dev <= 1e-3, f"{name}: the f32 remap differs by {r_dev}")
+
+    # profile_trace on the card: one map and one remap, a chrome trace with
+    # the kernels in it (a trace of whole frames runs to tens of MiB)
+    from mba_vo_tpu_torch.utils.profiling import profile_trace
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profile_trace(log_dir):
+            remap(img.cuda(), build_undistort_map(gpu32[0], gpu32[2]))
+            torch.cuda.synchronize()
+        path = os.path.join(log_dir, "trace.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        n_kernels = sum(e.get("cat") == "kernel" for e in events)
+        print(f"[9a] profile_trace of one f32 map and remap: {os.path.getsize(path)} bytes, "
+              f"{len(events)} events, {n_kernels} device kernels")
+        check(n_kernels > 0, "profile_trace recorded no device kernel")
+
+    # IMU synthesis at 1 kHz over 2 s of the bench spline (degree 4, 24
+    # knots), and strapdown re-integration as tests/test_sensors_navstate.py
+    params = trajectory.ImuParams(*(torch.tensor(v, dtype=f64) for v in (
+        9.81, [-0.003, 0.004, 0.002], [0.02, -0.01, 0.005])))
+    times = np.arange(0.0, 2.0, 1e-3)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        knots = bench_knots(dev, 24)
+        p = trajectory.ImuParams(*(v.to(dev) for v in params))
+        trajectory.sample_imu_sequence(knots, torch.zeros(1, dtype=f64, device=dev), 4, p)
+        with timer.stage(f"9a sample_imu_sequence {dev}", sync_on=knots.t):
+            out[dev] = trajectory.sample_imu_sequence(
+                knots, torch.tensor(times, dtype=f64, device=dev), 4, p)
+    (pg, vg, gg, ag), (pc, vc, gc, ac) = out["cuda"], out["cpu"]
+    d_imu = max(max_diff(a, b) for a, b in ((pg.t, pc.t), (pg.q, pc.q), (vg, vc), (gg, gc),
+                                            (ag, ac)))
+    knots = bench_knots("cuda", 24)
+    p = trajectory.ImuParams(*(v.cuda() for v in params))
+    h, t_start, t_end = 1e-3, 0.3, 1.1
+    steps = np.arange(t_start, t_end, h)
+    _, _, gyro, acc = trajectory.sample_imu_sequence(
+        knots, torch.tensor(steps + 0.5 * h, dtype=f64, device="cuda"), 4, p)
+    p0, v0, _ = trajectory.sample_pose_velocity(knots, t_start, 4)
+    state = nav.NavState(pose=p0, velocity=v0, bias_acc=p.bias_acc, bias_gyro=p.bias_gyro)
+    g_w = torch.tensor([0.0, 0.0, -9.81], dtype=f64, device="cuda")
+    with timer.stage("9a propagate_imu (800 steps)", sync_on=state.velocity):
+        for k in range(len(steps)):
+            state = nav.propagate_imu(state, acc[k], gyro[k], h, g_w)
+    p_end, v_end, _ = trajectory.sample_pose_velocity(knots, float(steps[-1]) + h, 4)
+    e_t = float(torch.linalg.norm(state.pose.t - p_end.t))
+    e_v = float(torch.linalg.norm(state.velocity - v_end))
+    e_q = float(torch.linalg.norm(lie.quat_log(lie.quat_multiply(
+        lie.quat_conjugate(state.pose.q), p_end.q))))
+    print(f"[9a] sample_imu_sequence, {len(times)} samples (1 kHz, 2 s, degree 4): max |CUDA - "
+          f"CPU| {d_imu:.3e} (bound 1e-10); propagate_imu over 0.8 s on CUDA: |dt| {e_t:.3e} m "
+          f"(bound 2e-3), |dv| {e_v:.3e} m/s (5e-3), |dq| {e_q:.3e} rad (1e-3)")
+    check(d_imu <= 1e-10, f"IMU synthesis CUDA and CPU differ by {d_imu}")
+    check(e_t < 2e-3 and e_v < 5e-3 and e_q < 1e-3, "the IMU re-integration drifted")
+
+    # scene-flow fit: M = 512 points, T = 8 frames on a curved path
+    rng = np.random.default_rng(11)
+    M, T = 512, 8
+    X0 = np.stack([rng.uniform(-1.5, 1.5, M), rng.uniform(-1, 1, M), rng.uniform(3, 6, M)], -1)
+    flow = rng.uniform(-0.4, 0.4, (M, 3))
+    ftimes = np.arange(T) * 0.1
+    cam_t = np.stack([[0.3 * np.sin(1.3 * i), 0.25 * np.cos(0.9 * i) - 0.25,
+                       0.1 * np.sin(0.7 * i)] for i in range(T)])
+    cam_q = lie.quat_exp(torch.tensor([[0.02 * np.sin(i), 0.03 * i, 0.01 * np.cos(i)]
+                                       for i in range(T)], dtype=f64)).numpy()
+    Kd = np.array([400.0, 400.0, 320.0, 240.0])
+    R = lie.quat_to_matrix(torch.tensor(cam_q)).numpy()
+    obs = np.zeros((T, M, 2))
+    for i in range(T):
+        Pc = (X0 + flow * ftimes[i] - cam_t[i]) @ R[i]
+        obs[i] = np.stack([Pc[:, 0] / Pc[:, 2] * Kd[0] + Kd[2], Pc[:, 1] / Pc[:, 2] * Kd[1] + Kd[3]],
+                          -1)
+    start = (X0 + rng.normal(0, 0.05, X0.shape), flow + rng.normal(0, 0.05, flow.shape))
+    fits, ms = {}, {}
+    for dev in ("cuda", "cpu"):
+        t = lambda a: torch.tensor(a, dtype=f64, device=dev)  # noqa: E731
+        pts = dp.make_dynamic_points(t(start[0]), 0.0, flow=t(start[1]))
+        args = (t(cam_t), t(cam_q), t(ftimes), t(obs), t(np.ones((T, M))), t(Kd))
+        t0 = time.perf_counter()
+        with timer.stage(f"9a fit_scene_flow {dev}", sync_on=pts.points):
+            fits[dev] = dp.fit_scene_flow(pts, *args, iterations=10)
+        ms[dev] = 1e3 * (time.perf_counter() - t0)
+    d_fit = max(max_diff(fits["cuda"].points, fits["cpu"].points),
+                max_diff(fits["cuda"].flow, fits["cpu"].flow))
+    err = max_diff(fits["cuda"].points, torch.tensor(X0))
+    print(f"[9a] fit_scene_flow M={M}, T={T}, 10 iterations, f64: max |CUDA - CPU| {d_fit:.3e} "
+          f"(bound 1e-8); |X0 - truth| {err:.3e} m; {ms['cuda']:.1f} ms CUDA, {ms['cpu']:.1f} ms "
+          "CPU")
+    check(d_fit <= 1e-8, f"scene-flow fit CUDA and CPU differ by {d_fit}")
+    check(err <= 1e-6, f"scene-flow fit missed the truth by {err}")
+
+    # two VGA cameras in one frame: pyramids, gradients and detection
+    opts = DetectorOptions(score_threshold=5.0, cell_h=30, cell_w=30, max_keypoints=N_KP)
+    imgs = (frame, smooth_texture(H, W, 1))
+    for dtype in (f64, f32):
+        fr = {dev: sensors.MultiCameraFrame(0.1, EXPOSURE) for dev in ("cuda", "cpu")}
+        res = {}
+        for dev, mf in fr.items():
+            with timer.stage(f"9a MultiCameraFrame {dev} {dtype}", sync_on=res):
+                for cid, im in enumerate(imgs):
+                    mf.add_image(cid, torch.tensor(im, dtype=dtype), device=dev)
+                    mf.compute_pyramid(cid, 3)
+                    mf.compute_grad_pyramid(cid)
+                    res[(dev, cid)] = [mf.detect_features(cid, lv, opts) for lv in range(3)]
+        # the gradient magnitude's sqrt: correctly rounded on the card, not
+        # always on the CPU (PERF.md section 7), so responses may differ by
+        # an ulp while the keypoints they select agree
+        equal, moved, resp_off, resp_rel = True, 0, 0, 0.0
+        for cid in range(2):
+            for a, b in zip(fr["cuda"].grad_pyramid(cid), fr["cpu"].grad_pyramid(cid)):
+                equal &= torch.equal(a.cpu(), b)
+            for (xy_g, r_g, m_g), (xy_c, r_c, m_c) in zip(res[("cuda", cid)], res[("cpu", cid)]):
+                moved += int((xy_g.cpu() != xy_c).any(dim=-1).sum() + (m_g.cpu() != m_c).sum())
+                resp_off += int((r_g.cpu() != r_c).sum())
+                resp_rel = max(resp_rel, float(((r_g.cpu() - r_c).abs()
+                                                / r_c.abs().clamp(min=1e-30)).max()))
+        kps = int(sum(float(d[2].sum()) for cid in range(2) for d in res[("cuda", cid)]))
+        name = str(dtype).split(".")[-1]
+        print(f"[9a] MultiCameraFrame, two VGA cameras, {name}: pyramids and gradients CUDA == CPU "
+              f"{equal}; keypoints or masks differing {moved} of {kps} over 3 levels; responses "
+              f"differing {resp_off} (max relative {resp_rel:.2e})")
+        if dtype == f64:
+            check(equal and moved == 0 and resp_rel <= 1e-13,
+                  "f64 MultiCameraFrame differs between CUDA and CPU")
+            # whose sqrt rounds: the level-0 squared gradient norms of camera 0
+            g = fr["cpu"].grad_pyramid(0)[0]
+            sq = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]
+            exact = torch.from_numpy(np.sqrt(sq.numpy()))   # numpy's is correctly rounded
+            on_card, on_cpu = torch.sqrt(sq.cuda()).cpu(), torch.sqrt(sq)
+            print(f"    f64 sqrt of {sq.numel()} squared gradient norms: CUDA != CPU "
+                  f"{int((on_card != on_cpu).sum())}, CUDA != correctly rounded "
+                  f"{int((on_card != exact).sum())}, CPU != correctly rounded "
+                  f"{int((on_cpu != exact).sum())}")
+
+
+def depth_diff(a, b):
+    """(max relative |a - b| off the silhouettes, count beyond 1e-5 on the
+    silhouettes, silhouette pixels): a pixel is on a silhouette where its 3x3
+    neighbourhood spans a depth jump of more than 10 %."""
+    pad = np.pad(a, 1, mode="edge")
+    win = np.stack([pad[dy:dy + a.shape[0], dx:dx + a.shape[1]]
+                    for dy in range(3) for dx in range(3)])
+    edge = win.max(axis=0) > 1.1 * win.min(axis=0)
+    rel = np.abs(b.astype(np.float64) - a) / np.maximum(np.abs(a), 1e-12)
+    return float(rel[~edge].max()), int((rel[edge] > 1e-5).sum()), int(edge.sum())
+
+
+def read_ate(est_path, seq):
+    from mba_vo_tpu_torch.data import datasets as ds
+
+    _, est, _ = ds.load_tum_trajectory(est_path)
+    _, ref, _ = ds.load_tum_trajectory(os.path.join(seq, "groundtruth.txt"))
+    n = min(len(est), len(ref))
+    return float(np.sqrt(np.mean(np.sum((est[:n] - ref[:n]) ** 2, axis=1))))
+
+
+def phase_scene_cli(root, cs, launches, timer, config):
+    """9b: `cli synth --scene 3d` at its defaults on the card and at 3 frames
+    on the CPU, compared; then `cli track` on the card's sequence in f32
+    under bench options with --chunk 8 --viz-dir."""
+    from mba_vo_tpu_torch.data import datasets as ds
+
+    seq, seq_cpu = os.path.join(root, "scene3d"), os.path.join(root, "scene3d_cpu")
+    with timer.stage("9b cli synth --scene 3d cuda (21 frames)"):
+        synth_s, _ = run_cli(["synth", "--output", seq, "--scene", "3d", "--device", "cuda"])
+    with timer.stage("9b cli synth --scene 3d cpu (3 frames)"):
+        cpu_s, _ = run_cli(["synth", "--output", seq_cpu, "--scene", "3d", "--device", "cpu",
+                            "--num-frames", str(SYNTH3D_FRAMES_CPU)])
+    grey, grey_max, total = 0, 0, 0
+    for d in ("images", "sharp"):
+        for n in sorted(os.listdir(os.path.join(seq_cpu, d))):
+            a = ds.load_gray_image(os.path.join(seq, d, n)).astype(int)
+            b = ds.load_gray_image(os.path.join(seq_cpu, d, n)).astype(int)
+            grey += int((a != b).sum())
+            grey_max = max(grey_max, int(np.abs(a - b).max()))
+            total += a.size
+    rel, graze, sil = 0.0, 0, 0
+    for n in sorted(os.listdir(os.path.join(seq_cpu, "depths"))):
+        r, g, e = depth_diff(np.load(os.path.join(seq, "depths", n)),
+                             np.load(os.path.join(seq_cpu, "depths", n)))
+        rel, graze, sil = max(rel, r), graze + g, sil + e
+    z0 = np.load(os.path.join(seq, "depths", "frame_0000.npy"))
+    spread = float((z0.max() - z0.min()) / z0.mean())
+    print(f"[9b] cli synth --scene 3d (VGA, 21 frames, 31 samples): {synth_s:.2f} s on CUDA; "
+          f"{SYNTH3D_FRAMES_CPU} frames on the CPU {cpu_s:.2f} s; CUDA - CPU: {grey} of {total} "
+          f"pixels differ (max {grey_max} grey level), depth max relative |diff| {rel:.3e} off the "
+          f"silhouettes, {graze} of {sil} silhouette pixels beyond 1e-5; depth spread "
+          f"(max - min) / mean {spread:.3f}, min {z0.min():.3f} m")
+    check(grey_max <= 1, f"3d synth frames differ by {grey_max} grey levels")
+    check(rel <= 1e-5 and graze <= 0.01 * sil, "3d synth depth maps differ")
+    check(z0.min() > 0.3 and spread > 0.2, "3d synth must write varying depth maps")
+
+    viz = os.path.join(root, "viz3d")
+    est = os.path.join(root, "scene3d_track.txt")
+    cs.LAUNCHES = 0
+    with timer.stage("9b cli track 3d --chunk 8 --viz-dir"):
+        wall, out = run_cli(track_argv(seq, est, "cuda", config,
+                                       ["--chunk", "8", "--viz-dir", viz]))
+    k1 = launches["cli track 3d VGA --chunk 8 --viz-dir (9b)"] = cs.LAUNCHES
+    ate3d = read_ate(est, seq)
+    n_png = len([f for f in os.listdir(viz) if f.endswith(".png")])
+    rejected = out.count("(rejected")
+    m = re.search(r"wrote (\d+) overlays .*\(([0-9.]+) ms each; (\d+) frames outside", out)
+    check(m is not None, "the 3d CLI run printed no overlay summary")
+    uncovered = int(m.group(3))
+    print(f"[9b] cli track on it, f32, bench options, --chunk 8 --viz-dir: {21 / wall:.3f} "
+          f"frames/s ({wall:.2f} s), K1 launches {k1}; ATE {ate3d:.4e} m (bound {CLI_ATE_3D}); "
+          f"{n_png} overlay PNGs for 21 frames (the bootstrap frame has none; {rejected} "
+          f"rejected; {uncovered} outside their knot window), {m.group(2)} ms an overlay")
+    check(k1 > 0, "the 3d CLI run never launched K1")
+    check(ate3d < CLI_ATE_3D, f"3d CLI ATE {ate3d}")
+    check(n_png == int(m.group(1)) == 20 - rejected - uncovered,
+          f"{n_png} overlays written for {20 - rejected - uncovered} covered frames")
+    return dict(wall=wall, ate=ate3d, launches=k1)
+
+
+def phase_undistort_cli(root, cs, launches, timer, config, vga):
+    """9c: rad-tan and unified copies of phase 8d's VGA sequence, tracked
+    with --distortion / --camera-model unified beside the original (`vga`:
+    phase 8d's results)."""
+    import torch
+    from mba_vo_tpu_torch.data import datasets as ds
+    from mba_vo_tpu_torch.data.png import write_png
+    from mba_vo_tpu_torch.ops.image import build_undistort_map, remap
+
+    seq = os.path.join(root, "vga")
+    cams = vga_cameras("cuda", torch.float32)
+    res = {"undistorted": dict(ate=read_ate(os.path.join(root, "vga_0.txt"), seq),
+                               wall=vga["tracker only"]["wall"],
+                               launches=vga["tracker only"]["launches"])}
+    flags = {"rad-tan": ["--distortion=" + ",".join(map(str, DIST))],
+             "unified": ["--camera-model", "unified", "--xi", str(XI)]}
+    for k, name in enumerate(flags):
+        copy = os.path.join(root, f"vga_{name}")
+        with timer.stage(f"9c make the {name} copy"):
+            dmap = build_undistort_map(cams[2], cams[k])
+            for sub in ("images", "sharp"):
+                os.makedirs(os.path.join(copy, sub))
+                for n in sorted(os.listdir(os.path.join(seq, sub))):
+                    img = torch.tensor(ds.load_gray_image(os.path.join(seq, sub, n)),
+                                       device="cuda")
+                    out = remap(img, dmap).cpu().numpy()
+                    write_png(os.path.join(copy, sub, n), np.clip(out, 0, 255).astype(np.uint8))
+            for n in ("depths", "times.txt", "groundtruth.txt", "intrinsics.txt"):
+                os.symlink(os.path.join(seq, n), os.path.join(copy, n))
+        est = os.path.join(root, f"vga_{name}.txt")
+        cs.LAUNCHES = 0
+        with timer.stage(f"9c cli track {name} --chunk 8"):
+            wall, _ = run_cli(track_argv(copy, est, "cuda", config, ["--chunk", "8", *flags[name]]))
+        res[name] = dict(wall=wall, ate=read_ate(est, copy), launches=cs.LAUNCHES)
+        launches[f"cli track VGA {' '.join(flags[name])} --chunk 8 (9c)"] = cs.LAUNCHES
+    print("[9c] cli track f32, bench options, --chunk 8 on phase 8d's VGA sequence: " + "; ".join(
+        f"{n} ATE {r['ate']:.4e} m, {21 / r['wall']:.3f} frames/s, K1 launches {r['launches']}"
+        for n, r in res.items())
+        + f" (bound {CLI_ATE_UNDISTORTED} m for the copies)")
+    for name in flags:
+        check(res[name]["launches"] > 0, f"the {name} run never launched K1")
+        check(res[name]["ate"] < CLI_ATE_UNDISTORTED, f"{name}: ATE {res[name]['ate']}")
+    return res
+
+
+# tests/test_scene3d.py's recipe: 128 x 160 (fx 120), tests/test_tracker.py's
+# world spline, 4 frames of 5 exposure samples, 3 levels of 5 virtual poses,
+# 256 keypoints in 12-px cells
+LADDER_BOUNDS = {"clean": 1e-2, "rung 1 depth": 2e-2, "rung 2 affine": 1e-2,
+                 "rung 3 occluder": 2e-2, "rung 4 full stack": 3e-2}
+
+
+def world_spline(device):
+    """tests/test_tracker.py::world_spline (8 knots, 0.1 s), float64."""
+    import torch
+    from mba_vo_tpu_torch.core import lie
+    from mba_vo_tpu_torch.core.spline import make_knots
+
+    rng = np.random.default_rng(9)
+    vel_t, vel_w = np.array([0.06, -0.04, 0.02]), np.array([0.02, 0.05, -0.08])
+    kt, kq = [np.zeros(3)], [torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float64)]
+    for _ in range(1, 8):
+        kt.append(kt[-1] + vel_t * FRAME_DT + rng.normal(0, 3e-4, 3))
+        q = lie.quat_multiply(kq[-1], lie.quat_exp(torch.tensor(
+            vel_w * FRAME_DT + rng.normal(0, 5e-4, 3), dtype=torch.float64)))
+        kq.append(q / torch.linalg.norm(q))
+    return make_knots(torch.tensor(np.array(kt), dtype=torch.float64, device=device),
+                      torch.stack(kq).to(device), 0.0, FRAME_DT)
+
+
+def ladder(h, w, fx, dtype, cs, device="cuda"):
+    """Each rung of tests/test_scene3d.py::TestRealismLadder and the clean
+    scene through track_frame on `device`: {name: ATE}, K1 launches."""
+    import torch
+    from mba_vo_tpu_torch.core.spline import spline_pose_at
+    from mba_vo_tpu_torch.data import scene3d
+    from mba_vo_tpu_torch.tracker.blur_tracker import BlurAwareTracker
+    from mba_vo_tpu_torch.tracker.detector import DetectorOptions
+
+    K = np.array([fx, fx, (w - 1) / 2, (h - 1) / 2])
+    f64 = dict(dtype=torch.float64, device=device)
+    traj, Kt = world_spline(device), torch.tensor(K, **f64)
+    base = scene3d.default_scene(smooth_texture(h, w, 5), depth=DEPTH, dtype=torch.float64,
+                                 device=device)
+
+    def occluded(i):
+        x = -0.35 * DEPTH / 2 + 0.1 * i * DEPTH / 2
+        return scene3d.with_occluder(base, [x, 0.05, 0.55 * DEPTH], 0.07 * DEPTH)
+
+    def disturb(i, img):
+        return scene3d.apply_photometric_disturbance(img, gain=1.0 + 0.04 * i, bias=2.0 * i,
+                                                     vignette=0.15)
+
+    def noisy(z):
+        return scene3d.degrade_depth(z, 5000.0, noise_sigma=0.005)
+
+    rungs = {"clean": (lambda i: base, None, None, False),
+             "rung 1 depth": (lambda i: base, noisy, None, False),
+             "rung 2 plain": (lambda i: base, None, disturb, False),
+             "rung 2 affine": (lambda i: base, None, disturb, True),
+             "rung 3 occluder": (occluded, None, None, False),
+             "rung 4 full stack": (occluded, noisy, disturb, True)}
+    out = {}
+    cs.LAUNCHES = 0
+    for name, (scene_at, depth_fn, img_fn, affine) in rungs.items():
+        sharp0, z0 = scene3d.render_scene(scene_at(0), torch.zeros(3, **f64),
+                                          torch.tensor([0.0, 0.0, 0.0, 1.0], **f64), Kt, h, w)
+        z0 = z0.cpu().numpy()
+        if depth_fn is not None:
+            z0 = depth_fn(z0)
+        if img_fn is not None:
+            sharp0 = img_fn(0, sharp0)
+        cfg = bench_config(dtype, max_keypoints=256, cell=12, levels=3, virtual_poses=5,
+                           min_abs_cost_decrease=1e-6, affine_brightness=affine)
+        tracker = BlurAwareTracker(cfg, K, (h, w), device=device)
+        tracker.track_frame(sharp0, sharp0, 0.0, EXPOSURE, z0)
+        errs = []
+        for i in range(1, 5):
+            cap = i * FRAME_DT
+            blurred = scene3d.synthesize_blurred_image_scene(scene_at(i), traj, DEG, cap, EXPOSURE,
+                                                             5, Kt, h, w)
+            if img_fn is not None:
+                blurred = img_fn(i, blurred)
+            est = tracker.track_frame(None, blurred, cap, EXPOSURE)
+            errs.append(float(torch.linalg.norm(est.t.double() - spline_pose_at(traj, cap, DEG).t)))
+        out[name] = float(np.sqrt(np.mean(np.square(errs))))
+    return out, cs.LAUNCHES
+
+
+def phase_ladder(cs, launches, timer):
+    """9d: the realism ladder in f64 and f32 on the card, at the test's
+    recipe (its bounds checked on the f64 runs) and at VGA; and the
+    recipe's f32 run on the CPU beside it, where float32 rounds otherwise."""
+    res = {}
+    for label, (h, w, fx) in (("test recipe 128x160", (128, 160, 120.0)),
+                              ("VGA", (H, W, FX))):
+        for dtype in ("float64", "float32"):
+            with timer.stage(f"9d ladder {label} {dtype}"):
+                res[(label, dtype)], k1 = ladder(h, w, fx, dtype, cs)
+            launches[f"realism ladder {label} {dtype}, track_frame (9d)"] = k1
+            check(k1 > 0, "the ladder never launched K1")
+    for label in ("test recipe 128x160", "VGA"):
+        r64, r32 = res[(label, "float64")], res[(label, "float32")]
+        print(f"[9d] realism ladder, {label}, ATE m f64 / f32 (bound): " + "; ".join(
+            f"{n} {r64[n]:.3e} / {r32[n]:.3e}" + (f" ({LADDER_BOUNDS[n]})" if n in LADDER_BOUNDS
+                                                   else "") for n in r64))
+    with timer.stage("9d ladder test recipe 128x160 float32 on the CPU"):
+        host, _ = ladder(128, 160, 120.0, "float32", cs, device="cpu")
+    print("    f32 at the test recipe on the CPU, ATE m: " + "; ".join(
+        f"{n} {v:.3e}" for n, v in host.items()) + " (not checked)")
+    r = res[("test recipe 128x160", "float64")]
+    for name, bound in LADDER_BOUNDS.items():
+        check(r[name] < bound, f"ladder {name}: f64 ATE {r[name]} >= {bound}")
+    check(r["rung 2 affine"] < r["rung 2 plain"], "the affine residual did not beat the plain one")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1107,8 +1598,23 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         phase_cli_cuda_vs_cpu(root, cs, launches)
         phase_loop_benchmark(cs, launches)
-        phase_vga_cli(root, cs, launches)
-    print(f"    phase 8 in {time.perf_counter() - t8:.1f} s")
+        vga = phase_vga_cli(root, cs, launches)
+        print(f"    phase 8 in {time.perf_counter() - t8:.1f} s")
+
+        # ---- 9. the models, the non-planar scene, undistortion, overlays
+        from mba_vo_tpu_torch.utils.profiling import StageTimer
+
+        t9 = time.perf_counter()
+        timer = StageTimer()
+        config = os.path.join(root, "vga", "config.json")
+        phase_models(timer, frames[0][1])
+        phase_scene_cli(root, cs, launches, timer, config)
+        phase_undistort_cli(root, cs, launches, timer, config, vga)
+        phase_ladder(cs, launches, timer)
+        print(f"[9] stages (StageTimer, each ended by a device synchronisation; {card}):")
+        for line in timer.report().splitlines():
+            print("    " + line)
+        print(f"    phase 9 in {time.perf_counter() - t9:.1f} s")
 
     # K1: the tracker launches the one-thread-a-sample design; the band
     # redesign, slower cold on the tracker's S = 40 inputs when the tracker's

@@ -323,7 +323,8 @@ class VOBackend:
                      "loop_edges": 0}
         pose = _as_pose64(pose)
         with self._stage("detect"):
-            img = torch.as_tensor(np.asarray(sharp_img), dtype=torch.float32,
+            img = torch.as_tensor(sharp_img if isinstance(sharp_img, torch.Tensor)
+                                  else np.asarray(sharp_img), dtype=torch.float32,
                                   device=self.device)
             feats = detect_sparse(img, cfg.detector)
             self._cur["syncs"] += 1
@@ -331,7 +332,8 @@ class VOBackend:
             kp_np = host[:, :2]
             feat_z = None
             if depth_map is not None:
-                depth_map = np.asarray(depth_map)
+                depth_map = (depth_map.cpu().numpy() if isinstance(depth_map, torch.Tensor)
+                             else np.asarray(depth_map))
                 xi = np.clip(np.round(kp_np[:, 0]).astype(int), 0, depth_map.shape[1] - 1)
                 yi = np.clip(np.round(kp_np[:, 1]).astype(int), 0, depth_map.shape[0] - 1)
                 feat_z = depth_map[yi, xi].astype(np.float64)

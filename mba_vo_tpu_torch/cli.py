@@ -5,16 +5,23 @@ and files:
   track   run the tracker over an image folder + depth maps and write a TUM
           trajectory, optionally behind the keyframe backend
           (``--backend ba|ba+pg``)
-  synth   generate a synthetic blurred sequence (planar scene)
+  synth   generate a synthetic blurred sequence (planar scene, or with
+          ``--scene 3d`` a slanted plane and spheres, ray cast, with true
+          per-frame depth maps)
   eval    ATE/RPE between two TUM trajectory files
 
 ``--device`` picks where the tracker and the backend run ("cuda" by
 default; "cpu" runs the same code on the CPU). A config with
 ``"dtype": "float64"`` runs the tracker and the backend's solvers in
-float64. Not ported yet (each raises ``NotImplementedError`` naming its
-ROADMAP.md item): ``--distortion``, ``--camera-model unified``,
-``--viz-dir``, ``synth --scene 3d``, ``--shard-devices > 1`` and a backend
-config with ``shard_devices > 1``.
+float64. ``track --distortion k1,k2,p1,p2`` and ``--camera-model unified
+--xi XI`` undistort every frame (and depth map) onto the pinhole view
+before tracking: the pixel map is built once in float32 on the tracker's
+device, frames are remapped bilinearly, depth maps through the rounded map
+(nearest neighbour), and the frames stay on the device. ``--viz-dir`` writes
+an overlay PNG per tracked frame (keypoints and their blur-kernel
+polylines). Not ported yet (each raises ``NotImplementedError`` naming its
+ROADMAP.md item): ``--shard-devices > 1`` and a backend config with
+``shard_devices > 1``.
 
 Sequence format for ``track``:
   --images DIR        sorted 8-bit grey PNG frames
@@ -35,10 +42,6 @@ import sys
 import numpy as np
 
 ROADMAP_ITEM = {
-    "--distortion": "Queue 1 item 4 (models/camera.py, remap)",
-    "--camera-model unified": "Queue 1 item 4 (models/camera.py, remap)",
-    "--viz-dir": "Queue 1 item 4 (utils/viz.py)",
-    "--scene 3d": "Queue 1 item 4 (data/scene3d.py)",
     "--shard-devices > 1": "Queue 1 item 6 (parallel/)",
 }
 
@@ -75,9 +78,16 @@ def _build_arg_parser() -> argparse.ArgumentParser:
                    help="frames per track_frames chunk (1 = per-frame tracking)")
     t.add_argument("--inflight", type=int, default=2,
                    help="chunks dispatched ahead of their statistics")
-    t.add_argument("--distortion", help="k1,k2,p1,p2 (not ported yet)")
-    t.add_argument("--camera-model", choices=["pinhole", "unified"], default="pinhole")
-    t.add_argument("--xi", type=float, default=0.0)
+    t.add_argument("--distortion",
+                   help="k1,k2,p1,p2 radial-tangential coefficients of the input "
+                        "images (pass as --distortion=... when k1 is negative); "
+                        "frames and depth maps are undistorted to the pinhole model "
+                        "before tracking")
+    t.add_argument("--camera-model", choices=["pinhole", "unified"], default="pinhole",
+                   help="input camera model; 'unified' (omnidirectional) frames are "
+                        "remapped to the pinhole view given --xi")
+    t.add_argument("--xi", type=float, default=0.0,
+                   help="unified-model mirror parameter (with --camera-model unified)")
     t.add_argument("--backend", choices=["none", "ba", "ba+pg"], default="none",
                    help="keyframe backend: 'ba' = sliding-window Schur BA with "
                         "odometry priors; 'ba+pg' adds PnP loop closure and the "
@@ -94,7 +104,11 @@ def _build_arg_parser() -> argparse.ArgumentParser:
     t.add_argument("--joint-window", action="store_true",
                    help="optimise each chunk as one joint LM problem over a sliding "
                         "knot window (needs --chunk > 1)")
-    t.add_argument("--viz-dir", help="per-frame overlay PNGs (not ported yet)")
+    t.add_argument("--viz-dir",
+                   help="write per-frame overlay PNGs (keypoints and estimated "
+                        "blur-kernel polylines); with --chunk > 1 each frame's overlay "
+                        "comes from its own committed knot window, rejected frames "
+                        "are skipped")
     t.add_argument("--device", default="cuda", help="torch device (default cuda)")
 
     s = sub.add_parser("synth", help="generate a synthetic blurred sequence")
@@ -148,20 +162,53 @@ def _build_backend(args, cfg, K, device):
                      profile=bool(args.backend_stats))
 
 
+def _undistorters(args, K, H, W, device):
+    """(frame, depth map) -> what the tracker takes: identities without
+    --distortion and --camera-model unified; otherwise remaps onto the
+    pinhole view through one float32 map built on ``device``, bilinear for
+    frames and through the rounded map (nearest neighbour: no depth blended
+    across an occlusion boundary) for depth maps, each returning a float32
+    tensor on ``device``."""
+    if not args.distortion and args.camera_model == "pinhole":
+        return (lambda im: im), (lambda d: d)
+    import torch
+
+    from .models.camera import PinholeCamera, RadTanDistortion, UnifiedCamera
+    from .ops.image import build_undistort_map, remap
+
+    f32 = dict(dtype=torch.float32, device=device)
+    dist = None
+    if args.distortion:
+        dist = RadTanDistortion(*(torch.tensor(float(x), **f32)
+                                  for x in args.distortion.split(",")))
+    Kf = torch.tensor(K, **f32)
+    if args.camera_model == "unified":
+        src = UnifiedCamera(K=Kf, xi=torch.tensor(args.xi, **f32), height=H, width=W,
+                            distortion=dist)
+    else:
+        src = PinholeCamera(K=Kf, height=H, width=W, distortion=dist)
+    umap = build_undistort_map(src, PinholeCamera(K=Kf, height=H, width=W))
+    umap_nn = torch.round(umap)
+
+    def frame(im):
+        return remap(torch.as_tensor(im, **f32), umap)
+
+    def depth(d):
+        return None if d is None else remap(torch.as_tensor(d, **f32), umap_nn)
+
+    return frame, depth
+
+
 def cmd_track(args) -> int:
     import torch
 
     from .data import datasets as ds
     from .tracker.blur_tracker import BlurAwareTracker, TrackerConfig
+    from .utils import viz
     from .utils.checkpoint import load_tracker_state, save_tracker_state
     from .utils.config import load_tracker_config
+    from .utils.profiling import StageTimer
 
-    if args.distortion:
-        raise _not_ported("--distortion")
-    if args.camera_model != "pinhole":
-        raise _not_ported("--camera-model unified")
-    if args.viz_dir:
-        raise _not_ported("--viz-dir")
     if args.shard_devices and args.shard_devices > 1:
         raise _not_ported("--shard-devices > 1")
 
@@ -209,6 +256,7 @@ def cmd_track(args) -> int:
     device = torch.device(args.device)
     backend = _build_backend(args, cfg, K, device) if args.backend != "none" else None
     tracker = BlurAwareTracker(cfg, K, (H, W), backend=backend, device=device)
+    undistort, undistort_depth = _undistorters(args, K, H, W, tracker.device)
 
     start_idx = 0
     meta_path = os.path.join(args.checkpoint_dir, "meta.json")
@@ -229,18 +277,23 @@ def cmd_track(args) -> int:
             sys.path.insert(0, runtime)
         from bindings import parse_depth_file
 
+    def load_image(i):
+        return undistort(ds.load_gray_image(image_paths[i]))
+
     def load_depth(i):
         if not depth_paths:
             return None
         path = depth_paths[i]
         if path.lower().endswith(".npy") or args.dataset_type == "npy":
-            return np.load(path)
-        if args.dataset_type == "unreal":
-            return ds.ray_depth_to_z(parse_depth_file(path, H, W), K)
-        return ds.load_depth(path, "eth3d")
+            d = np.load(path)
+        elif args.dataset_type == "unreal":
+            d = ds.ray_depth_to_z(parse_depth_file(path, H, W), K)
+        else:
+            d = ds.load_depth(path, "eth3d")
+        return undistort_depth(d)
 
     def load_sharp(i, blurred):
-        return ds.load_gray_image(sharp_paths[i]) if sharp_paths else blurred
+        return undistort(ds.load_gray_image(sharp_paths[i])) if sharp_paths else blurred
 
     def frame_meta(i):
         name = os.path.basename(image_paths[i])
@@ -260,6 +313,41 @@ def cmd_track(args) -> int:
                 else f"kernel={kernel:.2f}px")
         print(f"frame {i:4d} t={cap:.3f} pos="
               + np.array2string(out_t[-1], precision=4) + " " + tail)
+        if args.viz_dir and chunk == 1:
+            # chunked runs draw through the tracker's per-frame commit hook
+            render_overlay(i, tracker.knots)
+
+    viz_timer = StageTimer()
+    viz_uncovered = [0]
+
+    def render_overlay(i, knots):
+        """Keypoints and their blur-kernel polylines over frame i's input
+        image. Frames whose exposure the knot window does not cover
+        (bootstrap, re-anchoring) and rejected frames (knots None) get none."""
+        if not tracker.keyframe_levels or knots is None:
+            return
+        cap, exp_i = frame_meta(i)
+        t0 = float(knots.t0)
+        t_end = t0 + float(knots.dt) * (knots.num_knots - 1)
+        # float32 knots round t0 by ~1e-7 of the time scale: the tolerance
+        # stays well above that
+        tol = 1e-4 * max(1.0, abs(t_end), float(knots.dt))
+        if not (t0 - tol <= cap - 0.5 * exp_i and cap + 0.5 * exp_i <= t_end + tol):
+            viz_uncovered[0] += 1
+            return
+        with viz_timer.stage("overlay"):
+            os.makedirs(args.viz_dir, exist_ok=True)
+            kf0 = tracker.keyframe_levels[0]
+            m = kf0["kp_mask"].cpu().numpy() > 0
+            segs = viz.blur_kernel_segments(
+                knots, kf0["kp_xy"].cpu().numpy()[m], kf0["kp_z"].cpu().numpy()[m], K,
+                cap, exp_i, cfg.spline_degree)
+            img = viz.to_rgb(ds.load_gray_image(image_paths[i]))
+            img = viz.draw_segments(img, segs, color=(64, 220, 64))
+            if segs:
+                img = viz.draw_points(img, np.stack([s[len(s) // 2] for s in segs]),
+                                      color=(255, 64, 64))
+            viz.save_png(os.path.join(args.viz_dir, f"frame_{i:05d}.png"), img)
 
     def checkpoint(next_frame):
         # the deferred keyframe decision is not part of the state
@@ -273,6 +361,11 @@ def cmd_track(args) -> int:
     if args.joint_window and chunk <= 1:
         print("warning: --joint-window needs --chunk > 1; falling back to "
               "per-frame tracking")
+    viz_base = [start_idx]
+    if args.viz_dir and chunk > 1:
+        # the tracker calls this at each frame's commit, with that frame's own
+        # knot window (None for a rejected frame)
+        tracker.frame_callback = lambda r, knots: render_overlay(viz_base[0] + r, knots)
     i = start_idx
     n = len(image_paths)
     since_ckpt = 0
@@ -280,7 +373,7 @@ def cmd_track(args) -> int:
         if chunk == 1 or tracker.is_first_frame:
             c = 1
             cap, exp = frame_meta(i)
-            img = ds.load_gray_image(image_paths[i])
+            img = load_image(i)
             n_fail = len(tracker.failure_log)
             pose = tracker.track_frame(load_sharp(i, img), img, cap, exp, load_depth(i))
             if len(tracker.failure_log) > n_fail and out_t:
@@ -302,9 +395,10 @@ def cmd_track(args) -> int:
             c = min(c, chunk * 8)
             idx = list(range(i, i + c))
             metas = [frame_meta(j) for j in idx]
-            imgs = [ds.load_gray_image(image_paths[j]) for j in idx]
+            imgs = [load_image(j) for j in idx]
             depths = [load_depth(j) for j in idx]
             sharps = [load_sharp(j, imgs[r]) for r, j in enumerate(idx)]
+            viz_base[0] = i
             track = tracker.track_frames_joint if args.joint_window else tracker.track_frames
             poses = track(imgs, [m[0] for m in metas], [m[1] for m in metas],
                           sharp_imgs=sharps, depth_maps=depths, chunk=chunk,
@@ -329,6 +423,11 @@ def cmd_track(args) -> int:
     ds.save_tum_trajectory(args.output, np.asarray(out_times), np.asarray(out_t),
                            np.asarray(out_q))
     print(f"wrote {len(out_times)} poses to {args.output}")
+    if args.viz_dir:
+        n_viz = viz_timer.counts["overlay"]
+        print(f"wrote {n_viz} overlays to {args.viz_dir} "
+              f"({viz_timer.mean_ms('overlay'):.2f} ms each; {viz_uncovered[0]} frames "
+              "outside their knot window)")
     if backend is not None and args.backend_stats:
         with open(args.backend_stats, "w") as f:
             json.dump(backend.stats, f)
@@ -387,8 +486,6 @@ def cmd_synth(args) -> int:
         _box_filter_1d, smooth_shapes_image, synthesize_blurred_image, warp_image,
     )
 
-    if args.scene == "3d":
-        raise _not_ported("--scene 3d")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("synth --device cuda but no CUDA device is visible; "
@@ -417,26 +514,51 @@ def cmd_synth(args) -> int:
     traj = make_knots(torch.tensor(kt, **f32), torch.tensor(kq, **f32), 0.0, args.frame_dt)
     Kt = torch.tensor(K, **f32)
 
-    # exact z-depth of the world plane z = depth from pose (t, R): with
-    # d_cam = (x', y', 1) the camera z-depth of the ray's hit is
-    # (depth - t_z) / (R d_cam)_z
-    ys_g, xs_g = np.mgrid[0:H, 0:W]
-    dcam = torch.tensor(np.stack([(xs_g - K[2]) / K[0], (ys_g - K[3]) / K[1],
-                                  np.ones((H, W))], axis=-1), **f32)
-
     def pose_at(cap):
         return spline_pose_at(traj, torch.tensor(cap, **f32), 2)
 
-    def depth_at(cap):
-        p = pose_at(cap)
-        R_d = quat_rotate(p.q[None, None, :], dcam).cpu().numpy()
-        s = (args.depth - float(p.t[2])) / R_d[..., 2]
-        return s.astype(np.float32)
+    if args.scene == "3d":
+        # a slanted textured plane and a field of spheres, ray cast: the
+        # sharp view and the true z-depth map come from one render
+        from .data import scene3d
 
-    def sharp_at(cap):
-        p = pose_at(cap)
-        im = warp_image(img0, p.t, p.q, args.depth, Kt)
-        return np.clip(im.cpu().numpy(), 0, 255).astype(np.uint8)
+        scene = scene3d.default_scene(img0.cpu().numpy(), depth=args.depth, seed=args.seed,
+                                      device=device)
+
+        def view_at(cap):
+            p = pose_at(cap)
+            im, z = scene3d.render_scene(scene, p.t, p.q, Kt, H, W)
+            return (np.clip(im.cpu().numpy(), 0, 255).astype(np.uint8),
+                    z.cpu().numpy().astype(np.float32))
+
+        def blurred_at(cap):
+            return scene3d.synthesize_blurred_image_scene(
+                scene, traj, 2, torch.tensor(cap, **f32), args.exposure, args.num_samples,
+                Kt, H, W)
+
+        frame0, depth0 = view_at(0.0)
+    else:
+        # exact z-depth of the world plane z = depth from pose (t, R): with
+        # d_cam = (x', y', 1) the camera z-depth of the ray's hit is
+        # (depth - t_z) / (R d_cam)_z
+        ys_g, xs_g = np.mgrid[0:H, 0:W]
+        dcam = torch.tensor(np.stack([(xs_g - K[2]) / K[0], (ys_g - K[3]) / K[1],
+                                      np.ones((H, W))], axis=-1), **f32)
+
+        def view_at(cap):
+            p = pose_at(cap)
+            R_d = quat_rotate(p.q[None, None, :], dcam).cpu().numpy()
+            z = (args.depth - float(p.t[2])) / R_d[..., 2]
+            im = warp_image(img0, p.t, p.q, args.depth, Kt)
+            return (np.clip(im.cpu().numpy(), 0, 255).astype(np.uint8),
+                    z.astype(np.float32))
+
+        def blurred_at(cap):
+            return synthesize_blurred_image(
+                img0, traj, 2, torch.tensor(cap, **f32), args.exposure, args.num_samples,
+                args.depth, Kt)
+
+        frame0, depth0 = img0.cpu().numpy().astype(np.uint8), view_at(0.0)[1]
 
     img_dir = os.path.join(args.output, "images")
     depth_dir = os.path.join(args.output, "depths")
@@ -444,24 +566,22 @@ def cmd_synth(args) -> int:
     for d in (img_dir, depth_dir, sharp_dir):
         os.makedirs(d, exist_ok=True)
 
-    frame0 = img0.cpu().numpy().astype(np.uint8)
     write_png(os.path.join(img_dir, "frame_0000.png"), frame0)
     write_png(os.path.join(sharp_dir, "frame_0000.png"), frame0)
-    np.save(os.path.join(depth_dir, "frame_0000.npy"), depth_at(0.0))
+    np.save(os.path.join(depth_dir, "frame_0000.npy"), depth0)
 
     gt_times, gt_t, gt_q = [0.0], [np.zeros(3)], [np.array([0, 0, 0, 1.0])]
     lines = [f"frame_0000.png 0.0 {args.exposure}"]
     for i in range(1, args.num_frames + 1):
         cap = i * args.frame_dt
-        blurred = synthesize_blurred_image(
-            img0, traj, 2, torch.tensor(cap, **f32), args.exposure, args.num_samples,
-            args.depth, Kt).cpu().numpy()
+        blurred = blurred_at(cap).cpu().numpy()
         if args.noise > 0:
             blurred = blurred + rng.normal(0, args.noise, blurred.shape)
         write_png(os.path.join(img_dir, f"frame_{i:04d}.png"),
                   np.clip(blurred, 0, 255).astype(np.uint8))
-        np.save(os.path.join(depth_dir, f"frame_{i:04d}.npy"), depth_at(cap))
-        write_png(os.path.join(sharp_dir, f"frame_{i:04d}.png"), sharp_at(cap))
+        sharp, depth = view_at(cap)
+        np.save(os.path.join(depth_dir, f"frame_{i:04d}.npy"), depth)
+        write_png(os.path.join(sharp_dir, f"frame_{i:04d}.png"), sharp)
         p = pose_at(cap)
         gt_times.append(cap)
         gt_t.append(p.t.cpu().numpy())

@@ -57,12 +57,33 @@ def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
     return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate vector(s) v by unit quaternion(s) q (two-cross-product form)."""
     xyz = q[..., :3]
     w = q[..., 3:4]
     t = 2.0 * _cross(xyz, v)
     return v + w * t + _cross(xyz, t)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion -> 3x3 rotation matrix (batched over leading dims)."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack(
+        [
+            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(q.shape[:-1] + (3, 3))
 
 
 def quat_log(q: torch.Tensor) -> torch.Tensor:
@@ -156,3 +177,8 @@ def se3_log(t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     rho = torch.einsum("...ij,...j->...i", _se3_V_inv(omega), t)
     return torch.cat([rho, omega], dim=-1)
 
+
+
+def quat_boxplus(q: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
+    """Right-multiplicative retraction q [+] omega = q * exp(omega)."""
+    return quat_multiply(q, quat_exp(omega))

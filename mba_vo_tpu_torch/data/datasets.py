@@ -5,12 +5,12 @@ Counterpart of ``mba_vo_tpu/data/datasets.py``, with the same contract:
     values > 100 m zeroed) and the ray-depth to z-depth conversion;
   * "eth3d": 16-bit PNG depth divided by 5000;
   * sorted image folders; TUM trajectory files ("t x y z qx qy qz qw",
-    '#' comments); ASCII PLY point clouds.
+    '#' comments); ASCII PLY point clouds; unreal ground-truth pose files
+    and IMU logs ("t ax ay az gx gy gz").
 
 PNGs go through ``data/png.py`` (grey 8- and 16-bit). A 16-bit frame read
 by :func:`load_gray_image` saturates at 255, as PIL's ``I;16`` to ``L``
-conversion does. ``load_unreal_gt_poses`` and ``load_imu_log`` are not
-ported yet (see ROADMAP.md).
+conversion does.
 """
 
 from __future__ import annotations
@@ -165,3 +165,28 @@ def save_ply(path: str, points: np.ndarray, colors: Optional[np.ndarray] = None)
             if colors is not None:
                 row += f" {int(colors[i, 0])} {int(colors[i, 1])} {int(colors[i, 2])}"
             f.write(row + "\n")
+
+
+# ----------------------------------------------------- unreal ground-truth logs
+
+
+def load_unreal_gt_poses(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Unreal ground-truth nav-state file, rows 'time x y z qx qy qz qw ...'.
+    Returns (times, t [N,3], q_xyzw [N,4])."""
+    return load_tum_trajectory(path)
+
+
+def load_imu_log(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """IMU log rows 'time ax ay az gx gy gz' ('#' comments and short rows
+    skipped). Returns (times, acc [N,3], gyro [N,3])."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = [float(x) for x in line.split()]
+            if len(parts) >= 7:
+                rows.append(parts[:7])
+    arr = np.asarray(rows, dtype=np.float64)
+    return arr[:, 0], arr[:, 1:4], arr[:, 4:7]

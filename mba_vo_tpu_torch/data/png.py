@@ -1,9 +1,11 @@
-"""Grey-scale PNG reading and writing with the standard library only.
+"""PNG reading and writing with the standard library only.
 
-The command line reads and writes two kinds of PNG: 8-bit grey frames (PIL
-mode ``L``) and 16-bit grey depth maps (PIL mode ``I;16``, the ETH3D
-contract of depth x 5000). This module covers exactly those: colour type 0
-at bit depth 8 or 16, not interlaced. Reading undoes the five row filters
+The command line reads and writes 8-bit grey frames (PIL mode ``L``) and
+16-bit grey depth maps (PIL mode ``I;16``, the ETH3D contract of depth x
+5000), and writes 8-bit RGB overlays (PIL mode ``RGB``). This module covers
+exactly those: it reads colour type 0 at bit depth 8 or 16, and writes
+colour type 0 at 8 or 16 bits and colour type 2 at 8 bits, not interlaced.
+Reading undoes the five row filters
 of the PNG specification (0 none, 1 sub, 2 up, 3 average, 4 Paeth); writing
 uses filter 0 on every row. ``zlib`` inflates and deflates the image data
 and ``struct`` packs the chunks.
@@ -119,18 +121,20 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """Write [H, W] uint8 (8-bit grey) or uint16 (16-bit grey) as a PNG."""
+    """Write [H, W] uint8 (8-bit grey), [H, W] uint16 (16-bit grey) or
+    [H, W, 3] uint8 (8-bit RGB) as a PNG."""
     img = np.asarray(img)
-    if img.ndim != 2 or img.dtype not in (np.uint8, np.uint16):
+    rgb = img.ndim == 3 and img.shape[2] == 3 and img.dtype == np.uint8
+    if not rgb and (img.ndim != 2 or img.dtype not in (np.uint8, np.uint16)):
         raise ValueError(
-            f"write_png takes a 2-D uint8 or uint16 array, not {img.dtype} "
-            f"{img.shape}")
-    height, width = img.shape
+            f"write_png takes a 2-D uint8 or uint16 array or an [H, W, 3] uint8 "
+            f"array, not {img.dtype} {img.shape}")
+    height, width = img.shape[:2]
     depth = 8 * img.dtype.itemsize
     rows = img.astype(">u2" if depth == 16 else np.uint8).view(np.uint8)
     rows = rows.reshape(height, -1)
     raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
-    header = struct.pack(">IIBBBBB", width, height, depth, 0, 0, 0, 0)
+    header = struct.pack(">IIBBBBB", width, height, depth, 2 if rgb else 0, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(SIGNATURE + _chunk(b"IHDR", header)
                 + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))

@@ -1,11 +1,14 @@
-"""Tracker and backend state carried in from numpy arrays.
+"""Tracker and backend state, and model parameters, carried in from numpy
+arrays.
 
 The system has no weights: its state is the knot window, the poses, each
 keyframe level's (img, grad, kp_xy, kp_z, kp_mask, wincache) and, with a
-backend, the keyframe chain and the landmark table. These helpers build the
-port's tensors from plain numpy arrays (for example arrays read out of the
-JAX package), so two trackers or two backends can run from identical state.
-Nothing here imports ``jax``.
+backend, the keyframe chain and the landmark table; its models are
+parameter tuples (cameras, scenes, dynamic points, navigation states, IMU
+parameters). These helpers build the port's tensors from plain numpy arrays
+or from any object with the same field names (for example the JAX
+package's named tuples, read through ``np.asarray``), so both packages can
+run from identical state and parameters. Nothing here imports ``jax``.
 """
 
 from __future__ import annotations
@@ -20,8 +23,13 @@ from .backend.ba import BAOptions, BAProblem, OdomPrior
 from .backend.map import SlidingWindowMap
 from .backend.pose_graph import PoseGraphEdge, PoseGraphOptions
 from .backend.vo_backend import BackendConfig, VOBackend, _Keyframe, _Landmark
+from .backend.dynamic_points import DynamicPoints
+from .core.navstate import NavState
 from .core.spline import SplineKnots
 from .core.transform import Pose
+from .data.scene3d import Scene3D
+from .models.camera import PinholeCamera, RadTanDistortion, UnifiedCamera
+from .models.trajectory import ImuParams
 from .tracker.blur_tracker import BlurAwareTracker, TrackerConfig
 from .tracker.detector import DetectorOptions
 from .tracker.sparse_features import SparseFeatures
@@ -243,3 +251,44 @@ def backend_state_arrays(backend: VOBackend) -> dict:
             state["obs_kf"] = np.asarray([o[1] for o in obs], np.int64)
             state["obs_xy"] = np.stack([np.asarray(o[2]) for o in obs])
     return state
+
+
+# ------------------------------------------------------------------- models
+
+
+def _tuple_from_fields(cls, obj, dtype, device, ints=()):
+    """cls(**fields of obj), each field a tensor (int32 for ``ints``)."""
+    return cls(**{f: _tensor(getattr(obj, f), torch.int32 if f in ints else dtype, device)
+                  for f in cls._fields})
+
+
+def camera_from_fields(cam, dtype=torch.float64, device="cpu"):
+    """The port's PinholeCamera, or UnifiedCamera when ``cam`` has ``xi``,
+    from any object with their field names; a ``distortion`` with k1, k2,
+    p1, p2 becomes a RadTanDistortion of 0-d tensors."""
+    dist = cam.distortion
+    if dist is not None:
+        dist = _tuple_from_fields(RadTanDistortion, dist, dtype, device)
+    K = _tensor(cam.K, dtype, device)
+    size = dict(height=int(cam.height), width=int(cam.width), distortion=dist)
+    if hasattr(cam, "xi"):
+        return UnifiedCamera(K=K, xi=_tensor(cam.xi, dtype, device), **size)
+    return PinholeCamera(K=K, **size)
+
+
+def scene_from_fields(scene, dtype=torch.float64, device="cpu") -> Scene3D:
+    return _tuple_from_fields(Scene3D, scene, dtype, device)
+
+
+def dynamic_points_from_fields(pts, dtype=torch.float64, device="cpu") -> DynamicPoints:
+    return _tuple_from_fields(DynamicPoints, pts, dtype, device, ints=("status",))
+
+
+def imu_params_from_fields(params, dtype=torch.float64, device="cpu") -> ImuParams:
+    return _tuple_from_fields(ImuParams, params, dtype, device)
+
+
+def navstate_from_fields(state, dtype=torch.float64, device="cpu") -> NavState:
+    return NavState(pose=pose_from_arrays(state.pose.t, state.pose.q, dtype, device),
+                    **{f: _tensor(getattr(state, f), dtype, device)
+                       for f in ("velocity", "bias_acc", "bias_gyro")})

@@ -7,10 +7,9 @@ Counterpart of ``mba_vo_tpu/ops/image.py``:
   * out-of-bounds bilinear samples return 0 (masking in place of branches);
   * ``sample_lk`` is bilinear sampling whose derivative with respect to the
     position is the bilinearly sampled gradient image (the Lucas-Kanade
-    convention), not the derivative of the bilinear interpolant.
-
-``remap``, ``build_undistort_map`` and ``undistort_image`` are not ported
-yet (see ROADMAP.md).
+    convention), not the derivative of the bilinear interpolant;
+  * ``remap`` and ``build_undistort_map`` undistort an image onto a pinhole
+    view: a pixel map built once, then a bilinear gather per image.
 """
 
 from __future__ import annotations
@@ -150,3 +149,33 @@ def sample_lk(img: torch.Tensor, grad_img: torch.Tensor, xy: torch.Tensor) -> to
     img: [H, W]; grad_img: [H, W, 2]; xy: [..., 2].
     """
     return _SampleLK.apply(img, grad_img, xy)
+
+
+# ------------------------------------------------------------------- remapping
+
+
+def remap(img: torch.Tensor, map_xy: torch.Tensor) -> torch.Tensor:
+    """Bilinear remap: out[i, j] = img(map_xy[i, j]); map_xy [H', W', 2]
+    source positions, 0 out of bounds."""
+    return bilinear_sample(img, map_xy)
+
+
+def build_undistort_map(src_camera, dst_camera) -> torch.Tensor:
+    """[H, W, 2] pixel map onto the ``dst_camera`` view: each target pixel
+    is unprojected through the destination model at depth 1 and projected
+    through the source model, in the destination intrinsics' dtype and on
+    their device."""
+    H, W = dst_camera.height, dst_camera.width
+    K = dst_camera.K
+    ys, xs = torch.meshgrid(torch.arange(H, device=K.device),
+                            torch.arange(W, device=K.device), indexing="ij")
+    xy = torch.stack([xs, ys], dim=-1).to(K.dtype)
+    pts = dst_camera.unproject(xy.reshape(-1, 2),
+                               torch.ones(H * W, dtype=K.dtype, device=K.device))
+    src_xy, _ = src_camera.project(pts)
+    return src_xy.reshape(H, W, 2)
+
+
+def undistort_image(img: torch.Tensor, src_camera, dst_camera) -> torch.Tensor:
+    """Map construction and remap in one call."""
+    return remap(img, build_undistort_map(src_camera, dst_camera))

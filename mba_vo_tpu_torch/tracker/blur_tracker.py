@@ -458,6 +458,11 @@ class BlurAwareTracker:
         self.failure_log: list = []
 
     def _tensor(self, x) -> torch.Tensor:
+        """An image, depth map or scalar array on the tracker's device in its
+        dtype; a tensor is cast and moved (an undistorted frame stays on
+        the device it was remapped on)."""
+        if isinstance(x, torch.Tensor):
+            return x.to(dtype=self.dtype, device=self.device)
         return torch.tensor(np.asarray(x), dtype=self.dtype, device=self.device)
 
     # ------------------------------------------------------------ keyframe
@@ -815,8 +820,10 @@ class BlurAwareTracker:
 
         def _input_bad(j: int) -> bool:
             if j not in bad_cache:
+                img = blur_imgs[j]
                 bad_cache[j] = not bool(
-                    np.isfinite(np.asarray(blur_imgs[j])).all())
+                    torch.isfinite(img).all() if isinstance(img, torch.Tensor)
+                    else np.isfinite(np.asarray(img)).all())
             return bad_cache[j]
 
         def _dispatch(i0: int, c: int):

@@ -4,7 +4,9 @@ tests/torch_cli_common.py (8-bit PNG frames, 16-bit PNG depth / 5000, sharp
 keyframes, a times file) goes through ``track`` with the keyframe backend
 per frame, in chunks and with the joint window, and the TUM files must
 agree to TUM_TOL; ``eval`` prints the same numbers; the unported options
-raise; the config loaders behave as the JAX ones.
+(sharding) raise; the config loaders behave as the JAX ones.
+tests/test_torch_cli_models.py has the camera models, overlays and
+``synth --scene 3d``.
 
 The backend's corners are detected in float32 in both packages, where XLA
 and torch round the detector's sums differently
@@ -67,17 +69,13 @@ def test_eval_prints_the_same_numbers(eth3d):
 
 
 def test_unported_options_raise(eth3d, tmp_path):
+    """Only sharding is left to port (ROADMAP.md Queue 1 item 6): the
+    command-line flag and a backend config that asks for it."""
     base = track_args(eth3d, "t_x.txt", ["--device", "cpu"])
-    for extra, name in (
-            (["--distortion", "0.1,0,0,0"], "--distortion"),
-            (["--camera-model", "unified"], "--camera-model unified"),
-            (["--viz-dir", str(tmp_path)], "--viz-dir"),
-            (["--shard-devices", "2"], "--shard-devices > 1")):
-        with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP.md Queue 1 item"):
-            tcli.main(base + extra)
-    with pytest.raises(NotImplementedError, match=r"--scene 3d.*ROADMAP.md Queue 1 item 4"):
-        tcli.main(["synth", "--output", str(tmp_path / "s"), "--scene", "3d",
-                   "--device", "cpu"])
+    with pytest.raises(NotImplementedError,
+                       match=r"--shard-devices > 1.*ROADMAP.md Queue 1 item 6"):
+        tcli.main(base + ["--shard-devices", "2"])
+    assert list(tcli.ROADMAP_ITEM) == ["--shard-devices > 1"]
     (tmp_path / "sharded.json").write_text(json.dumps({"shard_devices": 2}))
     argv = base + ["--backend", "ba"]
     argv[argv.index("--backend-config") + 1] = str(tmp_path / "sharded.json")

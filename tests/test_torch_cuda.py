@@ -436,3 +436,55 @@ def test_match_ties_take_the_first_index_on_cuda(cuda):
     first = torch.argmin(ham, dim=1)
     assert bool((ham == ham.min(dim=1, keepdim=True).values).sum(dim=1).gt(1).any())
     assert torch.equal(torch.argmin(ham.cuda(), dim=1).cpu(), first)
+
+
+def _cameras(device, dtype):
+    from mba_vo_tpu_torch.models.camera import PinholeCamera, RadTanDistortion, UnifiedCamera
+
+    K = torch.tensor([480.0, 480.0, 319.5, 239.5], dtype=dtype, device=device)
+    dist = RadTanDistortion(*(torch.tensor(c, dtype=dtype, device=device)
+                              for c in (-0.12, 0.04, 0.001, -0.002)))
+    return (PinholeCamera(K=K, height=480, width=640, distortion=dist),
+            UnifiedCamera(K=K, xi=torch.tensor(0.8, dtype=dtype, device=device), height=480,
+                          width=640),
+            PinholeCamera(K=K, height=480, width=640))
+
+
+def test_undistort_map_and_remap_cuda_match_cpu(cuda):
+    """The VGA undistortion maps (rad-tan pinhole, unified) in float64 on
+    the card equal the CPU's to 1e-10 px; the remap of an image through
+    them to 1e-9 grey levels, and through the rounded map (depth's nearest
+    neighbour) exactly."""
+    from mba_vo_tpu_torch.ops.image import build_undistort_map, remap
+
+    gpu, cpu = _cameras(cuda, torch.float64), _cameras("cpu", torch.float64)
+    img = torch.tensor(np.random.default_rng(2).uniform(0, 255, (480, 640)))
+    for g, c in zip(gpu[:2], cpu[:2]):
+        mg, mc = build_undistort_map(g, gpu[2]), build_undistort_map(c, cpu[2])
+        assert mg.device.type == "cuda"
+        assert (mg.cpu() - mc).abs().max().item() <= 1e-10
+        assert (remap(img.to(cuda), mg).cpu() - remap(img, mc)).abs().max().item() <= 1e-9
+        mg_nn, mc_nn = torch.round(mg), torch.round(mc)
+        same = (mg_nn.cpu() == mc_nn).all(dim=-1)
+        assert torch.equal(remap(img.to(cuda), mg_nn).cpu()[same], remap(img, mc_nn)[same])
+
+
+def test_scene_render_cuda_matches_cpu(cuda):
+    """A batch of renders of the default scene at 120 x 160, float64: the
+    card's depth equals the CPU's to 1e-10 and the image to 1e-10 relative
+    (sin on the card and the CPU differ in the last bit)."""
+    from mba_vo_tpu_torch.data import scene3d
+
+    tex = np.random.default_rng(5).uniform(0, 255, (120, 160))
+    K = np.array([120.0, 120.0, 79.5, 59.5])
+    pt = np.array([[0.0, 0.0, 0.0], [0.02, -0.01, 0.015]])
+    pq = np.array([[0.0, 0.0, 0.0, 1.0], [0.002, -0.004, 0.003, 1.0]])
+    pq /= np.linalg.norm(pq, axis=1, keepdims=True)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        s = scene3d.default_scene(tex, dtype=torch.float64, device=dev)
+        f = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+        out.append([x.cpu() for x in scene3d.render_scene(s, f(pt), f(pq), f(K), 120, 160)])
+    (ig, zg), (ic, zc) = out
+    assert (zg - zc).abs().max().item() <= 1e-10
+    assert ((ig - ic).abs() / ic.abs()).max().item() <= 1e-10

@@ -3,8 +3,9 @@ mba_vo_tpu_torch loads neither JAX nor the JAX package, nor PIL or orbax
 (the port reads and writes its PNGs with data/png.py and checkpoints with
 torch.save), nor builds or loads a kernel. That holds for
 ops/cuda_sampling.py (two kernels), the sweep harness
-experiments/kernel_variants.py, the backend, the command line and the loop
-benchmark as for every other module."""
+experiments/kernel_variants.py, the backend, the command line, the loop
+benchmark, the camera/trajectory/sensor models, the scene renderer and the
+overlay and profiling utilities as for every other module."""
 
 import pkgutil
 import subprocess
@@ -30,7 +31,9 @@ built = os.path.exists(cuda_sampling._BUILD_DIR)
 print(len(names), bad, cuda_sampling._libs, cuda_sampling.BUILD_LOG, built,
       all(f"mba_vo_tpu_torch.{m}" in names for m in (
           "experiments.kernel_variants", "experiments.loop_bench", "cli",
-          "backend.vo_backend", "utils.checkpoint", "data.png")))
+          "backend.vo_backend", "utils.checkpoint", "data.png", "models.camera",
+          "models.trajectory", "models.sensors", "core.navstate", "data.scene3d",
+          "utils.viz", "utils.profiling", "backend.dynamic_points")))
 """
 
 
@@ -43,11 +46,12 @@ def test_every_module_imports_without_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad, rest = out.stdout.split(maxsplit=2)
-    assert int(n) >= 36
+    assert int(n) >= 46
     # no library loaded, nothing compiled, the harness among the modules
     assert bad == "[]" and rest.split() == ["{}", "{}", EXPECT_BUILT, "True"], out.stdout
 
 
 def test_package_layout_mirrors_the_reference():
     subpackages = {m.name for m in pkgutil.iter_modules(mba_vo_tpu_torch.__path__) if m.ispkg}
-    assert {"core", "ops", "solver", "tracker", "utils", "data", "backend"} <= subpackages
+    assert {"core", "ops", "solver", "tracker", "utils", "data", "backend",
+            "models"} <= subpackages

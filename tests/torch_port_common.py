@@ -153,7 +153,9 @@ def bootstrap_pair(cfg, scene, exposure=EXPOSURE):
     """(JAX tracker, port tracker on the CPU) after their first (keyframe)
     frame, with the same non-zero velocity installed: from a standing start
     the first patch anchors sit on integer pixels up to the last bit, and
-    the jitted JAX tracker and eager torch may floor them differently."""
+    the jitted JAX tracker and eager torch may floor them differently. The
+    keyframe's depth is ``scene["depth0"]`` where the scene has one, else
+    the plane at DEPTH."""
     from mba_vo_tpu.tracker import blur_tracker as jbt
     from mba_vo_tpu_torch import interop
     from mba_vo_tpu_torch.tracker import blur_tracker as tbt
@@ -162,8 +164,9 @@ def bootstrap_pair(cfg, scene, exposure=EXPOSURE):
     j = jbt.BlurAwareTracker(cfg, scene["kvec"], (h, w))
     t = tbt.BlurAwareTracker(interop.config_from_fields(cfg), scene["kvec"], (h, w),
                              device="cpu")
+    depth0 = scene.get("depth0", np.full((h, w), DEPTH))
     for tr in (j, t):
-        tr.track_frame(scene["img"], scene["img"], 0.0, exposure, np.full((h, w), DEPTH))
+        tr.track_frame(scene["img"], scene["img"], 0.0, exposure, depth0)
     j.neigh_velocity = jnp.asarray(VEL)
     interop.install_tracker_state(t, {"neigh_velocity": VEL})
     return j, t
