@@ -55,7 +55,9 @@ Phases (any failed check raises and the exit code is non-zero):
      defaults through experiments/loop_bench.py on the card, its ATE rule
      (ba+pg cuts the final-quarter ATE by >= 50 %) beside LOOP_r05.json's
      JAX-on-CPU figures, wall time, frames/s, K1 launches and the backend's
-     ms per keyframe by stage; (d) `cli synth` at VGA, then `cli track` in
+     ms per keyframe by stage, then its tracker-only run again on the CPU
+     from the card's files: the per-frame TUM difference and the first
+     frame over 1e-8; (d) `cli synth` at VGA, then `cli track` in
      float32 under bench options (TrackerConfig's keyframe thresholds) with
      --chunk 8, with and without --backend ba+pg: frames/s of both;
   9. the models, the non-planar scene, undistortion and overlays, each
@@ -78,6 +80,23 @@ Phases (any failed check raises and the exit code is non-zero):
      tests/test_scene3d.py in f64 and f32 through track_frame, at the
      test's recipe (its bounds checked on f64) and at VGA, and the
      recipe's f32 run on the CPU beside it;
+ 10. sharding on torch.distributed and the command line's read-ahead: (a)
+     two spawned gloo ranks on cuda:0 track 8 frames of the bench scenario
+     with shard_devices = 2 through track_frame, track_frames and
+     track_frames_joint in f64, against phases 4, 6a and 6c's
+     single-process runs (1e-9), every rank's knots and poses equal bit for
+     bit and K1 launched by every rank (counted from 0 before each path),
+     K1 held against the plain version on every sampler call of the
+     sharded track_frame path, at the shard's 256 keypoints (1e-12), then
+     track_frame in f32: frames/s beside 5a's; (b)
+     run_bundle_adjustment_sharded at 8a's size against dense (1e-8); (c)
+     `python -m torch.distributed.run --nproc-per-node 2 -m
+     mba_vo_tpu_torch.cli track --shard-devices 2` on 8d's sequence (f64)
+     against the single-process command line (1e-6); (d) `cli track` on a
+     Paeth-filtered copy of 8d's sequence reading every file on the calling
+     thread, with the decoders in two threads and in two processes (the
+     command line's read-ahead, `cli.READ_AHEAD`): frames/s of each, the
+     TUM file equal to the filter-0 run's;
 then one JSON line of kernel results, the card line again, and the final
 status line {"ok": true, "device": {...}}.
 """
@@ -718,13 +737,21 @@ def phase_cli_cuda_vs_cpu(root, cs, launches):
     return dict(per_frame=per_frame, counts=counts)
 
 
-def phase_loop_benchmark(cs, launches):
-    """8c: the loop benchmark at bench_loop.py's defaults on the card."""
+LOOP_PARTING_TOL = 1e-8
+LOOP_LOST_FRAME = 57    # where both packages lose the loop's closing frames on the CPU
+
+
+def phase_loop_benchmark(cs, launches, root):
+    """8c: the loop benchmark at bench_loop.py's defaults on the card; then
+    its tracker-only run again on the card's host CPU from the same files,
+    and where the two f64 trajectories part."""
+    from mba_vo_tpu_torch.data import datasets as ds
     from mba_vo_tpu_torch.experiments import loop_bench as lb
 
     t0 = time.perf_counter()
+    keep = os.path.join(root, "loop")
     with contextlib.redirect_stdout(io.StringIO()):
-        summary = lb.run(device="cuda")
+        summary = lb.run(device="cuda", keep=keep)
     wall = time.perf_counter() - t0
     ref = None
     if os.path.exists(LOOP_REFERENCE):
@@ -753,6 +780,32 @@ def phase_loop_benchmark(cs, launches):
           f"{ref.get('final_segment_improvement_frac') if ref else None}; rule >= 0.5, "
           f"tests/test_loop_benchmark.py); synth {summary['synth_s']:.1f} s, phase {wall:.1f} s")
     check(imp >= 0.5, f"ba+pg cut the final-quarter ATE by only {imp}")
+
+    # the tracker-only run on the CPU, from the card's files: the per-frame
+    # TUM difference and the first frame over LOOP_PARTING_TOL
+    seq = os.path.join(keep, "seq")
+    cpu_out = os.path.join(keep, "est_tracker_only_cpu.txt")
+    t0 = time.perf_counter()
+    run_cli(track_argv(seq, cpu_out, "cpu", os.path.join(seq, "config.json"), ["--chunk", "1"]))
+    cpu_s = time.perf_counter() - t0
+    _, tc, qc = ds.load_tum_trajectory(os.path.join(keep, "est_tracker_only.txt"))
+    _, th, qh = ds.load_tum_trajectory(cpu_out)
+    per_frame = np.abs(np.concatenate([tc - th, qc - qh], 1)).max(axis=1)
+    over = np.flatnonzero(per_frame > LOOP_PARTING_TOL)
+    first = int(over[0]) if len(over) else None
+    _, tg, _ = ds.load_tum_trajectory(os.path.join(seq, "groundtruth.txt"))
+    err_c = np.linalg.norm(tc - tg[:len(tc)], axis=1)
+    err_h = np.linalg.norm(th - tg[:len(th)], axis=1)
+    print(f"[8c] tracker-only, f64, CUDA - CPU (the card's host, {cpu_s:.1f} s) on the same "
+          f"files: max |TUM| difference {per_frame.max():.3e}; first frame over "
+          f"{LOOP_PARTING_TOL:g}: {first} ("
+          + ("none" if first is None else "before" if first < LOOP_LOST_FRAME else "not before")
+          + f" frame {LOOP_LOST_FRAME}); ATE CUDA {np.sqrt(np.mean(err_c ** 2)):.6f} m, CPU "
+          f"{np.sqrt(np.mean(err_h ** 2)):.6f} m")
+    print("    per frame |CUDA - CPU|: " + " ".join(f"{d:.0e}" for d in per_frame))
+    print("    per frame error CUDA / CPU, mm: " + " ".join(
+        f"{1e3 * a:.2f}/{1e3 * b:.2f}" for a, b in zip(err_c, err_h)))
+    check(len(tc) == len(th) and np.isfinite(th).all(), "the CPU loop run is incomplete")
     return summary
 
 
@@ -1248,6 +1301,258 @@ def phase_ladder(cs, launches, timer):
     return res
 
 
+# ----------------------------------------------------------------- phase 10
+
+SHARDS = 2                # gloo ranks on cuda:0 (NCCL refuses two ranks on one card)
+SHARD_FRAMES = 8          # frames of each sharded tracker run: phase 4's first 8
+SHARD_TOL = 1e-9          # sharded against the single-process run, f64
+SHARD_CLI_FRAMES = 9      # 10c-d: 10c's bootstrap frame and one chunk of 8
+SHARD_TIMEOUT_S = 300
+
+
+def _sharded_rank(rank, world, store, inputs_path, out_dir):
+    """One rank of 10a-b: the bench scenario through track_frame,
+    track_frames and track_frames_joint with shard_devices = world in f64
+    (K1's launches counted from 0 before and read after), the same
+    per-frame path in f32, timed, and the window BA of phase 8a with its
+    landmarks sharded, each result saved for the parent."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        from mba_vo_tpu_torch import interop
+        from mba_vo_tpu_torch.backend import ba
+        from mba_vo_tpu_torch.experiments import kernel_variants as kv
+        from mba_vo_tpu_torch.ops import cuda_sampling as cs
+        from mba_vo_tpu_torch.ops import window_sampling as ws
+        from mba_vo_tpu_torch.parallel.sharded_ba import (
+            make_ba_mesh, run_bundle_adjustment_sharded, shard_ba_problem,
+        )
+        from mba_vo_tpu_torch.tracker.blur_tracker import BlurAwareTracker
+
+        inp = torch.load(inputs_path, weights_only=False)
+        img, frames = inp["img"], inp["frames"]
+        cfg64 = bench_config("float64", shard_devices=world)
+        out = {}
+        cs.LAUNCHES = 0
+        with kv.record_sampler_calls() as calls:
+            tracker = BlurAwareTracker(cfg64, KVEC, img.shape, device="cuda")
+            tracker.track_frame(img, img, 0.0, EXPOSURE, np.full(img.shape, DEPTH))
+            out["track_frame"] = poses_array([tracker.track_frame(None, b, c, EXPOSURE)
+                                              for c, b in frames])
+        out["track_frame knots"] = torch.cat([tracker.knots.t, tracker.knots.q], 1).cpu().numpy()
+        out["track_frame launches"] = cs.LAUNCHES
+        # K1 at this rank's shapes (its keypoint shard) against the plain
+        # version, on every call the path made; after the count
+        out["k1 shapes"] = sorted({tuple(c.windows.shape) + (c.local_xy.shape[1],)
+                                   for c in calls})
+        out["k1 max_abs_err"] = max(
+            float((ws.window_bilinear(c.windows, c.local_xy, c.valid)
+                   - ws.window_bilinear_plain(c.windows, c.local_xy, c.valid)).abs().max())
+            for c in calls)
+        for method, kw in (("track_frames", dict(chunk=8, inflight=2)),
+                           ("track_frames_joint", dict(chunk=JCHUNK, inflight=3))):
+            cs.LAUNCHES = 0
+            if method == "track_frames_joint":
+                cfg = bench_config("float64", max_num_iterations=4, shard_devices=world)
+                p, _, tr = run_batch(cfg, "cuda", img, frames[:JCHUNK], method=method,
+                                     window=inp["window"], **kw)
+                k = tr._joint_knots
+            else:
+                p, _, tr = run_batch(cfg64, "cuda", img, frames, method=method, **kw)
+                k = tr.knots
+            out[method], out[f"{method} launches"] = p, cs.LAUNCHES
+            out[f"{method} knots"] = torch.cat([k.t, k.q], 1).cpu().numpy()
+            check(tr.mesh is not None and tr.mesh.size == world, "the tracker built no mesh")
+        cs.LAUNCHES = 0
+        p32, sec32, _ = run_tracker(bench_config("float32", shard_devices=world), "cuda", img,
+                                    frames)
+        out["f32"], out["f32 seconds"], out["f32 launches"] = p32, sec32, cs.LAUNCHES
+
+        a = ba_problem_arrays()
+        dense, sd = ba.run_bundle_adjustment(
+            interop.ba_problem_from_arrays(**a, device="cuda"), ba.BAOptions())
+        mesh = make_ba_mesh(world)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shard, ss = run_bundle_adjustment_sharded(
+            shard_ba_problem(interop.ba_problem_from_arrays(**a, device="cuda"), mesh),
+            ba.BAOptions(), mesh)
+        torch.cuda.synchronize()
+        out["ba seconds"] = time.perf_counter() - t0
+        out["ba"] = dict(iterations=(ss.num_iterations, sd.num_iterations),
+                         pose=float((shard.poses.t - dense.poses.t).abs().max()),
+                         points=float((shard.map.points - dense.map.points).abs().max()),
+                         points_shape=tuple(shard.map.points.shape))
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_sharded_ranks(inputs: dict, root: str) -> list:
+    """SHARDS spawned ranks of _sharded_rank; a rank that fails fails here,
+    and its peers are ended."""
+    import torch
+    import torch.multiprocessing as mp
+
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "inputs.pt")
+    torch.save(inputs, path)
+    ctx = mp.start_processes(_sharded_rank, args=(SHARDS, os.path.join(root, "store"), path,
+                                                  root),
+                             nprocs=SHARDS, join=False, start_method="spawn")
+    end = time.time() + SHARD_TIMEOUT_S
+    while not ctx.join(timeout=2):
+        if time.time() > end:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"the sharded ranks ran past {SHARD_TIMEOUT_S} s")
+    return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+            for r in range(SHARDS)]
+
+
+def phase_sharded(root, cs, launches, img, frames, refs, fps_single, card):
+    """10: keypoint and landmark sharding on torch.distributed, and the
+    command line's input read-ahead, on the card."""
+    import dataclasses
+    import subprocess
+
+    import torch
+    from mba_vo_tpu_torch import cli
+    from mba_vo_tpu_torch.data import datasets as ds
+    from mba_vo_tpu_torch.data.png import read_png
+    from mba_vo_tpu_torch.experiments.read_ahead import paeth_copy
+    from mba_vo_tpu_torch.utils.config import tracker_config_to_dict
+
+    t10 = time.perf_counter()
+    # 10a-b: SHARDS gloo ranks on cuda:0
+    fr = frames[:SHARD_FRAMES]
+    ranks = run_sharded_ranks(dict(img=img, frames=fr, window=refs["window"]),
+                              os.path.join(root, "sharded"))
+    r0 = ranks[0]
+    for name in ("track_frame", "track_frames", "track_frames_joint"):
+        for key in (name, f"{name} knots"):
+            check(all(np.array_equal(r[key], r0[key]) for r in ranks[1:]),
+                  f"{key}: the ranks' bits differ")
+        diff = float(np.abs(r0[name] - refs[name][:len(r0[name])]).max())
+        per_rank = [r[f"{name} launches"] for r in ranks]
+        launches[f"sharded {name}, f64, {SHARDS} ranks (10a)"] = sum(per_rank)
+        if name == "track_frame":
+            err = max(r["k1 max_abs_err"] for r in ranks)
+            print(f"[10a] K1 on every sampler call of the sharded track_frame path, at the "
+                  f"ranks' shapes [N, C, win_h, win_w, S] {r0['k1 shapes']}, against the plain "
+                  f"version: max |err| {err:.3e} (f64, bound 1e-12)")
+            check(err <= 1e-12, f"K1 disagrees with the plain version at the shard's shapes: {err}")
+            check(all(s[0] == N_KP // SHARDS for s in r0["k1 shapes"]),
+                  f"K1 ran at other than the shard's keypoints: {r0['k1 shapes']}")
+        print(f"[10a] {name}, f64, shard_devices={SHARDS} ({SHARDS} gloo ranks on cuda:0), "
+              f"{len(r0[name])} frames of the bench scenario: max |pose - single-process pose| "
+              f"= {diff:.3e} (bound {SHARD_TOL:g}); knots and poses equal bit for bit on every "
+              f"rank; K1 launches per rank {per_rank}")
+        check(np.isfinite(r0[name]).all(), f"sharded {name}: non-finite poses")
+        check(diff <= SHARD_TOL, f"sharded {name} differs from the single-process run by {diff}")
+        check(all(n > 0 for n in per_rank), f"a rank of the sharded {name} never launched K1")
+    sec = [sum(r["f32 seconds"]) for r in ranks]
+    d32 = float(np.abs(r0["f32"] - refs["f32"][:SHARD_FRAMES]).max())
+    per_rank = [r["f32 launches"] for r in ranks]
+    launches[f"sharded track_frame, f32, {SHARDS} ranks (10a)"] = sum(per_rank)
+    print(f"[10a] track_frame, f32, bench options, shard_devices={SHARDS}: {SHARD_FRAMES} frames "
+          f"in {max(sec):.3f} s = {SHARD_FRAMES / max(sec):.3f} frames/s (slowest rank; median "
+          f"{1e3 * statistics.median(ranks[0]['f32 seconds']):.1f} ms a frame on rank 0) against "
+          f"{fps_single:.3f} frames/s in one process (5a); max |pose - 5a pose| {d32:.3e}; "
+          f"K1 launches per rank {per_rank}; {card}")
+    check(np.isfinite(r0["f32"]).all() and all(n > 0 for n in per_rank), "bad sharded f32 run")
+    b = r0["ba"]
+    print(f"[10b] run_bundle_adjustment_sharded, f64, window 7, 512 landmark slots ({SHARDS} "
+          f"ranks of {512 // SHARDS}): iterations sharded / dense {b['iterations']}; max |pose "
+          f"sharded - dense| {b['pose']:.3e}, points {b['points']:.3e} (bound 1e-8); "
+          f"{1e3 * r0['ba seconds']:.1f} ms")
+    check(b["iterations"][0] == b["iterations"][1] and b["pose"] <= 1e-8 and b["points"] <= 1e-8
+          and b["points_shape"] == (512, 3), f"sharded BA differs from dense: {b}")
+    check(all(r["ba"] == b for r in ranks[1:]), "the ranks' BA results differ")
+
+    # 10c: the command line under torch.distributed.run, f64, on 8d's sequence
+    seq = os.path.join(root, "vga")
+    cfg64 = dataclasses.replace(bench_config("float64"), keyframe_max_flow_mag0=15.0,
+                                keyframe_max_flow_mag1=30.0)
+    config64 = os.path.join(seq, "config64.json")
+    with open(config64, "w") as f:
+        json.dump(tracker_config_to_dict(cfg64), f)
+    extra = ["--chunk", "8", "--max-frames", str(SHARD_CLI_FRAMES)]
+    single_s, _ = run_cli(track_argv(seq, os.path.join(root, "cli64.txt"), "cuda", config64,
+                                     extra))
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+         str(SHARDS), "-m", "mba_vo_tpu_torch.cli",
+         *track_argv(seq, os.path.join(root, "cli64_sharded.txt"), "cuda", config64, extra),
+         "--shard-devices", str(SHARDS)],
+        cwd=here, env=env, capture_output=True, text=True, timeout=SHARD_TIMEOUT_S)
+    sharded_s = time.perf_counter() - t0
+    chosen = [ln for ln in run.stdout.splitlines() if ln.startswith("torch.distributed:")]
+    check(run.returncode == 0, f"torch.distributed.run track failed ({run.returncode}):\n"
+          f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    _, t1, q1 = ds.load_tum_trajectory(os.path.join(root, "cli64.txt"))
+    _, t2, q2 = ds.load_tum_trajectory(os.path.join(root, "cli64_sharded.txt"))
+    diff = float(np.abs(np.concatenate([t1 - t2, q1 - q2], 1)).max())
+    print(f"[10c] python -m torch.distributed.run --nproc-per-node {SHARDS} -m "
+          f"mba_vo_tpu_torch.cli track --shard-devices {SHARDS}, f64, bench options, --chunk 8, "
+          f"{SHARD_CLI_FRAMES} frames of 8d's VGA sequence: max |TUM - single-process TUM| "
+          f"{diff:.3e} (bound 1e-6); {sharded_s:.1f} s against {single_s:.1f} s in one process "
+          f"(the launcher and each rank's start included); rank 0 said: {chosen}")
+    check(len(t2) == SHARD_CLI_FRAMES and diff <= 1e-6, f"the sharded command line differs by {diff}")
+
+    # 10d: the read-ahead on a Paeth-filtered copy of the sequence, f32, per
+    # frame (--chunk 1: frame i + 1 decodes while frame i tracks; a chunked
+    # call reads its whole batch before it tracks). One run a mode: the
+    # comparison in alternating rounds is experiments/read_ahead.py's
+    paeth = os.path.join(root, "vga_paeth")
+    t0 = time.perf_counter()
+    paeth_copy(seq, paeth)
+    first = os.path.join(paeth, "images", sorted(os.listdir(os.path.join(paeth, "images")))[1])
+    t1 = time.perf_counter()
+    read_png(first)
+    decode_ms = 1e3 * (time.perf_counter() - t1)
+    check(np.array_equal(read_png(first), read_png(first.replace("vga_paeth", "vga"))),
+          "the Paeth copy decodes to other pixels")
+    config = os.path.join(seq, "config.json")
+    res = {}
+    for label, s, mode in (("filter 0, process", seq, "process"),
+                           ("Paeth, calling thread", paeth, None),
+                           ("Paeth, thread pool", paeth, "thread"),
+                           ("Paeth, process pool", paeth, "process")):
+        out = os.path.join(root, f"pf_{len(res)}.txt")
+        cli.READ_AHEAD = mode
+        try:
+            wall, _ = run_cli(track_argv(s, out, "cuda", config, [
+                "--chunk", "1", "--max-frames", str(SHARD_CLI_FRAMES)]))
+        finally:
+            cli.READ_AHEAD = "process"
+        _, t, q = ds.load_tum_trajectory(out)
+        res[label] = dict(fps=SHARD_CLI_FRAMES / wall, wall=wall,
+                          poses=np.concatenate([t, q], 1))
+    ref = res["filter 0, process"]["poses"]
+    diffs = {k: float(np.abs(v["poses"] - ref).max()) for k, v in res.items()}
+    print(f"[10d] cli track f32, bench options, --chunk 1, {SHARD_CLI_FRAMES} frames of 8d's "
+          f"sequence re-encoded with the Paeth filter (one VGA frame decodes in {decode_ms:.1f} ms "
+          f"on the card's host; copy made in {t1 - t0:.1f} s): frames/s " + "; ".join(
+              f"{k} {v['fps']:.3f} ({v['wall']:.2f} s)" for k, v in res.items())
+          + f"; max |TUM - filter-0 TUM| {max(diffs.values()):.3e}; {card}")
+    check(max(diffs.values()) <= 1e-9, f"the read-ahead changed the trajectory: {diffs}")
+    print(f"    phase 10 in {time.perf_counter() - t10:.1f} s")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1432,6 +1737,7 @@ def main() -> int:
     # window that already moves, as a tracker that has been running would: a
     # cold identity window loses this scenario's 5 px a frame within its
     # first chunk, in the reference as in the port (PERF.md section 7)
+    joint64 = {}
     for deg in (4, 2):
         t0 = time.perf_counter()
         cfg_j = bench_config("float64", spline_degree=deg, max_num_iterations=4)
@@ -1439,6 +1745,7 @@ def main() -> int:
         args = dict(method="track_frames_joint", window=win, chunk=JCHUNK, inflight=3)
         jc, _, tc = run_batch(cfg_j, "cuda", img, frames[:JCHUNK], **args)
         jh, _, th = run_batch(cfg_j, "cpu", img, frames[:JCHUNK], **args)
+        joint64[deg] = jc
         diff = float(np.abs(jc - jh).max())
         kdiff = float((tc._joint_knots.t.cpu() - th._joint_knots.t).abs().max())
         print(f"[6c] track_frames_joint degree {deg}, f64, {JCHUNK} frames, "
@@ -1597,7 +1904,7 @@ def main() -> int:
     phase_backend_solvers(img, cand[0][3])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         phase_cli_cuda_vs_cpu(root, cs, launches)
-        phase_loop_benchmark(cs, launches)
+        phase_loop_benchmark(cs, launches, root)
         vga = phase_vga_cli(root, cs, launches)
         print(f"    phase 8 in {time.perf_counter() - t8:.1f} s")
 
@@ -1615,6 +1922,11 @@ def main() -> int:
         for line in timer.report().splitlines():
             print("    " + line)
         print(f"    phase 9 in {time.perf_counter() - t9:.1f} s")
+
+        # ---- 10. sharding on torch.distributed, the command line's read-ahead
+        refs = {"track_frame": p64, "track_frames": a2, "track_frames_joint": joint64[DEG],
+                "f32": p32, "window": moving_window(traj, frames, JCHUNK, DEG)}
+        phase_sharded(root, cs, launches, img, frames, refs, fps, card)
 
     # K1: the tracker launches the one-thread-a-sample design; the band
     # redesign, slower cold on the tracker's S = 40 inputs when the tracker's

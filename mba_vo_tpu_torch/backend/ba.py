@@ -25,6 +25,13 @@ Counterpart of ``mba_vo_tpu/backend/ba.py``:
 A Cholesky or 3x3 inverse that fails gives a NaN step, which the loop
 rejects, as the reference's NaN-returning factorizations do. Gauge
 freedom is fixed by freezing pose 0 and the padded window slots.
+
+``group`` is the reference's ``axis_name``: with the landmarks sharded
+over the ranks of a ``torch.distributed`` group (``parallel.sharded_ba``)
+the pose-indexed sums (cost, its observation count, U, g_p) and the Schur
+system's landmark sums are all-reduced (``utils.collectives.allreduce``),
+the [6W, 6W] solve runs on every rank alike, and the landmark blocks and
+their back-substitution stay on their rank.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from ..core.lie import (
     so3_hat,
 )
 from ..core.transform import Pose
+from ..utils.collectives import allreduce
 from .map import SlidingWindowMap
 
 
@@ -267,9 +275,11 @@ def _odom_terms(poses: Pose, odom: Optional[OdomPrior], inv_n):
     return cost, g, H
 
 
-def build_normal_equations(problem: BAProblem, huber_a: float):
+def build_normal_equations(problem: BAProblem, huber_a: float, group=None):
     """Blockwise GN system with robust weights. Returns
-    (cost, U, V, W_blk, g_p, g_x, H_odom, mask)."""
+    (cost, U, V, W_blk, g_p, g_x, H_odom, mask). With ``group`` the cost,
+    U and g_p are global and V, W_blk and g_x cover this rank's
+    landmarks."""
     r, Jp, Jx = _residuals_and_jacobians(problem)
     m = problem.map
     mask = m.obs_mask * m.point_mask[None, :]          # [W, M]
@@ -277,28 +287,30 @@ def build_normal_equations(problem: BAProblem, huber_a: float):
     rho, w2 = _huber_weight(r2, huber_a)
     wgt = w2 * mask
 
-    n = torch.clamp(mask.sum(), min=1.0)
-    cost = torch.sum(rho * mask) / n
+    n = torch.clamp(allreduce(mask.sum(), group), min=1.0)
+    cost = allreduce(torch.sum(rho * mask), group) / n
 
-    U = torch.einsum("wmia,wm,wmib->wab", Jp, wgt, Jp)
+    U = allreduce(torch.einsum("wmia,wm,wmib->wab", Jp, wgt, Jp), group)
     V = torch.einsum("wmia,wm,wmib->mab", Jx, wgt, Jx)
     Wb = torch.einsum("wmia,wm,wmib->wmab", Jp, wgt, Jx)
-    g_p = torch.einsum("wmia,wm,wmi->wa", Jp, wgt, r)
+    g_p = allreduce(torch.einsum("wmia,wm,wmi->wa", Jp, wgt, r), group)
     g_x = torch.einsum("wmia,wm,wmi->ma", Jx, wgt, r)
 
     # the prior's g and H stay unnormalised like U and g_p: the step then
-    # optimises the same relative weighting as the (1/n-scaled) cost
+    # optimises the same relative weighting as the (1/n-scaled) cost. They
+    # are pose-indexed, the same on every rank, and added after the
+    # all-reduce so that they count once
     c_o, g_o, H_o = _odom_terms(problem.poses, problem.odom, 1.0)
     return cost + c_o / n, U, V, Wb, g_p + g_o, g_x, H_o, mask
 
 
-def evaluate_cost(problem: BAProblem, huber_a: float) -> torch.Tensor:
+def evaluate_cost(problem: BAProblem, huber_a: float, group=None) -> torch.Tensor:
     r = _residuals(problem)
     m = problem.map
     mask = m.obs_mask * m.point_mask[None, :]
     rho, _ = _huber_weight(torch.sum(r * r, dim=-1), huber_a)
-    n = torch.clamp(mask.sum(), min=1.0)
-    cost = torch.sum(rho * mask) / n
+    n = torch.clamp(allreduce(mask.sum(), group), min=1.0)
+    cost = allreduce(torch.sum(rho * mask), group) / n
     return cost + _odom_cost(problem.poses, problem.odom, 1.0 / n)
 
 
@@ -308,12 +320,14 @@ def _nan_unless(ok: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def schur_solve(U, V, Wb, g_p, g_x, lam: torch.Tensor, opts: BAOptions,
-                H_pose=None, pose_mask=None):
+                H_pose=None, pose_mask=None, group=None):
     """Solve the damped GN system by eliminating the landmark blocks.
 
     Returns (delta_pose [W,6], delta_point [M,3]). Pose 0 (and every padded
     pose) is gauge-fixed: its rows/cols are zeroed and its diagonal block
-    replaced by the identity, so its step is exactly 0."""
+    replaced by the identity, so its step is exactly 0. With ``group``
+    (landmark shards) the reduced camera system and its right-hand side
+    are all-reduced and delta_point covers this rank's landmarks."""
     Wn = Wb.shape[0]
     opts_t = dict(dtype=U.dtype, device=U.device)
     eye6 = torch.eye(6, **opts_t)
@@ -337,7 +351,7 @@ def schur_solve(U, V, Wb, g_p, g_x, lam: torch.Tensor, opts: BAOptions,
     Vinv = _nan_unless((v_info == 0)[:, None, None], Vinv)
     WVi = torch.einsum("wmab,mbc->wmac", Wb, Vinv)         # [W,M,6,3]
 
-    S_blocks = torch.einsum("wmac,vmbc->wavb", WVi, Wb)    # [W,6,W,6]
+    S_blocks = allreduce(torch.einsum("wmac,vmbc->wavb", WVi, Wb), group)   # [W,6,W,6]
     S = -S_blocks.reshape(Wn * 6, Wn * 6)
     S = S + torch.block_diag(*U.unbind(0))
     if H_pose is not None:
@@ -348,7 +362,7 @@ def schur_solve(U, V, Wb, g_p, g_x, lam: torch.Tensor, opts: BAOptions,
         He = He + lam * torch.diag(torch.diagonal(He))
         S = S + He
 
-    rhs = (g_p - torch.einsum("wmac,mc->wa", WVi, g_x)).reshape(-1)
+    rhs = (g_p - allreduce(torch.einsum("wmac,mc->wa", WVi, g_x), group)).reshape(-1)
     L, info = torch.linalg.cholesky_ex(S)
     dp = -torch.cholesky_solve(rhs[:, None], L)[:, 0]
     dp = _nan_unless(info == 0, dp)
@@ -383,23 +397,29 @@ def _select(ok: torch.Tensor, a: BAProblem, b: BAProblem) -> BAProblem:
 
 
 def run_bundle_adjustment(
-    problem: BAProblem, opts: BAOptions
+    problem: BAProblem, opts: BAOptions, group=None
 ) -> Tuple[BAProblem, BASummary]:
     """LM loop over the Schur-reduced system. Each iteration reads one flag
-    from the device: whether the loop stops."""
+    from the device: whether the loop stops.
+
+    ``group``: the landmark shards' process group when ``problem.map``
+    holds this rank's landmarks (``parallel.sharded_ba``). Whether the
+    landmark step is finite is then all-reduced too, so every rank accepts
+    or rejects the same steps and stops at the same iteration."""
     dtype = problem.poses.t.dtype
-    cost0 = evaluate_cost(problem, opts.huber_a)
+    cost0 = evaluate_cost(problem, opts.huber_a, group)
     cost = cost0
     lam = torch.tensor(opts.initial_lambda, dtype=dtype, device=problem.poses.t.device)
     it = 0
     while it < opts.max_iterations:
-        _c, U, V, Wb, g_p, g_x, H_o, _ = build_normal_equations(problem, opts.huber_a)
+        _c, U, V, Wb, g_p, g_x, H_o, _ = build_normal_equations(
+            problem, opts.huber_a, group)
         dp, dx = schur_solve(U, V, Wb, g_p, g_x, lam, opts,
-                             H_pose=H_o, pose_mask=problem.pose_mask)
+                             H_pose=H_o, pose_mask=problem.pose_mask, group=group)
         cand = _apply_step(problem, dp, dx)
-        cand_cost = evaluate_cost(cand, opts.huber_a)
-        ok = (cand_cost < cost) & torch.all(torch.isfinite(dp)) & torch.all(
-            torch.isfinite(dx))
+        cand_cost = evaluate_cost(cand, opts.huber_a, group)
+        dx_finite = allreduce((~torch.isfinite(dx)).sum(), group) == 0
+        ok = (cand_cost < cost) & torch.all(torch.isfinite(dp)) & dx_finite
         rel_decrease = (cost - cand_cost) / torch.clamp(cost, min=1e-24)
         problem = _select(ok, cand, problem)
         lam = torch.where(

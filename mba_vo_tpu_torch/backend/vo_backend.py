@@ -81,7 +81,8 @@ class BackendConfig:
     reassoc_radius: k-d tree radius of the map-to-frame re-association
         (<= 0 disables).
     max_chain: pose-graph node budget (the most recent keyframes).
-    shard_devices: > 1 (landmark-sharded BA) is not ported.
+    shard_devices: > 1 runs the window BA landmark-sharded over the first
+        n ranks of the default process group (parallel.sharded_ba).
     """
 
     window_size: int = 7
@@ -249,11 +250,18 @@ class VOBackend:
 
     def __init__(self, config: BackendConfig, K: np.ndarray, device="cuda",
                  dtype=torch.float64, profile: bool = False):
+        # landmark-sharded BA (BackendConfig.shard_devices): every rank of
+        # the mesh runs the backend and holds its landmark slice in BA
+        self.mesh = None
         if config.shard_devices and config.shard_devices > 1:
-            raise NotImplementedError(
-                "BackendConfig.shard_devices > 1 (landmark-sharded BA) is not "
-                "ported to mba_vo_tpu_torch yet: ROADMAP.md Queue 1 item 6 "
-                "(parallel/)")
+            from ..parallel.sharded_ba import make_ba_mesh
+
+            n = int(config.shard_devices)
+            if config.max_landmarks % n:
+                raise ValueError(
+                    f"max_landmarks ({config.max_landmarks}) must be a "
+                    f"multiple of shard_devices ({n})")
+            self.mesh = make_ba_mesh(n)
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -601,7 +609,19 @@ class VOBackend:
 
     def _run_window_ba(self):
         problem, win, lids = self._build_problem()
-        refined, summary = run_bundle_adjustment(problem, self.cfg.ba)
+        if self.mesh is not None:
+            from ..parallel.sharded_ba import (
+                run_bundle_adjustment_sharded,
+                shard_ba_problem,
+            )
+
+            # max_landmarks is a multiple of the mesh size (checked at
+            # init): the landmark padding is a no-op and ``refined`` keeps
+            # the dense problem's shapes
+            refined, summary = run_bundle_adjustment_sharded(
+                shard_ba_problem(problem, self.mesh), self.cfg.ba, self.mesh)
+        else:
+            refined, summary = run_bundle_adjustment(problem, self.cfg.ba)
         self.last_summary = summary
         self._cur["ba_iterations"] = summary.num_iterations
         self._cur["syncs"] += summary.num_iterations

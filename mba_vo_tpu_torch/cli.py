@@ -19,9 +19,23 @@ before tracking: the pixel map is built once in float32 on the tracker's
 device, frames are remapped bilinearly, depth maps through the rounded map
 (nearest neighbour), and the frames stay on the device. ``--viz-dir`` writes
 an overlay PNG per tracked frame (keypoints and their blur-kernel
-polylines). Not ported yet (each raises ``NotImplementedError`` naming its
-ROADMAP.md item): ``--shard-devices > 1`` and a backend config with
-``shard_devices > 1``.
+polylines).
+
+``track --shard-devices n`` shards the tracker's keypoints (and the
+backend's BA landmarks) over n processes: launch it with
+``python -m torch.distributed.run --nproc-per-node n -m mba_vo_tpu_torch.cli
+track ... --shard-devices n``. Each rank works on ``cuda:LOCAL_RANK`` (ranks
+may share a card, and then talk through gloo; NCCL when each has its own),
+and only rank 0 writes the trajectory, checkpoints, overlays and backend
+statistics. Without the launcher's environment it raises ``ValueError``.
+
+``track`` reads frame i + 1 while frame i tracks: the blurred frames decode
+ahead in two spawned worker processes (the PNG row filters are undone in
+Python, which a thread would run under the lock the tracker's dispatch
+needs), depth maps in a thread pool, and unreal ASCII depth through the
+runtime library's native ``DepthPrefetcher``. Sharp keyframe images are
+read on the calling thread, and undistortion runs there, on the tracker's
+device.
 
 Sequence format for ``track``:
   --images DIR        sorted 8-bit grey PNG frames
@@ -35,21 +49,12 @@ Sequence format for ``track``:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
 
 import numpy as np
-
-ROADMAP_ITEM = {
-    "--shard-devices > 1": "Queue 1 item 6 (parallel/)",
-}
-
-
-def _not_ported(option: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported to mba_vo_tpu_torch yet: ROADMAP.md "
-        f"{ROADMAP_ITEM[option]}")
 
 
 def _build_arg_parser() -> argparse.ArgumentParser:
@@ -100,7 +105,10 @@ def _build_arg_parser() -> argparse.ArgumentParser:
                         "stage ended by a device synchronisation; BA and pose-graph "
                         "iterations; loop edges; device-to-host reads) to this JSON "
                         "file")
-    t.add_argument("--shard-devices", type=int, default=0)
+    t.add_argument("--shard-devices", type=int, default=0,
+                   help="shard the tracker's keypoints (and the backend's BA landmarks) "
+                        "over this many ranks; run under python -m "
+                        "torch.distributed.run --nproc-per-node N")
     t.add_argument("--joint-window", action="store_true",
                    help="optimise each chunk as one joint LM problem over a sliding "
                         "knot window (needs --chunk > 1)")
@@ -146,8 +154,6 @@ def _depth_paths(args, ds):
 
 
 def _build_backend(args, cfg, K, device):
-    import dataclasses
-
     from .backend.vo_backend import BackendConfig, VOBackend
     from .utils.config import backend_config_from_dict
 
@@ -156,10 +162,113 @@ def _build_backend(args, cfg, K, device):
             bcfg = backend_config_from_dict(json.load(f))
     else:
         bcfg = BackendConfig()
-    bcfg = dataclasses.replace(bcfg, window_size=args.backend_window,
-                               run_pose_graph=(args.backend == "ba+pg"))
+    rep = dict(window_size=args.backend_window, run_pose_graph=(args.backend == "ba+pg"))
+    # the flag overrides only when given: a shard_devices of the backend
+    # config file survives the flag's default
+    if args.shard_devices > 1:
+        rep["shard_devices"] = args.shard_devices
+    bcfg = dataclasses.replace(bcfg, **rep)
     return VOBackend(bcfg, K, device=device, dtype=cfg.dtype,
                      profile=bool(args.backend_stats))
+
+
+# where track's blurred frames decode ahead of the tracker: "process" (two
+# spawned workers), "thread" (two threads) or None (every file on the
+# calling thread). A seam for tests and measurements; the command line
+# always runs "process", which decodes filtered PNGs fastest on the card's
+# host (PERF.md section 5)
+READ_AHEAD = "process"
+
+
+class _Prefetcher:
+    """The files of ``track``, read ahead of the tracker as the reference's
+    command line reads them (``mba_vo_tpu/cli.py``).
+
+    ``image(i)`` returns frame i's blurred image (float32, as
+    ``datasets.load_gray_image`` reads it) and submits the reads of the
+    next ``max(4, --chunk)`` frames: their PNGs decode in the pool of
+    ``READ_AHEAD`` (two spawned processes, which hand back the uint8
+    pixels, or two threads) and their depth maps in two threads, or, for
+    unreal ASCII depth, in the runtime library's native ``DepthPrefetcher``.
+    ``depth(i)`` returns frame i's depth map (float32 z-depth, or the .npy
+    array as stored). A frame that was not submitted, and every frame when
+    ``READ_AHEAD`` is None, is read on the calling thread."""
+
+    WORKERS = 2
+
+    def __init__(self, args, image_paths, depth_paths, K, H, W):
+        from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
+        self.args, self.image_paths, self.depth_paths = args, image_paths, depth_paths
+        self.K, self.H, self.W = K, H, W
+        self.ahead = max(4, args.chunk)
+        self._images, self._depths = {}, {}
+        self.threads = self.decoder = self.native = None
+        self.parse_depth_file = None
+        if depth_paths and args.dataset_type == "unreal":
+            # the runtime library (loaded only on this path): its native
+            # ASCII parser, and its thread pool when reading ahead
+            runtime = os.path.join(
+                os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "runtime")
+            if runtime not in sys.path:
+                sys.path.insert(0, runtime)
+            from bindings import DepthPrefetcher, parse_depth_file
+
+            self.parse_depth_file = parse_depth_file
+            if READ_AHEAD is not None:
+                self.native = DepthPrefetcher(self.WORKERS)
+        if READ_AHEAD is None:
+            return
+        self.threads = ThreadPoolExecutor(max_workers=self.WORKERS)
+        self.decoder = self.threads
+        if READ_AHEAD == "process":
+            import multiprocessing
+
+            self.decoder = ProcessPoolExecutor(
+                max_workers=self.WORKERS, mp_context=multiprocessing.get_context("spawn"))
+
+    def _depth_now(self, path):
+        if path.lower().endswith(".npy") or self.args.dataset_type == "npy":
+            return np.load(path)
+        from .data import datasets as ds
+
+        if self.args.dataset_type == "unreal":
+            raw = (self.native.fetch(path, self.H, self.W) if self.native is not None
+                   else self.parse_depth_file(path, self.H, self.W))
+            return ds.ray_depth_to_z(raw, self.K)
+        return ds.load_depth(path, "eth3d")
+
+    def _submit_ahead(self, j0: int):
+        from .data.png import read_png
+
+        for j in range(j0, min(j0 + self.ahead, len(self.image_paths))):
+            if j not in self._images:
+                self._images[j] = self.decoder.submit(read_png, self.image_paths[j])
+            if self.depth_paths and j not in self._depths:
+                if self.native is not None:
+                    self.native.submit(self.depth_paths[j])
+                    self._depths[j] = None
+                else:
+                    self._depths[j] = self.threads.submit(self._depth_now,
+                                                          self.depth_paths[j])
+
+    def image(self, i: int) -> np.ndarray:
+        from .data import datasets as ds
+
+        fut = self._images.pop(i, None)
+        img = (ds.gray_image(fut.result()) if fut is not None
+               else ds.load_gray_image(self.image_paths[i]))
+        if self.decoder is not None:
+            self._submit_ahead(i + 1)
+        return img
+
+    def depth(self, i: int) -> np.ndarray:
+        fut = self._depths.pop(i, None)
+        return self._depth_now(self.depth_paths[i]) if fut is None else fut.result()
+
+    def close(self):
+        for pool in {self.threads, self.decoder} - {None}:
+            pool.shutdown(wait=True, cancel_futures=True)
 
 
 def _undistorters(args, K, H, W, device):
@@ -209,9 +318,6 @@ def cmd_track(args) -> int:
     from .utils.config import load_tracker_config
     from .utils.profiling import StageTimer
 
-    if args.shard_devices and args.shard_devices > 1:
-        raise _not_ported("--shard-devices > 1")
-
     K = np.array([float(x) for x in args.intrinsics.split(",")])
     if K.shape != (4,):
         print("--intrinsics must be fx,fy,cx,cy", file=sys.stderr)
@@ -253,7 +359,18 @@ def cmd_track(args) -> int:
 
     H, W = ds.load_gray_image(image_paths[0]).shape
     cfg = load_tracker_config(args.config) if args.config else TrackerConfig()
+    if args.shard_devices > 1:
+        cfg = dataclasses.replace(cfg, shard_devices=args.shard_devices)
     device = torch.device(args.device)
+    # under python -m torch.distributed.run: one process per shard, each on
+    # its own card (or sharing one), rank 0 writing every output
+    from .parallel.distributed import initialize_from_env, local_device
+
+    owned = not torch.distributed.is_initialized()
+    distributed = initialize_from_env()
+    writer = not distributed or torch.distributed.get_rank() == 0
+    if distributed and device.type == "cuda":
+        device = local_device()
     backend = _build_backend(args, cfg, K, device) if args.backend != "none" else None
     tracker = BlurAwareTracker(cfg, K, (H, W), backend=backend, device=device)
     undistort, undistort_depth = _undistorters(args, K, H, W, tracker.device)
@@ -267,171 +384,164 @@ def cmd_track(args) -> int:
         start_idx = meta["next_frame"]
         print(f"resumed at frame {start_idx}")
 
-    parse_depth_file = None
-    if depth_paths and args.dataset_type == "unreal":
-        # the native ASCII parser of the runtime library, as the reference
-        # CLI reads unreal depth (pure numpy when the library is missing)
-        runtime = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                               "runtime")
-        if runtime not in sys.path:
-            sys.path.insert(0, runtime)
-        from bindings import parse_depth_file
+    reader = _Prefetcher(args, image_paths, depth_paths, K, H, W)
+    try:
+        def load_image(i):
+            return undistort(reader.image(i))
 
-    def load_image(i):
-        return undistort(ds.load_gray_image(image_paths[i]))
+        def load_depth(i):
+            return undistort_depth(reader.depth(i)) if depth_paths else None
 
-    def load_depth(i):
-        if not depth_paths:
-            return None
-        path = depth_paths[i]
-        if path.lower().endswith(".npy") or args.dataset_type == "npy":
-            d = np.load(path)
-        elif args.dataset_type == "unreal":
-            d = ds.ray_depth_to_z(parse_depth_file(path, H, W), K)
-        else:
-            d = ds.load_depth(path, "eth3d")
-        return undistort_depth(d)
+        def load_sharp(i, blurred):
+            return undistort(ds.load_gray_image(sharp_paths[i])) if sharp_paths else blurred
 
-    def load_sharp(i, blurred):
-        return undistort(ds.load_gray_image(sharp_paths[i])) if sharp_paths else blurred
+        def frame_meta(i):
+            name = os.path.basename(image_paths[i])
+            return times.get(name, (i * args.frame_dt, args.exposure))
 
-    def frame_meta(i):
-        name = os.path.basename(image_paths[i])
-        return times.get(name, (i * args.frame_dt, args.exposure))
+        out_times, out_t, out_q = [], [], []
 
-    out_times, out_t, out_q = [], [], []
+        def record(i, cap, pose, kernel=None):
+            out_times.append(cap)
+            out_t.append(pose.t.detach().double().cpu().numpy())
+            out_q.append(pose.q.detach().double().cpu().numpy())
+            if kernel is None:
+                # per-frame path: the statistics resolve one frame late, so this
+                # is the previous frame's kernel length
+                kernel = tracker.avg_kernel_length
+            tail = ("(rejected, pose held)" if kernel is not None and np.isnan(kernel)
+                    else f"kernel={kernel:.2f}px")
+            if writer:
+                print(f"frame {i:4d} t={cap:.3f} pos="
+                      + np.array2string(out_t[-1], precision=4) + " " + tail)
+            if args.viz_dir and chunk == 1:
+                # chunked runs draw through the tracker's per-frame commit hook
+                render_overlay(i, tracker.knots)
 
-    def record(i, cap, pose, kernel=None):
-        out_times.append(cap)
-        out_t.append(pose.t.detach().double().cpu().numpy())
-        out_q.append(pose.q.detach().double().cpu().numpy())
-        if kernel is None:
-            # per-frame path: the statistics resolve one frame late, so this
-            # is the previous frame's kernel length
-            kernel = tracker.avg_kernel_length
-        tail = ("(rejected, pose held)" if kernel is not None and np.isnan(kernel)
-                else f"kernel={kernel:.2f}px")
-        print(f"frame {i:4d} t={cap:.3f} pos="
-              + np.array2string(out_t[-1], precision=4) + " " + tail)
-        if args.viz_dir and chunk == 1:
-            # chunked runs draw through the tracker's per-frame commit hook
-            render_overlay(i, tracker.knots)
+        viz_timer = StageTimer()
+        viz_uncovered = [0]
 
-    viz_timer = StageTimer()
-    viz_uncovered = [0]
+        def render_overlay(i, knots):
+            """Keypoints and their blur-kernel polylines over frame i's input
+            image. Frames whose exposure the knot window does not cover
+            (bootstrap, re-anchoring) and rejected frames (knots None) get none;
+            ranks other than 0 draw none."""
+            if not writer or not tracker.keyframe_levels or knots is None:
+                return
+            cap, exp_i = frame_meta(i)
+            t0 = float(knots.t0)
+            t_end = t0 + float(knots.dt) * (knots.num_knots - 1)
+            # float32 knots round t0 by ~1e-7 of the time scale: the tolerance
+            # stays well above that
+            tol = 1e-4 * max(1.0, abs(t_end), float(knots.dt))
+            if not (t0 - tol <= cap - 0.5 * exp_i and cap + 0.5 * exp_i <= t_end + tol):
+                viz_uncovered[0] += 1
+                return
+            with viz_timer.stage("overlay"):
+                os.makedirs(args.viz_dir, exist_ok=True)
+                kf0 = tracker.keyframe_levels[0]
+                m = kf0["kp_mask"].cpu().numpy() > 0
+                segs = viz.blur_kernel_segments(
+                    knots, kf0["kp_xy"].cpu().numpy()[m], kf0["kp_z"].cpu().numpy()[m], K,
+                    cap, exp_i, cfg.spline_degree)
+                img = viz.to_rgb(ds.load_gray_image(image_paths[i]))
+                img = viz.draw_segments(img, segs, color=(64, 220, 64))
+                if segs:
+                    img = viz.draw_points(img, np.stack([s[len(s) // 2] for s in segs]),
+                                          color=(255, 64, 64))
+                viz.save_png(os.path.join(args.viz_dir, f"frame_{i:05d}.png"), img)
 
-    def render_overlay(i, knots):
-        """Keypoints and their blur-kernel polylines over frame i's input
-        image. Frames whose exposure the knot window does not cover
-        (bootstrap, re-anchoring) and rejected frames (knots None) get none."""
-        if not tracker.keyframe_levels or knots is None:
-            return
-        cap, exp_i = frame_meta(i)
-        t0 = float(knots.t0)
-        t_end = t0 + float(knots.dt) * (knots.num_knots - 1)
-        # float32 knots round t0 by ~1e-7 of the time scale: the tolerance
-        # stays well above that
-        tol = 1e-4 * max(1.0, abs(t_end), float(knots.dt))
-        if not (t0 - tol <= cap - 0.5 * exp_i and cap + 0.5 * exp_i <= t_end + tol):
-            viz_uncovered[0] += 1
-            return
-        with viz_timer.stage("overlay"):
-            os.makedirs(args.viz_dir, exist_ok=True)
-            kf0 = tracker.keyframe_levels[0]
-            m = kf0["kp_mask"].cpu().numpy() > 0
-            segs = viz.blur_kernel_segments(
-                knots, kf0["kp_xy"].cpu().numpy()[m], kf0["kp_z"].cpu().numpy()[m], K,
-                cap, exp_i, cfg.spline_degree)
-            img = viz.to_rgb(ds.load_gray_image(image_paths[i]))
-            img = viz.draw_segments(img, segs, color=(64, 220, 64))
-            if segs:
-                img = viz.draw_points(img, np.stack([s[len(s) // 2] for s in segs]),
-                                      color=(255, 64, 64))
-            viz.save_png(os.path.join(args.viz_dir, f"frame_{i:05d}.png"), img)
+        def checkpoint(next_frame):
+            # the deferred keyframe decision is not part of the state
+            tracker.flush()
+            if not writer:
+                return
+            os.makedirs(args.checkpoint_dir, exist_ok=True)
+            save_tracker_state(tracker, os.path.join(args.checkpoint_dir, "state"))
+            with open(meta_path, "w") as f:
+                json.dump({"next_frame": next_frame}, f)
 
-    def checkpoint(next_frame):
-        # the deferred keyframe decision is not part of the state
+        chunk = max(1, args.chunk)
+        if args.joint_window and chunk <= 1:
+            print("warning: --joint-window needs --chunk > 1; falling back to "
+                  "per-frame tracking")
+        viz_base = [start_idx]
+        if args.viz_dir and chunk > 1:
+            # the tracker calls this at each frame's commit, with that frame's own
+            # knot window (None for a rejected frame)
+            tracker.frame_callback = lambda r, knots: render_overlay(viz_base[0] + r, knots)
+        i = start_idx
+        n = len(image_paths)
+        since_ckpt = 0
+        while i < n:
+            if chunk == 1 or tracker.is_first_frame:
+                c = 1
+                cap, exp = frame_meta(i)
+                img = load_image(i)
+                n_fail = len(tracker.failure_log)
+                pose = tracker.track_frame(load_sharp(i, img), img, cap, exp, load_depth(i))
+                if len(tracker.failure_log) > n_fail and out_t:
+                    # the deferred health check just rejected the previous frame:
+                    # hold the last good pose, as the chunked path does
+                    good = -2 if len(out_t) >= 2 else None
+                    out_t[-1] = (out_t[good].copy() if good
+                                 else tracker.T_keyframe.t.double().cpu().numpy())
+                    out_q[-1] = (out_q[good].copy() if good
+                                 else tracker.T_keyframe.q.double().cpu().numpy())
+                record(i, cap, pose)
+                i += 1
+            else:
+                # many chunks a call keeps the speculation pipeline full; the
+                # checkpoint cadence caps the batch
+                c = n - i
+                if args.checkpoint_every:
+                    c = min(c, max(args.checkpoint_every - since_ckpt, chunk))
+                c = min(c, chunk * 8)
+                idx = list(range(i, i + c))
+                metas = [frame_meta(j) for j in idx]
+                imgs = [load_image(j) for j in idx]
+                depths = [load_depth(j) for j in idx]
+                sharps = [load_sharp(j, imgs[r]) for r, j in enumerate(idx)]
+                viz_base[0] = i
+                track = tracker.track_frames_joint if args.joint_window else tracker.track_frames
+                poses = track(imgs, [m[0] for m in metas], [m[1] for m in metas],
+                              sharp_imgs=sharps, depth_maps=depths, chunk=chunk,
+                              inflight=max(1, args.inflight))
+                stats = tracker.last_track_stats
+                for r, pose in enumerate(poses):
+                    kern = float(stats[r, 1]) if stats is not None else None
+                    record(idx[r], metas[r][0], pose, kernel=kern)
+                i += c
+            since_ckpt += c
+            if args.checkpoint_every and since_ckpt >= args.checkpoint_every:
+                checkpoint(i)
+                since_ckpt = 0
+
+        # the final frame's deferred decision
+        n_fail = len(tracker.failure_log)
         tracker.flush()
-        os.makedirs(args.checkpoint_dir, exist_ok=True)
-        save_tracker_state(tracker, os.path.join(args.checkpoint_dir, "state"))
-        with open(meta_path, "w") as f:
-            json.dump({"next_frame": next_frame}, f)
+        if len(tracker.failure_log) > n_fail and len(out_t) >= 2:
+            out_t[-1] = out_t[-2].copy()
+            out_q[-1] = out_q[-2].copy()
 
-    chunk = max(1, args.chunk)
-    if args.joint_window and chunk <= 1:
-        print("warning: --joint-window needs --chunk > 1; falling back to "
-              "per-frame tracking")
-    viz_base = [start_idx]
-    if args.viz_dir and chunk > 1:
-        # the tracker calls this at each frame's commit, with that frame's own
-        # knot window (None for a rejected frame)
-        tracker.frame_callback = lambda r, knots: render_overlay(viz_base[0] + r, knots)
-    i = start_idx
-    n = len(image_paths)
-    since_ckpt = 0
-    while i < n:
-        if chunk == 1 or tracker.is_first_frame:
-            c = 1
-            cap, exp = frame_meta(i)
-            img = load_image(i)
-            n_fail = len(tracker.failure_log)
-            pose = tracker.track_frame(load_sharp(i, img), img, cap, exp, load_depth(i))
-            if len(tracker.failure_log) > n_fail and out_t:
-                # the deferred health check just rejected the previous frame:
-                # hold the last good pose, as the chunked path does
-                good = -2 if len(out_t) >= 2 else None
-                out_t[-1] = (out_t[good].copy() if good
-                             else tracker.T_keyframe.t.double().cpu().numpy())
-                out_q[-1] = (out_q[good].copy() if good
-                             else tracker.T_keyframe.q.double().cpu().numpy())
-            record(i, cap, pose)
-            i += 1
-        else:
-            # many chunks a call keeps the speculation pipeline full; the
-            # checkpoint cadence caps the batch
-            c = n - i
-            if args.checkpoint_every:
-                c = min(c, max(args.checkpoint_every - since_ckpt, chunk))
-            c = min(c, chunk * 8)
-            idx = list(range(i, i + c))
-            metas = [frame_meta(j) for j in idx]
-            imgs = [load_image(j) for j in idx]
-            depths = [load_depth(j) for j in idx]
-            sharps = [load_sharp(j, imgs[r]) for r, j in enumerate(idx)]
-            viz_base[0] = i
-            track = tracker.track_frames_joint if args.joint_window else tracker.track_frames
-            poses = track(imgs, [m[0] for m in metas], [m[1] for m in metas],
-                          sharp_imgs=sharps, depth_maps=depths, chunk=chunk,
-                          inflight=max(1, args.inflight))
-            stats = tracker.last_track_stats
-            for r, pose in enumerate(poses):
-                kern = float(stats[r, 1]) if stats is not None else None
-                record(idx[r], metas[r][0], pose, kernel=kern)
-            i += c
-        since_ckpt += c
-        if args.checkpoint_every and since_ckpt >= args.checkpoint_every:
-            checkpoint(i)
-            since_ckpt = 0
-
-    # the final frame's deferred decision
-    n_fail = len(tracker.failure_log)
-    tracker.flush()
-    if len(tracker.failure_log) > n_fail and len(out_t) >= 2:
-        out_t[-1] = out_t[-2].copy()
-        out_q[-1] = out_q[-2].copy()
-
-    ds.save_tum_trajectory(args.output, np.asarray(out_times), np.asarray(out_t),
-                           np.asarray(out_q))
-    print(f"wrote {len(out_times)} poses to {args.output}")
-    if args.viz_dir:
-        n_viz = viz_timer.counts["overlay"]
-        print(f"wrote {n_viz} overlays to {args.viz_dir} "
-              f"({viz_timer.mean_ms('overlay'):.2f} ms each; {viz_uncovered[0]} frames "
-              "outside their knot window)")
-    if backend is not None and args.backend_stats:
-        with open(args.backend_stats, "w") as f:
-            json.dump(backend.stats, f)
-    return 0
+        if not writer:
+            return 0
+        ds.save_tum_trajectory(args.output, np.asarray(out_times), np.asarray(out_t),
+                               np.asarray(out_q))
+        print(f"wrote {len(out_times)} poses to {args.output}")
+        if args.viz_dir:
+            n_viz = viz_timer.counts["overlay"]
+            print(f"wrote {n_viz} overlays to {args.viz_dir} "
+                  f"({viz_timer.mean_ms('overlay'):.2f} ms each; {viz_uncovered[0]} frames "
+                  "outside their knot window)")
+        if backend is not None and args.backend_stats:
+            with open(args.backend_stats, "w") as f:
+                json.dump(backend.stats, f)
+        return 0
+    finally:
+        reader.close()
+        if distributed and owned:
+            torch.distributed.destroy_process_group()
 
 
 def _loop_knots(num_frames: int, depth: float):

@@ -86,12 +86,17 @@ def list_image_folder(folder: str) -> List[str]:
     return [os.path.join(folder, f) for f in names]
 
 
+def gray_image(pixels: np.ndarray) -> np.ndarray:
+    """``read_png``'s pixels as float32 in [0, 255] (16-bit values saturate
+    at 255)."""
+    if pixels.dtype == np.uint16:
+        pixels = np.minimum(pixels, 255)
+    return pixels.astype(np.float32)
+
+
 def load_gray_image(path: str) -> np.ndarray:
     """A grey PNG as float32 in [0, 255] (16-bit values saturate at 255)."""
-    img = read_png(path)
-    if img.dtype == np.uint16:
-        img = np.minimum(img, 255)
-    return img.astype(np.float32)
+    return gray_image(read_png(path))
 
 
 # --------------------------------------------------------------- trajectory IO

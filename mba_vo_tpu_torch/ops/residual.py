@@ -29,8 +29,12 @@ the elimination (:func:`affine_correct_jvp`); the direct path pairs the
 corrected residual with the Jacobian at frozen gain and bias, as the
 reference does.
 
-Not ported yet (see ROADMAP.md): keypoint sharding (the reference's
-``axis_name``).
+``group`` is the reference's ``axis_name``: under keypoint sharding
+(``parallel.sharded``) each rank holds a contiguous slice of the keypoints,
+and every sum over the keypoint axis (the normal equations, the cost, its
+residual count and the affine fit's moments and their tangents) is
+all-reduced over that ``torch.distributed`` group
+(``utils.collectives.allreduce``). ``patch_costs`` stay shard-local.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import torch
 from torch.func import jacfwd
 
 from ..core.lie import quat_conjugate, quat_rotate
+from ..utils.collectives import allreduce
 from ..core.spline import (
     SplineKnots,
     spline_pose_at_times,
@@ -190,17 +195,22 @@ def _current_intensity(cur_imgs: torch.Tensor, pix: torch.Tensor) -> torch.Tenso
 # -------------------------------------------------------------------- residuals
 
 
-def _affine_fit(pred, obs, valid):
+def _affine_fit(pred, obs, valid, group=None):
     """Per-frame least-squares gain/bias of ``pred ~ a * obs + b`` over the
-    valid pixels, and the moments the derivative reuses."""
+    valid pixels, and the moments the derivative reuses. With ``group`` the
+    moment sums run over every rank's keypoints, so every shard fits the
+    same global (a, b)."""
+    def frame_sum(x):
+        return allreduce(x.sum(dim=(1, 2)), group)
+
     v = valid.to(pred.dtype)
-    n = torch.clamp(v.sum(dim=(1, 2)), min=1.0)                    # [F]
-    mx = (obs * v).sum(dim=(1, 2)) / n
-    my = (pred * v).sum(dim=(1, 2)) / n
+    n = torch.clamp(frame_sum(v), min=1.0)                          # [F]
+    mx = frame_sum(obs * v) / n
+    my = frame_sum(pred * v) / n
     dx = (obs - mx[:, None, None]) * v
     dy = (pred - my[:, None, None]) * v
-    var = (dx * dx).sum(dim=(1, 2)) / n
-    cov = (dx * dy).sum(dim=(1, 2)) / n
+    var = frame_sum(dx * dx) / n
+    cov = frame_sum(dx * dy) / n
     ok = var > 1e-6
     a = torch.where(ok, cov / torch.where(ok, var, torch.ones_like(var)),
                     torch.ones_like(var))
@@ -209,7 +219,7 @@ def _affine_fit(pred, obs, valid):
 
 
 def affine_correct(pred: torch.Tensor, obs: torch.Tensor,
-                   valid: torch.Tensor) -> torch.Tensor:
+                   valid: torch.Tensor, group=None) -> torch.Tensor:
     """Per-frame affine-brightness-eliminated residual.
 
     For each frame f, (a, b) = argmin sum_valid (pred - a*obs - b)^2 in
@@ -219,28 +229,32 @@ def affine_correct(pred: torch.Tensor, obs: torch.Tensor,
     keeps (a, b) = (1, 0), the uncorrected residual.
 
     pred, obs, valid: [F, N, P]. Returns [F, N, P] residuals (0 where
-    invalid).
+    invalid). ``group``: the keypoint shards' process group (see
+    :func:`_affine_fit`).
     """
-    a, b, _ = _affine_fit(pred, obs, valid)
+    a, b, _ = _affine_fit(pred, obs, valid, group)
     r = pred - a[:, None, None] * obs - b[:, None, None]
     return torch.where(valid, r, torch.zeros_like(r))
 
 
 def affine_correct_jvp(pred: torch.Tensor, obs: torch.Tensor,
-                       valid: torch.Tensor, dpred: torch.Tensor):
+                       valid: torch.Tensor, dpred: torch.Tensor, group=None):
     """:func:`affine_correct` and its derivative along D tangents of ``pred``.
 
     dpred: [F, N, P, D]. Returns (r [F, N, P], dr [F, N, P, D]). The fitted
     gain and bias depend on ``pred``, so the tangents pass through them:
     dmy = sum(dpred v)/n, dcov = sum(dx dpred)/n, da = dcov/var and
     db = dmy - da*mx where the fit is live (0 where it fell back to
-    (1, 0)), and dr = dpred - da*obs - db on the valid pixels.
+    (1, 0)), and dr = dpred - da*obs - db on the valid pixels. With
+    ``group`` the tangents' moment sums are all-reduced like the moments
+    themselves (the reference gets them from ``linearize`` through its
+    psum).
     """
-    a, b, (v, n, mx, dx, var, ok) = _affine_fit(pred, obs, valid)
+    a, b, (v, n, mx, dx, var, ok) = _affine_fit(pred, obs, valid, group)
     r = pred - a[:, None, None] * obs - b[:, None, None]
     r = torch.where(valid, r, torch.zeros_like(r))
-    dmy = (dpred * v[..., None]).sum(dim=(1, 2)) / n[:, None]       # [F, D]
-    dcov = (dpred * dx[..., None]).sum(dim=(1, 2)) / n[:, None]
+    dmy = allreduce((dpred * v[..., None]).sum(dim=(1, 2)), group) / n[:, None]   # [F, D]
+    dcov = allreduce((dpred * dx[..., None]).sum(dim=(1, 2)), group) / n[:, None]
     safe_var = torch.where(ok, var, torch.ones_like(var))
     da = torch.where(ok[:, None], dcov / safe_var[:, None], torch.zeros_like(dcov))
     db = torch.where(ok[:, None], dmy - da * mx[:, None], torch.zeros_like(dmy))
@@ -250,7 +264,7 @@ def affine_correct_jvp(pred: torch.Tensor, obs: torch.Tensor,
 
 def compute_residuals(
     knots: SplineKnots, data: TrackingLevelData, num_vir: int, degree: int,
-    with_jacobian: bool, affine: bool = False,
+    with_jacobian: bool, affine: bool = False, group=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """Residuals r [F,N,P], Jacobian J [F,N,P,6K] (or None) and the
     valid-pixel mask [F,N,P], gathering every sample from the whole
@@ -290,7 +304,7 @@ def compute_residuals(
 
     pred = I.mean(dim=-1)  # [F, N, P]
     if affine:
-        r = affine_correct(pred, obs, valid)
+        r = affine_correct(pred, obs, valid, group)
     else:
         r = torch.where(valid, pred - obs, torch.zeros_like(pred))
     return r, J, valid
@@ -327,7 +341,7 @@ def prepare_frame_layout(
 def compute_residuals_windowed(
     knots: SplineKnots, data: TrackingLevelData, num_vir: int, degree: int,
     with_jacobian: bool, window: int = 32, cache=None, layout=None,
-    affine: bool = False,
+    affine: bool = False, group=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """Residuals r [F,N,P], Jacobian J [F,N,P,6K] (or None) and the
     valid-pixel mask [F,N,P], sampling per-keypoint keyframe windows.
@@ -393,9 +407,9 @@ def compute_residuals_windowed(
     if affine:
         pred_fn = pred.permute(1, 0, 2)                     # [F,N,P]
         if not with_jacobian:
-            return affine_correct(pred_fn, obs, valid_center), None, valid_center
+            return affine_correct(pred_fn, obs, valid_center, group), None, valid_center
         r, J = affine_correct_jvp(pred_fn, obs, valid_center,
-                                  dpred.permute(1, 0, 2, 3))
+                                  dpred.permute(1, 0, 2, 3), group)
         return r, J, valid_center
     r_nf = torch.where(vc_nf, pred - obs_nf, torch.zeros_like(pred))
     r = r_nf.permute(1, 0, 2)                               # [F,N,P]
@@ -435,6 +449,7 @@ def compute_rjv(
     cache=None,
     layout=None,
     affine: bool = False,
+    group=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """Residuals r [F,N,P], Jacobian J [F,N,P,6K] (or None), valid mask.
     Independent of the outlier mask, which only reweights the reductions.
@@ -444,10 +459,10 @@ def compute_rjv(
     if sampling == "windowed":
         return compute_residuals_windowed(
             knots, data, num_vir, degree, with_jacobian, window, cache=cache,
-            layout=layout, affine=affine,
+            layout=layout, affine=affine, group=group,
         )
     return compute_residuals(knots, data, num_vir, degree, with_jacobian,
-                             affine=affine)
+                             affine=affine, group=group)
 
 
 def _kahan_chunked_normal_eq(Jw: torch.Tensor, rw: torch.Tensor,
@@ -485,6 +500,7 @@ def assemble(
     outlier_mask: torch.Tensor,
     precision: str = "default",
     compensated: bool = False,
+    group=None,
 ) -> Evaluation:
     """Huber cost (+ gradient + Gauss-Newton Hessian) from residuals.
 
@@ -496,6 +512,11 @@ def assemble(
 
     ``patch_costs`` cover every keypoint, outliers included (the reference
     divides them by the inlier count but does not mask them).
+
+    With ``group`` (keypoint shards) the residual count, the cost and the
+    per-rank g and H (each Kahan-combined per rank when ``compensated``)
+    are all-reduced in the reference's order; ``patch_costs`` cover this
+    rank's keypoints.
     """
     F = data.cur_imgs.shape[0]
     P = data.pattern.shape[0]
@@ -503,13 +524,13 @@ def assemble(
     rho, w = huber_weights(r, huber_a)
 
     live_kp = data.kp_mask * outlier_mask  # [N]
-    n_res = torch.clamp(torch.sum(live_kp) * F * P, min=1.0)
+    n_res = torch.clamp(allreduce(torch.sum(live_kp), group) * F * P, min=1.0)
     inv_n = 1.0 / n_res
 
     patch_costs = torch.sum(rho, dim=-1) * inv_n  # [F, N]
 
     kp_w = live_kp[None, :, None]  # [F, N, P] broadcast
-    cost = torch.sum(rho * kp_w) * inv_n
+    cost = allreduce(torch.sum(rho * kp_w), group) * inv_n
 
     if J is None:
         return Evaluation(cost=cost, gradient=None, hessian=None,
@@ -522,8 +543,9 @@ def assemble(
     else:
         g = torch.einsum("mk,m->k", Jw, rw)
         Hm = torch.einsum("mk,ml->kl", Jw, Jw)
-    return Evaluation(cost=cost, gradient=g * inv_n, hessian=Hm * inv_n,
-                      patch_costs=patch_costs)
+    g = allreduce(g, group) * inv_n
+    Hm = allreduce(Hm, group) * inv_n
+    return Evaluation(cost=cost, gradient=g, hessian=Hm, patch_costs=patch_costs)
 
 
 def evaluate(
@@ -541,15 +563,17 @@ def evaluate(
     cache=None,
     layout=None,
     affine: bool = False,
+    group=None,
 ) -> Evaluation:
     """Full objective evaluation: cost (+ gradient + Gauss-Newton Hessian).
 
     outlier_mask: [N], 1.0 = inlier. Outliers leave the cost/H/g sums and
     the residual-count normalizer; their patch costs are still reported.
+    ``group``: the keypoint shards' process group (None: one process).
     """
     r, J, _valid = compute_rjv(
         knots, data, num_vir, degree, with_jacobian, sampling, window,
-        cache=cache, layout=layout, affine=affine,
+        cache=cache, layout=layout, affine=affine, group=group,
     )
     return assemble(r, J, data, huber_a, outlier_mask,
-                    precision=precision, compensated=compensated)
+                    precision=precision, compensated=compensated, group=group)

@@ -16,6 +16,11 @@ included:
     ``max(1/3, 1-(2q-1)^3)`` and resets the decrease factor to 2; reject
     divides by the doubling decrease factor;
   * step quality is the Conn-Gould-Toint non-monotonic relative decrease.
+
+With ``group`` (keypoint shards, ``parallel.sharded``) every evaluation's
+cost, g and H and the outlier statistics are all-reduced over the ranks,
+so the 12x12 solve and every branch decision are the same on every rank;
+the outlier mask and the patch costs stay shard-local.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from torch.func import jacfwd
 
 from ..core.lie import quat_conjugate, quat_log, quat_multiply
 from ..core.spline import SplineKnots, spline_retract_flat
+from ..utils.collectives import allreduce
 from ..ops.residual import (
     TrackingLevelData,
     assemble,
@@ -148,20 +154,21 @@ def _solve(H: torch.Tensor, g: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def detect_outliers(
-    patch_costs: torch.Tensor, kp_mask: torch.Tensor, chi_k: float,
+    patch_costs: torch.Tensor, kp_mask: torch.Tensor, chi_k: float, group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chi-square-style outlier flags from per-patch Huber costs: (mu, sigma)
     over keypoints with summed cost >= 1e-8, flag |cost - mu| > k*sigma.
-    Returns (inlier mask [N] float, number of outliers)."""
+    Returns (inlier mask [N] float, number of outliers). With ``group`` the
+    statistics and the count are global and the mask is shard-local."""
     c = patch_costs.sum(dim=0)  # [N]
     live = ((c >= 1e-8) & (kp_mask > 0)).to(c.dtype)
-    n_live = torch.clamp(live.sum(), min=1.0)
-    mu = torch.sum(c * live) / n_live
-    var = torch.sum(live * (c - mu) ** 2) / n_live
+    n_live = torch.clamp(allreduce(live.sum(), group), min=1.0)
+    mu = allreduce(torch.sum(c * live), group) / n_live
+    var = allreduce(torch.sum(live * (c - mu) ** 2), group) / n_live
     thresh = chi_k * torch.sqrt(var)
     outlier = (torch.abs(c - mu) > thresh) & (kp_mask > 0)
     inlier_mask = torch.where(outlier, torch.zeros_like(c), torch.ones_like(c))
-    return inlier_mask, outlier.sum()
+    return inlier_mask, allreduce(outlier.sum(), group)
 
 
 def _knot_prior_residual(knots: SplineKnots) -> torch.Tensor:
@@ -211,6 +218,7 @@ class _Level(NamedTuple):
     opts: LMOptions
     cache: tuple
     layout: tuple
+    group: object = None   # the keypoint shards' process group
 
 
 def _prior(k: SplineKnots, opts: LMOptions):
@@ -249,10 +257,11 @@ def lm_iteration(s: _LMState, lv: _Level) -> _LMState:
     r, J, _valid = compute_rjv(
         cand, lv.data, lv.num_vir, lv.degree, True, sampling=opts.sampling,
         window=opts.window, cache=lv.cache, layout=lv.layout,
-        affine=opts.affine_brightness,
+        affine=opts.affine_brightness, group=lv.group,
     )
     ev_c = assemble(r, None, lv.data, opts.huber_a, s.outlier_mask,
-                    precision=opts.precision, compensated=opts.compensated_sum)
+                    precision=opts.precision, compensated=opts.compensated_sum,
+                    group=lv.group)
     cp_c, gp_c, Hp_c = _prior(cand, opts)
     cand_cost = ev_c.cost + cp_c
     quality = _step_quality(s.ev, cand_cost, model_cost_change)
@@ -266,9 +275,10 @@ def lm_iteration(s: _LMState, lv: _Level) -> _LMState:
         return s._replace(**shrink)
 
     new_mask, _ = detect_outliers(ev_c.patch_costs, lv.data.kp_mask,
-                                  opts.max_chi_square_error)
+                                  opts.max_chi_square_error, lv.group)
     ev_f = assemble(r, J, lv.data, opts.huber_a, new_mask,
-                    precision=opts.precision, compensated=opts.compensated_sum)
+                    precision=opts.precision, compensated=opts.compensated_sum,
+                    group=lv.group)
     new_radius = s.radius / torch.clamp(1.0 - (2.0 * quality - 1.0) ** 3,
                                         min=1.0 / 3.0)
     return s._replace(
@@ -294,10 +304,14 @@ def optimize_level(
     degree: int,
     opts: LMOptions,
     cache=None,
+    group=None,
 ) -> Tuple[SplineKnots, LMSummary]:
     """Run the LM loop for one pyramid level.
 
     ``cache``: the level's keyframe window cache (extracted here when None).
+    ``group``: the process group of the keypoint shards when ``data`` and
+    ``cache`` hold this rank's slice (``parallel.sharded``); the summary's
+    outlier mask and patch costs then cover that slice.
     """
     dtype = knots.t.dtype
     N = data.kp_mask.shape[0]
@@ -308,12 +322,13 @@ def optimize_level(
     layout = None
     if opts.sampling == "windowed" and opts.hoist_layout:
         layout = prepare_frame_layout(knots, data, num_vir, degree)
-    lv = _Level(data, num_vir, degree, opts, cache, layout)
+    lv = _Level(data, num_vir, degree, opts, cache, layout, group)
 
     ev0 = evaluate(knots, data, num_vir, degree, opts.huber_a, mask0, True,
                    sampling=opts.sampling, window=opts.window,
                    precision=opts.precision, compensated=opts.compensated_sum,
-                   cache=cache, layout=layout, affine=opts.affine_brightness)
+                   cache=cache, layout=layout, affine=opts.affine_brightness,
+                   group=group)
     cp0, gp0, Hp0 = _prior(knots, opts)
     s = _LMState(
         knots=knots,

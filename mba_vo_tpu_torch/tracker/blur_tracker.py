@@ -39,8 +39,13 @@ is handed to it: the first keyframe without taking a result back, every
 later one adopting the backend's refined pose as the keyframe anchor, from
 the per-frame, the chunked and the joint path alike.
 
-Not ported yet (raises ``NotImplementedError``; see ROADMAP.md):
-``shard_devices > 1``.
+With ``shard_devices = n > 1`` the tracker runs in each of n processes of
+a ``torch.distributed`` group (``parallel.mesh.make_mesh``): every rank
+holds every keypoint and runs the whole tracker, and the LM of each level
+sees the rank's keypoint slice and all-reduces its normal equations
+(``parallel.sharded.optimize_level_shardmapped``). The level's outlier
+mask and patch costs are gathered back to all keypoints, so every rank
+makes the same keyframe and failure decisions.
 """
 
 from __future__ import annotations
@@ -74,11 +79,6 @@ from ..solver.lm import LMOptions, optimize_level
 from ..utils.failure import FailureEvent, stats_healthy
 from .detector import DetectorOptions, detect_semidense
 from .patterns import PATTERNS
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to mba_vo_tpu_torch yet (see ROADMAP.md)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +116,9 @@ class TrackerConfig:
     # cull keypoints whose patch support can leave the image
     keypoint_border_margin: int = 4
     dtype: str = "float32"
-    shard_devices: int = 0  # not ported beyond 0/1
+    # keypoint-sharded LM over the first n ranks of the default process
+    # group (0/1 = one process; see the module docstring)
+    shard_devices: int = 0
     # per-frame closed-form gain/bias elimination in the residual
     # (ops.residual.affine_correct)
     affine_brightness: bool = False
@@ -231,25 +233,36 @@ def _keyframe_anchor(knots: SplineKnots, T_keyframe: Pose, pose_cap: Pose,
     return spline_transform_to(knots, cap_time, ident, degree), new_Tkf
 
 
-def _run_level(knots, data, num_vir, degree, lm_opts, cache, lv):
+def _run_level(knots, data, num_vir, degree, lm_opts, cache, lv, mesh=None):
     """One pyramid level of the coarse-to-fine cascade, shared by the
     per-frame and the joint path.
+
+    ``mesh``: a ``parallel.mesh.Mesh`` routes the LM through the
+    keypoint-sharded path (TrackerConfig.shard_devices).
 
     With ``affine_brightness`` the coarser levels run pure intensity, and
     the finest level runs pure intensity to convergence first and then an
     affine pass from that optimum: started far from the solution, the
     gain/bias-eliminated objective has shallow spurious optima."""
+    def call(k, opts):
+        if mesh is not None:
+            from ..parallel.sharded import optimize_level_shardmapped
+
+            fn = optimize_level_shardmapped(mesh, num_vir, degree, opts, cache is not None)
+            return fn(k, data, cache)
+        return optimize_level(k, data, num_vir, degree, opts, cache=cache)
+
     if lm_opts.affine_brightness:
         pure = dataclasses.replace(lm_opts, affine_brightness=False)
         if lv != 0:
-            return optimize_level(knots, data, num_vir, degree, pure, cache=cache)
-        knots, _ = optimize_level(knots, data, num_vir, degree, pure, cache=cache)
-    return optimize_level(knots, data, num_vir, degree, lm_opts, cache=cache)
+            return call(knots, pure)
+        knots, _ = call(knots, pure)
+    return call(knots, lm_opts)
 
 
 def _frame_step(knots: SplineKnots, neigh_velocity, T_prev: Pose, scalars,
                 cur_img, kf_levels, pattern, K0, num_levels: int,
-                num_virtual_poses, degree: int, lm_opts: LMOptions):
+                num_virtual_poses, degree: int, lm_opts: LMOptions, mesh=None):
     """Track ONE frame against the fixed keyframe state: prediction, current
     pyramid, coarse-to-fine LM, pose/velocity/keyframe statistics.
 
@@ -266,7 +279,7 @@ def _frame_step(knots: SplineKnots, neigh_velocity, T_prev: Pose, scalars,
         data = _level_data(kl, pyr[lv][None], cap_time[None], exp_time[None],
                            pattern, K0, lv)
         knots, summary = _run_level(knots, data, num_virtual_poses[lv], degree,
-                                    lm_opts, kl["wincache"], lv)
+                                    lm_opts, kl["wincache"], lv, mesh)
         summaries.append((lv, summary))
 
     kl0 = kf_levels[0]
@@ -293,7 +306,7 @@ def _level_data(kl: dict, cur_imgs, cap_times, exp_times, pattern, K0, lv: int):
 def _track_chunk(knots: SplineKnots, neigh_velocity, T_prev: Pose,
                  T_keyframe: Pose, scalars, cur_imgs, kf_levels, pattern, K0,
                  num_levels: int, num_virtual_poses, degree: int,
-                 lm_opts: LMOptions):
+                 lm_opts: LMOptions, mesh=None):
     """Track a chunk of consecutive frames against a fixed keyframe, each
     frame from its predecessor's state (the reference's ``lax.scan`` over
     the frame step, as a loop).
@@ -308,7 +321,7 @@ def _track_chunk(knots: SplineKnots, neigh_velocity, T_prev: Pose,
     for sc, img in zip(scalars, cur_imgs):
         knots, pose_cap, neigh_velocity, stats, summaries = _frame_step(
             knots, neigh_velocity, T_prev, sc, img, kf_levels, pattern, K0,
-            num_levels, num_virtual_poses, degree, lm_opts,
+            num_levels, num_virtual_poses, degree, lm_opts, mesh,
         )
         T_prev = pose_cap
         result = pose_compose(T_keyframe, pose_cap)
@@ -321,7 +334,7 @@ def _track_chunk(knots: SplineKnots, neigh_velocity, T_prev: Pose,
 def _track_joint_window(knots: SplineKnots, T_keyframe: Pose, n_slide: int,
                         caps, exps, cur_imgs, kf_levels, pattern, K0,
                         num_levels: int, num_virtual_poses, degree: int,
-                        lm_opts: LMOptions):
+                        lm_opts: LMOptions, mesh=None):
     """Joint multi-frame window tracking: ONE LM problem over a C-frame
     chunk with a sliding K-knot spline window.
 
@@ -348,7 +361,7 @@ def _track_joint_window(knots: SplineKnots, T_keyframe: Pose, n_slide: int,
         lv = num_levels - 1 - i
         data = _level_data(kf_levels[lv], pyr[lv], caps, exps, pattern, K0, lv)
         knots, summary = _run_level(knots, data, num_virtual_poses[lv], degree,
-                                    lm_opts, kf_levels[lv]["wincache"], lv)
+                                    lm_opts, kf_levels[lv]["wincache"], lv, mesh)
     # per-frame photometric costs, so the health check can tell which frame
     # of the chunk diverged
     frame_costs = summary.patch_costs.sum(dim=1).to(dtype)  # [C]
@@ -403,12 +416,25 @@ class BlurAwareTracker:
     A CUDA device without a visible GPU raises; the tracker never moves to
     the CPU on its own. On CUDA, TF32 is switched off so float32 means
     float32.
+
+    ``config.shard_devices = n > 1`` builds ``mesh`` over the first n ranks
+    of the initialised default process group (every rank of it constructs
+    the tracker); the keypoint count must be a multiple of n.
     """
 
     def __init__(self, config: TrackerConfig, K: np.ndarray,
                  im_hw: Tuple[int, int], backend=None, device="cuda"):
+        self.mesh = None
         if config.shard_devices and config.shard_devices > 1:
-            raise _not_ported("keypoint sharding (shard_devices > 1)")
+            from ..parallel.mesh import make_mesh
+
+            n = int(config.shard_devices)
+            if config.detector.max_keypoints % n:
+                raise ValueError(
+                    f"detector.max_keypoints ({config.detector.max_keypoints}) must be "
+                    f"a multiple of shard_devices ({n}): keypoint shards must be equal "
+                    "(parallel.mesh pad-and-mask)")
+            self.mesh = make_mesh(n)
         if config.sampling not in ("windowed", "direct"):
             raise ValueError(f"unknown sampling {config.sampling!r}")
         self.device = torch.device(device)
@@ -615,7 +641,7 @@ class BlurAwareTracker:
                 self.T_keyframe, self._tensor(scal), imgs,
                 self.keyframe_levels, self.pattern, self.K0,
                 cfg.num_pyramid_levels, cfg.num_virtual_poses,
-                cfg.spline_degree, cfg.lm_options(),
+                cfg.spline_degree, cfg.lm_options(), self.mesh,
             )
             # optimistic advance: the next chunk starts from this one's end
             self.knots, self.neigh_velocity, self.T_prev_b2w = out[2][-1]
@@ -854,7 +880,7 @@ class BlurAwareTracker:
                 self._joint_knots, self.T_keyframe, m, self._tensor(caps),
                 self._tensor(exps), imgs, self.keyframe_levels, self.pattern,
                 self.K0, cfg.num_pyramid_levels, cfg.num_virtual_poses, deg,
-                lm_opts,
+                lm_opts, self.mesh,
             )
             self._joint_knots = knots_fin   # optimistic advance
             return i0, c, knots_fin, pack_dev, snapshot
@@ -949,7 +975,7 @@ class BlurAwareTracker:
             self.knots, self.neigh_velocity, self.T_prev_b2w, scalars, blur,
             self.keyframe_levels, self.pattern, self.K0,
             cfg.num_pyramid_levels, cfg.num_virtual_poses, cfg.spline_degree,
-            cfg.lm_options(),
+            cfg.lm_options(), self.mesh,
         )
         result = pose_compose(self.T_keyframe, pose_cap)
         return knots, pose_cap, result, neigh_velocity, stats, summaries

@@ -3,8 +3,9 @@ package's, on the CPU in float64: the eth3d-format fixture of
 tests/torch_cli_common.py (8-bit PNG frames, 16-bit PNG depth / 5000, sharp
 keyframes, a times file) goes through ``track`` with the keyframe backend
 per frame, in chunks and with the joint window, and the TUM files must
-agree to TUM_TOL; ``eval`` prints the same numbers; the unported options
-(sharding) raise; the config loaders behave as the JAX ones.
+agree to TUM_TOL; ``eval`` prints the same numbers; ``--shard-devices``
+outside ``torch.distributed.run`` raises the reference's ValueError; the
+config loaders behave as the JAX ones.
 tests/test_torch_cli_models.py has the camera models, overlays and
 ``synth --scene 3d``.
 
@@ -69,18 +70,21 @@ def test_eval_prints_the_same_numbers(eth3d):
 
 
 def test_unported_options_raise(eth3d, tmp_path):
-    """Only sharding is left to port (ROADMAP.md Queue 1 item 6): the
-    command-line flag and a backend config that asks for it."""
+    """Nothing is left unported: the ROADMAP table of unported options is
+    gone, and sharding asked for by the flag or by a backend config, run
+    outside torch.distributed.run (no process group), raises the
+    reference's ValueError naming the visible count. The sharded command
+    line runs in tests/test_torch_parallel.py."""
+    assert not hasattr(tcli, "ROADMAP_ITEM") and not hasattr(tcli, "_not_ported")
     base = track_args(eth3d, "t_x.txt", ["--device", "cpu"])
-    with pytest.raises(NotImplementedError,
-                       match=r"--shard-devices > 1.*ROADMAP.md Queue 1 item 6"):
+    with pytest.raises(ValueError, match="shard_devices=2 but only 1 devices are visible"):
         tcli.main(base + ["--shard-devices", "2"])
-    assert list(tcli.ROADMAP_ITEM) == ["--shard-devices > 1"]
     (tmp_path / "sharded.json").write_text(json.dumps({"shard_devices": 2}))
     argv = base + ["--backend", "ba"]
     argv[argv.index("--backend-config") + 1] = str(tmp_path / "sharded.json")
-    with pytest.raises(NotImplementedError, match=r"shard_devices > 1.*ROADMAP.md Queue 1 item 6"):
+    with pytest.raises(ValueError, match="shard_devices=2 but only 1 devices are visible"):
         tcli.main(argv)
+    assert not (eth3d / "t_x.txt").exists()
 
 
 def test_cuda_device_without_a_card_raises(eth3d):

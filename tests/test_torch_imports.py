@@ -4,8 +4,10 @@ mba_vo_tpu_torch loads neither JAX nor the JAX package, nor PIL or orbax
 torch.save), nor builds or loads a kernel. That holds for
 ops/cuda_sampling.py (two kernels), the sweep harness
 experiments/kernel_variants.py, the backend, the command line, the loop
-benchmark, the camera/trajectory/sensor models, the scene renderer and the
-overlay and profiling utilities as for every other module."""
+benchmark, the camera/trajectory/sensor models, the scene renderer, the
+overlay and profiling utilities and the sharding package parallel/ (whose
+modules import torch.distributed, never jax.distributed) as for every
+other module."""
 
 import pkgutil
 import subprocess
@@ -33,7 +35,9 @@ print(len(names), bad, cuda_sampling._libs, cuda_sampling.BUILD_LOG, built,
           "experiments.kernel_variants", "experiments.loop_bench", "cli",
           "backend.vo_backend", "utils.checkpoint", "data.png", "models.camera",
           "models.trajectory", "models.sensors", "core.navstate", "data.scene3d",
-          "utils.viz", "utils.profiling", "backend.dynamic_points")))
+          "utils.viz", "utils.profiling", "backend.dynamic_points", "parallel",
+          "parallel.mesh", "parallel.distributed", "parallel.sharded",
+          "parallel.sharded_ba", "utils.collectives")))
 """
 
 
@@ -46,7 +50,7 @@ def test_every_module_imports_without_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad, rest = out.stdout.split(maxsplit=2)
-    assert int(n) >= 46
+    assert int(n) >= 52
     # no library loaded, nothing compiled, the harness among the modules
     assert bad == "[]" and rest.split() == ["{}", "{}", EXPECT_BUILT, "True"], out.stdout
 
@@ -54,4 +58,9 @@ def test_every_module_imports_without_jax():
 def test_package_layout_mirrors_the_reference():
     subpackages = {m.name for m in pkgutil.iter_modules(mba_vo_tpu_torch.__path__) if m.ispkg}
     assert {"core", "ops", "solver", "tracker", "utils", "data", "backend",
-            "models"} <= subpackages
+            "models", "parallel"} <= subpackages
+    # the sharding package exports the reference subpackage's names
+    import mba_vo_tpu_torch.parallel as tpar
+
+    assert {"make_mesh", "pad_keypoints", "shard_level_data", "optimize_level_sharded",
+            "make_ba_mesh", "shard_ba_problem", "run_bundle_adjustment_sharded"} <= set(dir(tpar))

@@ -273,10 +273,12 @@ def test_config_defaults_and_fields():
     (dict(), "track_frames_joint"),
 ])
 def test_unported_entry_points_raise(kw, call):
-    """What is left unported raises by name (keypoint sharding); what has
-    been ported since constructs and runs: sampling="direct",
-    affine_brightness, track_frames, track_frames_joint and a backend (the
-    bootstrap keyframe reaches it)."""
+    """Every entry point is ported: sampling="direct", affine_brightness,
+    track_frames, track_frames_joint and a backend (the bootstrap keyframe
+    reaches it) construct and run; shard_devices raises the reference's
+    ValueErrors where a single process cannot shard (the counterpart of
+    tests/test_parallel.py::test_shard_devices_validation; the sharded
+    runs are in tests/test_torch_parallel.py)."""
     cfg = tbt.TrackerConfig(**kw)
     if call == "backend":
         from mba_vo_tpu_torch.backend.vo_backend import BackendConfig, VOBackend
@@ -288,7 +290,12 @@ def test_unported_entry_points_raise(kw, call):
         assert len(backend.keyframes) == 1 and tracker.backend is backend
         return
     if kw.get("shard_devices"):
-        with pytest.raises(NotImplementedError, match=r"shard_devices > 1.*ROADMAP"):
+        # the shard count must divide the keypoint slots ...
+        with pytest.raises(ValueError, match="multiple of shard_devices"):
+            tbt.BlurAwareTracker(dataclasses.replace(cfg, shard_devices=7), KVEC, (H, W),
+                                 device="cpu")
+        # ... and the ranks of a process group must be there to take them
+        with pytest.raises(ValueError, match="shard_devices=2 but only 1 devices are visible"):
             tbt.BlurAwareTracker(cfg, KVEC, (H, W), device="cpu")
         return
     tracker = tbt.BlurAwareTracker(cfg, KVEC, (H, W), device="cpu")

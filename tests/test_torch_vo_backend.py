@@ -203,5 +203,11 @@ def test_backend_config_from_fields():
     cfg = jvb.BackendConfig(window_size=5, max_landmarks=128)
     assert interop.backend_config_from_fields(cfg) == tvb.BackendConfig(
         window_size=5, max_landmarks=128)
-    with pytest.raises(NotImplementedError, match=r"shard_devices > 1.*ROADMAP"):
+    # sharded BA: the reference's ValueErrors where one process cannot shard
+    # (tests/test_torch_parallel.py runs it on four ranks)
+    with pytest.raises(ValueError, match=r"max_landmarks \(512\) must be a multiple of "
+                                         r"shard_devices \(3\)"):
+        tvb.VOBackend(tvb.BackendConfig(shard_devices=3), KVEC, device="cpu")
+    with pytest.raises(ValueError, match="shard_devices=2 but only 1 devices are visible"):
         tvb.VOBackend(tvb.BackendConfig(shard_devices=2), KVEC, device="cpu")
+    assert tvb.VOBackend(tvb.BackendConfig(), KVEC, device="cpu").mesh is None
