@@ -7,13 +7,17 @@ Run from the root of the repository, with no arguments:
 Phases (any failed check raises and the exit code is non-zero):
   1. device: require CUDA, print the card's name and power limit, TF32 off;
   2. build kernels K1 (csrc/window_bilinear.cu: one thread a sample, which
-     the tracker launches, and the band design) and K1-v
+     the tracker launches, and the band design), K1-v
      (csrc/window_bilinear_tiled.cu: the ring design and the staged first
-     design) with nvcc for sm_90a, both sources at once, and print each
-     kernel's registers, shared memory and spills;
+     design), K2 (csrc/residual_rows.cu: warp_tangents and blur_rows) and
+     K3 (csrc/normal_equations.cu) with nvcc for sm_90a, all four sources
+     at once, and print each kernel's registers, shared memory and spills;
   3. record the sampler's inputs as the tracker gives them on the bench
      scenario (16 frames of track_frame from rest, one chunk of
-     track_frames_joint from a moving window, f32); then both designs of K1
+     track_frames_joint from a moving window, f32), and K2's and K3's
+     inputs on the same 16 frames and on one joint chunk at degree 4 (6K =
+     42), held against their plain versions on every recorded call
+     (experiments/residual_kernels.py); then both designs of K1
      and of K1-v, K1-v at every (tile, threads) the sweep harness runs,
      against the plain PyTorch version: f32 and f64, C = 1 and 3, S = 1,
      40, 160 and 320, windows 32x32, 20x32, 20x30, 21x31 and 6x9, the
@@ -21,11 +25,13 @@ Phases (any failed check raises and the exit code is non-zero):
      off the staged band and off the window, and every recorded call;
      whether K1's two designs agree bit for bit;
   4. the tracker in f64 on CUDA against the same tracker on the CPU, on the
-     bench scenario (VGA, 512 keypoints, 3 levels, 5 virtual poses);
+     bench scenario (VGA, 512 keypoints, 3 levels, 5 virtual poses), with
+     every K2 and K3 call of the CUDA run held against the plain version;
   5. the per-frame main path: the tracker in f32 on CUDA under bench.py's
      options, from rest, over a longer run of the same scenario: frames/s,
-     K1's launch count in that run and the ATE against the generating
-     spline; the f32-vs-f64 drift rule of tests/test_precision.py with that
+     K1's, K2's and K3's launch counts in that run, the kernel launches a
+     frame and an LM evaluation (torch.profiler) and the ATE against the
+     generating spline; the f32-vs-f64 drift rule of tests/test_precision.py with that
      test's options, measured on the bench scenario and checked on the
      test's own scenario through track_frames, as the test runs it;
   6. the multi-frame main paths at the same width: (a) track_frames against
@@ -42,6 +48,9 @@ Phases (any failed check raises and the exit code is non-zero):
      kernel, K1-v's best and worst variant, plain and grid_sample on phase
      3's recorded inputs ("tracker S=40", "tracker S=160") with the
      histogram of their tap rows; and the floor row (N = 1, S = 1, C = 3);
+     then K2's two entries and K3 (its calls with J) on phase 3's recorded
+     calls, warm and cold in a replayed graph, beside the plain versions,
+     the bound and, for K3, cuBLAS's Jw.T @ Jw;
   8. the command line and the keyframe backend: (a) float64 on CUDA against
      the CPU at full width: detect_sparse + match_descriptors on a VGA frame
      of the bench scenario with BackendConfig's default detector (differing
@@ -54,7 +63,8 @@ Phases (any failed check raises and the exit code is non-zero):
      beside the same run on the CPU with one thread; (c) the loop benchmark at bench_loop.py's
      defaults through experiments/loop_bench.py on the card, its ATE rule
      (ba+pg cuts the final-quarter ATE by >= 50 %) beside LOOP_r05.json's
-     JAX-on-CPU figures, wall time, frames/s, K1 launches and the backend's
+     JAX-on-CPU figures, wall time, frames/s, K1's, K2's and K3's launches
+     (each > 0) and the backend's
      ms per keyframe by stage, then its tracker-only run again on the CPU
      from the card's files: the per-frame TUM difference and the first
      frame over 1e-8; (d) `cli synth` at VGA, then `cli track` in
@@ -85,10 +95,11 @@ Phases (any failed check raises and the exit code is non-zero):
      with shard_devices = 2 through track_frame, track_frames and
      track_frames_joint in f64, against phases 4, 6a and 6c's
      single-process runs (1e-9), every rank's knots and poses equal bit for
-     bit and K1 launched by every rank (counted from 0 before each path),
-     K1 held against the plain version on every sampler call of the
-     sharded track_frame path, at the shard's 256 keypoints (1e-12), then
-     track_frame in f32: frames/s beside 5a's; (b)
+     bit and K1, K2 and K3 launched by every rank (counted from 0 before
+     each path), K1 held against the plain version on every sampler call
+     of the sharded track_frame path, at the shard's 256 keypoints (1e-12),
+     and K2 and K3 on every call of that path on every rank (1e-12 rows,
+     1e-10 sums), then track_frame in f32: frames/s beside 5a's; (b)
      run_bundle_adjustment_sharded at 8a's size against dense (1e-8); (c)
      `python -m torch.distributed.run --nproc-per-node 2 -m
      mba_vo_tpu_torch.cli track --shard-devices 2` on 8d's sequence (f64)
@@ -97,8 +108,10 @@ Phases (any failed check raises and the exit code is non-zero):
      thread, with the decoders in two threads and in two processes (the
      command line's read-ahead, `cli.READ_AHEAD`): frames/s of each, the
      TUM file equal to the filter-0 run's;
-then one JSON line of kernel results, the card line again, and the final
-status line {"ok": true, "device": {...}}.
+K2's and K3's launches are counted, as K1's, on each path (5a, 6a, 6c,
+8b-8d, 9b-9d, 10a per rank; a call of K3 launches two kernels); then one JSON line of kernel results,
+the card line again, and the final status line {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -140,6 +153,41 @@ def kernel_launches(fn) -> int:
 def check(cond: bool, msg: str):
     if not cond:
         raise AssertionError(msg)
+
+
+# K2's and K3's launch counters (ops/cuda_residual.py), and their counts by
+# path: each in-process path zeroes every kernel's count just before it runs
+# and reads K2's and K3's just after (K1's go to the ``launches`` dicts)
+RESIDUAL_LAUNCHES: dict = {}
+
+
+def zero_counts(cs):
+    """Zero K1's launch count and K2's and K3's."""
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+
+    cs.LAUNCHES = 0
+    cr.zero_launch_counts()
+
+
+def note_residual_launches(path: str) -> dict:
+    """K2's and K3's launches since :func:`zero_counts`, kept under ``path``."""
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+
+    got = cr.launch_counts()
+    RESIDUAL_LAUNCHES[path] = got
+    return got
+
+
+def sharded_residual_launches(path: str, per_rank: list) -> dict:
+    """K2's and K3's launches of a path's ranks, each rank's read as
+    :func:`note_residual_launches` reads them: kept under ``path`` summed
+    over the ranks, returned by kernel per rank; fails where a rank never
+    launched one."""
+    got = {k: [r[k] for r in per_rank] for k in per_rank[0]}
+    check(all(n > 0 for ns in got.values() for n in ns),
+          f"{path}: a rank never launched K2 or K3: {got}")
+    RESIDUAL_LAUNCHES[path] = {k: sum(ns) for k, ns in got.items()}
+    return got
 
 
 # ------------------------------------------------------------------ phase 3
@@ -261,23 +309,59 @@ def phase_kernel(kv, recorded):
     return max_err, bitwise
 
 
-def record_tracker_calls(img, traj, frames) -> dict:
+def record_tracker_calls(img, traj, frames):
     """The sampler's inputs as the tracker gives them on the bench scenario
     in f32: "tracker S=40", the calls of 16 frames of track_frame from rest
     (bench.py's options); "tracker S=160", those of one chunk of
     track_frames_joint(chunk=4) from a moving window (the bootstrap frame's
-    S = 40 calls left out)."""
+    S = 40 calls left out). And K2's and K3's inputs, by kernel: "tracker
+    S=40", the same 16 frames; "joint degree 4", one chunk of
+    track_frames_joint(chunk=4) at degree 4 (6K = 42) from a moving window,
+    its calls over the chunk's 4 frames. Returns (sampler calls, K2/K3
+    calls)."""
     from mba_vo_tpu_torch.experiments import kernel_variants as kv
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
 
-    with kv.record_sampler_calls() as per_frame:
+    with kv.record_sampler_calls() as per_frame, rk.record_residual_calls() as rows:
         run_tracker(bench_config("float32"), "cuda", img, frames)
     with kv.record_sampler_calls() as joint:
         run_batch(bench_config("float32"), "cuda", img, frames[:JCHUNK],
                   method="track_frames_joint", chunk=JCHUNK, inflight=3,
                   window=moving_window(traj, frames, JCHUNK, DEG))
+    with rk.record_residual_calls() as joint_rows:
+        run_batch(bench_config("float32", spline_degree=4), "cuda", img, frames[:JCHUNK],
+                  method="track_frames_joint", chunk=JCHUNK, inflight=3,
+                  window=moving_window(traj, frames, JCHUNK, 4))
     s_joint = JCHUNK * S_MAIN
-    return {"tracker S=40": [c for c in per_frame if c.S == S_MAIN],
-            f"tracker S={s_joint}": [c for c in joint if c.S == s_joint]}
+    sampler = {"tracker S=40": [c for c in per_frame if c.S == S_MAIN],
+               f"tracker S={s_joint}": [c for c in joint if c.S == s_joint]}
+    residual = {"tracker S=40": rows,
+                "joint degree 4": {k: [c for c in calls if c.frames == JCHUNK]
+                                   for k, calls in joint_rows.items()}}
+    return sampler, residual
+
+
+def hold_residual_calls(recorded: dict) -> dict:
+    """K2's two entries and K3 against their plain versions on every
+    recorded call; prints each kernel's largest differences and returns
+    them by kernel as (absolute, relative to the output's magnitude)."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+
+    worst = {}
+    for label, by_kernel in recorded.items():
+        for kernel, calls in by_kernel.items():
+            check(len(calls) > 0, f"{label}: no {kernel} call was recorded")
+            errs = [rk.hold(c) for c in calls]
+            err = (max(e[0] for e in errs), max(e[1] for e in errs))
+            a, r = worst.get(kernel, (0.0, 0.0))
+            worst[kernel] = (max(a, err[0]), max(r, err[1]))
+            print(f"  {label}: {kernel}, {len(calls)} recorded calls ("
+                  f"{str(calls[0].dtype).split('.')[-1]}, 6K = "
+                  f"{sorted({c.tangents for c in calls})}, levels "
+                  f"{sorted({c.level for c in calls}, key=str)}): max |kernel - plain| "
+                  f"{err[0]:.3e}, {err[1]:.3e} of the output's magnitude (bound "
+                  f"{rk.TOLERANCE[kernel, calls[0].dtype]:.0e})")
+    return worst
 
 
 # ------------------------------------------------------------- phases 4-5
@@ -691,7 +775,7 @@ def phase_cli_cuda_vs_cpu(root, cs, launches):
     threads = torch.get_num_threads()
     for run in ("cuda", "cpu", "cpu 1 thread"):
         dev = run.split()[0]
-        cs.LAUNCHES = 0
+        zero_counts(cs)
         torch.set_num_threads(1 if run == "cpu 1 thread" else threads)
         try:
             wall, _ = run_cli(track_argv(seq, os.path.join(root, f"est_{len(run)}.txt"), dev,
@@ -702,6 +786,7 @@ def phase_cli_cuda_vs_cpu(root, cs, launches):
             torch.set_num_threads(threads)
         if dev == "cuda":
             launches["cli track --backend ba+pg (8b)"] = cs.LAUNCHES
+            note_residual_launches("cli track --backend ba+pg (8b)")
         with open(os.path.join(root, f"stats_{len(run)}.json")) as f:
             stats = json.load(f)
         _, t, q = ds.load_tum_trajectory(os.path.join(root, f"est_{len(run)}.txt"))
@@ -757,15 +842,21 @@ def phase_loop_benchmark(cs, launches, root):
     if os.path.exists(LOOP_REFERENCE):
         with open(LOOP_REFERENCE) as f:
             ref = json.load(f)
-    launches["loop benchmark ba+pg (8c)"] = summary["runs"]["ba_pg"]["k1_launches"]
-    launches["loop benchmark tracker-only (8c)"] = summary["runs"]["tracker_only"]["k1_launches"]
+    for name, label in (("ba_pg", "ba+pg"), ("tracker_only", "tracker-only")):
+        r = summary["runs"][name]
+        path = f"loop benchmark {label} (8c)"
+        launches[path] = r["k1_launches"]
+        RESIDUAL_LAUNCHES[path] = r["k2_k3_launches"]
+        check(all(n > 0 for n in r["k2_k3_launches"].values()),
+              f"{path} never launched K2 or K3: {r['k2_k3_launches']}")
     for name, r in summary["runs"].items():
         jr = ref["runs"][name] if ref else {}
         print(f"[8c] loop benchmark ({summary['num_frames']} frames, {summary['image']}, "
               f"noise {summary['noise_sigma']}), {name}: ATE full {r['ate_full_m']:.6f} m, final "
               f"quarter {r['ate_final_quarter_m']:.6f} m (JAX on CPU, {LOOP_REFERENCE}: "
               f"{jr.get('ate_full_m')} / {jr.get('ate_final_quarter_m')}); {r['wall_s']:.2f} s "
-              f"= {r['frames_per_s']:.3f} frames/s; K1 launches {r['k1_launches']}")
+              f"= {r['frames_per_s']:.3f} frames/s; K1 launches {r['k1_launches']}, K2/K3 "
+              f"{r['k2_k3_launches']}")
     b = summary["runs"]["ba_pg"]["backend"]
     print(f"    backend: {b['keyframes']} keyframes, {b['loop_edges']} loop edges in "
           f"{b['pose_graph_runs']} pose-graph runs; ms per keyframe by stage (each stage ended "
@@ -831,10 +922,11 @@ def phase_vga_cli(root, cs, launches):
     res = {}
     for name, extra in (("tracker only", []), ("ba+pg", [
             "--backend", "ba+pg", "--backend-stats", os.path.join(root, "vga_stats.json")])):
-        cs.LAUNCHES = 0
+        zero_counts(cs)
         wall, _ = run_cli(track_argv(seq, os.path.join(root, f"vga_{len(extra)}.txt"), "cuda",
                                      config, ["--chunk", "8", *extra]))
         launches[f"cli track VGA --chunk 8, {name} (8d)"] = cs.LAUNCHES
+        note_residual_launches(f"cli track VGA --chunk 8, {name} (8d)")
         res[name] = dict(wall=wall, fps=21 / wall, launches=cs.LAUNCHES)
     with open(os.path.join(root, "vga_stats.json")) as f:
         stats = json.load(f)
@@ -1122,11 +1214,12 @@ def phase_scene_cli(root, cs, launches, timer, config):
 
     viz = os.path.join(root, "viz3d")
     est = os.path.join(root, "scene3d_track.txt")
-    cs.LAUNCHES = 0
+    zero_counts(cs)
     with timer.stage("9b cli track 3d --chunk 8 --viz-dir"):
         wall, out = run_cli(track_argv(seq, est, "cuda", config,
                                        ["--chunk", "8", "--viz-dir", viz]))
     k1 = launches["cli track 3d VGA --chunk 8 --viz-dir (9b)"] = cs.LAUNCHES
+    note_residual_launches("cli track 3d VGA --chunk 8 --viz-dir (9b)")
     ate3d = read_ate(est, seq)
     n_png = len([f for f in os.listdir(viz) if f.endswith(".png")])
     rejected = out.count("(rejected")
@@ -1174,11 +1267,12 @@ def phase_undistort_cli(root, cs, launches, timer, config, vga):
             for n in ("depths", "times.txt", "groundtruth.txt", "intrinsics.txt"):
                 os.symlink(os.path.join(seq, n), os.path.join(copy, n))
         est = os.path.join(root, f"vga_{name}.txt")
-        cs.LAUNCHES = 0
+        zero_counts(cs)
         with timer.stage(f"9c cli track {name} --chunk 8"):
             wall, _ = run_cli(track_argv(copy, est, "cuda", config, ["--chunk", "8", *flags[name]]))
         res[name] = dict(wall=wall, ate=read_ate(est, copy), launches=cs.LAUNCHES)
         launches[f"cli track VGA {' '.join(flags[name])} --chunk 8 (9c)"] = cs.LAUNCHES
+        note_residual_launches(f"cli track VGA {' '.join(flags[name])} --chunk 8 (9c)")
     print("[9c] cli track f32, bench options, --chunk 8 on phase 8d's VGA sequence: " + "; ".join(
         f"{n} ATE {r['ate']:.4e} m, {21 / r['wall']:.3f} frames/s, K1 launches {r['launches']}"
         for n, r in res.items())
@@ -1247,7 +1341,7 @@ def ladder(h, w, fx, dtype, cs, device="cuda"):
              "rung 3 occluder": (occluded, None, None, False),
              "rung 4 full stack": (occluded, noisy, disturb, True)}
     out = {}
-    cs.LAUNCHES = 0
+    zero_counts(cs)
     for name, (scene_at, depth_fn, img_fn, affine) in rungs.items():
         sharp0, z0 = scene3d.render_scene(scene_at(0), torch.zeros(3, **f64),
                                           torch.tensor([0.0, 0.0, 0.0, 1.0], **f64), Kt, h, w)
@@ -1284,6 +1378,7 @@ def phase_ladder(cs, launches, timer):
             with timer.stage(f"9d ladder {label} {dtype}"):
                 res[(label, dtype)], k1 = ladder(h, w, fx, dtype, cs)
             launches[f"realism ladder {label} {dtype}, track_frame (9d)"] = k1
+            note_residual_launches(f"realism ladder {label} {dtype}, track_frame (9d)")
             check(k1 > 0, "the ladder never launched K1")
     for label in ("test recipe 128x160", "VGA"):
         r64, r32 = res[(label, "float64")], res[(label, "float32")]
@@ -1313,9 +1408,11 @@ SHARD_TIMEOUT_S = 300
 def _sharded_rank(rank, world, store, inputs_path, out_dir):
     """One rank of 10a-b: the bench scenario through track_frame,
     track_frames and track_frames_joint with shard_devices = world in f64
-    (K1's launches counted from 0 before and read after), the same
-    per-frame path in f32, timed, and the window BA of phase 8a with its
-    landmarks sharded, each result saved for the parent."""
+    (K1's, K2's and K3's launches counted from 0 before and read after;
+    K1's and K2/K3's calls of track_frame held against the plain versions
+    after the count), the same per-frame path in f32, timed, and the window
+    BA of phase 8a with its landmarks sharded, each result saved for the
+    parent."""
     import datetime
 
     import torch
@@ -1330,6 +1427,8 @@ def _sharded_rank(rank, world, store, inputs_path, out_dir):
         from mba_vo_tpu_torch import interop
         from mba_vo_tpu_torch.backend import ba
         from mba_vo_tpu_torch.experiments import kernel_variants as kv
+        from mba_vo_tpu_torch.experiments import residual_kernels as rk
+        from mba_vo_tpu_torch.ops import cuda_residual as cr
         from mba_vo_tpu_torch.ops import cuda_sampling as cs
         from mba_vo_tpu_torch.ops import window_sampling as ws
         from mba_vo_tpu_torch.parallel.sharded_ba import (
@@ -1341,14 +1440,21 @@ def _sharded_rank(rank, world, store, inputs_path, out_dir):
         img, frames = inp["img"], inp["frames"]
         cfg64 = bench_config("float64", shard_devices=world)
         out = {}
-        cs.LAUNCHES = 0
-        with kv.record_sampler_calls() as calls:
+
+        zero_counts(cs)
+        with kv.record_sampler_calls() as calls, rk.record_residual_calls() as k23_calls:
             tracker = BlurAwareTracker(cfg64, KVEC, img.shape, device="cuda")
             tracker.track_frame(img, img, 0.0, EXPOSURE, np.full(img.shape, DEPTH))
             out["track_frame"] = poses_array([tracker.track_frame(None, b, c, EXPOSURE)
                                               for c, b in frames])
         out["track_frame knots"] = torch.cat([tracker.knots.t, tracker.knots.q], 1).cpu().numpy()
         out["track_frame launches"] = cs.LAUNCHES
+        out["track_frame k23 launches"] = cr.launch_counts()
+        # K2 and K3 on every call of that path against the plain versions
+        # (rk.hold raises past the tolerance): the calls and the largest
+        # relative difference by kernel
+        out["k23 held"] = {k: (len(c), max((rk.hold(x)[1] for x in c), default=0.0))
+                           for k, c in k23_calls.items()}
         # K1 at this rank's shapes (its keypoint shard) against the plain
         # version, on every call the path made; after the count
         out["k1 shapes"] = sorted({tuple(c.windows.shape) + (c.local_xy.shape[1],)
@@ -1359,7 +1465,7 @@ def _sharded_rank(rank, world, store, inputs_path, out_dir):
             for c in calls)
         for method, kw in (("track_frames", dict(chunk=8, inflight=2)),
                            ("track_frames_joint", dict(chunk=JCHUNK, inflight=3))):
-            cs.LAUNCHES = 0
+            zero_counts(cs)
             if method == "track_frames_joint":
                 cfg = bench_config("float64", max_num_iterations=4, shard_devices=world)
                 p, _, tr = run_batch(cfg, "cuda", img, frames[:JCHUNK], method=method,
@@ -1369,12 +1475,14 @@ def _sharded_rank(rank, world, store, inputs_path, out_dir):
                 p, _, tr = run_batch(cfg64, "cuda", img, frames, method=method, **kw)
                 k = tr.knots
             out[method], out[f"{method} launches"] = p, cs.LAUNCHES
+            out[f"{method} k23 launches"] = cr.launch_counts()
             out[f"{method} knots"] = torch.cat([k.t, k.q], 1).cpu().numpy()
             check(tr.mesh is not None and tr.mesh.size == world, "the tracker built no mesh")
-        cs.LAUNCHES = 0
+        zero_counts(cs)
         p32, sec32, _ = run_tracker(bench_config("float32", shard_devices=world), "cuda", img,
                                     frames)
         out["f32"], out["f32 seconds"], out["f32 launches"] = p32, sec32, cs.LAUNCHES
+        out["f32 k23 launches"] = cr.launch_counts()
 
         a = ba_problem_arrays()
         dense, sd = ba.run_bundle_adjustment(
@@ -1443,7 +1551,9 @@ def phase_sharded(root, cs, launches, img, frames, refs, fps_single, card):
                   f"{key}: the ranks' bits differ")
         diff = float(np.abs(r0[name] - refs[name][:len(r0[name])]).max())
         per_rank = [r[f"{name} launches"] for r in ranks]
-        launches[f"sharded {name}, f64, {SHARDS} ranks (10a)"] = sum(per_rank)
+        path = f"sharded {name}, f64, {SHARDS} ranks (10a)"
+        launches[path] = sum(per_rank)
+        k23 = sharded_residual_launches(path, [r[f"{name} k23 launches"] for r in ranks])
         if name == "track_frame":
             err = max(r["k1 max_abs_err"] for r in ranks)
             print(f"[10a] K1 on every sampler call of the sharded track_frame path, at the "
@@ -1452,22 +1562,31 @@ def phase_sharded(root, cs, launches, img, frames, refs, fps_single, card):
             check(err <= 1e-12, f"K1 disagrees with the plain version at the shard's shapes: {err}")
             check(all(s[0] == N_KP // SHARDS for s in r0["k1 shapes"]),
                   f"K1 ran at other than the shard's keypoints: {r0['k1 shapes']}")
+            held = {k: (sum(r["k23 held"][k][0] for r in ranks),
+                        max(r["k23 held"][k][1] for r in ranks)) for k in r0["k23 held"]}
+            print("[10a] K2 and K3 on every call of the sharded track_frame path, every rank, "
+                  "against the plain versions (f64; bounds 1e-12 rows, 1e-10 sums, of each "
+                  "output's magnitude): " + ", ".join(
+                      f"{k} {n} calls, max {e:.3e}" for k, (n, e) in held.items()))
+            check(all(n > 0 for n, _ in held.values()), f"a rank recorded no K2/K3 call: {held}")
         print(f"[10a] {name}, f64, shard_devices={SHARDS} ({SHARDS} gloo ranks on cuda:0), "
               f"{len(r0[name])} frames of the bench scenario: max |pose - single-process pose| "
               f"= {diff:.3e} (bound {SHARD_TOL:g}); knots and poses equal bit for bit on every "
-              f"rank; K1 launches per rank {per_rank}")
+              f"rank; K1 launches per rank {per_rank}; K2/K3 per rank {k23}")
         check(np.isfinite(r0[name]).all(), f"sharded {name}: non-finite poses")
         check(diff <= SHARD_TOL, f"sharded {name} differs from the single-process run by {diff}")
         check(all(n > 0 for n in per_rank), f"a rank of the sharded {name} never launched K1")
     sec = [sum(r["f32 seconds"]) for r in ranks]
     d32 = float(np.abs(r0["f32"] - refs["f32"][:SHARD_FRAMES]).max())
     per_rank = [r["f32 launches"] for r in ranks]
-    launches[f"sharded track_frame, f32, {SHARDS} ranks (10a)"] = sum(per_rank)
+    path = f"sharded track_frame, f32, {SHARDS} ranks (10a)"
+    launches[path] = sum(per_rank)
+    k23 = sharded_residual_launches(path, [r["f32 k23 launches"] for r in ranks])
     print(f"[10a] track_frame, f32, bench options, shard_devices={SHARDS}: {SHARD_FRAMES} frames "
           f"in {max(sec):.3f} s = {SHARD_FRAMES / max(sec):.3f} frames/s (slowest rank; median "
           f"{1e3 * statistics.median(ranks[0]['f32 seconds']):.1f} ms a frame on rank 0) against "
           f"{fps_single:.3f} frames/s in one process (5a); max |pose - 5a pose| {d32:.3e}; "
-          f"K1 launches per rank {per_rank}; {card}")
+          f"K1 launches per rank {per_rank}; K2/K3 per rank {k23}; {card}")
     check(np.isfinite(r0["f32"]).all() and all(n > 0 for n in per_rank), "bad sharded f32 run")
     b = r0["ba"]
     print(f"[10b] run_bundle_adjustment_sharded, f64, window 7, 512 landmark slots ({SHARDS} "
@@ -1558,6 +1677,9 @@ def main() -> int:
 
     # the port itself: without it (the script alone) there is nothing to run
     from mba_vo_tpu_torch.experiments import kernel_variants as kv
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_build
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
     from mba_vo_tpu_torch.ops import cuda_sampling as cs
 
     # ---- 1. device
@@ -1573,15 +1695,16 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    libs = cs.build()
-    print(f"[2] built K1 and K1-v in {time.perf_counter() - t0:.2f} s -> "
+    libs = cuda_build.build()
+    print(f"[2] built K1, K1-v, K2 and K3 in {time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(str(p) for p in libs.values())}")
-    for name, log in cs.BUILD_LOG.items():
+    for name, log in cuda_build.BUILD_LOG.items():
         # ptxas -v: one block of lines per kernel instantiation (IfE float,
         # IdE double)
         kernel = "?"
         for ln in log.splitlines():
-            m = re.search(r"(window_bilinear(?:_[a-z]+)?_kernel)I([fd])", ln)
+            m = re.search(r"((?:window_bilinear(?:_[a-z]+)?|warp_tangents|blur_rows)_kernel"
+                          r"|normal_equations_(?:partials|combine))I([fd])", ln)
             if "Compiling entry function" in ln and m:
                 kernel = f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'f64'}"
             elif any(w in ln for w in ("registers", "spill", "smem")) and "extern" not in ln:
@@ -1594,17 +1717,21 @@ def main() -> int:
               f"{cs.ring_shared_bytes(3, WIN, WIN, S_MAIN, b)} B {t}" for t, b in item.items())
           + "; K1-v staged, tile x C x win_h x win_w x itemsize: " + ", ".join(
               f"tile {t}: {t * 3 * WIN * WIN * 4} B f32" for t in kv.TILES)
-          + f"; K1 none (a block may use {cs.MAX_SHARED_BYTES} B)")
+          + f"; K1 none (a block may use {cs.MAX_SHARED_BYTES} B); K2 and K3 static "
+          f"(above), built for up to {cr.MAX_TANGENTS} knot tangents")
 
     # ---- 3. kernels against plain, on the cases and on the tracker's inputs
     t0 = time.perf_counter()
     img, traj, frames = make_scenario("cuda", LONG_FRAMES)
     t1 = time.perf_counter()
-    recorded = record_tracker_calls(img, traj, frames)
+    recorded, residual_calls = record_tracker_calls(img, traj, frames)
     print(f"[3] scenario: {LONG_FRAMES} blurred VGA frames rendered in {t1 - t0:.1f} s; "
-          f"sampler calls recorded in {time.perf_counter() - t1:.1f} s: " + ", ".join(
+          f"sampler, K2 and K3 calls recorded in {time.perf_counter() - t1:.1f} s: " + ", ".join(
               f"{label} {len(calls)} (C=3: {sum(c.C == 3 for c in calls)}, levels "
-              f"{sorted({c.level for c in calls})})" for label, calls in recorded.items()))
+              f"{sorted({c.level for c in calls})})" for label, calls in recorded.items())
+          + "; " + ", ".join(f"{label} {kernel} {len(calls)}"
+                             for label, by_kernel in residual_calls.items()
+                             for kernel, calls in by_kernel.items()))
     print("    K1 (and its band design) and K1-v (ring, every variant; staged) against "
           "the plain version")
     t0 = time.perf_counter()
@@ -1614,12 +1741,19 @@ def main() -> int:
     print(f"    K1 band against K1: equal bit for bit on {len(equal)} of "
           f"{len(bitwise)} cases; " + ("differ on " + ", ".join(
               f"{label} (max {d:.3e})" for label, d in differ) if differ else "no case differs")
-          + f"; phase 3 in {time.perf_counter() - t0:.1f} s")
+          + f"; K1 held in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print("    K2 (warp_tangents, blur_rows) and K3 (normal_equations) against the plain "
+          "version on every recorded call")
+    residual_err = hold_residual_calls(residual_calls)
+    print(f"    phase 3's K2 and K3 in {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. slice, f64: CUDA against CPU
     launches0 = cs.LAUNCHES
-    p64, s64, _ = run_tracker(bench_config("float64"), "cuda", img, frames)
+    with rk.record_residual_calls() as rows64:
+        p64, s64, _ = run_tracker(bench_config("float64"), "cuda", img, frames)
     check(cs.LAUNCHES > launches0, "the f64 CUDA run did not launch K1")
+    residual_err64 = hold_residual_calls({"f64 track_frame": rows64})
     pcpu, scpu, _ = run_tracker(bench_config("float64"), "cpu", img, frames[:CPU_FRAMES])
     diff = float(np.abs(p64[:CPU_FRAMES] - pcpu).max())
     print(f"[4] f64 CUDA {LONG_FRAMES} frames in {sum(s64):.2f} s; f64 CPU "
@@ -1630,20 +1764,31 @@ def main() -> int:
 
     # ---- 5. slice, f32 on CUDA
     # 5a. the main path: bench.py's options (TrackerConfig defaults), from rest
-    cs.LAUNCHES = 0
+    zero_counts(cs)
     p32, s32, it32 = run_tracker(bench_config("float32"), "cuda", img, frames)
     launches = {"track_frame": cs.LAUNCHES}
+    k23 = note_residual_launches("track_frame")
     fps = LONG_FRAMES / sum(s32)
     ate64, ate32 = ate(p64, traj, frames), ate(p32, traj, frames)
     print(f"[5a] main path, f32 CUDA, bench options, from rest: {LONG_FRAMES} frames "
           f"in {sum(s32):.3f} s = {fps:.3f} frames/s (median "
           f"{1e3 * statistics.median(s32):.2f} ms/frame, first frame "
-          f"{1e3 * s32[0]:.2f} ms); K1 launches {cs.LAUNCHES} "
+          f"{1e3 * s32[0]:.2f} ms; {card}); K1 launches {cs.LAUNCHES} "
           f"({cs.LAUNCHES / LONG_FRAMES:.1f} per frame)")
     print(f"    ATE f32 {ate32:.4e} m, f64 (phase 4) {ate64:.4e} m; LM iterations "
           f"per level (coarse to fine) of the first 4 frames {it32[:4]}")
     check(p32.shape == (LONG_FRAMES, 7) and np.isfinite(p32).all(), "bad f32 poses")
     check(cs.LAUNCHES > 0, "the per-frame main path never launched K1")
+    check(all(n > 0 for n in k23.values()), f"the per-frame main path skipped K2 or K3: {k23}")
+    print(f"    K2 and K3 launches on that path: " + ", ".join(
+        f"{k} {n} ({n / LONG_FRAMES:.1f} per frame)" for k, n in k23.items()))
+    k1_before = cs.LAUNCHES
+    total = kernel_launches(lambda: run_tracker(bench_config("float32"), "cuda", img,
+                                                frames[:CPU_FRAMES]))
+    evals = cs.LAUNCHES - k1_before
+    print(f"    kernel launches of {CPU_FRAMES} frames of track_frame, keyframe included "
+          f"(torch.profiler): {total} = {total / CPU_FRAMES:.0f} a frame over {evals} LM "
+          f"evaluations = {total / max(evals, 1):.0f} an evaluation ({card})")
 
     # 5b. the drift rule of tests/test_precision.py with that test's options,
     # on the bench scenario from rest. Measured and printed, not a check:
@@ -1691,9 +1836,10 @@ def main() -> int:
     diff = float(np.abs(a2 - p64).max())
     check(diff <= 1e-8, f"f64 track_frames and track_frame poses differ by {diff}")
     check(np.array_equal(a1, a2), "inflight=1 and inflight=2 give different poses")
-    cs.LAUNCHES = 0
+    zero_counts(cs)
     a32, sec, _ = run_batch(bench_config("float32"), "cuda", img, frames, chunk=8, inflight=2)
     launches["track_frames"] = cs.LAUNCHES
+    k23 = note_residual_launches("track_frames")
     print(f"[6a] track_frames(chunk=8, inflight=2): max |f64 pose - track_frame pose| = "
           f"{diff:.3e} (bound 1e-8), inflight 1 == 2 exactly; f32 {LONG_FRAMES} frames in "
           f"{sec:.3f} s = {LONG_FRAMES / sec:.3f} frames/s, K1 launches {cs.LAUNCHES} "
@@ -1702,6 +1848,7 @@ def main() -> int:
     d32 = float(np.abs(a32 - p32).max())
     check(d32 <= 1e-6, f"f32 track_frames and track_frame poses differ by {d32}")
     check(cs.LAUNCHES > 0, "track_frames never launched K1")
+    check(all(n > 0 for n in k23.values()), f"track_frames skipped K2 or K3: {k23}")
 
     # 6b. a keyframe switch and a rejected frame inside one track_frames run
     # (TrackerConfig's own keyframe thresholds fire mid-chunk; frame 6 is
@@ -1753,11 +1900,12 @@ def main() -> int:
               f"knots {kdiff:.3e} (bound 1e-8); {time.perf_counter() - t0:.1f} s")
         check(np.isfinite(jc).all(), "non-finite joint poses")
         check(diff <= 1e-8 and kdiff <= 1e-8, f"joint f64 CUDA and CPU differ by {diff}, {kdiff}")
-    cs.LAUNCHES = 0
+    zero_counts(cs)
     j32, sec, _ = run_batch(bench_config("float32"), "cuda", img, frames,
                             method="track_frames_joint", chunk=JCHUNK, inflight=3,
                             window=moving_window(traj, frames, JCHUNK, DEG))
     jl = launches["track_frames_joint"] = cs.LAUNCHES
+    k23 = note_residual_launches("track_frames_joint")
     n_chunks = LONG_FRAMES // JCHUNK
     cfg_p = bench_config("float32", max_num_iterations=4)
     total = kernel_launches(lambda: run_batch(
@@ -1765,16 +1913,18 @@ def main() -> int:
         window=moving_window(traj, frames, JCHUNK, DEG), chunk=JCHUNK))
     evals = cs.LAUNCHES - jl
     print(f"[6c] track_frames_joint(chunk={JCHUNK}, inflight=3), f32, degree {DEG}: "
-          f"{LONG_FRAMES} frames in {sec:.3f} s = {1e3 * sec / n_chunks:.1f} ms/chunk, "
+          f"{LONG_FRAMES} frames in {sec:.3f} s = {1e3 * sec / n_chunks:.1f} ms/chunk ({card}), "
           f"{LONG_FRAMES / sec:.3f} frames/s; K1 launches {jl} "
           f"({jl / n_chunks:.1f} per chunk, one per LM evaluation at S = "
           f"{JCHUNK * S_MAIN}); ATE {ate(j32, traj, frames):.4e} m (track_frame f32 "
           f"{ate32:.4e} m)")
     print(f"    kernel launches of one chunk with the LM cut to 4 iterations a level, "
           f"bootstrap included (torch.profiler): {total} over {evals} LM evaluations = "
-          f"{total / max(evals, 1):.0f} per evaluation")
+          f"{total / max(evals, 1):.0f} per evaluation ({card}); K2 and K3 launches of the "
+          f"timed run: " + ", ".join(f"{k} {n}" for k, n in k23.items()))
     check(j32.shape == (LONG_FRAMES, 7) and np.isfinite(j32).all(), "bad joint f32 poses")
     check(jl > 0, "track_frames_joint never launched K1")
+    check(all(n > 0 for n in k23.values()), f"track_frames_joint skipped K2 or K3: {k23}")
 
     # 6d. sampling="direct" and affine_brightness (frames under a gain that
     # drifts by 2 % and a bias that drifts by 1 grey level a frame), four
@@ -1893,6 +2043,33 @@ def main() -> int:
                     floor_ms=d["floor_ms"], floor_warm_ms=d["floor_warm_ms"],
                     by_shape=d["by_shape"], **more)
 
+    # K2 and K3 on phase 3's recorded calls (K3's calls with J)
+    t0 = time.perf_counter()
+    residual_rows = {}
+    for label, by_kernel in residual_calls.items():
+        for kernel, calls in by_kernel.items():
+            residual_rows[label, kernel] = rk.time_rows(label, rk.full_calls(calls),
+                                                        out=indent)
+    print(f"    K2 and K3 timed in {time.perf_counter() - t0:.1f} s ({card})")
+
+    def residual_entry(kernel, source, replaces):
+        def times(label):
+            k, p = residual_rows[label, kernel]
+            return dict(ms=k["ms"], device_ms=k["device_ms"],
+                        device_cold_ms=k["device_cold_ms"], plain_ms=p["ms"],
+                        plain_device_ms=p["device_ms"],
+                        plain_device_cold_ms=p["device_cold_ms"], bound_ms=k["bound_ms"],
+                        bound_by=k["bound_by"], library_ms=k["library_ms"],
+                        library_device_ms=k["library_device_ms"],
+                        library_device_cold_ms=k["library_device_cold_ms"],
+                        D=k["D"], calls=k["calls"])
+        by_path = {path: n[kernel] for path, n in RESIDUAL_LAUNCHES.items()}
+        return dict(name=kernel, route="cuda", source=source, replaces=replaces,
+                    launches=sum(by_path.values()), max_abs_err=residual_err[kernel][0],
+                    max_rel_err=residual_err[kernel][1],
+                    max_rel_err_f64=residual_err64[kernel][1], **times("tracker S=40"),
+                    launches_by_path=by_path, joint_degree_4=times("joint degree 4"))
+
     # ---- 8. the command line and the keyframe backend
     t8 = time.perf_counter()
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "runtime"))
@@ -1940,6 +2117,12 @@ def main() -> int:
                      "experiments/kernel_variants_r04.py:133", "K1-v", swept["K1-v"],
                      variant=by_shape["K1-v"][main_shape]["name"],
                      replayed_launches=replayed["K1-v"], before=design("K1-v staged")),
+        residual_entry("warp_tangents", "mba_vo_tpu_torch/csrc/residual_rows.cu",
+                       "mba_vo_tpu/ops/residual.py:437"),
+        residual_entry("blur_rows", "mba_vo_tpu_torch/csrc/residual_rows.cu",
+                       "mba_vo_tpu/ops/residual.py:449"),
+        residual_entry("normal_equations", "mba_vo_tpu_torch/csrc/normal_equations.cu",
+                       "mba_vo_tpu/ops/residual.py:568"),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

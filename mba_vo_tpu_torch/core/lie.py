@@ -8,7 +8,11 @@ Counterpart of ``mba_vo_tpu/core/lie.py``, with the same conventions:
   * SE(3) exp/log use the tangent order ``[translation, rotation]``.
 
 Small-angle branches are ``torch.where`` over safe operands, so forward-mode
-AD (``torch.func.jacfwd``) stays finite through them.
+AD stays finite through them. The ``*_jvp`` helpers write that forward mode
+out: each returns the primal value, computed by the same ops as the plain
+function, and its derivative along D tangent seeds stacked on a leading
+axis, taking the same branch per element as the primal (the Jacobian of
+``jnp.where`` is that of its live branch).
 """
 
 from __future__ import annotations
@@ -37,18 +41,39 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_multiply(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """Hamilton product q*p, xyzw layout."""
-    qx, qy, qz, qw = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
-    px, py, pz, pw = p[..., 0], p[..., 1], p[..., 2], p[..., 3]
-    return torch.stack(
-        [
-            qw * px + qx * pw + qy * pz - qz * py,
-            qw * py + qy * pw + qz * px - qx * pz,
-            qw * pz + qz * pw + qx * py - qy * px,
-            qw * pw - qx * px - qy * py - qz * pz,
-        ],
-        dim=-1,
-    )
+    """Hamilton product q*p, xyzw layout:
+
+        x = qw px + qx pw + qy pz - qz py
+        y = qw py + qy pw + qz px - qx pz
+        z = qw pz + qz pw + qx py - qy px
+        w = qw pw - qx px - qy py - qz pz
+
+    summed left to right. The four components are computed together, the
+    second to fourth terms as one product of gathered (and, for a
+    subtracted term, negated) operands: a - b rounds as a + (-b), so each
+    component rounds as the formula written out does, in 9 batched ops
+    instead of 29 (the launches of the tracker's pose Jacobian)."""
+    q, p = torch.broadcast_tensors(q, p)
+    sq = torch.cat([q, -q], dim=-1)                 # x y z w -x -y -z -w
+    a = torch.stack([sq[..., i] for i in _PRODUCT_Q], dim=-1)
+    b = torch.stack([p[..., i] for i in _PRODUCT_P], dim=-1)
+    terms = (a * b).unflatten(-1, (3, 4))
+    return q[..., 3:] * p + terms[..., 0, :] + terms[..., 1, :] + terms[..., 2, :]
+
+
+def quat_multiply_jvp(q, p, dq, dp):
+    """(q*p, its tangent dq*p + q*dp). ``dq`` and ``dp`` carry a leading
+    axis of D seeds; ``dq`` may be None for a constant left operand."""
+    out = quat_multiply(q, p)
+    if dq is None:
+        return out, quat_multiply(q, dp)
+    return out, quat_multiply(dq, p) + quat_multiply(q, dp)
+
+
+# the second to fourth terms of quat_multiply's components (x, y, z, w):
+# indices into [x, y, z, w, -x, -y, -z, -w] of q and into p
+_PRODUCT_Q = (0, 1, 2, 4, 1, 2, 0, 5, 6, 4, 5, 6)
+_PRODUCT_P = (3, 3, 3, 0, 2, 0, 1, 1, 1, 2, 0, 2)
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
@@ -103,6 +128,35 @@ def quat_log(q: torch.Tensor) -> torch.Tensor:
     return lam[..., None] * xyz
 
 
+def quat_log_jvp(q: torch.Tensor, dq: torch.Tensor):
+    """(:func:`quat_log` of q, its tangent along the D seeds ``dq``
+    [D, ..., 4]), in the primal's branch per element."""
+    xyz, w = q[..., :3], q[..., 3]
+    dxyz, dw = dq[..., :3], dq[..., 3]
+    sq = torch.sum(xyz * xyz, dim=-1)
+    dsq = 2.0 * torch.sum(xyz * dxyz, dim=-1)
+    small = sq < _small_threshold(q.dtype)
+    sq_safe = torch.where(small, torch.ones_like(sq), sq)
+    dsq_safe = torch.where(small, torch.zeros_like(dsq), dsq)
+    n = torch.sqrt(sq_safe)
+    dn = dsq_safe / (2.0 * n)
+    at = torch.atan2(n, w)
+    lam_big = 2.0 * at / n
+    dat = (w * dn - n * dw) / (n * n + w * w)
+    dlam_big = 2.0 * (dat * n - at * dn) / (n * n)
+    near0 = torch.abs(w) < 1e-6
+    w_safe = torch.where(near0, torch.sign(w) + (w == 0).to(w.dtype), w)
+    dw_safe = torch.where(near0, torch.zeros_like(dw), dw)
+    w3 = w_safe ** 3
+    lam_small = 2.0 / w_safe - (2.0 / 3.0) * sq / w3
+    dlam_small = (-2.0 * dw_safe / (w_safe * w_safe)
+                  - (2.0 / 3.0) * (dsq * w3 - sq * 3.0 * w_safe * w_safe * dw_safe)
+                  / (w3 * w3))
+    lam = torch.where(small, lam_small, lam_big)
+    dlam = torch.where(small, dlam_small, dlam_big)
+    return lam[..., None] * xyz, dlam[..., None] * xyz + lam[..., None] * dxyz
+
+
 def quat_exp(omega: torch.Tensor) -> torch.Tensor:
     """Rotation vector -> unit quaternion (inverse of :func:`quat_log`)."""
     theta_sq = torch.sum(omega * omega, dim=-1)
@@ -117,6 +171,35 @@ def quat_exp(omega: torch.Tensor) -> torch.Tensor:
     imag = torch.where(small, imag_small, imag_big)
     real = torch.where(small, real_small, real_big)
     return torch.cat([imag[..., None] * omega, real[..., None]], dim=-1)
+
+
+def quat_exp_jvp(omega: torch.Tensor, domega: torch.Tensor):
+    """(:func:`quat_exp` of omega, its tangent along the D seeds ``domega``
+    [D, ..., 3]), in the primal's branch per element."""
+    theta_sq = torch.sum(omega * omega, dim=-1)
+    dtheta_sq = 2.0 * torch.sum(omega * domega, dim=-1)
+    small = theta_sq < _small_threshold(omega.dtype)
+    theta_sq_safe = torch.where(small, torch.ones_like(theta_sq), theta_sq)
+    dtheta_sq_safe = torch.where(small, torch.zeros_like(dtheta_sq), dtheta_sq)
+    theta = torch.sqrt(theta_sq_safe)
+    dtheta = dtheta_sq_safe / (2.0 * theta)
+    s, c = torch.sin(0.5 * theta), torch.cos(0.5 * theta)
+    imag_big = s / theta
+    dimag_big = (0.5 * c * theta - s) / (theta * theta) * dtheta
+    dreal_big = -0.5 * s * dtheta
+    theta_po4 = theta_sq * theta_sq
+    imag_small = 0.5 - theta_sq / 48.0 + theta_po4 / 3840.0
+    real_small = 1.0 - theta_sq / 8.0 + theta_po4 / 384.0
+    dimag_small = -dtheta_sq / 48.0 + 2.0 * theta_sq * dtheta_sq / 3840.0
+    dreal_small = -dtheta_sq / 8.0 + 2.0 * theta_sq * dtheta_sq / 384.0
+    imag = torch.where(small, imag_small, imag_big)
+    real = torch.where(small, real_small, c)
+    dimag = torch.where(small, dimag_small, dimag_big)
+    dreal = torch.where(small, dreal_small, dreal_big)
+    q = torch.cat([imag[..., None] * omega, real[..., None]], dim=-1)
+    dq = torch.cat([dimag[..., None] * omega + imag[..., None] * domega, dreal[..., None]],
+                   dim=-1)
+    return q, dq
 
 
 def so3_hat(omega: torch.Tensor) -> torch.Tensor:

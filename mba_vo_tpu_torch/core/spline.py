@@ -3,8 +3,10 @@ cumulative cubic).
 
 Counterpart of ``mba_vo_tpu/core/spline.py``. Knots are a named tuple
 ``SplineKnots(t[K,3], q[K,4], t0, dt)`` of tensors; pose interpolation is a
-plain function of the knots, so Jacobians w.r.t. the right-multiplicative
-knot tangents come from ``torch.func.jacfwd`` through :func:`spline_retract`.
+plain function of the knots. Jacobians w.r.t. the right-multiplicative
+knot tangents are written out in forward mode: :func:`spline_retract_jvp`
+seeds them and :func:`spline_pose_at_times_jvp` carries them through the
+interpolation (``core.lie``'s ``*_jvp`` helpers), one batched op a step.
 
 Interpolation:
   degree 2:  t(u) = (1-u) t_0 + u t_1;   R(u) = R_0 exp(u log(R_0^-1 R_1))
@@ -17,7 +19,16 @@ from typing import NamedTuple
 
 import torch
 
-from .lie import quat_conjugate, quat_exp, quat_log, quat_multiply, quat_rotate
+from .lie import (
+    quat_conjugate,
+    quat_exp,
+    quat_exp_jvp,
+    quat_log,
+    quat_log_jvp,
+    quat_multiply,
+    quat_multiply_jvp,
+    quat_rotate,
+)
 from .transform import Pose
 
 
@@ -123,6 +134,47 @@ def spline_interp_q(knots_window_q: torch.Tensor, u: torch.Tensor, degree: int) 
     return q
 
 
+def spline_interp_t_jvp(knots_window_t, dknots_window_t, u, degree: int):
+    """:func:`spline_interp_t` and its tangent along the D seeds
+    ``dknots_window_t`` [D, ..., degree, 3] (u does not depend on the knots)."""
+    w = _vec_basis(u, degree)
+    return (torch.einsum("...k,...ki->...i", w, knots_window_t),
+            torch.einsum("...k,d...ki->d...i", w, dknots_window_t))
+
+
+def spline_interp_q_jvp(knots_window_q, dknots_window_q, u, degree: int):
+    """:func:`spline_interp_q` and its tangent along the D seeds
+    ``dknots_window_q`` [D, ..., degree, 4]: the same steps, each with its
+    forward-mode rule."""
+    coeffs = _rot_cum_basis(u, degree)
+    q, dq = knots_window_q[..., 0, :], dknots_window_q[..., 0, :]
+    for j in range(degree - 1):
+        rel, drel = quat_multiply_jvp(
+            quat_conjugate(knots_window_q[..., j, :]), knots_window_q[..., j + 1, :],
+            quat_conjugate(dknots_window_q[..., j, :]), dknots_window_q[..., j + 1, :])
+        log, dlog = quat_log_jvp(rel, drel)
+        e, de = quat_exp_jvp(log * coeffs[..., j, None], dlog * coeffs[..., j, None])
+        q, dq = quat_multiply_jvp(q, e, dq, de)
+    return q, dq
+
+
+def spline_pose_at_times_jvp(knots: SplineKnots, dknots_t: torch.Tensor,
+                             dknots_q: torch.Tensor, times: torch.Tensor, degree: int):
+    """:func:`spline_pose_at_times` at [T] times and its tangent along D
+    knot tangents ``dknots_t`` [D, K, 3], ``dknots_q`` [D, K, 4]: returns
+    (Pose [T, ...], dt [D, T, 3], dq [D, T, 4]). The segment index is
+    clamped as in the primal, so the tangents of knots outside a time's taps
+    do not reach it."""
+    times = torch.as_tensor(times, dtype=knots.t.dtype, device=knots.t.device)
+    idx, u = spline_segment_start_and_u(
+        times, knots.t0, knots.dt, knots.num_knots, degree
+    )
+    taps = idx[..., None] + torch.arange(degree, device=idx.device)  # [T, deg]
+    t, dt = spline_interp_t_jvp(knots.t[taps], dknots_t[:, taps], u, degree)
+    q, dq = spline_interp_q_jvp(knots.q[taps], dknots_q[:, taps], u, degree)
+    return Pose(t=t, q=q), dt, dq
+
+
 def spline_pose_at_times(knots: SplineKnots, times: torch.Tensor, degree: int) -> Pose:
     """Sample the spline at a [N]-shaped times tensor -> Pose with [N, ...]."""
     times = torch.as_tensor(times, dtype=knots.t.dtype, device=knots.t.device)
@@ -150,6 +202,16 @@ def spline_retract(knots: SplineKnots, delta_t: torch.Tensor,
         t=knots.t + delta_t,
         q=quat_multiply(knots.q, quat_exp(delta_omega)),
     )
+
+
+def spline_retract_jvp(knots: SplineKnots, delta_t: torch.Tensor, delta_omega: torch.Tensor,
+                       ddelta_t: torch.Tensor, ddelta_omega: torch.Tensor):
+    """:func:`spline_retract` and the knots' tangents along D seeds of the
+    step, ``ddelta_t`` and ``ddelta_omega`` [D, K, 3]: returns (knots,
+    dt [D, K, 3], dq [D, K, 4])."""
+    e, de = quat_exp_jvp(delta_omega, ddelta_omega)
+    q, dq = quat_multiply_jvp(knots.q, e, None, de)
+    return knots._replace(t=knots.t + delta_t, q=q), ddelta_t, dq
 
 
 def spline_retract_flat(knots: SplineKnots, step: torch.Tensor) -> SplineKnots:

@@ -9,10 +9,10 @@ precision (the TUM files print 9 decimals). The first frame whose knots
 differ in any bit is tracked once more on the card, from a copy of the
 card tracker's state before it, under a dispatch mode that runs every aten
 op also on CPU copies of its inputs: the ops whose outputs then differ are
-counted by name; the ops inside ``torch.func`` transforms are checked a
-level up, each ``pose_jacobians`` call against the same call on the CPU,
-and every call of kernel K1 against the plain version on the CPU, bit for
-bit.
+counted by name (``empty`` ops, whose outputs hold whatever memory did, are
+not compared); every call of the kernels K1, K2 (``warp_tangents``,
+``blur_rows``) and K3 (``normal_equations``), which the mode cannot see
+into, is held against its plain version on the CPU, bit for bit.
 
     python3 -m mba_vo_tpu_torch.experiments.device_parting [--num-frames 60]
         [--out FILE]
@@ -54,13 +54,13 @@ def _compare(a, b) -> bool:
 def op_differences(run, device):
     """Run ``run()`` under a dispatch mode that repeats every aten op taking
     a ``device`` tensor on CPU copies of its inputs. Returns (ops by name,
-    ops whose outputs differ by name, the first differing op, calls of K1
-    and of ``pose_jacobians`` with those that differ from the CPU's)."""
+    ops whose outputs differ by name, the first differing op, the calls of
+    each kernel with those that differ from the plain version on the CPU)."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
     from torch.utils._pytree import tree_flatten, tree_map
 
-    from ..ops import cuda_sampling, residual, window_sampling
+    from ..ops import cuda_residual, cuda_sampling, residual, window_sampling
 
     def to_cpu(x):
         if isinstance(x, torch.Tensor):
@@ -78,7 +78,8 @@ def op_differences(run, device):
             flat, _ = tree_flatten((args, kwargs, out))
             tensors = [a for a in flat if isinstance(a, torch.Tensor)]
             if (not any(a.device.type == device for a in tensors)
-                    or any(a.device.type == "meta" for a in tensors)):
+                    or any(a.device.type == "meta" for a in tensors)
+                    or func.overloadpacket.__name__.startswith("empty")):
                 return out
             try:
                 ref = func(*tree_map(to_cpu, args), **tree_map(to_cpu, kwargs))
@@ -92,35 +93,38 @@ def op_differences(run, device):
                     first.append(name)
             return out
 
-    calls = {"k1": [0, 0], "pose_jacobians": [0, 0]}
-    launch, jacobians = cuda_sampling.window_bilinear_cuda, residual.pose_jacobians
+    # each kernel: (its wrapper's module, the wrapper's name, the plain
+    # version, how many leading arguments the plain version takes)
+    kernels = {
+        "k1": (cuda_sampling, "window_bilinear_cuda", window_sampling.window_bilinear_plain, 3),
+        "warp_tangents": (cuda_residual, "warp_tangents_cuda", residual.warp_tangents_plain, 9),
+        "blur_rows": (cuda_residual, "blur_rows_cuda", residual.blur_rows_plain, 8),
+        "normal_equations": (cuda_residual, "normal_equations_cuda",
+                             residual.normal_equations_plain, 5),
+    }
+    calls = {k: [0, 0] for k in kernels}
+    originals = {k: getattr(mod, name) for k, (mod, name, _, _) in kernels.items()}
 
-    def k1(windows, local_xy, valid, *a, **kw):
-        out = launch(windows, local_xy, valid, *a, **kw)
-        ref = window_sampling.window_bilinear_plain(windows.cpu(), local_xy.cpu(), valid.cpu())
-        calls["k1"][0] += 1
-        calls["k1"][1] += int(not _compare(out, ref))
-        return out
+    def held(kernel):
+        _, _, plain, n_args = kernels[kernel]
 
-    def pose_jacobians(knots, *args):
-        # the mode cannot look inside torch.func's transforms: compare the
-        # whole call instead
-        with _disable_current_modes():
-            out = jacobians(knots, *args)
-            ref = jacobians(type(knots)(*(to_cpu(f) for f in knots)),
-                            *(to_cpu(a) for a in args))
-        calls["pose_jacobians"][0] += 1
-        calls["pose_jacobians"][1] += int(not _compare(out, ref))
-        return out
+        def call(*args, **kw):
+            with _disable_current_modes():
+                out = originals[kernel](*args, **kw)
+                ref = plain(*(to_cpu(a) for a in args[:n_args]))
+            calls[kernel][0] += 1
+            calls[kernel][1] += int(not _compare(out, ref))
+            return out
+        return call
 
-    cuda_sampling.window_bilinear_cuda = k1
-    residual.pose_jacobians = pose_jacobians
+    for k, (mod, name, _, _) in kernels.items():
+        setattr(mod, name, held(k))
     try:
         with CompareOnCpu():
             run()
     finally:
-        cuda_sampling.window_bilinear_cuda = launch
-        residual.pose_jacobians = jacobians
+        for k, (mod, name, _, _) in kernels.items():
+            setattr(mod, name, originals[k])
     return total, differ, (first[0] if first else None), calls
 
 

@@ -10,10 +10,10 @@ final-quarter ATE of both. Drift accumulates from per-keyframe chaining,
 cut the final-quarter error when the camera comes back.
 
 Besides, each run reports its wall time, frames/s, keyframe count,
-loop-edge count, K1 launches, and (``cli track --backend-stats``) the
-backend's milliseconds per keyframe by stage, each stage ended by a device
-synchronisation, its BA and pose-graph iterations and its device-to-host
-reads per keyframe. Stage timing adds a synchronisation per stage to the
+loop-edge count, K1's, K2's and K3's launches, and (``cli track
+--backend-stats``) the backend's milliseconds per keyframe by stage, each
+stage ended by a device synchronisation, its BA and pose-graph iterations
+and its device-to-host reads per keyframe. Stage timing adds a synchronisation per stage to the
 ``ba+pg`` run's wall time.
 
     python3 -m mba_vo_tpu_torch.experiments.loop_bench [--device cuda]
@@ -97,6 +97,7 @@ def run(num_frames=60, height=240, width=320, noise=1.5, device="cuda", keep=Non
     import torch
 
     from .. import cli
+    from ..ops import cuda_residual as cr
     from ..ops import cuda_sampling as cs
 
     root = keep or tempfile.mkdtemp(prefix="loopbench_")
@@ -131,6 +132,7 @@ def run(num_frames=60, height=240, width=320, noise=1.5, device="cuda", keep=Non
     ):
         out_file = os.path.join(root, f"est_{name}.txt")
         cs.LAUNCHES = 0
+        cr.zero_launch_counts()
         sync()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(sink):
@@ -153,6 +155,7 @@ def run(num_frames=60, height=240, width=320, noise=1.5, device="cuda", keep=Non
             "wall_s": wall,
             "frames_per_s": frames / wall,
             "k1_launches": cs.LAUNCHES,
+            "k2_k3_launches": cr.launch_counts(),
         }
         if name == "ba_pg":
             with open(os.path.join(root, "backend_stats.json")) as f:

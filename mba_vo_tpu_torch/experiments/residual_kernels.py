@@ -1,0 +1,327 @@
+"""Kernels K2 and K3 on the tracker's own inputs, on one NVIDIA GPU:
+record, hold against the plain versions, time.
+
+K2 is ``csrc/residual_rows.cu`` (``warp_tangents``, ``blur_rows``) and K3
+``csrc/normal_equations.cu`` (``normal_equations``); their plain versions
+are in ``ops/residual.py``. :func:`record_residual_calls` records every
+call the tracker makes of the three dispatchers
+(``ops.residual.warp_tangents``, ``blur_rows``, ``normal_equations``) as
+copies of its inputs on their device; :func:`hold` runs a recorded call
+through the kernel and the plain version and returns the largest
+difference, relative to each output's magnitude; :func:`time_rows`
+times kernel and plain on recorded calls:
+
+  * ``ms``: a call as Python waits for it (median over ``reps`` of the mean
+    of ``inner`` back-to-back calls between two CUDA events), on the first
+    recorded call;
+  * ``device_ms`` (warm): the device's time a call in a replayed CUDA graph
+    of the recorded calls in the tracker's order (at most 50 of them),
+    whose inputs stay in the L2;
+  * ``device_cold_ms``: a graph of (L2 flush, call) pairs less a graph of
+    flushes, on the first recorded call (``kernel_variants.device_flushed_ms``);
+  * ``bound_ms``: the larger of the bytes the function must move (each
+    input read once, each output written once) over 3.35 TB/s and its
+    operations over the card's float32 or float64 rate, the mean over the
+    calls timed;
+  * for K3, ``library_ms``: ``Jw.T @ Jw`` through cuBLAS on the call's
+    weighted rows, the H part of the function as one library call, a
+    yardstick the port never calls. No library call computes K2's
+    functions (``library_ms`` None).
+
+``chip_smoke.py`` phases 3 (record and hold) and 7 (time) drive it on the
+bench scenario; ``python3 -m mba_vo_tpu_torch.experiments.residual_kernels``
+runs both alone from the repository's root (it imports that scenario).
+Requires CUDA for timing and raises without it; recording and holding run
+on any device.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import statistics
+import sys
+from typing import Dict, Iterator, List, Optional
+
+import torch
+
+from . import kernel_variants as kv
+
+KERNELS = ("warp_tangents", "blur_rows", "normal_equations")
+F64_FLOPS_PER_S = 34e12      # float64 outside the tensor cores (H100 SXM data sheet)
+# largest difference of kernel and plain, relative to the magnitude of each
+# output (:func:`term_scales`), by kernel and dtype: in float64 1e-12 for
+# K2's rows and 1e-10 for K3's sums; in float32 a few units of its epsilon
+# (1.2e-7) for the rows and the rounding of sums over 4,096-32,768 rows in
+# another order for K3
+TOLERANCE = {
+    ("warp_tangents", torch.float64): 1e-12, ("blur_rows", torch.float64): 1e-12,
+    ("normal_equations", torch.float64): 1e-10,
+    ("warp_tangents", torch.float32): 1e-6, ("blur_rows", torch.float32): 1e-6,
+    ("normal_equations", torch.float32): 1e-5,
+}
+
+
+@dataclasses.dataclass
+class ResidualCall:
+    """One recorded call of a dispatcher: ``kernel`` (one of
+    :data:`KERNELS`), copies of its positional arguments, and the pyramid
+    level that made it (None outside ``_run_level``)."""
+    kernel: str
+    args: tuple
+    level: Optional[int]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(a.dtype for a in self.args
+                    if torch.is_tensor(a) and a.is_floating_point())
+
+    @property
+    def tangents(self) -> int:
+        """D, the knot tangents of the call (0 for a cost-only K3 call)."""
+        if self.kernel == "warp_tangents":
+            return self.args[2].shape[0]
+        if self.kernel == "blur_rows":
+            return self.args[3].shape[1]
+        return 0 if self.args[1] is None else self.args[1].shape[-1]
+
+    @property
+    def frames(self) -> int:
+        """F, the frames of the call's LM problem."""
+        return self.args[{"warp_tangents": 5, "blur_rows": 4}.get(self.kernel, 0)].shape[0]
+
+
+def _copy(a):
+    return a.clone() if torch.is_tensor(a) else a
+
+
+@contextlib.contextmanager
+def record_residual_calls() -> Iterator[Dict[str, List[ResidualCall]]]:
+    """Record every call of the three dispatchers of ``ops.residual`` made
+    inside the block, by kernel, as the dict it yields; the calls still
+    run. ``compute_residuals_windowed`` and ``assemble`` look the names up
+    when they are called, so nothing of the tracker changes; the names are
+    restored on leaving the block, also on an exception. Record outside a
+    CUDA graph capture."""
+    from ..ops import residual
+
+    calls: Dict[str, List[ResidualCall]] = {k: [] for k in KERNELS}
+    originals = {k: getattr(residual, k) for k in KERNELS}
+
+    def recorder(kernel):
+        def recording(*args):
+            calls[kernel].append(ResidualCall(kernel, tuple(_copy(a) for a in args),
+                                              kv._caller_level()))
+            return originals[kernel](*args)
+        return recording
+
+    for k in KERNELS:
+        setattr(residual, k, recorder(k))
+    try:
+        yield calls
+    finally:
+        for k, fn in originals.items():
+            setattr(residual, k, fn)
+
+
+def kernel_fn(kernel: str):
+    """The dispatcher (the kernel, on CUDA tensors)."""
+    from ..ops import residual
+
+    return getattr(residual, kernel)
+
+
+def plain_fn(kernel: str):
+    from ..ops import residual
+
+    return getattr(residual, f"{kernel}_plain")
+
+
+def _outputs(out) -> List[torch.Tensor]:
+    return [o for o in (out if isinstance(out, tuple) else (out,)) if o is not None]
+
+
+def term_scales(call: ResidualCall, ref) -> List[float]:
+    """The magnitude each output of ``call`` is held to: the largest |entry|
+    of the plain output, or, where an entry sums terms that cancel, the
+    largest sum of the terms' magnitudes (the rounding of a sum is relative
+    to its terms): blur_rows' r = pred - obs (the samples' and the
+    observations' magnitude) and J = mean_v (gx dx + gy dy); K3's g =
+    Jw^T rw. H's largest entry is on its diagonal, whose terms are
+    squares."""
+    from ..ops.residual import huber_weights
+
+    scales = [float(o[~torch.isnan(o)].abs().max()) if o.numel() and
+              (~torch.isnan(o)).any() else 0.0 for o in _outputs(ref)]
+    a = call.args
+    if call.kernel == "blur_rows":
+        val, gx, gy, dxy, obs = a[:5]
+        terms = (gx.abs() * dxy[0].abs() + gy.abs() * dxy[1].abs()).nan_to_num(0.0)
+        scales[0] = max(scales[0], float(val.nan_to_num(0.0).abs().max()),
+                        float(obs.abs().max()))
+        if terms.numel():
+            scales[1] = max(scales[1], float(terms.max()))
+    elif call.kernel == "normal_equations" and a[1] is not None:
+        r, J, kp_w, huber_a = a[:4]
+        _, w = huber_weights(r, huber_a)
+        ww = (w * kp_w[None, :, None]).abs()
+        terms = torch.einsum("fnpk,fnp->k", J.abs() * ww[..., None], (r.abs() * ww))
+        scales[2] = max(scales[2], float(terms.max()))
+    return scales
+
+
+def max_diff(out, ref, scales: List[float]):
+    """(the largest |out - ref| over the entries where neither is NaN, the
+    same over each output's scale), over every output; infinite where the
+    NaN positions or the shapes differ."""
+    worst = (0.0, 0.0)
+    outs, refs = _outputs(out), _outputs(ref)
+    if len(outs) != len(refs):
+        return math.inf, math.inf
+    for o, r, scale in zip(outs, refs, scales):
+        if o.shape != r.shape or not torch.equal(torch.isnan(o), torch.isnan(r)):
+            return math.inf, math.inf
+        ok = ~torch.isnan(r)
+        if not ok.any():
+            continue
+        diff = float((o[ok].to(r.dtype) - r[ok]).abs().max())
+        worst = (max(worst[0], diff), max(worst[1], diff / scale if scale > 0 else diff))
+    return worst
+
+
+def hold(call: ResidualCall):
+    """The recorded call through the kernel and the plain version; raises
+    when they differ by more than :data:`TOLERANCE` of each output's
+    magnitude (:func:`term_scales`), returns (absolute, relative)
+    differences."""
+    out = kernel_fn(call.kernel)(*call.args)
+    ref = plain_fn(call.kernel)(*call.args)
+    err = max_diff(out, ref, term_scales(call, ref))
+    bound = TOLERANCE[call.kernel, call.dtype]
+    if not err[1] <= bound:
+        raise AssertionError(f"{call.kernel} ({call.dtype}, D={call.tangents}, level "
+                             f"{call.level}): kernel - plain = {err[1]:.3e} of the output's "
+                             f"magnitude > {bound}")
+    return err
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
+
+
+def bound_ms(call: ResidualCall):
+    """(least milliseconds the card could take for the call, "bytes" or
+    "operations"): every input read once and every output written once over
+    3.35 TB/s, against the call's floating-point operations over the
+    card's rate for its dtype."""
+    a, k = call.args, call.kernel
+    D = call.tangents
+    if k == "warp_tangents":
+        pose_t, pose_q, dpose, kp_z, K, pix, starts = a[:7]
+        F, V = pose_t.shape[:2]
+        N, P = kp_z.shape[0], pix.shape[2]
+        samples = N * F * P * V
+        moved = _nbytes(pose_t, pose_q, dpose, kp_z, K, pix, starts) + \
+            samples * (3 + 2 * D) * pose_t.element_size()
+        flops = samples * (70 + 45 * D)
+    elif k == "blur_rows":
+        val, gx, gy, dxy, obs, valid = a[:6]
+        V = a[6]
+        rows = obs.numel()
+        moved = _nbytes(val, gx, gy, dxy, obs, valid) + rows * (1 + D) * obs.element_size()
+        flops = rows * (V + D * (4 * V + 1) + 2)
+    else:
+        r, J, kp_w = a[:3]
+        E = (D + 1) * (D + 2) // 2 - 1 if D else 0
+        F, N, _ = r.shape
+        moved = _nbytes(r, J, kp_w) + (1 + F * N + D + D * D) * r.element_size()
+        flops = r.numel() * (15 + D + 2 * E)
+    rate = kv.F32_FLOPS_PER_S if call.dtype == torch.float32 else F64_FLOPS_PER_S
+    t_bytes, t_ops = moved / kv.HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _cublas_yardstick(call: ResidualCall):
+    """``Jw.T @ Jw`` on the call's weighted rows, as a function of no
+    arguments (the weighting done once, outside)."""
+    from ..ops.residual import huber_weights
+
+    r, J, kp_w, huber_a = call.args[:4]
+    _, w = huber_weights(r, huber_a)
+    Jw = (J * (w * kp_w[None, :, None])[..., None]).reshape(-1, J.shape[-1]).contiguous()
+    return lambda: Jw.T @ Jw
+
+
+def full_calls(calls: List[ResidualCall]) -> List[ResidualCall]:
+    """The calls with knot tangents: K3's cost-only calls left out (each LM
+    iteration makes one of each), the others as they are."""
+    return [c for c in calls if c.tangents] or calls
+
+
+def time_rows(label: str, calls: List[ResidualCall], reps: int = 30, inner: int = 20,
+              out=print) -> List[dict]:
+    """Kernel and plain version of one kernel timed on its recorded ``calls``
+    (see the module docstring); returns one dict for each."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("timing K2 and K3 needs a CUDA device")
+    kernel = calls[0].kernel
+    warm_calls = calls[:50]
+    bounds = [bound_ms(c) for c in warm_calls]
+    b_ms = statistics.fmean(b for b, _ in bounds)
+    b_by = max(("bytes", "operations"), key=[by for _, by in bounds].count)
+    lib = None
+    if kernel == "normal_equations" and calls[0].args[1] is not None:
+        lib = _cublas_yardstick(calls[0])
+    rows = []
+    for name, fn in (("kernel", kernel_fn(kernel)), ("plain", plain_fn(kernel))):
+        first = calls[0].args
+        ms = kv.time_ms(lambda: fn(*first), reps, inner)
+        w_inner = len(warm_calls) * math.ceil(50 / len(warm_calls))
+        warm = kv.device_ms([lambda a=c.args: fn(*a) for c in warm_calls], 20, w_inner)
+        cold = kv.device_flushed_ms(lambda: fn(*first), 20, 20)
+        rows.append(dict(inputs=label, kernel=kernel, name=name, calls=len(calls),
+                         D=calls[0].tangents, dtype=str(calls[0].dtype).split(".")[-1],
+                         ms=ms, device_ms=warm, device_cold_ms=cold, bound_ms=b_ms,
+                         bound_by=b_by))
+    if lib is not None:
+        rows[0].update(library_ms=kv.time_ms(lib, reps, inner),
+                       library_device_ms=kv.device_ms([lib], 20, 50),
+                       library_device_cold_ms=kv.device_flushed_ms(lib, 20, 20))
+    else:
+        rows[0].update(library_ms=None, library_device_ms=None, library_device_cold_ms=None)
+    k, p = rows
+    lib_txt = ("" if lib is None else
+               f"; cuBLAS Jw.T @ Jw {1e3 * k['library_ms']:.2f} us a call / "
+               f"{1e3 * k['library_device_ms']:.2f} warm / "
+               f"{1e3 * k['library_device_cold_ms']:.2f} cold")
+    out(f"{label} {kernel} ({len(calls)} calls, D={k['D']}, {k['dtype']}): kernel "
+        f"{1e3 * k['ms']:.2f} us a call / {1e3 * k['device_ms']:.2f} warm / "
+        f"{1e3 * k['device_cold_ms']:.2f} cold; plain {1e3 * p['ms']:.2f} / "
+        f"{1e3 * p['device_ms']:.2f} / {1e3 * p['device_cold_ms']:.2f}; bound "
+        f"{1e3 * b_ms:.3f} us ({b_by}){lib_txt}")
+    return rows
+
+
+def main() -> int:
+    """Record the bench scenario's K2/K3 calls (16 frames of track_frame,
+    f32; one joint chunk at degree 4), hold each against the plain version
+    and time every kernel."""
+    if not torch.cuda.is_available():
+        print("residual_kernels: needs one CUDA GPU", file=sys.stderr)
+        return 1
+    import chip_smoke as smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(kv.card_line())
+    img, traj, frames = smoke.make_scenario("cuda", smoke.LONG_FRAMES)
+    recorded = smoke.record_tracker_calls(img, traj, frames)[1]
+    smoke.hold_residual_calls(recorded)
+    for label, by_kernel in recorded.items():
+        for kernel, calls in by_kernel.items():
+            time_rows(label, full_calls(calls), out=print)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,110 @@
+"""Build and load the port's CUDA kernels.
+
+Four sources under ``mba_vo_tpu_torch/csrc/``, each compiled with ``nvcc``
+for ``sm_90a`` into a shared library with a plain C interface, loaded with
+``ctypes``:
+
+  * ``window_bilinear.cu`` (K1) and ``window_bilinear_tiled.cu`` (K1-v):
+    the windowed samplers, bound in ``ops/cuda_sampling.py``;
+  * ``residual_rows.cu`` (K2) and ``normal_equations.cu`` (K3): the
+    residual/Jacobian rows and the Huber normal equations, bound in
+    ``ops/cuda_residual.py``.
+
+At first use :func:`build` compiles every source not built yet, all of
+them at once (one ``nvcc`` process each), into ``build/mba_vo_tpu_torch/``
+at the root of the checkout, keyed by a hash of the source and the flags.
+nvcc's ``-Xptxas -v`` log (registers, shared memory, spills) is kept beside
+each library and read into :data:`BUILD_LOG`. Nothing here runs when the
+module is imported, so CPU-only installs import it freely.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+# nvcc's output per source (with -Xptxas -v: registers, shared memory, spills)
+BUILD_LOG: Dict[str, str] = {}
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = {
+    "window_bilinear": _CSRC / "window_bilinear.cu",
+    "window_bilinear_tiled": _CSRC / "window_bilinear_tiled.cu",
+    "residual_rows": _CSRC / "residual_rows.cu",
+    "normal_equations": _CSRC / "normal_equations.cu",
+}
+# flags of one source only. K2 rounds every operation of its warp as the
+# plain version's torch ops do, one at a time: a multiply-add contracted into
+# one rounding moves a warped position by an ulp, and on the image's border
+# (where the integer patch pixels of a standing start land exactly) that
+# flips the sample's in-image flag
+SOURCE_FLAGS = {"residual_rows": ["-fmad=false"]}
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mba_vo_tpu_torch"
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_flags() -> List[str]:
+    """nvcc's flags for every source, the compile-time constants of the
+    kernels included: K1's band heights and K2/K3's largest tangent count,
+    set in the modules that bind them and checked when a library loads."""
+    from . import cuda_residual, cuda_sampling
+
+    return ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            f"-DWB_BAND={cuda_sampling.BAND_ROWS}", f"-DWB_TOP={cuda_sampling.TOP_ROWS}",
+            f"-DMAX_TANGENTS={cuda_residual.MAX_TANGENTS}"]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
+    if not nvcc.exists():
+        raise RuntimeError(f"nvcc not found at {nvcc}")
+    return str(nvcc)
+
+
+def build() -> Dict[str, Path]:
+    """Compile every kernel library whose source was not built already, all
+    compilers started together; returns the libraries' paths by name."""
+    paths, running = {}, []
+    for name, source in SOURCES.items():
+        flags = nvcc_flags() + SOURCE_FLAGS.get(name, [])
+        key = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+        paths[name] = BUILD_DIR / f"{name}_{key}.so"
+        if paths[name].exists():
+            log = paths[name].with_suffix(".log")
+            BUILD_LOG[name] = log.read_text() if log.exists() else ""
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *flags, "-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        running.append((name, tmp, proc))
+    failed = []
+    for name, tmp, proc in running:
+        BUILD_LOG[name], _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{BUILD_LOG[name]}")
+        else:
+            paths[name].with_suffix(".log").write_text(BUILD_LOG[name])
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library built from ``SOURCES[name]`` (building every source not
+    built yet on the first call), loaded once a process."""
+    if name not in _libs:
+        _libs[name] = ctypes.CDLL(str(build()[name]))
+    return _libs[name]

@@ -21,11 +21,9 @@ Two CUDA sources under ``mba_vo_tpu_torch/csrc/``:
     tile's windows, synchronised, then sampled. The sweep harness
     ``mba_vo_tpu_torch.experiments.kernel_variants`` runs both.
 
-At first use each source is compiled with ``nvcc`` for ``sm_90a`` (both at
-once, one process each) into a shared library with a plain C interface under
-``build/mba_vo_tpu_torch/`` at the root of the checkout, keyed by a hash of
-the source and flags, and loaded with ``ctypes``. Nothing here runs when the
-module is imported, so CPU-only installs import it freely.
+The libraries are built and loaded by ``ops/cuda_build.py`` (all of the
+port's sources at once, at first use). Nothing here runs when the module is
+imported, so CPU-only installs import it freely.
 
 The wrappers take CUDA tensors only and raise on anything else; none falls
 back to the plain version. Windows may have any keypoint stride as long as
@@ -39,13 +37,11 @@ call recorded into a CUDA graph is not a launch and is not counted.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 from typing import Dict
 
 import torch
+
+from . import cuda_build
 
 # launches of each kernel since the process started (or since a caller reset
 # them): K1 as the tracker runs it, K1's band design, K1-v, K1-v's first
@@ -54,10 +50,6 @@ LAUNCHES = 0
 LAUNCHES_BAND = 0
 LAUNCHES_TILED = 0
 LAUNCHES_STAGED = 0
-# nvcc's output per source (with -Xptxas -v: registers, shared memory, spills),
-# kept beside each library in the build directory
-BUILD_LOG: Dict[str, str] = {}
-
 # dynamic shared memory a block may use on sm_90
 MAX_SHARED_BYTES = 232448
 # window rows K1's band design stages per channel plane: BAND_ROWS centred
@@ -70,61 +62,7 @@ MAX_SHARED_BYTES = 232448
 BAND_ROWS = 8
 TOP_ROWS = 4
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = {
-    "window_bilinear": _CSRC / "window_bilinear.cu",
-    "window_bilinear_tiled": _CSRC / "window_bilinear_tiled.cu",
-}
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mba_vo_tpu_torch"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-DWB_BAND={BAND_ROWS}",
-    f"-DWB_TOP={TOP_ROWS}",
-]
-_libs: Dict[str, ctypes.CDLL] = {}
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
-    if not nvcc.exists():
-        raise RuntimeError(f"nvcc not found at {nvcc}")
-    return str(nvcc)
-
-
-def build() -> Dict[str, Path]:
-    """Compile every kernel library whose source was not built already, all
-    compilers started together; returns the libraries' paths by name."""
-    paths, running = {}, []
-    for name, source in _SOURCES.items():
-        key = hashlib.sha256(
-            source.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-        paths[name] = _BUILD_DIR / f"{name}_{key}.so"
-        if paths[name].exists():
-            log = paths[name].with_suffix(".log")
-            BUILD_LOG[name] = log.read_text() if log.exists() else ""
-            continue
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        running.append((name, tmp, proc))
-    failed = []
-    for name, tmp, proc in running:
-        BUILD_LOG[name], _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{BUILD_LOG[name]}")
-        else:
-            paths[name].with_suffix(".log").write_text(BUILD_LOG[name])
-            os.replace(tmp, paths[name])
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return paths
+_loaded: Dict[str, ctypes.CDLL] = {}
 
 
 # entry points of each library; the tiled ones take a tile before threads
@@ -135,8 +73,8 @@ _ENTRIES = {
 
 
 def _load(name: str) -> ctypes.CDLL:
-    if name not in _libs:
-        lib = ctypes.CDLL(str(build()[name]))
+    if name not in _loaded:
+        lib = cuda_build.load(name)
         extra = 1 if name == "window_bilinear" else 2   # threads | tile, threads
         # win, kp_stride, xy, valid, out, N, C, win_h, win_w, S, [tile,] threads, stream
         args = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3
@@ -154,8 +92,8 @@ def _load(name: str) -> ctypes.CDLL:
             if built != (BAND_ROWS, TOP_ROWS):
                 raise RuntimeError(f"window_bilinear.cu was built with bands {built}, "
                                    f"not (BAND_ROWS, TOP_ROWS) = {(BAND_ROWS, TOP_ROWS)}")
-        _libs[name] = lib
-    return _libs[name]
+        _loaded[name] = lib
+    return _loaded[name]
 
 
 def keypoint_stride(windows: torch.Tensor) -> int:

@@ -9,14 +9,19 @@ exposure window; the residual at patch pixel x of frame f is
 and the Gauss-Newton system is assembled over the global knot tangent
 [all t-knots (3K); all omega-knots (3K)] with Huber row scaling.
 
-The Jacobian is the chain rule written out. ``torch.func.jacfwd`` through
-the retraction and the spline gives the [F, V, 7, 6K] pose Jacobian
-(:func:`pose_jacobians`); ``ops.warp.frontoparallel_warp_jvp`` carries it
-through the warp to the [N, F, P, V, 2, 6K] Jacobian of the reference-view
-sample positions; one C = 3 call of the window sampler gives each sample's
-value and Lucas-Kanade gradient; and
-J = mean_v(dI/dx * dx/d(delta) + dI/dy * dy/d(delta)), masked by the
-patch-pixel validity. No derivative passes through the sampler kernel.
+The Jacobian is the chain rule written out. Forward mode through the
+retraction and the spline, in closed form (``core.spline``'s ``*_jvp``
+helpers), gives the [F, V, 7, 6K] pose Jacobian (:func:`pose_jacobians`);
+the warp carries it to the [N, S, 2, 6K] Jacobian of the reference-view
+sample positions (:func:`warp_tangents`, kernel K2's first entry); one
+C = 3 call of the window sampler K1 gives each sample's value and
+Lucas-Kanade gradient; and J = mean_v(dI/dx * dx/d(delta) + dI/dy *
+dy/d(delta)), masked by the patch-pixel validity (:func:`blur_rows`, K2's
+second entry). No derivative passes through the sampler kernel. The
+Huber normal equations are kernel K3 (:func:`normal_equations`). Each
+kernel's plain PyTorch version is here beside its dispatcher, which sends
+CUDA tensors to the kernel (``ops.cuda_residual``) and CPU tensors to the
+plain version.
 
 The direct path (``sampling="direct"``, :func:`compute_residuals`) gathers
 every sample from the whole keyframe image instead of a window: the warp
@@ -42,16 +47,17 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-from torch.func import jacfwd
 
 from ..core.lie import quat_conjugate, quat_rotate
 from ..utils.collectives import allreduce
 from ..core.spline import (
     SplineKnots,
     spline_pose_at_times,
-    spline_retract,
+    spline_pose_at_times_jvp,
+    spline_retract_jvp,
     virtual_pose_times,
 )
+from . import cuda_residual
 from .image import in_bounds, sample_lk_with_gradient
 from .warp import frontoparallel_warp, frontoparallel_warp_jvp
 from .window_sampling import (
@@ -119,26 +125,38 @@ def sample_virtual_poses(
     return p.t.reshape(F, num_vir, 3), p.q.reshape(F, num_vir, 4)
 
 
+def virtual_poses_and_tangents(
+    knots: SplineKnots, cap_times: torch.Tensor, exp_times: torch.Tensor,
+    num_vir: int, degree: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`sample_virtual_poses` and the derivative of each pose
+    7-vector along the 6K seeds of the global knot tangent at zero
+    retraction, seed-major: (t [F, V, 3], q [F, V, 4], dpose [6K, F, V, 7]),
+    tangent layout [3K translations; 3K rotations]. One forward-mode pass
+    in closed form (``core.spline.spline_pose_at_times_jvp``), whose primal
+    is the poses themselves."""
+    K = knots.num_knots
+    times = virtual_pose_times(cap_times, exp_times, num_vir)   # [F, V]
+    F = times.shape[0]
+    opts = dict(dtype=knots.t.dtype, device=knots.t.device)
+    z = torch.zeros((K, 3), **opts)
+    seeds = torch.eye(6 * K, **opts).reshape(6 * K, 2, K, 3)   # [translations; rotations]
+    k, dkt, dkq = spline_retract_jvp(knots, z, z, seeds[:, 0], seeds[:, 1])
+    p, dt, dq = spline_pose_at_times_jvp(k, dkt, dkq, times.reshape(-1), degree)
+    dpose = torch.cat([dt, dq], dim=-1).reshape(6 * K, F, num_vir, 7)
+    return p.t.reshape(F, num_vir, 3), p.q.reshape(F, num_vir, 4), dpose
+
+
 def pose_jacobians(
     knots: SplineKnots, cap_times: torch.Tensor, exp_times: torch.Tensor,
     num_vir: int, degree: int,
 ) -> torch.Tensor:
     """d(pose 7-vector)/d(global knot tangent) at zero retraction:
-    [F, V, 7, 6K] with tangent layout [3K translations; 3K rotations]."""
-    K = knots.num_knots
-    times = virtual_pose_times(cap_times, exp_times, num_vir)
-    flat_times = times.reshape(-1)
-    T = flat_times.shape[0]
-    z = torch.zeros((K, 3), dtype=knots.t.dtype, device=knots.t.device)
-
-    def pose7_all(d_t, d_o):
-        k = spline_retract(knots, d_t, d_o)
-        p = spline_pose_at_times(k, flat_times, degree)
-        return torch.cat([p.t, p.q], dim=-1)  # [T, 7]
-
-    Jt, Jo = jacfwd(pose7_all, argnums=(0, 1))(z, z)  # [T, 7, K, 3] each
-    J = torch.cat([Jt.reshape(T, 7, 3 * K), Jo.reshape(T, 7, 3 * K)], dim=-1)
-    return J.reshape(times.shape[0], num_vir, 7, 6 * K)
+    [F, V, 7, 6K] with tangent layout [3K translations; 3K rotations]
+    (:func:`virtual_poses_and_tangents`, laid out as the reference's
+    ``jacfwd``)."""
+    return virtual_poses_and_tangents(knots, cap_times, exp_times, num_vir,
+                                      degree)[2].permute(1, 2, 3, 0)
 
 
 # ----------------------------------------------------------------- patch layout
@@ -338,6 +356,82 @@ def prepare_frame_layout(
     return pix, valid_center, obs
 
 
+def warp_tangents_plain(
+    pose_t: torch.Tensor, pose_q: torch.Tensor, dpose: torch.Tensor, kp_z: torch.Tensor,
+    K: torch.Tensor, pix: torch.Tensor, starts: torch.Tensor, height: int, width: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K2's first entry: every patch pixel (n, f, p) warped
+    by every virtual pose v into the keyframe, with its derivative along the
+    D knot tangents.
+
+    pose_t [F, V, 3], pose_q [F, V, 4], dpose [D, F, V, 7] (seed-major pose
+    tangents), kp_z [N], K [4], pix [F, N, P, 2], starts [N, 2] (the
+    windows' integer corners). Returns, keypoint-major with S = F P V in
+    (f, p, v) order as the sampler takes them: loc [N, S, 2] (window-local
+    positions), vs [N, S] (1.0 where the position lies in the image) and
+    dxy [2, D, N, S] (the x and y derivatives, tangent-major).
+    """
+    F, N, P, _ = pix.shape
+    V, D = pose_t.shape[1], dpose.shape[0]
+    S = F * P * V
+    seeds = dpose[:, None, :, None]                      # [D, 1, F, 1, V, 7]
+    ref_xy, dxy = frontoparallel_warp_jvp(
+        pose_t[None, :, None], pose_q[None, :, None],    # [1, F, 1, V, 3|4]
+        kp_z[:, None, None, None],                       # [N, 1, 1, 1]
+        K,
+        pix.permute(1, 0, 2, 3)[:, :, :, None, :],       # [N, F, P, 1, 2]
+        dpose_t=seeds[..., :3], dpose_q=seeds[..., 3:],
+    )                                                    # [N,F,P,V,2], [D,N,F,P,V,2]
+    vs = in_bounds(ref_xy, height, width).reshape(N, S).to(pose_t.dtype)
+    loc = (ref_xy - starts.to(pose_t.dtype)[:, None, None, None, :]).reshape(N, S, 2)
+    return loc, vs, dxy.permute(5, 0, 1, 2, 3, 4).reshape(2, D, N, S)
+
+
+def warp_tangents(pose_t, pose_q, dpose, kp_z, K, pix, starts, height, width):
+    """K2's first entry (:func:`warp_tangents_plain`): kernel on CUDA
+    tensors, plain version on CPU tensors."""
+    if pix.is_cuda:
+        return cuda_residual.warp_tangents_cuda(
+            pose_t.contiguous(), pose_q.contiguous(), dpose.contiguous(),
+            kp_z.contiguous(), K.contiguous(), pix.contiguous(), starts.contiguous(),
+            height, width)
+    return warp_tangents_plain(pose_t, pose_q, dpose, kp_z, K, pix, starts, height, width)
+
+
+def blur_rows_plain(
+    val: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor, dxy: torch.Tensor,
+    obs: torch.Tensor, valid: torch.Tensor, num_vir: int, affine: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2's second entry: the blur model and its tangent.
+
+    val, gx, gy [N, S]: the sampler's (I, dI/dx, dI/dy) at
+    :func:`warp_tangents_plain`'s positions; dxy [2, D, N, S]; obs and the
+    bool patch-pixel mask ``valid`` [F, N, P]. pred = mean_v I and
+    dpred = mean_v (gx dx + gy dy) per (f, n, p). Returns [F, N, P] and
+    [F, N, P, D]: (r, J) = (pred - obs, dpred) where ``valid``, 0
+    elsewhere; with ``affine``, (pred, dpred) unmasked for
+    :func:`affine_correct_jvp`.
+    """
+    F, N, P = obs.shape
+    D = dxy.shape[1]
+    pred = val.reshape(N, F, P, num_vir).mean(dim=-1).permute(1, 0, 2)
+    tangent = gx * dxy[0] + gy * dxy[1]                                 # [D, N, S]
+    dpred = tangent.reshape(D, N, F, P, num_vir).mean(dim=-1).permute(2, 1, 3, 0)
+    if affine:
+        return pred, dpred
+    r = torch.where(valid, pred - obs, torch.zeros_like(pred))
+    return r, torch.where(valid[..., None], dpred, torch.zeros_like(dpred))
+
+
+def blur_rows(val, gx, gy, dxy, obs, valid, num_vir, affine):
+    """K2's second entry (:func:`blur_rows_plain`): kernel on CUDA tensors,
+    plain version on CPU tensors."""
+    if obs.is_cuda:
+        return cuda_residual.blur_rows_cuda(val, gx, gy, dxy.contiguous(), obs.contiguous(),
+                                            valid.contiguous(), num_vir, affine)
+    return blur_rows_plain(val, gx, gy, dxy, obs, valid, num_vir, affine)
+
+
 def compute_residuals_windowed(
     knots: SplineKnots, data: TrackingLevelData, num_vir: int, degree: int,
     with_jacobian: bool, window: int = 32, cache=None, layout=None,
@@ -350,73 +444,39 @@ def compute_residuals_windowed(
     ``layout``: (pix, valid_center, obs) from :func:`prepare_frame_layout`.
     None recomputes either here. With ``affine`` the residual and the
     Jacobian both pass through the per-frame gain/bias elimination.
-    """
-    F = data.cur_imgs.shape[0]
-    H, W = data.img_ref.shape
-    N = data.kp_xy.shape[0]
-    P = data.pattern.shape[0]
-    Kk = knots.num_knots
-    dtype = knots.t.dtype
-    S = F * P * num_vir
 
+    The pipeline: the virtual poses with their tangents, K2's
+    :func:`warp_tangents`, K1 (C = 3; C = 1 without the Jacobian), K2's
+    :func:`blur_rows`. Without the Jacobian the same path runs with no
+    tangent seeds.
+    """
+    H, W = data.img_ref.shape
     if layout is None:
         layout = prepare_frame_layout(knots, data, num_vir, degree)
     pix, valid_center, obs = layout
     if cache is None:
         cache = prepare_window_cache(data, window)
     windows, starts = cache                               # [N,3,wh,ww], [N,2]
-    starts_f = starts.to(dtype)
 
-    # keypoint-major layout: the sampler wants [N, S]
-    pix_nf = pix.permute(1, 0, 2, 3)                      # [N,F,P,2]
-    vc_nf = valid_center.permute(1, 0, 2)                 # [N,F,P]
-    obs_nf = obs.permute(1, 0, 2)                         # [N,F,P]
-
-    # every (n, f, p, v) patch pixel warped into the reference view
-    pt, pq = sample_virtual_poses(
-        knots, data.cap_times, data.exp_times, num_vir, degree
-    )
-    warp_args = (
-        pt[None, :, None, :, :],            # [1,F,1,V,3]
-        pq[None, :, None, :, :],            # [1,F,1,V,4]
-        data.kp_z[:, None, None, None],     # [N,1,1,1]
-        data.K,
-        pix_nf[:, :, :, None, :],           # [N,F,P,1,2]
-    )
     if with_jacobian:
-        # pose tangents per knot-tangent seed: [6K, 1, F, 1, V, 7]
-        Jp = pose_jacobians(knots, data.cap_times, data.exp_times, num_vir,
-                            degree).permute(3, 0, 1, 2)[:, None, :, None]
-        ref_xy, dxy = frontoparallel_warp_jvp(
-            *warp_args, dpose_t=Jp[..., :3], dpose_q=Jp[..., 3:])
-        dxy = dxy.permute(1, 2, 3, 4, 5, 0)               # [N,F,P,V,2,6K]
+        pt, pq, dpose = virtual_poses_and_tangents(
+            knots, data.cap_times, data.exp_times, num_vir, degree)
     else:
-        ref_xy = frontoparallel_warp(*warp_args)          # [N,F,P,V,2]
-
-    vs = in_bounds(ref_xy, H, W).reshape(N, S).to(dtype)
-    loc = (ref_xy - starts_f[:, None, None, None, :]).reshape(N, S, 2)
+        pt, pq = sample_virtual_poses(knots, data.cap_times, data.exp_times, num_vir, degree)
+        dpose = pt.new_empty((0,) + pt.shape[:2] + (7,))
+    loc, vs, dxy = warp_tangents(pt, pq, dpose, data.kp_z, data.K, pix, starts, H, W)
     if with_jacobian:
         val, gx, gy = sample_windows_lk(windows, loc, vs)   # [N, S] each
     else:
         val = sample_windows(windows, loc, vs)
-    pred = val.reshape(N, F, P, num_vir).mean(dim=-1)       # [N,F,P]
-    if with_jacobian:
-        dxy = dxy.reshape(N, S, 2, 6 * Kk)
-        tangent = gx[..., None] * dxy[:, :, 0] + gy[..., None] * dxy[:, :, 1]
-        dpred = tangent.reshape(N, F, P, num_vir, 6 * Kk).mean(dim=3)
+        gx = gy = val                          # unread: there are no tangent seeds
+    rows, drows = blur_rows(val, gx, gy, dxy, obs, valid_center, num_vir, affine)
     if affine:
-        pred_fn = pred.permute(1, 0, 2)                     # [F,N,P]
         if not with_jacobian:
-            return affine_correct(pred_fn, obs, valid_center, group), None, valid_center
-        r, J = affine_correct_jvp(pred_fn, obs, valid_center,
-                                  dpred.permute(1, 0, 2, 3), group)
+            return affine_correct(rows, obs, valid_center, group), None, valid_center
+        r, J = affine_correct_jvp(rows, obs, valid_center, drows, group)
         return r, J, valid_center
-    r_nf = torch.where(vc_nf, pred - obs_nf, torch.zeros_like(pred))
-    r = r_nf.permute(1, 0, 2)                               # [F,N,P]
-    if not with_jacobian:
-        return r, None, valid_center
-    J_nf = torch.where(vc_nf[..., None], dpred, torch.zeros_like(dpred))
-    return r, J_nf.permute(1, 0, 2, 3), valid_center
+    return rows, (drows if with_jacobian else None), valid_center
 
 
 # --------------------------------------------------------------- normal equations
@@ -492,6 +552,47 @@ def _kahan_chunked_normal_eq(Jw: torch.Tensor, rw: torch.Tensor,
     return kahan(g_parts), kahan(H_parts)
 
 
+def normal_equations_plain(
+    r: torch.Tensor, J: Optional[torch.Tensor], kp_w: torch.Tensor, huber_a: float,
+    compensated: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Plain version of K3: the raw per-rank sums of the Huber normal
+    equations, before the all-reduce and the scaling by the inverse residual
+    count.
+
+    r [F, N, P], J [F, N, P, D] or None (cost only), kp_w [N] (the keypoint
+    mask times the outlier mask). Returns (sum rho kp_w, patch [F, N] =
+    sum_p rho (unmasked: the reference's patch costs ignore the masks),
+    g = Jw^T rw, H = Jw^T Jw) with Jw = J w kp_w, rw = r w kp_w; g and H
+    None without J. ``compensated``: g and H Kahan-combined over 16 chunks
+    of the [F, N, P] rows (:func:`_kahan_chunked_normal_eq`).
+    """
+    rho, w = huber_weights(r, huber_a)
+    patch = torch.sum(rho, dim=-1)
+    kw = kp_w[None, :, None]                                   # [F, N, P] broadcast
+    cost = torch.sum(rho * kw)
+    if J is None:
+        return cost, patch, None, None
+    rw = (r * w * kw).reshape(-1)                              # [M]
+    Jw = (J * (w * kw)[..., None]).reshape(rw.shape[0], -1)    # [M, 6K]
+    if compensated:
+        g, Hm = _kahan_chunked_normal_eq(Jw, rw)
+    else:
+        g = torch.einsum("mk,m->k", Jw, rw)
+        Hm = torch.einsum("mk,ml->kl", Jw, Jw)
+    return cost, patch, g, Hm
+
+
+def normal_equations(r, J, kp_w, huber_a, compensated=False):
+    """K3 (:func:`normal_equations_plain`): kernel on CUDA tensors, plain
+    version on CPU tensors."""
+    if r.is_cuda:
+        return cuda_residual.normal_equations_cuda(
+            r.contiguous(), None if J is None else J.contiguous(), kp_w.contiguous(),
+            huber_a, compensated)
+    return normal_equations_plain(r, J, kp_w, huber_a, compensated)
+
+
 def assemble(
     r: torch.Tensor,
     J: Optional[torch.Tensor],
@@ -506,14 +607,15 @@ def assemble(
 
     ``precision`` keeps the reference's field: "highest" asked the TPU for
     full-f32 matrix-unit passes. Here every f32 product is full f32 already
-    (TF32 is off wherever the port runs on the card), so both values give
-    the same arithmetic. ``compensated`` adds Kahan accumulation across
-    residual chunks.
+    (TF32 is off wherever the port runs on the card, and K3 multiplies in
+    the working type), so both values give the same arithmetic.
+    ``compensated`` adds Kahan accumulation across residual chunks.
 
     ``patch_costs`` cover every keypoint, outliers included (the reference
     divides them by the inlier count but does not mask them).
 
-    With ``group`` (keypoint shards) the residual count, the cost and the
+    The sums come from :func:`normal_equations` (K3 on the card). With
+    ``group`` (keypoint shards) the residual count, the cost and the
     per-rank g and H (each Kahan-combined per rank when ``compensated``)
     are all-reduced in the reference's order; ``patch_costs`` cover this
     rank's keypoints.
@@ -521,28 +623,16 @@ def assemble(
     F = data.cur_imgs.shape[0]
     P = data.pattern.shape[0]
 
-    rho, w = huber_weights(r, huber_a)
-
     live_kp = data.kp_mask * outlier_mask  # [N]
     n_res = torch.clamp(allreduce(torch.sum(live_kp), group) * F * P, min=1.0)
     inv_n = 1.0 / n_res
 
-    patch_costs = torch.sum(rho, dim=-1) * inv_n  # [F, N]
-
-    kp_w = live_kp[None, :, None]  # [F, N, P] broadcast
-    cost = allreduce(torch.sum(rho * kp_w), group) * inv_n
-
+    cost, patch, g, Hm = normal_equations(r, J, live_kp, huber_a, compensated)
+    patch_costs = patch * inv_n  # [F, N]
+    cost = allreduce(cost, group) * inv_n
     if J is None:
         return Evaluation(cost=cost, gradient=None, hessian=None,
                           patch_costs=patch_costs)
-
-    rw = (r * w * kp_w).reshape(-1)                            # [M]
-    Jw = (J * (w * kp_w)[..., None]).reshape(rw.shape[0], -1)  # [M, 6K]
-    if compensated:
-        g, Hm = _kahan_chunked_normal_eq(Jw, rw)
-    else:
-        g = torch.einsum("mk,m->k", Jw, rw)
-        Hm = torch.einsum("mk,ml->kl", Jw, Jw)
     g = allreduce(g, group) * inv_n
     Hm = allreduce(Hm, group) * inv_n
     return Evaluation(cost=cost, gradient=g, hessian=Hm, patch_costs=patch_costs)

@@ -115,6 +115,7 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from mba_vo_tpu_torch.ops import cuda_build
     from mba_vo_tpu_torch.ops import cuda_sampling as cs
     from mba_vo_tpu_torch.tracker.blur_tracker import BlurAwareTracker
 
@@ -131,7 +132,7 @@ def main() -> int:
         print("profile_port: needs one CUDA GPU", file=sys.stderr)
         return 1
     print(card_line())
-    cs.build()
+    cuda_build.build()
     if args.joint:
         return profile_joint(args)
     n = args.warmup + args.frames

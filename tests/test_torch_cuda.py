@@ -488,3 +488,200 @@ def test_scene_render_cuda_matches_cpu(cuda):
     (ig, zg), (ic, zc) = out
     assert (zg - zc).abs().max().item() <= 1e-10
     assert ((ig - ic).abs() / ic.abs()).max().item() <= 1e-10
+
+
+# --------------------------------------- K2 (residual rows) and K3 (normal equations)
+
+# (frames, virtual poses, knot tangents): the per-frame path, a joint chunk
+# of 4 at degree 4, a joint chunk of 8 at degree 4
+K2_SHAPES = [(1, 5, 12), (4, 5, 42), (8, 5, 66)]
+
+
+def _k2_problem(F, V, D, dtype, N=512, P=8, H=480, W=640, seed=0):
+    """Inputs of warp_tangents as the tracker gives them: poses near the
+    identity, pixels around the keypoints (some off the image, one NaN),
+    window corners, random pose tangents."""
+    rng = np.random.default_rng(seed)
+    q = np.concatenate([rng.normal(0, 0.01, (F, V, 3)), np.ones((F, V, 1))], -1)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    kp = rng.uniform([-10, -10], [W + 10, H + 10], (N, 2))
+    pix = np.floor(kp)[None, :, None, :] + rng.integers(-2, 3, (F, N, P, 2))
+    pix[0, 3, 2, 0] = np.nan
+    starts = np.clip(np.floor(kp) - 16, 0, [W - 32, H - 32]).astype(np.int64)
+    t = lambda a: torch.tensor(a, dtype=dtype, device="cuda")   # noqa: E731
+    return (t(rng.normal(0, 0.02, (F, V, 3))), t(q), t(rng.normal(0, 1, (D, F, V, 7))),
+            t(rng.uniform(1.5, 2.5, N)), t([480.0, 480.0, 319.5, 239.5]), t(pix),
+            torch.tensor(starts, device="cuda"), H, W)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("F,V,D", K2_SHAPES)
+def test_k2_matches_plain(cuda, dtype, F, V, D):
+    """warp_tangents and blur_rows (masked and affine) against their plain
+    versions, within experiments/residual_kernels.py's tolerances; each
+    wrapper counts one launch a call."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+    from mba_vo_tpu_torch.ops import residual as tres
+
+    args = _k2_problem(F, V, D, dtype)
+    before = cr.LAUNCHES_WARP
+    rk.hold(rk.ResidualCall("warp_tangents", args, None))
+    torch.cuda.synchronize()
+    assert cr.LAUNCHES_WARP == before + 1
+    loc, vs, dxy = tres.warp_tangents_plain(*args)
+    assert 0 < vs.mean().item() < 1 and torch.isnan(loc).any()
+
+    rng = np.random.default_rng(1)
+    N, S = vs.shape
+    P = S // (F * V)
+    samples = torch.tensor(rng.normal(0, 50, (N, 3, S)), dtype=dtype, device="cuda")
+    samples[:, :, 7] = samples[:, :, 7] * vs[:, 7, None]
+    samples[2, :, 9] = float("nan")
+    obs = torch.tensor(rng.normal(100, 30, (F, N, P)), dtype=dtype, device="cuda")
+    valid = torch.tensor(rng.uniform(size=(F, N, P)) > 0.2, device="cuda")
+    valid[:, 2] = False   # the NaN sample's keypoint: masked to 0
+    valid[0, 3, 2] = True   # the NaN pixel (its dxy is NaN): NaN rows
+    val, gx, gy = samples[:, 0], samples[:, 1], samples[:, 2]
+    for affine in (False, True):
+        before = cr.LAUNCHES_BLUR
+        rk.hold(rk.ResidualCall("blur_rows", (val, gx, gy, dxy, obs, valid, V, affine), None))
+        torch.cuda.synchronize()
+        assert cr.LAUNCHES_BLUR == before + 1
+        r, J = tres.blur_rows(val, gx, gy, dxy, obs, valid, V, affine)
+        assert r.is_contiguous() and J.is_contiguous() and J.shape == (F, N, P, D)
+        assert torch.isnan(J[0, 3, 2]).all()
+        assert bool(torch.isnan(r[:, 2]).any()) == bool(torch.isnan(J[:, 2]).any()) == affine
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [12, 42, 66])
+def test_k3_matches_plain(cuda, dtype, D):
+    """normal_equations against its plain version, plain and compensated,
+    with and without J, at M = 4,096-32,768 rows; a run repeats bit for
+    bit."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+    from mba_vo_tpu_torch.ops import residual as tres
+
+    F = {12: 1, 42: 4, 66: 8}[D]
+    rng = np.random.default_rng(D)
+    N, P = 512, 8
+    r = torch.tensor(rng.normal(0, 20, (F, N, P)), dtype=dtype, device="cuda")
+    J = torch.tensor(rng.normal(0, 30, (F, N, P, D)), dtype=dtype, device="cuda")
+    kp_w = torch.tensor((rng.uniform(size=N) > 0.1).astype(float), dtype=dtype, device="cuda")
+    for compensated in (False, True):
+        for jac in (J, None):
+            before = cr.LAUNCHES_NORMAL
+            rk.hold(rk.ResidualCall("normal_equations", (r, jac, kp_w, 20.0, compensated),
+                                    None))
+            got = tres.normal_equations(r, jac, kp_w, 20.0, compensated)
+            again = tres.normal_equations(r, jac, kp_w, 20.0, compensated)
+            torch.cuda.synchronize()
+            assert cr.LAUNCHES_NORMAL == before + 2 * 3
+            for o, a in zip(got, again):
+                assert (o is None and a is None) or torch.equal(o, a)
+            if jac is not None:
+                assert torch.equal(got[3], got[3].T)
+
+
+def test_k2_k3_wrappers_check_their_inputs(cuda):
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+
+    args = list(_k2_problem(1, 5, 12, torch.float32, N=16))
+    with pytest.raises(ValueError, match="pose_q is torch.float64"):
+        cr.warp_tangents_cuda(*args[:1], args[1].double(), *args[2:])
+    with pytest.raises(ValueError, match="not CUDA"):
+        cr.warp_tangents_cuda(args[0].cpu(), *args[1:])
+    with pytest.raises(ValueError, match="pix must be"):
+        cr.warp_tangents_cuda(*args[:5], args[5][:, :8].contiguous(), *args[6:])
+    with pytest.raises(ValueError, match="starts is torch.int32"):
+        cr.warp_tangents_cuda(*args[:6], args[6].int(), *args[7:])
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        cr.warp_tangents_cuda(*(a.half() if torch.is_tensor(a) and a.is_floating_point()
+                                else a for a in args))
+    big = torch.zeros((cr.MAX_TANGENTS + 1, 1, 5, 7), device="cuda")
+    with pytest.raises(ValueError, match="MAX_TANGENTS"):
+        cr.warp_tangents_cuda(*args[:2], big, *args[3:])
+    loc, vs, dxy = cr.warp_tangents_cuda(*args)
+    samples = torch.zeros((16, 3, 40), device="cuda")
+    obs = torch.zeros((1, 16, 8), device="cuda")
+    valid = torch.ones((1, 16, 8), dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="valid is torch.float32"):
+        cr.blur_rows_cuda(samples[:, 0], samples[:, 1], samples[:, 2], dxy, obs,
+                          valid.float(), 5, False)
+    with pytest.raises(ValueError, match="gx must be"):
+        cr.blur_rows_cuda(samples[:, 0], samples[:, 1, ::2], samples[:, 2], dxy, obs, valid,
+                          5, False)
+    with pytest.raises(ValueError, match="dxy must be"):
+        cr.blur_rows_cuda(samples[:, 0], samples[:, 1], samples[:, 2],
+                          dxy[..., :20].contiguous(), obs, valid, 5, False)
+    r = torch.zeros((1, 16, 8), device="cuda")
+    with pytest.raises(ValueError, match="kp_w must be"):
+        cr.normal_equations_cuda(r, None, torch.ones(15, device="cuda"), 20.0)
+    with pytest.raises(ValueError, match="J is torch.float64"):
+        cr.normal_equations_cuda(r, torch.zeros((1, 16, 8, 12), dtype=torch.float64,
+                                                device="cuda"), torch.ones(16, device="cuda"),
+                                 20.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        cr.normal_equations_cuda(r, torch.zeros((1, 16, 8, 24), device="cuda")[..., ::2],
+                                 torch.ones(16, device="cuda"), 20.0)
+    with pytest.raises(ValueError, match="MAX_TANGENTS"):
+        cr.normal_equations_cuda(r, torch.zeros((1, 16, 8, cr.MAX_TANGENTS + 1),
+                                                device="cuda"), torch.ones(16, device="cuda"),
+                                 20.0)
+
+
+def test_tracker_runs_through_k2_and_k3(cuda):
+    """track_frame, track_frames and track_frames_joint on the card launch
+    K2's two entries and K3, and still K1, once each an LM evaluation; the
+    tracker's recorded calls of each equal the plain version."""
+    from mba_vo_tpu_torch.core.spline import make_knots
+    from mba_vo_tpu_torch.data.synthetic import smooth_shapes_image, synthesize_blurred_image
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+    from mba_vo_tpu_torch.ops import cuda_sampling
+    from mba_vo_tpu_torch.tracker.blur_tracker import BlurAwareTracker, TrackerConfig
+    from mba_vo_tpu_torch.tracker.detector import DetectorOptions
+
+    h, w = 96, 128
+    K = np.array([90.0, 90.0, (w - 1) / 2, (h - 1) / 2])
+    img = smooth_shapes_image(h, w, sigma=3.0, dtype=np.float64)
+    step = np.array([0.004, -0.002, 0.001])
+    traj = make_knots(torch.tensor(np.outer(np.arange(8), step)),
+                      torch.tensor([[0.0, 0, 0, 1]] * 8, dtype=torch.float64), 0.0, 0.1)
+    caps = [0.1 * i for i in range(1, 5)]
+    blurred = [synthesize_blurred_image(torch.tensor(img), traj, 2, c, 0.03, 5, 2.0,
+                                        torch.tensor(K)).numpy() for c in caps]
+    for dtype, degree in (("float32", 2), ("float64", 4)):
+        cfg = TrackerConfig(num_pyramid_levels=2, num_virtual_poses=(5, 5), dtype=dtype,
+                            spline_degree=degree, max_num_iterations=6,
+                            detector=DetectorOptions(score_threshold=5.0, cell_h=8, cell_w=8,
+                                                     max_keypoints=128))
+        for method in ("track_frame", "track_frames", "track_frames_joint"):
+            tracker = BlurAwareTracker(cfg, K, (h, w), device="cuda")
+            tracker.track_frame(img, img, 0.0, 0.03, np.full((h, w), 2.0))
+            counts = [cuda_sampling.LAUNCHES, cr.LAUNCHES_WARP, cr.LAUNCHES_BLUR,
+                      cr.LAUNCHES_NORMAL]
+            with rk.record_residual_calls() as calls:
+                if method == "track_frame":
+                    poses = [tracker.track_frame(None, b, c, 0.03)
+                             for b, c in zip(blurred, caps)]
+                else:
+                    poses = getattr(tracker, method)(blurred, caps, [0.03] * 4, chunk=4)
+            torch.cuda.synchronize()
+            k1, warp, blur, normal = (now - then for now, then in zip(
+                [cuda_sampling.LAUNCHES, cr.LAUNCHES_WARP, cr.LAUNCHES_BLUR,
+                 cr.LAUNCHES_NORMAL], counts))
+            assert k1 > 0 and warp == blur == k1 and normal >= k1
+            assert len(poses) == 4 and all(torch.isfinite(p.t).all() for p in poses)
+            for kernel in rk.KERNELS:
+                assert calls[kernel] and all(c.args[0].is_cuda for c in calls[kernel])
+                for call in calls[kernel]:
+                    rk.hold(call)
+            # a frame's window has `degree` knots, a joint chunk's chunk + degree - 1
+            D = {c.tangents for c in calls["warp_tangents"]}
+            if method == "track_frames_joint":
+                assert 6 * (3 + degree) in D, D
+            else:
+                assert D == {6 * degree}, D

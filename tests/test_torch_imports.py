@@ -2,12 +2,14 @@
 mba_vo_tpu_torch loads neither JAX nor the JAX package, nor PIL or orbax
 (the port reads and writes its PNGs with data/png.py and checkpoints with
 torch.save), nor builds or loads a kernel. That holds for
-ops/cuda_sampling.py (two kernels), the sweep harness
-experiments/kernel_variants.py, the backend, the command line, the loop
-benchmark, the camera/trajectory/sensor models, the scene renderer, the
-overlay and profiling utilities and the sharding package parallel/ (whose
-modules import torch.distributed, never jax.distributed) as for every
-other module."""
+ops/cuda_build.py (which builds all four kernel sources),
+ops/cuda_sampling.py (K1, K1-v), ops/cuda_residual.py (K2, K3), the sweep
+harnesses experiments/kernel_variants.py,
+experiments/residual_kernels.py and experiments/f32_sensitivity.py, the
+backend, the command line, the loop benchmark, the camera/trajectory/sensor
+models, the scene renderer, the overlay and profiling utilities and the
+sharding package parallel/ (whose modules import torch.distributed, never
+jax.distributed) as for every other module."""
 
 import pkgutil
 import subprocess
@@ -24,20 +26,23 @@ import mba_vo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mba_vo_tpu_torch.__path__, "mba_vo_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-from mba_vo_tpu_torch.ops import cuda_sampling
+from mba_vo_tpu_torch.ops import cuda_build, cuda_residual, cuda_sampling
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mba_vo_tpu", "triton", "PIL", "orbax"))
 from mba_vo_tpu_torch.experiments import kernel_variants
 import os
-built = os.path.exists(cuda_sampling._BUILD_DIR)
-print(len(names), bad, cuda_sampling._libs, cuda_sampling.BUILD_LOG, built,
+built = os.path.exists(cuda_build.BUILD_DIR)
+libs = {**cuda_build._libs, **cuda_sampling._loaded, **cuda_residual._loaded}
+print(len(names), bad, libs, cuda_build.BUILD_LOG, built,
       all(f"mba_vo_tpu_torch.{m}" in names for m in (
           "experiments.kernel_variants", "experiments.loop_bench", "cli",
           "backend.vo_backend", "utils.checkpoint", "data.png", "models.camera",
           "models.trajectory", "models.sensors", "core.navstate", "data.scene3d",
           "utils.viz", "utils.profiling", "backend.dynamic_points", "parallel",
           "parallel.mesh", "parallel.distributed", "parallel.sharded",
-          "parallel.sharded_ba", "utils.collectives")))
+          "parallel.sharded_ba", "utils.collectives", "ops.cuda_build",
+          "ops.cuda_residual", "experiments.residual_kernels",
+          "experiments.f32_sensitivity")))
 """
 
 
@@ -50,7 +55,7 @@ def test_every_module_imports_without_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad, rest = out.stdout.split(maxsplit=2)
-    assert int(n) >= 52
+    assert int(n) >= 55
     # no library loaded, nothing compiled, the harness among the modules
     assert bad == "[]" and rest.split() == ["{}", "{}", EXPECT_BUILT, "True"], out.stdout
 
