@@ -9,15 +9,22 @@ Phases (any failed check raises and the exit code is non-zero):
   2. build kernels K1 (csrc/window_bilinear.cu: one thread a sample, which
      the tracker launches, and the band design), K1-v
      (csrc/window_bilinear_tiled.cu: the ring design and the staged first
-     design), K2 (csrc/residual_rows.cu: warp_tangents and blur_rows) and
-     K3 (csrc/normal_equations.cu) with nvcc for sm_90a, all four sources
-     at once, and print each kernel's registers, shared memory and spills;
+     design), K2 (csrc/residual_rows.cu: warp_tangents and blur_rows, the
+     keypoint design and the earlier thread design) and K3
+     (csrc/normal_equations.cu: the cluster design and the earlier split
+     design) with nvcc for sm_90a, all four sources at once, and print each
+     kernel's registers, shared memory and spills;
+  2b. the card tests: tests/test_torch_cuda.py under pytest (-m cuda,
+     without the JAX test configuration), every kernel against its plain
+     version and blur_rows and K3 against their earlier designs bit for bit
+     on edge shapes; any failure fails the run;
   3. record the sampler's inputs as the tracker gives them on the bench
      scenario (16 frames of track_frame from rest, one chunk of
      track_frames_joint from a moving window, f32), and K2's and K3's
      inputs on the same 16 frames and on one joint chunk at degree 4 (6K =
      42), held against their plain versions on every recorded call
-     (experiments/residual_kernels.py); then both designs of K1
+     (experiments/residual_kernels.py), and blur_rows and K3 against their
+     earlier designs bit for bit; then both designs of K1
      and of K1-v, K1-v at every (tile, threads) the sweep harness runs,
      against the plain PyTorch version: f32 and f64, C = 1 and 3, S = 1,
      40, 160 and 320, windows 32x32, 20x32, 20x30, 21x31 and 6x9, the
@@ -49,8 +56,10 @@ Phases (any failed check raises and the exit code is non-zero):
      3's recorded inputs ("tracker S=40", "tracker S=160") with the
      histogram of their tap rows; and the floor row (N = 1, S = 1, C = 3);
      then K2's two entries and K3 (its calls with J) on phase 3's recorded
-     calls, warm and cold in a replayed graph, beside the plain versions,
-     the bound and, for K3, cuBLAS's Jw.T @ Jw;
+     calls, warm and cold in a replayed graph, beside the earlier designs of
+     blur_rows and K3, the plain versions, the bound (its share of each
+     design's cold time, and the ratio of that time to one launch's floor)
+     and, for K3, cuBLAS's Jw.T @ Jw;
   8. the command line and the keyframe backend: (a) float64 on CUDA against
      the CPU at full width: detect_sparse + match_descriptors on a VGA frame
      of the bench scenario with BackendConfig's default detector (differing
@@ -109,7 +118,7 @@ Phases (any failed check raises and the exit code is non-zero):
      command line's read-ahead, `cli.READ_AHEAD`): frames/s of each, the
      TUM file equal to the filter-0 run's;
 K2's and K3's launches are counted, as K1's, on each path (5a, 6a, 6c,
-8b-8d, 9b-9d, 10a per rank; a call of K3 launches two kernels); then one JSON line of kernel results,
+8b-8d, 9b-9d, 10a per rank; a call of K3 launches one kernel); then one JSON line of kernel results,
 the card line again, and the final status line {"ok": true, "device":
 {...}}.
 """
@@ -122,6 +131,7 @@ import json
 import os
 import re
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -343,8 +353,10 @@ def record_tracker_calls(img, traj, frames):
 
 def hold_residual_calls(recorded: dict) -> dict:
     """K2's two entries and K3 against their plain versions on every
-    recorded call; prints each kernel's largest differences and returns
-    them by kernel as (absolute, relative to the output's magnitude)."""
+    recorded call, and blur_rows and K3 against their earlier designs bit
+    for bit (a difference raises); prints each kernel's largest differences
+    and returns them by kernel as (absolute, relative to the output's
+    magnitude)."""
     from mba_vo_tpu_torch.experiments import residual_kernels as rk
 
     worst = {}
@@ -352,6 +364,7 @@ def hold_residual_calls(recorded: dict) -> dict:
         for kernel, calls in by_kernel.items():
             check(len(calls) > 0, f"{label}: no {kernel} call was recorded")
             errs = [rk.hold(c) for c in calls]
+            equal = sum(rk.hold_earlier(c) for c in calls)
             err = (max(e[0] for e in errs), max(e[1] for e in errs))
             a, r = worst.get(kernel, (0.0, 0.0))
             worst[kernel] = (max(a, err[0]), max(r, err[1]))
@@ -360,7 +373,9 @@ def hold_residual_calls(recorded: dict) -> dict:
                   f"{sorted({c.tangents for c in calls})}, levels "
                   f"{sorted({c.level for c in calls}, key=str)}): max |kernel - plain| "
                   f"{err[0]:.3e}, {err[1]:.3e} of the output's magnitude (bound "
-                  f"{rk.TOLERANCE[kernel, calls[0].dtype]:.0e})")
+                  f"{rk.TOLERANCE[kernel, calls[0].dtype]:.0e})"
+                  + (f"; equal to the earlier design bit for bit on all {equal}"
+                     if kernel in rk.EARLIER else ""))
     return worst
 
 
@@ -1703,10 +1718,12 @@ def main() -> int:
         # IdE double)
         kernel = "?"
         for ln in log.splitlines():
-            m = re.search(r"((?:window_bilinear(?:_[a-z]+)?|warp_tangents|blur_rows)_kernel"
-                          r"|normal_equations_(?:partials|combine))I([fd])", ln)
+            m = re.search(r"((?:window_bilinear(?:_[a-z]+)?|warp_tangents|blur_rows(?:_keypoint)?)"
+                          r"_kernel|normal_equations_(?:partials|combine|cluster))I([fd])"
+                          r"(?:Li(\d)E)?", ln)
             if "Compiling entry function" in ln and m:
-                kernel = f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'f64'}"
+                kernel = (f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'f64'}"
+                          + (f", {m.group(3)} block(s) a thread" if m.group(3) else ""))
             elif any(w in ln for w in ("registers", "spill", "smem")) and "extern" not in ln:
                 print(f"    {kernel}: {ln.replace('ptxas info    : ', '').strip()}")
     item = dict(f32=4, f64=8)
@@ -1717,8 +1734,35 @@ def main() -> int:
               f"{cs.ring_shared_bytes(3, WIN, WIN, S_MAIN, b)} B {t}" for t, b in item.items())
           + "; K1-v staged, tile x C x win_h x win_w x itemsize: " + ", ".join(
               f"tile {t}: {t * 3 * WIN * WIN * 4} B f32" for t in kv.TILES)
-          + f"; K1 none (a block may use {cs.MAX_SHARED_BYTES} B); K2 and K3 static "
-          f"(above), built for up to {cr.MAX_TANGENTS} knot tangents")
+          + f"; K1 none (a block may use {cs.MAX_SHARED_BYTES} B); K2's and K3's earlier "
+          f"designs static (above), built for up to {cr.MAX_TANGENTS} knot tangents")
+    # the frame's calls (F = 1), a degree-4 joint chunk's (F = 4) and the widest
+    for F, D in ((1, 12), (JCHUNK, 6 * (JCHUNK + 3)), (8, cr.MAX_TANGENTS)):
+        M = F * N_KP * 8
+        print(f"    dynamic shared memory at F={F}, D={D}: blur_rows (keypoint design, P=8, "
+              f"V=5) " + " / ".join(
+                  f"{(b := cr.blur_rows_layout(F, 8, 5, D, n)).smem_bytes} B {t} "
+                  f"(tile {b.tile} x {b.stages} stage(s), {b.threads} threads)"
+                  for t, n in item.items())
+              + "; K3 (cluster design) " + " / ".join(
+                  f"{(k := cr.normal_equations_layout(D, n, N_KP, M)).smem_bytes} B {t} "
+                  f"({k.per_chunk} CTA(s) a chunk, {k.parts_a_round} part(s) a round, "
+                  f"{k.tiles_a_step} tile(s) a step, {k.stages} stage(s))"
+                  for t, n in item.items()))
+
+    # ---- 2b. the card tests
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q", "-p",
+         "no:cacheprovider", os.path.join(here, "tests", "test_torch_cuda.py")],
+        cwd=here, capture_output=True, text=True, timeout=900)
+    summary = [ln for ln in tests.stdout.splitlines() if " passed" in ln or " failed" in ln]
+    print(f"[2b] card tests (tests/test_torch_cuda.py, -m cuda): "
+          f"{summary[-1] if summary else 'no summary'}; {time.perf_counter() - t0:.1f} s")
+    if tests.returncode != 0:
+        print(tests.stdout[-6000:], tests.stderr[-3000:])
+    check(tests.returncode == 0, f"the card tests failed (exit {tests.returncode})")
 
     # ---- 3. kernels against plain, on the cases and on the tracker's inputs
     t0 = time.perf_counter()
@@ -2051,24 +2095,46 @@ def main() -> int:
             residual_rows[label, kernel] = rk.time_rows(label, rk.full_calls(calls),
                                                         out=indent)
     print(f"    K2 and K3 timed in {time.perf_counter() - t0:.1f} s ({card})")
+    k1_floor = design("K1")
+    for (label, kernel), timed in residual_rows.items():
+        if kernel not in rk.EARLIER:
+            continue
+        print(f"    {label} {kernel}, device time against the bound and one launch's floor "
+              f"(K1 at N = S = 1: {1e3 * k1_floor['floor_warm_ms']:.2f} / "
+              f"{1e3 * k1_floor['floor_ms']:.2f} us warm / cold): " + "; ".join(
+                  f"{r['name']} {1e3 * r['device_ms']:.2f} / {1e3 * r['device_cold_ms']:.2f} "
+                  f"us = {r['device_ms'] / k1_floor['floor_warm_ms']:.2f} / "
+                  f"{r['device_cold_ms'] / k1_floor['floor_ms']:.2f} floors, bound "
+                  f"{100 * r['bound_ms'] / r['device_ms']:.1f} / "
+                  f"{100 * r['bound_ms'] / r['device_cold_ms']:.1f} %" for r in timed)
+              + (f"; cuBLAS Jw.T @ Jw {1e3 * timed[0]['library_device_ms']:.2f} / "
+                 f"{1e3 * timed[0]['library_device_cold_ms']:.2f} us"
+                 if timed[0]["library_ms"] is not None else ""))
 
-    def residual_entry(kernel, source, replaces):
-        def times(label):
-            k, p = residual_rows[label, kernel]
+    def residual_entry(kernel, source, replaces, earlier=None):
+        def times(label, which=0):
+            rows_of = residual_rows[label, kernel]
+            k, p = rows_of[which], rows_of[-1]
             return dict(ms=k["ms"], device_ms=k["device_ms"],
                         device_cold_ms=k["device_cold_ms"], plain_ms=p["ms"],
                         plain_device_ms=p["device_ms"],
                         plain_device_cold_ms=p["device_cold_ms"], bound_ms=k["bound_ms"],
-                        bound_by=k["bound_by"], library_ms=k["library_ms"],
-                        library_device_ms=k["library_device_ms"],
-                        library_device_cold_ms=k["library_device_cold_ms"],
+                        bound_by=k["bound_by"], library_ms=rows_of[0]["library_ms"],
+                        library_device_ms=rows_of[0]["library_device_ms"],
+                        library_device_cold_ms=rows_of[0]["library_device_cold_ms"],
                         D=k["D"], calls=k["calls"])
         by_path = {path: n[kernel] for path, n in RESIDUAL_LAUNCHES.items()}
+        more = {}
+        if earlier is not None:
+            # the earlier design: timed beside the new one (phase 7), equal to it
+            # bit for bit on every recorded call (phase 3), launched by no path
+            more["before"] = dict(earlier, **times("tracker S=40", 1),
+                                  joint_degree_4=times("joint degree 4", 1))
         return dict(name=kernel, route="cuda", source=source, replaces=replaces,
                     launches=sum(by_path.values()), max_abs_err=residual_err[kernel][0],
                     max_rel_err=residual_err[kernel][1],
                     max_rel_err_f64=residual_err64[kernel][1], **times("tracker S=40"),
-                    launches_by_path=by_path, joint_degree_4=times("joint degree 4"))
+                    launches_by_path=by_path, joint_degree_4=times("joint degree 4"), **more)
 
     # ---- 8. the command line and the keyframe backend
     t8 = time.perf_counter()
@@ -2120,9 +2186,14 @@ def main() -> int:
         residual_entry("warp_tangents", "mba_vo_tpu_torch/csrc/residual_rows.cu",
                        "mba_vo_tpu/ops/residual.py:437"),
         residual_entry("blur_rows", "mba_vo_tpu_torch/csrc/residual_rows.cu",
-                       "mba_vo_tpu/ops/residual.py:449"),
+                       "mba_vo_tpu/ops/residual.py:449",
+                       earlier=dict(name="blur_rows_threads", design="one thread a row",
+                                    source="mba_vo_tpu_torch/csrc/residual_rows.cu")),
         residual_entry("normal_equations", "mba_vo_tpu_torch/csrc/normal_equations.cu",
-                       "mba_vo_tpu/ops/residual.py:568"),
+                       "mba_vo_tpu/ops/residual.py:568",
+                       earlier=dict(name="normal_equations_split",
+                                    design="two launches: partials, then their combination",
+                                    source="mba_vo_tpu_torch/csrc/normal_equations.cu")),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

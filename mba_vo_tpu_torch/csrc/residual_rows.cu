@@ -16,20 +16,36 @@
 //     through the L1 (a warp's samples share a few (f, v)). The math is
 //     ops/warp.py::frontoparallel_warp_jvp, step by step (1e-8 guard on
 //     the z division included).
-//   blur_rows: after K1 has sampled (I, dI/dx, dI/dy) at every loc, one
-//     thread an (f, n, p) averages the V samples (the blur model), and the
-//     tangent row mean_v (gx dx + gy dy); it writes r = pred - obs and the J
-//     row where the patch pixel is valid (0 elsewhere), or pred and its
-//     tangent unmasked when the affine elimination follows in torch. The
-//     loop runs over d outside and v inside, so no D-long array lives in
-//     registers (D = 66 at a joint chunk of 8 at degree 4); the block's J
-//     rows pass through shared memory 32 tangents at a time, so that they
-//     leave in contiguous runs.
+//   blur_rows: after K1 has sampled (I, dI/dx, dI/dy) at every loc, the
+//     blur model averages each patch pixel's V samples, and the tangent row
+//     mean_v (gx dx + gy dy); it writes r = pred - obs and the J row where
+//     the patch pixel is valid (0 elsewhere), or pred and its tangent
+//     unmasked when the affine elimination follows in torch. Two designs,
+//     equal to the bit (the same sums over v in order, the same division):
+//     * keypoint design (the one the tracker launches): one CTA a keypoint
+//       n in every frame. Its operands are a few contiguous runs: its
+//       samples of val, gx and gy (one run for all three where they are
+//       K1's channels), and for each tangent d its entries of dxy's x and y
+//       planes. Warp 0 brings them into shared memory by cp.async.bulk on an
+//       mbarrier (bulk_copy.cuh); then one thread an output (f, n, p, d),
+//       a warp a block of 4 x 8 or 8 x 4 outputs, sums over v from shared
+//       memory, and J leaves from registers in runs of the block's
+//       consecutive tangents. Where one keypoint's whole slab exceeds the
+//       wrapper's budget (a joint chunk's 42 tangents), the tangents stream
+//       in tiles of up to 8, two stages deep: the copies of tile t + 2 fly
+//       while tile t + 1 is summed.
+//     * thread design (the earlier one, a sweep row): one thread an
+//       (f, n, p), d outside and v inside; the block's J rows pass through
+//       a padded shared buffer 32 tangents at a time, so that they leave in
+//       contiguous runs.
 //
 // What bounds it on the card: the bytes of dxy, written once and read once
 // (N F P V 2 D items: 2 MB at the frame's shapes in f32, 0.6 us at 3.35
-// TB/s), less than one launch. A one-pass design whose stores coalesce is
-// enough; keeping dxy out of device memory (blur_rows recomputing the warp
+// TB/s, less than one launch; 27.5 MB at a degree-4 joint chunk, 8.2 us).
+// Bulk copies cost their SM time to issue, one after another (PERF.md
+// section 6), so blur_rows takes few long runs (a keypoint's samples of a
+// tangent plane in every frame).
+// Keeping dxy out of device memory (blur_rows recomputing the warp
 // tangents, or the normal equations fused into blur_rows) is later work.
 //
 // Semantics kept from the plain versions (ops/residual.py's
@@ -52,6 +68,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bulk_copy.cuh"
 
 #ifndef MAX_TANGENTS
 #error "MAX_TANGENTS (the largest number of knot tangents a launch may take) must be defined by the build"
@@ -146,7 +164,8 @@ warp_tangents_kernel(const T* __restrict__ pose_t,   // [F, V, 3]
   }
 }
 
-// J columns a block stages in shared memory at once, and threads a block
+// thread design: J columns a block stages in shared memory at once, and
+// threads a block
 constexpr int kCols = 32;
 constexpr int kRowsPerBlock = 128;
 
@@ -228,6 +247,170 @@ blur_rows_kernel(const T* __restrict__ val,   // [N, S] rows row_stride apart
   }
 }
 
+
+// keypoint design. Dynamic shared memory of a CTA, in bytes from its start
+// (the wrapper computes the same: ops/cuda_residual.py::blur_rows_layout):
+//   2 mbarriers | each row's row of r and J [F P] | 3 sample spans |
+//   stages x (tile x-plane spans, tile y-plane spans)
+// a span holding the keypoint's run of S = F P V samples (a bulk copy's
+// slot, bulk_copy.cuh), 16 bytes past a multiple of 128: consecutive
+// tangents' spans start on banks 4 words apart, so that a warp's 4 x 8 (or
+// 8 x 4) block of outputs reads 32 banks
+constexpr int kMaxShared = 232448;   // shared memory a block may use (227 KB)
+
+__host__ __device__ inline long long span_bytes(long long bytes) {
+  const long long b = bulk::slot_bytes(bytes);
+  return b + (16 - b % 128 + 128) % 128;
+}
+
+struct BlurLayout {
+  long long span, table, samples, tangents, stage, total;
+};
+
+__host__ __device__ inline BlurLayout blur_layout(int F, int P, int V, int sz, int tile,
+                                                  int stages) {
+  BlurLayout l;
+  l.span = span_bytes((long long)F * P * V * sz);
+  l.table = 16;
+  l.samples = l.table + bulk::round16((long long)F * P * 8);
+  l.tangents = l.samples + 3 * l.span;
+  l.stage = 2LL * tile * l.span;
+  l.total = l.tangents + stages * l.stage;
+  return l;
+}
+
+// A CTA takes keypoint n in every frame. Its samples of each tangent plane
+// of dxy are one contiguous run of S elements, and so are its samples of
+// val, gx and gy: one run of 3 S for all three where they are the channels
+// of K1's [N, 3, S] output (`interleaved`), else one run each. Its row
+// (f, p) is the keypoint's patch pixel rw = f P + p, whose V samples start
+// rw V into each run.
+template <typename T>
+__global__ void __launch_bounds__(1024)
+blur_rows_keypoint_kernel(const T* __restrict__ val,   // [N, S] rows row_stride apart
+                          const T* __restrict__ gx,
+                          const T* __restrict__ gy,
+                          long long row_stride,
+                          const T* __restrict__ dxy,   // [2, D, N, S]
+                          const T* __restrict__ obs,   // [F, N, P]
+                          const uint8_t* __restrict__ valid,  // [F, N, P]
+                          T* __restrict__ out_r,       // [F, N, P]
+                          T* __restrict__ out_j,       // [F, N, P, D]
+                          int N, int F, int P, int V, int D, int affine, int tile,
+                          int interleaved) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int stages = D > tile ? 2 : 1;
+  const BlurLayout lay = blur_layout(F, P, V, (int)sizeof(T), tile, stages);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int S = F * P * V;
+  const long long n = blockIdx.x;
+  const int steps = D > 0 ? (D + tile - 1) / tile : 1;
+  const T nv = T(V);
+
+  auto sample_run = [&](int which) {
+    T* slot = reinterpret_cast<T*>(smem + lay.samples + which * lay.span);
+    if (interleaved) return bulk::Run<T>(val + n * row_stride, slot, 3 * S);
+    const T* src = which == 0 ? val : (which == 1 ? gx : gy);
+    return bulk::Run<T>(src + n * row_stride, slot, S);
+  };
+  auto tangent_run = [&](int st, int cxy, int dd) {
+    const long long plane = (long long)cxy * D + (long long)st * tile + dd;
+    return bulk::Run<T>(dxy + (plane * N + n) * S,
+                        reinterpret_cast<T*>(smem + lay.tangents + (st % stages) * lay.stage +
+                                             ((long long)cxy * tile + dd) * lay.span),
+                        S);
+  };
+  auto width_of = [&](int st) { return D - st * tile < tile ? D - st * tile : tile; };
+  // warp 0: step st's copies (with step 0 the samples: val, and gx and gy
+  // where there are tangents), lanes taking turns; the phase's two arrivals
+  // (bulk_copy.cuh)
+  const int nsample = interleaved ? 1 : (D > 0 ? 3 : 1);
+  auto issue = [&](int st) {
+    const int width = width_of(st);
+    const int first = st == 0 ? nsample : 0;
+    const int nruns = first + 2 * width;
+    auto run_of = [&](int i) {
+      if (i < first) return sample_run(i);
+      return tangent_run(st, (i - first) & 1, (i - first) >> 1);
+    };
+    uint64_t* bar = &bars[st & 1];
+    uint32_t bytes = 0;
+    for (int i = lane; i < nruns; i += 32) bytes += run_of(i).bytes();
+    const uint32_t total = __reduce_add_sync(0xffffffffu, bytes);
+    if (lane == 0) bulk::bar_arrive_expect(bar, total);
+    __syncwarp();
+    for (int i = lane; i < nruns; i += 32) run_of(i).issue(bar);
+    __syncwarp();
+    if (lane == 0) bulk::bar_arrive(bar);
+  };
+
+  if (tid == 0) {
+    bulk::bar_init(&bars[0], 2);
+    bulk::bar_init(&bars[1], 2);
+    bulk::fence_bar_init();
+  }
+  __syncthreads();
+  if (tid < 32) {
+    issue(0);
+    if (steps > 1) issue(1);
+  }
+  const int rows = F * P;
+  // each row's row of r and J, while the copies fly
+  long long* s_out = reinterpret_cast<long long*>(smem + lay.table);
+  for (int rw = tid; rw < rows; rw += blockDim.x) {
+    const int f = rw / P;
+    s_out[rw] = ((long long)f * N + n) * P + (rw - f * P);
+  }
+  __syncthreads();
+  const T* I = sample_run(0).data();
+  const T* Gx = interleaved ? I + S : sample_run(1).data();
+  const T* Gy = interleaved ? I + 2 * S : sample_run(2).data();
+  for (int st = 0; st < steps; ++st) {
+    bulk::bar_wait(&bars[st & 1], (st >> 1) & 1);
+    if (st == 0) {
+      for (int rw = tid; rw < rows; rw += blockDim.x) {
+        const long long row = s_out[rw];
+        const T* Ir = I + rw * V;
+        T sum = T(0);
+        for (int v = 0; v < V; ++v) sum += Ir[v];
+        const T pred = sum / nv;
+        out_r[row] = affine ? pred : (valid[row] != 0 ? pred - obs[row] : T(0));
+      }
+    }
+    const int width = width_of(st);
+    // a warp takes blocks of WR rows x WD tangents, a lane an output; the
+    // blocks of a row block are its consecutive tangents
+    const int WD = width % 8 == 0 ? 8 : 4, WR = 32 / WD;
+    const int cblocks = (width + WD - 1) / WD;
+    const int nblocks = (rows + WR - 1) / WR * cblocks;
+    for (int blk = tid >> 5; blk < nblocks; blk += blockDim.x >> 5) {
+      const int rb = blk / cblocks;
+      const int rw = rb * WR + lane / WD;
+      const int dd = (blk - rb * cblocks) * WD + lane % WD;
+      if (rw >= rows || dd >= width) continue;
+      const T* gxr = Gx + rw * V;
+      const T* gyr = Gy + rw * V;
+      const T* dx = tangent_run(st, 0, dd).data() + rw * V;
+      const T* dy = tangent_run(st, 1, dd).data() + rw * V;
+      T acc = T(0);
+      for (int v = 0; v < V; ++v) {
+        const T a = gxr[v], b = gyr[v];
+        acc += a * dx[v] + b * dy[v];
+      }
+      const long long row = s_out[rw];
+      out_j[row * D + (long long)st * tile + dd] =
+          (affine || valid[row] != 0) ? acc / nv : T(0);
+    }
+    if (st + 2 < steps) {
+      // step st's stage is free: tile st + 2 flies while st + 1 is summed
+      __syncthreads();
+      if (tid < 32) issue(st + 2);
+    }
+  }
+}
+
 template <typename T>
 int launch_warp_tangents(const void* pose_t, const void* pose_q, const void* dpose,
                          const void* kp_z, const void* Kv, const void* pix, const void* starts,
@@ -254,6 +437,36 @@ int launch_blur_rows(const void* val, const void* gx, const void* gy, long long 
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_blur_keypoint(const void* val, const void* gx, const void* gy, long long row_stride,
+                         const void* dxy, const void* obs, const void* valid, void* out_r,
+                         void* out_j, int N, int F, int P, int V, int D, int affine, int tile,
+                         int threads, int interleaved, long long smem, void* stream) {
+  const int stages = D > tile ? 2 : 1;
+  const long long S = (long long)F * P * V;
+  const bool layout_ok =
+      !interleaved || (row_stride == 3 * S && (const T*)gx == (const T*)val + S &&
+                       (const T*)gy == (const T*)val + 2 * S);
+  if (tile < 1 || threads < 32 || threads > 1024 || threads % 32 != 0 || !layout_ok ||
+      3 * S >= (1LL << 31) ||
+      smem != blur_layout(F, P, V, (int)sizeof(T), tile, stages).total || smem > kMaxShared)
+    return (int)cudaErrorInvalidValue;
+  static int ready_on = -1;   // the device whose attribute is set
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device != ready_on) {
+    err = cudaFuncSetAttribute(blur_rows_keypoint_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    ready_on = device;
+  }
+  blur_rows_keypoint_kernel<T><<<(unsigned)N, threads, (size_t)smem, (cudaStream_t)stream>>>(
+      (const T*)val, (const T*)gx, (const T*)gy, row_stride, (const T*)dxy, (const T*)obs,
+      (const uint8_t*)valid, (T*)out_r, (T*)out_j, N, F, P, V, D, affine, tile, interleaved);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -270,14 +483,28 @@ int residual_rows_max_tangents() { return kMaxTangents; }
 int warp_tangents_f32(WARP_ARGS) { return launch_warp_tangents<float>(WARP_PASS); }
 int warp_tangents_f64(WARP_ARGS) { return launch_warp_tangents<double>(WARP_PASS); }
 
-#define BLUR_ARGS                                                                      \
+#define BLUR_ARGS_NO_STREAM                                                            \
   const void *val, const void *gx, const void *gy, long long row_stride,               \
       const void *dxy, const void *obs, const void *valid, void *out_r, void *out_j,   \
-      int N, int F, int P, int V, int D, int affine, void *stream
+      int N, int F, int P, int V, int D, int affine
+#define BLUR_ARGS BLUR_ARGS_NO_STREAM, void *stream
 #define BLUR_PASS \
   val, gx, gy, row_stride, dxy, obs, valid, out_r, out_j, N, F, P, V, D, affine, stream
 
-int blur_rows_f32(BLUR_ARGS) { return launch_blur_rows<float>(BLUR_PASS); }
-int blur_rows_f64(BLUR_ARGS) { return launch_blur_rows<double>(BLUR_PASS); }
+// the thread design
+int blur_rows_threads_f32(BLUR_ARGS) { return launch_blur_rows<float>(BLUR_PASS); }
+int blur_rows_threads_f64(BLUR_ARGS) { return launch_blur_rows<double>(BLUR_PASS); }
+
+// the keypoint design: tangent tile, threads, whether val, gx and gy are
+// K1's interleaved channels (else three [N, S] runs row_stride apart) and
+// the dynamic shared memory, from the wrapper's layout (checked here)
+#define KEYPOINT_ARGS \
+  BLUR_ARGS_NO_STREAM, int tile, int threads, int interleaved, long long smem, void *stream
+#define KEYPOINT_PASS                                                                   \
+  val, gx, gy, row_stride, dxy, obs, valid, out_r, out_j, N, F, P, V, D, affine, tile, \
+      threads, interleaved, smem, stream
+
+int blur_rows_f32(KEYPOINT_ARGS) { return launch_blur_keypoint<float>(KEYPOINT_PASS); }
+int blur_rows_f64(KEYPOINT_ARGS) { return launch_blur_keypoint<double>(KEYPOINT_PASS); }
 
 }  // extern "C"

@@ -1,15 +1,18 @@
 """Kernels K2 and K3 on the tracker's own inputs, on one NVIDIA GPU:
-record, hold against the plain versions, time.
+record, hold against the plain versions and the earlier designs, time.
 
 K2 is ``csrc/residual_rows.cu`` (``warp_tangents``, ``blur_rows``) and K3
 ``csrc/normal_equations.cu`` (``normal_equations``); their plain versions
-are in ``ops/residual.py``. :func:`record_residual_calls` records every
-call the tracker makes of the three dispatchers
-(``ops.residual.warp_tangents``, ``blur_rows``, ``normal_equations``) as
-copies of its inputs on their device; :func:`hold` runs a recorded call
-through the kernel and the plain version and returns the largest
-difference, relative to each output's magnitude; :func:`time_rows`
-times kernel and plain on recorded calls:
+are in ``ops/residual.py``. ``blur_rows`` and ``normal_equations`` each
+keep an earlier design beside the one the tracker launches
+(:data:`EARLIER`: one thread a row; two launches), equal to it bit for bit.
+:func:`record_residual_calls` records every call the tracker makes of the
+three dispatchers (``ops.residual.warp_tangents``, ``blur_rows``,
+``normal_equations``) as copies of its inputs on their device;
+:func:`hold` runs a recorded call through the kernel and the plain version
+and returns the largest difference, relative to each output's magnitude;
+:func:`hold_earlier` holds the kernel to its earlier design bit for bit;
+:func:`time_rows` times kernel, earlier design and plain on recorded calls:
 
   * ``ms``: a call as Python waits for it (median over ``reps`` of the mean
     of ``inner`` back-to-back calls between two CUDA events), on the first
@@ -28,9 +31,14 @@ times kernel and plain on recorded calls:
     yardstick the port never calls. No library call computes K2's
     functions (``library_ms`` None).
 
+:func:`time_layouts` times K3's two cluster layouts (:data:`K3_LAYOUTS`),
+between which its rule chooses by the rows, on the same calls, each held
+to the earlier design bit for bit.
+
 ``chip_smoke.py`` phases 3 (record and hold) and 7 (time) drive it on the
 bench scenario; ``python3 -m mba_vo_tpu_torch.experiments.residual_kernels``
-runs both alone from the repository's root (it imports that scenario).
+runs both alone from the repository's root (it imports that scenario), and
+with ``--layouts`` K3's layout sweep instead of the timing.
 Requires CUDA for timing and raises without it; recording and holding run
 on any device.
 """
@@ -138,6 +146,29 @@ def plain_fn(kernel: str):
     return getattr(residual, f"{kernel}_plain")
 
 
+# the earlier design of a kernel, by the name of its wrapper in
+# ops/cuda_residual.py
+EARLIER = {"blur_rows": "blur_rows_threads_cuda",
+           "normal_equations": "normal_equations_split_cuda"}
+
+
+def earlier_fn(kernel: str):
+    """The earlier design of ``kernel`` (None where it has none), taking the
+    dispatcher's arguments."""
+    from ..ops import cuda_residual
+
+    if kernel not in EARLIER:
+        return None
+    wrapper = getattr(cuda_residual, EARLIER[kernel])
+    if kernel == "blur_rows":
+        return lambda val, gx, gy, dxy, obs, valid, num_vir, affine: wrapper(
+            val, gx, gy, dxy.contiguous(), obs.contiguous(), valid.contiguous(), num_vir,
+            affine)
+    return lambda r, J, kp_w, huber_a, compensated=False: wrapper(
+        r.contiguous(), None if J is None else J.contiguous(), kp_w.contiguous(), huber_a,
+        compensated)
+
+
 def _outputs(out) -> List[torch.Tensor]:
     return [o for o in (out if isinstance(out, tuple) else (out,)) if o is not None]
 
@@ -188,6 +219,37 @@ def max_diff(out, ref, scales: List[float]):
         diff = float((o[ok].to(r.dtype) - r[ok]).abs().max())
         worst = (max(worst[0], diff), max(worst[1], diff / scale if scale > 0 else diff))
     return worst
+
+
+def same_bits(out, ref) -> bool:
+    """Whether every output of ``out`` equals ``ref``'s bit for bit (a NaN
+    where the other has a NaN, whatever its payload)."""
+    outs, refs = _outputs(out), _outputs(ref)
+    if len(outs) != len(refs):
+        return False
+    for o, r in zip(outs, refs):
+        if o.shape != r.shape or o.dtype != r.dtype:
+            return False
+        ints = {4: torch.int32, 8: torch.int64}[o.element_size()]
+        same = (o.view(ints) == r.view(ints)) | (torch.isnan(o) & torch.isnan(r))
+        if not bool(same.all()):
+            return False
+    return True
+
+
+def hold_earlier(call: ResidualCall) -> bool:
+    """The recorded call through the kernel and its earlier design; raises
+    where they differ by a bit, returns True (False where the kernel has no
+    earlier design)."""
+    earlier = earlier_fn(call.kernel)
+    if earlier is None:
+        return False
+    out = kernel_fn(call.kernel)(*call.args)
+    ref = earlier(*call.args)
+    if not same_bits(out, ref):
+        raise AssertionError(f"{call.kernel} ({call.dtype}, D={call.tangents}, level "
+                             f"{call.level}): the kernel and its earlier design differ")
+    return True
 
 
 def hold(call: ResidualCall):
@@ -261,8 +323,10 @@ def full_calls(calls: List[ResidualCall]) -> List[ResidualCall]:
 
 def time_rows(label: str, calls: List[ResidualCall], reps: int = 30, inner: int = 20,
               out=print) -> List[dict]:
-    """Kernel and plain version of one kernel timed on its recorded ``calls``
-    (see the module docstring); returns one dict for each."""
+    """The kernel, its earlier design (where it has one) and the plain
+    version timed on the kernel's recorded ``calls`` (see the module
+    docstring); returns one dict for each, the kernel's first, the plain
+    version's last."""
     if not torch.cuda.is_available():
         raise RuntimeError("timing K2 and K3 needs a CUDA device")
     kernel = calls[0].kernel
@@ -273,8 +337,12 @@ def time_rows(label: str, calls: List[ResidualCall], reps: int = 30, inner: int 
     lib = None
     if kernel == "normal_equations" and calls[0].args[1] is not None:
         lib = _cublas_yardstick(calls[0])
+    designs = [("kernel", kernel_fn(kernel)), ("earlier", earlier_fn(kernel)),
+               ("plain", plain_fn(kernel))]
     rows = []
-    for name, fn in (("kernel", kernel_fn(kernel)), ("plain", plain_fn(kernel))):
+    for name, fn in designs:
+        if fn is None:
+            continue
         first = calls[0].args
         ms = kv.time_ms(lambda: fn(*first), reps, inner)
         w_inner = len(warm_calls) * math.ceil(50 / len(warm_calls))
@@ -290,23 +358,66 @@ def time_rows(label: str, calls: List[ResidualCall], reps: int = 30, inner: int 
                        library_device_cold_ms=kv.device_flushed_ms(lib, 20, 20))
     else:
         rows[0].update(library_ms=None, library_device_ms=None, library_device_cold_ms=None)
-    k, p = rows
+
+    def us(r):
+        share = 100 * b_ms / r["device_cold_ms"] if r["device_cold_ms"] > 0 else math.nan
+        return (f"{1e3 * r['ms']:.2f} us a call / {1e3 * r['device_ms']:.2f} warm / "
+                f"{1e3 * r['device_cold_ms']:.2f} cold (bound {share:.1f} % of cold)")
+
+    k = rows[0]
     lib_txt = ("" if lib is None else
                f"; cuBLAS Jw.T @ Jw {1e3 * k['library_ms']:.2f} us a call / "
                f"{1e3 * k['library_device_ms']:.2f} warm / "
                f"{1e3 * k['library_device_cold_ms']:.2f} cold")
-    out(f"{label} {kernel} ({len(calls)} calls, D={k['D']}, {k['dtype']}): kernel "
-        f"{1e3 * k['ms']:.2f} us a call / {1e3 * k['device_ms']:.2f} warm / "
-        f"{1e3 * k['device_cold_ms']:.2f} cold; plain {1e3 * p['ms']:.2f} / "
-        f"{1e3 * p['device_ms']:.2f} / {1e3 * p['device_cold_ms']:.2f}; bound "
-        f"{1e3 * b_ms:.3f} us ({b_by}){lib_txt}")
+    out(f"{label} {kernel} ({len(calls)} calls, D={k['D']}, {k['dtype']}): " + "; ".join(
+        f"{r['name']} {us(r)}" for r in rows) + f"; bound {1e3 * b_ms:.3f} us ({b_by})"
+        + lib_txt)
     return rows
 
 
-def main() -> int:
+# K3's CTAs a chunk: one cluster of the 16 chunks' CTAs, or 16 clusters of a
+# CTA a part
+K3_LAYOUTS = (1, 8)
+
+
+def time_layouts(label: str, calls: List[ResidualCall], out=print) -> List[dict]:
+    """K3's two layouts (:data:`K3_LAYOUTS`) on its recorded ``calls``: each
+    held to the earlier design bit for bit on the first call, then timed on
+    the device warm (a graph of at most 50 calls) and cold; returns a dict
+    a layout."""
+    from ..ops import cuda_residual as cr
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("timing K2 and K3 needs a CUDA device")
+    kernel, first = calls[0].kernel, calls[0].args
+    rows = []
+    warm_calls = calls[:50]
+    w_inner = len(warm_calls) * math.ceil(50 / len(warm_calls))
+    for pc in K3_LAYOUTS:
+        name = f"{pc} CTA(s) a chunk"
+
+        def fn(r, J, kp_w, huber_a, compensated=False, pc=pc):
+            return cr._normal_equations_cluster(
+                r.contiguous(), None if J is None else J.contiguous(), kp_w.contiguous(),
+                huber_a, compensated, pc)
+
+        if not same_bits(fn(*first), earlier_fn(kernel)(*first)):
+            raise AssertionError(f"{label} {kernel} {name}: differs from the earlier design")
+        warm = kv.device_ms([lambda a=c.args: fn(*a) for c in warm_calls], 20, w_inner)
+        cold = kv.device_flushed_ms(lambda: fn(*first), 20, 20)
+        rows.append(dict(inputs=label, kernel=kernel, layout=name, device_ms=warm,
+                         device_cold_ms=cold))
+        out(f"{label} {kernel} {name}: {1e3 * warm:.2f} warm / {1e3 * cold:.2f} cold "
+            f"(equal to the earlier design)")
+    return rows
+
+
+def main(argv=None) -> int:
     """Record the bench scenario's K2/K3 calls (16 frames of track_frame,
     f32; one joint chunk at degree 4), hold each against the plain version
-    and time every kernel."""
+    and the earlier design, and time every kernel (``--layouts``: K3's
+    layout sweep)."""
+    layouts = "--layouts" in (sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("residual_kernels: needs one CUDA GPU", file=sys.stderr)
         return 1
@@ -319,7 +430,10 @@ def main() -> int:
     smoke.hold_residual_calls(recorded)
     for label, by_kernel in recorded.items():
         for kernel, calls in by_kernel.items():
-            time_rows(label, full_calls(calls), out=print)
+            if not layouts:
+                time_rows(label, full_calls(calls), out=print)
+            elif kernel == "normal_equations":
+                time_layouts(label, full_calls(calls), out=print)
     return 0
 
 

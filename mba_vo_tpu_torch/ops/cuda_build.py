@@ -8,11 +8,13 @@ for ``sm_90a`` into a shared library with a plain C interface, loaded with
     the windowed samplers, bound in ``ops/cuda_sampling.py``;
   * ``residual_rows.cu`` (K2) and ``normal_equations.cu`` (K3): the
     residual/Jacobian rows and the Huber normal equations, bound in
-    ``ops/cuda_residual.py``.
+    ``ops/cuda_residual.py``; both include ``bulk_copy.cuh`` (bulk copies
+    into shared memory on an mbarrier).
 
 At first use :func:`build` compiles every source not built yet, all of
 them at once (one ``nvcc`` process each), into ``build/mba_vo_tpu_torch/``
-at the root of the checkout, keyed by a hash of the source and the flags.
+at the root of the checkout, keyed by a hash of the source, the headers
+under ``csrc/`` and the flags.
 nvcc's ``-Xptxas -v`` log (registers, shared memory, spills) is kept beside
 each library and read into :data:`BUILD_LOG`. Nothing here runs when the
 module is imported, so CPU-only installs import it freely.
@@ -74,9 +76,11 @@ def build() -> Dict[str, Path]:
     """Compile every kernel library whose source was not built already, all
     compilers started together; returns the libraries' paths by name."""
     paths, running = {}, []
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     for name, source in SOURCES.items():
         flags = nvcc_flags() + SOURCE_FLAGS.get(name, [])
-        key = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+        key = hashlib.sha256(source.read_bytes() + headers
+                             + " ".join(flags).encode()).hexdigest()[:16]
         paths[name] = BUILD_DIR / f"{name}_{key}.so"
         if paths[name].exists():
             log = paths[name].with_suffix(".log")

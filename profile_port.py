@@ -4,6 +4,7 @@ Run from the root of the repository:
 
     python3 profile_port.py [--frames 4] [--warmup 8] [--out FILE]
     python3 profile_port.py --joint [--chunk 4] [--out FILE]
+    python3 profile_port.py --k3-designs [--frames 16]
 
 Tracks chip_smoke.py's bench scenario (VGA, 512 keypoints, 3 levels, 5
 virtual poses, f32, bench.py's options, from rest): ``--warmup`` frames
@@ -20,11 +21,23 @@ time). ``--out`` also writes the profiler's table there.
 window that already moves
 (chip_smoke.py's ``moving_window``), and the same numbers are printed per
 chunk and per LM evaluation (one K1 launch each).
+
+``--k3-designs`` weighs K3's two designs on the per-frame path: the cluster
+design (one launch a call), which the tracker launches, and the split
+design (two launches a call), which it launched before. They give the same
+bits, so two trackers given the same frames do the same work. It prints
+the host's time to issue one call of each at the frame's shape (blocks of
+100 calls without waiting, the designs alternating), then the wall ms per
+LM evaluation of each tracker over ``--frames`` frames, tracked by both in
+turn (the order alternating a frame), their paired difference, and each
+tracker's kernel launches per LM evaluation on one more frame under the
+profiler.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import statistics
 import sys
 import time
@@ -111,6 +124,98 @@ def profile_joint(args) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def _k3_design(name: str):
+    """The tracker's K3 calls go to the ``name`` design ("cluster" or
+    "split") inside the block."""
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+
+    launched = cr.normal_equations_cuda
+    if name == "split":
+        cr.normal_equations_cuda = cr.normal_equations_split_cuda
+    try:
+        yield
+    finally:
+        cr.normal_equations_cuda = launched
+
+
+def compare_k3(args) -> int:
+    """K3's cluster and split designs: host time a call, then the per-frame
+    path end to end on two trackers (the module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+    from mba_vo_tpu_torch.ops import cuda_sampling as cs
+    from mba_vo_tpu_torch.tracker.blur_tracker import BlurAwareTracker
+
+    designs = ("cluster", "split")
+    fns = {"cluster": cr.normal_equations_cuda, "split": cr.normal_equations_split_cuda}
+    # the frame's shape: F = 1, N = 512, P = 8, D = 12
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    r = 20 * torch.randn((1, 512, 8), device="cuda", generator=gen)
+    J = 30 * torch.randn((1, 512, 8, 12), device="cuda", generator=gen)
+    kp_w = torch.ones(512, device="cuda")
+    host = {d: [] for d in designs}
+    for i in range(40):
+        for d in (designs if i % 2 == 0 else designs[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                fns[d](r, J, kp_w, 20.0, False)
+            host[d].append((time.perf_counter() - t0) / 100)
+            torch.cuda.synchronize()
+    print("host time to issue one K3 call at the frame's shape (median of 40 blocks of "
+          "100): " + "; ".join(f"{d} {1e6 * statistics.median(host[d][2:]):.2f} us"
+                               for d in designs))
+
+    img, _traj, frames = make_scenario("cuda", args.frames + 2)
+    h, w = img.shape
+    trackers = {}
+    for d in designs:
+        trackers[d] = BlurAwareTracker(bench_config("float32"), KVEC, (h, w), device="cuda")
+        with _k3_design(d):
+            trackers[d].track_frame(img, img, 0.0, EXPOSURE, np.full((h, w), DEPTH))
+    torch.cuda.synchronize()
+
+    def track(d, cap, blur):
+        with _k3_design(d):
+            torch.cuda.synchronize()
+            k0, t0 = cs.LAUNCHES, time.perf_counter()
+            pose = trackers[d].track_frame(None, blur, cap, EXPOSURE)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, cs.LAUNCHES - k0, pose
+
+    ms_eval = {d: [] for d in designs}
+    diffs, same = [], True
+    for i, (cap, blur) in enumerate(frames[:-1]):
+        got = {d: track(d, cap, blur) for d in (designs if i % 2 == 0 else designs[::-1])}
+        (tc, ec, pc), (ts, es, ps) = got["cluster"], got["split"]
+        same = same and ec == es and torch.equal(pc.t, ps.t) and torch.equal(pc.q, ps.q)
+        if i == 0:
+            continue        # the first frame after the keyframe warms up
+        ms_eval["cluster"].append(1e3 * tc / ec)
+        ms_eval["split"].append(1e3 * ts / es)
+        diffs.append(1e6 * (ts - tc) / ec)
+    print(f"per-frame path, f32, {len(diffs)} frames, both trackers equal to the bit: {same}; "
+          "wall ms per LM evaluation (median over frames): " + "; ".join(
+              f"{d} {statistics.median(ms_eval[d]):.3f}" for d in designs)
+          + f"; split less cluster, paired a frame: median {statistics.median(diffs):.1f} us "
+          f"per evaluation (frames: {[round(x, 1) for x in diffs]})")
+    cap, blur = frames[-1]
+    for d in designs:
+        with _k3_design(d), profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
+            k0 = cs.LAUNCHES
+            trackers[d].track_frame(None, blur, cap, EXPOSURE)
+            torch.cuda.synchronize()
+        evals = cs.LAUNCHES - k0
+        launch = _launches(prof.key_averages())
+        print(f"{d}: {launch} kernel launches over {evals} LM evaluations = "
+              f"{launch / max(evals, 1):.1f} per evaluation")
+    return 0
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -125,6 +230,8 @@ def main() -> int:
     ap.add_argument("--joint", action="store_true",
                     help="profile track_frames_joint instead of track_frame")
     ap.add_argument("--chunk", type=int, default=4, help="frames per joint chunk")
+    ap.add_argument("--k3-designs", action="store_true",
+                    help="weigh K3's cluster and split designs on the per-frame path")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -135,6 +242,8 @@ def main() -> int:
     cuda_build.build()
     if args.joint:
         return profile_joint(args)
+    if args.k3_designs:
+        return compare_k3(args)
     n = args.warmup + args.frames
     img, _traj, frames = make_scenario("cuda", n)
     h, w = img.shape

@@ -1,7 +1,10 @@
 """Kernels K1 (csrc/window_bilinear.cu: one thread a sample, which the
 tracker launches, and the band design) and K1-v
 (csrc/window_bilinear_tiled.cu: the ring design and the staged first
-design) against the plain PyTorch version, on the card. Every test here carries the ``cuda`` marker and skips where no
+design) against the plain PyTorch version, on the card; K2
+(csrc/residual_rows.cu) and K3 (csrc/normal_equations.cu) against theirs,
+and the new designs of blur_rows and K3 against their earlier designs, bit
+for bit, on edge shapes. Every test here carries the ``cuda`` marker and skips where no
 CUDA device is visible.
 
 The module imports only torch and numpy, so it also runs where JAX is not
@@ -578,7 +581,7 @@ def test_k3_matches_plain(cuda, dtype, D):
             got = tres.normal_equations(r, jac, kp_w, 20.0, compensated)
             again = tres.normal_equations(r, jac, kp_w, 20.0, compensated)
             torch.cuda.synchronize()
-            assert cr.LAUNCHES_NORMAL == before + 2 * 3
+            assert cr.LAUNCHES_NORMAL == before + 3
             for o, a in zip(got, again):
                 assert (o is None and a is None) or torch.equal(o, a)
             if jac is not None:
@@ -635,7 +638,8 @@ def test_k2_k3_wrappers_check_their_inputs(cuda):
 def test_tracker_runs_through_k2_and_k3(cuda):
     """track_frame, track_frames and track_frames_joint on the card launch
     K2's two entries and K3, and still K1, once each an LM evaluation; the
-    tracker's recorded calls of each equal the plain version."""
+    tracker's recorded calls of each equal the plain version, and those of
+    blur_rows and K3 their earlier designs bit for bit."""
     from mba_vo_tpu_torch.core.spline import make_knots
     from mba_vo_tpu_torch.data.synthetic import smooth_shapes_image, synthesize_blurred_image
     from mba_vo_tpu_torch.experiments import residual_kernels as rk
@@ -679,9 +683,190 @@ def test_tracker_runs_through_k2_and_k3(cuda):
                 assert calls[kernel] and all(c.args[0].is_cuda for c in calls[kernel])
                 for call in calls[kernel]:
                     rk.hold(call)
+                    assert rk.hold_earlier(call) == (kernel in rk.EARLIER)
             # a frame's window has `degree` knots, a joint chunk's chunk + degree - 1
             D = {c.tangents for c in calls["warp_tangents"]}
             if method == "track_frames_joint":
                 assert 6 * (3 + degree) in D, D
             else:
                 assert D == {6 * degree}, D
+
+
+# K3's edge shapes (F, N, P): M = 9 (below 16 chunks), 35 (parts of one
+# row), 518 (ragged chunks and parts, tiles not multiples of 32 rows), 4,096
+# (the frame's) in one cluster of the 16 chunks' CTAs; past CLUSTER_ROWS, a
+# CTA a part: 8,193 (ragged chunks and parts; kp_w not staged in float64)
+# and 32,768 (a joint chunk of 8 frames: parts of 8 tiles, which one step
+# covers only in part where D is large)
+K3_ROWS = [(1, 3, 3), (1, 7, 5), (2, 37, 7), (1, 512, 8), (1, 2731, 3), (8, 512, 8)]
+
+
+def _k3_inputs(F, N, P, D, dtype, seed, zero_weights=False, offset=0):
+    """r, J and kp_w on the card; with ``offset`` r and J start that many
+    elements into their storage, so that their runs' ends are not 16-byte
+    aligned."""
+    rng = np.random.default_rng(seed)
+    M = F * N * P
+
+    def tensor(a):
+        flat = torch.zeros(a.size + offset, dtype=dtype, device="cuda")
+        flat[offset:] = torch.tensor(a.reshape(-1), dtype=dtype, device="cuda")
+        return flat[offset:].view(a.shape)
+
+    r = tensor(rng.normal(0, 20, (F, N, P)))
+    J = tensor(rng.normal(0, 30, (F, N, P, D))) if D else None
+    kp_w = (np.zeros(N) if zero_weights else (rng.uniform(size=N) > 0.2).astype(float))
+    assert M == r.numel()
+    return r, J, torch.tensor(kp_w, dtype=dtype, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [0, 1, 12, 42, 66, 128])
+@pytest.mark.parametrize("compensated", [False, True])
+def test_k3_cluster_design_equals_split_design(cuda, dtype, D, compensated):
+    """The cluster design (one launch), in both its layouts (a cluster of the
+    16 chunks' CTAs up to CLUSTER_ROWS rows; 16 clusters of a CTA a part
+    past them), equals the split design (two launches) bit for bit and the
+    plain version within experiments/residual_kernels.py's tolerance, on M
+    below 16 and off multiples of 16 and 32, unaligned rows and every kp_w
+    zero; two calls repeat bit for bit; a call counts one launch."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert {cr.normal_equations_layout(D, itemsize, N, F * N * P).per_chunk
+            for F, N, P in K3_ROWS} == {1, cr.SPLIT}
+    for i, (F, N, P) in enumerate(K3_ROWS):
+        for zero_weights, offset in ((False, 0), (True, 0), (False, 1)):
+            args = (*_k3_inputs(F, N, P, D, dtype, i, zero_weights, offset), 20.0, compensated)
+            old = cr.normal_equations_split_cuda(*args)
+            before = cr.LAUNCHES_NORMAL
+            new = cr.normal_equations_cuda(*args)
+            again = cr.normal_equations_cuda(*args)
+            torch.cuda.synchronize()
+            assert cr.LAUNCHES_NORMAL == before + 2
+            label = f"M={F * N * P} zero_weights={zero_weights} offset={offset}"
+            assert rk.same_bits(new, old), label
+            assert rk.same_bits(new, again), label
+            if zero_weights:
+                assert float(new[0]) == 0.0 and (D == 0 or not new[3].any())
+            rk.hold(rk.ResidualCall("normal_equations", args, None))
+
+
+# blur_rows' edge shapes (F, N, P, V): P not a multiple of 32 (8, 9, 25), V =
+# 1, and runs of P V samples whose ends are not 16-byte aligned (9 x 1, 9 x 3)
+BLUR_SHAPES = [(1, 37, 8, 5), (3, 11, 9, 1), (2, 13, 25, 3), (1, 64, 9, 3)]
+
+
+def _blur_inputs(F, N, P, V, D, dtype, seed):
+    """K1's samples [N, 3, S] (NaN at invalid pixels of keypoint 1 and at one
+    valid pixel), dxy, obs and the mask, on the card."""
+    rng = np.random.default_rng(seed)
+    S = F * P * V
+    samples = torch.tensor(rng.normal(0, 50, (N, 3, S)), dtype=dtype, device="cuda")
+    dxy = torch.tensor(rng.normal(0, 2, (2, D, N, S)), dtype=dtype, device="cuda")
+    obs = torch.tensor(rng.normal(100, 30, (F, N, P)), dtype=dtype, device="cuda")
+    valid = torch.tensor(rng.uniform(size=(F, N, P)) > 0.3, device="cuda")
+    valid[:, 1] = False
+    samples[1] = float("nan")            # an invalid keypoint whose samples are NaN
+    valid[0, 2, 0] = True
+    dxy[:, :, 2, :V] = float("nan")      # a valid pixel with NaN tangents
+    return samples, dxy, obs, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [0, 1, 12, 42, 66, 128])
+@pytest.mark.parametrize("affine", [False, True])
+def test_blur_rows_keypoint_design_equals_thread_design(cuda, dtype, D, affine):
+    """The keypoint design equals the thread design bit for bit and the plain
+    version within experiments/residual_kernels.py's tolerance, its samples
+    as K1's interleaved channels, as three contiguous tensors and as three
+    views a keypoint stride of 4 S apart; r and J are 0 at invalid pixels
+    whose samples are NaN (unless ``affine``); two calls repeat bit for bit;
+    a call counts one launch. At D = 128 the tangents of some shapes stream
+    in tiles (two stages)."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if D == 128:
+        assert any(cr.blur_rows_layout(F, P, V, D, itemsize).stages == 2
+                   for F, _, P, V in BLUR_SHAPES)
+    for i, (F, N, P, V) in enumerate(BLUR_SHAPES):
+        samples, dxy, obs, valid = _blur_inputs(F, N, P, V, D, dtype, i)
+        args = (samples[:, 0], samples[:, 1], samples[:, 2], dxy, obs, valid, V, affine)
+        # K1's interleaved channels, and three separate [N, S] tensors
+        packed = (samples[:, 0].contiguous(), samples[:, 1].contiguous(),
+                  samples[:, 2].contiguous(), *args[3:])
+        wide = torch.zeros((N, 4, F * P * V), dtype=dtype, device="cuda")
+        wide[:, 1:] = samples
+        strided = (wide[:, 1], wide[:, 2], wide[:, 3], *args[3:])
+        old = cr.blur_rows_threads_cuda(*args)
+        for name, a in (("interleaved", args), ("packed", packed), ("strided", strided)):
+            before = cr.LAUNCHES_BLUR
+            new = cr.blur_rows_cuda(*a)
+            again = cr.blur_rows_cuda(*a)
+            torch.cuda.synchronize()
+            assert cr.LAUNCHES_BLUR == before + 2
+            label = f"F={F} N={N} P={P} V={V} {name}"
+            assert rk.same_bits(new, old), label
+            assert rk.same_bits(new, again), label
+        new = cr.blur_rows_cuda(*args)
+        r, J = new
+        assert bool(torch.isnan(r[:, 1]).all()) == affine, label
+        if not affine:
+            assert not r[:, 1].any() and not J[:, 1].any(), label
+        if D:
+            assert torch.isnan(J[0, 2, 0]).all(), label
+        rk.hold(rk.ResidualCall("blur_rows", args, None))
+
+
+def test_k2_k3_calls_recorded_into_a_graph_count_no_launch(cuda):
+    """blur_rows and K3, new designs and earlier, recorded into a CUDA graph
+    count no launch; the replay gives the eager call's bits."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+
+    samples, dxy, obs, valid = _blur_inputs(2, 64, 8, 5, 42, torch.float32, 0)
+    blur = (samples[:, 0], samples[:, 1], samples[:, 2], dxy, obs, valid, 5, False)
+    # one cluster of the chunks' CTAs, and a CTA a part (past CLUSTER_ROWS)
+    normal = (*_k3_inputs(4, 64, 8, 42, torch.float32, 1), 20.0, True)
+    joint = (*_k3_inputs(4, 512, 8, 42, torch.float32, 2), 20.0, True)
+    assert 4 * 64 * 8 <= cr.CLUSTER_ROWS < 4 * 512 * 8
+    fns = ((cr.blur_rows_cuda, blur), (cr.blur_rows_threads_cuda, blur),
+           (cr.normal_equations_cuda, normal), (cr.normal_equations_split_cuda, normal),
+           (cr.normal_equations_cuda, joint))
+    refs = [fn(*args) for fn, args in fns]
+    torch.cuda.synchronize()
+    before = (cr.launch_counts(), cr.LAUNCHES_BLUR_THREADS, cr.LAUNCHES_NORMAL_SPLIT)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(*args) for fn, args in fns]
+    assert (cr.launch_counts(), cr.LAUNCHES_BLUR_THREADS, cr.LAUNCHES_NORMAL_SPLIT) == before
+    graph.replay()
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        assert rk.same_bits(out, ref)
+    assert (cr.launch_counts(), cr.LAUNCHES_BLUR_THREADS, cr.LAUNCHES_NORMAL_SPLIT) == before
+
+
+def test_k3_calls_on_two_streams_share_the_ticket_in_turn(cuda):
+    """Past CLUSTER_ROWS the launches share the device's ticket; calls on two
+    streams, made without waiting, run in turn and each gives the bits of
+    the split design."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+
+    args = (*_k3_inputs(8, 512, 8, 42, torch.float32, 3), 20.0, True)
+    assert cr.normal_equations_layout(42, 4, 512, 8 * 512 * 8).per_chunk == cr.SPLIT
+    ref = cr.normal_equations_split_cuda(*args)
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for i in range(16):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(cr.normal_equations_cuda(*args))
+    torch.cuda.synchronize()
+    assert all(rk.same_bits(out, ref) for out in outs)
