@@ -9,8 +9,9 @@ Phases (any failed check raises and the exit code is non-zero):
   2. build kernels K1 (csrc/window_bilinear.cu: one thread a sample, which
      the tracker launches, and the band design), K1-v
      (csrc/window_bilinear_tiled.cu: the ring design and the staged first
-     design), K2 (csrc/residual_rows.cu: warp_tangents and blur_rows, the
-     keypoint design and the earlier thread design) and K3
+     design), K2 (csrc/residual_rows.cu: warp_tangents from the spline
+     knots and its earlier thread design, blur_rows in the keypoint design
+     and the earlier thread design) and K3
      (csrc/normal_equations.cu: the cluster design and the earlier split
      design) with nvcc for sm_90a, all four sources at once, and print each
      kernel's registers, shared memory and spills;
@@ -23,7 +24,9 @@ Phases (any failed check raises and the exit code is non-zero):
      track_frames_joint from a moving window, f32), and K2's and K3's
      inputs on the same 16 frames and on one joint chunk at degree 4 (6K =
      42), held against their plain versions on every recorded call
-     (experiments/residual_kernels.py), and blur_rows and K3 against their
+     (experiments/residual_kernels.py), warp_tangents also against the old
+     path (the torch chain of the pose Jacobian, then the thread design) to
+     the same tolerances with vs equal, and blur_rows and K3 against their
      earlier designs bit for bit; then both designs of K1
      and of K1-v, K1-v at every (tile, threads) the sweep harness runs,
      against the plain PyTorch version: f32 and f64, C = 1 and 3, S = 1,
@@ -56,10 +59,11 @@ Phases (any failed check raises and the exit code is non-zero):
      3's recorded inputs ("tracker S=40", "tracker S=160") with the
      histogram of their tap rows; and the floor row (N = 1, S = 1, C = 3);
      then K2's two entries and K3 (its calls with J) on phase 3's recorded
-     calls, warm and cold in a replayed graph, beside the earlier designs of
-     blur_rows and K3, the plain versions, the bound (its share of each
-     design's cold time, and the ratio of that time to one launch's floor)
-     and, for K3, cuBLAS's Jw.T @ Jw;
+     calls, warm and cold in a replayed graph and as a call from Python,
+     beside the earlier designs (for warp_tangents the old path whole and
+     the thread design alone on the chain's outputs), the plain versions,
+     the bound (its share of each design's time, and the ratio of that time
+     to one launch's floor) and, for K3, cuBLAS's Jw.T @ Jw;
   8. the command line and the keyframe backend: (a) float64 on CUDA against
      the CPU at full width: detect_sparse + match_descriptors on a VGA frame
      of the bench scenario with BackendConfig's default detector (differing
@@ -353,10 +357,11 @@ def record_tracker_calls(img, traj, frames):
 
 def hold_residual_calls(recorded: dict) -> dict:
     """K2's two entries and K3 against their plain versions on every
-    recorded call, and blur_rows and K3 against their earlier designs bit
-    for bit (a difference raises); prints each kernel's largest differences
-    and returns them by kernel as (absolute, relative to the output's
-    magnitude)."""
+    recorded call, warp_tangents against the old path to the same
+    tolerances (vs equal), and blur_rows and K3 against their earlier
+    designs bit for bit (a difference raises); prints each kernel's largest
+    differences and returns them by kernel as (absolute, relative to the
+    output's magnitude)."""
     from mba_vo_tpu_torch.experiments import residual_kernels as rk
 
     worst = {}
@@ -375,7 +380,9 @@ def hold_residual_calls(recorded: dict) -> dict:
                   f"{err[0]:.3e}, {err[1]:.3e} of the output's magnitude (bound "
                   f"{rk.TOLERANCE[kernel, calls[0].dtype]:.0e})"
                   + (f"; equal to the earlier design bit for bit on all {equal}"
-                     if kernel in rk.EARLIER else ""))
+                     if kernel in rk.BIT_EQUAL else
+                     f"; the old path (torch chain, then the thread design) held to the "
+                     f"same bound, vs equal, on all {equal}" if kernel in rk.EARLIER else ""))
     return worst
 
 
@@ -1047,8 +1054,16 @@ def phase_models(timer, frame):
         with open(path) as f:
             events = json.load(f)["traceEvents"]
         n_kernels = sum(e.get("cat") == "kernel" for e in events)
+        # each kernel's start less its launch's on the host's clock (by the
+        # correlation id): the device clock's offset shows as a lag below 0
+        launched = {e["args"]["correlation"]: e["ts"] for e in events
+                    if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+        lags = [e["ts"] - launched[e["args"]["correlation"]] for e in events
+                if e.get("cat") == "kernel"
+                and e.get("args", {}).get("correlation") in launched]
         print(f"[9a] profile_trace of one f32 map and remap: {os.path.getsize(path)} bytes, "
-              f"{len(events)} events, {n_kernels} device kernels")
+              f"{len(events)} events, {n_kernels} device kernels; kernel start less its "
+              f"launch " + (f"{min(lags):.1f} to {max(lags):.1f} us" if lags else "not seen"))
         check(n_kernels > 0, "profile_trace recorded no device kernel")
 
     # IMU synthesis at 1 kHz over 2 s of the bench spline (degree 4, 24
@@ -1718,7 +1733,8 @@ def main() -> int:
         # IdE double)
         kernel = "?"
         for ln in log.splitlines():
-            m = re.search(r"((?:window_bilinear(?:_[a-z]+)?|warp_tangents|blur_rows(?:_keypoint)?)"
+            m = re.search(r"((?:window_bilinear(?:_[a-z]+)?|warp_tangents(?:_threads)?|"
+                          r"blur_rows(?:_keypoint)?)"
                           r"_kernel|normal_equations_(?:partials|combine|cluster))I([fd])"
                           r"(?:Li(\d)E)?", ln)
             if "Compiling entry function" in ln and m:
@@ -1748,7 +1764,11 @@ def main() -> int:
                   f"{(k := cr.normal_equations_layout(D, n, N_KP, M)).smem_bytes} B {t} "
                   f"({k.per_chunk} CTA(s) a chunk, {k.parts_a_round} part(s) a round, "
                   f"{k.tiles_a_step} tile(s) a step, {k.stages} stage(s))"
-                  for t, n in item.items()))
+                  for t, n in item.items())
+              + "; warp_tangents (knots design) " + " / ".join(
+                  f"{(w := cr.warp_tangents_layout(8, 5, D, n)).smem_bytes} B {t} "
+                  f"({w.keypoints} keypoints, {w.samples} samples and {w.groups} thread "
+                  f"group(s) a block)" for t, n in item.items()))
 
     # ---- 2b. the card tests
     t0 = time.perf_counter()
@@ -2096,20 +2116,35 @@ def main() -> int:
                                                         out=indent)
     print(f"    K2 and K3 timed in {time.perf_counter() - t0:.1f} s ({card})")
     k1_floor = design("K1")
+    # warp_tangents' rows: the knots design, the old path whole (the torch
+    # chain, then the earlier thread design), that design alone, plain
+    names = {"earlier": "old path", "earlier kernel": "thread design alone"}
     for (label, kernel), timed in residual_rows.items():
         if kernel not in rk.EARLIER:
             continue
         print(f"    {label} {kernel}, device time against the bound and one launch's floor "
               f"(K1 at N = S = 1: {1e3 * k1_floor['floor_warm_ms']:.2f} / "
               f"{1e3 * k1_floor['floor_ms']:.2f} us warm / cold): " + "; ".join(
-                  f"{r['name']} {1e3 * r['device_ms']:.2f} / {1e3 * r['device_cold_ms']:.2f} "
+                  f"{names.get(r['name'], r['name']) if kernel == 'warp_tangents' else r['name']} "
+                  f"{1e3 * r['device_ms']:.2f} / {1e3 * r['device_cold_ms']:.2f} "
                   f"us = {r['device_ms'] / k1_floor['floor_warm_ms']:.2f} / "
                   f"{r['device_cold_ms'] / k1_floor['floor_ms']:.2f} floors, bound "
                   f"{100 * r['bound_ms'] / r['device_ms']:.1f} / "
-                  f"{100 * r['bound_ms'] / r['device_cold_ms']:.1f} %" for r in timed)
+                  f"{100 * r['bound_ms'] / r['device_cold_ms']:.1f} %, a call "
+                  f"{1e3 * r['ms']:.2f} us" for r in timed)
               + (f"; cuBLAS Jw.T @ Jw {1e3 * timed[0]['library_device_ms']:.2f} / "
                  f"{1e3 * timed[0]['library_device_cold_ms']:.2f} us"
                  if timed[0]["library_ms"] is not None else ""))
+    # the knots design's targets: no slower warm than the thread design alone
+    # at the frame (9.04 us, PERF.md section 6), within 2x its bound at the
+    # joint chunk
+    frame_w, joint_w = (residual_rows[label, "warp_tangents"][0] for label in
+                        ("tracker S=40", "joint degree 4"))
+    print(f"    warp_tangents targets: frame {1e3 * frame_w['device_ms']:.2f} us warm against "
+          f"9.04 ({'met' if frame_w['device_ms'] <= 9.04e-3 else 'not met'}); joint chunk "
+          f"{1e3 * joint_w['device_ms']:.2f} us warm against 2 x bound "
+          f"{2e3 * joint_w['bound_ms']:.2f} ("
+          f"{'met' if joint_w['device_ms'] <= 2 * joint_w['bound_ms'] else 'not met'}); {card}")
 
     def residual_entry(kernel, source, replaces, earlier=None):
         def times(label, which=0):
@@ -2127,9 +2162,15 @@ def main() -> int:
         more = {}
         if earlier is not None:
             # the earlier design: timed beside the new one (phase 7), equal to it
-            # bit for bit on every recorded call (phase 3), launched by no path
-            more["before"] = dict(earlier, **times("tracker S=40", 1),
-                                  joint_degree_4=times("joint degree 4", 1))
+            # bit for bit on every recorded call (phase 3; warp_tangents' to the
+            # tolerances, fed by the torch chain), launched by no path
+            which = 2 if kernel == "warp_tangents" else 1
+            more["before"] = dict(earlier, **times("tracker S=40", which),
+                                  joint_degree_4=times("joint degree 4", which))
+        if kernel == "warp_tangents":
+            more["old_path"] = dict(
+                design="the torch chain of the pose Jacobian, then the thread design",
+                **times("tracker S=40", 1), joint_degree_4=times("joint degree 4", 1))
         return dict(name=kernel, route="cuda", source=source, replaces=replaces,
                     launches=sum(by_path.values()), max_abs_err=residual_err[kernel][0],
                     max_rel_err=residual_err[kernel][1],
@@ -2184,7 +2225,11 @@ def main() -> int:
                      variant=by_shape["K1-v"][main_shape]["name"],
                      replayed_launches=replayed["K1-v"], before=design("K1-v staged")),
         residual_entry("warp_tangents", "mba_vo_tpu_torch/csrc/residual_rows.cu",
-                       "mba_vo_tpu/ops/residual.py:437"),
+                       "mba_vo_tpu/ops/residual.py:430",
+                       earlier=dict(name="warp_tangents_threads",
+                                    design="one thread a sample, from the poses and pose "
+                                           "tangents of the torch chain",
+                                    source="mba_vo_tpu_torch/csrc/residual_rows.cu")),
         residual_entry("blur_rows", "mba_vo_tpu_torch/csrc/residual_rows.cu",
                        "mba_vo_tpu/ops/residual.py:449",
                        earlier=dict(name="blur_rows_threads", design="one thread a row",

@@ -5,17 +5,33 @@
 // (residuals_of under jax.linearize): no Pallas source, XLA fused it on the
 // TPU. The port ran it as a few hundred eager torch ops an evaluation.
 //
-//   warp_tangents: every sample (n, f, p, v) -- patch pixel p of keypoint n
-//     in frame f, warped by virtual pose v into the keyframe -- gives its
-//     window-local coordinate loc = warp - start_n, its in-image flag vs
-//     and the derivative dxy of the warped position along the D knot
-//     tangents, from the pose tangents dpose [D, F, V, 7]. One thread a
-//     sample, in the samples' order n S + s, so that for each tangent the
-//     threads of a warp write consecutive entries of dxy, laid out
-//     [2, D, N, S] (x and y planes, tangent-major). The pose tangents come
-//     through the L1 (a warp's samples share a few (f, v)). The math is
-//     ops/warp.py::frontoparallel_warp_jvp, step by step (1e-8 guard on
-//     the z division included).
+//   warp_tangents (the knots design, which the tracker launches): the stage
+//     XLA fuses from the knot step to the window-local positions
+//     (residual.py:430-446: spline_retract, sample_virtual_poses,
+//     frontoparallel_warp, in_bounds and loc), with its derivative at zero
+//     retraction, in one launch. Every sample (n, f, p, v) -- patch pixel
+//     p of keypoint n in frame f, warped by virtual pose v into the
+//     keyframe -- gives its window-local coordinate loc = warp - start_n,
+//     its in-image flag vs and the derivative dxy of the warped position
+//     along the D = 6K knot tangents ([3K translations; 3K rotations]; D =
+//     0 for a cost-only call), laid out [2, D, N, S] (x and y planes,
+//     tangent-major). A CTA takes one frame and blocks of a few keypoints.
+//     It first puts the frame's V virtual poses and their 7 x D tangents in
+//     shared memory (core/spline.py's virtual_pose_times,
+//     spline_retract_jvp and spline_pose_at_times_jvp step by step; a pose
+//     depends on `degree` knots only, so it runs 1 + 3 degree chains of
+//     quaternion log/exp -- the zero seed, which every other seed shares,
+//     and each rotation seed of its window -- one thread a (pose, chain,
+//     segment), then fills the D entries from them). Then one thread a
+//     sample (and a group of its tangents) warps it, writes loc and vs, and
+//     folds the warp's chain rule into 7 coefficients of x and of y on the
+//     pose tangent, so that each tangent is two 7-term sums over the shared
+//     table, consecutive threads on consecutive samples of one tangent.
+//   warp_tangents_threads (the earlier thread design, a sweep row): the warp alone from
+//     pose tangents dpose [D, F, V, 7] computed by torch, one thread a
+//     sample in the samples' order n S + s, D tangents one after another,
+//     the pose tangents through the L1. The math is
+//     ops/warp.py::frontoparallel_warp_jvp, step by step.
 //   blur_rows: after K1 has sampled (I, dI/dx, dI/dy) at every loc, the
 //     blur model averages each patch pixel's V samples, and the tangent row
 //     mean_v (gx dx + gy dy); it writes r = pred - obs and the J row where
@@ -42,6 +58,11 @@
 // What bounds it on the card: the bytes of dxy, written once and read once
 // (N F P V 2 D items: 2 MB at the frame's shapes in f32, 0.6 us at 3.35
 // TB/s, less than one launch; 27.5 MB at a degree-4 joint chunk, 8.2 us).
+// warp_tangents' knots design writes them in one pass: the poses are a few
+// KB, computed once a CTA for as many keypoint blocks as one wave of CTAs
+// leaves it (their chains of divisions and transcendentals are the
+// launch's fixed cost, run segment by segment side by side), and each
+// sample's tangents read the shared table, not the L1.
 // Bulk copies cost their SM time to issue, one after another (PERF.md
 // section 6), so blur_rows takes few long runs (a keypoint's samples of a
 // tangent plane in every frame).
@@ -49,14 +70,21 @@
 // tangents, or the normal equations fused into blur_rows) is later work.
 //
 // Semantics kept from the plain versions (ops/residual.py's
-// warp_tangents_plain and blur_rows_plain):
-//   * the warped position is the plain version's to the bit: the build
-//     compiles this file with -fmad=false (ops/cuda_build.py) and the warp
-//     runs the plain version's operations in its order, each rounded once,
-//     as torch's elementwise kernels round them. A multiply-add contracted
-//     into one rounding moves a position by an ulp, and where the integer
-//     patch pixels of a standing start warp onto the image's border that
-//     flips the in-image flag;
+// warp_tangents_plain, warp_tangents_threads_plain and blur_rows_plain):
+//   * the warped position is the plain version's to the bit wherever the
+//     poses are: the build compiles this file with -fmad=false
+//     (ops/cuda_build.py) and the warp runs the plain version's operations
+//     in its order, each rounded once, as torch's elementwise kernels round
+//     them. A multiply-add contracted into one rounding moves a position by
+//     an ulp, and where the integer patch pixels of a standing start warp
+//     onto the image's border that flips the in-image flag. The knots
+//     design's poses take the plain version's operations too, with the sum
+//     over a pose's knots in the order of the einsum on the card (measured
+//     equal positions in f32; f64 within 1e-15 of the position);
+//   * the knots design's tangents are held to the plain version within a
+//     tolerance (1e-6 f32, 1e-12 f64 of the largest entry), not to the bit:
+//     their arithmetic is regrouped into the 7 coefficients and fused
+//     multiply-adds;
 //   * vs is 1 where the warped position lies in [0, W-1] x [0, H-1], else
 //     0 (a NaN position gives 0); K1 then gives 0 samples and gradients
 //     there, so the tangent of such a sample is 0;
@@ -78,7 +106,7 @@
 namespace {
 
 constexpr int kMaxTangents = MAX_TANGENTS;
-// threads a block of warp_tangents
+// threads a block of warp_tangents' thread design
 constexpr int kWarpThreads = 128;
 
 template <typename T>
@@ -93,7 +121,7 @@ __device__ __forceinline__ V3<T> cross(V3<T> a, V3<T> b) {
 
 template <typename T>
 __global__ void __launch_bounds__(kWarpThreads)
-warp_tangents_kernel(const T* __restrict__ pose_t,   // [F, V, 3]
+warp_tangents_threads_kernel(const T* __restrict__ pose_t,   // [F, V, 3]
                                      const T* __restrict__ pose_q,   // [F, V, 4]
                                      const T* __restrict__ dpose,    // [D, F, V, 7]
                                      const T* __restrict__ kp_z,     // [N]
@@ -411,14 +439,524 @@ blur_rows_keypoint_kernel(const T* __restrict__ val,   // [N, S] rows row_stride
   }
 }
 
+// ---------------------------------------------------------------- knots design
+// warp_tangents from the spline knots, the entry the tracker launches (the
+// file's header). Dynamic shared memory of a CTA, in elements of T from its
+// start (the wrapper computes the same: ops/cuda_residual.py's
+// warp_tangents_layout):
+//   the poses' tangents [V][D][8] (7 values and a pad, so that a tangent
+//   loads as two or four 16-byte words) | the frame's V poses [V][7] |
+//   each pose's segment [V][5] (basis weights, first knot) |
+//   each pose's rotation tangents [V][kJobs][4] |
+//   each job's segments' exps and their tangents [V][kJobs][3][8]
+// threads a CTA of the knots design
+constexpr int kKnotThreads = 256;
+// a pose's rotation jobs: the zero seed, then each (tap, axis) of degree 4
+constexpr int kJobs = 13;
+
+__host__ __device__ inline long long knots_smem_bytes(int V, int D, int sz) {
+  return (8LL * V * D + 7LL * V + 5LL * V + 4LL * kJobs * V + 24LL * kJobs * V) * sz;
+}
+
 template <typename T>
-int launch_warp_tangents(const void* pose_t, const void* pose_q, const void* dpose,
+struct Quat {
+  T x, y, z, w;
+};
+
+// core/lie.py::quat_multiply: each component qw p + three products, summed
+// left to right
+template <typename T>
+__device__ __forceinline__ Quat<T> qmul(Quat<T> q, Quat<T> p) {
+  return {((q.w * p.x + q.x * p.w) + q.y * p.z) + (-q.z) * p.y,
+          ((q.w * p.y + q.y * p.w) + q.z * p.x) + (-q.x) * p.z,
+          ((q.w * p.z + q.z * p.w) + q.x * p.y) + (-q.y) * p.x,
+          ((q.w * p.w + (-q.x) * p.x) + (-q.y) * p.y) + (-q.z) * p.z};
+}
+
+template <typename T>
+__device__ __forceinline__ Quat<T> qconj(Quat<T> q) {
+  return {-q.x, -q.y, -q.z, q.w};
+}
+
+template <typename T>
+__device__ __forceinline__ Quat<T> qadd(Quat<T> a, Quat<T> b) {
+  return {a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w};
+}
+
+// core/lie.py::quat_log_jvp: the primal's branch per element (Taylor form
+// below the squared-norm threshold `thr`, the w near-zero guard)
+template <typename T>
+__device__ __forceinline__ void quat_log_jvp(Quat<T> q, Quat<T> dq, T thr, V3<T>& out,
+                                             V3<T>& dout) {
+  const T sq = (q.x * q.x + q.y * q.y) + q.z * q.z;
+  const T dsq = T(2) * ((q.x * dq.x + q.y * dq.y) + q.z * dq.z);
+  const bool small = sq < thr;
+  const T n = sqrt(small ? T(1) : sq);
+  const T dn = (small ? T(0) : dsq) / (T(2) * n);
+  const T at = atan2(n, q.w);
+  const T lam_big = T(2) * at / n;
+  const T dat = (q.w * dn - n * dq.w) / (n * n + q.w * q.w);
+  const T dlam_big = T(2) * (dat * n - at * dn) / (n * n);
+  const bool near0 = fabs(q.w) < T(1e-6);
+  const T sgn = q.w > T(0) ? T(1) : (q.w < T(0) ? T(-1) : T(0));
+  const T w_safe = near0 ? sgn + (q.w == T(0) ? T(1) : T(0)) : q.w;
+  const T dw_safe = near0 ? T(0) : dq.w;
+  const T w3 = (w_safe * w_safe) * w_safe;
+  // 2 / w as torch takes a scalar over a tensor: the reciprocal, times 2
+  const T lam_small = (T(1) / w_safe) * T(2) - (T(2.0 / 3.0) * sq) / w3;
+  const T dlam_small = (T(-2) * dw_safe) / (w_safe * w_safe) -
+                       (T(2.0 / 3.0) * (dsq * w3 - ((sq * T(3)) * w_safe) * w_safe * dw_safe)) /
+                           (w3 * w3);
+  const T lam = small ? lam_small : lam_big;
+  const T dlam = small ? dlam_small : dlam_big;
+  out = {lam * q.x, lam * q.y, lam * q.z};
+  dout = {dlam * q.x + lam * dq.x, dlam * q.y + lam * dq.y, dlam * q.z + lam * dq.z};
+}
+
+// core/lie.py::quat_exp_jvp, in the primal's branch per element
+template <typename T>
+__device__ __forceinline__ void quat_exp_jvp(V3<T> o, V3<T> d, T thr, Quat<T>& out,
+                                             Quat<T>& dout) {
+  const T ts = (o.x * o.x + o.y * o.y) + o.z * o.z;
+  const T dts = T(2) * ((o.x * d.x + o.y * d.y) + o.z * d.z);
+  const bool small = ts < thr;
+  const T th = sqrt(small ? T(1) : ts);
+  const T dth = (small ? T(0) : dts) / (T(2) * th);
+  const T sn = sin(T(0.5) * th), cs = cos(T(0.5) * th);
+  const T tp4 = ts * ts;
+  const T imag = small ? (T(0.5) - ts / T(48)) + tp4 / T(3840) : sn / th;
+  const T real = small ? (T(1) - ts / T(8)) + tp4 / T(384) : cs;
+  const T dimag = small ? (-dts) / T(48) + ((T(2) * ts) * dts) / T(3840)
+                        : ((T(0.5) * cs) * th - sn) / (th * th) * dth;
+  const T dreal = small ? (-dts) / T(8) + ((T(2) * ts) * dts) / T(384) : (T(-0.5) * sn) * dth;
+  out = {imag * o.x, imag * o.y, imag * o.z, real};
+  dout = {dimag * o.x + imag * d.x, dimag * o.y + imag * d.y, dimag * o.z + imag * d.z, dreal};
+}
+
+// w[0] x[0] + w[1] x[1] + ... as the plain version's einsum sums on the
+// card (cuBLAS's batched product): in float32 a fused multiply-add a term
+// onto the first product, in float64 each product rounded and added in
+// order (measured: the warped positions then equal the plain version's)
+template <typename T, int n>
+__device__ __forceinline__ T tap_sum(const T* w, const T* x) {
+  T acc = w[0] * x[0];
+#pragma unroll
+  for (int j = 1; j < n; ++j) {
+    if constexpr (sizeof(T) == 4)
+      acc = fma(w[j], x[j], acc);
+    else
+      acc = acc + w[j] * x[j];
+  }
+  return acc;
+}
+
+// eight values of shared memory, 16-byte aligned, in 16-byte words
+__device__ __forceinline__ void load8(const float* p, float* e) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  e[0] = a.x; e[1] = a.y; e[2] = a.z; e[3] = a.w;
+  e[4] = b.x; e[5] = b.y; e[6] = b.z; e[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const double* p, double* e) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const double2 a = reinterpret_cast<const double2*>(p)[i];
+    e[2 * i] = a.x;
+    e[2 * i + 1] = a.y;
+  }
+}
+
+// The segment of the spline at time tau (core/spline.py's
+// spline_segment_start_and_u, its clamp to [0, K - degree] included) and its
+// position and cumulative rotation bases (_vec_basis, _rot_cum_basis).
+template <typename T, int degree>
+__device__ __forceinline__ int spline_segment(T tau, T t0, T dt, int K, T* wv, T* wc) {
+  const T tn = (tau - t0) / dt;
+  T idxf = floor(tn);
+  if (idxf < T(0)) idxf = T(0);
+  if (idxf > T(K - degree)) idxf = T(K - degree);
+  const T u = tn - idxf;
+  if constexpr (degree == 2) {
+    wv[0] = T(1) - u;
+    wv[1] = u;
+    wc[0] = u;
+  } else {
+    const T uu = u * u, uuu = uu * u, os = T(1.0 / 6.0);
+    wv[0] = ((os - T(0.5) * u) + T(0.5) * uu) - os * uuu;
+    wv[1] = (T(4.0 * (1.0 / 6.0)) - uu) + T(0.5) * uuu;
+    wv[2] = ((os + T(0.5) * u) + T(0.5) * uu) - T(0.5) * uuu;
+    wv[3] = os * uuu;
+    wc[0] = ((T(5.0 * (1.0 / 6.0)) + T(0.5) * u) - T(0.5) * uu) + os * uuu;
+    wc[1] = ((os + T(0.5) * u) + T(0.5) * uu) - T(2.0 * (1.0 / 6.0)) * uuu;
+    wc[2] = os * uuu;
+  }
+  return idxf == idxf ? (int)idxf : 0;   // a NaN time: NaN poses from knot 0 on
+}
+
+// The window's knot j retracted by a zero step, and its tangent along one
+// rotation seed of the knot tangent: axis `axis` of the window's knot `tap`
+// (tap < 0: the zero seed, which every translation seed and every rotation
+// seed of a knot outside the window passes through the same operations), as
+// core/spline.py's spline_retract_jvp takes them: the retraction's exp(0)
+// and its tangent (0.5 e_axis, 0), then the products q exp(0) and q de.
+template <typename T>
+__device__ __forceinline__ void window_knot(const T* __restrict__ kq, int idx, int j, int tap,
+                                            int axis, Quat<T>& q, Quat<T>& dq) {
+  const Quat<T> ident = {T(0), T(0), T(0), T(1)};
+  const T* k = kq + (idx + j) * 4;
+  const Quat<T> q0 = {k[0], k[1], k[2], k[3]};
+  q = qmul(q0, ident);
+  const T h = T(0.5) * T(j == tap);
+  dq = qmul(q0, Quat<T>{axis == 0 ? h : T(0), axis == 1 ? h : T(0), axis == 2 ? h : T(0),
+                        T(0)});
+}
+
+// The poses of frame f and their tangents into shared memory, as
+// core/spline.py's spline_interp_q_jvp takes them. A pose's rotation jobs
+// r: r = 0 the zero seed (and the pose itself), r = 1 + 3 j + a the
+// rotation seed of the window's knot j along axis a. (A) one thread a (v, r,
+// segment j): the relative rotation of knots j and j + 1, its log and the
+// exp of its basis-scaled log, each with its forward-mode rule, into
+// shared memory (the segments are independent, so that their long chains
+// of divisions and transcendentals run side by side); (B) one thread a (v,
+// r): the products over the segments, the pose and its translation (at
+// degree 2, one segment, the thread of (A) ends the job itself); (C)
+// each (v, d) tangent entry, filled from the jobs, its translation part the
+// basis weight of its knot (tap_sum over the seed's unit entries, as the
+// plain version's einsum of the seeds).
+template <typename T, int degree>
+__device__ void frame_poses(const T* __restrict__ knot_t, const T* __restrict__ knot_q,
+                            int K, T t0, T kdt, T c, T e, int V, int D, T* s_pose, T* s_tan,
+                            T* s_seg, T* s_job, T* s_exp) {
+  const T thr = sizeof(T) >= 8 ? T(1e-20) : T(1e-10);   // core/lie.py::_small_threshold
+  // core/spline.py::virtual_pose_times, its 1e-8 guard in the divisor
+  const T div = T((double)(V - 1) + 1e-8);
+  const int R = D > 0 ? 1 + 3 * degree : 1;
+  // a job's end: its rotation tangent, and for the zero seed the pose and
+  // its segment
+  auto finish = [&](int v, int r, int idx, const T* wv, Quat<T> q, Quat<T> dq) {
+    T* jb = s_job + (v * kJobs + r) * 4;
+    jb[0] = dq.x;
+    jb[1] = dq.y;
+    jb[2] = dq.z;
+    jb[3] = dq.w;
+    if (r != 0) return;
+    T* p = s_pose + v * 7;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      T x[degree];
+#pragma unroll
+      for (int j = 0; j < degree; ++j) x[j] = knot_t[(idx + j) * 3 + k];
+      p[k] = tap_sum<T, degree>(wv, x);
+    }
+    p[3] = q.x;
+    p[4] = q.y;
+    p[5] = q.z;
+    p[6] = q.w;
+#pragma unroll
+    for (int j = 0; j < degree; ++j) s_seg[v * 5 + j] = wv[j];
+    s_seg[v * 5 + 4] = T(idx);
+  };
+  for (int i = threadIdx.x; i < V * R * (degree - 1); i += kKnotThreads) {
+    const int v = i % V, r = (i / V) % R, j = i / (V * R);
+    const int tap = r == 0 ? -1 : (r - 1) / 3, axis = (r - 1) % 3;
+    const T tau = (c - T(0.5) * e) + (T(v) * e) / div;
+    T wv[degree], wc[degree - 1];
+    const int idx = spline_segment<T, degree>(tau, t0, kdt, K, wv, wc);
+    Quat<T> qa, dqa, qb, dqb;
+    window_knot(knot_q, idx, j, tap, axis, qa, dqa);
+    window_knot(knot_q, idx, j + 1, tap, axis, qb, dqb);
+    const Quat<T> ca = qconj(qa);
+    const Quat<T> rel = qmul(ca, qb);
+    const Quat<T> drel = qadd(qmul(qconj(dqa), qb), qmul(ca, dqb));
+    V3<T> lg, dlg;
+    quat_log_jvp(rel, drel, thr, lg, dlg);
+    const T cj = wc[j];
+    Quat<T> ex, dex;
+    quat_exp_jvp(V3<T>{lg.x * cj, lg.y * cj, lg.z * cj},
+                 V3<T>{dlg.x * cj, dlg.y * cj, dlg.z * cj}, thr, ex, dex);
+    if constexpr (degree == 2) {
+      // one segment: the product with the window's first knot ends the job
+      finish(v, r, idx, wv, qmul(qa, ex), qadd(qmul(dqa, ex), qmul(qa, dex)));
+    } else {
+      T* o = s_exp + ((v * kJobs + r) * 3 + j) * 8;
+      o[0] = ex.x; o[1] = ex.y; o[2] = ex.z; o[3] = ex.w;
+      o[4] = dex.x; o[5] = dex.y; o[6] = dex.z; o[7] = dex.w;
+    }
+  }
+  if constexpr (degree != 2) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < V * R; i += kKnotThreads) {
+      const int v = i % V, r = i / V;
+      const int tap = r == 0 ? -1 : (r - 1) / 3, axis = (r - 1) % 3;
+      const T tau = (c - T(0.5) * e) + (T(v) * e) / div;
+      T wv[degree], wc[degree - 1];
+      const int idx = spline_segment<T, degree>(tau, t0, kdt, K, wv, wc);
+      Quat<T> q, dq;
+      window_knot(knot_q, idx, 0, tap, axis, q, dq);
+#pragma unroll
+      for (int j = 0; j + 1 < degree; ++j) {
+        const T* x = s_exp + ((v * kJobs + r) * 3 + j) * 8;
+        const Quat<T> ex = {x[0], x[1], x[2], x[3]}, dex = {x[4], x[5], x[6], x[7]};
+        dq = qadd(qmul(dq, ex), qmul(q, dex));
+        q = qmul(q, ex);
+      }
+      finish(v, r, idx, wv, q, dq);
+    }
+  }
+  if (D == 0) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < V * D; i += kKnotThreads) {
+    const int v = i % V, d = i / V;
+    const T* sg = s_seg + v * 5;
+    const int idx = (int)sg[4];
+    const bool rot = d >= 3 * K;
+    const int knot = (rot ? d - 3 * K : d) / 3, axis = d % 3;
+    const int tap = knot - idx;
+    const bool on = tap >= 0 && tap < degree;
+    T* out = s_tan + ((long long)v * D + d) * 8;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      T x[degree];
+#pragma unroll
+      for (int j = 0; j < degree; ++j) x[j] = T(!rot && j == tap && k == axis);
+      out[k] = tap_sum<T, degree>(sg, x);
+    }
+    const T* jb = s_job + (v * kJobs + (rot && on ? 1 + 3 * tap + axis : 0)) * 4;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[3 + k] = jb[k];
+    out[7] = T(0);
+  }
+}
+
+// A CTA takes frame f (blockIdx.y) and the blocks of kp keypoints
+// blockIdx.x, blockIdx.x + gridDim.x, ...: a block's samples are kp runs of
+// P V, one a keypoint, S apart in loc, vs and each plane of dxy. After the
+// frame's poses and tangents are in shared memory (frame_poses), thread t
+// takes sample t % (kp P V) of each block and the tangents t / (kp P V),
+// + G, + 2G, ... (G groups of threads a block): it warps its sample as the
+// thread design does (the group-0 thread writes loc and vs), then folds the
+// warp's chain rule into the 7 coefficients of x and of y on the pose
+// tangent (dt, dxyz, dw), and each tangent is two 7-term sums. Consecutive
+// threads take consecutive samples of one tangent, so each plane of dxy is
+// written in runs.
+template <typename T, int degree>
+__device__ void knots_body(const T* __restrict__ knot_t, const T* __restrict__ knot_q,
+                           const T* __restrict__ t0p, const T* __restrict__ dtp,
+                           const T* __restrict__ cap, const T* __restrict__ expo,
+                           const T* __restrict__ kp_z, const T* __restrict__ Kv,
+                           const T* __restrict__ pix, const int64_t* __restrict__ starts,
+                           T* __restrict__ loc, T* __restrict__ vs, T* __restrict__ dxy,
+                           int K, int N, int F, int P, int V, int D, int H, int W, int kp,
+                           unsigned char* smem) {
+  const int f = blockIdx.y;
+  const int PV = P * V;
+  const long long S = (long long)F * PV;
+  const long long NS = (long long)N * S;
+  T* s_tan = reinterpret_cast<T*>(smem);             // [V][D][8]
+  T* s_pose = s_tan + 8LL * V * D;                    // [V][7]
+  T* s_seg = s_pose + 7 * V;                          // [V][5]
+  T* s_job = s_seg + 5 * V;                           // [V][kJobs][4]
+  T* s_exp = s_job + 4 * kJobs * V;                   // [V][kJobs][3][8]
+  const int span = kp * PV;                           // samples a block
+  const int groups = kKnotThreads / span;
+  const int j = threadIdx.x % span, g = threadIdx.x / span;
+  const int pv = j % PV;
+  const int p = pv / V, v = pv % V;
+  const T fx = Kv[0], fy = Kv[1], cx = Kv[2], cy = Kv[3];
+  // a sample's inputs that no pose enters: the unit ray of its pixel (the
+  // thread design's arithmetic), its keypoint's depth and window corner
+  struct Sample {
+    V3<T> ray;
+    T z, sx, sy;
+  };
+  auto sample_of = [&](int n) {
+    const T* px = pix + (((long long)f * N + n) * P + p) * 2;
+    const T x_hat = (px[0] - cx) / fx;
+    const T y_hat = (px[1] - cy) / fy;
+    const T z_hat = T(1) / sqrt(T(1) + x_hat * x_hat + y_hat * y_hat);
+    return Sample{{x_hat * z_hat, y_hat * z_hat, z_hat}, kp_z[n], (T)starts[2 * n],
+                  (T)starts[2 * n + 1]};
+  };
+  // the first block's, loaded and computed while the poses are
+  const int n_first = blockIdx.x * kp + j / PV;
+  Sample first{};
+  if (g < groups && n_first < N) first = sample_of(n_first);
+  frame_poses<T, degree>(knot_t, knot_q, K, *t0p, *dtp, cap[f], expo[f], V, D, s_pose, s_tan,
+                         s_seg, s_job, s_exp);
+  __syncthreads();
+
+  if (g >= groups) return;
+  const T* q = s_pose + v * 7 + 3;
+  const T* t = s_pose + v * 7;
+  const V3<T> xyz = {q[0], q[1], q[2]};
+  const T w = q[3];
+  const T* tan_v = s_tan + (long long)v * D * 8;
+  const int blocks = (N + kp - 1) / kp;
+  for (int blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
+    const int n = blk * kp + j / PV;
+    if (n >= N) continue;
+    const long long o = (long long)n * S + (long long)f * PV + pv;
+    // the warp, as the thread design computes it
+    const Sample sm = blk == (int)blockIdx.x ? first : sample_of(n);
+    const V3<T> ray = sm.ray;
+    V3<T> u = cross(xyz, ray);
+    u = {T(2) * u.x, T(2) * u.y, T(2) * u.z};
+    const V3<T> xu = cross(xyz, u);
+    const V3<T> rot = {ray.x + w * u.x + xu.x, ray.y + w * u.y + xu.y, ray.z + w * u.z + xu.z};
+    const T lam = rot.z;
+    const T s = (sm.z - t[2]) / lam;
+    const V3<T> Pw = {rot.x * s + t[0], rot.y * s + t[1], rot.z * s + t[2]};
+    const T iz = T(1) / (Pw.z + T(1e-8));
+    const T rx = fx * Pw.x * iz + cx;
+    const T ry = fy * Pw.y * iz + cy;
+    if (g == 0) {
+      loc[2 * o] = rx - sm.sx;
+      loc[2 * o + 1] = ry - sm.sy;
+      vs[o] = (rx >= T(0) && rx <= T(W - 1) && ry >= T(0) && ry <= T(H - 1)) ? T(1) : T(0);
+    }
+    if (D == 0) continue;
+    // the chain rule of ops/warp.py::frontoparallel_warp_jvp as a linear map
+    // of the pose tangent e = (dt, dxyz, dw): drot = u dw + M dxyz with
+    // M = -2w [ray]x - [u]x - 2 [xyz]x [ray]x (du = 2 dxyz x ray), ds =
+    // -(dt.z + s drot.z) / lam, dP = s drot + rot ds + dt, and
+    // dx = fx iz (dP.x - Pw.x iz dP.z), dy = fy iz (dP.y - Pw.y iz dP.z).
+    // The tangents are held to the plain version within a tolerance, not to
+    // the bit, so their arithmetic fuses multiply-adds
+    T M[3][3];
+    {
+      // [xyz]x [ray]x = ray xyz^T - (xyz . ray) I
+      const T xr = fma(xyz.z, ray.z, fma(xyz.y, ray.y, xyz.x * ray.x));
+      const T a[3] = {xyz.x, xyz.y, xyz.z}, b[3] = {ray.x, ray.y, ray.z};
+      const T uu[3] = {u.x, u.y, u.z};
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          // [v]x[r][k] = -eps(r, k, l) v_l
+          const int l = 3 - r - k;
+          const T sgn = (r == k) ? T(0) : (((k - r + 3) % 3 == 1) ? T(-1) : T(1));
+          const T hr = r == k ? T(0) : sgn * b[l], hu = r == k ? T(0) : sgn * uu[l];
+          const T xx = fma(b[r], a[k], r == k ? -xr : T(0));
+          M[r][k] = fma(T(-2), xx, fma(T(-2) * w, hr, -hu));
+        }
+    }
+    const T inv_lam = T(1) / lam;
+    T Dz[7];
+#pragma unroll
+    for (int k = 0; k < 7; ++k) {
+      const T rz = k < 3 ? T(0) : (k < 6 ? M[2][k - 3] : u.z);
+      Dz[k] = -fma(s, rz, k == 2 ? T(1) : T(0)) * inv_lam;
+    }
+    T ax[7], ay[7];
+    const T fxi = fx * iz, fyi = fy * iz, px_iz = Pw.x * iz, py_iz = Pw.y * iz;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) {
+      T Q[3];
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        const T ur = r == 0 ? u.x : (r == 1 ? u.y : u.z);
+        const T rr = r == 0 ? rot.x : (r == 1 ? rot.y : rot.z);
+        const T Rk = k < 3 ? T(0) : (k < 6 ? M[r][k - 3] : ur);
+        Q[r] = fma(s, Rk, fma(rr, Dz[k], k == r ? T(1) : T(0)));
+      }
+      ax[k] = fxi * fma(-px_iz, Q[2], Q[0]);
+      ay[k] = fyi * fma(-py_iz, Q[2], Q[1]);
+    }
+    T* ox = dxy + (long long)g * NS + o;
+    T* oy = ox + (long long)D * NS;
+    const long long step = (long long)groups * NS;
+    for (int d = g; d < D; d += groups, ox += step, oy += step) {
+      T e[8];
+      load8(tan_v + d * 8, e);
+      T sx = ax[0] * e[0], sy = ay[0] * e[0];
+#pragma unroll
+      for (int k = 1; k < 7; ++k) {
+        sx = fma(ax[k], e[k], sx);
+        sy = fma(ay[k], e[k], sy);
+      }
+      *ox = sx;
+      *oy = sy;
+    }
+  }
+}
+
+// three CTAs an SM: the registers of a thread capped at 85 (float32 keeps
+// them all; float64 spills a few)
+template <typename T>
+__global__ void __launch_bounds__(kKnotThreads, 3)
+warp_tangents_kernel(const T* __restrict__ knot_t,   // [K, 3]
+                     const T* __restrict__ knot_q,   // [K, 4]
+                     const T* __restrict__ t0p,      // spline start time
+                     const T* __restrict__ dtp,      // knot interval
+                     const T* __restrict__ cap,      // [F] capture times
+                     const T* __restrict__ expo,     // [F] exposure times
+                     const T* __restrict__ kp_z,     // [N]
+                     const T* __restrict__ Kv,       // [4]
+                     const T* __restrict__ pix,      // [F, N, P, 2]
+                     const int64_t* __restrict__ starts,  // [N, 2]
+                     T* __restrict__ loc,            // [N, S, 2]
+                     T* __restrict__ vs,             // [N, S]
+                     T* __restrict__ dxy,            // [2, D, N, S]
+                     int K, int degree, int N, int F, int P, int V, int D, int H, int W,
+                     int kp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (degree == 2)
+    knots_body<T, 2>(knot_t, knot_q, t0p, dtp, cap, expo, kp_z, Kv, pix, starts, loc, vs, dxy,
+                     K, N, F, P, V, D, H, W, kp, smem);
+  else
+    knots_body<T, 4>(knot_t, knot_q, t0p, dtp, cap, expo, kp_z, Kv, pix, starts, loc, vs, dxy,
+                     K, N, F, P, V, D, H, W, kp, smem);
+}
+
+template <typename T>
+int launch_warp_tangents(const void* knot_t, const void* knot_q, const void* t0,
+                         const void* dt, const void* cap, const void* expo, const void* kp_z,
+                         const void* Kv, const void* pix, const void* starts, void* loc,
+                         void* vs, void* dxy, int K, int degree, int N, int F, int P, int V,
+                         int D, int H, int W, int kp, long long smem, void* stream) {
+  if (kp < 1 || (degree != 2 && degree != 4) || K < degree || V < 1 || N < 1 || F < 1 ||
+      F > 65535 || P < 1 || kp * P * V > kKnotThreads || (D != 0 && D != 6 * K) ||
+      D > kMaxTangents || smem != knots_smem_bytes(V, D, (int)sizeof(T)) || smem > kMaxShared)
+    return (int)cudaErrorInvalidValue;
+  // the device whose attribute is set, its SMs and the CTAs an SM holds
+  static int ready_on = -1, sms = 0;
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device != ready_on) {
+    err = cudaFuncSetAttribute(warp_tangents_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShared);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    ready_on = device;
+  }
+  int resident = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, warp_tangents_kernel<T>,
+                                                      kKnotThreads, (size_t)smem);
+  if (err != cudaSuccess) return (int)err;
+  // one wave: a frame's CTAs loop over its keypoint blocks, so that each
+  // computes the frame's poses once for as many blocks as the card allows
+  const int blocks = (N + kp - 1) / kp;
+  const int wave = (resident > 0 ? resident : 1) * sms;
+  const int per_frame = blocks < (wave + F - 1) / F ? blocks : (wave + F - 1) / F;
+  const dim3 grid((unsigned)(per_frame > 0 ? per_frame : 1), (unsigned)F);
+  warp_tangents_kernel<T><<<grid, kKnotThreads, (size_t)smem, (cudaStream_t)stream>>>(
+      (const T*)knot_t, (const T*)knot_q, (const T*)t0, (const T*)dt, (const T*)cap,
+      (const T*)expo, (const T*)kp_z, (const T*)Kv, (const T*)pix, (const int64_t*)starts,
+      (T*)loc, (T*)vs, (T*)dxy, K, degree, N, F, P, V, D, H, W, kp);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_warp_tangents_threads(const void* pose_t, const void* pose_q, const void* dpose,
                          const void* kp_z, const void* Kv, const void* pix, const void* starts,
                          void* loc, void* vs, void* dxy, int N, int F, int P, int V, int D,
                          int H, int W, void* stream) {
   const long long samples = (long long)N * F * P * V;
   const unsigned grid = (unsigned)((samples + kWarpThreads - 1) / kWarpThreads);
-  warp_tangents_kernel<T><<<grid, kWarpThreads, 0, (cudaStream_t)stream>>>(
+  warp_tangents_threads_kernel<T><<<grid, kWarpThreads, 0, (cudaStream_t)stream>>>(
       (const T*)pose_t, (const T*)pose_q, (const T*)dpose, (const T*)kp_z, (const T*)Kv,
       (const T*)pix, (const int64_t*)starts, (T*)loc, (T*)vs, (T*)dxy, N, F, P, V, D, H, W);
   return (int)cudaGetLastError();
@@ -480,8 +1018,24 @@ int residual_rows_max_tangents() { return kMaxTangents; }
 #define WARP_PASS \
   pose_t, pose_q, dpose, kp_z, Kv, pix, starts, loc, vs, dxy, N, F, P, V, D, H, W, stream
 
-int warp_tangents_f32(WARP_ARGS) { return launch_warp_tangents<float>(WARP_PASS); }
-int warp_tangents_f64(WARP_ARGS) { return launch_warp_tangents<double>(WARP_PASS); }
+// the knots design: from the spline knots, kp keypoints of one frame a CTA
+// and the dynamic shared memory, from the wrapper's layout (checked here)
+#define KNOTS_ARGS                                                                     \
+  const void *knot_t, const void *knot_q, const void *t0, const void *dt,              \
+      const void *cap, const void *expo, const void *kp_z, const void *Kv,             \
+      const void *pix, const void *starts, void *loc, void *vs, void *dxy, int K,      \
+      int degree, int N, int F, int P, int V, int D, int H, int W, int kp,             \
+      long long smem, void *stream
+#define KNOTS_PASS                                                                     \
+  knot_t, knot_q, t0, dt, cap, expo, kp_z, Kv, pix, starts, loc, vs, dxy, K, degree, N, \
+      F, P, V, D, H, W, kp, smem, stream
+
+int warp_tangents_f32(KNOTS_ARGS) { return launch_warp_tangents<float>(KNOTS_PASS); }
+int warp_tangents_f64(KNOTS_ARGS) { return launch_warp_tangents<double>(KNOTS_PASS); }
+
+// the thread design, from given poses and pose tangents
+int warp_tangents_threads_f32(WARP_ARGS) { return launch_warp_tangents_threads<float>(WARP_PASS); }
+int warp_tangents_threads_f64(WARP_ARGS) { return launch_warp_tangents_threads<double>(WARP_PASS); }
 
 #define BLUR_ARGS_NO_STREAM                                                            \
   const void *val, const void *gx, const void *gy, long long row_stride,               \

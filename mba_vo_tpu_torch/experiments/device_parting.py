@@ -97,7 +97,7 @@ def op_differences(run, device):
     # version, how many leading arguments the plain version takes)
     kernels = {
         "k1": (cuda_sampling, "window_bilinear_cuda", window_sampling.window_bilinear_plain, 3),
-        "warp_tangents": (cuda_residual, "warp_tangents_cuda", residual.warp_tangents_plain, 9),
+        "warp_tangents": (cuda_residual, "warp_tangents_cuda", residual.warp_tangents_plain, 12),
         "blur_rows": (cuda_residual, "blur_rows_cuda", residual.blur_rows_plain, 8),
         "normal_equations": (cuda_residual, "normal_equations_cuda",
                              residual.normal_equations_plain, 5),
@@ -111,7 +111,7 @@ def op_differences(run, device):
         def call(*args, **kw):
             with _disable_current_modes():
                 out = originals[kernel](*args, **kw)
-                ref = plain(*(to_cpu(a) for a in args[:n_args]))
+                ref = plain(*tree_map(to_cpu, tuple(args[:n_args])))
             calls[kernel][0] += 1
             calls[kernel][1] += int(not _compare(out, ref))
             return out

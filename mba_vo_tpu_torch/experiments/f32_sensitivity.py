@@ -13,14 +13,16 @@ line per run:
 
 The variants:
 
-  * ``as_is``: the package as it is (closed-form pose Jacobian, K2, K3 on
-    the card);
+  * ``as_is``: the package as it is (K2 from the knots, K3 on the card);
   * ``plain_k2``, ``plain_k3``, ``plain_k2k3``: the plain versions of K2's
     two entries, of K3, or of both, on the same tensors (``ops.residual``'s
     dispatchers replaced by ``*_plain``);
   * ``jacfwd``: the pose Jacobian by ``torch.func.jacfwd`` through the
     retraction and the spline, the formulation the closed form replaced;
-    ``jacfwd_plain``: that and ``plain_k2k3``;
+    it reaches the path only through the plain version of K2's first entry
+    (on the card the entry computes the poses' tangents itself, so
+    ``jacfwd`` alone runs as ``as_is`` there); ``jacfwd_plain``: that and
+    ``plain_k2k3``;
   * ``parent_layout``: ``blur_rows``' tangent rows [F, N, P, D] handed on
     in the memory order the earlier residual stage left them in ([N, F, P,
     D]), which sets the order of ``affine_correct_jvp``'s moment sums;

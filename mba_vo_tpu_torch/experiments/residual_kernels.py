@@ -3,16 +3,23 @@ record, hold against the plain versions and the earlier designs, time.
 
 K2 is ``csrc/residual_rows.cu`` (``warp_tangents``, ``blur_rows``) and K3
 ``csrc/normal_equations.cu`` (``normal_equations``); their plain versions
-are in ``ops/residual.py``. ``blur_rows`` and ``normal_equations`` each
-keep an earlier design beside the one the tracker launches
-(:data:`EARLIER`: one thread a row; two launches), equal to it bit for bit.
-:func:`record_residual_calls` records every call the tracker makes of the
-three dispatchers (``ops.residual.warp_tangents``, ``blur_rows``,
-``normal_equations``) as copies of its inputs on their device;
-:func:`hold` runs a recorded call through the kernel and the plain version
-and returns the largest difference, relative to each output's magnitude;
-:func:`hold_earlier` holds the kernel to its earlier design bit for bit;
-:func:`time_rows` times kernel, earlier design and plain on recorded calls:
+are in ``ops/residual.py``. Each keeps an earlier design beside the one the
+tracker launches (:data:`EARLIER`): ``warp_tangents`` the old path, the
+torch chain of the pose Jacobian (``virtual_poses_and_tangents``) feeding
+the thread design (``warp_tangents_threads_cuda``, the sweep row), held to
+the kernel within :data:`TOLERANCE`; ``blur_rows`` and
+``normal_equations`` one thread a row and two launches, equal to the
+kernel bit for bit (:data:`BIT_EQUAL`). :func:`record_residual_calls`
+records every call the tracker makes of the three dispatchers
+(``ops.residual.warp_tangents``, ``blur_rows``, ``normal_equations``) as
+copies of its inputs on their device (for ``warp_tangents`` the knots,
+from which :func:`chain_args` gives the sweep row's inputs); :func:`hold`
+runs a recorded call through the kernel and the plain version and returns
+the largest difference, relative to each output's magnitude;
+:func:`hold_earlier` holds the kernel to its earlier design;
+:func:`time_rows` times kernel, earlier design and plain on recorded calls
+(and, for ``warp_tangents``, the thread design alone on the chain's
+outputs):
 
   * ``ms``: a call as Python waits for it (median over ``reps`` of the mean
     of ``inner`` back-to-back calls between two CUDA events), on the first
@@ -28,7 +35,7 @@ and returns the largest difference, relative to each output's magnitude;
     calls timed;
   * for K3, ``library_ms``: ``Jw.T @ Jw`` through cuBLAS on the call's
     weighted rows, the H part of the function as one library call, a
-    yardstick the port never calls. No library call computes K2's
+    yardstick the port never calls. No single PyTorch call computes K2's
     functions (``library_ms`` None).
 
 :func:`time_layouts` times K3's two cluster layouts (:data:`K3_LAYOUTS`),
@@ -69,26 +76,31 @@ TOLERANCE = {
     ("warp_tangents", torch.float32): 1e-6, ("blur_rows", torch.float32): 1e-6,
     ("normal_equations", torch.float32): 1e-5,
 }
+TOLERANCE.update({("warp_tangents_threads", dt): TOLERANCE["warp_tangents", dt]
+                  for dt in (torch.float32, torch.float64)})
 
 
 @dataclasses.dataclass
 class ResidualCall:
     """One recorded call of a dispatcher: ``kernel`` (one of
-    :data:`KERNELS`), copies of its positional arguments, and the pyramid
-    level that made it (None outside ``_run_level``)."""
+    :data:`KERNELS`, or ``warp_tangents_threads``: the sweep row, from
+    poses), copies of its positional arguments, and the pyramid level that
+    made it (None outside ``_run_level``)."""
     kernel: str
     args: tuple
     level: Optional[int]
 
     @property
     def dtype(self) -> torch.dtype:
-        return next(a.dtype for a in self.args
-                    if torch.is_tensor(a) and a.is_floating_point())
+        return self.args[0].t.dtype if self.kernel == "warp_tangents" else next(
+            a.dtype for a in self.args if torch.is_tensor(a) and a.is_floating_point())
 
     @property
     def tangents(self) -> int:
-        """D, the knot tangents of the call (0 for a cost-only K3 call)."""
+        """D, the knot tangents of the call (0 for a cost-only call)."""
         if self.kernel == "warp_tangents":
+            return 6 * self.args[0].num_knots if self.args[5] else 0
+        if self.kernel == "warp_tangents_threads":
             return self.args[2].shape[0]
         if self.kernel == "blur_rows":
             return self.args[3].shape[1]
@@ -97,11 +109,16 @@ class ResidualCall:
     @property
     def frames(self) -> int:
         """F, the frames of the call's LM problem."""
-        return self.args[{"warp_tangents": 5, "blur_rows": 4}.get(self.kernel, 0)].shape[0]
+        return self.args[{"warp_tangents": 8, "warp_tangents_threads": 5,
+                          "blur_rows": 4}.get(self.kernel, 0)].shape[0]
 
 
 def _copy(a):
-    return a.clone() if torch.is_tensor(a) else a
+    if torch.is_tensor(a):
+        return a.clone()
+    if isinstance(a, tuple) and hasattr(a, "_fields"):     # the knots
+        return type(a)(*(_copy(x) for x in a))
+    return a
 
 
 @contextlib.contextmanager
@@ -134,9 +151,13 @@ def record_residual_calls() -> Iterator[Dict[str, List[ResidualCall]]]:
 
 
 def kernel_fn(kernel: str):
-    """The dispatcher (the kernel, on CUDA tensors)."""
-    from ..ops import residual
+    """The dispatcher (the kernel, on CUDA tensors); for
+    ``warp_tangents_threads`` the sweep row's wrapper."""
+    from ..ops import cuda_residual, residual
 
+    if kernel == "warp_tangents_threads":
+        return lambda *a: cuda_residual.warp_tangents_threads_cuda(
+            *(x.contiguous() if torch.is_tensor(x) else x for x in a))
     return getattr(residual, kernel)
 
 
@@ -146,10 +167,24 @@ def plain_fn(kernel: str):
     return getattr(residual, f"{kernel}_plain")
 
 
+def chain_args(call: ResidualCall) -> tuple:
+    """The sweep row's arguments for a recorded ``warp_tangents`` call: the
+    torch chain's virtual poses and pose tangents
+    (``ops.residual.warp_poses``), then the call's own kp_z, K, pix, starts,
+    H and W."""
+    from ..ops import residual
+
+    return residual.warp_poses(*call.args[:6]) + tuple(call.args[6:])
+
+
 # the earlier design of a kernel, by the name of its wrapper in
-# ops/cuda_residual.py
-EARLIER = {"blur_rows": "blur_rows_threads_cuda",
+# ops/cuda_residual.py: for warp_tangents the old path (the torch chain of
+# the pose Jacobian, then the thread design); those of BIT_EQUAL give the
+# kernel's bits
+EARLIER = {"warp_tangents": "warp_tangents_threads_cuda",
+           "blur_rows": "blur_rows_threads_cuda",
            "normal_equations": "normal_equations_split_cuda"}
+BIT_EQUAL = ("blur_rows", "normal_equations")
 
 
 def earlier_fn(kernel: str):
@@ -160,6 +195,8 @@ def earlier_fn(kernel: str):
     if kernel not in EARLIER:
         return None
     wrapper = getattr(cuda_residual, EARLIER[kernel])
+    if kernel == "warp_tangents":
+        return lambda *args: wrapper(*chain_args(ResidualCall(kernel, args, None)))
     if kernel == "blur_rows":
         return lambda val, gx, gy, dxy, obs, valid, num_vir, affine: wrapper(
             val, gx, gy, dxy.contiguous(), obs.contiguous(), valid.contiguous(), num_vir,
@@ -237,16 +274,34 @@ def same_bits(out, ref) -> bool:
     return True
 
 
+def _within(call: ResidualCall, out, ref, what: str):
+    """(absolute, relative) difference of ``out`` from ``ref``; raises past
+    :data:`TOLERANCE` of each output's magnitude (:func:`term_scales`), and,
+    for K2's first entry, where the in-image flags ``vs`` differ at all."""
+    err = max_diff(out, ref, term_scales(call, ref))
+    bound = TOLERANCE[call.kernel, call.dtype]
+    label = f"{call.kernel} ({call.dtype}, D={call.tangents}, level {call.level})"
+    if call.kernel.startswith("warp_tangents") and not torch.equal(out[1], ref[1]):
+        raise AssertionError(f"{label}: kernel and {what} differ in vs")
+    if not err[1] <= bound:
+        raise AssertionError(f"{label}: kernel - {what} = {err[1]:.3e} of the output's "
+                             f"magnitude > {bound}")
+    return err
+
+
 def hold_earlier(call: ResidualCall) -> bool:
     """The recorded call through the kernel and its earlier design; raises
-    where they differ by a bit, returns True (False where the kernel has no
-    earlier design)."""
+    where they differ by a bit (:data:`BIT_EQUAL`) or, for
+    ``warp_tangents``'s old path, as :func:`hold` does; returns True (False
+    where the kernel has no earlier design)."""
     earlier = earlier_fn(call.kernel)
     if earlier is None:
         return False
     out = kernel_fn(call.kernel)(*call.args)
     ref = earlier(*call.args)
-    if not same_bits(out, ref):
+    if call.kernel not in BIT_EQUAL:
+        _within(call, out, ref, "the old path")
+    elif not same_bits(out, ref):
         raise AssertionError(f"{call.kernel} ({call.dtype}, D={call.tangents}, level "
                              f"{call.level}): the kernel and its earlier design differ")
     return True
@@ -255,17 +310,11 @@ def hold_earlier(call: ResidualCall) -> bool:
 def hold(call: ResidualCall):
     """The recorded call through the kernel and the plain version; raises
     when they differ by more than :data:`TOLERANCE` of each output's
-    magnitude (:func:`term_scales`), returns (absolute, relative)
-    differences."""
+    magnitude (:func:`term_scales`) or, for K2's first entry, in any entry
+    of ``vs``; returns (absolute, relative) differences."""
     out = kernel_fn(call.kernel)(*call.args)
     ref = plain_fn(call.kernel)(*call.args)
-    err = max_diff(out, ref, term_scales(call, ref))
-    bound = TOLERANCE[call.kernel, call.dtype]
-    if not err[1] <= bound:
-        raise AssertionError(f"{call.kernel} ({call.dtype}, D={call.tangents}, level "
-                             f"{call.level}): kernel - plain = {err[1]:.3e} of the output's "
-                             f"magnitude > {bound}")
-    return err
+    return _within(call, out, ref, "plain")
 
 
 def _nbytes(*tensors) -> int:
@@ -280,13 +329,15 @@ def bound_ms(call: ResidualCall):
     a, k = call.args, call.kernel
     D = call.tangents
     if k == "warp_tangents":
-        pose_t, pose_q, dpose, kp_z, K, pix, starts = a[:7]
-        F, V = pose_t.shape[:2]
-        N, P = kp_z.shape[0], pix.shape[2]
+        knots, caps, exps, V = a[:4]
+        kp_z, K, pix, starts = a[6:10]
+        F, N, P = pix.shape[:3]
         samples = N * F * P * V
-        moved = _nbytes(pose_t, pose_q, dpose, kp_z, K, pix, starts) + \
-            samples * (3 + 2 * D) * pose_t.element_size()
-        flops = samples * (70 + 45 * D)
+        moved = _nbytes(*knots, caps, exps, kp_z, K, pix, starts) + \
+            samples * (3 + 2 * D) * pix.element_size()
+        # a sample's warp (~80) and its chain rule's 14 coefficients (~250),
+        # two 7-term sums a tangent; a pose's rotation jobs (13, ~600 each)
+        flops = samples * (330 + 26 * D) + F * V * 13 * 600
     elif k == "blur_rows":
         val, gx, gy, dxy, obs, valid = a[:6]
         V = a[6]
@@ -323,9 +374,11 @@ def full_calls(calls: List[ResidualCall]) -> List[ResidualCall]:
 
 def time_rows(label: str, calls: List[ResidualCall], reps: int = 30, inner: int = 20,
               out=print) -> List[dict]:
-    """The kernel, its earlier design (where it has one) and the plain
-    version timed on the kernel's recorded ``calls`` (see the module
-    docstring); returns one dict for each, the kernel's first, the plain
+    """The kernel, its earlier design (where it has one; for
+    ``warp_tangents`` the old path whole, then the thread design alone on
+    the chain's outputs) and the plain version timed on the kernel's
+    recorded ``calls`` (see the module docstring); returns one dict for
+    each, the kernel's first, the earlier design's second, the plain
     version's last."""
     if not torch.cuda.is_available():
         raise RuntimeError("timing K2 and K3 needs a CUDA device")
@@ -337,16 +390,22 @@ def time_rows(label: str, calls: List[ResidualCall], reps: int = 30, inner: int 
     lib = None
     if kernel == "normal_equations" and calls[0].args[1] is not None:
         lib = _cublas_yardstick(calls[0])
-    designs = [("kernel", kernel_fn(kernel)), ("earlier", earlier_fn(kernel)),
-               ("plain", plain_fn(kernel))]
+    designs = [("kernel", kernel_fn(kernel), [c.args for c in warm_calls]),
+               ("earlier", earlier_fn(kernel), [c.args for c in warm_calls])]
+    if kernel == "warp_tangents":
+        # the thread design alone, on the chain's outputs (computed here,
+        # outside the timing)
+        designs.append(("earlier kernel", kernel_fn("warp_tangents_threads"),
+                        [chain_args(c) for c in warm_calls]))
+    designs.append(("plain", plain_fn(kernel), [c.args for c in warm_calls]))
     rows = []
-    for name, fn in designs:
+    for name, fn, args in designs:
         if fn is None:
             continue
-        first = calls[0].args
+        first = args[0]
         ms = kv.time_ms(lambda: fn(*first), reps, inner)
         w_inner = len(warm_calls) * math.ceil(50 / len(warm_calls))
-        warm = kv.device_ms([lambda a=c.args: fn(*a) for c in warm_calls], 20, w_inner)
+        warm = kv.device_ms([lambda a=a: fn(*a) for a in args], 20, w_inner)
         cold = kv.device_flushed_ms(lambda: fn(*first), 20, 20)
         rows.append(dict(inputs=label, kernel=kernel, name=name, calls=len(calls),
                          D=calls[0].tangents, dtype=str(calls[0].dtype).split(".")[-1],

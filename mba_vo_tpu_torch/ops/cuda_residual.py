@@ -6,8 +6,10 @@ stages XLA fuses in ``mba_vo_tpu/ops/residual.py`` (they have no Pallas
 source):
 
   * ``residual_rows.cu`` (K2), two entry points around the sampler K1:
-    :func:`warp_tangents_cuda` warps every (n, f, p, v) sample into the
-    keyframe with its derivative along the knot tangents, and
+    :func:`warp_tangents_cuda` goes from the spline knots to every (n, f,
+    p, v) sample warped into the keyframe with its derivative along the
+    knot tangents (the virtual poses and their tangents computed in the
+    same launch, kp keypoints of one frame a CTA), and
     :func:`blur_rows_cuda` averages K1's samples over the virtual poses into
     the residual and its Jacobian row (one CTA a keypoint, its operands
     brought in by bulk copies);
@@ -17,27 +19,30 @@ source):
     atomics.
 
 The earlier design of each, which the tracker no longer launches, stays
-launchable for the sweeps and equals the new one to the bit:
-:func:`blur_rows_threads_cuda` (one thread a row) and
-:func:`normal_equations_split_cuda` (two launches: partials, then their
-combination). The launch geometry of the new designs is plain Python
-(:func:`blur_rows_layout`, :func:`normal_equations_layout`,
-:func:`normal_equations_rows`), which the kernels check against their own.
+launchable for the sweeps: :func:`warp_tangents_threads_cuda` (one thread a
+sample, from poses and pose tangents that torch computes), and, equal to
+the new designs bit for bit, :func:`blur_rows_threads_cuda` (one thread a
+row) and :func:`normal_equations_split_cuda` (two launches: partials, then
+their combination). The launch geometry of the new designs is plain Python
+(:func:`warp_tangents_layout`, :func:`blur_rows_layout`,
+:func:`normal_equations_layout`, :func:`normal_equations_rows`), which the
+kernels check against their own.
 
 Each has its plain PyTorch version in ``ops/residual.py``
-(``warp_tangents_plain``, ``blur_rows_plain``, ``normal_equations_plain``),
-which CPU tensors take; ``ops/residual.py`` chooses by the tensors' device
-and nothing else. The libraries are built and loaded by
-``ops/cuda_build.py`` at first use; nothing here runs when the module is
-imported.
+(``warp_tangents_plain``, ``warp_tangents_threads_plain``,
+``blur_rows_plain``, ``normal_equations_plain``), which CPU tensors take;
+``ops/residual.py`` chooses by the tensors' device and nothing else. The
+libraries are built and loaded by ``ops/cuda_build.py`` at first use;
+nothing here runs when the module is imported.
 
 The wrappers take CUDA tensors only and raise on anything else (device,
 dtype, shape, contiguity, more than :data:`MAX_TANGENTS` knot tangents);
 none falls back to the plain version. ``LAUNCHES_WARP``, ``LAUNCHES_BLUR``
 and ``LAUNCHES_NORMAL`` count the kernels each wrapper launched, one a
-call; ``LAUNCHES_BLUR_THREADS`` and ``LAUNCHES_NORMAL_SPLIT`` those of the
-earlier designs (two a call of the split design). A call recorded into a
-CUDA graph is not a launch and is not counted.
+call; ``LAUNCHES_WARP_THREADS``, ``LAUNCHES_BLUR_THREADS`` and
+``LAUNCHES_NORMAL_SPLIT`` those of the earlier designs (two a call of the
+split design). A call recorded into a CUDA graph is not a launch and is not
+counted.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from . import cuda_build
 LAUNCHES_WARP = 0
 LAUNCHES_BLUR = 0
 LAUNCHES_NORMAL = 0
+LAUNCHES_WARP_THREADS = 0
 LAUNCHES_BLUR_THREADS = 0
 LAUNCHES_NORMAL_SPLIT = 0
 # the most knot tangents (6K) a launch of K2 or K3 may take, compiled into
@@ -83,6 +89,13 @@ KW_STAGE_BYTES = 16 * 1024
 # to BLUR_TILE, two stages deep
 BLUR_SLAB_BYTES = 48 * 1024
 BLUR_TILE = 8
+# warp_tangents' knots design: a CTA of WARP_THREADS threads takes blocks of
+# as many keypoints of one frame as make at most WARP_SAMPLES samples (at
+# least one keypoint, at most WARP_THREADS samples); a pose keeps WARP_JOBS
+# rotation tangents (the zero seed and 3 axes of 4 knots)
+WARP_THREADS = 256
+WARP_SAMPLES = 256
+WARP_JOBS = 13
 
 
 def _round16(nbytes: int) -> int:
@@ -150,6 +163,39 @@ def blur_rows_layout(F: int, P: int, V: int, D: int, itemsize: int) -> BlurRowsL
                          f"bytes needs {smem(tile, stages)} B of shared memory a CTA, more "
                          f"than {MAX_SHARED_BYTES}")
     return BlurRowsLayout(tile, stages, _blur_threads(F * P, tile), span, smem(tile, stages))
+
+
+@dataclasses.dataclass(frozen=True)
+class WarpTangentsLayout:
+    """Launch geometry of warp_tangents' knots design (``residual_rows.cu``'s
+    ``knots_smem_bytes`` computes the same bytes): blocks of ``keypoints``
+    of one frame, their ``samples`` (keypoints x P V), ``groups`` of threads
+    a block (WARP_THREADS // samples, each thread a sample and every
+    groups-th tangent), and the dynamic shared memory: the poses' D
+    tangents (7 values and a pad each), the frame's V poses (7 values
+    each), each pose's segment (4 basis weights and its first knot), its
+    WARP_JOBS rotation tangents (4 values each) and each job's exps of its 3
+    segments and their tangents (8 values each)."""
+    keypoints: int
+    samples: int
+    groups: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def warp_tangents_layout(P: int, V: int, D: int, itemsize: int) -> WarpTangentsLayout:
+    """The knots design's geometry for P patch pixels, V virtual poses and D
+    knot tangents; raises where a keypoint's P V samples outnumber a CTA's
+    threads or the poses' tables a block's shared memory."""
+    kp = max(1, WARP_SAMPLES // (P * V))
+    samples = kp * P * V
+    smem = (8 * V * D + 7 * V + 5 * V + 28 * WARP_JOBS * V) * itemsize
+    if samples > WARP_THREADS or smem > MAX_SHARED_BYTES:
+        raise ValueError(f"warp_tangents: {P} x {V} samples a keypoint (at most "
+                         f"{WARP_THREADS}) and {V} poses x {D} knot tangents of {itemsize} "
+                         f"bytes ({smem} B of shared memory a CTA, at most "
+                         f"{MAX_SHARED_BYTES})")
+    return WarpTangentsLayout(kp, samples, WARP_THREADS // samples, smem)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,9 +308,13 @@ def normal_equations_rows(M: int) -> List[List[Tuple[int, int]]]:
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
+    # knot t, knot q, t0, dt, capture times, exposure times, kp_z, K, pix,
+    # starts, loc, vs, dxy, knots, degree, N, F, P, V, D, H, W, keypoints a
+    # CTA, shared bytes, stream
+    "warp_tangents": [_P] * 13 + [_I] * 10 + [_L, _P],
     # pose_t, pose_q, dpose, kp_z, K, pix, starts, loc, vs, dxy,
     # N, F, P, V, D, H, W, stream
-    "warp_tangents": [_P] * 10 + [_I] * 7 + [_P],
+    "warp_tangents_threads": [_P] * 10 + [_I] * 7 + [_P],
     # val, gx, gy, row_stride, dxy, obs, valid, r, J, N, F, P, V, D, affine,
     # tile, threads, interleaved, shared bytes, stream
     "blur_rows": [_P] * 3 + [_L] + [_P] * 5 + [_I] * 6 + [_I] * 3 + [_L, _P],
@@ -277,7 +327,8 @@ _SIGNATURES = {
     # r, J, kp_w, partials, cost, patch, g, H, F, N, P, D, huber_a, compensated, stream
     "normal_equations_split": [_P] * 8 + [_I] * 4 + [ctypes.c_double, _I, _P],
 }
-_LIBRARY = {"warp_tangents": "residual_rows", "blur_rows": "residual_rows",
+_LIBRARY = {"warp_tangents": "residual_rows", "warp_tangents_threads": "residual_rows",
+            "blur_rows": "residual_rows",
             "blur_rows_threads": "residual_rows", "normal_equations": "normal_equations",
             "normal_equations_split": "normal_equations"}
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -296,9 +347,9 @@ def launch_counts() -> Dict[str, int]:
 
 def zero_launch_counts() -> None:
     global LAUNCHES_WARP, LAUNCHES_BLUR, LAUNCHES_NORMAL
-    global LAUNCHES_BLUR_THREADS, LAUNCHES_NORMAL_SPLIT
+    global LAUNCHES_WARP_THREADS, LAUNCHES_BLUR_THREADS, LAUNCHES_NORMAL_SPLIT
     LAUNCHES_WARP = LAUNCHES_BLUR = LAUNCHES_NORMAL = 0
-    LAUNCHES_BLUR_THREADS = LAUNCHES_NORMAL_SPLIT = 0
+    LAUNCHES_WARP_THREADS = LAUNCHES_BLUR_THREADS = LAUNCHES_NORMAL_SPLIT = 0
 
 
 def _entry(kernel: str, dtype: torch.dtype):
@@ -378,19 +429,73 @@ def _launch(fn, device: torch.device, *args) -> int:
     return 0 if recorded else 1
 
 
-def warp_tangents_cuda(pose_t: torch.Tensor, pose_q: torch.Tensor, dpose: torch.Tensor,
-                       kp_z: torch.Tensor, K: torch.Tensor, pix: torch.Tensor,
-                       starts: torch.Tensor, height: int,
+def warp_tangents_cuda(knots, cap_times: torch.Tensor, exp_times: torch.Tensor,
+                       num_vir: int, degree: int, tangents: bool, kp_z: torch.Tensor,
+                       K: torch.Tensor, pix: torch.Tensor, starts: torch.Tensor, height: int,
                        width: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2's first entry: ``ops.residual.warp_tangents_plain`` on the card.
+    """K2's first entry: ``ops.residual.warp_tangents_plain`` on the card, in
+    one launch of the knots design (:func:`warp_tangents_layout`).
+
+    knots: a ``core.spline.SplineKnots`` (t [K, 3], q [K, 4], 0-dim t0 and
+    dt); cap_times and exp_times [F]; kp_z [N], K [4], pix [F, N, P, 2]
+    (float, one dtype), starts [N, 2] int64, all contiguous on one device.
+    ``degree`` 2 or 4; ``tangents``: D = 6K knot tangents, else 0. Returns
+    (loc [N, S, 2], vs [N, S], dxy [2, D, N, S]) with S = F P V in (f, p, v)
+    order.
+    """
+    global LAUNCHES_WARP
+    who = "warp_tangents_cuda"
+    Kn = knots.t.shape[0] if knots.t.dim() == 2 else None
+    F = cap_times.shape[0] if cap_times.dim() == 1 else None
+    N = kp_z.shape[0] if kp_z.dim() == 1 else None
+    dtype = _check(who, dict(knot_t=knots.t, knot_q=knots.q, t0=knots.t0, dt=knots.dt,
+                             cap_times=cap_times, exp_times=exp_times, kp_z=kp_z, K=K,
+                             pix=pix, starts=starts),
+                   dict(knot_t=(Kn, 3), knot_q=(Kn, 4), t0=(), dt=(), cap_times=(F,),
+                        exp_times=(F,), kp_z=(N,), K=(4,), pix=(F, N, None, 2),
+                        starts=(N, 2)),
+                   int_names=("starts",))
+    if degree not in (2, 4) or Kn < degree:
+        raise ValueError(f"{who}: spline degree {degree} over {Kn} knots (2 or 4, at most "
+                         f"the knots)")
+    V = int(num_vir)
+    if V < 1 or F > 65535:
+        raise ValueError(f"{who}: {V} virtual poses, {F} frames")
+    D = 6 * Kn if tangents else 0
+    _tangents(who, D)
+    P = pix.shape[2]
+    S = F * P * V
+    if N * S >= 2 ** 31:
+        raise ValueError(f"{who}: sizes exceed the kernel's indexing")
+    opts = dict(dtype=dtype, device=pix.device)
+    loc = torch.empty((N, S, 2), **opts)
+    vs = torch.empty((N, S), **opts)
+    dxy = torch.empty((2, D, N, S), **opts)
+    if N * S:
+        lay = warp_tangents_layout(P, V, D, loc.element_size())
+        LAUNCHES_WARP += _launch(
+            _entry("warp_tangents", dtype), pix.device, *(x.data_ptr() for x in (
+                knots.t, knots.q, knots.t0, knots.dt, cap_times, exp_times, kp_z, K, pix,
+                starts, loc, vs, dxy)),
+            Kn, degree, N, F, P, V, D, int(height), int(width), lay.keypoints, lay.smem_bytes)
+    return loc, vs, dxy
+
+
+def warp_tangents_threads_cuda(pose_t: torch.Tensor, pose_q: torch.Tensor,
+                               dpose: torch.Tensor, kp_z: torch.Tensor, K: torch.Tensor,
+                               pix: torch.Tensor, starts: torch.Tensor, height: int,
+                               width: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's first entry in the earlier thread design (one thread a sample), a
+    sweep row: ``ops.residual.warp_tangents_threads_plain`` on the card,
+    from poses and pose tangents computed outside.
 
     pose_t [F, V, 3], pose_q [F, V, 4], dpose [D, F, V, 7], kp_z [N], K [4],
     pix [F, N, P, 2] (float, one dtype), starts [N, 2] int64, all
     contiguous on one device. Returns (loc [N, S, 2], vs [N, S],
     dxy [2, D, N, S]) with S = F P V in (f, p, v) order.
     """
-    global LAUNCHES_WARP
-    who = "warp_tangents_cuda"
+    global LAUNCHES_WARP_THREADS
+    who = "warp_tangents_threads_cuda"
     F, V = pose_t.shape[:2] if pose_t.dim() == 3 else (None, None)
     N = kp_z.shape[0] if kp_z.dim() == 1 else None
     dtype = _check(who, dict(pose_t=pose_t, pose_q=pose_q, dpose=dpose, kp_z=kp_z, K=K,
@@ -408,10 +513,10 @@ def warp_tangents_cuda(pose_t: torch.Tensor, pose_q: torch.Tensor, dpose: torch.
     vs = torch.empty((N, S), **opts)
     dxy = torch.empty((2, D, N, S), **opts)
     if N * S:
-        LAUNCHES_WARP += _launch(
-            _entry("warp_tangents", dtype), pix.device, pose_t.data_ptr(), pose_q.data_ptr(),
-            dpose.data_ptr(), kp_z.data_ptr(), K.data_ptr(), pix.data_ptr(),
-            starts.data_ptr(), loc.data_ptr(), vs.data_ptr(), dxy.data_ptr(),
+        LAUNCHES_WARP_THREADS += _launch(
+            _entry("warp_tangents_threads", dtype), pix.device, pose_t.data_ptr(),
+            pose_q.data_ptr(), dpose.data_ptr(), kp_z.data_ptr(), K.data_ptr(),
+            pix.data_ptr(), starts.data_ptr(), loc.data_ptr(), vs.data_ptr(), dxy.data_ptr(),
             N, F, P, V, D, int(height), int(width))
     return loc, vs, dxy
 

@@ -13,7 +13,9 @@ The Jacobian is the chain rule written out. Forward mode through the
 retraction and the spline, in closed form (``core.spline``'s ``*_jvp``
 helpers), gives the [F, V, 7, 6K] pose Jacobian (:func:`pose_jacobians`);
 the warp carries it to the [N, S, 2, 6K] Jacobian of the reference-view
-sample positions (:func:`warp_tangents`, kernel K2's first entry); one
+sample positions (:func:`warp_tangents`, kernel K2's first entry, which
+on the card computes the poses and their tangents from the knots
+itself); one
 C = 3 call of the window sampler K1 gives each sample's value and
 Lucas-Kanade gradient; and J = mean_v(dI/dx * dx/d(delta) + dI/dy *
 dy/d(delta)), masked by the patch-pixel validity (:func:`blur_rows`, K2's
@@ -356,13 +358,15 @@ def prepare_frame_layout(
     return pix, valid_center, obs
 
 
-def warp_tangents_plain(
+def warp_tangents_threads_plain(
     pose_t: torch.Tensor, pose_q: torch.Tensor, dpose: torch.Tensor, kp_z: torch.Tensor,
     K: torch.Tensor, pix: torch.Tensor, starts: torch.Tensor, height: int, width: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of K2's first entry: every patch pixel (n, f, p) warped
-    by every virtual pose v into the keyframe, with its derivative along the
-    D knot tangents.
+    """The warp of K2's first entry, from given poses: every patch pixel
+    (n, f, p) warped by every virtual pose v into the keyframe, with its
+    derivative along the D knot tangents. The plain version of the earlier
+    design (``cuda_residual.warp_tangents_threads_cuda``, a sweep row) and
+    the last step of :func:`warp_tangents_plain`.
 
     pose_t [F, V, 3], pose_q [F, V, 4], dpose [D, F, V, 7] (seed-major pose
     tangents), kp_z [N], K [4], pix [F, N, P, 2], starts [N, 2] (the
@@ -387,15 +391,58 @@ def warp_tangents_plain(
     return loc, vs, dxy.permute(5, 0, 1, 2, 3, 4).reshape(2, D, N, S)
 
 
-def warp_tangents(pose_t, pose_q, dpose, kp_z, K, pix, starts, height, width):
+def warp_poses(
+    knots: SplineKnots, cap_times: torch.Tensor, exp_times: torch.Tensor, num_vir: int,
+    degree: int, tangents: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The virtual poses of each frame's exposure and, with ``tangents``,
+    their derivatives along the D = 6K seeds of the knot tangent, laid out
+    [3K translations; 3K rotations] (:func:`virtual_poses_and_tangents`;
+    D = 0 without, :func:`sample_virtual_poses`): (pose_t [F, V, 3],
+    pose_q [F, V, 4], dpose [D, F, V, 7]), contiguous, as the warp of K2's
+    first entry takes them."""
+    if tangents:
+        pt, pq, dpose = virtual_poses_and_tangents(knots, cap_times, exp_times, num_vir,
+                                                   degree)
+    else:
+        pt, pq = sample_virtual_poses(knots, cap_times, exp_times, num_vir, degree)
+        dpose = pt.new_empty((0,) + pt.shape[:2] + (7,))
+    return pt.contiguous(), pq.contiguous(), dpose.contiguous()
+
+
+def warp_tangents_plain(
+    knots: SplineKnots, cap_times: torch.Tensor, exp_times: torch.Tensor, num_vir: int,
+    degree: int, tangents: bool, kp_z: torch.Tensor, K: torch.Tensor, pix: torch.Tensor,
+    starts: torch.Tensor, height: int, width: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K2's first entry, from the spline knots to the warp
+    tangents: the stage the reference linearizes from the knot step to the
+    window-local positions (``spline_retract``, ``sample_virtual_poses``,
+    ``frontoparallel_warp``, ``in_bounds``), with its derivative at zero
+    retraction.
+
+    The poses (:func:`warp_poses`), then the warp
+    (:func:`warp_tangents_threads_plain`). Returns loc [N, S, 2], vs [N, S]
+    and dxy [2, D, N, S] with S = F P V in (f, p, v) order.
+    """
+    return warp_tangents_threads_plain(
+        *warp_poses(knots, cap_times, exp_times, num_vir, degree, tangents), kp_z, K, pix,
+        starts, height, width)
+
+
+def warp_tangents(knots, cap_times, exp_times, num_vir, degree, tangents, kp_z, K, pix,
+                  starts, height, width):
     """K2's first entry (:func:`warp_tangents_plain`): kernel on CUDA
     tensors, plain version on CPU tensors."""
     if pix.is_cuda:
+        opts = dict(dtype=knots.t.dtype, device=knots.t.device)
         return cuda_residual.warp_tangents_cuda(
-            pose_t.contiguous(), pose_q.contiguous(), dpose.contiguous(),
+            SplineKnots(*(torch.as_tensor(x, **opts).contiguous() for x in knots)),
+            cap_times.contiguous(), exp_times.contiguous(), num_vir, degree, tangents,
             kp_z.contiguous(), K.contiguous(), pix.contiguous(), starts.contiguous(),
             height, width)
-    return warp_tangents_plain(pose_t, pose_q, dpose, kp_z, K, pix, starts, height, width)
+    return warp_tangents_plain(knots, cap_times, exp_times, num_vir, degree, tangents,
+                               kp_z, K, pix, starts, height, width)
 
 
 def blur_rows_plain(
@@ -445,10 +492,10 @@ def compute_residuals_windowed(
     None recomputes either here. With ``affine`` the residual and the
     Jacobian both pass through the per-frame gain/bias elimination.
 
-    The pipeline: the virtual poses with their tangents, K2's
-    :func:`warp_tangents`, K1 (C = 3; C = 1 without the Jacobian), K2's
-    :func:`blur_rows`. Without the Jacobian the same path runs with no
-    tangent seeds.
+    The pipeline: K2's :func:`warp_tangents` from the knots (the virtual
+    poses, their tangents and the warp in one launch on the card), K1 (C =
+    3; C = 1 without the Jacobian), K2's :func:`blur_rows`. Without the
+    Jacobian the same path runs with no tangent seeds.
     """
     H, W = data.img_ref.shape
     if layout is None:
@@ -458,13 +505,8 @@ def compute_residuals_windowed(
         cache = prepare_window_cache(data, window)
     windows, starts = cache                               # [N,3,wh,ww], [N,2]
 
-    if with_jacobian:
-        pt, pq, dpose = virtual_poses_and_tangents(
-            knots, data.cap_times, data.exp_times, num_vir, degree)
-    else:
-        pt, pq = sample_virtual_poses(knots, data.cap_times, data.exp_times, num_vir, degree)
-        dpose = pt.new_empty((0,) + pt.shape[:2] + (7,))
-    loc, vs, dxy = warp_tangents(pt, pq, dpose, data.kp_z, data.K, pix, starts, H, W)
+    loc, vs, dxy = warp_tangents(knots, data.cap_times, data.exp_times, num_vir, degree,
+                                 with_jacobian, data.kp_z, data.K, pix, starts, H, W)
     if with_jacobian:
         val, gx, gy = sample_windows_lk(windows, loc, vs)   # [N, S] each
     else:

@@ -64,16 +64,40 @@ class StageTimer:
         return "\n".join(lines)
 
 
+# how long profile_trace keeps its window open before and after the body
+PAD_S = 0.05
+
+
+def _synchronize_all() -> None:
+    for dev in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(dev)
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
     """torch.profiler over the body (CPU, and CUDA where available); the
-    chrome trace goes to ``log_dir/trace.json``. Yields the profiler."""
+    chrome trace goes to ``log_dir/trace.json``. Yields the profiler.
+
+    The profiler keeps a device record only where it falls inside its
+    window on the host's clock. So with CUDA every device is synchronised
+    before the window opens (no earlier work in flight) and again inside it
+    after the body (the body's kernels end before it closes), and the
+    window stays open PAD_S seconds on each side of the body, so that an
+    offset between the device's clock and the host's does not push a short
+    body's kernels out of it."""
     from torch.profiler import ProfilerActivity, profile
 
+    cuda = torch.cuda.is_available()
     acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if cuda:
         acts.append(ProfilerActivity.CUDA)
+        _synchronize_all()
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=acts) as prof:
+        if cuda:
+            time.sleep(PAD_S)
         yield prof
+        if cuda:
+            _synchronize_all()
+            time.sleep(PAD_S)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -5,6 +5,7 @@ Run from the root of the repository:
     python3 profile_port.py [--frames 4] [--warmup 8] [--out FILE]
     python3 profile_port.py --joint [--chunk 4] [--out FILE]
     python3 profile_port.py --k3-designs [--frames 16]
+    python3 profile_port.py --warp-designs [--frames 16] [--chunk 4]
 
 Tracks chip_smoke.py's bench scenario (VGA, 512 keypoints, 3 levels, 5
 virtual poses, f32, bench.py's options, from rest): ``--warmup`` frames
@@ -29,9 +30,20 @@ bits, so two trackers given the same frames do the same work. It prints
 the host's time to issue one call of each at the frame's shape (blocks of
 100 calls without waiting, the designs alternating), then the wall ms per
 LM evaluation of each tracker over ``--frames`` frames, tracked by both in
-turn (the order alternating a frame), their paired difference, and each
-tracker's kernel launches per LM evaluation on one more frame under the
-profiler.
+turn (the order alternating a frame), their paired difference, the largest
+pose difference of the two, and each tracker's kernel launches per LM
+evaluation on one more frame under the profiler.
+
+``--warp-designs`` weighs K2's first entry the same way: the knots design
+(one launch from the spline knots to the warp tangents), which the tracker
+launches, against the old path (the pose Jacobian's torch chain,
+``virtual_poses_and_tangents``, then the earlier thread design). It prints the
+host's time to issue one call of each at the frame's shape, then two
+trackers on the same ``--frames`` frames (wall ms per LM evaluation, their
+paired difference, the largest pose difference) and each tracker's kernel
+launches per LM evaluation on one more frame under the profiler; then the
+same launches per evaluation for a joint chunk (``--chunk`` frames from a
+moving window) at degree 4 and at degree 2.
 """
 
 from __future__ import annotations
@@ -77,28 +89,40 @@ def _write_tables(avgs, path) -> None:
         f.write(avgs.table(sort_by="count", row_limit=40))
 
 
-def profile_joint(args) -> int:
-    """One joint chunk to warm up (the first solve initialises the dense
-    solver's library), one timed unprofiled, the next under the profiler."""
+def _joint_tracker(chunks: int, chunk: int, degree: int = DEG):
+    """An f32 tracker past its keyframe on a window that already moves
+    (chip_smoke.py's ``moving_window``), the scenario's first ``chunks`` x
+    ``chunk`` frames, and ``track(frames)``: one synchronised
+    ``track_frames_joint`` call."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from mba_vo_tpu_torch import interop
-    from mba_vo_tpu_torch.ops import cuda_sampling as cs
     from mba_vo_tpu_torch.tracker.blur_tracker import BlurAwareTracker
 
-    c = args.chunk
-    img, traj, frames = make_scenario("cuda", 3 * c)
+    img, traj, frames = make_scenario("cuda", chunks * chunk)
     h, w = img.shape
-    tracker = BlurAwareTracker(bench_config("float32"), KVEC, (h, w), device="cuda")
+    tracker = BlurAwareTracker(bench_config("float32", spline_degree=degree), KVEC, (h, w),
+                               device="cuda")
     tracker.track_frame(img, img, 0.0, EXPOSURE, np.full((h, w), DEPTH))
-    interop.install_tracker_state(tracker, moving_window(traj, frames, c, DEG))
+    interop.install_tracker_state(tracker, moving_window(traj, frames, chunk, degree))
 
     def track(part):
         tracker.track_frames_joint([b for _, b in part], [t for t, _ in part],
-                                   [EXPOSURE] * len(part), chunk=c, inflight=1)
+                                   [EXPOSURE] * len(part), chunk=chunk, inflight=1)
         torch.cuda.synchronize()
 
+    return frames, track
+
+
+def profile_joint(args) -> int:
+    """One joint chunk to warm up (the first solve initialises the dense
+    solver's library), one timed unprofiled, the next under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mba_vo_tpu_torch.ops import cuda_sampling as cs
+
+    c = args.chunk
+    frames, track = _joint_tracker(3, c)
     track(frames[:c])
     k0, t0 = cs.LAUNCHES, time.perf_counter()
     track(frames[c:2 * c])
@@ -139,33 +163,32 @@ def _k3_design(name: str):
         cr.normal_equations_cuda = launched
 
 
-def compare_k3(args) -> int:
-    """K3's cluster and split designs: host time a call, then the per-frame
-    path end to end on two trackers (the module docstring)."""
+def _weigh_designs(args, designs, switch, issue, what: str) -> None:
+    """Two designs of one kernel on the per-frame path, ``switch(d)``
+    sending the tracker's calls to design ``d`` inside its block: the
+    host's time to issue one ``issue()`` under each (blocks of 100 calls
+    without waiting, the designs alternating), then two trackers on the same
+    ``args.frames`` frames, tracked by both in turn (the order alternating a
+    frame): wall ms per LM evaluation, its paired difference and the
+    largest pose difference of the two; then each tracker's kernel launches
+    per LM evaluation on one more frame under the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from mba_vo_tpu_torch.ops import cuda_residual as cr
     from mba_vo_tpu_torch.ops import cuda_sampling as cs
     from mba_vo_tpu_torch.tracker.blur_tracker import BlurAwareTracker
 
-    designs = ("cluster", "split")
-    fns = {"cluster": cr.normal_equations_cuda, "split": cr.normal_equations_split_cuda}
-    # the frame's shape: F = 1, N = 512, P = 8, D = 12
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    r = 20 * torch.randn((1, 512, 8), device="cuda", generator=gen)
-    J = 30 * torch.randn((1, 512, 8, 12), device="cuda", generator=gen)
-    kp_w = torch.ones(512, device="cuda")
     host = {d: [] for d in designs}
     for i in range(40):
         for d in (designs if i % 2 == 0 else designs[::-1]):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(100):
-                fns[d](r, J, kp_w, 20.0, False)
-            host[d].append((time.perf_counter() - t0) / 100)
-            torch.cuda.synchronize()
-    print("host time to issue one K3 call at the frame's shape (median of 40 blocks of "
+            with switch(d):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(100):
+                    issue()
+                host[d].append((time.perf_counter() - t0) / 100)
+                torch.cuda.synchronize()
+    print(f"host time to issue one {what} call at the frame's shape (median of 40 blocks of "
           "100): " + "; ".join(f"{d} {1e6 * statistics.median(host[d][2:]):.2f} us"
                                for d in designs))
 
@@ -174,45 +197,125 @@ def compare_k3(args) -> int:
     trackers = {}
     for d in designs:
         trackers[d] = BlurAwareTracker(bench_config("float32"), KVEC, (h, w), device="cuda")
-        with _k3_design(d):
+        with switch(d):
             trackers[d].track_frame(img, img, 0.0, EXPOSURE, np.full((h, w), DEPTH))
     torch.cuda.synchronize()
 
     def track(d, cap, blur):
-        with _k3_design(d):
+        with switch(d):
             torch.cuda.synchronize()
             k0, t0 = cs.LAUNCHES, time.perf_counter()
             pose = trackers[d].track_frame(None, blur, cap, EXPOSURE)
             torch.cuda.synchronize()
             return time.perf_counter() - t0, cs.LAUNCHES - k0, pose
 
+    first, second = designs
     ms_eval = {d: [] for d in designs}
-    diffs, same = [], True
+    diffs, apart = [], 0.0
     for i, (cap, blur) in enumerate(frames[:-1]):
         got = {d: track(d, cap, blur) for d in (designs if i % 2 == 0 else designs[::-1])}
-        (tc, ec, pc), (ts, es, ps) = got["cluster"], got["split"]
-        same = same and ec == es and torch.equal(pc.t, ps.t) and torch.equal(pc.q, ps.q)
+        (ta, ea, pa), (tb, eb, pb) = got[first], got[second]
+        apart = max(apart, float((pa.t - pb.t).abs().max()), float((pa.q - pb.q).abs().max()))
         if i == 0:
             continue        # the first frame after the keyframe warms up
-        ms_eval["cluster"].append(1e3 * tc / ec)
-        ms_eval["split"].append(1e3 * ts / es)
-        diffs.append(1e6 * (ts - tc) / ec)
-    print(f"per-frame path, f32, {len(diffs)} frames, both trackers equal to the bit: {same}; "
-          "wall ms per LM evaluation (median over frames): " + "; ".join(
+        ms_eval[first].append(1e3 * ta / ea)
+        ms_eval[second].append(1e3 * tb / eb)
+        diffs.append(1e6 * (tb / eb - ta / ea))
+    print(f"per-frame path, f32, {len(diffs)} frames, largest pose difference of the two "
+          f"trackers {apart:.3e}; wall ms per LM evaluation (median over frames): " + "; ".join(
               f"{d} {statistics.median(ms_eval[d]):.3f}" for d in designs)
-          + f"; split less cluster, paired a frame: median {statistics.median(diffs):.1f} us "
-          f"per evaluation (frames: {[round(x, 1) for x in diffs]})")
+          + f"; {second} less {first}, paired a frame: median "
+          f"{statistics.median(diffs):.1f} us per evaluation (frames: "
+          f"{[round(x, 1) for x in diffs]})")
     cap, blur = frames[-1]
     for d in designs:
-        with _k3_design(d), profile(activities=[ProfilerActivity.CPU,
-                                                 ProfilerActivity.CUDA]) as prof:
+        with switch(d), profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
             k0 = cs.LAUNCHES
             trackers[d].track_frame(None, blur, cap, EXPOSURE)
             torch.cuda.synchronize()
         evals = cs.LAUNCHES - k0
         launch = _launches(prof.key_averages())
-        print(f"{d}: {launch} kernel launches over {evals} LM evaluations = "
+        print(f"frame, {d}: {launch} kernel launches over {evals} LM evaluations = "
               f"{launch / max(evals, 1):.1f} per evaluation")
+
+
+def compare_k3(args) -> int:
+    """K3's cluster and split designs (the module docstring)."""
+    import torch
+
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+
+    # the frame's shape: F = 1, N = 512, P = 8, D = 12
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    r = 20 * torch.randn((1, 512, 8), device="cuda", generator=gen)
+    J = 30 * torch.randn((1, 512, 8, 12), device="cuda", generator=gen)
+    kp_w = torch.ones(512, device="cuda")
+    _weigh_designs(args, ("cluster", "split"), _k3_design,
+                   lambda: cr.normal_equations_cuda(r, J, kp_w, 20.0, False), "K3")
+    return 0
+
+
+@contextlib.contextmanager
+def _warp_design(name: str):
+    """The tracker's warp_tangents calls go to the ``name`` design ("knots"
+    or "old path") inside the block."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import residual
+
+    launched = residual.warp_tangents
+    if name == "old path":
+        residual.warp_tangents = rk.earlier_fn("warp_tangents")
+    try:
+        yield
+    finally:
+        residual.warp_tangents = launched
+
+
+def _joint_launches(design: str, degree: int, chunk: int) -> tuple:
+    """(kernel launches, LM evaluations) of one joint chunk at ``degree``
+    under ``design``, after a chunk to warm up, from a moving window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mba_vo_tpu_torch.ops import cuda_sampling as cs
+
+    frames, track = _joint_tracker(2, chunk, degree)
+    with _warp_design(design):
+        track(frames[:chunk])
+        k0 = cs.LAUNCHES
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            track(frames[chunk:])
+    return _launches(prof.key_averages()), cs.LAUNCHES - k0
+
+
+def compare_warp(args) -> int:
+    """K2's first entry, the knots design against the old path, at the frame
+    and at a joint chunk (the module docstring)."""
+    import torch
+
+    from mba_vo_tpu_torch.core.spline import make_knots
+    from mba_vo_tpu_torch.ops import residual
+
+    designs = ("knots", "old path")
+    # the frame's shape: 2 knots at degree 2, F = 1, V = 5, N = 512, P = 8
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    opts = dict(device="cuda", dtype=torch.float32)
+    q = torch.tensor([[0.0, 0.0, 0.0, 1.0], [0.001, -0.002, 0.001, 1.0]], **opts)
+    knots = make_knots(0.01 * torch.randn((2, 3), generator=gen, **opts),
+                       q / q.norm(dim=1, keepdim=True), 0.05, 0.1)
+    kp = torch.rand((512, 2), generator=gen, **opts) * torch.tensor([639.0, 479.0], **opts)
+    pix = (kp.floor()[None, :, None, :]
+           + torch.randint(-2, 3, (1, 512, 8, 2), generator=gen, device="cuda").float())
+    call = (knots, torch.full((1,), 0.1, **opts), torch.full((1,), 0.03, **opts), 5, 2, True,
+            torch.full((512,), 2.0, **opts), torch.tensor(KVEC, **opts), pix.contiguous(),
+            (kp.floor() - 16).clamp(min=0).long(), 480, 640)
+    _weigh_designs(args, designs, _warp_design, lambda: residual.warp_tangents(*call),
+                   "warp_tangents")
+    for degree in (4, 2):
+        for d in designs:
+            launch, evals = _joint_launches(d, degree, args.chunk)
+            print(f"joint chunk of {args.chunk}, degree {degree}, {d}: {launch} kernel launches "
+                  f"over {evals} LM evaluations = {launch / max(evals, 1):.1f} per evaluation")
     return 0
 
 
@@ -232,6 +335,8 @@ def main() -> int:
     ap.add_argument("--chunk", type=int, default=4, help="frames per joint chunk")
     ap.add_argument("--k3-designs", action="store_true",
                     help="weigh K3's cluster and split designs on the per-frame path")
+    ap.add_argument("--warp-designs", action="store_true",
+                    help="weigh K2's first entry from the knots against the old path")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -244,6 +349,8 @@ def main() -> int:
         return profile_joint(args)
     if args.k3_designs:
         return compare_k3(args)
+    if args.warp_designs:
+        return compare_warp(args)
     n = args.warmup + args.frames
     img, _traj, frames = make_scenario("cuda", n)
     h, w = img.shape

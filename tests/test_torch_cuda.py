@@ -2,9 +2,12 @@
 tracker launches, and the band design) and K1-v
 (csrc/window_bilinear_tiled.cu: the ring design and the staged first
 design) against the plain PyTorch version, on the card; K2
-(csrc/residual_rows.cu) and K3 (csrc/normal_equations.cu) against theirs,
-and the new designs of blur_rows and K3 against their earlier designs, bit
-for bit, on edge shapes. Every test here carries the ``cuda`` marker and skips where no
+(csrc/residual_rows.cu: warp_tangents from the knots and its earlier
+thread design, blur_rows) and K3 (csrc/normal_equations.cu) against
+theirs, warp_tangents against the old path (the torch chain of the pose
+Jacobian, then the thread design) on the tracker's shapes, and the new
+designs of blur_rows and K3 against their earlier designs, bit for bit, on
+edge shapes. Every test here carries the ``cuda`` marker and skips where no
 CUDA device is visible.
 
 The module imports only torch and numpy, so it also runs where JAX is not
@@ -501,9 +504,9 @@ K2_SHAPES = [(1, 5, 12), (4, 5, 42), (8, 5, 66)]
 
 
 def _k2_problem(F, V, D, dtype, N=512, P=8, H=480, W=640, seed=0):
-    """Inputs of warp_tangents as the tracker gives them: poses near the
-    identity, pixels around the keypoints (some off the image, one NaN),
-    window corners, random pose tangents."""
+    """Inputs of warp_tangents' thread design as the tracker gives them:
+    poses near the identity, pixels around the keypoints (some off the
+    image, one NaN), window corners, random pose tangents."""
     rng = np.random.default_rng(seed)
     q = np.concatenate([rng.normal(0, 0.01, (F, V, 3)), np.ones((F, V, 1))], -1)
     q /= np.linalg.norm(q, axis=-1, keepdims=True)
@@ -520,19 +523,20 @@ def _k2_problem(F, V, D, dtype, N=512, P=8, H=480, W=640, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("F,V,D", K2_SHAPES)
 def test_k2_matches_plain(cuda, dtype, F, V, D):
-    """warp_tangents and blur_rows (masked and affine) against their plain
-    versions, within experiments/residual_kernels.py's tolerances; each
-    wrapper counts one launch a call."""
+    """warp_tangents' thread design (the sweep row, from given poses) and
+    blur_rows (masked and affine) against their plain versions, within
+    experiments/residual_kernels.py's tolerances; each wrapper counts one
+    launch a call."""
     from mba_vo_tpu_torch.experiments import residual_kernels as rk
     from mba_vo_tpu_torch.ops import cuda_residual as cr
     from mba_vo_tpu_torch.ops import residual as tres
 
     args = _k2_problem(F, V, D, dtype)
-    before = cr.LAUNCHES_WARP
-    rk.hold(rk.ResidualCall("warp_tangents", args, None))
+    before = cr.LAUNCHES_WARP_THREADS
+    rk.hold(rk.ResidualCall("warp_tangents_threads", args, None))
     torch.cuda.synchronize()
-    assert cr.LAUNCHES_WARP == before + 1
-    loc, vs, dxy = tres.warp_tangents_plain(*args)
+    assert cr.LAUNCHES_WARP_THREADS == before + 1
+    loc, vs, dxy = tres.warp_tangents_threads_plain(*args)
     assert 0 < vs.mean().item() < 1 and torch.isnan(loc).any()
 
     rng = np.random.default_rng(1)
@@ -592,21 +596,21 @@ def test_k2_k3_wrappers_check_their_inputs(cuda):
     from mba_vo_tpu_torch.ops import cuda_residual as cr
 
     args = list(_k2_problem(1, 5, 12, torch.float32, N=16))
+    warp = cr.warp_tangents_threads_cuda
     with pytest.raises(ValueError, match="pose_q is torch.float64"):
-        cr.warp_tangents_cuda(*args[:1], args[1].double(), *args[2:])
+        warp(*args[:1], args[1].double(), *args[2:])
     with pytest.raises(ValueError, match="not CUDA"):
-        cr.warp_tangents_cuda(args[0].cpu(), *args[1:])
+        warp(args[0].cpu(), *args[1:])
     with pytest.raises(ValueError, match="pix must be"):
-        cr.warp_tangents_cuda(*args[:5], args[5][:, :8].contiguous(), *args[6:])
+        warp(*args[:5], args[5][:, :8].contiguous(), *args[6:])
     with pytest.raises(ValueError, match="starts is torch.int32"):
-        cr.warp_tangents_cuda(*args[:6], args[6].int(), *args[7:])
+        warp(*args[:6], args[6].int(), *args[7:])
     with pytest.raises(ValueError, match="unsupported dtype"):
-        cr.warp_tangents_cuda(*(a.half() if torch.is_tensor(a) and a.is_floating_point()
-                                else a for a in args))
+        warp(*(a.half() if torch.is_tensor(a) and a.is_floating_point() else a for a in args))
     big = torch.zeros((cr.MAX_TANGENTS + 1, 1, 5, 7), device="cuda")
     with pytest.raises(ValueError, match="MAX_TANGENTS"):
-        cr.warp_tangents_cuda(*args[:2], big, *args[3:])
-    loc, vs, dxy = cr.warp_tangents_cuda(*args)
+        warp(*args[:2], big, *args[3:])
+    loc, vs, dxy = warp(*args)
     samples = torch.zeros((16, 3, 40), device="cuda")
     obs = torch.zeros((1, 16, 8), device="cuda")
     valid = torch.ones((1, 16, 8), dtype=torch.bool, device="cuda")
@@ -680,7 +684,10 @@ def test_tracker_runs_through_k2_and_k3(cuda):
             assert k1 > 0 and warp == blur == k1 and normal >= k1
             assert len(poses) == 4 and all(torch.isfinite(p.t).all() for p in poses)
             for kernel in rk.KERNELS:
-                assert calls[kernel] and all(c.args[0].is_cuda for c in calls[kernel])
+                # warp_tangents' first argument is the knots
+                assert calls[kernel] and all(
+                    (c.args[0].t if kernel == "warp_tangents" else c.args[0]).is_cuda
+                    for c in calls[kernel])
                 for call in calls[kernel]:
                     rk.hold(call)
                     assert rk.hold_earlier(call) == (kernel in rk.EARLIER)
@@ -838,16 +845,21 @@ def test_k2_k3_calls_recorded_into_a_graph_count_no_launch(cuda):
            (cr.normal_equations_cuda, joint))
     refs = [fn(*args) for fn, args in fns]
     torch.cuda.synchronize()
-    before = (cr.launch_counts(), cr.LAUNCHES_BLUR_THREADS, cr.LAUNCHES_NORMAL_SPLIT)
+
+    def counts():
+        return (cr.launch_counts(), cr.LAUNCHES_WARP_THREADS, cr.LAUNCHES_BLUR_THREADS,
+                cr.LAUNCHES_NORMAL_SPLIT)
+
+    before = counts()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         outs = [fn(*args) for fn, args in fns]
-    assert (cr.launch_counts(), cr.LAUNCHES_BLUR_THREADS, cr.LAUNCHES_NORMAL_SPLIT) == before
+    assert counts() == before
     graph.replay()
     torch.cuda.synchronize()
     for out, ref in zip(outs, refs):
         assert rk.same_bits(out, ref)
-    assert (cr.launch_counts(), cr.LAUNCHES_BLUR_THREADS, cr.LAUNCHES_NORMAL_SPLIT) == before
+    assert counts() == before
 
 
 def test_k3_calls_on_two_streams_share_the_ticket_in_turn(cuda):
@@ -870,3 +882,223 @@ def test_k3_calls_on_two_streams_share_the_ticket_in_turn(cuda):
             outs.append(cr.normal_equations_cuda(*args))
     torch.cuda.synchronize()
     assert all(rk.same_bits(out, ref) for out in outs)
+
+
+# --------------------------------------------- K2's first entry from the knots
+
+# (knots, degree, frames, virtual poses, float type): the frame's 2 knots at
+# degree 2, a joint chunk of 4 (7 knots) and of 8 (11 knots, 6K = 66) at
+# degree 4, the last in float64 (the largest tangent table of the bench's
+# chunks); V = 1 and a clamped capture time past the spline's end
+KNOTS_SHAPES = [(2, 2, 1, 5, torch.float32), (2, 2, 1, 5, torch.float64),
+                (7, 4, 4, 5, torch.float32), (7, 4, 4, 5, torch.float64),
+                (11, 4, 8, 5, torch.float32), (11, 4, 8, 5, torch.float64),
+                (3, 2, 2, 1, torch.float32), (21, 4, 2, 9, torch.float64)]
+
+
+def _knots_problem(K, degree, F, V, dtype, N=512, P=8, H=480, W=640, seed=0,
+                   standing=False, clamped=False):
+    """The entry's arguments as the tracker gives them, on the card: a
+    moving knot window (identity knots with ``standing``), capture times
+    inside its span (past its end with ``clamped``), pixels around the
+    keypoints (some off the image), window corners."""
+    from mba_vo_tpu_torch.core.spline import make_knots
+
+    rng = np.random.default_rng(seed)
+    t = np.cumsum(rng.normal(0, 0.05, (K, 3)), axis=0)
+    q = np.concatenate([rng.normal(0, 0.02, (K, 3)), np.ones((K, 1))], axis=1)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    if standing:
+        t, q = np.zeros((K, 3)), np.tile([0.0, 0.0, 0.0, 1.0], (K, 1))
+    t0, dt = 0.05, 0.1
+    caps = t0 + dt * (degree - 1) / 2 + np.sort(rng.uniform(0, dt * (K - degree + 0.5), F))
+    if clamped:
+        caps[-1] = t0 + dt * (K + 0.5)
+    kp = rng.uniform([-3, -3], [W + 3, H + 3], (N, 2))
+    if standing:
+        kp = np.floor(kp)
+        kp[:4] = [[0, 10], [W - 1, 20], [30, 0], [40, H - 1]]
+    pix = np.floor(kp)[None, :, None, :] + rng.integers(-2, 3, (F, N, P, 2))
+    t_ = lambda a: torch.tensor(a, dtype=dtype, device="cuda")   # noqa: E731
+    knots = make_knots(t_(t), t_(q), t0, dt)
+    knots = knots._replace(t0=knots.t0.cuda(), dt=knots.dt.cuda())
+    return (knots, t_(caps), t_(np.full(F, 0.03)), V, degree, True,
+            t_(rng.uniform(1.5, 2.5, N)), t_([480.0, 480.0, (W - 1) / 2, (H - 1) / 2]),
+            t_(pix), torch.tensor(np.clip(np.floor(kp) - 16, 0, [W - 32, H - 32]).astype(
+                np.int64), device="cuda"), H, W)
+
+
+@pytest.mark.parametrize("K,degree,F,V,dtype", KNOTS_SHAPES)
+def test_knots_entry_matches_plain(cuda, K, degree, F, V, dtype):
+    """warp_tangents from the knots against its plain version (the torch
+    chain, then the warp) and against the old path (the chain, then the
+    thread design), with the tangents and without (D = 0), within
+    experiments/residual_kernels.py's tolerances and vs equal entry for
+    entry; one launch a call."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+
+    for tangents in (True, False):
+        args = list(_knots_problem(K, degree, F, V, dtype, clamped=(V == 1)))
+        args[5] = tangents
+        call = rk.ResidualCall("warp_tangents", tuple(args), None)
+        before = cr.LAUNCHES_WARP
+        rk.hold(call)
+        assert rk.hold_earlier(call)
+        torch.cuda.synchronize()
+        assert cr.LAUNCHES_WARP == before + 2
+        loc, vs, dxy = cr.warp_tangents_cuda(*args)
+        assert dxy.shape == (2, 6 * K if tangents else 0) + tuple(vs.shape)
+        assert 0 < vs.mean().item() < 1
+        lay = cr.warp_tangents_layout(8, V, 6 * K if tangents else 0, loc.element_size())
+        assert lay.smem_bytes <= cr.MAX_SHARED_BYTES
+
+
+def test_knots_entry_from_a_standing_start(cuda):
+    """Identity knots, integer keypoints on the image's border: the
+    positions equal the plain version's to the bit and so does every vs
+    flag, in float32 and float64."""
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+    from mba_vo_tpu_torch.ops import residual as tres
+
+    for dtype in (torch.float32, torch.float64):
+        args = _knots_problem(2, 2, 1, 5, dtype, standing=True)
+        loc, vs, dxy = cr.warp_tangents_cuda(*args)
+        rl, rv, rd = tres.warp_tangents_plain(*args)
+        assert torch.equal(loc, rl) and torch.equal(vs, rv)
+        assert float((dxy - rd).abs().max()) <= 1e-6 * float(rd.abs().max())
+
+
+def test_knots_entry_nan_poses(cuda):
+    """A NaN knot makes NaN poses where its taps reach: the NaNs fall on the
+    plain version's entries exactly, positions and tangents, and their
+    samples are out of the image (vs 0)."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+
+    for dtype in (torch.float32, torch.float64):
+        args = _knots_problem(7, 4, 4, 5, dtype)
+        knots = args[0]
+        q = knots.q.clone()
+        q[6, 1] = float("nan")
+        args = (knots._replace(q=q),) + args[1:]
+        call = rk.ResidualCall("warp_tangents", args, None)
+        rk.hold(call)
+        loc, vs, dxy = rk.kernel_fn("warp_tangents")(*args)
+        nan = torch.isnan(loc).any(-1)
+        assert nan.any() and not nan.all()
+        assert (vs[nan] == 0).all()
+        assert torch.isnan(dxy).any()
+
+
+def test_knots_entry_checks_its_inputs(cuda):
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+
+    args = list(_knots_problem(2, 2, 1, 5, torch.float32, N=16))
+    knots = args[0]
+    with pytest.raises(ValueError, match="knot_q is torch.float64"):
+        cr.warp_tangents_cuda(knots._replace(q=knots.q.double()), *args[1:])
+    with pytest.raises(ValueError, match="not CUDA"):
+        cr.warp_tangents_cuda(knots._replace(t0=knots.t0.cpu()), *args[1:])
+    with pytest.raises(ValueError, match="exp_times must be"):
+        cr.warp_tangents_cuda(knots, args[1], args[2][:0], *args[3:])
+    with pytest.raises(ValueError, match="pix must be"):
+        cr.warp_tangents_cuda(*args[:8], args[8][:, :8].contiguous(), *args[9:])
+    with pytest.raises(ValueError, match="contiguous"):
+        cr.warp_tangents_cuda(*args[:8], args[8].repeat(1, 1, 1, 2)[..., ::2], *args[9:])
+    with pytest.raises(ValueError, match="starts is torch.int32"):
+        cr.warp_tangents_cuda(*args[:9], args[9].int(), *args[10:])
+    with pytest.raises(ValueError, match="spline degree 3"):
+        cr.warp_tangents_cuda(*args[:4], 3, *args[5:])
+    with pytest.raises(ValueError, match="spline degree 4 over 2 knots"):
+        cr.warp_tangents_cuda(*args[:4], 4, *args[5:])
+    wide = knots._replace(t=torch.zeros((22, 3), device="cuda"),
+                          q=torch.zeros((22, 4), device="cuda"))
+    with pytest.raises(ValueError, match="MAX_TANGENTS"):
+        cr.warp_tangents_cuda(wide, *args[1:])
+    with pytest.raises(ValueError, match="samples a keypoint"):
+        cr.warp_tangents_cuda(*args[:3], 64, *args[4:])
+    loc, vs, dxy = cr.warp_tangents_cuda(*args)
+    assert dxy.shape == (2, 12, 16, 40)
+
+
+def test_knots_entry_recorded_into_a_graph(cuda):
+    """warp_tangents recorded into a CUDA graph counts no launch (nor does
+    the sweep row), and the replay gives the eager call's bits, with and
+    without the tangents; the knots are read on the device, so a new knot
+    state copied into the graph's tensors moves the replay's result to the
+    eager call's at that state."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+
+    args = _knots_problem(7, 4, 4, 5, torch.float32)
+    no_tangents = args[:5] + (False,) + args[6:]
+    threads = rk.chain_args(rk.ResidualCall("warp_tangents", args, None))
+    refs = [cr.warp_tangents_cuda(*args), cr.warp_tangents_cuda(*no_tangents),
+            cr.warp_tangents_threads_cuda(*threads)]
+    torch.cuda.synchronize()
+    before = (cr.launch_counts(), cr.LAUNCHES_WARP_THREADS)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [cr.warp_tangents_cuda(*args), cr.warp_tangents_cuda(*no_tangents),
+                cr.warp_tangents_threads_cuda(*threads)]
+    assert (cr.launch_counts(), cr.LAUNCHES_WARP_THREADS) == before
+    graph.replay()
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        assert rk.same_bits(out, ref)
+    knots = args[0]
+    knots.t.add_(0.01)
+    graph.replay()
+    moved = cr.warp_tangents_cuda(*args)
+    torch.cuda.synchronize()
+    assert rk.same_bits(outs[0], moved) and not rk.same_bits(moved, refs[0])
+    assert (cr.launch_counts()["warp_tangents"], cr.LAUNCHES_WARP_THREADS) == (
+        before[0]["warp_tangents"] + 1, before[1])
+
+
+def test_knots_entry_equals_the_old_path_on_the_trackers_calls(cuda):
+    """On a tracker's own calls (track_frame at degree 2 in float32, a joint
+    chunk at degree 4 in float64), the new entry against the plain version
+    and against the old path, every call; compute_residuals_windowed runs
+    neither virtual_poses_and_tangents nor sample_virtual_poses itself (the
+    patch layout, given here, is where sample_virtual_poses stays)."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import residual as tres
+
+    for dtype, degree in ((torch.float32, 2), (torch.float64, 4)):
+        args = _knots_problem(2 if degree == 2 else 7, degree, 1 if degree == 2 else 4, 5,
+                              dtype)
+        for tangents in (True, False):
+            call = rk.ResidualCall("warp_tangents", args[:5] + (tangents,) + args[6:], None)
+            rk.hold(call)
+            rk.hold_earlier(call)
+    # the windowed path, its layout given: no pose chain of its own
+    from mba_vo_tpu_torch.core.spline import make_knots
+
+    rng = np.random.default_rng(4)
+    h, w, n = 96, 128, 64
+    cuda_t = lambda a, dt=torch.float64: torch.tensor(a, dtype=dt, device="cuda")  # noqa
+    data = tres.TrackingLevelData(
+        img_ref=cuda_t(rng.uniform(0, 255, (h, w))), grad_ref=cuda_t(rng.normal(0, 5, (h, w, 2))),
+        cur_imgs=cuda_t(rng.uniform(0, 255, (1, h, w))), cap_times=cuda_t([0.1]),
+        exp_times=cuda_t([0.03]), kp_xy=cuda_t(rng.uniform(8, [w - 8, h - 8], (n, 2))),
+        kp_z=cuda_t(np.full(n, 2.0)), kp_mask=cuda_t(np.ones(n)),
+        pattern=torch.tensor(rng.integers(-2, 3, (8, 2)), device="cuda"),
+        K=cuda_t([90.0, 90.0, (w - 1) / 2, (h - 1) / 2]))
+    knots = make_knots(cuda_t(rng.normal(0, 0.01, (2, 3))),
+                       cuda_t([[0.0, 0, 0, 1], [0.001, 0, 0, 1]]), 0.05, 0.1)
+    knots = knots._replace(t0=knots.t0.cuda(), dt=knots.dt.cuda())
+    layout = tres.prepare_frame_layout(knots, data, 5, 2)
+    chains = []
+    saved = {k: getattr(tres, k) for k in ("virtual_poses_and_tangents",
+                                             "sample_virtual_poses")}
+    try:
+        for k, fn in saved.items():
+            setattr(tres, k, lambda *a, _k=k, _fn=fn, **kw: chains.append(_k) or _fn(*a, **kw))
+        for jac in (True, False):
+            tres.compute_residuals_windowed(knots, data, 5, 2, jac, layout=layout)
+    finally:
+        for k, fn in saved.items():
+            setattr(tres, k, fn)
+    torch.cuda.synchronize()
+    assert chains == []

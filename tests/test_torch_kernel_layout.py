@@ -1,7 +1,8 @@
-"""The launch geometry of K3's cluster design and of blur_rows' keypoint
-design (ops/cuda_residual.py), which is plain Python so that it is tested
-here, without a card: K3's chunk and part row ranges cover every row once,
-in order, and are the chunks of the reference's compensated sum
+"""The launch geometry of K3's cluster design, of blur_rows' keypoint
+design and of warp_tangents' knots design (ops/cuda_residual.py), which is
+plain Python so that it is tested here, without a card: K3's chunk and
+part row ranges cover every row once, in order, and are the chunks of the
+reference's compensated sum
 (ops/residual.py::_kahan_chunked_normal_eq); each design's shared memory
 fits a block's 227 KB at every tangent count the kernels were built for.
 The kernels check the bytes they are given against their own layout; the
@@ -186,3 +187,39 @@ def test_blur_rows_layout_at_the_bench_shapes():
 def test_blur_rows_layout_refuses_what_does_not_fit():
     with pytest.raises(ValueError, match="shared memory"):
         cr.blur_rows_layout(8, 64, 64, cr.MAX_TANGENTS, 8)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("P", [8, 9, 25])
+@pytest.mark.parametrize("V", [1, 3, 5, 9])
+def test_warp_tangents_layout_fits(V, P, itemsize):
+    """At every D up to MAX_TANGENTS (0 included: the cost-only calls) the
+    knots design's tables fit a block's 227 KB, a block's samples are whole
+    keypoints' P V runs no more than a CTA's threads, and the thread groups
+    take every thread a sample can have."""
+    for D in range(cr.MAX_TANGENTS + 1):
+        lay = cr.warp_tangents_layout(P, V, D, itemsize)
+        assert lay.smem_bytes <= cr.MAX_SHARED_BYTES, (D, lay)
+        assert lay.smem_bytes == (8 * V * D + 12 * V + 28 * cr.WARP_JOBS * V) * itemsize
+        assert lay.samples == lay.keypoints * P * V <= cr.WARP_THREADS
+        assert lay.keypoints == max(1, cr.WARP_SAMPLES // (P * V))
+        assert lay.groups == cr.WARP_THREADS // lay.samples >= 1
+        # the tangent table starts the shared memory, in 16-byte words
+        assert (8 * itemsize) % 16 == 0
+
+
+def test_warp_tangents_layout_at_the_bench_shapes():
+    """The frame and a joint chunk (P = 8, V = 5): blocks of 6 keypoints,
+    240 samples, one thread group; the widest table (D = 128, float64)
+    past the 48 KB a block gets without asking (the kernel asks for 227)."""
+    for D in (12, 42, 66):
+        lay = cr.warp_tangents_layout(8, 5, D, 4)
+        assert (lay.keypoints, lay.samples, lay.groups) == (6, 240, 1)
+    assert cr.warp_tangents_layout(8, 5, cr.MAX_TANGENTS, 8).smem_bytes == 56000 > 48 * 1024
+
+
+def test_warp_tangents_layout_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="samples a keypoint"):
+        cr.warp_tangents_layout(64, 5, 12, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        cr.warp_tangents_layout(1, 40, cr.MAX_TANGENTS, 8)

@@ -1,5 +1,8 @@
 """The plain versions of kernels K2 and K3, composed as the windowed path
-runs them (``warp_tangents_plain`` -> the sampler K1's plain version through
+runs them (the pose Jacobian's chain ``virtual_poses_and_tangents`` ->
+``warp_tangents_threads_plain``, which ``warp_tangents_plain`` composes
+from the knots (tests/test_torch_warp_entry.py) -> the sampler K1's plain
+version through
 ``sample_windows_lk`` -> ``blur_rows_plain`` (-> ``affine_correct_jvp``) ->
 ``normal_equations_plain``), against the JAX package's
 ``compute_residuals_windowed`` + ``assemble`` on the CPU.
@@ -68,7 +71,8 @@ def composed_plain(kt, dt, degree, window, affine, live_kp, compensated):
     windows, starts = tres.prepare_window_cache(dt, window)
     pt, pq, dpose = tres.virtual_poses_and_tangents(kt, dt.cap_times, dt.exp_times,
                                                     NUM_VIR, degree)
-    loc, vs, dxy = tres.warp_tangents_plain(pt, pq, dpose, dt.kp_z, dt.K, pix, starts, H, W)
+    loc, vs, dxy = tres.warp_tangents_threads_plain(pt, pq, dpose, dt.kp_z, dt.K, pix, starts,
+                                                    H, W)
     val, gx, gy = sample_windows_lk(windows, loc, vs)
     rows, drows = tres.blur_rows_plain(val, gx, gy, dxy, obs, valid, NUM_VIR, affine)
     r, J = tres.affine_correct_jvp(rows, obs, valid, drows) if affine else (rows, drows)
