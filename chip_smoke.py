@@ -11,23 +11,30 @@ Phases (any failed check raises and the exit code is non-zero):
      (csrc/window_bilinear_tiled.cu: the ring design and the staged first
      design), K2 (csrc/residual_rows.cu: warp_tangents from the spline
      knots and its earlier thread design, blur_rows in the keypoint design
-     and the earlier thread design) and K3
+     and the earlier thread design), K3
      (csrc/normal_equations.cu: the cluster design and the earlier split
-     design) with nvcc for sm_90a, all four sources at once, and print each
-     kernel's registers, shared memory and spills;
+     design), K5 (csrc/frame_layout.cu: the patch layout) and K4
+     (csrc/image_bilinear.cu: the direct path's whole-image sampler) with
+     nvcc for sm_90a, all six sources at once, and print each kernel's
+     registers, shared memory and spills;
   2b. the card tests: tests/test_torch_cuda.py under pytest (-m cuda,
      without the JAX test configuration), every kernel against its plain
-     version and blur_rows and K3 against their earlier designs bit for bit
-     on edge shapes; any failure fails the run;
+     version (K4 and K5 bit for bit, the direct path on the kernels against
+     its plain chain) and blur_rows and K3 against their earlier designs bit
+     for bit on edge shapes; any failure fails the run;
   3. record the sampler's inputs as the tracker gives them on the bench
      scenario (16 frames of track_frame from rest, one chunk of
      track_frames_joint from a moving window, f32), and K2's and K3's
      inputs on the same 16 frames and on one joint chunk at degree 4 (6K =
-     42), held against their plain versions on every recorded call
-     (experiments/residual_kernels.py), warp_tangents also against the old
-     path (the torch chain of the pose Jacobian, then the thread design) to
-     the same tolerances with vs equal, and blur_rows and K3 against their
-     earlier designs bit for bit; then both designs of K1
+     42), and K4's and K5's (and K2's and K3's) on 4 frames of track_frame
+     with sampling="direct", held against their plain versions on every
+     recorded call (experiments/residual_kernels.py; the layout K5 on every
+     path and K4 bit for bit), warp_tangents also against the old path (the
+     torch chain of the pose Jacobian, then the thread design) to the same
+     tolerances with vs equal, blur_rows and K3 against their earlier
+     designs bit for bit, and the direct path on the kernels against its
+     plain chain at every recorded layout call's knots (r and J within K2's
+     tolerances, valid equal); then both designs of K1
      and of K1-v, K1-v at every (tile, threads) the sweep harness runs,
      against the plain PyTorch version: f32 and f64, C = 1 and 3, S = 1,
      40, 160 and 320, windows 32x32, 20x32, 20x30, 21x31 and 6x9, the
@@ -36,11 +43,14 @@ Phases (any failed check raises and the exit code is non-zero):
      whether K1's two designs agree bit for bit;
   4. the tracker in f64 on CUDA against the same tracker on the CPU, on the
      bench scenario (VGA, 512 keypoints, 3 levels, 5 virtual poses), with
-     every K2 and K3 call of the CUDA run held against the plain version;
+     every K2, K3 and K5 call of the CUDA run held against the plain
+     version, then 4 frames of the direct path in f64 recorded and held as
+     phase 3 holds the f32 ones;
   5. the per-frame main path: the tracker in f32 on CUDA under bench.py's
      options, from rest, over a longer run of the same scenario: frames/s,
-     K1's, K2's and K3's launch counts in that run, the kernel launches a
-     frame and an LM evaluation (torch.profiler) and the ATE against the
+     K1's to K5's launch counts in that run, the kernel launches a frame and
+     an LM evaluation (torch.profiler; with K5 and with the plain layout in
+     its place) and the ATE against the
      generating spline; the f32-vs-f64 drift rule of tests/test_precision.py with that
      test's options, measured on the bench scenario and checked on the
      test's own scenario through track_frames, as the test runs it;
@@ -50,7 +60,10 @@ Phases (any failed check raises and the exit code is non-zero):
      run against the per-frame run; (c) track_frames_joint at degree 4 and 2
      in f64 on CUDA against the CPU, then timed in f32 with its launches per
      chunk; (d) sampling="direct" and affine_brightness in f64 on CUDA
-     against the CPU;
+     against the CPU (1e-8, ATE under 2e-3 m), with K1's to K5's launches;
+     (e) sampling="direct" in f32 at full width from rest, as 5a: frames/s
+     and kernel launches an LM evaluation on the kernels, eager (its plain
+     chain and the plain layout on the card) and beside 5a's;
   7. the sampler sweep (mba_vo_tpu_torch.experiments.kernel_variants), the
      path that runs K1-v: every variant timed beside K1, K1's band design,
      K1-v's staged design, the plain version and torch's grid_sample at
@@ -58,12 +71,15 @@ Phases (any failed check raises and the exit code is non-zero):
      kernel, K1-v's best and worst variant, plain and grid_sample on phase
      3's recorded inputs ("tracker S=40", "tracker S=160") with the
      histogram of their tap rows; and the floor row (N = 1, S = 1, C = 3);
-     then K2's two entries and K3 (its calls with J) on phase 3's recorded
-     calls, warm and cold in a replayed graph and as a call from Python,
-     beside the earlier designs (for warp_tangents the old path whole and
-     the thread design alone on the chain's outputs), the plain versions,
-     the bound (its share of each design's time, and the ratio of that time
-     to one launch's floor) and, for K3, cuBLAS's Jw.T @ Jw;
+     then K2's two entries, K3 (its calls with J) and K5 on phase 3's
+     recorded calls of the windowed paths and K4 (its C = 3 calls) on the
+     direct path's, warm and cold in a replayed graph and as a call from
+     Python, beside the earlier designs (for warp_tangents the old path
+     whole and the thread design alone on the chain's outputs), the plain
+     versions, the bound (its share of each design's time, and the ratio of
+     that time to one launch's floor) and, for K3, cuBLAS's Jw.T @ Jw, for
+     K4 grid_sample of the stacked planes and K1 at N = 1 on the whole
+     image;
   8. the command line and the keyframe backend: (a) float64 on CUDA against
      the CPU at full width: detect_sparse + match_descriptors on a VGA frame
      of the bench scenario with BackendConfig's default detector (differing
@@ -121,8 +137,9 @@ Phases (any failed check raises and the exit code is non-zero):
      thread, with the decoders in two threads and in two processes (the
      command line's read-ahead, `cli.READ_AHEAD`): frames/s of each, the
      TUM file equal to the filter-0 run's;
-K2's and K3's launches are counted, as K1's, on each path (5a, 6a, 6c,
-8b-8d, 9b-9d, 10a per rank; a call of K3 launches one kernel); then one JSON line of kernel results,
+K2's to K5's launches are counted, as K1's, on each path (5a, 6a, 6c-6e,
+8b-8d, 9b-9d, 10a per rank; a call of K3 launches one kernel); then one
+JSON line of kernel results (K1 to K5),
 the card line again, and the final status line {"ok": true, "device":
 {...}}.
 """
@@ -192,14 +209,24 @@ def note_residual_launches(path: str) -> dict:
     return got
 
 
+def skipped(got: dict, direct: bool = False) -> list:
+    """The residual stage's kernels that a path's launch counts ``got`` show
+    it never launched though it should have: every path's (K2's two
+    entries, K3 and the layout K5) and, on the direct path, K4."""
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+
+    want = cr.EVERY_PATH + (("image_bilinear_lk",) if direct else ())
+    return [k for k in want if got.get(k, 0) == 0]
+
+
 def sharded_residual_launches(path: str, per_rank: list) -> dict:
-    """K2's and K3's launches of a path's ranks, each rank's read as
+    """K2's, K3's and K5's launches of a path's ranks, each rank's read as
     :func:`note_residual_launches` reads them: kept under ``path`` summed
     over the ranks, returned by kernel per rank; fails where a rank never
     launched one."""
     got = {k: [r[k] for r in per_rank] for k in per_rank[0]}
-    check(all(n > 0 for ns in got.values() for n in ns),
-          f"{path}: a rank never launched K2 or K3: {got}")
+    check(not any(skipped(r) for r in per_rank),
+          f"{path}: a rank never launched K2, K3 or K5: {got}")
     RESIDUAL_LAUNCHES[path] = {k: sum(ns) for k, ns in got.items()}
     return got
 
@@ -331,8 +358,10 @@ def record_tracker_calls(img, traj, frames):
     S = 40 calls left out). And K2's and K3's inputs, by kernel: "tracker
     S=40", the same 16 frames; "joint degree 4", one chunk of
     track_frames_joint(chunk=4) at degree 4 (6K = 42) from a moving window,
-    its calls over the chunk's 4 frames. Returns (sampler calls, K2/K3
-    calls)."""
+    its calls over the chunk's 4 frames; "direct f32", 4 frames of
+    track_frame with sampling="direct" (K4's and K5's calls, and K2's and
+    K3's there). The layout K5 is recorded on every path, K4 on the direct
+    one. Returns (sampler calls, K2-K5 calls)."""
     from mba_vo_tpu_torch.experiments import kernel_variants as kv
     from mba_vo_tpu_torch.experiments import residual_kernels as rk
 
@@ -346,43 +375,124 @@ def record_tracker_calls(img, traj, frames):
         run_batch(bench_config("float32", spline_degree=4), "cuda", img, frames[:JCHUNK],
                   method="track_frames_joint", chunk=JCHUNK, inflight=3,
                   window=moving_window(traj, frames, JCHUNK, 4))
+    with rk.record_residual_calls() as direct_rows:
+        run_tracker(bench_config("float32", sampling="direct"), "cuda", img,
+                    frames[:CPU_FRAMES])
     s_joint = JCHUNK * S_MAIN
     sampler = {"tracker S=40": [c for c in per_frame if c.S == S_MAIN],
                f"tracker S={s_joint}": [c for c in joint if c.S == s_joint]}
-    residual = {"tracker S=40": rows,
+    residual = {"tracker S=40": windowed(rows),
                 "joint degree 4": {k: [c for c in calls if c.frames == JCHUNK]
-                                   for k, calls in joint_rows.items()}}
+                                   for k, calls in windowed(joint_rows).items()},
+                "direct f32": direct_rows}
     return sampler, residual
+
+
+def windowed(calls: dict) -> dict:
+    """A windowed path's recorded residual-stage calls without K4's, of
+    which there must be none (K4 is the direct path's sampler)."""
+    check(not calls.pop("image_bilinear_lk"), "a windowed path called K4")
+    return calls
+
+
+@contextlib.contextmanager
+def plain_stages(names):
+    """The tracker's calls of each dispatcher of ops.residual in ``names``
+    go to its plain version (on the card's tensors) inside the block."""
+    from mba_vo_tpu_torch.ops import residual
+
+    saved = {k: getattr(residual, k) for k in names}
+    for k in names:
+        setattr(residual, k, getattr(residual, f"{k}_plain"))
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(residual, k, fn)
+
+
+@contextlib.contextmanager
+def counting_evaluations():
+    """Count the LM evaluations made inside the block: calls of either
+    path's residual function, which compute_rjv looks up in ops.residual;
+    yields a one-element list holding the count."""
+    from mba_vo_tpu_torch.ops import residual
+
+    names = ("compute_residuals_windowed", "compute_residuals")
+    saved = {k: getattr(residual, k) for k in names}
+    count = [0]
+
+    def counting(fn):
+        def call(*args, **kw):
+            count[0] += 1
+            return fn(*args, **kw)
+        return call
+
+    for k in names:
+        setattr(residual, k, counting(saved[k]))
+    try:
+        yield count
+    finally:
+        for k, fn in saved.items():
+            setattr(residual, k, fn)
+
+
+def launches_an_evaluation(cfg, img, frames, plain=()) -> tuple:
+    """(kernel launches, LM evaluations) of tracking ``frames`` from rest
+    with ``cfg`` under torch.profiler (run_tracker: the keyframe included),
+    the dispatchers named in ``plain`` sent to their plain versions."""
+    with plain_stages(plain), counting_evaluations() as evals:
+        total = kernel_launches(lambda: run_tracker(cfg, "cuda", img, frames))
+    return total, evals[0]
 
 
 def hold_residual_calls(recorded: dict) -> dict:
     """K2's two entries and K3 against their plain versions on every
     recorded call, warp_tangents against the old path to the same
     tolerances (vs equal), and blur_rows and K3 against their earlier
-    designs bit for bit (a difference raises); prints each kernel's largest
-    differences and returns them by kernel as (absolute, relative to the
-    output's magnitude)."""
+    designs bit for bit, K4 and K5 against their plain versions bit for bit
+    (a difference raises), and, on a direct path's recording, the direct
+    path on the kernels against its plain chain at every recorded layout
+    call's knots (rk.hold_direct: r and J within K2's tolerances, valid
+    equal); prints each kernel's largest differences and returns them by
+    kernel (and "direct path") as (absolute, relative to the output's
+    magnitude)."""
     from mba_vo_tpu_torch.experiments import residual_kernels as rk
 
     worst = {}
+
+    def keep(name, err):
+        a, r = worst.get(name, (0.0, 0.0))
+        worst[name] = (max(a, err[0]), max(r, err[1]))
+
     for label, by_kernel in recorded.items():
         for kernel, calls in by_kernel.items():
             check(len(calls) > 0, f"{label}: no {kernel} call was recorded")
             errs = [rk.hold(c) for c in calls]
             equal = sum(rk.hold_earlier(c) for c in calls)
             err = (max(e[0] for e in errs), max(e[1] for e in errs))
-            a, r = worst.get(kernel, (0.0, 0.0))
-            worst[kernel] = (max(a, err[0]), max(r, err[1]))
+            keep(kernel, err)
+            bits = kernel in rk.BIT_EQUAL_PLAIN
             print(f"  {label}: {kernel}, {len(calls)} recorded calls ("
                   f"{str(calls[0].dtype).split('.')[-1]}, 6K = "
                   f"{sorted({c.tangents for c in calls})}, levels "
-                  f"{sorted({c.level for c in calls}, key=str)}): max |kernel - plain| "
-                  f"{err[0]:.3e}, {err[1]:.3e} of the output's magnitude (bound "
-                  f"{rk.TOLERANCE[kernel, calls[0].dtype]:.0e})"
+                  f"{sorted({c.level for c in calls}, key=str)}): "
+                  + ("equal to the plain version bit for bit on every call" if bits else
+                     f"max |kernel - plain| {err[0]:.3e}, {err[1]:.3e} of the output's "
+                     f"magnitude (bound {rk.TOLERANCE[kernel, calls[0].dtype]:.0e})")
                   + (f"; equal to the earlier design bit for bit on all {equal}"
                      if kernel in rk.BIT_EQUAL else
                      f"; the old path (torch chain, then the thread design) held to the "
                      f"same bound, vs equal, on all {equal}" if kernel in rk.EARLIER else ""))
+        if by_kernel.get("image_bilinear_lk"):
+            layouts = by_kernel["prepare_frame_layout"]
+            errs = [rk.hold_direct(*c.args) for c in layouts]
+            keep("direct path", (0.0, max(max(e) for e in errs)))
+            print(f"  {label}: the direct path on the kernels against its plain chain at "
+                  f"each of the {len(layouts)} layout calls' knots: r within "
+                  f"{max(e[0] for e in errs):.3e}, J within {max(e[1] for e in errs):.3e} of "
+                  f"the magnitude (bound {rk.TOLERANCE['blur_rows', layouts[0].dtype]:.0e}), "
+                  f"valid equal")
     return worst
 
 
@@ -869,8 +979,8 @@ def phase_loop_benchmark(cs, launches, root):
         path = f"loop benchmark {label} (8c)"
         launches[path] = r["k1_launches"]
         RESIDUAL_LAUNCHES[path] = r["k2_k3_launches"]
-        check(all(n > 0 for n in r["k2_k3_launches"].values()),
-              f"{path} never launched K2 or K3: {r['k2_k3_launches']}")
+        check(not skipped(r["k2_k3_launches"]),
+              f"{path} never launched K2, K3 or K5: {r['k2_k3_launches']}")
     for name, r in summary["runs"].items():
         jr = ref["runs"][name] if ref else {}
         print(f"[8c] loop benchmark ({summary['num_frames']} frames, {summary['image']}, "
@@ -1484,7 +1594,7 @@ def _sharded_rank(rank, world, store, inputs_path, out_dir):
         # (rk.hold raises past the tolerance): the calls and the largest
         # relative difference by kernel
         out["k23 held"] = {k: (len(c), max((rk.hold(x)[1] for x in c), default=0.0))
-                           for k, c in k23_calls.items()}
+                           for k, c in windowed(k23_calls).items()}
         # K1 at this rank's shapes (its keypoint shard) against the plain
         # version, on every call the path made; after the count
         out["k1 shapes"] = sorted({tuple(c.windows.shape) + (c.local_xy.shape[1],)
@@ -1594,9 +1704,9 @@ def phase_sharded(root, cs, launches, img, frames, refs, fps_single, card):
                   f"K1 ran at other than the shard's keypoints: {r0['k1 shapes']}")
             held = {k: (sum(r["k23 held"][k][0] for r in ranks),
                         max(r["k23 held"][k][1] for r in ranks)) for k in r0["k23 held"]}
-            print("[10a] K2 and K3 on every call of the sharded track_frame path, every rank, "
-                  "against the plain versions (f64; bounds 1e-12 rows, 1e-10 sums, of each "
-                  "output's magnitude): " + ", ".join(
+            print("[10a] K2, K3 and K5 on every call of the sharded track_frame path, every "
+                  "rank, against the plain versions (f64; bounds 1e-12 rows, 1e-10 sums, of "
+                  "each output's magnitude; K5 bit for bit): " + ", ".join(
                       f"{k} {n} calls, max {e:.3e}" for k, (n, e) in held.items()))
             check(all(n > 0 for n, _ in held.values()), f"a rank recorded no K2/K3 call: {held}")
         print(f"[10a] {name}, f64, shard_devices={SHARDS} ({SHARDS} gloo ranks on cuda:0), "
@@ -1726,7 +1836,7 @@ def main() -> int:
     # ---- 2. build
     t0 = time.perf_counter()
     libs = cuda_build.build()
-    print(f"[2] built K1, K1-v, K2 and K3 in {time.perf_counter() - t0:.2f} s -> "
+    print(f"[2] built K1, K1-v, K2, K3, K4 and K5 in {time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(str(p) for p in libs.values())}")
     for name, log in cuda_build.BUILD_LOG.items():
         # ptxas -v: one block of lines per kernel instantiation (IfE float,
@@ -1734,7 +1844,7 @@ def main() -> int:
         kernel = "?"
         for ln in log.splitlines():
             m = re.search(r"((?:window_bilinear(?:_[a-z]+)?|warp_tangents(?:_threads)?|"
-                          r"blur_rows(?:_keypoint)?)"
+                          r"blur_rows(?:_keypoint)?|frame_layout|image_bilinear)"
                           r"_kernel|normal_equations_(?:partials|combine|cluster))I([fd])"
                           r"(?:Li(\d)E)?", ln)
             if "Compiling entry function" in ln and m:
@@ -1807,17 +1917,23 @@ def main() -> int:
               f"{label} (max {d:.3e})" for label, d in differ) if differ else "no case differs")
           + f"; K1 held in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    print("    K2 (warp_tangents, blur_rows) and K3 (normal_equations) against the plain "
-          "version on every recorded call")
+    print("    K2 (warp_tangents, blur_rows), K3 (normal_equations), K5 (prepare_frame_layout) "
+          "and K4 (image_bilinear_lk) against the plain version on every recorded call, and "
+          "the direct path on the kernels against its plain chain")
     residual_err = hold_residual_calls(residual_calls)
-    print(f"    phase 3's K2 and K3 in {time.perf_counter() - t0:.1f} s")
+    print(f"    phase 3's K2-K5 in {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. slice, f64: CUDA against CPU
     launches0 = cs.LAUNCHES
     with rk.record_residual_calls() as rows64:
         p64, s64, _ = run_tracker(bench_config("float64"), "cuda", img, frames)
     check(cs.LAUNCHES > launches0, "the f64 CUDA run did not launch K1")
-    residual_err64 = hold_residual_calls({"f64 track_frame": rows64})
+    residual_err64 = hold_residual_calls({"f64 track_frame": windowed(rows64)})
+    with rk.record_residual_calls() as direct64:
+        run_tracker(bench_config("float64", sampling="direct"), "cuda", img, frames[:CPU_FRAMES])
+    for kernel, err in hold_residual_calls({"f64 direct track_frame": direct64}).items():
+        a, r = residual_err64.get(kernel, (0.0, 0.0))
+        residual_err64[kernel] = (max(a, err[0]), max(r, err[1]))
     pcpu, scpu, _ = run_tracker(bench_config("float64"), "cpu", img, frames[:CPU_FRAMES])
     diff = float(np.abs(p64[:CPU_FRAMES] - pcpu).max())
     print(f"[4] f64 CUDA {LONG_FRAMES} frames in {sum(s64):.2f} s; f64 CPU "
@@ -1843,16 +1959,19 @@ def main() -> int:
           f"per level (coarse to fine) of the first 4 frames {it32[:4]}")
     check(p32.shape == (LONG_FRAMES, 7) and np.isfinite(p32).all(), "bad f32 poses")
     check(cs.LAUNCHES > 0, "the per-frame main path never launched K1")
-    check(all(n > 0 for n in k23.values()), f"the per-frame main path skipped K2 or K3: {k23}")
+    check(not skipped(k23), f"the per-frame main path skipped K2, K3 or K5: {k23}")
     print(f"    K2 and K3 launches on that path: " + ", ".join(
         f"{k} {n} ({n / LONG_FRAMES:.1f} per frame)" for k, n in k23.items()))
-    k1_before = cs.LAUNCHES
-    total = kernel_launches(lambda: run_tracker(bench_config("float32"), "cuda", img,
-                                                frames[:CPU_FRAMES]))
-    evals = cs.LAUNCHES - k1_before
+    total, evals = launches_an_evaluation(bench_config("float32"), img, frames[:CPU_FRAMES])
+    per_eval = {"windowed": total / max(evals, 1)}
+    total_p, evals_p = launches_an_evaluation(bench_config("float32"), img, frames[:CPU_FRAMES],
+                                              plain=("prepare_frame_layout",))
+    per_eval["windowed, plain layout"] = total_p / max(evals_p, 1)
     print(f"    kernel launches of {CPU_FRAMES} frames of track_frame, keyframe included "
           f"(torch.profiler): {total} = {total / CPU_FRAMES:.0f} a frame over {evals} LM "
-          f"evaluations = {total / max(evals, 1):.0f} an evaluation ({card})")
+          f"evaluations = {per_eval['windowed']:.1f} an evaluation; with the plain layout in "
+          f"place of K5: {total_p} over {evals_p} = "
+          f"{per_eval['windowed, plain layout']:.1f} an evaluation ({card})")
 
     # 5b. the drift rule of tests/test_precision.py with that test's options,
     # on the bench scenario from rest. Measured and printed, not a check:
@@ -1912,7 +2031,7 @@ def main() -> int:
     d32 = float(np.abs(a32 - p32).max())
     check(d32 <= 1e-6, f"f32 track_frames and track_frame poses differ by {d32}")
     check(cs.LAUNCHES > 0, "track_frames never launched K1")
-    check(all(n > 0 for n in k23.values()), f"track_frames skipped K2 or K3: {k23}")
+    check(not skipped(k23), f"track_frames skipped K2, K3 or K5: {k23}")
 
     # 6b. a keyframe switch and a rejected frame inside one track_frames run
     # (TrackerConfig's own keyframe thresholds fire mid-chunk; frame 6 is
@@ -1988,7 +2107,7 @@ def main() -> int:
           f"timed run: " + ", ".join(f"{k} {n}" for k, n in k23.items()))
     check(j32.shape == (LONG_FRAMES, 7) and np.isfinite(j32).all(), "bad joint f32 poses")
     check(jl > 0, "track_frames_joint never launched K1")
-    check(all(n > 0 for n in k23.values()), f"track_frames_joint skipped K2 or K3: {k23}")
+    check(not skipped(k23), f"track_frames_joint skipped K2, K3 or K5: {k23}")
 
     # 6d. sampling="direct" and affine_brightness (frames under a gain that
     # drifts by 2 % and a bias that drifts by 1 grey level a frame), four
@@ -1999,14 +2118,52 @@ def main() -> int:
             ("sampling=direct", bench_config("float64", sampling="direct"), frames[:CPU_FRAMES]),
             ("affine_brightness", bench_config("float64", affine_brightness=True), gained)):
         t0 = time.perf_counter()
+        zero_counts(cs)
         dc, _, _ = run_batch(cfg_d, "cuda", img, fr, chunk=4)
+        path = f"track_frames {label}, f64 (6d)"
+        launches[path] = cs.LAUNCHES
+        k25 = note_residual_launches(path)
         dh, _, _ = run_batch(cfg_d, "cpu", img, fr, chunk=4)
         diff = float(np.abs(dc - dh).max())
+        direct = label == "sampling=direct"
         print(f"[6d] {label}, f64, {len(fr)} frames: max |pose CUDA - pose CPU| = {diff:.3e} "
-              f"(bound 1e-8), ATE {ate(dc, traj, fr):.4e} m; {time.perf_counter() - t0:.1f} s")
+              f"(bound 1e-8), ATE {ate(dc, traj, fr):.4e} m; {time.perf_counter() - t0:.1f} s; "
+              f"launches of the CUDA run: K1 {cs.LAUNCHES}, " + ", ".join(
+                  f"{k} {n}" for k, n in k25.items()))
         check(np.isfinite(dc).all(), f"{label}: non-finite poses")
         check(diff <= 1e-8, f"{label}: f64 CUDA and CPU poses differ by {diff}")
         check(ate(dc, traj, fr) < 2e-3, f"{label}: ATE {ate(dc, traj, fr)} m")
+        check(not skipped(k25, direct), f"{label}: a kernel of the path was not launched: {k25}")
+        check((cs.LAUNCHES == 0) == direct, f"{label}: K1 launches {cs.LAUNCHES}")
+
+    # 6e. sampling="direct" in f32 at full width, from rest, as 5a tracks it
+    t0 = time.perf_counter()
+    cfg_direct = bench_config("float32", sampling="direct")
+    zero_counts(cs)
+    pd32, sd32, itd32 = run_tracker(cfg_direct, "cuda", img, frames)
+    path = "track_frame sampling=direct, f32 (6e)"
+    launches[path] = cs.LAUNCHES
+    k25 = note_residual_launches(path)
+    total, evals = launches_an_evaluation(cfg_direct, img, frames[:CPU_FRAMES])
+    per_eval["direct"] = total / max(evals, 1)
+    total_e, evals_e = launches_an_evaluation(
+        cfg_direct, img, frames[:CPU_FRAMES], plain=("compute_residuals", "prepare_frame_layout"))
+    per_eval["direct, eager"] = total_e / max(evals_e, 1)
+    print(f"[6e] sampling=direct, f32 CUDA, bench options, from rest: {LONG_FRAMES} frames in "
+          f"{sum(sd32):.3f} s = {LONG_FRAMES / sum(sd32):.3f} frames/s (5a's windowed path "
+          f"{fps:.3f}; median {1e3 * statistics.median(sd32):.2f} ms/frame; {card}); ATE "
+          f"{ate(pd32, traj, frames):.4e} m (5a {ate32:.4e} m); LM iterations per level of the "
+          f"first 4 frames {itd32[:4]}; launches: K1 {cs.LAUNCHES}, " + ", ".join(
+              f"{k} {n}" for k, n in k25.items()))
+    print(f"    kernel launches an LM evaluation ({CPU_FRAMES} frames, keyframe included, "
+          f"torch.profiler): direct on the kernels {per_eval['direct']:.1f} ({total} over "
+          f"{evals}); direct eager (its plain chain and the plain layout on the card) "
+          f"{per_eval['direct, eager']:.1f} ({total_e} over {evals_e}); windowed (5a) "
+          f"{per_eval['windowed']:.1f}, with the plain layout "
+          f"{per_eval['windowed, plain layout']:.1f}; {time.perf_counter() - t0:.1f} s")
+    check(pd32.shape == (LONG_FRAMES, 7) and np.isfinite(pd32).all(), "bad direct f32 poses")
+    check(not skipped(k25, direct=True) and cs.LAUNCHES == 0,
+          f"the direct path skipped a kernel or launched K1: K1 {cs.LAUNCHES}, {k25}")
 
     # ---- 7. the sampler sweep: the path that runs K1-v
     print("[7] sampler sweep (mba_vo_tpu_torch.experiments.kernel_variants)")
@@ -2107,14 +2264,16 @@ def main() -> int:
                     floor_ms=d["floor_ms"], floor_warm_ms=d["floor_warm_ms"],
                     by_shape=d["by_shape"], **more)
 
-    # K2 and K3 on phase 3's recorded calls (K3's calls with J)
+    # K2, K3 and K5 on phase 3's recorded calls of the windowed paths (K3's
+    # calls with J), K4 on the direct path's
     t0 = time.perf_counter()
     residual_rows = {}
     for label, by_kernel in residual_calls.items():
         for kernel, calls in by_kernel.items():
-            residual_rows[label, kernel] = rk.time_rows(label, rk.full_calls(calls),
-                                                        out=indent)
-    print(f"    K2 and K3 timed in {time.perf_counter() - t0:.1f} s ({card})")
+            if (label == "direct f32") == (kernel == "image_bilinear_lk"):
+                residual_rows[label, kernel] = rk.time_rows(label, rk.full_calls(calls),
+                                                            out=indent)
+    print(f"    K2-K5 timed in {time.perf_counter() - t0:.1f} s ({card})")
     k1_floor = design("K1")
     # warp_tangents' rows: the knots design, the old path whole (the torch
     # chain, then the earlier thread design), that design alone, plain
@@ -2146,7 +2305,8 @@ def main() -> int:
           f"{2e3 * joint_w['bound_ms']:.2f} ("
           f"{'met' if joint_w['device_ms'] <= 2 * joint_w['bound_ms'] else 'not met'}); {card}")
 
-    def residual_entry(kernel, source, replaces, earlier=None):
+    def residual_entry(kernel, source, replaces, earlier=None, name=None,
+                       label="tracker S=40", joint=True, **extra):
         def times(label, which=0):
             rows_of = residual_rows[label, kernel]
             k, p = rows_of[which], rows_of[-1]
@@ -2171,11 +2331,17 @@ def main() -> int:
             more["old_path"] = dict(
                 design="the torch chain of the pose Jacobian, then the thread design",
                 **times("tracker S=40", 1), joint_degree_4=times("joint degree 4", 1))
-        return dict(name=kernel, route="cuda", source=source, replaces=replaces,
+        if joint:
+            more["joint_degree_4"] = times("joint degree 4")
+        if kernel in rk.BIT_EQUAL_PLAIN:
+            more["bit_equal_to_plain"] = True
+        k1_n1 = {k: v for k, v in residual_rows[label, kernel][0].items() if k.startswith("k1_n1")}
+        return dict(name=name or kernel, route="cuda", source=source, replaces=replaces,
                     launches=sum(by_path.values()), max_abs_err=residual_err[kernel][0],
                     max_rel_err=residual_err[kernel][1],
-                    max_rel_err_f64=residual_err64[kernel][1], **times("tracker S=40"),
-                    launches_by_path=by_path, joint_degree_4=times("joint degree 4"), **more)
+                    max_rel_err_f64=residual_err64[kernel][1], **times(label),
+                    launches_by_path={p: n for p, n in by_path.items() if n}, **k1_n1, **more,
+                    **extra)
 
     # ---- 8. the command line and the keyframe backend
     t8 = time.perf_counter()
@@ -2239,6 +2405,13 @@ def main() -> int:
                        earlier=dict(name="normal_equations_split",
                                     design="two launches: partials, then their combination",
                                     source="mba_vo_tpu_torch/csrc/normal_equations.cu")),
+        residual_entry("prepare_frame_layout", "mba_vo_tpu_torch/csrc/frame_layout.cu",
+                       "mba_vo_tpu/ops/residual.py:348", name="frame_layout"),
+        residual_entry("image_bilinear_lk", "mba_vo_tpu_torch/csrc/image_bilinear.cu",
+                       "mba_vo_tpu/ops/residual.py:273", name="image_bilinear",
+                       label="direct f32", joint=False, direct_path_max_rel_err=dict(
+                           f32=residual_err["direct path"][1],
+                           f64=residual_err64["direct path"][1])),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -78,9 +78,10 @@
 //     them. A multiply-add contracted into one rounding moves a position by
 //     an ulp, and where the integer patch pixels of a standing start warp
 //     onto the image's border that flips the in-image flag. The knots
-//     design's poses take the plain version's operations too, with the sum
-//     over a pose's knots in the order of the einsum on the card (measured
-//     equal positions in f32; f64 within 1e-15 of the position);
+//     design's poses take the plain version's operations too
+//     (spline_pose.cuh, which K5 shares), with the sum over a pose's knots
+//     in the order of the einsum on the card (measured equal positions in
+//     f32; f64 within 1e-15 of the position);
 //   * the knots design's tangents are held to the plain version within a
 //     tolerance (1e-6 f32, 1e-12 f64 of the largest entry), not to the bit:
 //     their arithmetic is regrouped into the 7 coefficients and fused
@@ -98,6 +99,7 @@
 #include <stdint.h>
 
 #include "bulk_copy.cuh"
+#include "spline_pose.cuh"
 
 #ifndef MAX_TANGENTS
 #error "MAX_TANGENTS (the largest number of knot tangents a launch may take) must be defined by the build"
@@ -105,19 +107,11 @@
 
 namespace {
 
+using namespace spline;
+
 constexpr int kMaxTangents = MAX_TANGENTS;
 // threads a block of warp_tangents' thread design
 constexpr int kWarpThreads = 128;
-
-template <typename T>
-struct V3 {
-  T x, y, z;
-};
-
-template <typename T>
-__device__ __forceinline__ V3<T> cross(V3<T> a, V3<T> b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kWarpThreads)
@@ -458,98 +452,6 @@ __host__ __device__ inline long long knots_smem_bytes(int V, int D, int sz) {
   return (8LL * V * D + 7LL * V + 5LL * V + 4LL * kJobs * V + 24LL * kJobs * V) * sz;
 }
 
-template <typename T>
-struct Quat {
-  T x, y, z, w;
-};
-
-// core/lie.py::quat_multiply: each component qw p + three products, summed
-// left to right
-template <typename T>
-__device__ __forceinline__ Quat<T> qmul(Quat<T> q, Quat<T> p) {
-  return {((q.w * p.x + q.x * p.w) + q.y * p.z) + (-q.z) * p.y,
-          ((q.w * p.y + q.y * p.w) + q.z * p.x) + (-q.x) * p.z,
-          ((q.w * p.z + q.z * p.w) + q.x * p.y) + (-q.y) * p.x,
-          ((q.w * p.w + (-q.x) * p.x) + (-q.y) * p.y) + (-q.z) * p.z};
-}
-
-template <typename T>
-__device__ __forceinline__ Quat<T> qconj(Quat<T> q) {
-  return {-q.x, -q.y, -q.z, q.w};
-}
-
-template <typename T>
-__device__ __forceinline__ Quat<T> qadd(Quat<T> a, Quat<T> b) {
-  return {a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w};
-}
-
-// core/lie.py::quat_log_jvp: the primal's branch per element (Taylor form
-// below the squared-norm threshold `thr`, the w near-zero guard)
-template <typename T>
-__device__ __forceinline__ void quat_log_jvp(Quat<T> q, Quat<T> dq, T thr, V3<T>& out,
-                                             V3<T>& dout) {
-  const T sq = (q.x * q.x + q.y * q.y) + q.z * q.z;
-  const T dsq = T(2) * ((q.x * dq.x + q.y * dq.y) + q.z * dq.z);
-  const bool small = sq < thr;
-  const T n = sqrt(small ? T(1) : sq);
-  const T dn = (small ? T(0) : dsq) / (T(2) * n);
-  const T at = atan2(n, q.w);
-  const T lam_big = T(2) * at / n;
-  const T dat = (q.w * dn - n * dq.w) / (n * n + q.w * q.w);
-  const T dlam_big = T(2) * (dat * n - at * dn) / (n * n);
-  const bool near0 = fabs(q.w) < T(1e-6);
-  const T sgn = q.w > T(0) ? T(1) : (q.w < T(0) ? T(-1) : T(0));
-  const T w_safe = near0 ? sgn + (q.w == T(0) ? T(1) : T(0)) : q.w;
-  const T dw_safe = near0 ? T(0) : dq.w;
-  const T w3 = (w_safe * w_safe) * w_safe;
-  // 2 / w as torch takes a scalar over a tensor: the reciprocal, times 2
-  const T lam_small = (T(1) / w_safe) * T(2) - (T(2.0 / 3.0) * sq) / w3;
-  const T dlam_small = (T(-2) * dw_safe) / (w_safe * w_safe) -
-                       (T(2.0 / 3.0) * (dsq * w3 - ((sq * T(3)) * w_safe) * w_safe * dw_safe)) /
-                           (w3 * w3);
-  const T lam = small ? lam_small : lam_big;
-  const T dlam = small ? dlam_small : dlam_big;
-  out = {lam * q.x, lam * q.y, lam * q.z};
-  dout = {dlam * q.x + lam * dq.x, dlam * q.y + lam * dq.y, dlam * q.z + lam * dq.z};
-}
-
-// core/lie.py::quat_exp_jvp, in the primal's branch per element
-template <typename T>
-__device__ __forceinline__ void quat_exp_jvp(V3<T> o, V3<T> d, T thr, Quat<T>& out,
-                                             Quat<T>& dout) {
-  const T ts = (o.x * o.x + o.y * o.y) + o.z * o.z;
-  const T dts = T(2) * ((o.x * d.x + o.y * d.y) + o.z * d.z);
-  const bool small = ts < thr;
-  const T th = sqrt(small ? T(1) : ts);
-  const T dth = (small ? T(0) : dts) / (T(2) * th);
-  const T sn = sin(T(0.5) * th), cs = cos(T(0.5) * th);
-  const T tp4 = ts * ts;
-  const T imag = small ? (T(0.5) - ts / T(48)) + tp4 / T(3840) : sn / th;
-  const T real = small ? (T(1) - ts / T(8)) + tp4 / T(384) : cs;
-  const T dimag = small ? (-dts) / T(48) + ((T(2) * ts) * dts) / T(3840)
-                        : ((T(0.5) * cs) * th - sn) / (th * th) * dth;
-  const T dreal = small ? (-dts) / T(8) + ((T(2) * ts) * dts) / T(384) : (T(-0.5) * sn) * dth;
-  out = {imag * o.x, imag * o.y, imag * o.z, real};
-  dout = {dimag * o.x + imag * d.x, dimag * o.y + imag * d.y, dimag * o.z + imag * d.z, dreal};
-}
-
-// w[0] x[0] + w[1] x[1] + ... as the plain version's einsum sums on the
-// card (cuBLAS's batched product): in float32 a fused multiply-add a term
-// onto the first product, in float64 each product rounded and added in
-// order (measured: the warped positions then equal the plain version's)
-template <typename T, int n>
-__device__ __forceinline__ T tap_sum(const T* w, const T* x) {
-  T acc = w[0] * x[0];
-#pragma unroll
-  for (int j = 1; j < n; ++j) {
-    if constexpr (sizeof(T) == 4)
-      acc = fma(w[j], x[j], acc);
-    else
-      acc = acc + w[j] * x[j];
-  }
-  return acc;
-}
-
 // eight values of shared memory, 16-byte aligned, in 16-byte words
 __device__ __forceinline__ void load8(const float* p, float* e) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -565,33 +467,6 @@ __device__ __forceinline__ void load8(const double* p, double* e) {
     e[2 * i] = a.x;
     e[2 * i + 1] = a.y;
   }
-}
-
-// The segment of the spline at time tau (core/spline.py's
-// spline_segment_start_and_u, its clamp to [0, K - degree] included) and its
-// position and cumulative rotation bases (_vec_basis, _rot_cum_basis).
-template <typename T, int degree>
-__device__ __forceinline__ int spline_segment(T tau, T t0, T dt, int K, T* wv, T* wc) {
-  const T tn = (tau - t0) / dt;
-  T idxf = floor(tn);
-  if (idxf < T(0)) idxf = T(0);
-  if (idxf > T(K - degree)) idxf = T(K - degree);
-  const T u = tn - idxf;
-  if constexpr (degree == 2) {
-    wv[0] = T(1) - u;
-    wv[1] = u;
-    wc[0] = u;
-  } else {
-    const T uu = u * u, uuu = uu * u, os = T(1.0 / 6.0);
-    wv[0] = ((os - T(0.5) * u) + T(0.5) * uu) - os * uuu;
-    wv[1] = (T(4.0 * (1.0 / 6.0)) - uu) + T(0.5) * uuu;
-    wv[2] = ((os + T(0.5) * u) + T(0.5) * uu) - T(0.5) * uuu;
-    wv[3] = os * uuu;
-    wc[0] = ((T(5.0 * (1.0 / 6.0)) + T(0.5) * u) - T(0.5) * uu) + os * uuu;
-    wc[1] = ((os + T(0.5) * u) + T(0.5) * uu) - T(2.0 * (1.0 / 6.0)) * uuu;
-    wc[2] = os * uuu;
-  }
-  return idxf == idxf ? (int)idxf : 0;   // a NaN time: NaN poses from knot 0 on
 }
 
 // The window's knot j retracted by a zero step, and its tangent along one

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-Four sources under ``mba_vo_tpu_torch/csrc/``, each compiled with ``nvcc``
+Six sources under ``mba_vo_tpu_torch/csrc/``, each compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``:
 
@@ -9,7 +9,12 @@ for ``sm_90a`` into a shared library with a plain C interface, loaded with
   * ``residual_rows.cu`` (K2) and ``normal_equations.cu`` (K3): the
     residual/Jacobian rows and the Huber normal equations, bound in
     ``ops/cuda_residual.py``; both include ``bulk_copy.cuh`` (bulk copies
-    into shared memory on an mbarrier).
+    into shared memory on an mbarrier);
+  * ``frame_layout.cu`` (K5), the patch layout, bound in
+    ``ops/cuda_layout.py``; it shares ``spline_pose.cuh`` (the spline's
+    poses on the device) with ``residual_rows.cu``;
+  * ``image_bilinear.cu`` (K4), the direct path's whole-image sampler,
+    bound in ``ops/cuda_image.py``.
 
 At first use :func:`build` compiles every source not built yet, all of
 them at once (one ``nvcc`` process each), into ``build/mba_vo_tpu_torch/``
@@ -38,13 +43,16 @@ SOURCES = {
     "window_bilinear_tiled": _CSRC / "window_bilinear_tiled.cu",
     "residual_rows": _CSRC / "residual_rows.cu",
     "normal_equations": _CSRC / "normal_equations.cu",
+    "frame_layout": _CSRC / "frame_layout.cu",
+    "image_bilinear": _CSRC / "image_bilinear.cu",
 }
-# flags of one source only. K2 rounds every operation of its warp as the
-# plain version's torch ops do, one at a time: a multiply-add contracted into
-# one rounding moves a warped position by an ulp, and on the image's border
-# (where the integer patch pixels of a standing start land exactly) that
-# flips the sample's in-image flag
-SOURCE_FLAGS = {"residual_rows": ["-fmad=false"]}
+# flags of some sources only. K2, K4 and K5 round every operation as the
+# plain versions' torch ops do, one at a time: a multiply-add contracted into
+# one rounding moves a warped position or a patch anchor by an ulp, and on
+# the image's border or an integer pixel (where a standing start lands
+# exactly) that flips an in-image flag or picks another pixel
+SOURCE_FLAGS = {name: ["-fmad=false"]
+                for name in ("residual_rows", "frame_layout", "image_bilinear")}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mba_vo_tpu_torch"
 _libs: Dict[str, ctypes.CDLL] = {}
 

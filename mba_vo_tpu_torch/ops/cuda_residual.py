@@ -338,18 +338,34 @@ _tickets: Dict[torch.device, torch.Tensor] = {}
 _ticket_streams: Dict[torch.device, torch.cuda.Stream] = {}
 
 
+# the kernels of the residual stage that every path of the tracker
+# launches, by the name of their dispatcher in ops/residual.py: K2's two
+# entries, K3 and the patch layout K5; the direct path also launches K4
+# (image_bilinear_lk)
+EVERY_PATH = ("warp_tangents", "blur_rows", "normal_equations", "prepare_frame_layout")
+
+
 def launch_counts() -> Dict[str, int]:
-    """The launch counters of the designs the tracker launches, by the name
-    of the kernel."""
+    """The launch counters of the residual stage's designs that the tracker
+    launches, by the name of their dispatcher: K2's two entries, K3, and K5
+    and K4 (``ops/cuda_layout.py``, ``ops/cuda_image.py``)."""
+    from . import cuda_image, cuda_layout
+
     return {"warp_tangents": LAUNCHES_WARP, "blur_rows": LAUNCHES_BLUR,
-            "normal_equations": LAUNCHES_NORMAL}
+            "normal_equations": LAUNCHES_NORMAL,
+            "prepare_frame_layout": cuda_layout.LAUNCHES_LAYOUT,
+            "image_bilinear_lk": cuda_image.LAUNCHES_IMAGE}
 
 
 def zero_launch_counts() -> None:
+    """Zero the counters of K2, K3 (every design), K5 and K4."""
     global LAUNCHES_WARP, LAUNCHES_BLUR, LAUNCHES_NORMAL
     global LAUNCHES_WARP_THREADS, LAUNCHES_BLUR_THREADS, LAUNCHES_NORMAL_SPLIT
+    from . import cuda_image, cuda_layout
+
     LAUNCHES_WARP = LAUNCHES_BLUR = LAUNCHES_NORMAL = 0
     LAUNCHES_WARP_THREADS = LAUNCHES_BLUR_THREADS = LAUNCHES_NORMAL_SPLIT = 0
+    cuda_layout.LAUNCHES_LAYOUT = cuda_image.LAUNCHES_IMAGE = 0
 
 
 def _entry(kernel: str, dtype: torch.dtype):

@@ -8,6 +8,9 @@ Counterpart of ``mba_vo_tpu/ops/image.py``:
   * ``sample_lk`` is bilinear sampling whose derivative with respect to the
     position is the bilinearly sampled gradient image (the Lucas-Kanade
     convention), not the derivative of the bilinear interpolant;
+  * ``image_bilinear_lk`` samples the value and that gradient at whole-image
+    positions for the direct path: kernel K4 on CUDA tensors, its plain
+    version ``image_bilinear_lk_plain`` on CPU tensors;
   * ``remap`` and ``build_undistort_map`` undistort an image onto a pinhole
     view: a pixel map built once, then a bilinear gather per image.
 """
@@ -17,6 +20,8 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
+
+from . import cuda_image
 
 
 def downsample2x(img: torch.Tensor) -> torch.Tensor:
@@ -92,16 +97,47 @@ def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return torch.where(in_bounds(xy, h, w), val, torch.zeros_like(val))
 
 
+def _bilinear_in_image(planes: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """:func:`bilinear_sample` of ``planes`` [C, H, W] at ``xy`` [..., 2]:
+    its bits where the position lies in the image, 0 elsewhere, NaN
+    included, without a gather there (an int64 cast of a NaN position would
+    index out of the image)."""
+    h, w = planes.shape[-2], planes.shape[-1]
+    inside = in_bounds(xy, h, w)
+    out = bilinear_sample(planes, torch.where(inside[..., None], xy, torch.zeros_like(xy)))
+    return torch.where(inside, out, torch.zeros_like(out))
+
+
 def sample_lk_with_gradient(
     img: torch.Tensor, grad_img: torch.Tensor, xy: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(value, d/dx, d/dy) of the Lucas-Kanade sample at ``xy`` [..., 2]: the
     bilinear samples of ``img`` [H, W] and of the two channels of
     ``grad_img`` [H, W, 2], taken in one gather. All three are 0 out of
-    bounds."""
+    bounds and at a NaN position."""
     chans = torch.stack([img, grad_img[..., 0], grad_img[..., 1]], dim=0)
-    out = bilinear_sample(chans, xy)
+    out = _bilinear_in_image(chans, xy)
     return out[0], out[1], out[2]
+
+
+def image_bilinear_lk_plain(img: torch.Tensor, grad_img: torch.Tensor, loc: torch.Tensor,
+                            channels: int = 3):
+    """Plain version of K4, the direct path's whole-image Lucas-Kanade
+    sampler: :func:`sample_lk_with_gradient` at ``loc`` [N, S, 2], returning
+    (val, gx, gy), each [N, S]; with ``channels`` = 1 the value alone (the
+    same bits as the first of the three)."""
+    if channels == 1:
+        return _bilinear_in_image(img[None], loc)[0]
+    return sample_lk_with_gradient(img, grad_img, loc)
+
+
+def image_bilinear_lk(img, grad_img, loc, channels=3):
+    """K4 (:func:`image_bilinear_lk_plain`): the kernel on CUDA tensors
+    (``ops/cuda_image.py``), the plain version on CPU tensors."""
+    if loc.is_cuda:
+        return cuda_image.image_bilinear_cuda(img.contiguous(), grad_img.contiguous(),
+                                              loc.contiguous(), channels)
+    return image_bilinear_lk_plain(img, grad_img, loc, channels)
 
 
 class _SampleLK(torch.autograd.Function):

@@ -26,9 +26,21 @@ CUDA tensors to the kernel (``ops.cuda_residual``) and CPU tensors to the
 plain version.
 
 The direct path (``sampling="direct"``, :func:`compute_residuals`) gathers
-every sample from the whole keyframe image instead of a window: the warp
-JVP over the 7 pose components gives G = dI/d(pose7) per sample, and
-J = mean_v(G . d(pose7)/d(delta)).
+every sample from the whole keyframe image instead of a window. On the card
+it runs the windowed path's kernels with the window corners at the origin:
+K2's :func:`warp_tangents` (whose positions are then whole-image ones and
+whose in-image flags are the direct path's mask), the whole-image
+Lucas-Kanade sampler K4 (``ops.image.image_bilinear_lk``) and K2's
+:func:`blur_rows` (:func:`compute_residuals_direct`). Its plain version
+(:func:`compute_residuals_plain`, which CPU tensors take) writes the
+reference's chain out: the warp JVP over the 7 pose components gives G =
+dI/d(pose7) per sample, and J = mean_v(G . d(pose7)/d(delta)).
+
+The patch layout (:func:`prepare_frame_layout`: each frame's mid-exposure
+pose, the keypoints' integer patch pixels, their validity and the observed
+intensities), which every path computes once an evaluation, is kernel K5 on
+the card (``ops.cuda_layout``), its plain version
+:func:`prepare_frame_layout_plain` on the CPU.
 
 ``affine=True`` eliminates a per-frame gain and bias in closed form
 (:func:`affine_correct`). The windowed path carries the Jacobian through
@@ -59,8 +71,8 @@ from ..core.spline import (
     spline_retract_jvp,
     virtual_pose_times,
 )
-from . import cuda_residual
-from .image import in_bounds, sample_lk_with_gradient
+from . import cuda_layout, cuda_residual
+from .image import image_bilinear_lk, in_bounds, sample_lk_with_gradient
 from .warp import frontoparallel_warp, frontoparallel_warp_jvp
 from .window_sampling import (
     extract_windows,
@@ -282,13 +294,14 @@ def affine_correct_jvp(pred: torch.Tensor, obs: torch.Tensor,
     return r, torch.where(valid[..., None], dr, torch.zeros_like(dr))
 
 
-def compute_residuals(
+def compute_residuals_plain(
     knots: SplineKnots, data: TrackingLevelData, num_vir: int, degree: int,
     with_jacobian: bool, affine: bool = False, group=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
-    """Residuals r [F,N,P], Jacobian J [F,N,P,6K] (or None) and the
-    valid-pixel mask [F,N,P], gathering every sample from the whole
-    keyframe image (``sampling="direct"``).
+    """Plain version of the direct path (:func:`compute_residuals`): the
+    reference's chain written out in torch (the pose Jacobian, the warp JVP
+    over the 7 pose components, one gather of the three image planes and an
+    einsum).
 
     The prediction and the Jacobian are averaged over the V virtual poses;
     patch pixels outside the current image are masked out. With ``affine``
@@ -330,6 +343,54 @@ def compute_residuals(
     return r, J, valid
 
 
+def compute_residuals_direct(
+    knots: SplineKnots, data: TrackingLevelData, num_vir: int, degree: int,
+    with_jacobian: bool, affine: bool = False, group=None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """The direct path as the card runs it, through the dispatchers of its
+    stages (each the kernel on CUDA tensors, the plain version on CPU
+    tensors): the layout (:func:`prepare_frame_layout`, K5), K2's
+    :func:`warp_tangents` with every window corner at the origin, so that
+    its positions are whole-image positions and its in-image flags the
+    direct path's mask, K4 (``image_bilinear_lk``: C = 3 with the Jacobian,
+    1 without) and K2's :func:`blur_rows`. Returns what
+    :func:`compute_residuals_plain` returns; J sums the blur over the knot
+    tangents as the windowed path does, not through the 7 pose components.
+
+    With ``affine`` the residual is gain/bias-corrected and J is the
+    Jacobian at frozen gain and bias (the reference's pairing, as in the
+    plain version): ``blur_rows`` gives (pred, dpred) unmasked, r =
+    :func:`affine_correct` and J = dpred where valid.
+    """
+    H, W = data.img_ref.shape
+    pix, valid, obs = prepare_frame_layout(knots, data, num_vir, degree)
+    starts = torch.zeros((pix.shape[1], 2), dtype=torch.int64, device=pix.device)
+    loc, _vs, dxy = warp_tangents(knots, data.cap_times, data.exp_times, num_vir, degree,
+                                  with_jacobian, data.kp_z, data.K, pix, starts, H, W)
+    if with_jacobian:
+        val, gx, gy = image_bilinear_lk(data.img_ref, data.grad_ref, loc, 3)
+    else:
+        val = image_bilinear_lk(data.img_ref, data.grad_ref, loc, 1)
+        gx = gy = val                          # unread: there are no tangent seeds
+    rows, drows = blur_rows(val, gx, gy, dxy, obs, valid, num_vir, affine)
+    if not affine:
+        return rows, (drows if with_jacobian else None), valid
+    J = torch.where(valid[..., None], drows, torch.zeros_like(drows)) if with_jacobian else None
+    return affine_correct(rows, obs, valid, group), J, valid
+
+
+def compute_residuals(knots, data, num_vir, degree, with_jacobian, affine=False, group=None):
+    """Residuals r [F,N,P], Jacobian J [F,N,P,6K] (or None) and the
+    valid-pixel mask [F,N,P], gathering every sample from the whole
+    keyframe image (``sampling="direct"``): :func:`compute_residuals_direct`
+    (the kernels K5, K2, K4) on CUDA tensors, :func:`compute_residuals_plain`
+    on CPU tensors."""
+    if data.cur_imgs.is_cuda:
+        return compute_residuals_direct(knots, data, num_vir, degree, with_jacobian, affine,
+                                        group)
+    return compute_residuals_plain(knots, data, num_vir, degree, with_jacobian, affine, group)
+
+
 def prepare_window_cache(
     data: TrackingLevelData, window: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -341,11 +402,13 @@ def prepare_window_cache(
     return windows.detach(), starts
 
 
-def prepare_frame_layout(
+def prepare_frame_layout_plain(
     knots: SplineKnots, data: TrackingLevelData, num_vir: int, degree: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(pix, valid_center, obs): the current-frame patch layout and the
-    observed intensities at the given knot state."""
+    """Plain version of K5 (:func:`prepare_frame_layout`): (pix
+    [F, N, P, 2], valid_center [F, N, P] bool, obs [F, N, P]), the
+    current-frame patch layout and the observed intensities at the given
+    knot state."""
     H, W = data.img_ref.shape
     pt0, pq0 = sample_virtual_poses(
         knots, data.cap_times, data.exp_times, num_vir, degree
@@ -356,6 +419,22 @@ def prepare_frame_layout(
     valid_center = in_bounds(pix, H, W) & (data.kp_mask[None, :, None] > 0)
     obs = _current_intensity(data.cur_imgs, pix)
     return pix, valid_center, obs
+
+
+def prepare_frame_layout(knots, data, num_vir, degree):
+    """K5, the patch layout (:func:`prepare_frame_layout_plain`): the kernel
+    on CUDA tensors (``ops/cuda_layout.py``), the plain version on CPU
+    tensors."""
+    if data.cur_imgs.is_cuda:
+        opts = dict(dtype=knots.t.dtype, device=knots.t.device)
+        H, W = data.img_ref.shape
+        return cuda_layout.frame_layout_cuda(
+            SplineKnots(*(torch.as_tensor(x, **opts).contiguous() for x in knots)),
+            data.cap_times.contiguous(), data.exp_times.contiguous(), num_vir, degree,
+            data.kp_xy.contiguous(), data.kp_z.contiguous(), data.kp_mask.contiguous(),
+            data.K.contiguous(), data.pattern.to(torch.int32).contiguous(),
+            data.cur_imgs.contiguous(), H, W)
+    return prepare_frame_layout_plain(knots, data, num_vir, degree)
 
 
 def warp_tangents_threads_plain(

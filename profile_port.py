@@ -6,6 +6,8 @@ Run from the root of the repository:
     python3 profile_port.py --joint [--chunk 4] [--out FILE]
     python3 profile_port.py --k3-designs [--frames 16]
     python3 profile_port.py --warp-designs [--frames 16] [--chunk 4]
+    python3 profile_port.py --layout-designs [--frames 16] [--chunk 4]
+    python3 profile_port.py --direct [--frames 16]
 
 Tracks chip_smoke.py's bench scenario (VGA, 512 keypoints, 3 levels, 5
 virtual poses, f32, bench.py's options, from rest): ``--warmup`` frames
@@ -44,6 +46,19 @@ paired difference, the largest pose difference) and each tracker's kernel
 launches per LM evaluation on one more frame under the profiler; then the
 same launches per evaluation for a joint chunk (``--chunk`` frames from a
 moving window) at degree 4 and at degree 2.
+
+``--layout-designs`` weighs the patch layout the same way: K5 (one launch
+from the knots to the pixels, their validity and the observations), which
+the tracker launches, against its plain version run on the card
+(``prepare_frame_layout_plain``, the eager ops it replaces), at the frame
+and at the joint chunks.
+
+``--direct`` weighs the direct path (``sampling="direct"``) the same way:
+on the kernels (K5, K2's two entries, K4), as the tracker runs it, against
+the eager path it replaces (its plain chain, ``compute_residuals_plain``,
+and the plain layout, on the card), the trackers configured for the direct
+path. The LM evaluations are counted as calls of either path's residual
+function.
 """
 
 from __future__ import annotations
@@ -57,7 +72,8 @@ import time
 import numpy as np
 
 from chip_smoke import (
-    DEG, DEPTH, EXPOSURE, KVEC, bench_config, make_scenario, moving_window,
+    DEG, DEPTH, EXPOSURE, KVEC, bench_config, counting_evaluations, make_scenario,
+    moving_window, plain_stages,
 )
 from mba_vo_tpu_torch.experiments.kernel_variants import card_line
 
@@ -163,19 +179,19 @@ def _k3_design(name: str):
         cr.normal_equations_cuda = launched
 
 
-def _weigh_designs(args, designs, switch, issue, what: str) -> None:
+def _weigh_designs(args, designs, switch, issue, what: str, **config) -> None:
     """Two designs of one kernel on the per-frame path, ``switch(d)``
     sending the tracker's calls to design ``d`` inside its block: the
     host's time to issue one ``issue()`` under each (blocks of 100 calls
-    without waiting, the designs alternating), then two trackers on the same
-    ``args.frames`` frames, tracked by both in turn (the order alternating a
-    frame): wall ms per LM evaluation, its paired difference and the
-    largest pose difference of the two; then each tracker's kernel launches
-    per LM evaluation on one more frame under the profiler."""
+    without waiting, the designs alternating), then two trackers
+    (bench_config's, with ``config`` on top) on the same ``args.frames``
+    frames, tracked by both in turn (the order alternating a frame): wall ms
+    per LM evaluation, its paired difference and the largest pose difference
+    of the two; then each tracker's kernel launches per LM evaluation on one
+    more frame under the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from mba_vo_tpu_torch.ops import cuda_sampling as cs
     from mba_vo_tpu_torch.tracker.blur_tracker import BlurAwareTracker
 
     host = {d: [] for d in designs}
@@ -196,18 +212,19 @@ def _weigh_designs(args, designs, switch, issue, what: str) -> None:
     h, w = img.shape
     trackers = {}
     for d in designs:
-        trackers[d] = BlurAwareTracker(bench_config("float32"), KVEC, (h, w), device="cuda")
+        trackers[d] = BlurAwareTracker(bench_config("float32", **config), KVEC, (h, w),
+                                       device="cuda")
         with switch(d):
             trackers[d].track_frame(img, img, 0.0, EXPOSURE, np.full((h, w), DEPTH))
     torch.cuda.synchronize()
 
     def track(d, cap, blur):
-        with switch(d):
+        with switch(d), counting_evaluations() as evals:
             torch.cuda.synchronize()
-            k0, t0 = cs.LAUNCHES, time.perf_counter()
+            t0 = time.perf_counter()
             pose = trackers[d].track_frame(None, blur, cap, EXPOSURE)
             torch.cuda.synchronize()
-            return time.perf_counter() - t0, cs.LAUNCHES - k0, pose
+            return time.perf_counter() - t0, evals[0], pose
 
     first, second = designs
     ms_eval = {d: [] for d in designs}
@@ -229,12 +246,11 @@ def _weigh_designs(args, designs, switch, issue, what: str) -> None:
           f"{[round(x, 1) for x in diffs]})")
     cap, blur = frames[-1]
     for d in designs:
-        with switch(d), profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-            k0 = cs.LAUNCHES
+        with switch(d), counting_evaluations() as counted, profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             trackers[d].track_frame(None, blur, cap, EXPOSURE)
             torch.cuda.synchronize()
-        evals = cs.LAUNCHES - k0
+        evals = counted[0]
         launch = _launches(prof.key_averages())
         print(f"frame, {d}: {launch} kernel launches over {evals} LM evaluations = "
               f"{launch / max(evals, 1):.1f} per evaluation")
@@ -272,20 +288,19 @@ def _warp_design(name: str):
         residual.warp_tangents = launched
 
 
-def _joint_launches(design: str, degree: int, chunk: int) -> tuple:
+def _joint_launches(design: str, degree: int, chunk: int, switch=None) -> tuple:
     """(kernel launches, LM evaluations) of one joint chunk at ``degree``
-    under ``design``, after a chunk to warm up, from a moving window."""
+    under ``design`` (of ``switch``, by default warp_tangents' designs),
+    after a chunk to warm up, from a moving window."""
     from torch.profiler import ProfilerActivity, profile
 
-    from mba_vo_tpu_torch.ops import cuda_sampling as cs
-
     frames, track = _joint_tracker(2, chunk, degree)
-    with _warp_design(design):
+    with (switch or _warp_design)(design):
         track(frames[:chunk])
-        k0 = cs.LAUNCHES
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with counting_evaluations() as evals, profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             track(frames[chunk:])
-    return _launches(prof.key_averages()), cs.LAUNCHES - k0
+    return _launches(prof.key_averages()), evals[0]
 
 
 def compare_warp(args) -> int:
@@ -319,6 +334,80 @@ def compare_warp(args) -> int:
     return 0
 
 
+def _layout_design(name: str):
+    """The tracker's layout calls go to K5 ("kernel") or to its plain
+    version ("plain") inside the block."""
+    return plain_stages(("prepare_frame_layout",) if name == "plain" else ())
+
+
+def _direct_design(name: str):
+    """The direct path's evaluations run on the kernels ("kernels") or as
+    the eager chain they replace ("eager": compute_residuals_plain and the
+    plain layout) inside the block."""
+    return plain_stages(("compute_residuals", "prepare_frame_layout") if name == "eager"
+                         else ())
+
+
+def _frame_call():
+    """(knots, level data) at the frame's shape on the card: 2 moving knots
+    at degree 2, F = 1, V = 5, N = 512, P = 8, a VGA keyframe, its gradient
+    image and a noisy copy as the current frame."""
+    import torch
+
+    from mba_vo_tpu_torch.core.spline import make_knots
+    from mba_vo_tpu_torch.ops import residual
+    from mba_vo_tpu_torch.ops.image import image_gradients
+    from mba_vo_tpu_torch.tracker.patterns import PATTERNS
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    opts = dict(device="cuda", dtype=torch.float32)
+    q = torch.tensor([[0.0, 0.0, 0.0, 1.0], [0.001, -0.002, 0.001, 1.0]], **opts)
+    knots = make_knots(0.01 * torch.randn((2, 3), generator=gen, **opts),
+                       q / q.norm(dim=1, keepdim=True), 0.05, 0.1)
+    knots = knots._replace(t0=knots.t0.cuda(), dt=knots.dt.cuda())
+    img = 255 * torch.rand((480, 640), generator=gen, **opts)
+    data = residual.TrackingLevelData(
+        img_ref=img, grad_ref=image_gradients(img).contiguous(),
+        cur_imgs=(img + torch.randn((480, 640), generator=gen, **opts))[None],
+        cap_times=torch.full((1,), 0.1, **opts), exp_times=torch.full((1,), 0.03, **opts),
+        kp_xy=torch.rand((512, 2), generator=gen, **opts) * torch.tensor([639.0, 479.0], **opts),
+        kp_z=torch.full((512,), 2.0, **opts), kp_mask=torch.ones(512, **opts),
+        pattern=torch.as_tensor(PATTERNS["dso8"](), device="cuda"),
+        K=torch.tensor(KVEC, **opts))
+    return knots, data
+
+
+def compare_layout(args) -> int:
+    """The patch layout, K5 against its plain version on the card, at the
+    frame and at joint chunks (the module docstring)."""
+    from mba_vo_tpu_torch.ops import residual
+
+    designs = ("kernel", "plain")
+    knots, data = _frame_call()
+    _weigh_designs(args, designs, _layout_design,
+                   lambda: residual.prepare_frame_layout(knots, data, 5, 2),
+                   "prepare_frame_layout")
+    for degree in (4, 2):
+        for d in designs:
+            launch, evals = _joint_launches(d, degree, args.chunk, _layout_design)
+            print(f"joint chunk of {args.chunk}, degree {degree}, layout {d}: {launch} kernel "
+                  f"launches over {evals} LM evaluations = {launch / max(evals, 1):.1f} per "
+                  f"evaluation")
+    return 0
+
+
+def compare_direct(args) -> int:
+    """The direct path on the kernels against the eager chain it replaces,
+    on the card (the module docstring)."""
+    from mba_vo_tpu_torch.ops import residual
+
+    knots, data = _frame_call()
+    _weigh_designs(args, ("kernels", "eager"), _direct_design,
+                   lambda: residual.compute_residuals(knots, data, 5, 2, True),
+                   "direct compute_residuals (with J)", sampling="direct")
+    return 0
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -337,6 +426,10 @@ def main() -> int:
                     help="weigh K3's cluster and split designs on the per-frame path")
     ap.add_argument("--warp-designs", action="store_true",
                     help="weigh K2's first entry from the knots against the old path")
+    ap.add_argument("--layout-designs", action="store_true",
+                    help="weigh the patch layout K5 against its plain version")
+    ap.add_argument("--direct", action="store_true",
+                    help="weigh the direct path on the kernels against its eager chain")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -351,6 +444,10 @@ def main() -> int:
         return compare_k3(args)
     if args.warp_designs:
         return compare_warp(args)
+    if args.layout_designs:
+        return compare_layout(args)
+    if args.direct:
+        return compare_direct(args)
     n = args.warmup + args.frames
     img, _traj, frames = make_scenario("cuda", n)
     h, w = img.shape

@@ -7,7 +7,9 @@ thread design, blur_rows) and K3 (csrc/normal_equations.cu) against
 theirs, warp_tangents against the old path (the torch chain of the pose
 Jacobian, then the thread design) on the tracker's shapes, and the new
 designs of blur_rows and K3 against their earlier designs, bit for bit, on
-edge shapes. Every test here carries the ``cuda`` marker and skips where no
+edge shapes; the patch layout K5 (csrc/frame_layout.cu) and the direct
+path's sampler K4 (csrc/image_bilinear.cu) against their plain versions bit
+for bit, and the direct path on the kernels against its plain chain. Every test here carries the ``cuda`` marker and skips where no
 CUDA device is visible.
 
 The module imports only torch and numpy, so it also runs where JAX is not
@@ -642,8 +644,9 @@ def test_k2_k3_wrappers_check_their_inputs(cuda):
 def test_tracker_runs_through_k2_and_k3(cuda):
     """track_frame, track_frames and track_frames_joint on the card launch
     K2's two entries and K3, and still K1, once each an LM evaluation; the
-    tracker's recorded calls of each equal the plain version, and those of
-    blur_rows and K3 their earlier designs bit for bit."""
+    tracker's recorded calls of each (and of the layout K5) equal the plain
+    version, and those of blur_rows and K3 their earlier designs bit for
+    bit."""
     from mba_vo_tpu_torch.core.spline import make_knots
     from mba_vo_tpu_torch.data.synthetic import smooth_shapes_image, synthesize_blurred_image
     from mba_vo_tpu_torch.experiments import residual_kernels as rk
@@ -683,11 +686,14 @@ def test_tracker_runs_through_k2_and_k3(cuda):
                  cr.LAUNCHES_NORMAL], counts))
             assert k1 > 0 and warp == blur == k1 and normal >= k1
             assert len(poses) == 4 and all(torch.isfinite(p.t).all() for p in poses)
-            for kernel in rk.KERNELS:
-                # warp_tangents' first argument is the knots
+            # the windowed path launches every kernel of the residual stage
+            # but the direct path's sampler K4
+            assert not calls["image_bilinear_lk"]
+            for kernel in rk.KERNELS[:4]:
+                # warp_tangents' and the layout's first argument is the knots
                 assert calls[kernel] and all(
-                    (c.args[0].t if kernel == "warp_tangents" else c.args[0]).is_cuda
-                    for c in calls[kernel])
+                    (c.args[0].t if kernel in ("warp_tangents", "prepare_frame_layout")
+                     else c.args[0]).is_cuda for c in calls[kernel])
                 for call in calls[kernel]:
                     rk.hold(call)
                     assert rk.hold_earlier(call) == (kernel in rk.EARLIER)
@@ -1102,3 +1108,417 @@ def test_knots_entry_equals_the_old_path_on_the_trackers_calls(cuda):
             setattr(tres, k, fn)
     torch.cuda.synchronize()
     assert chains == []
+
+
+# ------------------------------------- K5, the patch layout, and K4, the direct
+# path's whole-image sampler
+
+# (knots, degree, frames, virtual poses, dtype, case): the frame's 2 knots at
+# degree 2, a joint chunk of 4 at degree 4 and of 8 (11 knots) with V = 4
+# (the divisor of the exposure's times, 3, has no exact reciprocal); moving,
+# from a standing start (integer keypoints on the image's border), and with
+# a capture time past the spline's end (the segment index clamps)
+LAYOUT_SHAPES = [(2, 2, 1, 5, torch.float32, "moving"), (2, 2, 1, 5, torch.float64, "moving"),
+                 (7, 4, 4, 5, torch.float32, "moving"), (7, 4, 4, 5, torch.float64, "moving"),
+                 (2, 2, 1, 5, torch.float32, "standing"),
+                 (2, 2, 1, 5, torch.float64, "standing"),
+                 (7, 4, 4, 5, torch.float64, "standing"),
+                 (3, 2, 2, 1, torch.float32, "clamped"),
+                 (11, 4, 8, 4, torch.float64, "clamped"),
+                 (11, 4, 8, 4, torch.float32, "moving")]
+
+
+def _layout_problem(K, degree, F, V, dtype, case="moving", N=512, H=480, W=640, seed=0):
+    """The layout's arguments as the tracker gives them, on the card:
+    (knots, level data, V, degree), the knots moving (identity knots from a
+    standing start), capture times inside their span (the last past its end
+    where ``clamped``), keypoints around and off the image (integers, some on
+    its border, from a standing start), 20 padded slots, the dso8 pattern."""
+    from mba_vo_tpu_torch.core.spline import make_knots
+    from mba_vo_tpu_torch.ops import residual as tres
+    from mba_vo_tpu_torch.tracker.patterns import PATTERNS
+
+    rng = np.random.default_rng(seed)
+    t = np.cumsum(rng.normal(0, 0.05, (K, 3)), axis=0)
+    q = np.concatenate([rng.normal(0, 0.02, (K, 3)), np.ones((K, 1))], axis=1)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    kp = rng.uniform([-3, -3], [W + 3, H + 3], (N, 2))
+    if case == "standing":
+        t, q = np.zeros((K, 3)), np.tile([0.0, 0.0, 0.0, 1.0], (K, 1))
+        kp = np.floor(kp)
+        kp[:4] = [[0, 10], [W - 1, 20], [30, 0], [40, H - 1]]
+    t0, dt = 0.05, 0.1
+    caps = t0 + dt * (degree - 1) / 2 + np.sort(rng.uniform(0, dt * (K - degree + 0.5), F))
+    if case == "clamped":
+        caps[-1] = t0 + dt * (K + 0.5)
+    mask = np.ones(N)
+    mask[-20:] = 0.0
+    c = lambda a: torch.tensor(a, dtype=dtype, device="cuda")   # noqa: E731
+    knots = make_knots(c(t), c(q), t0, dt)
+    knots = knots._replace(t0=knots.t0.cuda(), dt=knots.dt.cuda())
+    data = tres.TrackingLevelData(
+        img_ref=torch.zeros((H, W), dtype=dtype, device="cuda"),
+        grad_ref=torch.zeros((H, W, 2), dtype=dtype, device="cuda"),
+        cur_imgs=c(rng.uniform(0, 255, (F, H, W))), cap_times=c(caps),
+        exp_times=c(np.full(F, 0.03)), kp_xy=c(kp), kp_z=c(rng.uniform(1.5, 2.5, N)),
+        kp_mask=c(mask), pattern=torch.as_tensor(PATTERNS["dso8"](), device="cuda"),
+        K=c([480.0, 480.0, (W - 1) / 2, (H - 1) / 2]))
+    return knots, data, V, degree
+
+
+def _plain_anchors(knots, data, V, degree):
+    """The plain version's patch anchors [F, N, 2] on the card: the mid
+    pose of sample_virtual_poses through patch_anchors."""
+    from mba_vo_tpu_torch.ops import residual as tres
+
+    pt, pq = tres.sample_virtual_poses(knots, data.cap_times, data.exp_times, V, degree)
+    return tres.patch_anchors(pt[:, V // 2], pq[:, V // 2], data.kp_xy, data.kp_z, data.K)
+
+
+def _kernel_anchors(knots, data, V, degree):
+    from mba_vo_tpu_torch.ops import cuda_layout as cl
+
+    H, W = data.img_ref.shape
+    return cl.frame_layout_cuda(knots, data.cap_times, data.exp_times, V, degree, data.kp_xy,
+                                data.kp_z, data.kp_mask, data.K, data.pattern.int(),
+                                data.cur_imgs, H, W, anchors=True)
+
+
+@pytest.mark.parametrize("K,degree,F,V,dtype,case", LAYOUT_SHAPES)
+def test_layout_kernel_matches_plain(cuda, K, degree, F, V, dtype, case):
+    """K5's pix, valid and obs equal the plain version run on the card bit
+    for bit; one launch a call."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_layout as cl
+    from mba_vo_tpu_torch.ops import residual as tres
+
+    args = _layout_problem(K, degree, F, V, dtype, case)
+    before = cl.LAUNCHES_LAYOUT
+    assert rk.hold(rk.ResidualCall("prepare_frame_layout", args, None)) == (0.0, 0.0)
+    torch.cuda.synchronize()
+    assert cl.LAUNCHES_LAYOUT == before + 1
+    pix, valid, obs = tres.prepare_frame_layout(*args)
+    assert pix.dtype == dtype and valid.dtype == torch.bool and obs.dtype == dtype
+    assert pix.shape == (F, 512, 8, 2) and 0 < valid.float().mean().item() < 1
+    assert not valid[:, -20:].any()
+
+
+@pytest.mark.parametrize("K,degree,F,V,dtype,case", LAYOUT_SHAPES)
+def test_layout_anchors_equal_the_plain_versions(cuda, K, degree, F, V, dtype, case):
+    """The anchors K5 floors equal the plain version's on the card bit for
+    bit (its mid pose is the one sample_virtual_poses computes), so that no
+    integer anchor of a standing start floors onto another pixel."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+
+    args = _layout_problem(K, degree, F, V, dtype, case)
+    got = _kernel_anchors(*args)[3]
+    ref = _plain_anchors(*args)
+    assert rk.same_bits(got, ref), rk._unequal(got, ref)
+    if case == "standing":
+        # integers up to the last bit: some fall an ulp below theirs
+        assert float((ref - ref.round()).abs().max()) < 1e-3
+        assert bool((torch.floor(ref) != ref.round()).any())
+
+
+def test_layout_nan_knots(cuda):
+    """A NaN knot makes NaN anchors where its taps reach: the kernel's
+    pixels fall on the plain version's NaNs, those pixels are not valid, and
+    their observations gather the pixel torch's cast of NaN picks."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import residual as tres
+
+    for dtype in (torch.float32, torch.float64):
+        knots, data, V, degree = _layout_problem(7, 4, 4, 5, dtype)
+        q = knots.q.clone()
+        q[6, 1] = float("nan")
+        args = (knots._replace(q=q), data, V, degree)
+        rk.hold(rk.ResidualCall("prepare_frame_layout", args, None))
+        pix, valid, _ = tres.prepare_frame_layout(*args)
+        nan = torch.isnan(pix).any(-1)
+        assert nan.any() and not nan.all() and not valid[nan].any()
+
+
+def test_layout_checks_its_inputs(cuda):
+    from mba_vo_tpu_torch.ops import cuda_layout as cl
+
+    knots, d, V, degree = _layout_problem(2, 2, 1, 5, torch.float32, N=16)
+    args = [knots, d.cap_times, d.exp_times, V, degree, d.kp_xy, d.kp_z, d.kp_mask, d.K,
+            d.pattern.int(), d.cur_imgs, 480, 640]
+    with pytest.raises(ValueError, match="knot_q is torch.float64"):
+        cl.frame_layout_cuda(knots._replace(q=knots.q.double()), *args[1:])
+    with pytest.raises(ValueError, match="not CUDA"):
+        cl.frame_layout_cuda(knots._replace(t0=knots.t0.cpu()), *args[1:])
+    with pytest.raises(ValueError, match="kp_xy must be"):
+        cl.frame_layout_cuda(*args[:5], args[5][:8].contiguous(), *args[6:])
+    with pytest.raises(ValueError, match="contiguous"):
+        cl.frame_layout_cuda(*args[:5], args[5].t().contiguous().t(), *args[6:])
+    with pytest.raises(ValueError, match="pattern must be"):
+        cl.frame_layout_cuda(*args[:9], args[9].long(), *args[10:])
+    with pytest.raises(ValueError, match="cur_imgs must be"):
+        cl.frame_layout_cuda(*args[:10], args[10][0], *args[11:])
+    with pytest.raises(ValueError, match="spline degree 3"):
+        cl.frame_layout_cuda(*args[:4], 3, *args[5:])
+    with pytest.raises(ValueError, match="spline degree 4 over 2 knots"):
+        cl.frame_layout_cuda(*args[:4], 4, *args[5:])
+    pix, valid, obs = cl.frame_layout_cuda(*args)
+    assert pix.shape == (1, 16, 8, 2) and valid.shape == obs.shape == (1, 16, 8)
+
+
+def _image_problem(N, S, H, W, dtype, seed=0):
+    """K4's arguments as the direct path gives them, on the card: a smooth
+    image, its gradient image, and whole-image positions over and around it,
+    with integer positions, the border x = W - 1 and y = H - 1, the corner
+    (0, 0), positions just off each edge, far off the image and NaN."""
+    from mba_vo_tpu_torch.ops.image import image_gradients
+
+    rng = np.random.default_rng(seed)
+    img = np.cumsum(np.cumsum(rng.normal(0, 1, (H, W)), 0), 1)
+    loc = np.stack([rng.uniform(-3, W + 2, (N, S)), rng.uniform(-3, H + 2, (N, S))], -1)
+    flat = loc.reshape(-1, 2)
+    special = [[W - 1, 5.5], [7.25, H - 1], [W - 1, H - 1], [0, 0], [-1e-7, 3],
+               [3, H - 1 + 1e-4], [1e6, -1e6], [np.nan, 4], [4, np.inf], [12, 9]]
+    flat[:len(special)] = special[:flat.shape[0]]
+    flat[len(special)::7] = np.round(flat[len(special)::7])
+    c = lambda a: torch.tensor(a, dtype=dtype, device="cuda")   # noqa: E731
+    img_t = c(img)
+    return img_t, image_gradients(img_t).contiguous(), c(loc)
+
+
+# (keypoints, samples, image height, width): the frame at level 0 (VGA), a
+# joint chunk of 4 at level 1, a tiny ragged block
+IMAGE_SHAPES = [(512, 40, 480, 640), (512, 160, 240, 320), (3, 7, 5, 6)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("channels", [3, 1])
+@pytest.mark.parametrize("N,S,H,W", IMAGE_SHAPES)
+def test_image_kernel_matches_plain(cuda, dtype, channels, N, S, H, W):
+    """K4 against its plain version on the card, bit for bit, C = 3 and
+    C = 1; the value of a C = 1 call is the C = 3 call's; one launch a
+    call; 0 off the image and at NaN."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_image as ci
+    from mba_vo_tpu_torch.ops.image import image_bilinear_lk
+
+    img, grad, loc = _image_problem(N, S, H, W, dtype)
+    before = ci.LAUNCHES_IMAGE
+    rk.hold(rk.ResidualCall("image_bilinear_lk", (img, grad, loc, channels), None))
+    torch.cuda.synchronize()
+    assert ci.LAUNCHES_IMAGE == before + 1
+    out = image_bilinear_lk(img, grad, loc, channels)
+    other = image_bilinear_lk(img, grad, loc, 4 - channels)
+    assert rk.same_bits(out[0], other) if channels == 3 else rk.same_bits(out, other[0])
+    off = ~((loc[..., 0] >= 0) & (loc[..., 0] <= W - 1) & (loc[..., 1] >= 0)
+            & (loc[..., 1] <= H - 1))
+    assert off.any() and not off.all()
+    for o in (out,) if channels == 1 else out:
+        assert o.shape == (N, S) and not torch.isnan(o).any() and (o[off] == 0).all()
+    if channels == 3:
+        # the channel views of one [N, 3, S] output, as blur_rows reads K1's
+        assert out[1].data_ptr() == out[0].data_ptr() + S * out[0].element_size()
+
+
+def test_image_checks_its_inputs(cuda):
+    from mba_vo_tpu_torch.ops import cuda_image as ci
+
+    img, grad, loc = _image_problem(4, 6, 9, 11, torch.float32)
+    with pytest.raises(ValueError, match="loc is torch.float64"):
+        ci.image_bilinear_cuda(img, grad, loc.double())
+    with pytest.raises(ValueError, match="grad must be"):
+        ci.image_bilinear_cuda(img, grad[:, :5].contiguous(), loc)
+    with pytest.raises(ValueError, match="contiguous"):
+        ci.image_bilinear_cuda(img, grad, loc.transpose(0, 1))
+    with pytest.raises(ValueError, match="not CUDA"):
+        ci.image_bilinear_cuda(img.cpu(), grad, loc)
+    with pytest.raises(ValueError, match="aligned"):
+        ci.image_bilinear_cuda(img, torch.empty(9 * 11 * 2 + 1, device="cuda")[1:].view(9, 11, 2),
+                               loc)
+    with pytest.raises(ValueError, match="channels"):
+        ci.image_bilinear_cuda(img, grad, loc, 2)
+    # C = 1 reads no gradient image
+    assert ci.image_bilinear_cuda(img, grad[:, :5], loc, 1).shape == (4, 6)
+
+
+def test_layout_and_image_recorded_into_a_graph(cuda):
+    """K5 and K4 recorded into a CUDA graph count no launch, and the replay
+    gives the eager calls' bits."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_image as ci
+    from mba_vo_tpu_torch.ops import cuda_layout as cl
+    from mba_vo_tpu_torch.ops import residual as tres
+    from mba_vo_tpu_torch.ops.image import image_bilinear_lk
+
+    args = _layout_problem(7, 4, 4, 5, torch.float32)
+    img, grad, loc = _image_problem(512, 40, 480, 640, torch.float32)
+    refs = [tres.prepare_frame_layout(*args), image_bilinear_lk(img, grad, loc, 3),
+            image_bilinear_lk(img, grad, loc, 1)]
+    torch.cuda.synchronize()
+    before = (cl.LAUNCHES_LAYOUT, ci.LAUNCHES_IMAGE)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [tres.prepare_frame_layout(*args), image_bilinear_lk(img, grad, loc, 3),
+                image_bilinear_lk(img, grad, loc, 1)]
+    assert (cl.LAUNCHES_LAYOUT, ci.LAUNCHES_IMAGE) == before
+    graph.replay()
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        assert rk.same_bits(out, ref)
+
+
+def _direct_problem(degree, F, dtype, N=512, H=480, W=640, seed=3):
+    """(knots, level data) of the direct path at the tracker's width: a
+    smooth keyframe, noisy copies as the current frames, keypoints over the
+    image (two by its border), moving knots over the frames' span."""
+    from mba_vo_tpu_torch.ops.image import image_gradients
+
+    knots, data, _, _ = _layout_problem(degree if degree == 2 else F + 3, degree, F, 5, dtype,
+                                        N=N, H=H, W=W, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    img = np.cumsum(np.cumsum(rng.normal(0, 0.5, (H, W)), 0), 1)
+    img = 128 + 60 * img / np.abs(img).max()
+    cur = np.stack([img + rng.normal(0, 2, (H, W)) for _ in range(F)])
+    kp = rng.uniform(4, [W - 5, H - 5], (N, 2))
+    kp[:2] = [[1.5, 2.25], [W - 2.5, H - 1.75]]
+    c = lambda a: torch.tensor(a, dtype=dtype, device="cuda")   # noqa: E731
+    img_t = c(img)
+    return knots, data._replace(img_ref=img_t, grad_ref=image_gradients(img_t).contiguous(),
+                                cur_imgs=c(cur), kp_xy=c(kp))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("degree,F", [(2, 1), (4, 4)])
+def test_direct_path_on_kernels_matches_the_plain_chain(cuda, dtype, degree, F):
+    """compute_residuals on CUDA tensors (K5, K2's warp_tangents with the
+    window corners at the origin, K4, K2's blur_rows) against its plain
+    version run on the card (the pose Jacobian, the warp JVP, the gather,
+    the einsum), with and without J, affine and not: r and J within 1e-6
+    (float32) and 1e-12 (float64) of each output's magnitude, valid equal;
+    the cost-only r equals the r with J, and the affine J the J without
+    it, bit for bit."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_image as ci
+    from mba_vo_tpu_torch.ops import residual as tres
+
+    knots, data = _direct_problem(degree, F, dtype)
+    got = {}
+    for affine in (False, True):
+        rk.hold_direct(knots, data, 5, degree, affine)
+        for jac in (True, False):
+            before = ci.LAUNCHES_IMAGE
+            r, J, valid = got[affine, jac] = tres.compute_residuals(knots, data, 5, degree,
+                                                                    jac, affine)
+            torch.cuda.synchronize()
+            assert ci.LAUNCHES_IMAGE == before + 1
+            assert 0 < valid.float().mean().item() < 1 and (J is None) == (not jac)
+    for affine in (False, True):
+        assert torch.equal(got[affine, False][0], got[affine, True][0])
+    assert torch.equal(got[True, True][1], got[False, True][1])
+    assert not torch.equal(got[True, True][0], got[False, True][0])
+
+
+def test_direct_warp_reaches_the_whole_image(cuda):
+    """Nothing in K2's warp_tangents is window-sized: with the window
+    corners at the origin and a pose that moves the samples tens of pixels
+    from their keypoints, its positions (whole-image, far outside any
+    32-px window) and tangents hold to the plain version, vs equal."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+
+    for dtype in (torch.float32, torch.float64):
+        knots, data = _direct_problem(2, 1, dtype)
+        knots = knots._replace(t=knots.t + torch.tensor([0.2, -0.15, 0.05], dtype=dtype,
+                                                         device="cuda"))
+        H, W = data.img_ref.shape
+        pix = torch.floor(data.kp_xy)[None, :, None, :].expand(1, -1, 8, -1).contiguous()
+        starts = torch.zeros((pix.shape[1], 2), dtype=torch.int64, device="cuda")
+        args = (knots, data.cap_times, data.exp_times, 5, 2, True, data.kp_z, data.K, pix,
+                starts, H, W)
+        rk.hold(rk.ResidualCall("warp_tangents", args, None))
+        loc, vs, _ = rk.kernel_fn("warp_tangents")(*args)
+        # S in (f, p, v) order: each patch pixel's 5 virtual poses in turn
+        moved = (loc - pix[0].repeat_interleave(5, 1)).norm(dim=-1)
+        assert float(moved.min()) > 32 and 0 < vs.mean().item() < 1
+
+
+def test_direct_evaluation_launches_only_the_kernels(cuda):
+    """One LM evaluation of the direct path on the card launches K5, K2's
+    two entries, K4 and K3 once each and a handful of assemble's torch ops:
+    no pose chain, warp JVP or gather (the plain chain launches hundreds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+    from mba_vo_tpu_torch.ops import cuda_sampling
+    from mba_vo_tpu_torch.ops import residual as tres
+
+    knots, data = _direct_problem(2, 1, torch.float32)
+    mask = torch.ones(data.kp_z.shape[0], device="cuda")
+
+    def launches(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(a.count for a in prof.key_averages() if a.key in (
+            "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+
+    def evaluation():
+        return tres.evaluate(knots, data, 5, 2, 10.0, mask, True, sampling="direct")
+
+    cr.zero_launch_counts()
+    k1 = cuda_sampling.LAUNCHES
+    n = launches(evaluation)
+    assert cr.launch_counts() == dict(warp_tangents=2, blur_rows=2, normal_equations=2,
+                                      prepare_frame_layout=2, image_bilinear_lk=2)
+    assert cuda_sampling.LAUNCHES == k1
+    saved = tres.compute_residuals
+    try:
+        tres.compute_residuals = tres.compute_residuals_plain
+        plain = launches(evaluation)
+    finally:
+        tres.compute_residuals = saved
+    assert n <= 24 < 200 < plain, (n, plain)
+
+
+def test_direct_tracker_runs_through_k4_and_k5(cuda):
+    """track_frame with sampling="direct" on the card launches K5, K2's two
+    entries, K4 and K3 (no K1) once each an LM evaluation, in float32 and
+    float64; every recorded call of each holds to its plain version."""
+    from mba_vo_tpu_torch.core.spline import make_knots
+    from mba_vo_tpu_torch.data.synthetic import smooth_shapes_image, synthesize_blurred_image
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_residual as cr
+    from mba_vo_tpu_torch.ops import cuda_sampling
+    from mba_vo_tpu_torch.tracker.blur_tracker import BlurAwareTracker, TrackerConfig
+    from mba_vo_tpu_torch.tracker.detector import DetectorOptions
+
+    h, w = 96, 128
+    K = np.array([90.0, 90.0, (w - 1) / 2, (h - 1) / 2])
+    img = smooth_shapes_image(h, w, sigma=3.0, dtype=np.float64)
+    step = np.array([0.004, -0.002, 0.001])
+    traj = make_knots(torch.tensor(np.outer(np.arange(6), step)),
+                      torch.tensor([[0.0, 0, 0, 1]] * 6, dtype=torch.float64), 0.0, 0.1)
+    for dtype in ("float32", "float64"):
+        cfg = TrackerConfig(num_pyramid_levels=2, num_virtual_poses=(5, 5), dtype=dtype,
+                            sampling="direct", max_num_iterations=6,
+                            detector=DetectorOptions(score_threshold=5.0, cell_h=8, cell_w=8,
+                                                     max_keypoints=128))
+        tracker = BlurAwareTracker(cfg, K, (h, w), device="cuda")
+        tracker.track_frame(img, img, 0.0, 0.03, np.full((h, w), 2.0))
+        cr.zero_launch_counts()
+        k1 = cuda_sampling.LAUNCHES
+        with rk.record_residual_calls() as calls:
+            for i in (1, 2, 3):
+                blur = synthesize_blurred_image(torch.tensor(img), traj, 2, 0.1 * i, 0.03, 5,
+                                                2.0, torch.tensor(K)).numpy()
+                pose = tracker.track_frame(None, blur, 0.1 * i, 0.03)
+        torch.cuda.synchronize()
+        n = cr.launch_counts()
+        assert cuda_sampling.LAUNCHES == k1 and n["image_bilinear_lk"] > 0
+        # K3 once more where a step succeeds (its cost, then its J)
+        assert n["prepare_frame_layout"] == n["warp_tangents"] == n["blur_rows"] == n[
+            "image_bilinear_lk"] <= n["normal_equations"], n
+        assert torch.isfinite(pose.t).all()
+        for kernel in rk.KERNELS:
+            assert len(calls[kernel]) == n[kernel]
+            for call in calls[kernel]:
+                rk.hold(call)
