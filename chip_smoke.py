@@ -13,10 +13,12 @@ Phases (any failed check raises and the exit code is non-zero):
      knots and its earlier thread design, blur_rows in the keypoint design
      and the earlier thread design), K3
      (csrc/normal_equations.cu: the cluster design and the earlier split
-     design), K5 (csrc/frame_layout.cu: the patch layout) and K4
-     (csrc/image_bilinear.cu: the direct path's whole-image sampler) with
-     nvcc for sm_90a, all six sources at once, and print each kernel's
-     registers, shared memory and spills;
+     design), K5 (csrc/frame_layout.cu: the patch layout, the staged design
+     and the earlier serial design) and K4 (csrc/image_bilinear.cu: the
+     direct path's whole-image sampler, the select design, the interleaved
+     row and the earlier branch design) with nvcc for sm_90a, all six
+     sources at once, and print each kernel's registers, shared memory and
+     spills, K5's staging and K4's block;
   2b. the card tests: tests/test_torch_cuda.py under pytest (-m cuda,
      without the JAX test configuration), every kernel against its plain
      version (K4 and K5 bit for bit, the direct path on the kernels against
@@ -31,8 +33,8 @@ Phases (any failed check raises and the exit code is non-zero):
      recorded call (experiments/residual_kernels.py; the layout K5 on every
      path and K4 bit for bit), warp_tangents also against the old path (the
      torch chain of the pose Jacobian, then the thread design) to the same
-     tolerances with vs equal, blur_rows and K3 against their earlier
-     designs bit for bit, and the direct path on the kernels against its
+     tolerances with vs equal, blur_rows, K3, K5 and K4 against their
+     earlier designs bit for bit, and the direct path on the kernels against its
      plain chain at every recorded layout call's knots (r and J within K2's
      tolerances, valid equal); then both designs of K1
      and of K1-v, K1-v at every (tile, threads) the sweep harness runs,
@@ -79,7 +81,9 @@ Phases (any failed check raises and the exit code is non-zero):
      versions, the bound (its share of each design's time, and the ratio of
      that time to one launch's floor) and, for K3, cuBLAS's Jw.T @ Jw, for
      K4 grid_sample of the stacked planes and K1 at N = 1 on the whole
-     image;
+     image, and K4's interleaved row (held to the kernel bit for bit on the
+     calls it is timed on) and the cost of building its planes; K4's
+     designs and yardsticks level by level; K4's and K5's targets;
   8. the command line and the keyframe backend: (a) float64 on CUDA against
      the CPU at full width: detect_sparse + match_descriptors on a VGA frame
      of the bench scenario with BackendConfig's default detector (differing
@@ -1819,6 +1823,8 @@ def main() -> int:
     from mba_vo_tpu_torch.experiments import kernel_variants as kv
     from mba_vo_tpu_torch.experiments import residual_kernels as rk
     from mba_vo_tpu_torch.ops import cuda_build
+    from mba_vo_tpu_torch.ops import cuda_image as ci
+    from mba_vo_tpu_torch.ops import cuda_layout as cl
     from mba_vo_tpu_torch.ops import cuda_residual as cr
     from mba_vo_tpu_torch.ops import cuda_sampling as cs
 
@@ -1844,12 +1850,17 @@ def main() -> int:
         kernel = "?"
         for ln in log.splitlines():
             m = re.search(r"((?:window_bilinear(?:_[a-z]+)?|warp_tangents(?:_threads)?|"
-                          r"blur_rows(?:_keypoint)?|frame_layout|image_bilinear)"
+                          r"blur_rows(?:_keypoint)?|frame_layout(?:_serial)?|"
+                          r"image_bilinear(?:_branch|_interleaved)?)"
                           r"_kernel|normal_equations_(?:partials|combine|cluster))I([fd])"
-                          r"(?:Li(\d)E)?", ln)
+                          r"((?:Li\d+E)*)", ln)
             if "Compiling entry function" in ln and m:
-                kernel = (f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'f64'}"
-                          + (f", {m.group(3)} block(s) a thread" if m.group(3) else ""))
+                ints = re.findall(r"Li(\d+)E", m.group(3))
+                kernel = f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'f64'}"
+                if m.group(1) == "image_bilinear_kernel" and ints:
+                    kernel += f", C = {ints[0]}"
+                elif ints:
+                    kernel += f", {ints[0]} block(s) a thread"
             elif any(w in ln for w in ("registers", "spill", "smem")) and "extern" not in ln:
                 print(f"    {kernel}: {ln.replace('ptxas info    : ', '').strip()}")
     item = dict(f32=4, f64=8)
@@ -1862,6 +1873,16 @@ def main() -> int:
               f"tile {t}: {t * 3 * WIN * WIN * 4} B f32" for t in kv.TILES)
           + f"; K1 none (a block may use {cs.MAX_SHARED_BYTES} B); K2's and K3's earlier "
           f"designs static (above), built for up to {cr.MAX_TANGENTS} knot tangents")
+    print(f"    K5's staged design stages the knots (warp 0 their rotations, warp 1 their "
+          f"translations, at most {cl.LAYOUT_LOADS} values a lane, up to "
+          f"{cl.MAX_LAYOUT_KNOTS} knots): " + "; ".join(
+              f"K = {K}: " + " / ".join(
+                  f"{(st := cl.layout_staging(K, b)).smem_bytes} B {t} ({st.loads_q} + "
+                  f"{st.loads_t} loads a lane)" for t, b in item.items())
+              for K in (DEG, JCHUNK + 3, cl.MAX_LAYOUT_KNOTS))
+          + f"; K4's select design: {ci.IMAGE_THREADS} threads a block, "
+          f"one sample a thread, i // S by (i m) >> k (S = {S_MAIN}: "
+          f"m, k = {ci.sample_divisor(S_MAIN)})")
     # the frame's calls (F = 1), a degree-4 joint chunk's (F = 4) and the widest
     for F, D in ((1, 12), (JCHUNK, 6 * (JCHUNK + 3)), (8, cr.MAX_TANGENTS)):
         M = F * N_KP * 8
@@ -2291,7 +2312,8 @@ def main() -> int:
                   f"{100 * r['bound_ms'] / r['device_ms']:.1f} / "
                   f"{100 * r['bound_ms'] / r['device_cold_ms']:.1f} %, a call "
                   f"{1e3 * r['ms']:.2f} us" for r in timed)
-              + (f"; cuBLAS Jw.T @ Jw {1e3 * timed[0]['library_device_ms']:.2f} / "
+              + (f"; {'grid_sample' if kernel == 'image_bilinear_lk' else 'cuBLAS Jw.T @ Jw'} "
+                 f"{1e3 * timed[0]['library_device_ms']:.2f} / "
                  f"{1e3 * timed[0]['library_device_cold_ms']:.2f} us"
                  if timed[0]["library_ms"] is not None else ""))
     # the knots design's targets: no slower warm than the thread design alone
@@ -2304,6 +2326,27 @@ def main() -> int:
           f"{1e3 * joint_w['device_ms']:.2f} us warm against 2 x bound "
           f"{2e3 * joint_w['bound_ms']:.2f} ("
           f"{'met' if joint_w['device_ms'] <= 2 * joint_w['bound_ms'] else 'not met'}); {card}")
+    # K4's and K5's redesigns' targets (PERF.md section 6): K4 no slower than
+    # grid_sample warm and cold on the direct path's C = 3 calls; K5 at most
+    # 3.0 us warm at the frame and 3.2 at the joint chunk
+    k4 = residual_rows["direct f32", "image_bilinear_lk"][0]
+    k4_met = (k4["device_ms"] <= k4["library_device_ms"]
+              and k4["device_cold_ms"] <= k4["library_device_cold_ms"])
+    k5 = [residual_rows[label, "prepare_frame_layout"][0]
+          for label in ("tracker S=40", "joint degree 4")]
+    k4_rows = {r["name"]: r for r in residual_rows["direct f32", "image_bilinear_lk"]}
+    print(f"    K4 target: {1e3 * k4['device_ms']:.2f} / {1e3 * k4['device_cold_ms']:.2f} us "
+          f"warm / cold against grid_sample {1e3 * k4['library_device_ms']:.2f} / "
+          f"{1e3 * k4['library_device_cold_ms']:.2f} ({'met' if k4_met else 'not met'}), "
+          f"against 2.5 us warm ({'met' if k4['device_ms'] <= 2.5e-3 else 'not met'}); the "
+          f"interleaved row {1e3 * k4_rows['interleaved']['device_ms']:.2f} us warm, not "
+          f"launched (its planes: "
+          f"{1e3 * k4['plane']['host_ms']:.2f} us of host to save "
+          f"{1e3 * k4['plane']['saved_device_ms']:.2f} of device); K5 "
+          f"targets: frame {1e3 * k5[0]['device_ms']:.2f} us warm against 3.0 "
+          f"({'met' if k5[0]['device_ms'] <= 3.0e-3 else 'not met'}), joint chunk "
+          f"{1e3 * k5[1]['device_ms']:.2f} against 3.2 "
+          f"({'met' if k5[1]['device_ms'] <= 3.2e-3 else 'not met'}); {card}")
 
     def residual_entry(kernel, source, replaces, earlier=None, name=None,
                        label="tracker S=40", joint=True, **extra):
@@ -2325,8 +2368,15 @@ def main() -> int:
             # bit for bit on every recorded call (phase 3; warp_tangents' to the
             # tolerances, fed by the torch chain), launched by no path
             which = 2 if kernel == "warp_tangents" else 1
-            more["before"] = dict(earlier, **times("tracker S=40", which),
-                                  joint_degree_4=times("joint degree 4", which))
+            more["before"] = dict(earlier, **times(label, which))
+            if joint:
+                more["before"]["joint_degree_4"] = times("joint degree 4", which)
+            # the other timed rows (K4's interleaved plane),
+            # each equal to the kernel bit for bit on the calls it was timed on
+            others = residual_rows[label, kernel][which + 1:-1]
+            if others:
+                more["variants"] = [dict(name=r["name"], ms=r["ms"], device_ms=r["device_ms"],
+                                         device_cold_ms=r["device_cold_ms"]) for r in others]
         if kernel == "warp_tangents":
             more["old_path"] = dict(
                 design="the torch chain of the pose Jacobian, then the thread design",
@@ -2406,12 +2456,21 @@ def main() -> int:
                                     design="two launches: partials, then their combination",
                                     source="mba_vo_tpu_torch/csrc/normal_equations.cu")),
         residual_entry("prepare_frame_layout", "mba_vo_tpu_torch/csrc/frame_layout.cu",
-                       "mba_vo_tpu/ops/residual.py:348", name="frame_layout"),
+                       "mba_vo_tpu/ops/residual.py:348", name="frame_layout",
+                       earlier=dict(name="frame_layout_serial",
+                                    design="the segment found before its knots are loaded, the "
+                                           "pose's chain in one thread: four dependent trips",
+                                    source="mba_vo_tpu_torch/csrc/frame_layout.cu")),
         residual_entry("image_bilinear_lk", "mba_vo_tpu_torch/csrc/image_bilinear.cu",
                        "mba_vo_tpu/ops/residual.py:273", name="image_bilinear",
+                       earlier=dict(name="image_bilinear_branch",
+                                    design="one thread a sample, 64-bit indices, a branch "
+                                           "before the taps",
+                                    source="mba_vo_tpu_torch/csrc/image_bilinear.cu"),
                        label="direct f32", joint=False, direct_path_max_rel_err=dict(
                            f32=residual_err["direct path"][1],
-                           f64=residual_err64["direct path"][1])),
+                           f64=residual_err64["direct path"][1]),
+                       by_level=k4["levels"], first_call=k4["first_call"], plane=k4["plane"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

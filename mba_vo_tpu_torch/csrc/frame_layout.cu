@@ -17,22 +17,46 @@
 //   valid[f, n, p] = pix in [0, W-1] x [0, H-1] and kp_mask[n] > 0
 //   obs[f, n, p]   = cur_imgs[f] at pix, its indices clamped into the image
 // and, where asked (a check, not the tracker's), the anchors [F, N, 2].
-//
-// Design: one launch. A CTA takes one frame (blockIdx.y) and a block of
-// (keypoint, pattern pixel) pairs. Its first degree - 1 threads each compute
-// one segment's exp of the mid pose's rotation chain (a chain of divisions,
-// an atan2, a sin and a cos), thread 0 multiplies them and sums the
-// translation; the pose's inverse goes to shared memory while the other
-// threads load their keypoint. Then one thread a (n, p) runs the rest of
-// patch_anchors in the plain version's order: the back-projection, the
-// rotation by the conjugate quaternion (quat_rotate's two cross products),
-// the two divisions, floor, the pattern, the mask and the doubly clamped
-// gather of cur_imgs.
+// A CTA takes one frame (blockIdx.y) and a block of 256 (keypoint, pattern
+// pixel) pairs, one thread a pair.
 //
 // What bounds it on the card: latency. It moves the knots, N keypoints, the
 // F N P pixels of cur_imgs its patches read and F N P (2 itemsize + 1 +
 // itemsize) output bytes, ~53 kB at the frame in f32 (0.02 us at 3.35
-// TB/s); the pose's chain of transcendentals runs before any write.
+// TB/s); what it costs past one launch is its chain of dependent trips to
+// memory and barriers, and the pose's chain of divisions and
+// transcendentals, which runs before any write.
+//
+// Two designs, equal to the bit:
+//   * frame_layout_kernel (the staged design, which the tracker launches):
+//     one trip for every input. At entry warp 0 stages the knots' rotations
+//     q [K, 4] into shared memory and warp 1 their translations t [K, 3]
+//     (up to kLoads values a lane, loaded back to back, then stored: K <=
+//     kMaxKnots, which the wrapper's layout function enforces,
+//     ops/cuda_layout.py's layout_staging), both load t0, dt and the
+//     frame's capture and exposure times, and every thread its keypoint,
+//     pattern pixel and the intrinsics, all in the same trip. After a
+//     __syncwarp each of the two warps finds the segment; warp 0's first
+//     degree - 1 lanes run the segments' exps side by side and its lane 0
+//     the quaternion chain, while warp 1's lane 0 sums the translation
+//     (the two warps' work overlaps), each from shared memory only. One
+//     barrier; then every thread inverts the pose (t_r2c = -rotate(q_r2c,
+//     t), the same operations in each thread, so the same bits), projects
+//     its keypoint, and gathers cur_imgs at its pixel: the second and last
+//     trip.
+//   * frame_layout_serial_kernel (the first design, the earlier one, a timed
+//     row): every thread loads the times and finds the segment; only then
+//     the segments' knots are loaded (by the first degree - 1 threads, who
+//     run the exps), a barrier, thread 0 loads the translations and runs
+//     the chain, the translation sum and the inverse one after another, a
+//     barrier, then the projection and the gather: four dependent trips to
+//     memory.
+// Both designs run one copy of each step of the arithmetic (the helpers
+// under "shared" below: the mid time, the rotation chain, the translation,
+// the rotation, the pair's back-projection and its projection and gather);
+// they differ only in where a step's inputs come from and which threads run
+// it. The tracker launches the staged design: it is the faster warm on the
+// tracker's recorded calls (PERF.md section 6).
 //
 // Bits: pix selects the pixels, and from a standing start the anchors are
 // integers up to the last bit, so one ulp in an anchor picks another pixel.
@@ -46,7 +70,7 @@
 // type. Both orders were measured by experiments/pose_order.py.
 // NaN knots give NaN anchors, pixels and poses where they reach; such a
 // pixel is not valid, and its gather index is torch's cast of the clamped
-// NaN. The kernel allocates nothing and does not synchronise; the C entry
+// NaN. The kernels allocate nothing and do not synchronise; the C entry
 // points return the CUDA error of the launch.
 
 #include <cuda_runtime.h>
@@ -59,61 +83,66 @@ namespace {
 using namespace spline;
 
 constexpr int kThreads = 256;
+// the staged design: values a lane of warps 0 and 1 stages (warp 0 the 4 K
+// rotation values, warp 1 the 3 K translation values), hence the most knots
+constexpr int kLoads = 8;
+constexpr int kMaxKnots = 32 * kLoads / 4;
 
-// The mid-exposure pose of frame f, inverted (q_r2c = conj(q), t_r2c =
-// -rotate(q_r2c, t)), into s_inv[0..6] = (t_r2c, q_r2c). s_exp holds the
-// segments' exps (degree - 1 of them).
-template <typename T, int degree>
-__device__ void mid_pose_inverse(const T* __restrict__ knot_t, const T* __restrict__ knot_q,
-                                 int K, T t0, T dt, T c, T e, int V, T* s_inv, T* s_exp) {
-  const T thr = sizeof(T) >= 8 ? T(1e-20) : T(1e-10);   // core/lie.py::_small_threshold
-  // core/spline.py::virtual_pose_times at v = V // 2: c - 0.5 e + v e / div,
-  // the division by the Python float div a product with its reciprocal
+// ---------------------------------------------------------------- shared
+// The arithmetic both designs run, one copy of each step: the designs
+// differ only in where the inputs come from and which threads run a step.
+
+// core/spline.py::virtual_pose_times at v = V // 2: c - 0.5 e + v e / div,
+// the division by the Python float div a product with its reciprocal
+template <typename T>
+__device__ __forceinline__ T mid_time(T c, T e, int V) {
   const T inv_div = T(1) / T((double)(V - 1) + 1e-8);
-  const T tau = (c - T(0.5) * e) + (T(V / 2) * e) * inv_div;
-  T wv[degree], wc[degree - 1];
-  const int idx = spline_segment<T, degree>(tau, t0, dt, K, wv, wc);
-  auto knot = [&](int j) {
-    const T* k = knot_q + (idx + j) * 4;
-    return Quat<T>{k[0], k[1], k[2], k[3]};
-  };
-  const int j = threadIdx.x;
-  if (j < degree - 1) {
-    const Quat<T> ex = segment_exp(knot(j), knot(j + 1), wc[j], thr);
-    T* o = s_exp + 4 * j;
-    o[0] = ex.x; o[1] = ex.y; o[2] = ex.z; o[3] = ex.w;
-  }
-  __syncthreads();
-  if (j != 0) return;
-  Quat<T> q = knot(0);
+  return (c - T(0.5) * e) + (T(V / 2) * e) * inv_div;
+}
+
+// core/lie.py::_small_threshold
+template <typename T>
+__device__ __forceinline__ T small_threshold() {
+  return sizeof(T) >= 8 ? T(1e-20) : T(1e-10);
+}
+
+// knot j of the rotations q [K, 4]
+template <typename T>
+__device__ __forceinline__ Quat<T> knot_quat(const T* q, int j) {
+  const T* k = q + j * 4;
+  return Quat<T>{k[0], k[1], k[2], k[3]};
+}
+
+// the segment's first knot times its segments' exps s_exp [degree - 1, 4],
+// in order: the mid pose's rotation
+template <typename T, int degree>
+__device__ __forceinline__ Quat<T> rotation_chain(Quat<T> q, const T* s_exp) {
 #pragma unroll
   for (int s = 0; s + 1 < degree; ++s) {
     const T* x = s_exp + 4 * s;
     q = qmul(q, Quat<T>{x[0], x[1], x[2], x[3]});
   }
-  T t[3];
+  return q;
+}
+
+// component k of the mid pose's translation: the position bases wv over
+// the segment's knots of t [K, 3], in the card's einsum order
+template <typename T, int degree>
+__device__ __forceinline__ T translation(const T* knot_t, int idx, int k, const T* wv) {
+  T x[degree];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    T x[degree];
-#pragma unroll
-    for (int i = 0; i < degree; ++i) x[i] = knot_t[(idx + i) * 3 + k];
-    t[k] = einsum_tap_sum<T, degree>(wv, x);
-  }
-  // patch_anchors: q_r2c = quat_conjugate(q), t_r2c = -quat_rotate(q_r2c, t),
-  // quat_rotate's two-cross-product form v + w (2 xyz x v) + xyz x (2 xyz x v)
-  const Quat<T> qi = qconj(q);
-  const V3<T> xyz = {qi.x, qi.y, qi.z};
-  const V3<T> v = {t[0], t[1], t[2]};
+  for (int i = 0; i < degree; ++i) x[i] = knot_t[(idx + i) * 3 + k];
+  return einsum_tap_sum<T, degree>(wv, x);
+}
+
+// quat_rotate(q, v), q = (xyz, w), in its two-cross-product form
+// v + w (2 xyz x v) + xyz x (2 xyz x v), each sum left to right
+template <typename T>
+__device__ __forceinline__ V3<T> rotate(V3<T> xyz, T w, V3<T> v) {
   V3<T> u = cross(xyz, v);
   u = {T(2) * u.x, T(2) * u.y, T(2) * u.z};
   const V3<T> xu = cross(xyz, u);
-  s_inv[0] = -((v.x + qi.w * u.x) + xu.x);
-  s_inv[1] = -((v.y + qi.w * u.y) + xu.y);
-  s_inv[2] = -((v.z + qi.w * u.z) + xu.z);
-  s_inv[3] = qi.x;
-  s_inv[4] = qi.y;
-  s_inv[5] = qi.z;
-  s_inv[6] = qi.w;
+  return {(v.x + w * u.x) + xu.x, (v.y + w * u.y) + xu.y, (v.z + w * u.z) + xu.z};
 }
 
 // torch.clamp of a float (a NaN passes through), then its cast to int64,
@@ -123,6 +152,96 @@ __device__ __forceinline__ long long gather_index(T x, int size) {
   const T c = isnan(x) ? x : fmin(fmax(x, T(-1)), T(size));
   long long i = (long long)c;
   return i < 0 ? 0 : (i > size - 1 ? size - 1 : i);
+}
+
+// A thread's (keypoint n, pattern pixel p) pair before the pose: the
+// keypoint's back-projection P3dr, its mask and the pattern's offset
+// (zeros for a thread past N P)
+template <typename T>
+struct Pair {
+  V3<T> P3dr;
+  T live;
+  int ox, oy;
+};
+
+template <typename T>
+__device__ __forceinline__ Pair<T> load_pair(const T* __restrict__ kp_xy,
+                                             const T* __restrict__ kp_z,
+                                             const T* __restrict__ kp_mask,
+                                             const int32_t* __restrict__ pattern, bool active,
+                                             int n, int p, T fx, T fy, T cx, T cy) {
+  Pair<T> r{{T(0), T(0), T(0)}, T(0), 0, 0};
+  if (active) {
+    const T z = kp_z[n];
+    r.P3dr = {(z * (kp_xy[2 * n] - cx)) / fx, (z * (kp_xy[2 * n + 1] - cy)) / fy, z};
+    r.live = kp_mask[n];
+    r.ox = pattern[2 * p];
+    r.oy = pattern[2 * p + 1];
+  }
+  return r;
+}
+
+// The pair through the frame's inverted mid pose (q_r2c = (xyz, w),
+// t_r2c): P3dc = quat_rotate(q_r2c, P3dr) + t_r2c, the anchor, then the
+// pixel, its in-image test and the gather of cur_imgs there
+template <typename T>
+__device__ __forceinline__ void write_pair(const Pair<T>& r, V3<T> xyz, T w, V3<T> t_r2c,
+                                           T fx, T fy, T cx, T cy, int f, int n, int p, int N,
+                                           int P, int H, int W, int Hc, int Wc,
+                                           const T* __restrict__ cur, T* __restrict__ pix,
+                                           uint8_t* __restrict__ valid, T* __restrict__ obs,
+                                           T* __restrict__ anchors) {
+  const V3<T> c = rotate(xyz, w, r.P3dr);
+  const T Px = c.x + t_r2c.x, Py = c.y + t_r2c.y, Pz = c.z + t_r2c.z;
+  const T ax = (Px / Pz) * fx + cx;
+  const T ay = (Py / Pz) * fy + cy;
+  const long long o = ((long long)f * N + n) * P + p;
+  if (anchors != nullptr && p == 0) {
+    const long long a = (long long)f * N + n;
+    anchors[2 * a] = ax;
+    anchors[2 * a + 1] = ay;
+  }
+  const T x = floor(ax) + T(r.ox);
+  const T y = floor(ay) + T(r.oy);
+  pix[2 * o] = x;
+  pix[2 * o + 1] = y;
+  valid[o] = (x >= T(0) && x <= T(W - 1) && y >= T(0) && y <= T(H - 1) && r.live > T(0)) ? 1
+                                                                                          : 0;
+  obs[o] = __ldg(cur + ((long long)f * Hc + gather_index(y, Hc)) * Wc + gather_index(x, Wc));
+}
+
+// ---------------------------------------------------------------- serial
+
+// The mid-exposure pose of frame f, inverted (q_r2c = conj(q), t_r2c =
+// -rotate(q_r2c, t)), into s_inv[0..6] = (t_r2c, q_r2c). s_exp holds the
+// segments' exps (degree - 1 of them).
+template <typename T, int degree>
+__device__ void mid_pose_inverse(const T* __restrict__ knot_t, const T* __restrict__ knot_q,
+                                 int K, T t0, T dt, T c, T e, int V, T* s_inv, T* s_exp) {
+  T wv[degree], wc[degree - 1];
+  const int idx = spline_segment<T, degree>(mid_time(c, e, V), t0, dt, K, wv, wc);
+  const int j = threadIdx.x;
+  if (j < degree - 1) {
+    const Quat<T> ex = segment_exp(knot_quat(knot_q, idx + j), knot_quat(knot_q, idx + j + 1),
+                                   wc[j], small_threshold<T>());
+    T* o = s_exp + 4 * j;
+    o[0] = ex.x; o[1] = ex.y; o[2] = ex.z; o[3] = ex.w;
+  }
+  __syncthreads();
+  if (j != 0) return;
+  const Quat<T> qi = qconj(rotation_chain<T, degree>(knot_quat(knot_q, idx), s_exp));
+  const V3<T> t = {translation<T, degree>(knot_t, idx, 0, wv),
+                   translation<T, degree>(knot_t, idx, 1, wv),
+                   translation<T, degree>(knot_t, idx, 2, wv)};
+  // patch_anchors: q_r2c = quat_conjugate(q), t_r2c = -quat_rotate(q_r2c, t)
+  const V3<T> rt = rotate(V3<T>{qi.x, qi.y, qi.z}, qi.w, t);
+  s_inv[0] = -rt.x;
+  s_inv[1] = -rt.y;
+  s_inv[2] = -rt.z;
+  s_inv[3] = qi.x;
+  s_inv[4] = qi.y;
+  s_inv[5] = qi.z;
+  s_inv[6] = qi.w;
 }
 
 template <typename T, int degree>
@@ -142,48 +261,18 @@ __device__ void layout_body(const T* __restrict__ knot_t, const T* __restrict__ 
   const int p = active ? (int)(i - (long long)n * P) : 0;
   const T fx = Kv[0], fy = Kv[1], cx = Kv[2], cy = Kv[3];
   // the keypoint's back-projection P3dr, while the pose is computed
-  T z = T(0), px = T(0), py = T(0), live = T(0);
-  int ox = 0, oy = 0;
-  if (active) {
-    z = kp_z[n];
-    px = (z * (kp_xy[2 * n] - cx)) / fx;
-    py = (z * (kp_xy[2 * n + 1] - cy)) / fy;
-    live = kp_mask[n];
-    ox = pattern[2 * p];
-    oy = pattern[2 * p + 1];
-  }
+  const Pair<T> pair = load_pair(kp_xy, kp_z, kp_mask, pattern, active, n, p, fx, fy, cx, cy);
   mid_pose_inverse<T, degree>(knot_t, knot_q, K, *t0p, *dtp, cap[f], expo[f], V, s_inv, s_exp);
   __syncthreads();
   if (!active) return;
-  // P3dc = quat_rotate(q_r2c, P3dr) + t_r2c
-  const V3<T> xyz = {s_inv[3], s_inv[4], s_inv[5]};
-  const T w = s_inv[6];
-  const V3<T> v = {px, py, z};
-  V3<T> u = cross(xyz, v);
-  u = {T(2) * u.x, T(2) * u.y, T(2) * u.z};
-  const V3<T> xu = cross(xyz, u);
-  const T Px = ((v.x + w * u.x) + xu.x) + s_inv[0];
-  const T Py = ((v.y + w * u.y) + xu.y) + s_inv[1];
-  const T Pz = ((v.z + w * u.z) + xu.z) + s_inv[2];
-  const T ax = (Px / Pz) * fx + cx;
-  const T ay = (Py / Pz) * fy + cy;
-  const long long o = ((long long)f * N + n) * P + p;
-  if (anchors != nullptr && p == 0) {
-    const long long a = (long long)f * N + n;
-    anchors[2 * a] = ax;
-    anchors[2 * a + 1] = ay;
-  }
-  const T x = floor(ax) + T(ox);
-  const T y = floor(ay) + T(oy);
-  pix[2 * o] = x;
-  pix[2 * o + 1] = y;
-  valid[o] = (x >= T(0) && x <= T(W - 1) && y >= T(0) && y <= T(H - 1) && live > T(0)) ? 1 : 0;
-  obs[o] = __ldg(cur + ((long long)f * Hc + gather_index(y, Hc)) * Wc + gather_index(x, Wc));
+  write_pair(pair, V3<T>{s_inv[3], s_inv[4], s_inv[5]}, s_inv[6],
+             V3<T>{s_inv[0], s_inv[1], s_inv[2]}, fx, fy, cx, cy, f, n, p, N, P, H, W, Hc, Wc,
+             cur, pix, valid, obs, anchors);
 }
-
+// The first design, kept as the earlier one (the serial design)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-frame_layout_kernel(const T* __restrict__ knot_t,    // [K, 3]
+frame_layout_serial_kernel(const T* __restrict__ knot_t,    // [K, 3]
                     const T* __restrict__ knot_q,    // [K, 4]
                     const T* __restrict__ t0p,       // spline start time
                     const T* __restrict__ dtp,       // knot interval
@@ -212,23 +301,146 @@ frame_layout_kernel(const T* __restrict__ knot_t,    // [K, 3]
                       cur, pix, valid, obs, anchors, K, N, F, P, V, H, W, Hc, Wc, s_inv, s_exp);
 }
 
+// ---------------------------------------------------------------- staged
+
+// The staged design at a spline degree. Shared memory: s_q [4 K] and s_t
+// [3 K] (the knots), s_exp [4 (degree - 1)] (the segments' exps), s_pose
+// [7] = (t, q_r2c) (the frame's mid pose, its translation not yet
+// inverted).
+template <typename T, int degree>
+__device__ void staged_body(const T* __restrict__ knot_t, const T* __restrict__ knot_q,
+                            const T* __restrict__ t0p, const T* __restrict__ dtp,
+                            const T* __restrict__ cap, const T* __restrict__ expo,
+                            const T* __restrict__ kp_xy, const T* __restrict__ kp_z,
+                            const T* __restrict__ kp_mask, const T* __restrict__ Kv,
+                            const int32_t* __restrict__ pattern, const T* __restrict__ cur,
+                            T* __restrict__ pix, uint8_t* __restrict__ valid,
+                            T* __restrict__ obs, T* __restrict__ anchors, int K, int N, int F,
+                            int P, int V, int H, int W, int Hc, int Wc, T* s_q, T* s_t,
+                            T* s_exp, T* s_pose) {
+  const int f = blockIdx.y;
+  const int i = blockIdx.x * kThreads + threadIdx.x;   // n P + p, below 2^31
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool active = i < N * P;
+  const int n = active ? i / P : 0;
+  const int p = active ? i - n * P : 0;
+  // the one trip: every thread's keypoint, pattern pixel and intrinsics,
+  // and warp 0's rotations, warp 1's translations and both warps' times
+  const T fx = Kv[0], fy = Kv[1], cx = Kv[2], cy = Kv[3];
+  const Pair<T> pair = load_pair(kp_xy, kp_z, kp_mask, pattern, active, n, p, fx, fy, cx, cy);
+  if (warp < 2) {
+    const T* src = warp == 0 ? knot_q : knot_t;
+    T* dst = warp == 0 ? s_q : s_t;
+    const int count = (warp == 0 ? 4 : 3) * K;
+    T staged[kLoads];
+#pragma unroll
+    for (int r = 0; r < kLoads; ++r) {
+      const int e = lane + 32 * r;
+      if (e < count) staged[r] = src[e];
+    }
+    const T c = cap[f], e = expo[f], t0 = *t0p, dt = *dtp;
+#pragma unroll
+    for (int r = 0; r < kLoads; ++r) {
+      const int at = lane + 32 * r;
+      if (at < count) dst[at] = staged[r];
+    }
+    __syncwarp();
+    T wv[degree], wc[degree - 1];
+    const int idx = spline_segment<T, degree>(mid_time(c, e, V), t0, dt, K, wv, wc);
+    if (warp == 0) {
+      if (lane < degree - 1) {
+        // wc[lane] by selects: a register, not a local array indexed at run time
+        T cj = wc[0];
+#pragma unroll
+        for (int j = 1; j + 1 < degree; ++j) cj = lane == j ? wc[j] : cj;
+        const Quat<T> ex = segment_exp(knot_quat(s_q, idx + lane),
+                                       knot_quat(s_q, idx + lane + 1), cj,
+                                       small_threshold<T>());
+        T* o = s_exp + 4 * lane;
+        o[0] = ex.x; o[1] = ex.y; o[2] = ex.z; o[3] = ex.w;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        const Quat<T> qi = qconj(rotation_chain<T, degree>(knot_quat(s_q, idx), s_exp));
+        s_pose[3] = qi.x; s_pose[4] = qi.y; s_pose[5] = qi.z; s_pose[6] = qi.w;
+      }
+    } else if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) s_pose[k] = translation<T, degree>(s_t, idx, k, wv);
+    }
+  }
+  __syncthreads();
+  if (!active) return;
+  // patch_anchors: t_r2c = -quat_rotate(q_r2c, t), in every thread (the
+  // serial design's operations: the same bits), then write_pair
+  const V3<T> xyz = {s_pose[3], s_pose[4], s_pose[5]};
+  const T w = s_pose[6];
+  const V3<T> rt = rotate(xyz, w, V3<T>{s_pose[0], s_pose[1], s_pose[2]});
+  write_pair(pair, xyz, w, V3<T>{-rt.x, -rt.y, -rt.z}, fx, fy, cx, cy, f, n, p, N, P, H, W, Hc,
+             Wc, cur, pix, valid, obs, anchors);
+}
+// the staged design's shared memory (ops/cuda_layout.py's layout_staging):
+// s_q, s_t, s_exp and s_pose, rounded up to 16 bytes
+template <typename T>
+constexpr long long staged_smem_bytes(int K) {
+  return ((7LL * K + 12 + 7) * (long long)sizeof(T) + 15) / 16 * 16;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+frame_layout_kernel(const T* __restrict__ knot_t, const T* __restrict__ knot_q,
+                    const T* __restrict__ t0p, const T* __restrict__ dtp,
+                    const T* __restrict__ cap, const T* __restrict__ expo,
+                    const T* __restrict__ kp_xy, const T* __restrict__ kp_z,
+                    const T* __restrict__ kp_mask, const T* __restrict__ Kv,
+                    const int32_t* __restrict__ pattern, const T* __restrict__ cur,
+                    T* __restrict__ pix, uint8_t* __restrict__ valid, T* __restrict__ obs,
+                    T* __restrict__ anchors, int K, int degree, int N, int F, int P, int V,
+                    int H, int W, int Hc, int Wc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_q = reinterpret_cast<T*>(smem);
+  T* s_t = s_q + 4 * K;
+  T* s_exp = s_t + 3 * K;
+  T* s_pose = s_exp + 12;
+  if (degree == 2)
+    staged_body<T, 2>(knot_t, knot_q, t0p, dtp, cap, expo, kp_xy, kp_z, kp_mask, Kv, pattern,
+                      cur, pix, valid, obs, anchors, K, N, F, P, V, H, W, Hc, Wc, s_q, s_t,
+                      s_exp, s_pose);
+  else
+    staged_body<T, 4>(knot_t, knot_q, t0p, dtp, cap, expo, kp_xy, kp_z, kp_mask, Kv, pattern,
+                      cur, pix, valid, obs, anchors, K, N, F, P, V, H, W, Hc, Wc, s_q, s_t,
+                      s_exp, s_pose);
+}
+
+// ---------------------------------------------------------------- launch
+
 template <typename T>
 int launch_frame_layout(const void* knot_t, const void* knot_q, const void* t0, const void* dt,
                         const void* cap, const void* expo, const void* kp_xy, const void* kp_z,
                         const void* kp_mask, const void* Kv, const void* pattern,
                         const void* cur, void* pix, void* valid, void* obs, void* anchors,
                         int K, int degree, int N, int F, int P, int V, int H, int W, int Hc,
-                        int Wc, void* stream) {
+                        int Wc, bool staged, long long smem_bytes, void* stream) {
   if ((degree != 2 && degree != 4) || K < degree || N < 0 || F < 1 || F > 65535 || P < 1 ||
       V < 1 || H < 1 || W < 1 || Hc < 1 || Wc < 1 || (long long)N * P >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
+  if (staged && (K > kMaxKnots || smem_bytes != staged_smem_bytes<T>(K)))
+    return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaSuccess;
   const dim3 grid((unsigned)(((long long)N * P + kThreads - 1) / kThreads), (unsigned)F);
-  frame_layout_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)knot_t, (const T*)knot_q, (const T*)t0, (const T*)dt, (const T*)cap,
-      (const T*)expo, (const T*)kp_xy, (const T*)kp_z, (const T*)kp_mask, (const T*)Kv,
-      (const int32_t*)pattern, (const T*)cur, (T*)pix, (uint8_t*)valid, (T*)obs, (T*)anchors,
-      K, degree, N, F, P, V, H, W, Hc, Wc);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (staged)
+    frame_layout_kernel<T><<<grid, kThreads, (size_t)smem_bytes, st>>>(
+        (const T*)knot_t, (const T*)knot_q, (const T*)t0, (const T*)dt, (const T*)cap,
+        (const T*)expo, (const T*)kp_xy, (const T*)kp_z, (const T*)kp_mask, (const T*)Kv,
+        (const int32_t*)pattern, (const T*)cur, (T*)pix, (uint8_t*)valid, (T*)obs, (T*)anchors,
+        K, degree, N, F, P, V, H, W, Hc, Wc);
+  else
+    frame_layout_serial_kernel<T><<<grid, kThreads, 0, st>>>(
+        (const T*)knot_t, (const T*)knot_q, (const T*)t0, (const T*)dt, (const T*)cap,
+        (const T*)expo, (const T*)kp_xy, (const T*)kp_z, (const T*)kp_mask, (const T*)Kv,
+        (const int32_t*)pattern, (const T*)cur, (T*)pix, (uint8_t*)valid, (T*)obs, (T*)anchors,
+        K, degree, N, F, P, V, H, W, Hc, Wc);
   return (int)cudaGetLastError();
 }
 
@@ -241,12 +453,24 @@ extern "C" {
       const void *expo, const void *kp_xy, const void *kp_z, const void *kp_mask,          \
       const void *Kv, const void *pattern, const void *cur, void *pix, void *valid,        \
       void *obs, void *anchors, int K, int degree, int N, int F, int P, int V, int H,      \
-      int W, int Hc, int Wc, void *stream
+      int W, int Hc, int Wc
 #define LAYOUT_PASS                                                                      \
   knot_t, knot_q, t0, dt, cap, expo, kp_xy, kp_z, kp_mask, Kv, pattern, cur, pix, valid, \
-      obs, anchors, K, degree, N, F, P, V, H, W, Hc, Wc, stream
+      obs, anchors, K, degree, N, F, P, V, H, W, Hc, Wc
 
-int frame_layout_f32(LAYOUT_ARGS) { return launch_frame_layout<float>(LAYOUT_PASS); }
-int frame_layout_f64(LAYOUT_ARGS) { return launch_frame_layout<double>(LAYOUT_PASS); }
+int frame_layout_max_knots() { return kMaxKnots; }
+
+int frame_layout_f32(LAYOUT_ARGS, long long smem_bytes, void* stream) {
+  return launch_frame_layout<float>(LAYOUT_PASS, true, smem_bytes, stream);
+}
+int frame_layout_f64(LAYOUT_ARGS, long long smem_bytes, void* stream) {
+  return launch_frame_layout<double>(LAYOUT_PASS, true, smem_bytes, stream);
+}
+int frame_layout_serial_f32(LAYOUT_ARGS, void* stream) {
+  return launch_frame_layout<float>(LAYOUT_PASS, false, 0, stream);
+}
+int frame_layout_serial_f64(LAYOUT_ARGS, void* stream) {
+  return launch_frame_layout<double>(LAYOUT_PASS, false, 0, stream);
+}
 
 }  // extern "C"

@@ -23,7 +23,10 @@ Two of its steps have an order that the card's torch chooses:
 Then it holds K5's anchors (``ops.cuda_layout.frame_layout_cuda`` with
 ``anchors=True``) against the plain version's on the card, moving and from
 a standing start, degrees 2 and 4, float32 and float64, and prints the
-entries that differ. Run from the repository's root:
+entries that differ; and, for a capture far past the spline's end
+(:func:`probe_extrapolation`), both K5 designs' anchors against the plain
+version's and the extrapolated translation against the candidate orders
+in float32. Run from the repository's root:
 
     python3 -m mba_vo_tpu_torch.experiments.pose_order
 
@@ -162,6 +165,102 @@ def probe_anchors(out=print) -> dict:
     return res
 
 
+def _f32_candidates(w, x) -> dict:
+    """:func:`_candidates`' orders in float32: each product and each fused
+    multiply-add computed exactly, then rounded to float32."""
+    f32 = np.float32
+
+    def fma(a, b, c):
+        return f32(float(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))))
+
+    def add(a, b):
+        return f32(float(Fraction(float(a)) + Fraction(float(b))))
+
+    p = [f32(float(Fraction(float(w[j])) * Fraction(float(x[j])))) for j in range(len(w))]
+    chain, seq, rchain = p[0], p[0], p[-1]
+    for j in range(1, len(w)):
+        chain, seq = fma(w[j], x[j], chain), add(seq, p[j])
+    for j in range(len(w) - 2, -1, -1):
+        rchain = fma(w[j], x[j], rchain)
+    return dict(fma_chain=chain, products_in_order=seq, fma_chain_reversed=rchain)
+
+
+def probe_extrapolation(out=print) -> dict:
+    """A capture 4.5 knot intervals past the spline's end (the card tests'
+    "clamped" problem of tests/test_torch_cuda.py::_layout_problem, seed 0,
+    degree 4, F = 8, V = 5, 512 keypoints; its last frame extrapolates with
+    basis weights of -7 to 33): the extrapolated frame's translation against
+    the candidate orders in float32, and K5's anchors (both designs) against
+    the plain version's (the entries that differ, and the largest distance
+    in units of the plain anchor's last place) and against the plain
+    version's with the translation taken in the kernels' order, by knot
+    count and dtype."""
+    from ..core.spline import _vec_basis, make_knots, spline_segment_start_and_u
+    from ..core.spline import virtual_pose_times
+    from ..ops import cuda_layout
+    from ..ops import residual as tres
+    from ..tracker.patterns import PATTERNS
+
+    res = {}
+    H, W, N, F, V, degree = 480, 640, 512, 8, 5, 4
+    for K in (27, 64):
+        for dtype in (torch.float32, torch.float64):
+            # the draws of _layout_problem(K, 4, 8, 5, dtype, "clamped"), in its order
+            rng = np.random.default_rng(0)
+            t = np.cumsum(rng.normal(0, 0.05, (K, 3)), axis=0)
+            q = np.concatenate([rng.normal(0, 0.02, (K, 3)), np.ones((K, 1))], axis=1)
+            q /= np.linalg.norm(q, axis=1, keepdims=True)
+            kp = rng.uniform([-3, -3], [W + 3, H + 3], (N, 2))
+            caps = 0.05 + 0.1 * (degree - 1) / 2 + np.sort(
+                rng.uniform(0, 0.1 * (K - degree + 0.5), F))
+            caps[-1] = 0.05 + 0.1 * (K + 0.5)
+            rng.uniform(0, 255, (F, H, W))                      # the current frames
+            z = rng.uniform(1.5, 2.5, N)
+            c = lambda a: torch.tensor(a, dtype=dtype, device="cuda")   # noqa: E731
+            knots = make_knots(c(t), c(q), 0.05, 0.1)
+            knots = knots._replace(t0=knots.t0.cuda(), dt=knots.dt.cuda())
+            caps_t, exps = c(caps), c(np.full(F, 0.03))
+            kp_t, z_t = c(kp), c(z)
+            Kv = c([480.0, 480.0, (W - 1) / 2, (H - 1) / 2])
+            pt, pq = tres.sample_virtual_poses(knots, caps_t, exps, V, degree)
+            ref = tres.patch_anchors(pt[:, V // 2], pq[:, V // 2], kp_t, z_t, Kv)
+            args = (knots, caps_t, exps, V, degree, kp_t, z_t, torch.ones_like(z_t), Kv,
+                    torch.as_tensor(PATTERNS["dso8"](), device="cuda"),
+                    torch.zeros((F, H, W), dtype=dtype, device="cuda"), H, W)
+            staged = cuda_layout.frame_layout_cuda(*args, anchors=True)[3]
+            serial = cuda_layout.frame_layout_serial_cuda(*args, anchors=True)[3]
+            label = f"{K} knots, {str(dtype).split('.')[-1]}"
+            ulp = torch.nextafter(ref, torch.full_like(ref, float("inf"))) - ref
+            got = dict(staged_vs_plain=int((staged != ref).sum()),
+                       serial_vs_plain=int((serial != ref).sum()),
+                       staged_vs_serial=int((staged != serial).sum()),
+                       staged_vs_plain_max_ulps=float(((staged - ref).abs() / ulp).max()))
+            if dtype == torch.float32:
+                times = virtual_pose_times(caps_t, exps, V).reshape(-1)
+                idx, u = spline_segment_start_and_u(times, knots.t0, knots.dt, K, degree)
+                m = (F - 1) * V + V // 2
+                w = _vec_basis(u, degree)[m].cpu().numpy()
+                x = knots.t[idx[m] + torch.arange(degree, device="cuda")].cpu().numpy()
+                orders = {}
+                for i in range(3):
+                    for name, val in _f32_candidates(w, x[:, i]).items():
+                        orders[name] = orders.get(name, 0) + int(val == np.float32(
+                            float(pt[F - 1, V // 2, i])))
+                got["translation_components_equal_to"] = orders
+                tt = pt[:, V // 2].clone()
+                tt[F - 1] = torch.tensor([_f32_candidates(w, x[:, i])["fma_chain"]
+                                          for i in range(3)], dtype=dtype, device="cuda")
+                alt = tres.patch_anchors(tt, pq[:, V // 2], kp_t, z_t, Kv)
+                got["staged_vs_plain_with_the_fma_chain"] = int((staged != alt).sum())
+                got["differing_frames"] = sorted({int(f) for f in torch.nonzero(
+                    (staged != ref).any(-1))[:, 0]})
+            res[label] = got
+            out(f"K5 anchors, a capture 4.5 knot intervals past the spline's end, {label} "
+                f"(degree 4, F = 8, {N * F} anchors of 2): " + ", ".join(
+                    f"{k} {v}" for k, v in got.items()))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("pose_order: needs one CUDA GPU", file=sys.stderr)
@@ -170,6 +269,7 @@ def main() -> int:
     probe_division()
     probe_translation()
     probe_anchors()
+    probe_extrapolation()
     return 0
 
 

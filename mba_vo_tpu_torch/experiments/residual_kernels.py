@@ -7,13 +7,15 @@ K2 is ``csrc/residual_rows.cu`` (``warp_tangents``, ``blur_rows``), K3
 every path) and K4 ``csrc/image_bilinear.cu`` (the direct path's
 whole-image sampler, ``image_bilinear_lk``); their plain versions are in
 ``ops/residual.py`` and ``ops/image.py``. K4 and K5 equal their plain
-versions bit for bit (:data:`BIT_EQUAL_PLAIN`). K2 and K3 keep an earlier
-design beside the one the tracker launches (:data:`EARLIER`): ``warp_tangents`` the old path, the
-torch chain of the pose Jacobian (``virtual_poses_and_tangents``) feeding
-the thread design (``warp_tangents_threads_cuda``, the sweep row), held to
-the kernel within :data:`TOLERANCE`; ``blur_rows`` and
-``normal_equations`` one thread a row and two launches, equal to the
-kernel bit for bit (:data:`BIT_EQUAL`). :func:`record_residual_calls`
+versions bit for bit (:data:`BIT_EQUAL_PLAIN`). Each kernel keeps an
+earlier design beside the one the tracker launches (:data:`EARLIER`):
+``warp_tangents`` the old path, the torch chain of the pose Jacobian
+(``virtual_poses_and_tangents``) feeding the thread design
+(``warp_tangents_threads_cuda``, the sweep row), held to the kernel within
+:data:`TOLERANCE`; ``blur_rows`` and ``normal_equations`` one thread a row
+and two launches, K5 the serial design and K4 the branch design (their first),
+equal to the kernel bit for bit (:data:`BIT_EQUAL`); K4 also the rows of
+:func:`variant_fns`. :func:`record_residual_calls`
 records every call the tracker makes of the five dispatchers
 (``ops.residual.warp_tangents``, ``blur_rows``, ``normal_equations``,
 ``prepare_frame_layout`` and ``image_bilinear_lk``) as
@@ -43,8 +45,10 @@ outputs):
     yardstick the port never calls; for K4 ``torch.nn.functional.grid_sample``
     (``align_corners=True``, ``padding_mode="zeros"``) of the three planes
     stacked once outside, the same interpolation but at the border, and
-    beside it K1 at N = 1 with the whole image as one window. No single
-    PyTorch call computes K2's or K5's functions (``library_ms`` None).
+    beside it K1 at N = 1 with the whole image as one window, each timed
+    as the designs are (warm on the same calls, a call and cold on the
+    first), its operands prepared once, outside. No single PyTorch call
+    computes K2's or K5's functions (``library_ms`` None).
 
 :func:`time_layouts` times K3's two cluster layouts (:data:`K3_LAYOUTS`),
 between which its rule chooses by the rows, on the same calls, each held
@@ -65,6 +69,7 @@ import dataclasses
 import math
 import statistics
 import sys
+import time
 from typing import Dict, Iterator, List, Optional
 
 import torch
@@ -210,22 +215,31 @@ def chain_args(call: ResidualCall) -> tuple:
 
 
 # the earlier design of a kernel, by the name of its wrapper in
-# ops/cuda_residual.py: for warp_tangents the old path (the torch chain of
+# ops/cuda_residual.py (K5's in ops/cuda_layout.py, K4's in
+# ops/cuda_image.py): for warp_tangents the old path (the torch chain of
 # the pose Jacobian, then the thread design); those of BIT_EQUAL give the
 # kernel's bits
 EARLIER = {"warp_tangents": "warp_tangents_threads_cuda",
            "blur_rows": "blur_rows_threads_cuda",
-           "normal_equations": "normal_equations_split_cuda"}
-BIT_EQUAL = ("blur_rows", "normal_equations")
+           "normal_equations": "normal_equations_split_cuda",
+           "prepare_frame_layout": "frame_layout_serial_cuda",
+           "image_bilinear_lk": "image_bilinear_branch_cuda"}
+BIT_EQUAL = ("blur_rows", "normal_equations", "prepare_frame_layout", "image_bilinear_lk")
 
 
 def earlier_fn(kernel: str):
     """The earlier design of ``kernel`` (None where it has none), taking the
     dispatcher's arguments."""
-    from ..ops import cuda_residual
+    from ..ops import cuda_image, cuda_layout, cuda_residual, residual
 
     if kernel not in EARLIER:
         return None
+    if kernel == "prepare_frame_layout":
+        return lambda *args: cuda_layout.frame_layout_serial_cuda(
+            *residual.frame_layout_args(*args))
+    if kernel == "image_bilinear_lk":
+        return lambda img, grad, loc, channels=3: cuda_image.image_bilinear_branch_cuda(
+            img.contiguous(), grad.contiguous(), loc.contiguous(), channels)
     wrapper = getattr(cuda_residual, EARLIER[kernel])
     if kernel == "warp_tangents":
         return lambda *args: wrapper(*chain_args(ResidualCall(kernel, args, None)))
@@ -236,6 +250,33 @@ def earlier_fn(kernel: str):
     return lambda r, J, kp_w, huber_a, compensated=False: wrapper(
         r.contiguous(), None if J is None else J.contiguous(), kp_w.contiguous(), huber_a,
         compensated)
+
+
+def variant_fns(kernel: str, calls: List[ResidualCall]) -> list:
+    """The timed rows of a kernel beside its launched and earlier designs,
+    as (name, function of the dispatcher's arguments): for K4 the
+    interleaved design, whose [H, W, 4] planes are built here, once for
+    each image of ``calls``, outside any timing."""
+    from ..ops import cuda_image
+
+    if kernel != "image_bilinear_lk":
+        return []
+    planes: dict = {}
+    for c in calls:
+        _per_image(planes, *c.args[:2], cuda_image.interleave_planes)
+    return [("interleaved", lambda img, grad, loc, channels=3:
+             cuda_image.image_bilinear_interleaved_cuda(
+                 _per_image(planes, img, grad, None), loc.contiguous()))]
+
+
+def _per_image(cache: dict, img: torch.Tensor, grad: torch.Tensor, build):
+    """``build(img, grad)``, contiguous, once an image and its gradient
+    (cached in ``cache`` by their storage), so that a timing finds it
+    built."""
+    key = (img.data_ptr(), grad.data_ptr())
+    if key not in cache:
+        cache[key] = build(img, grad).contiguous()
+    return cache[key]
 
 
 def _outputs(out) -> List[torch.Tensor]:
@@ -493,32 +534,39 @@ def bound_ms(call: ResidualCall):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _grid_sample_yardstick(call: ResidualCall):
-    """``grid_sample`` of the three planes (stacked once, outside) at the
-    call's positions, normalised for ``align_corners=True``, as a function
-    of no arguments."""
+def _stacked(call: ResidualCall, planes: dict) -> torch.Tensor:
+    """The call's three planes stacked [1, 3, H, W], once an image
+    (:func:`_per_image`), outside any timing."""
+    return _per_image(planes, *call.args[:2],
+                      lambda img, grad: torch.stack([img, grad[..., 0], grad[..., 1]])[None])
+
+
+def _grid_sample_yardstick(call: ResidualCall, planes: dict):
+    """``grid_sample`` of the three planes (:func:`_stacked`) at the call's
+    positions, normalised for ``align_corners=True``, as a function of no
+    arguments."""
     import torch.nn.functional as tnf
 
-    img, grad, loc = call.args[:3]
+    img, _, loc = call.args[:3]
     H, W = img.shape
-    planes = torch.stack([img, grad[..., 0], grad[..., 1]])[None]          # [1, 3, H, W]
+    stacked = _stacked(call, planes)
     scale = torch.tensor([2.0 / (W - 1), 2.0 / (H - 1)], dtype=loc.dtype, device=loc.device)
     grid = (loc * scale - 1.0)[None]                                        # [1, N, S, 2]
-    return lambda: tnf.grid_sample(planes, grid, mode="bilinear", padding_mode="zeros",
+    return lambda: tnf.grid_sample(stacked, grid, mode="bilinear", padding_mode="zeros",
                                    align_corners=True)
 
 
-def _k1_whole_image(call: ResidualCall):
-    """K1 at N = 1, the whole image's three planes as one window (stacked
-    once, outside), at the call's N S positions, as a function of no
+def _k1_whole_image(call: ResidualCall, planes: dict):
+    """K1 at N = 1, the whole image's three planes as one window
+    (:func:`_stacked`), at the call's N S positions, as a function of no
     arguments (a yardstick; it counts K1 launches)."""
     from ..ops import cuda_sampling
 
-    img, grad, loc = call.args[:3]
-    planes = torch.stack([img, grad[..., 0], grad[..., 1]])[None].contiguous()
+    loc = call.args[2]
+    stacked = _stacked(call, planes)
     xy = loc.reshape(1, -1, 2).contiguous()
     ones = torch.ones(xy.shape[:2], dtype=loc.dtype, device=loc.device)
-    return lambda: cuda_sampling.window_bilinear_cuda(planes, xy, ones)
+    return lambda: cuda_sampling.window_bilinear_cuda(stacked, xy, ones)
 
 
 def _cublas_yardstick(call: ResidualCall):
@@ -543,10 +591,11 @@ def time_rows(label: str, calls: List[ResidualCall], reps: int = 30, inner: int 
               out=print) -> List[dict]:
     """The kernel, its earlier design (where it has one; for
     ``warp_tangents`` the old path whole, then the thread design alone on
-    the chain's outputs) and the plain version timed on the kernel's
-    recorded ``calls`` (see the module docstring); returns one dict for
-    each, the kernel's first, the earlier design's second, the plain
-    version's last."""
+    the chain's outputs), its other rows (:func:`variant_fns`, each held to
+    the kernel bit for bit on the calls timed) and the plain version timed
+    on the kernel's recorded ``calls`` (see the module docstring); returns
+    one dict for each, the kernel's first, the earlier design's second, the
+    plain version's last."""
     if not torch.cuda.is_available():
         raise RuntimeError("timing the residual stage's kernels needs a CUDA device")
     kernel = calls[0].kernel
@@ -554,11 +603,16 @@ def time_rows(label: str, calls: List[ResidualCall], reps: int = 30, inner: int 
     bounds = [bound_ms(c) for c in warm_calls]
     b_ms = statistics.fmean(b for b, _ in bounds)
     b_by = max(("bytes", "operations"), key=[by for _, by in bounds].count)
+    # the yardsticks on the same calls as the designs (warm: every call timed;
+    # a call and cold: the first), their operands prepared outside
     lib = k1_n1 = None
+    planes: dict = {}
     if kernel == "normal_equations" and calls[0].args[1] is not None:
-        lib = _cublas_yardstick(calls[0])
+        lib = [_cublas_yardstick(c) for c in warm_calls]
     elif kernel == "image_bilinear_lk":
-        lib, k1_n1 = _grid_sample_yardstick(calls[0]), _k1_whole_image(calls[0])
+        lib = [_grid_sample_yardstick(c, planes) for c in warm_calls]
+        k1_n1 = [_k1_whole_image(c, planes) for c in warm_calls]
+    w_inner = len(warm_calls) * math.ceil(50 / len(warm_calls))
     designs = [("kernel", kernel_fn(kernel), [c.args for c in warm_calls]),
                ("earlier", earlier_fn(kernel), [c.args for c in warm_calls])]
     if kernel == "warp_tangents":
@@ -566,6 +620,12 @@ def time_rows(label: str, calls: List[ResidualCall], reps: int = 30, inner: int 
         # outside the timing)
         designs.append(("earlier kernel", kernel_fn("warp_tangents_threads"),
                         [chain_args(c) for c in warm_calls]))
+    for name, fn in variant_fns(kernel, warm_calls):
+        # each row gives the launched design's bits on every call it is timed on
+        for c in warm_calls:
+            if not same_bits(fn(*c.args), kernel_fn(kernel)(*c.args)):
+                raise AssertionError(f"{label} {kernel} {name}: differs from the kernel")
+        designs.append((name, fn, [c.args for c in warm_calls]))
     designs.append(("plain", plain_fn(kernel), [c.args for c in warm_calls]))
     rows = []
     for name, fn, args in designs:
@@ -573,7 +633,6 @@ def time_rows(label: str, calls: List[ResidualCall], reps: int = 30, inner: int 
             continue
         first = args[0]
         ms = kv.time_ms(lambda: fn(*first), reps, inner)
-        w_inner = len(warm_calls) * math.ceil(50 / len(warm_calls))
         warm = kv.device_ms([lambda a=a: fn(*a) for a in args], 20, w_inner)
         cold = kv.device_flushed_ms(lambda: fn(*first), 20, 20)
         rows.append(dict(inputs=label, kernel=kernel, name=name, calls=len(calls),
@@ -581,15 +640,18 @@ def time_rows(label: str, calls: List[ResidualCall], reps: int = 30, inner: int 
                          ms=ms, device_ms=warm, device_cold_ms=cold, bound_ms=b_ms,
                          bound_by=b_by))
     if lib is not None:
-        rows[0].update(library_ms=kv.time_ms(lib, reps, inner),
-                       library_device_ms=kv.device_ms([lib], 20, 50),
-                       library_device_cold_ms=kv.device_flushed_ms(lib, 20, 20))
+        rows[0].update(library_ms=kv.time_ms(lib[0], reps, inner),
+                       library_device_ms=kv.device_ms(lib, 20, w_inner),
+                       library_device_cold_ms=kv.device_flushed_ms(lib[0], 20, 20))
     else:
         rows[0].update(library_ms=None, library_device_ms=None, library_device_cold_ms=None)
     if k1_n1 is not None:
-        rows[0].update(k1_n1_ms=kv.time_ms(k1_n1, reps, inner),
-                       k1_n1_device_ms=kv.device_ms([k1_n1], 20, 50),
-                       k1_n1_device_cold_ms=kv.device_flushed_ms(k1_n1, 20, 20))
+        rows[0].update(k1_n1_ms=kv.time_ms(k1_n1[0], reps, inner),
+                       k1_n1_device_ms=kv.device_ms(k1_n1, 20, w_inner),
+                       k1_n1_device_cold_ms=kv.device_flushed_ms(k1_n1[0], 20, 20))
+
+    if kernel == "image_bilinear_lk":
+        rows[0].update(image_levels(label, warm_calls, designs, lib, k1_n1, out))
 
     def us(r):
         share = 100 * b_ms / r["device_cold_ms"] if r["device_cold_ms"] > 0 else math.nan
@@ -610,6 +672,80 @@ def time_rows(label: str, calls: List[ResidualCall], reps: int = 30, inner: int 
         f"{r['name']} {us(r)}" for r in rows) + f"; bound {1e3 * b_ms:.3f} us ({b_by})"
         + lib_txt)
     return rows
+
+
+def image_levels(label: str, calls: List[ResidualCall], designs: list, lib: list,
+                 k1_n1: list, out=print) -> dict:
+    """K4's rows on its recorded C = 3 ``calls`` broken down (``designs``:
+    :func:`time_rows`' (name, function, arguments) list; ``lib`` and
+    ``k1_n1`` the yardsticks a call): the warm device time of the select,
+    branch and interleaved designs, ``grid_sample`` and K1 at N = 1 on each
+    pyramid level's calls, and on the first call alone (where PR 10 timed
+    the yardsticks); then the interleaved row's plane, built once a keyframe
+    level: how many the calls would need, its warm device time and its host
+    time a build, against the device time the row saves on those calls.
+    Returns dict(levels=[...], first_call={...}, plane={...})."""
+    from ..ops import cuda_image
+
+    fns = {n: f for n, f, _ in designs}
+    timed = {"select": fns["kernel"], "branch": fns["earlier"],
+             "interleaved": fns["interleaved"]}
+
+    def row(js):
+        inner = len(js) * math.ceil(50 / len(js))
+        r = {name: kv.device_ms([lambda a=calls[j].args, fn=fn: fn(*a) for j in js], 20, inner)
+             for name, fn in timed.items()}
+        r["grid_sample"] = kv.device_ms([lib[j] for j in js], 20, inner)
+        r["k1_n1"] = kv.device_ms([k1_n1[j] for j in js], 20, inner)
+        return r
+
+    def txt(r):
+        return ", ".join(f"{name} {1e3 * r[name]:.2f}" for name in
+                         ("select", "branch", "interleaved", "grid_sample", "k1_n1"))
+
+    by_level: Dict[tuple, List[int]] = {}
+    for j, c in enumerate(calls):
+        by_level.setdefault((c.level, *c.args[0].shape), []).append(j)
+    levels = []
+    for (level, H, W), js in sorted(by_level.items(), key=lambda kv_: -kv_[0][1]):
+        levels.append(dict(level=level, H=H, W=W, calls=len(js), **row(js)))
+        out(f"{label} image_bilinear_lk, level {level} ({H} x {W}, {len(js)} calls), us warm: "
+            + txt(levels[-1]))
+    first = dict(level=calls[0].level, H=calls[0].args[0].shape[0],
+                 W=calls[0].args[0].shape[1], **row([0]))
+    out(f"{label} image_bilinear_lk, the first call alone (level {first['level']}, "
+        f"{first['H']} x {first['W']}), us warm: " + txt(first))
+    # the keyframe levels the calls sample: one plane each
+    images: List[tuple] = []
+    for c in calls:
+        img, grad = c.args[:2]
+        if not any(i.shape == img.shape and torch.equal(i, img) and torch.equal(g, grad)
+                   for i, g in images):
+            images.append((img, grad))
+    build_dev, build_host = [], []
+    for img, grad in images:
+        build_dev.append(kv.device_ms([lambda i=img, g=grad: cuda_image.interleave_planes(i, g)],
+                                      20, 50))
+        for _ in range(kv.WARMUP):
+            cuda_image.interleave_planes(img, grad)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            cuda_image.interleave_planes(img, grad)
+        build_host.append((time.perf_counter() - t0) / 200 * 1e3)
+        torch.cuda.synchronize()
+    all_calls = row(list(range(len(calls))))
+    saved = len(calls) * (all_calls["select"] - all_calls["interleaved"])
+    plane = dict(builds=len(images), calls=len(calls), device_ms=sum(build_dev),
+                 host_ms=sum(build_host), saved_device_ms=saved)
+    out(f"{label} image_bilinear_lk, the interleaved row's planes: {len(images)} keyframe "
+        f"levels for {len(calls)} C = 3 calls; building them takes "
+        f"{1e3 * plane['device_ms']:.2f} us of device and {1e3 * plane['host_ms']:.2f} us of "
+        f"host (enqueue, {', '.join(f'{1e3 * h:.2f}' for h in build_host)} a level); the row "
+        f"saves {1e3 * saved:.2f} us of device on those calls (select "
+        f"{1e3 * all_calls['select']:.2f} against interleaved "
+        f"{1e3 * all_calls['interleaved']:.2f} us warm a call) and no host time")
+    return dict(levels=levels, first_call=first, plane=plane)
 
 
 # K3's CTAs a chunk: one cluster of the 16 chunks' CTAs, or 16 clusters of a

@@ -358,14 +358,16 @@ def launch_counts() -> Dict[str, int]:
 
 
 def zero_launch_counts() -> None:
-    """Zero the counters of K2, K3 (every design), K5 and K4."""
+    """Zero the counters of K2, K3, K5 and K4 (every design)."""
     global LAUNCHES_WARP, LAUNCHES_BLUR, LAUNCHES_NORMAL
     global LAUNCHES_WARP_THREADS, LAUNCHES_BLUR_THREADS, LAUNCHES_NORMAL_SPLIT
     from . import cuda_image, cuda_layout
 
     LAUNCHES_WARP = LAUNCHES_BLUR = LAUNCHES_NORMAL = 0
     LAUNCHES_WARP_THREADS = LAUNCHES_BLUR_THREADS = LAUNCHES_NORMAL_SPLIT = 0
-    cuda_layout.LAUNCHES_LAYOUT = cuda_image.LAUNCHES_IMAGE = 0
+    cuda_layout.LAUNCHES_LAYOUT = cuda_layout.LAUNCHES_LAYOUT_SERIAL = 0
+    cuda_image.LAUNCHES_IMAGE = cuda_image.LAUNCHES_IMAGE_INTERLEAVED = 0
+    cuda_image.LAUNCHES_IMAGE_BRANCH = 0
 
 
 def _entry(kernel: str, dtype: torch.dtype):

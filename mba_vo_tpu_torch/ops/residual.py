@@ -421,19 +421,24 @@ def prepare_frame_layout_plain(
     return pix, valid_center, obs
 
 
+def frame_layout_args(knots, data, num_vir, degree) -> tuple:
+    """The arguments of K5's wrappers (``ops/cuda_layout.py``) for a call of
+    :func:`prepare_frame_layout`."""
+    opts = dict(dtype=knots.t.dtype, device=knots.t.device)
+    H, W = data.img_ref.shape
+    return (SplineKnots(*(torch.as_tensor(x, **opts).contiguous() for x in knots)),
+            data.cap_times.contiguous(), data.exp_times.contiguous(), num_vir, degree,
+            data.kp_xy.contiguous(), data.kp_z.contiguous(), data.kp_mask.contiguous(),
+            data.K.contiguous(), data.pattern.to(torch.int32).contiguous(),
+            data.cur_imgs.contiguous(), H, W)
+
+
 def prepare_frame_layout(knots, data, num_vir, degree):
     """K5, the patch layout (:func:`prepare_frame_layout_plain`): the kernel
     on CUDA tensors (``ops/cuda_layout.py``), the plain version on CPU
     tensors."""
     if data.cur_imgs.is_cuda:
-        opts = dict(dtype=knots.t.dtype, device=knots.t.device)
-        H, W = data.img_ref.shape
-        return cuda_layout.frame_layout_cuda(
-            SplineKnots(*(torch.as_tensor(x, **opts).contiguous() for x in knots)),
-            data.cap_times.contiguous(), data.exp_times.contiguous(), num_vir, degree,
-            data.kp_xy.contiguous(), data.kp_z.contiguous(), data.kp_mask.contiguous(),
-            data.K.contiguous(), data.pattern.to(torch.int32).contiguous(),
-            data.cur_imgs.contiguous(), H, W)
+        return cuda_layout.frame_layout_cuda(*frame_layout_args(knots, data, num_vir, degree))
     return prepare_frame_layout_plain(knots, data, num_vir, degree)
 
 

@@ -9,8 +9,11 @@ Jacobian, then the thread design) on the tracker's shapes, and the new
 designs of blur_rows and K3 against their earlier designs, bit for bit, on
 edge shapes; the patch layout K5 (csrc/frame_layout.cu) and the direct
 path's sampler K4 (csrc/image_bilinear.cu) against their plain versions bit
-for bit, and the direct path on the kernels against its plain chain. Every test here carries the ``cuda`` marker and skips where no
-CUDA device is visible.
+for bit, K5's staged design against its serial design and K4's select
+design (at every block shape, and its interleaved row) against its branch
+design bit for bit on edge shapes, and the direct path on the kernels
+against its plain chain. Every test here carries the ``cuda`` marker and
+skips where no CUDA device is visible.
 
 The module imports only torch and numpy, so it also runs where JAX is not
 installed. Run it on a machine with the card, without the JAX test
@@ -1522,3 +1525,189 @@ def test_direct_tracker_runs_through_k4_and_k5(cuda):
             assert len(calls[kernel]) == n[kernel]
             for call in calls[kernel]:
                 rk.hold(call)
+
+
+# K4's designs on edge shapes: the frame at level 0 and a joint chunk at level
+# 1, tiny ragged blocks, N S a prime number of samples (one keypoint of 257,
+# 41 keypoints of one), and an N S that the block does not divide
+IMAGE_EDGE_SHAPES = IMAGE_SHAPES + [(1, 257, 9, 11), (41, 1, 9, 11), (7, 37, 30, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("channels", [3, 1])
+@pytest.mark.parametrize("N,S,H,W", IMAGE_EDGE_SHAPES)
+def test_image_designs_equal_bit_for_bit(cuda, dtype, channels, N, S, H, W):
+    """K4's select design, its branch design (the earlier one) and, with
+    C = 3, the interleaved row, each equal to the plain version bit for bit,
+    off-image and NaN positions included; one launch a call on each
+    design's counter."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_image as ci
+    from mba_vo_tpu_torch.ops.image import image_bilinear_lk_plain
+
+    img, grad, loc = _image_problem(N, S, H, W, dtype)
+    ref = image_bilinear_lk_plain(img, grad, loc, channels)
+    before = (ci.LAUNCHES_IMAGE, ci.LAUNCHES_IMAGE_BRANCH, ci.LAUNCHES_IMAGE_INTERLEAVED)
+    outs = {"select": ci.image_bilinear_cuda(img, grad, loc, channels),
+            "branch": ci.image_bilinear_branch_cuda(img, grad, loc, channels)}
+    if channels == 3:
+        outs["interleaved"] = ci.image_bilinear_interleaved_cuda(
+            ci.interleave_planes(img, grad), loc)
+    torch.cuda.synchronize()
+    for name, out in outs.items():
+        assert rk.same_bits(out, ref), f"{name}: {rk._unequal(out, ref)}"
+    assert (ci.LAUNCHES_IMAGE, ci.LAUNCHES_IMAGE_BRANCH, ci.LAUNCHES_IMAGE_INTERLEAVED) == (
+        before[0] + 1, before[1] + 1, before[2] + (channels == 3))
+
+
+def test_image_designs_check_their_inputs(cuda):
+    """The select design refuses positions not aligned to a pair; the
+    interleaved row a plane not aligned to 16
+    bytes or not [H, W, 4]; the branch design takes unaligned positions."""
+    from mba_vo_tpu_torch.ops import cuda_image as ci
+    from mba_vo_tpu_torch.ops.image import image_bilinear_lk_plain
+
+    img, grad, loc = _image_problem(4, 6, 9, 11, torch.float32)
+    odd = torch.empty(4 * 6 * 2 + 1, device="cuda")[1:].view(4, 6, 2)
+    odd.copy_(loc)
+    with pytest.raises(ValueError, match="loc's storage is not aligned"):
+        ci.image_bilinear_cuda(img, grad, odd)
+    plane = ci.interleave_planes(img, grad)
+    with pytest.raises(ValueError, match="plane must be"):
+        ci.image_bilinear_interleaved_cuda(plane[..., :3].contiguous(), loc)
+    shifted = torch.empty(9 * 11 * 4 + 1, device="cuda")[1:].view(9, 11, 4)
+    with pytest.raises(ValueError, match="plane's storage is not aligned"):
+        ci.image_bilinear_interleaved_cuda(shifted, loc)
+    with pytest.raises(ValueError, match="not CUDA"):
+        ci.image_bilinear_branch_cuda(img, grad, loc.cpu())
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+
+    assert rk.same_bits(ci.image_bilinear_branch_cuda(img, grad, odd),
+                        image_bilinear_lk_plain(img, grad, loc))
+
+
+# K5's designs: degree 2 and 4, K from the degree to the staged design's
+# limit, F up to 8
+LAYOUT_KNOTS = [(2, 2, 1), (2, 2, 8), (3, 2, 4), (33, 2, 2), (64, 2, 3), (4, 4, 1), (7, 4, 4),
+                (27, 4, 8), (64, 4, 8)]
+
+
+# The one case whose anchors differ from the plain version's (ROADMAP
+# Queue 3): a capture 4.5 knot intervals past the spline's end, at 64
+# knots in float32, where both designs' rotation of that frame differs from
+# torch's and the anchors sit up to KNOWN_ANCHOR_ULPS units of their last
+# place off, the largest that experiments/pose_order.py's
+# probe_extrapolation measured on the card
+KNOWN_ANCHOR_FAULTS = {(64, 4, 8, torch.float32, "clamped")}
+KNOWN_ANCHOR_ULPS = 32
+
+
+@pytest.mark.parametrize("case", ["moving", "standing", "clamped"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K,degree,F", LAYOUT_KNOTS)
+def test_layout_designs_equal_bit_for_bit(cuda, K, degree, F, dtype, case):
+    """K5's staged design and its serial design (the earlier one) give the plain
+    version's pix, valid and obs and its anchors bit for bit, from a moving
+    spline, a standing start (integer anchors) and a capture time past the
+    spline's end; one launch a call on each design's counter. In the one
+    case of KNOWN_ANCHOR_FAULTS the fault is held as it stands: both
+    designs' anchors equal each other, differ from the plain version's by
+    at most KNOWN_ANCHOR_ULPS ulps, and the layout is still equal; a fix
+    fails this, and the case then joins the others."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_layout as cl
+    from mba_vo_tpu_torch.ops import residual as tres
+
+    args = _layout_problem(K, degree, F, 5, dtype, case)
+    ref = tres.prepare_frame_layout_plain(*args)
+    anchors = _plain_anchors(*args)
+    before = (cl.LAUNCHES_LAYOUT, cl.LAUNCHES_LAYOUT_SERIAL)
+    wrapped = tres.frame_layout_args(*args)
+    staged = cl.frame_layout_cuda(*wrapped, anchors=True)
+    serial = cl.frame_layout_serial_cuda(*wrapped, anchors=True)
+    torch.cuda.synchronize()
+    known = (K, degree, F, dtype, case) in KNOWN_ANCHOR_FAULTS
+    pairs = [("staged layout against the plain version", staged[:3], ref),
+             ("serial layout against the plain version", serial[:3], ref),
+             ("staged anchors against the serial design's", staged[3], serial[3])]
+    if not known:
+        pairs += [("staged anchors against the plain version's", staged[3], anchors),
+                  ("serial anchors against the plain version's", serial[3], anchors)]
+    unequal = {what: rk._unequal(got, want) for what, got, want in pairs
+               if not rk.same_bits(got, want)}
+    assert not unequal, unequal
+    if known:
+        assert not rk.same_bits(staged[3], anchors), "the known fault is gone: drop the case"
+        ulp = torch.nextafter(anchors, torch.full_like(anchors, float("inf"))) - anchors
+        assert float(((staged[3] - anchors).abs() / ulp).max()) <= KNOWN_ANCHOR_ULPS
+    assert (cl.LAUNCHES_LAYOUT, cl.LAUNCHES_LAYOUT_SERIAL) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("degree", [2, 4])
+def test_layout_designs_nan_knots(cuda, degree):
+    """A NaN knot: both designs give the plain version's bits, NaN pixels
+    not valid."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_layout as cl
+    from mba_vo_tpu_torch.ops import residual as tres
+
+    for dtype in (torch.float32, torch.float64):
+        knots, data, V, _ = _layout_problem(7, degree, 4, 5, dtype)
+        t = knots.t.clone()
+        t[3, 2] = float("nan")
+        args = (knots._replace(t=t), data, V, degree)
+        ref = tres.prepare_frame_layout_plain(*args)
+        assert torch.isnan(ref[0]).any()
+        for design in (cl.frame_layout_cuda, cl.frame_layout_serial_cuda):
+            out = design(*tres.frame_layout_args(*args))
+            assert rk.same_bits(out, ref), f"{design.__name__}: {rk._unequal(out, ref)}"
+
+
+def test_layout_staged_design_refuses_more_knots_than_it_stages(cuda):
+    """Past MAX_LAYOUT_KNOTS the staged design raises before any launch;
+    the serial design takes any number of knots."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_layout as cl
+    from mba_vo_tpu_torch.ops import residual as tres
+
+    args = _layout_problem(cl.MAX_LAYOUT_KNOTS + 1, 4, 2, 5, torch.float32)
+    before = cl.LAUNCHES_LAYOUT
+    with pytest.raises(ValueError, match="MAX_LAYOUT_KNOTS"):
+        cl.frame_layout_cuda(*tres.frame_layout_args(*args))
+    assert cl.LAUNCHES_LAYOUT == before
+    out = cl.frame_layout_serial_cuda(*tres.frame_layout_args(*args))
+    assert rk.same_bits(out, tres.prepare_frame_layout_plain(*args))
+
+
+def test_every_k4_k5_design_recorded_into_a_graph(cuda):
+    """Every design of K4 and K5 recorded into a CUDA graph counts no launch,
+    and the replay gives the eager calls' bits."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_image as ci
+    from mba_vo_tpu_torch.ops import cuda_layout as cl
+    from mba_vo_tpu_torch.ops import residual as tres
+
+    wrapped = tres.frame_layout_args(*_layout_problem(27, 4, 8, 5, torch.float32))
+    img, grad, loc = _image_problem(512, 40, 480, 640, torch.float32)
+    plane = ci.interleave_planes(img, grad)
+
+    def calls():
+        return [cl.frame_layout_cuda(*wrapped), cl.frame_layout_serial_cuda(*wrapped),
+                ci.image_bilinear_cuda(img, grad, loc, 3),
+                ci.image_bilinear_cuda(img, grad, loc, 1),
+                ci.image_bilinear_branch_cuda(img, grad, loc, 3),
+                ci.image_bilinear_interleaved_cuda(plane, loc)]
+
+    refs = calls()
+    torch.cuda.synchronize()
+    counters = ("LAUNCHES_LAYOUT", "LAUNCHES_LAYOUT_SERIAL")
+    images = ("LAUNCHES_IMAGE", "LAUNCHES_IMAGE_BRANCH", "LAUNCHES_IMAGE_INTERLEAVED")
+    before = [getattr(cl, c) for c in counters] + [getattr(ci, c) for c in images]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = calls()
+    assert [getattr(cl, c) for c in counters] + [getattr(ci, c) for c in images] == before
+    graph.replay()
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        assert rk.same_bits(out, ref)

@@ -45,7 +45,7 @@ print(len(names), bad, libs, cuda_build.BUILD_LOG, built,
           "parallel.sharded_ba", "utils.collectives", "ops.cuda_build",
           "ops.cuda_residual", "experiments.residual_kernels",
           "experiments.f32_sensitivity", "ops.cuda_layout", "ops.cuda_image",
-          "experiments.pose_order")))
+          "experiments.pose_order", "experiments.paired_fps", "experiments.ptx_ops")))
 """
 
 

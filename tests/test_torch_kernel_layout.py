@@ -1,16 +1,22 @@
 """The launch geometry of K3's cluster design, of blur_rows' keypoint
-design and of warp_tangents' knots design (ops/cuda_residual.py), which is
-plain Python so that it is tested here, without a card: K3's chunk and
-part row ranges cover every row once, in order, and are the chunks of the
-reference's compensated sum
+design and of warp_tangents' knots design (ops/cuda_residual.py), of K4's
+select design (ops/cuda_image.py) and of K5's staged design
+(ops/cuda_layout.py), which is plain Python so that it is tested here,
+without a card: K3's chunk and part row ranges cover every row once, in
+order, and are the chunks of the reference's compensated sum
 (ops/residual.py::_kahan_chunked_normal_eq); each design's shared memory
-fits a block's 227 KB at every tangent count the kernels were built for.
-The kernels check the bytes they are given against their own layout; the
-card tests (tests/test_torch_cuda.py) run them."""
+fits a block's 227 KB at every tangent count the kernels were built for;
+K4's blocks take every sample once and its division constant is exact; K5
+stages every knot count up to its limit and refuses more. The kernels
+check the bytes they are given against their own layout; the card tests
+(tests/test_torch_cuda.py) run them."""
 
+import numpy as np
 import pytest
 import torch
 
+from mba_vo_tpu_torch.ops import cuda_image as ci
+from mba_vo_tpu_torch.ops import cuda_layout as cl
 from mba_vo_tpu_torch.ops import cuda_residual as cr
 from mba_vo_tpu_torch.ops import residual as tres
 
@@ -223,3 +229,83 @@ def test_warp_tangents_layout_refuses_what_does_not_fit():
         cr.warp_tangents_layout(64, 5, 12, 4)
     with pytest.raises(ValueError, match="shared memory"):
         cr.warp_tangents_layout(1, 40, cr.MAX_TANGENTS, 8)
+
+
+# K4's select design (ops/cuda_image.py): the bench's sample counts (a
+# frame's 512 x 40, a joint chunk's 512 x 160) and odd ones (1, 39, 41, 257
+# and 100,003 samples, as N x S both ways)
+IMAGE_SIZES = [(512, 40), (512, 160), (1, 1), (3, 13), (1, 39), (39, 1), (41, 1), (1, 41),
+               (257, 1), (1, 257), (100003, 1), (1, 100003)]
+
+
+@pytest.mark.parametrize("N,S", IMAGE_SIZES)
+def test_image_select_map_covers_every_sample_once(N, S):
+    """Thread t of block b takes sample b IMAGE_THREADS + t below N S: over
+    the grid every (n, s) is taken once, and (i m) >> k is the keypoint
+    n = i // S of each (s = i - n S)."""
+    lay = ci.select_layout(N, S)
+    threads = ci.IMAGE_THREADS
+    assert (lay.grid - 1) * threads < N * S <= lay.grid * threads
+    b, t = np.meshgrid(np.arange(lay.grid), np.arange(threads), indexing="ij")
+    i = lay.samples(b, t).reshape(-1)
+    taken = np.sort(i[i < N * S])
+    assert np.array_equal(taken, np.arange(N * S))
+    n = lay.keypoint(taken)
+    s = taken - n * S
+    assert np.array_equal(n, taken // S) and (s >= 0).all() and (s < S).all() and n.max() < N
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 5, 7, 13, 39, 40, 41, 160, 257, 320, 1000, 65537,
+                               100003, 2 ** 20 + 1, 2 ** 30 + 3, 2 ** 31 - 1])
+def test_image_divisor_is_exact_below_2_31(S):
+    """(i m) >> k == i // S: at every i below N S for the bench's S, and, for
+    every S, around each of the first and last multiples of S below 2^31 and
+    at sampled i; m fits 32 bits and its error m S - 2^k lies in [0, S)."""
+    m, k = ci.sample_divisor(S)
+    assert 0 < m < 2 ** 32 and 0 <= m * S - 2 ** k < S and 31 <= k <= 62
+    rng = np.random.default_rng(S)
+    top = (2 ** 31 - 1) // S * S
+    edges = np.array([q * S + d for q in (0, 1, 2, top // S - 1, top // S)
+                      for d in (-1, 0, 1, S - 1) if 0 <= q * S + d < 2 ** 31], dtype=np.int64)
+    i = np.concatenate([np.arange(min(512 * S, 2 ** 22), dtype=np.int64), edges,
+                        rng.integers(0, 2 ** 31, 100000, dtype=np.int64),
+                        np.array([2 ** 31 - 1], dtype=np.int64)])
+    assert np.array_equal((i * m) >> k, i // S)
+
+
+def test_image_select_layout_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="32-bit"):
+        ci.select_layout(2 ** 16, 2 ** 15)
+    with pytest.raises(ValueError, match="S = 0"):
+        ci.sample_divisor(0)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_layout_staging_fits_up_to_the_limit(itemsize):
+    """K5's staged design: at every K up to MAX_LAYOUT_KNOTS, warp 0 stages
+    the 4 K rotation values and warp 1 the 3 K translation values, at most
+    LAYOUT_LOADS a lane; the shared memory holds them, 3 segments' exps and
+    the pose, in 16-byte units, well within the 48 KB a block gets without
+    asking."""
+    for K in range(1, cl.MAX_LAYOUT_KNOTS + 1):
+        st = cl.layout_staging(K, itemsize)
+        assert st.loads_q <= cl.LAYOUT_LOADS and st.loads_t <= cl.LAYOUT_LOADS
+        assert 32 * st.loads_q >= 4 * K > 32 * (st.loads_q - 1)
+        assert 32 * st.loads_t >= 3 * K > 32 * (st.loads_t - 1)
+        assert st.smem_bytes % 16 == 0
+        assert (7 * K + 12 + 7) * itemsize <= st.smem_bytes < (7 * K + 12 + 7) * itemsize + 16
+        assert st.smem_bytes <= 48 * 1024
+
+
+def test_layout_staging_at_the_bench_shapes_and_refusals():
+    """The frame's 2 knots and a degree-4 joint chunk's 7 (chunk 4) and 27
+    (chunk 24) stage in one load a lane or a few; past MAX_LAYOUT_KNOTS and
+    at no knot the staging is refused (the wrapper raises before any
+    launch)."""
+    assert cl.layout_staging(2, 4) == cl.LayoutStaging(1, 1, 144)
+    assert (cl.layout_staging(7, 8).loads_q, cl.layout_staging(7, 8).loads_t) == (1, 1)
+    assert (cl.layout_staging(27, 8).loads_q, cl.layout_staging(27, 8).loads_t) == (4, 3)
+    assert cl.MAX_LAYOUT_KNOTS >= 27
+    for K in (0, cl.MAX_LAYOUT_KNOTS + 1, 1000):
+        with pytest.raises(ValueError, match="MAX_LAYOUT_KNOTS"):
+            cl.layout_staging(K, 8)
