@@ -16,13 +16,16 @@ Phases (any failed check raises and the exit code is non-zero):
      design), K5 (csrc/frame_layout.cu: the patch layout, the staged design
      and the earlier serial design) and K4 (csrc/image_bilinear.cu: the
      direct path's whole-image sampler, the select design, the interleaved
-     row and the earlier branch design) with nvcc for sm_90a, all six
+     row and the earlier branch design) and K6-K8 (csrc/lm_step.cu: the LM
+     iteration's step, decision and commit) with nvcc for sm_90a, all seven
      sources at once, and print each kernel's registers, shared memory and
-     spills, K5's staging and K4's block;
+     spills, K5's staging, K4's block and K6's shared memory by D;
   2b. the card tests: tests/test_torch_cuda.py under pytest (-m cuda,
      without the JAX test configuration), every kernel against its plain
      version (K4 and K5 bit for bit, the direct path on the kernels against
-     its plain chain) and blur_rows and K3 against their earlier designs bit
+     its plain chain, K6-K8 against the LM's plain stages at D = 12, 30,
+     42 and 162, and the tracker's LM on them against the plain-stage
+     tracker) and blur_rows and K3 against their earlier designs bit
      for bit on edge shapes; any failure fails the run;
   3. record the sampler's inputs as the tracker gives them on the bench
      scenario (16 frames of track_frame from rest, one chunk of
@@ -42,17 +45,23 @@ Phases (any failed check raises and the exit code is non-zero):
      40, 160 and 320, windows 32x32, 20x32, 20x30, 21x31 and 6x9, the
      strided C = 1 slice, a ragged last tile, an all-zero mask, coordinates
      off the staged band and off the window, and every recorded call;
-     whether K1's two designs agree bit for bit;
+     whether K1's two designs agree bit for bit; and the LM's stages K6-K8,
+     recorded on the same three runs, against their plain stages on every
+     call (K6's step within 1e-5 (f32) / 1e-12 (f64) of its norm and its
+     candidate knots equal to the retraction of its own step, K7's flags,
+     decrease and mask equal, K8's next state bit for bit);
   4. the tracker in f64 on CUDA against the same tracker on the CPU, on the
      bench scenario (VGA, 512 keypoints, 3 levels, 5 virtual poses), with
      every K2, K3 and K5 call of the CUDA run held against the plain
      version, then 4 frames of the direct path in f64 recorded and held as
-     phase 3 holds the f32 ones;
+     phase 3 holds the f32 ones; K6-K8 on every call of the f64 run, whose
+     LM iterations a level and poses (1e-9) equal the plain-stage
+     tracker's, one host read an LM iteration;
   5. the per-frame main path: the tracker in f32 on CUDA under bench.py's
      options, from rest, over a longer run of the same scenario: frames/s,
-     K1's to K5's launch counts in that run, the kernel launches a frame and
+     K1's to K8's launch counts in that run, the kernel launches a frame and
      an LM evaluation (torch.profiler; with K5 and with the plain layout in
-     its place) and the ATE against the
+     its place), the host reads an LM iteration and the ATE against the
      generating spline; the f32-vs-f64 drift rule of tests/test_precision.py with that
      test's options, measured on the bench scenario and checked on the
      test's own scenario through track_frames, as the test runs it;
@@ -62,7 +71,9 @@ Phases (any failed check raises and the exit code is non-zero):
      run against the per-frame run; (c) track_frames_joint at degree 4 and 2
      in f64 on CUDA against the CPU, then timed in f32 with its launches per
      chunk; (d) sampling="direct" and affine_brightness in f64 on CUDA
-     against the CPU (1e-8, ATE under 2e-3 m), with K1's to K5's launches;
+     against the CPU (1e-8, ATE under 2e-3 m), with K1's to K8's launches;
+     in (a), (c) and (d) the f64 LM iterations a level equal the plain-stage
+     tracker's and the poses its to 1e-9;
      (e) sampling="direct" in f32 at full width from rest, as 5a: frames/s
      and kernel launches an LM evaluation on the kernels, eager (its plain
      chain and the plain layout on the card) and beside 5a's;
@@ -83,7 +94,10 @@ Phases (any failed check raises and the exit code is non-zero):
      K4 grid_sample of the stacked planes and K1 at N = 1 on the whole
      image, and K4's interleaved row (held to the kernel bit for bit on the
      calls it is timed on) and the cost of building its planes; K4's
-     designs and yardsticks level by level; K4's and K5's targets;
+     designs and yardsticks level by level; K4's and K5's targets; then K6-K8
+     and their plain stages on phase 3's recorded LM calls at the frame (6K
+     = 12) and the degree-4 joint chunk (42), a call, warm and cold, beside
+     the bound and, for K6, torch.linalg.cholesky_ex + cholesky_solve;
   8. the command line and the keyframe backend: (a) float64 on CUDA against
      the CPU at full width: detect_sparse + match_descriptors on a VGA frame
      of the bench scenario with BackendConfig's default detector (differing
@@ -141,9 +155,10 @@ Phases (any failed check raises and the exit code is non-zero):
      thread, with the decoders in two threads and in two processes (the
      command line's read-ahead, `cli.READ_AHEAD`): frames/s of each, the
      TUM file equal to the filter-0 run's;
-K2's to K5's launches are counted, as K1's, on each path (5a, 6a, 6c-6e,
-8b-8d, 9b-9d, 10a per rank; a call of K3 launches one kernel); then one
-JSON line of kernel results (K1 to K5),
+K2's to K8's launches are counted, as K1's, on each path (5a, 6a, 6c-6e,
+8b-8d, 9b-9d; K2-K5 10a per rank, whose sharded LM runs the plain stages;
+a call of K3 launches one kernel); then one JSON line of kernel results
+(K1 to K8),
 the card line again, and the final status line {"ok": true, "device":
 {...}}.
 """
@@ -197,30 +212,132 @@ RESIDUAL_LAUNCHES: dict = {}
 
 
 def zero_counts(cs):
-    """Zero K1's launch count and K2's and K3's."""
+    """Zero K1's launch count and K2's to K8's."""
+    from mba_vo_tpu_torch.ops import cuda_lm
     from mba_vo_tpu_torch.ops import cuda_residual as cr
 
     cs.LAUNCHES = 0
     cr.zero_launch_counts()
+    cuda_lm.zero_launch_counts()
 
 
 def note_residual_launches(path: str) -> dict:
-    """K2's and K3's launches since :func:`zero_counts`, kept under ``path``."""
+    """K2's to K8's launches since :func:`zero_counts`, kept under ``path``."""
+    from mba_vo_tpu_torch.ops import cuda_lm
     from mba_vo_tpu_torch.ops import cuda_residual as cr
 
-    got = cr.launch_counts()
+    got = {**cr.launch_counts(), **cuda_lm.launch_counts()}
     RESIDUAL_LAUNCHES[path] = got
     return got
 
 
 def skipped(got: dict, direct: bool = False) -> list:
-    """The residual stage's kernels that a path's launch counts ``got`` show
-    it never launched though it should have: every path's (K2's two
-    entries, K3 and the layout K5) and, on the direct path, K4."""
+    """The kernels that a path's launch counts ``got`` show it never
+    launched though it should have: every path's (K2's two entries, K3, the
+    layout K5 and, where ``got`` counts them, the LM's K6-K8) and, on the
+    direct path, K4."""
+    from mba_vo_tpu_torch.ops import cuda_lm
     from mba_vo_tpu_torch.ops import cuda_residual as cr
 
-    want = cr.EVERY_PATH + (("image_bilinear_lk",) if direct else ())
+    lm = tuple(k for k in cuda_lm.launch_counts() if k in got)
+    want = cr.EVERY_PATH + lm + (("image_bilinear_lk",) if direct else ())
     return [k for k in want if got.get(k, 0) == 0]
+
+
+@contextlib.contextmanager
+def lm_probe(plain: bool = False):
+    """Inside the block every optimize_level call of the tracker is probed:
+    its LM iterations are appended to ``probe["iterations"]`` in the order
+    of the calls, and the host reads made during it (Tensor.item and
+    Tensor.__bool__) added to ``probe["reads"]``. With ``plain`` the LM's
+    stages run their plain versions on the card's tensors: the plain-stage
+    tracker that K6-K8 are held to."""
+    import torch
+    from mba_vo_tpu_torch.solver import lm
+    from mba_vo_tpu_torch.tracker import blur_tracker as bt
+
+    probe = {"iterations": [], "reads": 0}
+    item, boolean = torch.Tensor.item, torch.Tensor.__bool__
+    original = bt.optimize_level
+    stages = ("lm_step", "lm_decide", "lm_commit")
+    saved = {k: getattr(lm, k) for k in stages}
+
+    def counted(fn):
+        def call(self, *args):
+            probe["reads"] += 1
+            return fn(self, *args)
+        return call
+
+    def optimize_level(*args, **kw):
+        torch.Tensor.item, torch.Tensor.__bool__ = counted(item), counted(boolean)
+        try:
+            knots, summary = original(*args, **kw)
+        finally:
+            torch.Tensor.item, torch.Tensor.__bool__ = item, boolean
+        probe["iterations"].append(summary.num_iterations)
+        return knots, summary
+
+    bt.optimize_level = optimize_level
+    if plain:
+        for k in stages:
+            setattr(lm, k, getattr(lm, f"{k}_plain"))
+    try:
+        yield probe
+    finally:
+        bt.optimize_level = original
+        for k, fn in saved.items():
+            setattr(lm, k, fn)
+
+
+def hold_lm_calls(recorded: dict) -> dict:
+    """K6-K8 against their plain versions on every recorded call
+    (``residual_kernels.hold_lm``: a difference past the bounds raises; K6's
+    step bit for bit against its order of operations transcribed,
+    ``lm_step_kernel_order``); prints each kernel's largest differences and
+    the branches the calls took, and returns by kernel the largest
+    (absolute, relative) difference: K6's step against the plain stage's
+    library solve (relative to its norm; a figure, not a check), K7's mu
+    and sigma, K8's state (bit for bit: 0)."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+
+    worst = {}
+    for label, by_kernel in recorded.items():
+        for kernel, calls in by_kernel.items():
+            check(len(calls) > 0, f"{label}: no {kernel} call was recorded")
+            got = [rk.hold_lm(c) for c in calls]
+            a = max(g["abs"] for g in got)
+            r = max(max(g.get(k, 0.0) for k in ("step", "mu", "sigma")) for g in got)
+            old = worst.get(kernel, (0.0, 0.0))
+            worst[kernel] = (max(old[0], a), max(old[1], r))
+            dt = str(calls[0].dtype).split(".")[-1]
+            what = {"lm_step": f"{int(sum(g.get('invalid', 0) for g in got))} invalid (the plain "
+                               f"stage's: {int(sum(g.get('plain_invalid', 0) for g in got))}); "
+                               f"step and model change equal to K6's order transcribed bit "
+                               f"for bit, the library solve's step within {r:.3e} of its "
+                               f"norm (a figure); the candidate equal to the retraction of "
+                               f"the kernel's step bit for bit",
+                    "lm_decide": f"{int(sum(g.get('success', 0) for g in got))} successes; flags, "
+                                 f"decrease and mask equal, mu and sigma within {r:.3e}",
+                    "lm_commit": "the next state equal bit for bit"}[kernel]
+            bound = (f" (bound {rk.LM_TOLERANCE[calls[0].dtype]:.0e})"
+                     if kernel == "lm_decide" else "")
+            print(f"  {label}: {kernel}, {len(calls)} recorded calls ({dt}, 6K = "
+                  f"{sorted({c.D for c in calls})}): {what}{bound}")
+    return worst
+
+
+def check_plain_stage_iterations(label: str, probe: dict, plain: dict):
+    """The kernels' LM iterations against the plain-stage tracker's, level
+    by level, and one host read an iteration."""
+    its, its_p = probe["iterations"], plain["iterations"]
+    print(f"    {label}: LM iterations a level on K6-K8 {its[:12]}"
+          f"{' ...' if len(its) > 12 else ''} (total {sum(its)}), the plain-stage tracker's "
+          f"{'equal' if its == its_p else its_p}; host reads {probe['reads']} = "
+          f"{probe['reads'] / max(sum(its), 1):.2f} an iteration (plain stages "
+          f"{plain['reads'] / max(sum(its_p), 1):.2f})")
+    check(its == its_p, f"{label}: LM iterations differ from the plain-stage tracker's")
+    check(probe["reads"] == sum(its), f"{label}: {probe['reads']} host reads over "
+                                      f"{sum(its)} LM iterations")
 
 
 def sharded_residual_launches(path: str, per_rank: list) -> dict:
@@ -365,21 +482,23 @@ def record_tracker_calls(img, traj, frames):
     its calls over the chunk's 4 frames; "direct f32", 4 frames of
     track_frame with sampling="direct" (K4's and K5's calls, and K2's and
     K3's there). The layout K5 is recorded on every path, K4 on the direct
-    one. Returns (sampler calls, K2-K5 calls)."""
+    one. The LM's stages K6-K8 are recorded on the same three runs.
+    Returns (sampler calls, K2-K5 calls, K6-K8 calls)."""
     from mba_vo_tpu_torch.experiments import kernel_variants as kv
     from mba_vo_tpu_torch.experiments import residual_kernels as rk
 
-    with kv.record_sampler_calls() as per_frame, rk.record_residual_calls() as rows:
+    with (kv.record_sampler_calls() as per_frame, rk.record_residual_calls() as rows,
+          rk.record_lm_calls() as lm_frame):
         run_tracker(bench_config("float32"), "cuda", img, frames)
     with kv.record_sampler_calls() as joint:
         run_batch(bench_config("float32"), "cuda", img, frames[:JCHUNK],
                   method="track_frames_joint", chunk=JCHUNK, inflight=3,
                   window=moving_window(traj, frames, JCHUNK, DEG))
-    with rk.record_residual_calls() as joint_rows:
+    with rk.record_residual_calls() as joint_rows, rk.record_lm_calls() as lm_joint:
         run_batch(bench_config("float32", spline_degree=4), "cuda", img, frames[:JCHUNK],
                   method="track_frames_joint", chunk=JCHUNK, inflight=3,
                   window=moving_window(traj, frames, JCHUNK, 4))
-    with rk.record_residual_calls() as direct_rows:
+    with rk.record_residual_calls() as direct_rows, rk.record_lm_calls() as lm_direct:
         run_tracker(bench_config("float32", sampling="direct"), "cuda", img,
                     frames[:CPU_FRAMES])
     s_joint = JCHUNK * S_MAIN
@@ -389,7 +508,8 @@ def record_tracker_calls(img, traj, frames):
                 "joint degree 4": {k: [c for c in calls if c.frames == JCHUNK]
                                    for k, calls in windowed(joint_rows).items()},
                 "direct f32": direct_rows}
-    return sampler, residual
+    lm = {"tracker S=40": lm_frame, "joint degree 4": lm_joint, "direct f32": lm_direct}
+    return sampler, residual, lm
 
 
 def windowed(calls: dict) -> dict:
@@ -442,12 +562,37 @@ def counting_evaluations():
 
 
 def launches_an_evaluation(cfg, img, frames, plain=()) -> tuple:
-    """(kernel launches, LM evaluations) of tracking ``frames`` from rest
-    with ``cfg`` under torch.profiler (run_tracker: the keyframe included),
-    the dispatchers named in ``plain`` sent to their plain versions."""
-    with plain_stages(plain), counting_evaluations() as evals:
+    """(kernel launches, LM evaluations, :func:`lm_probe`'s probe) of
+    tracking ``frames`` from rest with ``cfg`` under torch.profiler
+    (run_tracker: the keyframe included), the dispatchers named in ``plain``
+    sent to their plain versions."""
+    with plain_stages(plain), counting_evaluations() as evals, lm_probe() as probe:
         total = kernel_launches(lambda: run_tracker(cfg, "cuda", img, frames))
-    return total, evals[0]
+    return total, evals[0], probe
+
+
+def launches_an_iteration(cfg, img, frames) -> float:
+    """Kernel launches of one LM iteration alone (``solver.lm.lm_iteration``:
+    K6, the evaluation, K3 twice, K7, K8 and whatever torch ops remain),
+    each iteration of tracking ``frames`` from rest counted under
+    torch.profiler on its own; the mean."""
+    import torch
+    from mba_vo_tpu_torch.solver import lm
+
+    original, counts = lm.lm_iteration, []
+
+    def counted(*args):
+        out = []
+        counts.append(kernel_launches(lambda: out.append(original(*args))))
+        return out[0]
+
+    lm.lm_iteration = counted
+    try:
+        run_tracker(cfg, "cuda", img, frames)
+    finally:
+        lm.lm_iteration = original
+    torch.cuda.synchronize()
+    return sum(counts) / max(len(counts), 1)
 
 
 def hold_residual_calls(recorded: dict) -> dict:
@@ -1825,6 +1970,7 @@ def main() -> int:
     from mba_vo_tpu_torch.ops import cuda_build
     from mba_vo_tpu_torch.ops import cuda_image as ci
     from mba_vo_tpu_torch.ops import cuda_layout as cl
+    from mba_vo_tpu_torch.ops import cuda_lm
     from mba_vo_tpu_torch.ops import cuda_residual as cr
     from mba_vo_tpu_torch.ops import cuda_sampling as cs
 
@@ -1842,7 +1988,7 @@ def main() -> int:
     # ---- 2. build
     t0 = time.perf_counter()
     libs = cuda_build.build()
-    print(f"[2] built K1, K1-v, K2, K3, K4 and K5 in {time.perf_counter() - t0:.2f} s -> "
+    print(f"[2] built K1, K1-v, K2, K3, K4, K5 and K6-K8 in {time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(str(p) for p in libs.values())}")
     for name, log in cuda_build.BUILD_LOG.items():
         # ptxas -v: one block of lines per kernel instantiation (IfE float,
@@ -1851,7 +1997,7 @@ def main() -> int:
         for ln in log.splitlines():
             m = re.search(r"((?:window_bilinear(?:_[a-z]+)?|warp_tangents(?:_threads)?|"
                           r"blur_rows(?:_keypoint)?|frame_layout(?:_serial)?|"
-                          r"image_bilinear(?:_branch|_interleaved)?)"
+                          r"image_bilinear(?:_branch|_interleaved)?|lm_(?:step|decide|commit))"
                           r"_kernel|normal_equations_(?:partials|combine|cluster))I([fd])"
                           r"((?:Li\d+E)*)", ln)
             if "Compiling entry function" in ln and m:
@@ -1883,6 +2029,12 @@ def main() -> int:
           + f"; K4's select design: {ci.IMAGE_THREADS} threads a block, "
           f"one sample a thread, i // S by (i m) >> k (S = {S_MAIN}: "
           f"m, k = {ci.sample_divisor(S_MAIN)})")
+    print("    K6 (lm_step) dynamic shared memory, the factor in shared memory where it fits: "
+          + "; ".join(f"D = {D}: " + " / ".join(
+              f"{cuda_lm.step_smem_bytes(D, b) or cuda_lm.step_rest_bytes(D, b)} B {t}"
+              + ("" if cuda_lm.step_smem_bytes(D, b) else " (factor in global memory)")
+              for t, b in item.items()) for D in (12, 42, 162, 240))
+          + f"; K6-K8 one CTA of {cuda_lm.LM_THREADS} threads")
     # the frame's calls (F = 1), a degree-4 joint chunk's (F = 4) and the widest
     for F, D in ((1, 12), (JCHUNK, 6 * (JCHUNK + 3)), (8, cr.MAX_TANGENTS)):
         M = F * N_KP * 8
@@ -1919,7 +2071,7 @@ def main() -> int:
     t0 = time.perf_counter()
     img, traj, frames = make_scenario("cuda", LONG_FRAMES)
     t1 = time.perf_counter()
-    recorded, residual_calls = record_tracker_calls(img, traj, frames)
+    recorded, residual_calls, lm_calls = record_tracker_calls(img, traj, frames)
     print(f"[3] scenario: {LONG_FRAMES} blurred VGA frames rendered in {t1 - t0:.1f} s; "
           f"sampler, K2 and K3 calls recorded in {time.perf_counter() - t1:.1f} s: " + ", ".join(
               f"{label} {len(calls)} (C=3: {sum(c.C == 3 for c in calls)}, levels "
@@ -1943,13 +2095,27 @@ def main() -> int:
           "the direct path on the kernels against its plain chain")
     residual_err = hold_residual_calls(residual_calls)
     print(f"    phase 3's K2-K5 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print("    K6-K8 (lm_step, lm_decide, lm_commit) against the plain stages on every "
+          "recorded call")
+    lm_err = hold_lm_calls(lm_calls)
+    print(f"    phase 3's K6-K8 in {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. slice, f64: CUDA against CPU
     launches0 = cs.LAUNCHES
-    with rk.record_residual_calls() as rows64:
+    with (rk.record_residual_calls() as rows64, rk.record_lm_calls() as lm64,
+          lm_probe() as probe64):
         p64, s64, _ = run_tracker(bench_config("float64"), "cuda", img, frames)
     check(cs.LAUNCHES > launches0, "the f64 CUDA run did not launch K1")
     residual_err64 = hold_residual_calls({"f64 track_frame": windowed(rows64)})
+    lm_err64 = hold_lm_calls({"f64 track_frame": lm64})
+    with lm_probe(plain=True) as plain64:
+        p64p, _, _ = run_tracker(bench_config("float64"), "cuda", img, frames)
+    check_plain_stage_iterations("[4] f64 track_frame", probe64, plain64)
+    d_plain = float(np.abs(p64 - p64p).max())
+    print(f"    f64 poses on K6-K8 against the plain-stage tracker's: max |diff| {d_plain:.3e} "
+          f"(bound 1e-9)")
+    check(d_plain <= 1e-9, f"f64 poses differ from the plain-stage tracker's by {d_plain}")
     with rk.record_residual_calls() as direct64:
         run_tracker(bench_config("float64", sampling="direct"), "cuda", img, frames[:CPU_FRAMES])
     for kernel, err in hold_residual_calls({"f64 direct track_frame": direct64}).items():
@@ -1980,19 +2146,28 @@ def main() -> int:
           f"per level (coarse to fine) of the first 4 frames {it32[:4]}")
     check(p32.shape == (LONG_FRAMES, 7) and np.isfinite(p32).all(), "bad f32 poses")
     check(cs.LAUNCHES > 0, "the per-frame main path never launched K1")
-    check(not skipped(k23), f"the per-frame main path skipped K2, K3 or K5: {k23}")
-    print(f"    K2 and K3 launches on that path: " + ", ".join(
+    check(not skipped(k23), f"the per-frame main path skipped K2-K8: {k23}")
+    print(f"    K2-K8 launches on that path: " + ", ".join(
         f"{k} {n} ({n / LONG_FRAMES:.1f} per frame)" for k, n in k23.items()))
-    total, evals = launches_an_evaluation(bench_config("float32"), img, frames[:CPU_FRAMES])
+    total, evals, probe = launches_an_evaluation(bench_config("float32"), img,
+                                                 frames[:CPU_FRAMES])
     per_eval = {"windowed": total / max(evals, 1)}
-    total_p, evals_p = launches_an_evaluation(bench_config("float32"), img, frames[:CPU_FRAMES],
-                                              plain=("prepare_frame_layout",))
+    reads = {"windowed": probe["reads"] / max(sum(probe["iterations"]), 1)}
+    check(probe["reads"] == sum(probe["iterations"]), f"5a: host reads {probe}")
+    total_p, evals_p, _ = launches_an_evaluation(bench_config("float32"), img,
+                                                 frames[:CPU_FRAMES],
+                                                 plain=("prepare_frame_layout",))
+    per_iter = {"windowed": launches_an_iteration(bench_config("float32"), img,
+                                                  frames[:CPU_FRAMES])}
     per_eval["windowed, plain layout"] = total_p / max(evals_p, 1)
     print(f"    kernel launches of {CPU_FRAMES} frames of track_frame, keyframe included "
           f"(torch.profiler): {total} = {total / CPU_FRAMES:.0f} a frame over {evals} LM "
           f"evaluations = {per_eval['windowed']:.1f} an evaluation; with the plain layout in "
           f"place of K5: {total_p} over {evals_p} = "
-          f"{per_eval['windowed, plain layout']:.1f} an evaluation ({card})")
+          f"{per_eval['windowed, plain layout']:.1f} an evaluation ({card}); host reads an "
+          f"LM iteration {reads['windowed']:.2f} ({probe['reads']} over "
+          f"{sum(probe['iterations'])} iterations); launches of one LM iteration alone "
+          f"{per_iter['windowed']:.1f}")
 
     # 5b. the drift rule of tests/test_precision.py with that test's options,
     # on the bench scenario from rest. Measured and printed, not a check:
@@ -2036,7 +2211,12 @@ def main() -> int:
     # 6a. track_frames: f64 against phase 4's track_frame poses, inflight 1
     # against 2, and f32 timed
     a2, _, _ = run_batch(bench_config("float64"), "cuda", img, frames, chunk=8, inflight=2)
-    a1, _, _ = run_batch(bench_config("float64"), "cuda", img, frames, chunk=8, inflight=1)
+    with lm_probe() as probe_a:
+        a1, _, _ = run_batch(bench_config("float64"), "cuda", img, frames, chunk=8, inflight=1)
+    with lm_probe(plain=True) as plain_a:
+        a1p, _, _ = run_batch(bench_config("float64"), "cuda", img, frames, chunk=8, inflight=1)
+    check_plain_stage_iterations("[6a] f64 track_frames", probe_a, plain_a)
+    check(float(np.abs(a1 - a1p).max()) <= 1e-9, "6a: f64 poses differ from the plain stages'")
     diff = float(np.abs(a2 - p64).max())
     check(diff <= 1e-8, f"f64 track_frames and track_frame poses differ by {diff}")
     check(np.array_equal(a1, a2), "inflight=1 and inflight=2 give different poses")
@@ -2052,7 +2232,7 @@ def main() -> int:
     d32 = float(np.abs(a32 - p32).max())
     check(d32 <= 1e-6, f"f32 track_frames and track_frame poses differ by {d32}")
     check(cs.LAUNCHES > 0, "track_frames never launched K1")
-    check(not skipped(k23), f"track_frames skipped K2, K3 or K5: {k23}")
+    check(not skipped(k23), f"track_frames skipped K2-K8: {k23}")
 
     # 6b. a keyframe switch and a rejected frame inside one track_frames run
     # (TrackerConfig's own keyframe thresholds fire mid-chunk; frame 6 is
@@ -2094,7 +2274,14 @@ def main() -> int:
         cfg_j = bench_config("float64", spline_degree=deg, max_num_iterations=4)
         win = moving_window(traj, frames, JCHUNK, deg)
         args = dict(method="track_frames_joint", window=win, chunk=JCHUNK, inflight=3)
-        jc, _, tc = run_batch(cfg_j, "cuda", img, frames[:JCHUNK], **args)
+        with lm_probe() as probe_j:
+            jc, _, tc = run_batch(cfg_j, "cuda", img, frames[:JCHUNK], **args)
+        with lm_probe(plain=True) as plain_j:
+            jp, _, _ = run_batch(cfg_j, "cuda", img, frames[:JCHUNK], **args)
+        check_plain_stage_iterations(f"[6c] f64 track_frames_joint degree {deg}", probe_j,
+                                     plain_j)
+        check(float(np.abs(jc - jp).max()) <= 1e-9, "6c: f64 poses differ from the plain "
+                                                    "stages'")
         jh, _, th = run_batch(cfg_j, "cpu", img, frames[:JCHUNK], **args)
         joint64[deg] = jc
         diff = float(np.abs(jc - jh).max())
@@ -2112,9 +2299,12 @@ def main() -> int:
     k23 = note_residual_launches("track_frames_joint")
     n_chunks = LONG_FRAMES // JCHUNK
     cfg_p = bench_config("float32", max_num_iterations=4)
-    total = kernel_launches(lambda: run_batch(
-        cfg_p, "cuda", img, frames[:JCHUNK], method="track_frames_joint",
-        window=moving_window(traj, frames, JCHUNK, DEG), chunk=JCHUNK))
+    with lm_probe() as probe_jp:
+        total = kernel_launches(lambda: run_batch(
+            cfg_p, "cuda", img, frames[:JCHUNK], method="track_frames_joint",
+            window=moving_window(traj, frames, JCHUNK, DEG), chunk=JCHUNK))
+    reads["joint"] = probe_jp["reads"] / max(sum(probe_jp["iterations"]), 1)
+    check(probe_jp["reads"] == sum(probe_jp["iterations"]), f"6c: host reads {probe_jp}")
     evals = cs.LAUNCHES - jl
     print(f"[6c] track_frames_joint(chunk={JCHUNK}, inflight=3), f32, degree {DEG}: "
           f"{LONG_FRAMES} frames in {sec:.3f} s = {1e3 * sec / n_chunks:.1f} ms/chunk ({card}), "
@@ -2124,11 +2314,12 @@ def main() -> int:
           f"{ate32:.4e} m)")
     print(f"    kernel launches of one chunk with the LM cut to 4 iterations a level, "
           f"bootstrap included (torch.profiler): {total} over {evals} LM evaluations = "
-          f"{total / max(evals, 1):.0f} per evaluation ({card}); K2 and K3 launches of the "
-          f"timed run: " + ", ".join(f"{k} {n}" for k, n in k23.items()))
+          f"{total / max(evals, 1):.0f} per evaluation ({card}), host reads an LM iteration "
+          f"{reads['joint']:.2f}; K2-K8 launches of the timed run: " + ", ".join(
+              f"{k} {n}" for k, n in k23.items()))
     check(j32.shape == (LONG_FRAMES, 7) and np.isfinite(j32).all(), "bad joint f32 poses")
     check(jl > 0, "track_frames_joint never launched K1")
-    check(not skipped(k23), f"track_frames_joint skipped K2, K3 or K5: {k23}")
+    check(not skipped(k23), f"track_frames_joint skipped K2-K8: {k23}")
 
     # 6d. sampling="direct" and affine_brightness (frames under a gain that
     # drifts by 2 % and a bias that drifts by 1 grey level a frame), four
@@ -2140,10 +2331,16 @@ def main() -> int:
             ("affine_brightness", bench_config("float64", affine_brightness=True), gained)):
         t0 = time.perf_counter()
         zero_counts(cs)
-        dc, _, _ = run_batch(cfg_d, "cuda", img, fr, chunk=4)
+        with lm_probe() as probe_d:
+            dc, _, _ = run_batch(cfg_d, "cuda", img, fr, chunk=4)
         path = f"track_frames {label}, f64 (6d)"
         launches[path] = cs.LAUNCHES
         k25 = note_residual_launches(path)
+        with lm_probe(plain=True) as plain_d:
+            dp, _, _ = run_batch(cfg_d, "cuda", img, fr, chunk=4)
+        check_plain_stage_iterations(f"[6d] {label} f64", probe_d, plain_d)
+        check(float(np.abs(dc - dp).max()) <= 1e-9, f"6d {label}: f64 poses differ from the "
+                                                    f"plain stages'")
         dh, _, _ = run_batch(cfg_d, "cpu", img, fr, chunk=4)
         diff = float(np.abs(dc - dh).max())
         direct = label == "sampling=direct"
@@ -2165,9 +2362,12 @@ def main() -> int:
     path = "track_frame sampling=direct, f32 (6e)"
     launches[path] = cs.LAUNCHES
     k25 = note_residual_launches(path)
-    total, evals = launches_an_evaluation(cfg_direct, img, frames[:CPU_FRAMES])
+    total, evals, probe = launches_an_evaluation(cfg_direct, img, frames[:CPU_FRAMES])
     per_eval["direct"] = total / max(evals, 1)
-    total_e, evals_e = launches_an_evaluation(
+    reads["direct"] = probe["reads"] / max(sum(probe["iterations"]), 1)
+    check(probe["reads"] == sum(probe["iterations"]), f"6e: host reads {probe}")
+    per_iter["direct"] = launches_an_iteration(cfg_direct, img, frames[:CPU_FRAMES])
+    total_e, evals_e, _ = launches_an_evaluation(
         cfg_direct, img, frames[:CPU_FRAMES], plain=("compute_residuals", "prepare_frame_layout"))
     per_eval["direct, eager"] = total_e / max(evals_e, 1)
     print(f"[6e] sampling=direct, f32 CUDA, bench options, from rest: {LONG_FRAMES} frames in "
@@ -2181,7 +2381,9 @@ def main() -> int:
           f"{evals}); direct eager (its plain chain and the plain layout on the card) "
           f"{per_eval['direct, eager']:.1f} ({total_e} over {evals_e}); windowed (5a) "
           f"{per_eval['windowed']:.1f}, with the plain layout "
-          f"{per_eval['windowed, plain layout']:.1f}; {time.perf_counter() - t0:.1f} s")
+          f"{per_eval['windowed, plain layout']:.1f}; host reads an LM iteration "
+          f"{reads['direct']:.2f}; launches of one LM iteration alone {per_iter['direct']:.1f}; "
+          f"{time.perf_counter() - t0:.1f} s")
     check(pd32.shape == (LONG_FRAMES, 7) and np.isfinite(pd32).all(), "bad direct f32 poses")
     check(not skipped(k25, direct=True) and cs.LAUNCHES == 0,
           f"the direct path skipped a kernel or launched K1: K1 {cs.LAUNCHES}, {k25}")
@@ -2348,6 +2550,40 @@ def main() -> int:
           f"{1e3 * k5[1]['device_ms']:.2f} against 3.2 "
           f"({'met' if k5[1]['device_ms'] <= 3.2e-3 else 'not met'}); {card}")
 
+    # K6-K8 on phase 3's recorded calls: the frame's (6K = 12) and the
+    # degree-4 joint chunk's (6K = 42)
+    t0 = time.perf_counter()
+    lm_rows = {(label, kernel): rk.time_lm_rows(label, calls, out=indent)
+               for label in ("tracker S=40", "joint degree 4")
+               for kernel, calls in lm_calls[label].items()}
+    print(f"    K6-K8 timed in {time.perf_counter() - t0:.1f} s ({card})")
+
+    def lm_entry(kernel):
+        def times(label):
+            k, p = lm_rows[label, kernel][0], lm_rows[label, kernel][-1]
+            return dict(ms=k["ms"], device_ms=k["device_ms"],
+                        device_cold_ms=k["device_cold_ms"], plain_ms=p["ms"],
+                        plain_device_ms=p["device_ms"],
+                        plain_device_cold_ms=p["device_cold_ms"], bound_ms=k["bound_ms"],
+                        bound_by=k["bound_by"], library_ms=k["library_ms"],
+                        library_device_ms=k["library_device_ms"],
+                        library_device_cold_ms=k["library_device_cold_ms"], D=k["D"],
+                        calls=k["calls"])
+        by_path = {path: n.get(kernel, 0) for path, n in RESIDUAL_LAUNCHES.items()}
+        more = {}
+        if kernel == "lm_step":
+            more["library"] = ("torch.linalg.cholesky_ex + torch.cholesky_solve: two calls, "
+                               "the solve alone")
+            more["held"] = ("step and model change bit for bit against "
+                            "residual_kernels.lm_step_kernel_order; max_abs_err and "
+                            "max_rel_err: the step against lm_step_plain's library solve")
+        return dict(name=kernel, route="cuda", source="mba_vo_tpu_torch/csrc/lm_step.cu",
+                    replaces="mba_vo_tpu/solver/lm.py:373", launches=sum(by_path.values()),
+                    max_abs_err=lm_err[kernel][0], max_rel_err=lm_err[kernel][1],
+                    max_rel_err_f64=lm_err64[kernel][1], **times("tracker S=40"),
+                    joint_degree_4=times("joint degree 4"),
+                    launches_by_path={p: n for p, n in by_path.items() if n}, **more)
+
     def residual_entry(kernel, source, replaces, earlier=None, name=None,
                        label="tracker S=40", joint=True, **extra):
         def times(label, which=0):
@@ -2471,6 +2707,7 @@ def main() -> int:
                            f32=residual_err["direct path"][1],
                            f64=residual_err64["direct path"][1]),
                        by_level=k4["levels"], first_call=k4["first_call"], plane=k4["plane"]),
+        lm_entry("lm_step"), lm_entry("lm_decide"), lm_entry("lm_commit"),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

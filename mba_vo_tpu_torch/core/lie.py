@@ -28,6 +28,14 @@ def _small_threshold(dtype: torch.dtype) -> float:
     return 1e-10
 
 
+def _sum3(x: torch.Tensor) -> torch.Tensor:
+    """x[..., 0] + x[..., 1] + x[..., 2], summed left to right. On the card
+    torch.sum over a last axis of 3 takes an order that depends on the
+    tensor's shape; the kernels that repeat the quaternion exp and log
+    (csrc/spline_pose.cuh) sum in this order, whatever the shape."""
+    return (x[..., 0] + x[..., 1]) + x[..., 2]
+
+
 def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
 
@@ -117,7 +125,7 @@ def quat_log(q: torch.Tensor) -> torch.Tensor:
     n = |imag| = 0."""
     xyz = q[..., :3]
     w = q[..., 3]
-    sq = torch.sum(xyz * xyz, dim=-1)
+    sq = _sum3(xyz * xyz)
     small = sq < _small_threshold(q.dtype)
     sq_safe = torch.where(small, torch.ones_like(sq), sq)
     n = torch.sqrt(sq_safe)
@@ -133,8 +141,8 @@ def quat_log_jvp(q: torch.Tensor, dq: torch.Tensor):
     [D, ..., 4]), in the primal's branch per element."""
     xyz, w = q[..., :3], q[..., 3]
     dxyz, dw = dq[..., :3], dq[..., 3]
-    sq = torch.sum(xyz * xyz, dim=-1)
-    dsq = 2.0 * torch.sum(xyz * dxyz, dim=-1)
+    sq = _sum3(xyz * xyz)
+    dsq = 2.0 * _sum3(xyz * dxyz)
     small = sq < _small_threshold(q.dtype)
     sq_safe = torch.where(small, torch.ones_like(sq), sq)
     dsq_safe = torch.where(small, torch.zeros_like(dsq), dsq)
@@ -159,7 +167,7 @@ def quat_log_jvp(q: torch.Tensor, dq: torch.Tensor):
 
 def quat_exp(omega: torch.Tensor) -> torch.Tensor:
     """Rotation vector -> unit quaternion (inverse of :func:`quat_log`)."""
-    theta_sq = torch.sum(omega * omega, dim=-1)
+    theta_sq = _sum3(omega * omega)
     small = theta_sq < _small_threshold(omega.dtype)
     theta_sq_safe = torch.where(small, torch.ones_like(theta_sq), theta_sq)
     theta = torch.sqrt(theta_sq_safe)
@@ -176,8 +184,8 @@ def quat_exp(omega: torch.Tensor) -> torch.Tensor:
 def quat_exp_jvp(omega: torch.Tensor, domega: torch.Tensor):
     """(:func:`quat_exp` of omega, its tangent along the D seeds ``domega``
     [D, ..., 3]), in the primal's branch per element."""
-    theta_sq = torch.sum(omega * omega, dim=-1)
-    dtheta_sq = 2.0 * torch.sum(omega * domega, dim=-1)
+    theta_sq = _sum3(omega * omega)
+    dtheta_sq = 2.0 * _sum3(omega * domega)
     small = theta_sq < _small_threshold(omega.dtype)
     theta_sq_safe = torch.where(small, torch.ones_like(theta_sq), theta_sq)
     dtheta_sq_safe = torch.where(small, torch.zeros_like(dtheta_sq), dtheta_sq)

@@ -109,6 +109,22 @@ __device__ __forceinline__ void quat_exp_jvp(V3<T> o, V3<T> d, T thr, Quat<T>& o
   dout = {dimag * o.x + imag * d.x, dimag * o.y + imag * d.y, dimag * o.z + imag * d.z, dreal};
 }
 
+// core/lie.py::quat_exp alone, as the card's torch computes it: there a
+// tensor over a Python float is a product with the float's reciprocal (the
+// Taylor branch's / 48, / 3840, / 8 and / 384); the squared norm sums its
+// three products in order. K6 (lm_step.cu) retracts the knots with it.
+template <typename T>
+__device__ __forceinline__ Quat<T> quat_exp(V3<T> o, T thr) {
+  const T ts = (o.x * o.x + o.y * o.y) + o.z * o.z;
+  const bool small = ts < thr;
+  const T th = sqrt(small ? T(1) : ts);
+  const T tp4 = ts * ts;
+  const T imag = small ? (T(0.5) - ts * (T(1) / T(48))) + tp4 * (T(1) / T(3840))
+                       : sin(T(0.5) * th) / th;
+  const T real = small ? (T(1) - ts * (T(1) / T(8))) + tp4 * (T(1) / T(384)) : cos(T(0.5) * th);
+  return {imag * o.x, imag * o.y, imag * o.z, real};
+}
+
 // core/spline.py::spline_interp_q's step j, the primal alone:
 // exp(c_j log(conj(q_j) q_{j+1})), the factor by which the running product
 // is multiplied on the right

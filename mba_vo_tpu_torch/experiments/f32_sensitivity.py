@@ -30,7 +30,8 @@ The variants:
     archive``, loaded as the package ``parent_port``): ``parent_residual``,
     that checkout's ``compute_residuals_windowed`` (its pose Jacobian, warp
     and blur rows, and its own K1); ``parent_assemble``, its ``assemble``
-    (the normal equations); ``parent_both``.
+    and ``normal_equations`` (the normal equations; the LM's loop calls the
+    latter); ``parent_both``.
 
 Each variant runs on the inputs as they are and then under each seed of
 ``--seeds``, with every pixel of every input frame scaled by 1 + s 2^-m
@@ -111,7 +112,6 @@ def variant(name: str, parent=None):
     """Swap the module attributes ``name`` asks for (``parent``: the
     earlier checkout's ``ops.residual``); restored on leaving."""
     from mba_vo_tpu_torch.ops import residual
-    from mba_vo_tpu_torch.solver import lm
 
     swaps = []      # (module, attribute, replacement)
     for k in PLAIN.get("plain_k2k3" if name == "jacfwd_plain" else name, ()):
@@ -130,8 +130,10 @@ def variant(name: str, parent=None):
         swaps.append((residual, "compute_residuals_windowed",
                       parent.compute_residuals_windowed))
     if name in ("parent_assemble", "parent_both"):
-        # the LM imports assemble by name; evaluate looks it up in residual
-        swaps += [(residual, "assemble", parent.assemble), (lm, "assemble", parent.assemble)]
+        # evaluate looks assemble up in residual; the LM's loop calls
+        # residual.normal_equations and scales its sums in its own stages
+        swaps += [(residual, "assemble", parent.assemble),
+                  (residual, "normal_equations", parent.normal_equations)]
     saved = [(m, k, getattr(m, k)) for m, k, _ in swaps]
     for m, k, fn in swaps:
         setattr(m, k, fn)

@@ -261,6 +261,102 @@ def probe_extrapolation(out=print) -> dict:
     return res
 
 
+def _clamped_args(K: int, dtype: torch.dtype):
+    """:func:`probe_extrapolation`'s problem (the card tests' "clamped"
+    one, seed 0, degree 4, F = 8, V = 5, 512 keypoints) at K knots: K5's
+    arguments and those of the plain anchors' (sample_virtual_poses,
+    patch_anchors)."""
+    from ..core.spline import make_knots
+    from ..tracker.patterns import PATTERNS
+
+    H, W, N, F, degree = 480, 640, 512, 8, 4
+    rng = np.random.default_rng(0)
+    t = np.cumsum(rng.normal(0, 0.05, (K, 3)), axis=0)
+    q = np.concatenate([rng.normal(0, 0.02, (K, 3)), np.ones((K, 1))], axis=1)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    kp = rng.uniform([-3, -3], [W + 3, H + 3], (N, 2))
+    caps = 0.05 + 0.1 * (degree - 1) / 2 + np.sort(rng.uniform(0, 0.1 * (K - degree + 0.5), F))
+    caps[-1] = 0.05 + 0.1 * (K + 0.5)
+    rng.uniform(0, 255, (F, H, W))                      # the current frames
+    z = rng.uniform(1.5, 2.5, N)
+    c = lambda a: torch.tensor(a, dtype=dtype, device="cuda")   # noqa: E731
+    knots = make_knots(c(t), c(q), 0.05, 0.1)
+    knots = knots._replace(t0=knots.t0.cuda(), dt=knots.dt.cuda())
+    caps_t, exps, kp_t, z_t = c(caps), c(np.full(F, 0.03)), c(kp), c(z)
+    Kv = c([480.0, 480.0, (W - 1) / 2, (H - 1) / 2])
+    layout = (knots, caps_t, exps, 5, degree, kp_t, z_t, torch.ones_like(z_t), Kv,
+              torch.as_tensor(PATTERNS["dso8"](), device="cuda"),
+              torch.zeros((F, H, W), dtype=dtype, device="cuda"), H, W)
+    return layout, (knots, caps_t, exps, kp_t, z_t, Kv)
+
+
+def _rounded(fn):
+    """``fn`` computed in float64 and rounded to the argument's type: the
+    correctly rounded result, whatever the card's float32 routine gives."""
+    def call(*args, **kw):
+        out = fn(*(a.double() if torch.is_tensor(a) else a for a in args), **kw)
+        return out.to(next(a for a in args if torch.is_tensor(a)).dtype)
+    return call
+
+
+def _sum3(order: str):
+    """core/lie.py's three-term norms in another order ("(0+2)+1" or
+    "0+(1+2)")."""
+    def call(x):
+        a, b, c = x[..., 0], x[..., 1], x[..., 2]
+        return (a + c) + b if order == "(0+2)+1" else a + (b + c)
+    return call
+
+
+def probe_rotation_steps(out=print) -> dict:
+    """Which step of the rotation chain puts K5's far-extrapolated anchors
+    off the plain version's (:func:`probe_extrapolation`, 64 knots, f32):
+    the plain anchors recomputed on the card with one step of the chain
+    changed at a time (``torch.sin``, ``cos``, ``atan2`` or ``sqrt``
+    computed in float64 and rounded once, or ``core/lie.py``'s three-term
+    squared norms summed in another order or by ``torch.sum``, whose order
+    on the card depends on the tensor's shape), each against K5's anchors:
+    the variant whose anchors equal K5's bit for bit names the step where
+    the kernel and torch part."""
+    from ..core import lie
+    from ..ops import cuda_layout
+    from ..ops import residual as tres
+
+    variants = {
+        "as is": {},
+        "sin rounded once": {"sin": _rounded(torch.sin)},
+        "cos rounded once": {"cos": _rounded(torch.cos)},
+        "sin and cos rounded once": {"sin": _rounded(torch.sin), "cos": _rounded(torch.cos)},
+        "atan2 rounded once": {"atan2": _rounded(torch.atan2)},
+        "sqrt rounded once": {"sqrt": _rounded(torch.sqrt)},
+        "norms (0+2)+1": {"_sum3": _sum3("(0+2)+1")},
+        "norms 0+(1+2)": {"_sum3": _sum3("0+(1+2)")},
+        "norms by torch.sum": {"_sum3": lambda x: torch.sum(x, dim=-1)},
+    }
+    res = {}
+    for K in (27, 64):
+        layout, (knots, caps_t, exps, kp_t, z_t, Kv) = _clamped_args(K, torch.float32)
+        staged = cuda_layout.frame_layout_cuda(*layout, anchors=True)[3]
+        got = {}
+        for name, swaps in variants.items():
+            where = {k: lie if k == "_sum3" else torch for k in swaps}
+            saved = {k: getattr(where[k], k) for k in swaps}
+            for k, fn in swaps.items():
+                setattr(where[k], k, fn)
+            try:
+                pt, pq = tres.sample_virtual_poses(knots, caps_t, exps, 5, 4)
+                ref = tres.patch_anchors(pt[:, 2], pq[:, 2], kp_t, z_t, Kv)
+            finally:
+                for k, fn in saved.items():
+                    setattr(where[k], k, fn)
+            got[name] = int((staged != ref).sum())
+        res[f"{K} knots"] = got
+        out(f"K5's anchors past the spline's end, {K} knots, f32: entries unequal to the plain "
+            f"version's with one step of the rotation chain changed: " + ", ".join(
+                f"{k} {v}" for k, v in got.items()))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("pose_order: needs one CUDA GPU", file=sys.stderr)
@@ -270,6 +366,7 @@ def main() -> int:
     probe_translation()
     probe_anchors()
     probe_extrapolation()
+    probe_rotation_steps()
     return 0
 
 

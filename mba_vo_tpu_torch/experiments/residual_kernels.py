@@ -1,5 +1,5 @@
-"""Kernels K2, K3, K4 and K5 on the tracker's own inputs, on one NVIDIA
-GPU: record, hold against the plain versions and the earlier designs, time.
+"""Kernels K2-K8 on the tracker's own inputs, on one NVIDIA GPU: record,
+hold against the plain versions and the earlier designs, time.
 
 K2 is ``csrc/residual_rows.cu`` (``warp_tangents``, ``blur_rows``), K3
 ``csrc/normal_equations.cu`` (``normal_equations``), K5
@@ -53,6 +53,19 @@ outputs):
 :func:`time_layouts` times K3's two cluster layouts (:data:`K3_LAYOUTS`),
 between which its rule chooses by the rows, on the same calls, each held
 to the earlier design bit for bit.
+
+The LM iteration's kernels K6-K8 (``csrc/lm_step.cu``) are recorded,
+held and timed the same way on the tracker's LM calls:
+:func:`record_lm_calls` records the calls of ``solver.lm``'s three stage
+dispatchers (copies of their inputs taken before the call, since the
+kernels write the state in place), :func:`hold_lm` holds each call to the
+plain stage (K8's state bit for bit, K7's mu and sigma within
+:data:`LM_TOLERANCE`) and K6's step and model change, bit for bit, to
+:func:`lm_step_kernel_order`, K6's order of operations written out in
+torch (the plain stage solves with the library, whose order no kernel
+repeats), and :func:`time_lm_rows` times kernel and plain stage, with
+``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve`` beside K6 as its
+library yardstick.
 
 ``chip_smoke.py`` phases 3 (record and hold) and 7 (time) drive it on the
 bench scenario; ``python3 -m mba_vo_tpu_torch.experiments.residual_kernels``
@@ -785,11 +798,363 @@ def time_layouts(label: str, calls: List[ResidualCall], out=print) -> List[dict]
     return rows
 
 
+# ------------------------------------------------ K6-K8: the LM iteration
+
+LM_KERNELS = ("lm_step", "lm_decide", "lm_commit")
+# K7's mu and sigma against the plain version's, relative to themselves
+LM_TOLERANCE = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _split(a: torch.Tensor):
+    """Veltkamp's split of a into a high and a low half whose products are
+    exact (2^27 + 1 in float64, 2^12 + 1 in float32)."""
+    c = (134217729.0 if a.dtype == torch.float64 else 4097.0) * a
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _two_product(a: torch.Tensor, b: torch.Tensor):
+    """(a b rounded, its rounding error), Dekker's product without a fused
+    multiply-add."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return p, (((ah * bh - p) + ah * bl) + al * bh) + al * bl
+
+
+def cholesky_columns(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """x = H^-1 g in K6's order of operations (``csrc/lm_step.cu``): the
+    right-looking Cholesky factorisation of H's lower triangle, column by
+    column (the pivot's square root, the column divided by it, each
+    trailing entry less one product a pivot), then L y = g row by row and
+    L^T x = y back, every product rounded before its difference; then one
+    step of refinement: the residual g - H x summed in double the working
+    precision (each product split exactly, each sum's error kept, a row at
+    a time in column order) and solved with the same factor. A pivot that
+    is not positive fails the factorisation: a NaN x, as
+    ``jnp.linalg.cholesky`` gives."""
+    D = H.shape[0]
+    A = H.clone()
+    failed = torch.zeros((), dtype=torch.bool, device=H.device)
+    for k in range(D):
+        failed = failed | ~(A[k, k] > 0)
+        A[k, k] = torch.sqrt(A[k, k])
+        A[k + 1:, k] = A[k + 1:, k] / A[k, k]
+        col = A[k + 1:, k]
+        A[k + 1:, k + 1:] = A[k + 1:, k + 1:] - torch.outer(col, col)
+
+    def solve(rhs):
+        b = rhs.clone()
+        for j in range(D):
+            b[j] = b[j] / A[j, j]
+            b[j + 1:] = b[j + 1:] - A[j + 1:, j] * b[j]
+        for j in range(D - 1, -1, -1):
+            b[j] = b[j] / A[j, j]
+            b[:j] = b[:j] - A[j, :j] * b[j]
+        return b
+
+    x = solve(g)
+    p, pe = _two_product(H, x[None, :].expand_as(H))
+    s, c = g.clone(), torch.zeros_like(g)
+    for j in range(D):
+        t = s - p[:, j]
+        bb = t - s
+        c = c + (((s - (t - bb)) + (-p[:, j] - bb)) - pe[:, j])
+        s = t
+    x = x + solve(s + c)
+    return torch.where(failed, torch.full_like(x, float("nan")), x)
+
+
+def block_sum(v: torch.Tensor) -> torch.Tensor:
+    """The sum of a vector in the order of K6's block reduction over its
+    ``cuda_lm.LM_THREADS`` threads: each thread's strided entries in order,
+    then a tree over the threads."""
+    from ..ops import cuda_lm
+
+    n = cuda_lm.LM_THREADS
+    rows = v.new_zeros(-(-v.shape[0] // n) * n)
+    rows[:v.shape[0]] = v
+    acc = torch.zeros_like(rows[:n])
+    for row in rows.view(-1, n):
+        acc = acc + row
+    while acc.shape[0] > 1:
+        half = acc.shape[0] // 2
+        acc = acc[:half] + acc[half:]
+    return acc[0]
+
+
+def lm_step_kernel_order(H1: torch.Tensor, g: torch.Tensor):
+    """K6's step and model cost change from its damped H1 in the kernel's
+    order of operations: (step = -:func:`cholesky_columns` (H1, g), -(g .
+    step + 0.5 step . (H1 step)) with H1 step a row at a time in column
+    order and both dot products by :func:`block_sum`). On the card K6
+    equals it bit for bit, however ill-conditioned H1; the plain stage
+    solves with the library instead."""
+    step = -cholesky_columns(H1, g)
+    hs = torch.zeros_like(step)
+    for j in range(step.shape[0]):
+        hs = hs + H1[:, j] * step[j]
+    return step, -(block_sum(g * step) + 0.5 * block_sum(step * hs))
+
+
+@dataclasses.dataclass
+class LMCall:
+    """One recorded call of an LM stage's dispatcher in ``solver.lm``
+    (``kernel`` one of :data:`LM_KERNELS`): copies of its positional
+    arguments, taken before the call (the kernels write the state in
+    place)."""
+    kernel: str
+    args: tuple
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return (self.args[0].H if self.kernel == "lm_commit" else self.args[0]).dtype
+
+    @property
+    def D(self) -> int:
+        """The unknowns 6K (K7's calls: 0, it has none)."""
+        if self.kernel == "lm_decide":
+            return 0
+        return (self.args[0].H if self.kernel == "lm_commit" else self.args[0]).shape[0]
+
+    def fresh(self) -> tuple:
+        """Copies of the arguments, for a call that may write into them."""
+        return _lm_copy(self.args)
+
+
+def _lm_copy(a):
+    if torch.is_tensor(a):
+        return a.clone()
+    if isinstance(a, tuple):
+        items = [_lm_copy(x) for x in a]
+        return type(a)(*items) if hasattr(a, "_fields") else tuple(items)
+    return a
+
+
+@contextlib.contextmanager
+def record_lm_calls() -> Iterator[Dict[str, List[LMCall]]]:
+    """Record every call of the LM's three stage dispatchers
+    (``solver.lm.lm_step``, ``lm_decide``, ``lm_commit``, which
+    ``lm_iteration`` looks up when it runs) made inside the block, by
+    kernel; the calls still run. Names restored on leaving. Record outside a
+    CUDA graph capture."""
+    from ..solver import lm
+
+    calls: Dict[str, List[LMCall]] = {k: [] for k in LM_KERNELS}
+    originals = {k: getattr(lm, k) for k in LM_KERNELS}
+
+    def recorder(kernel):
+        def recording(*args):
+            calls[kernel].append(LMCall(kernel, _lm_copy(args)))
+            return originals[kernel](*args)
+        return recording
+
+    for k in LM_KERNELS:
+        setattr(lm, k, recorder(k))
+    try:
+        yield calls
+    finally:
+        for k, fn in originals.items():
+            setattr(lm, k, fn)
+
+
+def lm_kernel_fn(kernel: str):
+    from ..solver import lm
+
+    return getattr(lm, kernel)
+
+
+def lm_plain_fn(kernel: str):
+    from ..solver import lm
+
+    return getattr(lm, f"{kernel}_plain")
+
+
+def hold_lm(call: LMCall) -> dict:
+    """The recorded call through the kernel and the plain version on fresh
+    copies; raises where they disagree: K6 its damped H by a bit from the
+    plain stage's, its step, model cost change and invalid flag by a bit
+    from :func:`lm_step_kernel_order` on that H1, its candidate knots by a
+    bit from ``spline_retract_flat`` of its own step (the knots when
+    invalid); K7 its candidate cost, quality, success, cost decrease, mask
+    or keypoint weights by a bit, mu or sigma by more than
+    :data:`LM_TOLERANCE`; K8 any part of the next state by a bit. Returns
+    the differences measured (``step``: K6's step against the plain stage's
+    library solve, relative to its norm, a figure and no check; ``mu``,
+    ``sigma``: relative; ``abs``: the largest absolute; ``invalid``,
+    ``success``: the flags)."""
+    from ..core.spline import SplineKnots, spline_retract_flat
+    from ..solver import lm
+
+    bound = LM_TOLERANCE[call.dtype]
+    label = f"{call.kernel} ({str(call.dtype).split('.')[-1]}, D={call.D})"
+    out = lm_kernel_fn(call.kernel)(*call.fresh())
+    ref = lm_plain_fn(call.kernel)(*call.fresh())
+    if call.kernel == "lm_step":
+        H1, step, ct, cq, sc = out
+        pH1, pstep, _, _, psc = ref
+        if not same_bits(H1, pH1):
+            raise AssertionError(f"{label}: damped H differs")
+        ostep, omcc = lm_step_kernel_order(H1, call.args[1])
+        oinvalid = bool(omcc < 0) or not bool(torch.isfinite(ostep).all())
+        invalid = float(sc[lm.S_INVALID])
+        if not (same_bits(step, ostep) and same_bits(sc[lm.S_MCC], omcc)
+                and invalid == float(oinvalid)):
+            raise AssertionError(f"{label}: step, model change or invalid flag differ from "
+                                 f"K6's order transcribed: {_unequal(step, ostep)}")
+        err = err_abs = 0.0
+        if invalid:
+            t, q = call.args[3], call.args[4]
+            if not (torch.equal(ct, t) and torch.equal(cq, q)):
+                raise AssertionError(f"{label}: an invalid step's candidate is not the knots")
+        else:
+            cand = spline_retract_flat(SplineKnots(call.args[3], call.args[4], None, None),
+                                       step)
+            if not (torch.equal(ct, cand.t) and torch.equal(cq, cand.q)):
+                raise AssertionError(f"{label}: candidate unequal to the retraction of "
+                                     f"K6's step")
+            if bool(torch.isfinite(pstep).all()):
+                err_abs = float((step - pstep).abs().max())
+                err = err_abs / float(torch.linalg.norm(pstep))
+        return dict(step=err, abs=err_abs, invalid=invalid,
+                    plain_invalid=float(psc[lm.S_INVALID]))
+    if call.kernel == "lm_decide":
+        (sc, mask, w), (psc, pmask, pw) = out, ref
+        exact = (lm.S_CAND_COST, lm.S_QUALITY, lm.S_SUCCESS, lm.S_ACD_NEW)
+        if not (same_bits(sc[list(exact)], psc[list(exact)]) and torch.equal(mask, pmask)
+                and torch.equal(w, pw)):
+            raise AssertionError(f"{label}: flags, decrease or mask differ: "
+                                 f"{sc[list(exact)].tolist()} {psc[list(exact)].tolist()}, "
+                                 f"{int((mask != pmask).sum())} mask entries")
+        errs = {"abs": float((sc[[lm.S_MU, lm.S_SIGMA]] - psc[[lm.S_MU, lm.S_SIGMA]])
+                             .abs().max())}
+        for name, i in (("mu", lm.S_MU), ("sigma", lm.S_SIGMA)):
+            got, want = float(sc[i]), float(psc[i])
+            errs[name] = abs(got - want) / (abs(want) if want else 1.0)
+            if not errs[name] <= bound:
+                raise AssertionError(f"{label}: {name} {errs[name]:.3e} (bound {bound})")
+        return dict(errs, success=float(sc[lm.S_SUCCESS]))
+    # lm_commit writes its state in place and returns it
+    for name, a, b in zip(lm.LMState._fields, out, ref):
+        if not same_bits(a, b):
+            raise AssertionError(f"{label}: {name} differs: {_unequal(a, b)}")
+    return {"abs": 0.0}
+
+
+def _lm_bound(call: LMCall):
+    """(bound ms, "bytes" or "operations") of an LM stage's call: each input
+    read once and each output written once at 3.35 TB/s, against its
+    floating-point operations (K6: the Cholesky factorisation's D^3 / 3, the
+    two solves' 2 D^2, H1 times the step's 2 D^2; K7 and K8 a few an entry)
+    at the card's rate for the dtype. K8 counts what the call's branch
+    moves: each state array once, as written (on a rejected or invalid
+    step only H, from H1, and the scalars)."""
+    a = call.args
+    rate = F64_FLOPS_PER_S if call.dtype == torch.float64 else kv.F32_FLOPS_PER_S
+    if call.kernel == "lm_step":
+        H, g, sc, t, q = a[:5]
+        D = H.shape[0]
+        moved = 2 * _nbytes(H, g, t, q) + _nbytes(sc) + g.element_size() * 2
+        ops = D ** 3 / 3 + 6 * D * D + 40 * t.shape[0]
+    elif call.kernel == "lm_decide":
+        cost, patch, w, kp_mask, sc = a[:5]
+        moved = _nbytes(cost, patch, w, kp_mask, sc) + 2 * _nbytes(w)
+        ops = 8 * patch.numel() + 10 * w.numel()
+    else:
+        # what this call's branch moves: K6's and K7's flags in the
+        # scalars choose it
+        from ..solver import lm
+
+        s, H1, ct, cq, cost, g, H, patch, mask, kp_w = a[:10]
+        prior = [x for x in (a[13] or ()) if torch.is_tensor(x)]
+        sc = s.scalars
+        success = bool(sc[lm.S_SUCCESS] != 0) and not bool(sc[lm.S_INVALID] != 0)
+        # always: the scalars read and written, the new weights read (the
+        # residual count), H written once from one D x D input (H1, or K3's
+        # H on success: either, the same size)
+        moved = 2 * _nbytes(sc) + _nbytes(kp_w, s.H, H1)
+        ops = s.H.numel() + 40
+        if success:
+            # the candidate's sums and the new mask read, the state written
+            moved += (_nbytes(ct, cq, cost, g, patch, mask, *prior)
+                      + _nbytes(s.t, s.q, s.g, s.mask, s.kp_w, s.patch_costs))
+            ops += 2 * (s.H.numel() + s.g.numel()) + s.patch_costs.numel()
+    b_ms, o_ms = 1e3 * moved / kv.HBM_BYTES_PER_S, 1e3 * ops / rate
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def _cholesky_yardstick(call: LMCall):
+    """The solve part of K6 as the library computes it: two PyTorch calls,
+    ``torch.linalg.cholesky_ex`` of the damped H and ``torch.cholesky_solve``,
+    on the call's H1 (computed once, outside)."""
+    H, g, sc = call.args[:3]
+    from ..solver import lm
+
+    H1 = H + torch.diag(torch.diag(H)) / sc[lm.S_RADIUS]
+    rhs = g[:, None].clone()
+
+    def solve():
+        L, _ = torch.linalg.cholesky_ex(H1)
+        return torch.cholesky_solve(rhs, L)
+    return solve
+
+
+def time_lm_rows(label: str, calls: List[LMCall], reps: int = 10, inner: int = 10,
+                 out=print) -> List[dict]:
+    """An LM stage's kernel and plain version timed on its recorded ``calls``
+    as :func:`time_rows` times K2-K5 (a call, warm in a replayed graph of the
+    calls in order, cold after an L2 flush on the first), on fresh copies
+    of each call's arguments made once outside the timing (K8's repeated
+    calls advance their copy of the state; the work does not depend on it);
+    for K6 the library's Cholesky solve beside it (:func:`_cholesky_yardstick`).
+    Returns the kernel's dict first, the plain version's last."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("timing the LM's kernels needs a CUDA device")
+    kernel = calls[0].kernel
+    warm = calls[:50]
+    bounds = [_lm_bound(c) for c in warm]
+    b_ms = statistics.fmean(b for b, _ in bounds)
+    b_by = max(("bytes", "operations"), key=[by for _, by in bounds].count)
+    w_inner = len(warm) * math.ceil(50 / len(warm))
+    rows = []
+    for name, fn in (("kernel", lm_kernel_fn(kernel)), ("plain", lm_plain_fn(kernel))):
+        args = [c.fresh() for c in warm]
+        first = args[0]
+        rows.append(dict(inputs=label, kernel=kernel, name=name, calls=len(calls),
+                         D=calls[0].D, dtype=str(calls[0].dtype).split(".")[-1],
+                         ms=kv.time_ms(lambda: fn(*first), reps, inner),
+                         device_ms=kv.device_ms([lambda a=a: fn(*a) for a in args], reps,
+                                                w_inner),
+                         device_cold_ms=kv.device_flushed_ms(lambda: fn(*first), reps, 20),
+                         bound_ms=b_ms, bound_by=b_by))
+    k = rows[0]
+    k.update(library_ms=None, library_device_ms=None, library_device_cold_ms=None)
+    if kernel == "lm_step":
+        lib = [_cholesky_yardstick(c) for c in warm]
+        k.update(library_ms=kv.time_ms(lib[0], reps, inner),
+                 library_device_ms=kv.device_ms(lib, reps, w_inner),
+                 library_device_cold_ms=kv.device_flushed_ms(lib[0], reps, 20))
+
+    def us(r):
+        return (f"{1e3 * r['ms']:.2f} us a call / {1e3 * r['device_ms']:.2f} warm / "
+                f"{1e3 * r['device_cold_ms']:.2f} cold")
+
+    lib_txt = ("" if k["library_ms"] is None else
+               f"; cholesky_ex + cholesky_solve (two calls, the solve alone) "
+               f"{1e3 * k['library_ms']:.2f} us a call / "
+               f"{1e3 * k['library_device_ms']:.2f} warm / "
+               f"{1e3 * k['library_device_cold_ms']:.2f} cold")
+    out(f"{label} {kernel} ({len(calls)} calls, D={k['D']}, {k['dtype']}): " + "; ".join(
+        f"{r['name']} {us(r)}" for r in rows) + f"; bound {1e3 * b_ms:.4f} us ({b_by})"
+        + lib_txt)
+    return rows
+
+
 def main(argv=None) -> int:
-    """Record the bench scenario's K2/K3 calls (16 frames of track_frame,
-    f32; one joint chunk at degree 4), hold each against the plain version
-    and the earlier design, and time every kernel (``--layouts``: K3's
-    layout sweep)."""
+    """Record the bench scenario's K2-K8 calls (16 frames of track_frame,
+    f32; one joint chunk at degree 4; 4 frames of the direct path), hold
+    each against the plain version and the earlier design, and time every
+    kernel (``--layouts``: K3's layout sweep instead)."""
     layouts = "--layouts" in (sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("residual_kernels: needs one CUDA GPU", file=sys.stderr)
@@ -799,8 +1164,13 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(kv.card_line())
     img, traj, frames = smoke.make_scenario("cuda", smoke.LONG_FRAMES)
-    recorded = smoke.record_tracker_calls(img, traj, frames)[1]
+    _, recorded, lm_calls = smoke.record_tracker_calls(img, traj, frames)
     smoke.hold_residual_calls(recorded)
+    smoke.hold_lm_calls(lm_calls)
+    if not layouts:
+        for label, by_kernel in lm_calls.items():
+            for kernel, calls in by_kernel.items():
+                time_lm_rows(label, calls, out=print)
     for label, by_kernel in recorded.items():
         for kernel, calls in by_kernel.items():
             if not layouts:

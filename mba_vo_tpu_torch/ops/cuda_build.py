@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-Six sources under ``mba_vo_tpu_torch/csrc/``, each compiled with ``nvcc``
+Seven sources under ``mba_vo_tpu_torch/csrc/``, each compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``:
 
@@ -14,7 +14,9 @@ for ``sm_90a`` into a shared library with a plain C interface, loaded with
     ``ops/cuda_layout.py``; it shares ``spline_pose.cuh`` (the spline's
     poses on the device) with ``residual_rows.cu``;
   * ``image_bilinear.cu`` (K4), the direct path's whole-image sampler,
-    bound in ``ops/cuda_image.py``.
+    bound in ``ops/cuda_image.py``;
+  * ``lm_step.cu`` (K6-K8), the LM iteration's step, decision and commit,
+    bound in ``ops/cuda_lm.py``; it shares ``spline_pose.cuh`` too.
 
 At first use :func:`build` compiles every source not built yet, all of
 them at once (one ``nvcc`` process each), into ``build/mba_vo_tpu_torch/``
@@ -45,14 +47,16 @@ SOURCES = {
     "normal_equations": _CSRC / "normal_equations.cu",
     "frame_layout": _CSRC / "frame_layout.cu",
     "image_bilinear": _CSRC / "image_bilinear.cu",
+    "lm_step": _CSRC / "lm_step.cu",
 }
-# flags of some sources only. K2, K4 and K5 round every operation as the
+# flags of some sources only. K2, K4, K5 and K6 round every operation as the
 # plain versions' torch ops do, one at a time: a multiply-add contracted into
 # one rounding moves a warped position or a patch anchor by an ulp, and on
 # the image's border or an integer pixel (where a standing start lands
-# exactly) that flips an in-image flag or picks another pixel
+# exactly) that flips an in-image flag or picks another pixel (K6's
+# retraction makes the knots those anchors come from)
 SOURCE_FLAGS = {name: ["-fmad=false"]
-                for name in ("residual_rows", "frame_layout", "image_bilinear")}
+                for name in ("residual_rows", "frame_layout", "image_bilinear", "lm_step")}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mba_vo_tpu_torch"
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -719,6 +719,16 @@ def normal_equations(r, J, kp_w, huber_a, compensated=False):
     return normal_equations_plain(r, J, kp_w, huber_a, compensated)
 
 
+def inverse_residual_count(live_kp: torch.Tensor, F: int, P: int, group=None) -> torch.Tensor:
+    """assemble's scale: 1 / max(sum(live_kp) F P, 1), the inverse of the
+    residual count under the keypoint weights ``live_kp`` [N] (the keypoint
+    mask times the outlier mask; summed over the ranks with ``group``).
+    The LM's kernels K7 and K8 (``ops/cuda_lm.py``) apply the same scale to
+    K3's raw sums."""
+    n_res = torch.clamp(allreduce(torch.sum(live_kp), group) * F * P, min=1.0)
+    return 1.0 / n_res
+
+
 def assemble(
     r: torch.Tensor,
     J: Optional[torch.Tensor],
@@ -750,8 +760,7 @@ def assemble(
     P = data.pattern.shape[0]
 
     live_kp = data.kp_mask * outlier_mask  # [N]
-    n_res = torch.clamp(allreduce(torch.sum(live_kp), group) * F * P, min=1.0)
-    inv_n = 1.0 / n_res
+    inv_n = inverse_residual_count(live_kp, F, P, group)
 
     cost, patch, g, Hm = normal_equations(r, J, live_kp, huber_a, compensated)
     patch_costs = patch * inv_n  # [F, N]

@@ -4,9 +4,11 @@ Counterpart of ``mba_vo_tpu/parallel/sharded.py``. The reference wraps the
 whole on-device LM loop of a level in one ``shard_map``; here every rank
 runs ``solver.lm.optimize_level`` on its keypoint slice with the mesh's
 process group: each evaluation's H [6K, 6K], g [6K], cost and outlier
-statistics are all-reduced, and the small dense solve runs on every rank
-on the same bits, so the knots stay replicated and every rank takes the
-same branch of the host loop. The summary's keypoint-indexed fields (the
+statistics are all-reduced inside the LM's decision and commit stages,
+which therefore run their plain versions here (``solver/lm.py``'s
+``lm_step_plain``, ``lm_decide_plain``, ``lm_commit_plain``, on the card
+too), and the small dense solve runs on every rank on the same bits, so
+the knots stay replicated and every rank reads the same continue flag. The summary's keypoint-indexed fields (the
 outlier mask [N] and the patch costs [F, N]) are gathered back to the
 global keypoint axis after the level, as the reference's ``out_specs``
 give its caller global arrays: the post-track statistics, the joint health

@@ -1,9 +1,32 @@
-"""Trust-region Levenberg-Marquardt over spline control knots, as a host loop.
+"""Trust-region Levenberg-Marquardt over spline control knots, as a host loop
+of a fixed sequence of device stages.
 
 Counterpart of ``mba_vo_tpu/solver/lm.py``, whose loop is one
-``lax.while_loop``; here it is a Python loop over tensor steps with one host
-sync per branch decision. Kept reference semantics, documented quirks
-included:
+``lax.while_loop`` with two ``lax.cond``s in its body. Here every iteration
+issues the same stages in the same order, whatever the step turns out to
+be, and the host reads one flag an iteration (whether to go on):
+
+  1. :func:`lm_step` (K6): damp, solve, model cost change, invalid flag and
+     the candidate knots (the current knots when the step is invalid);
+  2. the residuals and the Jacobian at the candidate (``compute_rjv``) and
+     K3's cost sums under the old outlier mask;
+  3. the knot prior at the candidate, when on;
+  4. :func:`lm_decide` (K7): the candidate's scaled cost, the step quality,
+     success, the cost decrease and the re-detected outlier mask;
+  5. K3's sums with J under the new mask (used only on success);
+  6. :func:`lm_commit` (K8): the accepted, rejected or invalid state chosen
+     by selects, and the continue flag.
+
+An invalid step thus evaluates once at the current knots and a rejected
+step runs K3 once more than the reference's branches would; both results
+are discarded by the selects, as the reference never computes them. On a
+CUDA tensor each stage is its kernel (``ops/cuda_lm.py``); on a CPU tensor
+its plain version here (``lm_step_plain``, ``lm_decide_plain``,
+``lm_commit_plain``: the same data flow as tensor ops). The scalars of the
+state live in one vector of the working dtype, laid out by
+``ops/cuda_lm.py`` (``S_*``).
+
+Kept reference semantics, documented quirks included:
   * the damped Hessian *replaces* the carried Hessian, so consecutive
     rejected or invalid steps accumulate damping;
   * a *valid but unsuccessful* step leaves ``abs_cost_decrease`` negative,
@@ -18,30 +41,41 @@ included:
   * step quality is the Conn-Gould-Toint non-monotonic relative decrease.
 
 With ``group`` (keypoint shards, ``parallel.sharded``) every evaluation's
-cost, g and H and the outlier statistics are all-reduced over the ranks,
-so the 12x12 solve and every branch decision are the same on every rank;
-the outlier mask and the patch costs stay shard-local.
+cost, g and H and the outlier statistics are all-reduced over the ranks
+inside the stages, so the plain stages run there, on the card too; the
+12x12 solve and every decision are the same on every rank, and the outlier
+mask and the patch costs stay shard-local. ``solver="lu"`` and ``"svd"``
+keep their eager solve (the plain step stage) on every device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import jacfwd
 
 from ..core.lie import quat_conjugate, quat_log, quat_multiply
 from ..core.spline import SplineKnots, spline_retract_flat
-from ..utils.collectives import allreduce
+from ..ops import cuda_lm, residual
+# the state's scalars layout, used here and by the stages' callers
+from ..ops.cuda_lm import (
+    S_ACC_CAND, S_ACC_REF, S_ACD, S_ACD_NEW, S_CAND, S_CAND_COST, S_CONTINUE, S_COST, S_CUR,
+    S_DECREASE, S_INVALID, S_MCC, S_MIN, S_MU, S_NONMONO, S_QUALITY, S_RADIUS, S_REF,
+    S_SIGMA, S_SIZE, S_SUCCESS,
+)
 from ..ops.residual import (
     TrackingLevelData,
-    assemble,
     compute_rjv,
     evaluate,
+    inverse_residual_count,
     prepare_frame_layout,
     prepare_window_cache,
 )
+from ..utils.collectives import allreduce
+
+SOLVERS = ("cholesky", "lu", "svd")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,7 +173,7 @@ def _step_accepted(ev: _EvaluatorState, cost, model_cost_change,
 def _solve(H: torch.Tensor, g: torch.Tensor, kind: str) -> torch.Tensor:
     """step = -H^-1 g. A failed Cholesky factorisation gives a NaN step, as
     ``jnp.linalg.cholesky`` does (``torch.linalg.cholesky`` would raise), so
-    the caller takes the invalid-step branch."""
+    the step is invalid."""
     if kind == "cholesky":
         L, info = torch.linalg.cholesky_ex(H)
         x = torch.cholesky_solve(g[:, None], L)[:, 0]
@@ -153,6 +187,21 @@ def _solve(H: torch.Tensor, g: torch.Tensor, kind: str) -> torch.Tensor:
     return -x
 
 
+def _outlier_statistics(patch_costs: torch.Tensor, kp_mask: torch.Tensor, chi_k: float,
+                        group=None):
+    """detect_outliers' statistics: (inlier mask [N], outlier flags [N], mu,
+    sigma)."""
+    c = patch_costs.sum(dim=0)  # [N]
+    live = ((c >= 1e-8) & (kp_mask > 0)).to(c.dtype)
+    n_live = torch.clamp(allreduce(live.sum(), group), min=1.0)
+    mu = allreduce(torch.sum(c * live), group) / n_live
+    var = allreduce(torch.sum(live * (c - mu) ** 2), group) / n_live
+    sigma = torch.sqrt(var)
+    outlier = (torch.abs(c - mu) > chi_k * sigma) & (kp_mask > 0)
+    inlier_mask = torch.where(outlier, torch.zeros_like(c), torch.ones_like(c))
+    return inlier_mask, outlier, mu, sigma
+
+
 def detect_outliers(
     patch_costs: torch.Tensor, kp_mask: torch.Tensor, chi_k: float, group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -160,14 +209,7 @@ def detect_outliers(
     over keypoints with summed cost >= 1e-8, flag |cost - mu| > k*sigma.
     Returns (inlier mask [N] float, number of outliers). With ``group`` the
     statistics and the count are global and the mask is shard-local."""
-    c = patch_costs.sum(dim=0)  # [N]
-    live = ((c >= 1e-8) & (kp_mask > 0)).to(c.dtype)
-    n_live = torch.clamp(allreduce(live.sum(), group), min=1.0)
-    mu = allreduce(torch.sum(c * live), group) / n_live
-    var = allreduce(torch.sum(live * (c - mu) ** 2), group) / n_live
-    thresh = chi_k * torch.sqrt(var)
-    outlier = (torch.abs(c - mu) > thresh) & (kp_mask > 0)
-    inlier_mask = torch.where(outlier, torch.zeros_like(c), torch.ones_like(c))
+    inlier_mask, outlier, _, _ = _outlier_statistics(patch_costs, kp_mask, chi_k, group)
     return inlier_mask, allreduce(outlier.sum(), group)
 
 
@@ -195,18 +237,188 @@ def _prior_terms(knots: SplineKnots, weight: float):
     return cost, weight * (Jp.T @ p0), weight * (Jp.T @ Jp)
 
 
-class _LMState(NamedTuple):
-    knots: SplineKnots
+def _prior(k: SplineKnots, opts: LMOptions):
+    """The knot prior's (cost, g, H) at ``k``, or None when it is off."""
+    if opts.knot_prior_weight > 0.0 and k.num_knots > 2:
+        return _prior_terms(k, opts.knot_prior_weight)
+    return None
+
+
+# ------------------------------------------------------------ the stages
+
+
+class LMState(NamedTuple):
+    """What an LM iteration carries: the knots' translations [K, 3] and
+    rotations [K, 4], H [D, D], g [D], the scalars (``ops/cuda_lm.py``'s
+    ``S_*`` layout), the outlier mask [N], the keypoint weights [N] (the
+    keypoint mask times the outlier mask, K3's input) and the patch costs
+    [F, N] at the last accepted state. The kernels update it in place."""
+
+    t: torch.Tensor
+    q: torch.Tensor
     H: torch.Tensor
     g: torch.Tensor
-    cost: torch.Tensor
-    radius: torch.Tensor
-    decrease_factor: torch.Tensor
-    ev: _EvaluatorState
-    outlier_mask: torch.Tensor
-    num_iterations: int
-    abs_cost_decrease: torch.Tensor
+    scalars: torch.Tensor
+    mask: torch.Tensor
+    kp_w: torch.Tensor
     patch_costs: torch.Tensor
+
+
+def _with(scalars: torch.Tensor, **values) -> torch.Tensor:
+    """A copy of the scalars vector with the entries named by ``S_<NAME>``
+    (a trailing underscore dropped) set to the given 0-dim tensors."""
+    out = scalars.clone()
+    for name, v in values.items():
+        out[getattr(cuda_lm, f"S_{name.rstrip('_').upper()}")] = v
+    return out
+
+
+def _evaluator(sc: torch.Tensor) -> _EvaluatorState:
+    return _EvaluatorState(sc[S_MIN], sc[S_CUR], sc[S_REF], sc[S_CAND], sc[S_ACC_REF],
+                           sc[S_ACC_CAND], sc[S_NONMONO])
+
+
+def lm_step_plain(H: torch.Tensor, g: torch.Tensor, scalars: torch.Tensor, t: torch.Tensor,
+                  q: torch.Tensor, solver: str = "cholesky"):
+    """K6's plain version: H1 = H + diag(diag(H)) / radius, step = -H1^-1 g,
+    the model cost change and the invalid flag (a negative model change or a
+    non-finite step), and the candidate knots: the knots retracted by the
+    step, or the knots themselves when the step is invalid. Returns (H1,
+    step, candidate t, candidate q, scalars with MCC and INVALID). The solve
+    is the library's (``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve``
+    for "cholesky") on every device."""
+    H1 = H + torch.diag(torch.diag(H)) / scalars[S_RADIUS]
+    step = _solve(H1, g, solver)
+    mcc = -(g @ step + 0.5 * step @ (H1 @ step))
+    invalid = (mcc < 0) | ~torch.all(torch.isfinite(step))
+    cand = spline_retract_flat(SplineKnots(t, q, None, None), step)
+    cand_t = torch.where(invalid, t, cand.t)
+    cand_q = torch.where(invalid, q, cand.q)
+    return H1, step, cand_t, cand_q, _with(scalars, mcc=mcc, invalid=invalid.to(H.dtype))
+
+
+def lm_decide_plain(cost: torch.Tensor, patch: torch.Tensor, kp_w: torch.Tensor,
+                    kp_mask: torch.Tensor, scalars: torch.Tensor, P: int, opts: LMOptions,
+                    prior_cost: Optional[torch.Tensor] = None, group=None):
+    """K7's plain version. From K3's raw sums at the candidate under the old
+    keypoint weights ``kp_w`` (``cost``, ``patch`` [F, N]): assemble's
+    scaling, the candidate cost (plus the prior's), the step quality,
+    success, the cost decrease, and the outlier mask re-detected from the
+    candidate's scaled patch costs. Returns (scalars with CAND_COST,
+    QUALITY, SUCCESS, ACD_NEW, MU and SIGMA, the new mask [N], the new
+    keypoint weights [N])."""
+    F = patch.shape[0]
+    inv_n = inverse_residual_count(kp_w, F, P, group)
+    cand_cost = allreduce(cost, group) * inv_n
+    if prior_cost is not None:
+        cand_cost = cand_cost + prior_cost
+    quality = _step_quality(_evaluator(scalars), cand_cost, scalars[S_MCC])
+    success = (quality > opts.min_step_quality) & (cand_cost < scalars[S_COST])
+    acd = scalars[S_COST] - cand_cost
+    mask, _, mu, sigma = _outlier_statistics(patch * inv_n, kp_mask,
+                                             opts.max_chi_square_error, group)
+    out = _with(scalars, cand_cost=cand_cost, quality=quality, success=success.to(cost.dtype),
+                acd_new=acd, mu=mu, sigma=sigma)
+    return out, mask, kp_mask * mask
+
+
+def lm_commit_plain(s: LMState, H1: torch.Tensor, cand_t: torch.Tensor, cand_q: torch.Tensor,
+                    cost: torch.Tensor, g: torch.Tensor, H: torch.Tensor, patch: torch.Tensor,
+                    mask: torch.Tensor, kp_w: torch.Tensor, P: int, opts: LMOptions,
+                    more: bool, prior=None, group=None) -> LMState:
+    """K8's plain version. From K3's raw sums at the candidate under the new
+    keypoint weights ``kp_w`` (``cost``, ``g``, ``H``, ``patch``), the
+    prior's (cost, g, H) at the candidate or None, and the flags of K6 and
+    K7 in ``s.scalars``: the next state, accepted (the candidate with the
+    scaled sums, the radius divided by max(1/3, 1 - (2q - 1)^3), the
+    evaluator advanced, the new mask), rejected or invalid (H1 carried, the
+    radius divided by the decrease factor, which doubles; a rejected step's
+    decrease replaces the last unless ``retry_rejected_steps``), chosen by
+    selects; then CONTINUE = ``more`` and the decrease >= the minimum.
+    ``more``: whether the iteration count is still under the limit."""
+    sc = s.scalars
+    F = patch.shape[0]
+    inv_n = inverse_residual_count(kp_w, F, P, group)
+    cost_f = allreduce(cost, group) * inv_n
+    g_f = allreduce(g, group) * inv_n
+    H_f = allreduce(H, group) * inv_n
+    if prior is not None:
+        cost_f, g_f, H_f = cost_f + prior[0], g_f + prior[1], H_f + prior[2]
+    invalid = sc[S_INVALID] != 0
+    success = (sc[S_SUCCESS] != 0) & ~invalid
+
+    def clip_radius(r):
+        return torch.clamp(r, opts.min_radius, opts.max_radius)
+
+    radius, decrease = sc[S_RADIUS], sc[S_DECREASE]
+    grown = clip_radius(radius / torch.clamp(1.0 - (2.0 * sc[S_QUALITY] - 1.0) ** 3,
+                                             min=1.0 / 3.0))
+    ev = _step_accepted(_evaluator(sc), cost_f, sc[S_MCC],
+                        opts.max_consecutive_nonmonotonic_steps)
+    kept_acd = sc[S_ACD] if opts.retry_rejected_steps else sc[S_ACD_NEW]
+    acd = torch.where(success, sc[S_ACD_NEW], torch.where(invalid, sc[S_ACD], kept_acd))
+    scalars = _with(
+        sc,
+        cost=torch.where(success, cost_f, sc[S_COST]),
+        radius=torch.where(success, grown, clip_radius(radius / decrease)),
+        decrease=torch.where(success, torch.full_like(decrease, 2.0), decrease * 2.0),
+        min=torch.where(success, ev.minimum_cost, sc[S_MIN]),
+        cur=torch.where(success, ev.current_cost, sc[S_CUR]),
+        ref=torch.where(success, ev.reference_cost, sc[S_REF]),
+        cand=torch.where(success, ev.candidate_cost, sc[S_CAND]),
+        acc_ref=torch.where(success, ev.acc_reference_mcc, sc[S_ACC_REF]),
+        acc_cand=torch.where(success, ev.acc_candidate_mcc, sc[S_ACC_CAND]),
+        nonmono=torch.where(success, ev.num_nonmonotonic, sc[S_NONMONO]),
+        acd=acd,
+        continue_=(acd >= opts.min_abs_cost_decrease) & more,
+    )
+    return LMState(
+        t=torch.where(success, cand_t, s.t),
+        q=torch.where(success, cand_q, s.q),
+        H=torch.where(success, H_f, H1),
+        g=torch.where(success, g_f, s.g),
+        scalars=scalars,
+        mask=torch.where(success, mask, s.mask),
+        kp_w=torch.where(success, kp_w, s.kp_w),
+        patch_costs=torch.where(success, patch * inv_n, s.patch_costs),
+    )
+
+
+def lm_step(H, g, scalars, t, q, solver: str = "cholesky"):
+    """K6 (:func:`lm_step_plain`): the kernel on CUDA tensors with the
+    Cholesky solve, the plain version on CPU tensors and for ``solver``
+    "lu" and "svd"."""
+    if solver not in SOLVERS:
+        raise ValueError(f"unknown solver {solver!r}")
+    if H.is_cuda and solver == "cholesky":
+        return cuda_lm.lm_step_cuda(H, g, scalars, t, q)
+    return lm_step_plain(H, g, scalars, t, q, solver)
+
+
+def lm_decide(cost, patch, kp_w, kp_mask, scalars, P: int, opts: LMOptions, prior_cost=None):
+    """K7 (:func:`lm_decide_plain`): kernel on CUDA tensors, plain version on
+    CPU tensors."""
+    if cost.is_cuda:
+        return cuda_lm.lm_decide_cuda(cost, patch, kp_w, kp_mask, scalars, P,
+                                      opts.max_chi_square_error, opts.min_step_quality,
+                                      prior_cost)
+    return lm_decide_plain(cost, patch, kp_w, kp_mask, scalars, P, opts, prior_cost)
+
+
+def lm_commit(s: LMState, H1, cand_t, cand_q, cost, g, H, patch, mask, kp_w, P: int,
+              opts: LMOptions, more: bool, prior=None) -> LMState:
+    """K8 (:func:`lm_commit_plain`): kernel on CUDA tensors (``s`` updated in
+    place), plain version on CPU tensors."""
+    if cost.is_cuda:
+        cuda_lm.lm_commit_cuda(
+            *s, H1, cand_t, cand_q, cost, g, H, patch, mask, kp_w, P,
+            min_radius=opts.min_radius, max_radius=opts.max_radius,
+            max_nonmono=opts.max_consecutive_nonmonotonic_steps,
+            retry=opts.retry_rejected_steps, min_acd=opts.min_abs_cost_decrease, more=more,
+            prior=prior)
+        return s
+    return lm_commit_plain(s, H1, cand_t, cand_q, cost, g, H, patch, mask, kp_w, P, opts,
+                           more, prior)
 
 
 class _Level(NamedTuple):
@@ -218,83 +430,45 @@ class _Level(NamedTuple):
     opts: LMOptions
     cache: tuple
     layout: tuple
+    t0: torch.Tensor
+    dt: torch.Tensor
     group: object = None   # the keypoint shards' process group
 
 
-def _prior(k: SplineKnots, opts: LMOptions):
-    if opts.knot_prior_weight > 0.0 and k.num_knots > 2:
-        return _prior_terms(k, opts.knot_prior_weight)
-    D = 6 * k.num_knots
-    z = k.t.new_zeros(())
-    return z, k.t.new_zeros(D), k.t.new_zeros((D, D))
-
-
-def lm_iteration(s: _LMState, lv: _Level) -> _LMState:
-    """One LM iteration: damped solve, then an invalid, accepted or rejected
-    step."""
-    opts = lv.opts
-
-    def clip_radius(r):
-        return torch.clamp(r, opts.min_radius, opts.max_radius)
-
-    H1 = s.H + torch.diag(torch.diag(s.H)) / s.radius
-    step = _solve(H1, s.g, opts.solver)
-    model_cost_change = -(s.g @ step + 0.5 * step @ (H1 @ step))
-    invalid = (model_cost_change < 0) | ~torch.all(torch.isfinite(step))
-    # rejected or invalid: the damped H replaces the carried H
-    shrink = dict(
-        H=H1,
-        radius=clip_radius(s.radius / s.decrease_factor),
-        decrease_factor=s.decrease_factor * 2.0,
-        num_iterations=s.num_iterations + 1,
-    )
-    if bool(invalid):
-        return s._replace(**shrink)
-
-    cand = spline_retract_flat(s.knots, step)
-    # one residual + Jacobian pass per iteration, re-assembled under the old
-    # mask (candidate cost) and, on success, under the re-detected mask
+def lm_iteration(s: LMState, lv: _Level, more: bool) -> LMState:
+    """One LM iteration: the fixed sequence of stages (module docstring),
+    with no read of the device. ``more``: whether another iteration may
+    follow under ``max_iterations``. With ``lv.group`` the plain stages run,
+    whatever the device."""
+    opts, data, group = lv.opts, lv.data, lv.group
+    P = data.pattern.shape[0]
+    if group is None:
+        step, decide, commit = lm_step, lm_decide, lm_commit
+    else:
+        step = lm_step_plain
+        decide = lambda *a: lm_decide_plain(*a, group=group)    # noqa: E731
+        commit = lambda *a: lm_commit_plain(*a, group=group)    # noqa: E731
+    H1, _step, cand_t, cand_q, scalars = step(s.H, s.g, s.scalars, s.t, s.q, opts.solver)
+    s = s._replace(scalars=scalars)
+    cand = SplineKnots(cand_t, cand_q, lv.t0, lv.dt)
+    # one residual + Jacobian pass, summed under the old mask (the candidate
+    # cost) and under the re-detected mask (the state on success)
     r, J, _valid = compute_rjv(
-        cand, lv.data, lv.num_vir, lv.degree, True, sampling=opts.sampling,
+        cand, data, lv.num_vir, lv.degree, True, sampling=opts.sampling,
         window=opts.window, cache=lv.cache, layout=lv.layout,
-        affine=opts.affine_brightness, group=lv.group,
+        affine=opts.affine_brightness, group=group,
     )
-    ev_c = assemble(r, None, lv.data, opts.huber_a, s.outlier_mask,
-                    precision=opts.precision, compensated=opts.compensated_sum,
-                    group=lv.group)
-    cp_c, gp_c, Hp_c = _prior(cand, opts)
-    cand_cost = ev_c.cost + cp_c
-    quality = _step_quality(s.ev, cand_cost, model_cost_change)
-    success = (quality > opts.min_step_quality) & (cand_cost < s.cost)
-    acd = s.cost - cand_cost
-
-    if not bool(success):
-        if not opts.retry_rejected_steps:
-            # the negative decrease ends the level at the next check
-            shrink["abs_cost_decrease"] = acd
-        return s._replace(**shrink)
-
-    new_mask, _ = detect_outliers(ev_c.patch_costs, lv.data.kp_mask,
-                                  opts.max_chi_square_error, lv.group)
-    ev_f = assemble(r, J, lv.data, opts.huber_a, new_mask,
-                    precision=opts.precision, compensated=opts.compensated_sum,
-                    group=lv.group)
-    new_radius = s.radius / torch.clamp(1.0 - (2.0 * quality - 1.0) ** 3,
-                                        min=1.0 / 3.0)
-    return s._replace(
-        knots=cand,
-        H=ev_f.hessian + Hp_c,
-        g=ev_f.gradient + gp_c,
-        cost=ev_f.cost + cp_c,
-        radius=clip_radius(new_radius),
-        decrease_factor=torch.full_like(s.decrease_factor, 2.0),
-        ev=_step_accepted(s.ev, ev_f.cost + cp_c, model_cost_change,
-                          opts.max_consecutive_nonmonotonic_steps),
-        outlier_mask=new_mask,
-        num_iterations=s.num_iterations + 1,
-        abs_cost_decrease=acd,
-        patch_costs=ev_f.patch_costs,
-    )
+    # K3 looked up in ops.residual when called, as assemble looks it up
+    cost_c, patch_c, _, _ = residual.normal_equations(r, None, s.kp_w, opts.huber_a,
+                                                      opts.compensated_sum)
+    prior = _prior(cand, opts)
+    scalars, mask, kp_w = decide(cost_c, patch_c, s.kp_w, data.kp_mask, s.scalars, P, opts,
+                                 None if prior is None else prior[0])
+    s = s._replace(scalars=scalars)
+    cost_f, patch_f, g_f, H_f = residual.normal_equations(r, J, kp_w, opts.huber_a,
+                                                          opts.compensated_sum)
+    return commit(s, H1, cand_t, cand_q, cost_f, g_f, H_f, patch_f, mask, kp_w, P, opts,
+                  more, prior)
 
 
 def optimize_level(
@@ -312,7 +486,13 @@ def optimize_level(
     ``group``: the process group of the keypoint shards when ``data`` and
     ``cache`` hold this rank's slice (``parallel.sharded``); the summary's
     outlier mask and patch costs then cover that slice.
+
+    The host reads the device once an iteration: the continue flag that
+    :func:`lm_commit` writes. Every iteration counts one, so the host
+    counts them itself.
     """
+    if opts.solver not in SOLVERS:
+        raise ValueError(f"unknown solver {opts.solver!r}")
     dtype = knots.t.dtype
     N = data.kp_mask.shape[0]
     mask0 = torch.ones((N,), dtype=dtype, device=knots.t.device)
@@ -322,33 +502,34 @@ def optimize_level(
     layout = None
     if opts.sampling == "windowed" and opts.hoist_layout:
         layout = prepare_frame_layout(knots, data, num_vir, degree)
-    lv = _Level(data, num_vir, degree, opts, cache, layout, group)
+    lv = _Level(data, num_vir, degree, opts, cache, layout, knots.t0, knots.dt, group)
 
     ev0 = evaluate(knots, data, num_vir, degree, opts.huber_a, mask0, True,
                    sampling=opts.sampling, window=opts.window,
                    precision=opts.precision, compensated=opts.compensated_sum,
                    cache=cache, layout=layout, affine=opts.affine_brightness,
                    group=group)
-    cp0, gp0, Hp0 = _prior(knots, opts)
-    s = _LMState(
-        knots=knots,
-        H=ev0.hessian + Hp0,
-        g=ev0.gradient + gp0,
-        cost=ev0.cost + cp0,
-        radius=torch.full((), opts.initial_radius, dtype=dtype, device=knots.t.device),
-        decrease_factor=torch.full((), 2.0, dtype=dtype, device=knots.t.device),
-        ev=_evaluator_reset(ev0.cost + cp0),
-        outlier_mask=mask0,
-        num_iterations=0,
-        abs_cost_decrease=torch.full((), 1e10, dtype=dtype, device=knots.t.device),
-        patch_costs=ev0.patch_costs,
-    )
-    while (s.num_iterations < opts.max_iterations
-           and bool(s.abs_cost_decrease >= opts.min_abs_cost_decrease)):
-        s = lm_iteration(s, lv)
-    return s.knots, LMSummary(
-        final_cost=s.cost,
-        num_iterations=s.num_iterations,
-        outlier_mask=s.outlier_mask,
+    H0, g0, cost0 = ev0.hessian, ev0.gradient, ev0.cost
+    prior0 = _prior(knots, opts)
+    if prior0 is not None:
+        cost0, g0, H0 = cost0 + prior0[0], g0 + prior0[1], H0 + prior0[2]
+    scalars = cost0.new_zeros(S_SIZE)
+    scalars[S_COST:S_CAND + 1] = cost0        # the cost and the evaluator's four costs
+    scalars[S_RADIUS] = opts.initial_radius
+    scalars[S_DECREASE] = 2.0
+    scalars[S_ACD] = 1e10
+    # the knots are updated in place on the card: the caller's stay as given
+    s = LMState(knots.t.clone(), knots.q.clone(), H0.contiguous(), g0.contiguous(), scalars,
+                mask0, data.kp_mask * mask0, ev0.patch_costs.contiguous())
+    iterations = 0
+    go = opts.max_iterations > 0 and 1e10 >= opts.min_abs_cost_decrease
+    while go:
+        iterations += 1
+        s = lm_iteration(s, lv, iterations < opts.max_iterations)
+        go = bool(s.scalars[S_CONTINUE])
+    return knots._replace(t=s.t, q=s.q), LMSummary(
+        final_cost=s.scalars[S_COST],
+        num_iterations=iterations,
+        outlier_mask=s.mask,
         patch_costs=s.patch_costs,
     )

@@ -8,6 +8,7 @@ Run from the root of the repository:
     python3 profile_port.py --warp-designs [--frames 16] [--chunk 4]
     python3 profile_port.py --layout-designs [--frames 16] [--chunk 4]
     python3 profile_port.py --direct [--frames 16]
+    python3 profile_port.py --lm-designs [--frames 16]
 
 Tracks chip_smoke.py's bench scenario (VGA, 512 keypoints, 3 levels, 5
 virtual poses, f32, bench.py's options, from rest): ``--warmup`` frames
@@ -59,6 +60,13 @@ the eager path it replaces (its plain chain, ``compute_residuals_plain``,
 and the plain layout, on the card), the trackers configured for the direct
 path. The LM evaluations are counted as calls of either path's residual
 function.
+
+``--lm-designs`` weighs the LM iteration's stages the same way: K6-K8
+(``solver.lm.lm_step``, ``lm_decide``, ``lm_commit`` on the card: three
+launches and one host read an iteration), as the tracker runs them, against
+their plain versions run on the card (``lm_step_plain`` and the others:
+the eager ops they replace), the host's time to issue one iteration's three
+stages at the frame's shape first.
 """
 
 from __future__ import annotations
@@ -408,6 +416,65 @@ def compare_direct(args) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def _lm_design(name: str):
+    """The LM iteration's stages run K6-K8 ("kernels") or their plain
+    versions on the card's tensors ("plain stages") inside the block."""
+    from mba_vo_tpu_torch.solver import lm
+
+    stages = ("lm_step", "lm_decide", "lm_commit")
+    saved = {k: getattr(lm, k) for k in stages}
+    if name == "plain stages":
+        for k in stages:
+            setattr(lm, k, getattr(lm, f"{k}_plain"))
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(lm, k, fn)
+
+
+def compare_lm(args) -> int:
+    """The LM iteration's stages on K6-K8 against their plain versions on
+    the card (the module docstring): the host's time to issue one
+    iteration's three stages at the frame's shape (D = 12, N = 512, F = 1,
+    P = 8), then the paired trackers."""
+    import torch
+
+    from mba_vo_tpu_torch.solver import lm
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    opts = dict(device="cuda", dtype=torch.float32)
+    A = torch.randn((12, 12), generator=gen, **opts)
+    H = A @ A.T / 12 + torch.eye(12, **opts)
+    g = 0.1 * torch.randn(12, generator=gen, **opts)
+    t = 0.01 * torch.randn((2, 3), generator=gen, **opts)
+    q = torch.tensor([[0.0, 0.0, 0.0, 1.0], [0.001, -0.002, 0.001, 1.0]], **opts)
+    q = q / q.norm(dim=1, keepdim=True)
+    sc = torch.zeros(lm.S_SIZE, **opts)
+    sc[lm.S_COST:lm.S_CAND + 1] = 5.0
+    sc[lm.S_RADIUS], sc[lm.S_DECREASE], sc[lm.S_ACD] = 1e4, 2.0, 1e10
+    patch = torch.rand((1, 512), generator=gen, **opts) + 0.5
+    ones = torch.ones(512, **opts)
+    cost = patch.sum() * 4096
+    state = lm.LMState(t, q, H.clone(), g.clone(), sc, ones.clone(), ones.clone(),
+                       patch * 1e-3)
+    o = lm.LMOptions()
+
+    def iteration():
+        st = state
+        H1, _, ct, cq, scalars = lm.lm_step(st.H, st.g, st.scalars, st.t, st.q, o.solver)
+        st = st._replace(scalars=scalars)
+        scalars, mask, w = lm.lm_decide(cost, patch, st.kp_w, ones, st.scalars, 8, o)
+        st = st._replace(scalars=scalars)
+        return lm.lm_commit(st, H1, ct, cq, cost, g * 4096, H * 4096, patch, mask, w, 8, o,
+                            True)
+
+    _weigh_designs(args, ("kernels", "plain stages"), _lm_design, iteration,
+                   "LM iteration (its three stages, no evaluation)")
+    return 0
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -430,6 +497,8 @@ def main() -> int:
                     help="weigh the patch layout K5 against its plain version")
     ap.add_argument("--direct", action="store_true",
                     help="weigh the direct path on the kernels against its eager chain")
+    ap.add_argument("--lm-designs", action="store_true",
+                    help="weigh the LM iteration on K6-K8 against its plain stages")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -448,6 +517,8 @@ def main() -> int:
         return compare_layout(args)
     if args.direct:
         return compare_direct(args)
+    if args.lm_designs:
+        return compare_lm(args)
     n = args.warmup + args.frames
     img, _traj, frames = make_scenario("cuda", n)
     h, w = img.shape

@@ -1592,15 +1592,6 @@ LAYOUT_KNOTS = [(2, 2, 1), (2, 2, 8), (3, 2, 4), (33, 2, 2), (64, 2, 3), (4, 4, 
                 (27, 4, 8), (64, 4, 8)]
 
 
-# The one case whose anchors differ from the plain version's (ROADMAP
-# Queue 3): a capture 4.5 knot intervals past the spline's end, at 64
-# knots in float32, where both designs' rotation of that frame differs from
-# torch's and the anchors sit up to KNOWN_ANCHOR_ULPS units of their last
-# place off, the largest that experiments/pose_order.py's
-# probe_extrapolation measured on the card
-KNOWN_ANCHOR_FAULTS = {(64, 4, 8, torch.float32, "clamped")}
-KNOWN_ANCHOR_ULPS = 32
-
 
 @pytest.mark.parametrize("case", ["moving", "standing", "clamped"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1609,11 +1600,9 @@ def test_layout_designs_equal_bit_for_bit(cuda, K, degree, F, dtype, case):
     """K5's staged design and its serial design (the earlier one) give the plain
     version's pix, valid and obs and its anchors bit for bit, from a moving
     spline, a standing start (integer anchors) and a capture time past the
-    spline's end; one launch a call on each design's counter. In the one
-    case of KNOWN_ANCHOR_FAULTS the fault is held as it stands: both
-    designs' anchors equal each other, differ from the plain version's by
-    at most KNOWN_ANCHOR_ULPS ulps, and the layout is still equal; a fix
-    fails this, and the case then joins the others."""
+    spline's end (64 knots in float32 among them: the plain version's
+    quaternion norms sum in the kernels' order, core/lie.py's _sum3); one
+    launch a call on each design's counter."""
     from mba_vo_tpu_torch.experiments import residual_kernels as rk
     from mba_vo_tpu_torch.ops import cuda_layout as cl
     from mba_vo_tpu_torch.ops import residual as tres
@@ -1626,20 +1615,14 @@ def test_layout_designs_equal_bit_for_bit(cuda, K, degree, F, dtype, case):
     staged = cl.frame_layout_cuda(*wrapped, anchors=True)
     serial = cl.frame_layout_serial_cuda(*wrapped, anchors=True)
     torch.cuda.synchronize()
-    known = (K, degree, F, dtype, case) in KNOWN_ANCHOR_FAULTS
     pairs = [("staged layout against the plain version", staged[:3], ref),
              ("serial layout against the plain version", serial[:3], ref),
-             ("staged anchors against the serial design's", staged[3], serial[3])]
-    if not known:
-        pairs += [("staged anchors against the plain version's", staged[3], anchors),
-                  ("serial anchors against the plain version's", serial[3], anchors)]
+             ("staged anchors against the serial design's", staged[3], serial[3]),
+             ("staged anchors against the plain version's", staged[3], anchors),
+             ("serial anchors against the plain version's", serial[3], anchors)]
     unequal = {what: rk._unequal(got, want) for what, got, want in pairs
                if not rk.same_bits(got, want)}
     assert not unequal, unequal
-    if known:
-        assert not rk.same_bits(staged[3], anchors), "the known fault is gone: drop the case"
-        ulp = torch.nextafter(anchors, torch.full_like(anchors, float("inf"))) - anchors
-        assert float(((staged[3] - anchors).abs() / ulp).max()) <= KNOWN_ANCHOR_ULPS
     assert (cl.LAUNCHES_LAYOUT, cl.LAUNCHES_LAYOUT_SERIAL) == (before[0] + 1, before[1] + 1)
 
 
@@ -1711,3 +1694,287 @@ def test_every_k4_k5_design_recorded_into_a_graph(cuda):
     torch.cuda.synchronize()
     for out, ref in zip(outs, refs):
         assert rk.same_bits(out, ref)
+
+
+# ------------------------------------------------ K6-K8: the LM iteration
+
+LM_DIMS = [12, 30, 42, 162]   # the frame, degree-2 and degree-4 chunks, a 24-frame chunk
+LM_BOUNDS = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _lm_state(D, dtype, case="valid", seed=0):
+    """An LM state at D = 6K unknowns on the card: a well-conditioned SPD
+    Hessian (``case`` "invalid": negative definite, so the factorisation
+    fails), a gradient, knots and the scalars of a level's start."""
+    from mba_vo_tpu_torch.solver import lm as tlm
+
+    rng = np.random.default_rng(seed)
+    K = D // 6
+    A = rng.normal(0, 1, (D, D))
+    H = A @ A.T / D + np.eye(D)
+    if case == "invalid":
+        H = -H
+    g = rng.normal(0, 0.1, D)
+    t = np.cumsum(rng.normal(0, 0.05, (K, 3)), axis=0)
+    q = np.concatenate([rng.normal(0, 0.02, (K, 3)), np.ones((K, 1))], axis=1)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    c = lambda a: torch.tensor(a, dtype=dtype, device="cuda")   # noqa: E731
+    sc = torch.zeros(tlm.S_SIZE, dtype=dtype, device="cuda")
+    sc[tlm.S_COST:tlm.S_CAND + 1] = 5.0
+    sc[tlm.S_RADIUS], sc[tlm.S_DECREASE], sc[tlm.S_ACD] = 1e4, 2.0, 1e10
+    return c(H), c(g), sc, c(t), c(q)
+
+
+@pytest.mark.parametrize("case", ["valid", "invalid"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", LM_DIMS)
+def test_lm_step_matches_plain(cuda, D, dtype, case):
+    """K6 against lm_step_plain on the card: H1 bit for bit, the step within
+    1e-12 (f64) / 1e-5 (f32) of its norm of the plain version's library
+    solve, the same invalid flag; the step and the model cost change bit
+    for bit against K6's order of operations transcribed
+    (``residual_kernels.lm_step_kernel_order``); the candidate knots equal
+    to spline_retract_flat of K6's own step bit for bit (the knots
+    themselves where the step is invalid); one launch."""
+    from mba_vo_tpu_torch.core.spline import SplineKnots, spline_retract_flat
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_lm
+    from mba_vo_tpu_torch.solver import lm as tlm
+
+    H, g, sc, t, q = _lm_state(D, dtype, case)
+    before = cuda_lm.LAUNCHES_LM_STEP
+    H1, step, ct, cq, sk = cuda_lm.lm_step_cuda(H, g, sc.clone(), t, q)
+    torch.cuda.synchronize()
+    assert cuda_lm.LAUNCHES_LM_STEP == before + 1
+    pH1, pstep, pct, pcq, psc = tlm.lm_step_plain(H, g, sc, t, q)
+    assert torch.equal(H1, pH1)
+    assert float(sk[tlm.S_INVALID]) == float(psc[tlm.S_INVALID]) == (case == "invalid")
+    if case == "invalid":
+        assert torch.isnan(step).all() and torch.isnan(pstep).all()
+        assert torch.equal(ct, t) and torch.equal(cq, q)
+        return
+    scale = float(torch.linalg.norm(pstep))
+    assert float((step - pstep).abs().max()) <= LM_BOUNDS[dtype] * scale
+    ostep, omcc = rk.lm_step_kernel_order(H1, g)
+    assert torch.equal(step, ostep) and torch.equal(sk[tlm.S_MCC], omcc)
+    ref = spline_retract_flat(SplineKnots(t, q, None, None), step)
+    assert torch.equal(ct, ref.t) and torch.equal(cq, ref.q)
+
+
+def _decide_inputs(F, N, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    patch = rng.uniform(0.5, 1.5, (F, N))
+    patch[:, 3] = 60.0                 # an outlier
+    patch[:, 5] = 0.0                  # out of the statistics
+    kp_mask = np.ones(N)
+    kp_mask[-7:] = 0.0                 # padded slots
+    mask = np.ones(N)
+    mask[9] = 0.0                      # flagged earlier
+    c = lambda a: torch.tensor(a, dtype=dtype, device="cuda")   # noqa: E731
+    return c(patch), c(kp_mask), c(kp_mask * mask)
+
+
+@pytest.mark.parametrize("prior", [False, True])
+@pytest.mark.parametrize("F,N", [(1, 40), (1, 512), (4, 512), (8, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lm_decide_matches_plain(cuda, dtype, F, N, prior):
+    """K7 against lm_decide_plain on the card: the candidate cost, quality,
+    success and cost decrease, the new mask and keypoint weights equal,
+    mu and sigma within 1e-12 (f64) / 1e-5 (f32); one launch. Costs around
+    the current one give a success, a rejection and a failed quality."""
+    from mba_vo_tpu_torch.ops import cuda_lm
+    from mba_vo_tpu_torch.solver import lm as tlm
+
+    patch, kp_mask, kp_w = _decide_inputs(F, N, dtype)
+    opts = tlm.LMOptions()
+    P = 8
+    n = float(kp_w.sum()) * F * P
+    for raw in (0.9 * 5.0 * n, 1.2 * 5.0 * n, 4.999 * n):
+        _, _, sc, _, _ = _lm_state(12, dtype)
+        sc[tlm.S_MCC] = 0.3
+        cost = torch.tensor(raw, dtype=dtype, device="cuda")
+        pc = torch.tensor(0.01, dtype=dtype, device="cuda") if prior else None
+        before = cuda_lm.LAUNCHES_LM_DECIDE
+        sk, mk, wk = cuda_lm.lm_decide_cuda(cost, patch, kp_w, kp_mask, sc.clone(), P,
+                                            opts.max_chi_square_error, opts.min_step_quality, pc)
+        torch.cuda.synchronize()
+        assert cuda_lm.LAUNCHES_LM_DECIDE == before + 1
+        sp, mp, wp = tlm.lm_decide_plain(cost, patch, kp_w, kp_mask, sc, P, opts, pc)
+        assert torch.equal(mk, mp) and torch.equal(wk, wp) and float(mk[3]) == 0.0
+        for i in (tlm.S_CAND_COST, tlm.S_QUALITY, tlm.S_SUCCESS, tlm.S_ACD_NEW):
+            assert float(sk[i]) == float(sp[i]), i
+        for i in (tlm.S_MU, tlm.S_SIGMA):
+            assert abs(float(sk[i]) - float(sp[i])) <= LM_BOUNDS[dtype] * abs(float(sp[i])), i
+
+
+@pytest.mark.parametrize("prior", [False, True])
+@pytest.mark.parametrize("retry", [False, True])
+@pytest.mark.parametrize("branch", ["accepted", "rejected", "invalid"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", LM_DIMS)
+def test_lm_commit_matches_plain(cuda, D, dtype, branch, retry, prior):
+    """K8 against lm_commit_plain on the card, bit for bit: every array and
+    scalar of the next state and the continue flag, for an accepted, a
+    rejected and an invalid step, with and without retry_rejected_steps
+    and the knot prior; one launch."""
+    from mba_vo_tpu_torch.ops import cuda_lm
+    from mba_vo_tpu_torch.solver import lm as tlm
+
+    F, N, P = (4, 96, 8)
+    H, g, sc, t, q = _lm_state(D, dtype, seed=1)
+    rng = np.random.default_rng(2)
+    c = lambda a: torch.tensor(a, dtype=dtype, device="cuda")   # noqa: E731
+    K = D // 6
+    patch, kp_mask, kp_w = _decide_inputs(F, N, dtype)
+    new_mask = torch.ones(N, dtype=dtype, device="cuda")
+    new_mask[3] = 0.0
+    state = tlm.LMState(t, q, H, g, sc, (kp_w > 0).to(dtype), kp_w, patch * 1e-3)
+    H1 = H * 1.0001
+    ct, cq = t + 1e-3, q.flip(0)
+    n = float((kp_mask * new_mask).sum()) * F * P
+    raw_cost = c(4.0 * n)
+    raw_g, raw_H = c(rng.normal(0, 1, D) * n), H * n
+    pri = (c(0.25), c(rng.normal(0, 0.01, D)), H * 0.01) if prior else None
+    sc[tlm.S_MCC], sc[tlm.S_QUALITY], sc[tlm.S_ACD_NEW] = 0.7, 0.8, 0.9
+    sc[tlm.S_MIN], sc[tlm.S_NONMONO] = 3.0, 4.0
+    sc[tlm.S_INVALID] = float(branch == "invalid")
+    sc[tlm.S_SUCCESS] = float(branch in ("accepted", "invalid"))   # invalid wins over it
+    plain = tlm.lm_commit_plain(state, H1, ct, cq, raw_cost, raw_g, raw_H, patch, new_mask,
+                                kp_mask * new_mask, P,
+                                tlm.LMOptions(retry_rejected_steps=retry), True, pri)
+    got = tlm.LMState(*(x.clone() for x in state))
+    before = cuda_lm.LAUNCHES_LM_COMMIT
+    cuda_lm.lm_commit_cuda(*got, H1, ct, cq, raw_cost, raw_g, raw_H, patch, new_mask,
+                           kp_mask * new_mask, P, min_radius=10.0, max_radius=1e32,
+                           max_nonmono=5, retry=retry, min_acd=1e-3, more=True, prior=pri)
+    torch.cuda.synchronize()
+    assert cuda_lm.LAUNCHES_LM_COMMIT == before + 1
+    for name, a, b in zip(tlm.LMState._fields, got, plain):
+        assert torch.equal(a, b), (name, a, b)
+    assert torch.equal(got.t, ct if branch == "accepted" else t)
+    assert K == t.shape[0]
+
+
+def test_lm_kernels_check_their_inputs(cuda):
+    """The wrappers refuse CPU tensors, mixed dtypes and wrong shapes, and
+    launch nothing then."""
+    from mba_vo_tpu_torch.ops import cuda_lm
+
+    H, g, sc, t, q = _lm_state(12, torch.float64)
+    before = cuda_lm.launch_counts()
+    with pytest.raises(ValueError, match="not CUDA"):
+        cuda_lm.lm_step_cuda(H.cpu(), g, sc, t, q)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_lm.lm_step_cuda(H, g.float(), sc, t, q)
+    with pytest.raises(ValueError, match="must be"):
+        cuda_lm.lm_step_cuda(H[:6, :6].contiguous(), g, sc, t, q)
+    patch, kp_mask, kp_w = _decide_inputs(1, 40, torch.float64)
+    with pytest.raises(ValueError, match="must be"):
+        cuda_lm.lm_decide_cuda(sc[0], patch, kp_w[:30].contiguous(), kp_mask, sc, 8, 3.0, 0.5)
+    assert cuda_lm.launch_counts() == before
+
+
+def test_lm_kernels_recorded_into_a_graph(cuda):
+    """K6 and K7 recorded into a CUDA graph count no launch, and the replay
+    gives the eager calls' bits."""
+    from mba_vo_tpu_torch.ops import cuda_lm
+
+    H, g, sc, t, q = _lm_state(42, torch.float32)
+    patch, kp_mask, kp_w = _decide_inputs(4, 96, torch.float32)
+    cost = patch.sum() * 0.5
+
+    def calls(s):
+        out = cuda_lm.lm_step_cuda(H, g, s, t, q)[:4]
+        return out + cuda_lm.lm_decide_cuda(cost, patch, kp_w, kp_mask, s, 8, 3.0, 0.5)[1:]
+
+    s_ref, s_graph = sc.clone(), sc.clone()
+    refs = calls(s_ref)
+    torch.cuda.synchronize()
+    before = cuda_lm.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = calls(s_graph)
+    assert cuda_lm.launch_counts() == before
+    graph.replay()
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        assert torch.equal(out, ref)
+    assert torch.equal(s_graph, s_ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_tracker_lm_runs_on_k6_k8(cuda, dtype):
+    """track_frame on the card runs every LM iteration on K6-K8 (one launch
+    of each an iteration) with one host read an iteration, and takes the
+    plain stages' iterations and, in float64, their poses to 1e-9."""
+    from mba_vo_tpu_torch.core.spline import make_knots
+    from mba_vo_tpu_torch.data.synthetic import smooth_shapes_image, synthesize_blurred_image
+    from mba_vo_tpu_torch.ops import cuda_lm
+    from mba_vo_tpu_torch.solver import lm as tlm
+    from mba_vo_tpu_torch.tracker.blur_tracker import BlurAwareTracker, TrackerConfig
+    from mba_vo_tpu_torch.tracker.detector import DetectorOptions
+
+    h, w = 96, 128
+    K = np.array([90.0, 90.0, (w - 1) / 2, (h - 1) / 2])
+    img = smooth_shapes_image(h, w, sigma=3.0, dtype=np.float64)
+    traj = make_knots(torch.tensor(np.outer(np.arange(6), [0.004, -0.002, 0.001])),
+                      torch.tensor([[0.0, 0, 0, 1]] * 6, dtype=torch.float64), 0.0, 0.1)
+    frames = [synthesize_blurred_image(torch.tensor(img), traj, 2, 0.1 * i, 0.03, 5, 2.0,
+                                       torch.tensor(K)).numpy() for i in (1, 2, 3)]
+
+    def run():
+        cfg = TrackerConfig(num_pyramid_levels=2, num_virtual_poses=(5, 5), dtype=dtype,
+                            max_num_iterations=6,
+                            detector=DetectorOptions(score_threshold=5.0, cell_h=8, cell_w=8,
+                                                     max_keypoints=128))
+        tracker = BlurAwareTracker(cfg, K, (h, w), device="cuda")
+        tracker.track_frame(img, img, 0.0, 0.03, np.full((h, w), 2.0))
+        iters, poses = [], []
+        for i, blur in enumerate(frames, 1):
+            poses.append(tracker.track_frame(None, blur, 0.1 * i, 0.03))
+            iters.append([s.num_iterations for _, s in tracker.last_summaries])
+        return iters, poses
+
+    cuda_lm.zero_launch_counts()
+    reads = [0]
+    item, boolean = torch.Tensor.item, torch.Tensor.__bool__
+    orig = tlm.optimize_level
+
+    def counted(*a, **k):
+        def count(f):
+            def wrapped(self, *args):
+                reads[0] += 1
+                return f(self, *args)
+            return wrapped
+        torch.Tensor.item, torch.Tensor.__bool__ = count(item), count(boolean)
+        try:
+            return orig(*a, **k)
+        finally:
+            torch.Tensor.item, torch.Tensor.__bool__ = item, boolean
+
+    tlm.optimize_level = counted
+    try:
+        import mba_vo_tpu_torch.tracker.blur_tracker as bt
+        saved_bt = bt.optimize_level
+        bt.optimize_level = counted
+        iters, poses = run()
+    finally:
+        tlm.optimize_level = orig
+        bt.optimize_level = saved_bt
+    n = cuda_lm.launch_counts()
+    total = sum(sum(x) for x in iters)
+    assert n["lm_step"] == n["lm_decide"] == n["lm_commit"] == total > 0, (n, iters)
+    assert reads[0] == total, (reads, total)
+    saved = (tlm.lm_step, tlm.lm_decide, tlm.lm_commit)
+    tlm.lm_step, tlm.lm_decide, tlm.lm_commit = (tlm.lm_step_plain, tlm.lm_decide_plain,
+                                                 tlm.lm_commit_plain)
+    try:
+        cuda_lm.zero_launch_counts()
+        iters_p, poses_p = run()
+    finally:
+        tlm.lm_step, tlm.lm_decide, tlm.lm_commit = saved
+    assert sum(cuda_lm.launch_counts().values()) == 0
+    assert iters == iters_p
+    if dtype == "float64":
+        for a, b in zip(poses, poses_p):
+            assert float((a.t - b.t).abs().max()) <= 1e-9

@@ -152,8 +152,10 @@ def test_layout_hoist_is_an_option_not_the_environment(level, monkeypatch):
 def test_non_positive_definite_step_is_invalid():
     """torch.linalg.cholesky raises where jnp.linalg.cholesky returns NaN;
     the port factors with cholesky_ex and hands back a NaN step, so the
-    invalid-step branch fires: radius down, damping doubled, the damped H
-    carried, the knots and the decrease left alone."""
+    step stage flags the step invalid and hands the knots back as the
+    candidate, and the commit stage keeps the invalid-step state: radius
+    down, damping doubled, the damped H carried, the knots and the decrease
+    left alone, whatever the (discarded) evaluation at the candidate gave."""
     rng = np.random.default_rng(0)
     A = rng.normal(0, 1, (12, 12))
     H = -(A @ A.T) - np.eye(12)
@@ -167,18 +169,27 @@ def test_non_positive_definite_step_is_invalid():
         np.asarray(jlm._solve(jnp.asarray(Hpd), jnp.asarray(g), "cholesky")), atol=1e-10)
 
     kt = knots_pair(knots_arrays(seed=1))[1]
-    cost = t64(5.0)
-    s = tlm._LMState(knots=kt, H=t64(H), g=t64(g), cost=cost, radius=t64(1e4),
-                     decrease_factor=t64(2.0), ev=tlm._evaluator_reset(cost),
-                     outlier_mask=torch.ones(3, dtype=torch.float64), num_iterations=0,
-                     abs_cost_decrease=t64(1e10), patch_costs=torch.zeros(1, 3))
-    lv = tlm._Level(data=None, num_vir=5, degree=2, opts=tlm.LMOptions(), cache=None,
-                    layout=None)
-    s1 = tlm.lm_iteration(s, lv)   # data=None: an evaluation would fail
-    assert s1.num_iterations == 1 and s1.knots is kt
-    assert float(s1.radius) == 5e3 and float(s1.decrease_factor) == 4.0
+    sc = torch.zeros(tlm.S_SIZE, dtype=torch.float64)
+    sc[tlm.S_COST:tlm.S_CAND + 1] = 5.0
+    sc[tlm.S_RADIUS], sc[tlm.S_DECREASE], sc[tlm.S_ACD] = 1e4, 2.0, 1e10
+    H1, step, ct, cq, sc = tlm.lm_step_plain(t64(H), t64(g), sc, kt.t, kt.q)
+    assert float(sc[tlm.S_INVALID]) == 1.0 and torch.isnan(step).all()
+    assert torch.equal(ct, kt.t) and torch.equal(cq, kt.q)
+    # the evaluation at the candidate "succeeded": the invalid flag wins
+    sc[tlm.S_SUCCESS], sc[tlm.S_ACD_NEW] = 1.0, 3.0
+    s = tlm.LMState(kt.t, kt.q, t64(H), t64(g), sc, torch.ones(3, dtype=torch.float64),
+                    torch.ones(3, dtype=torch.float64), torch.zeros(1, 3, dtype=torch.float64))
+    zeros = torch.zeros(12, dtype=torch.float64)
+    s1 = tlm.lm_commit_plain(s, H1, ct, cq, t64(1.0), zeros, torch.eye(12, dtype=torch.float64),
+                             torch.ones(1, 3, dtype=torch.float64),
+                             torch.zeros(3, dtype=torch.float64),
+                             torch.zeros(3, dtype=torch.float64), 8, tlm.LMOptions(), True)
+    assert torch.equal(s1.t, kt.t) and torch.equal(s1.q, kt.q)
+    assert float(s1.scalars[tlm.S_RADIUS]) == 5e3
+    assert float(s1.scalars[tlm.S_DECREASE]) == 4.0
     np.testing.assert_array_equal(npy(s1.H), H + np.diag(np.diag(H)) / 1e4)
-    assert float(s1.abs_cost_decrease) == 1e10
+    assert float(s1.scalars[tlm.S_ACD]) == 1e10 and float(s1.scalars[tlm.S_COST]) == 5.0
+    assert torch.equal(s1.mask, s.mask) and torch.equal(s1.patch_costs, s.patch_costs)
 
 
 def test_detect_outliers():
