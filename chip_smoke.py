@@ -17,16 +17,20 @@ Phases (any failed check raises and the exit code is non-zero):
      and the earlier serial design) and K4 (csrc/image_bilinear.cu: the
      direct path's whole-image sampler, the select design, the interleaved
      row and the earlier branch design) and K6-K8 (csrc/lm_step.cu: the LM
-     iteration's step, decision and commit) with nvcc for sm_90a, all seven
-     sources at once, and print each kernel's registers, shared memory and
-     spills, K5's staging, K4's block and K6's shared memory by D;
+     iteration's step, decision and commit; K6's shuffle design and K7's
+     keypoint design, and PR 12's block designs of both) with nvcc for
+     sm_90a, all seven sources at once, and print each kernel's registers,
+     shared memory and spills, K5's staging, K4's block, K6's threads and
+     shared memory by D and K7's threads by N;
   2b. the card tests: tests/test_torch_cuda.py under pytest (-m cuda,
      without the JAX test configuration), every kernel against its plain
      version (K4 and K5 bit for bit, the direct path on the kernels against
      its plain chain, K6-K8 against the LM's plain stages at D = 12, 30,
-     42 and 162, and the tracker's LM on them against the plain-stage
-     tracker) and blur_rows and K3 against their earlier designs bit
-     for bit on edge shapes; any failure fails the run;
+     42 and 162, both K6 designs against K6's order transcribed bit for
+     bit, both K7 designs against the plain stage, and the tracker's LM on
+     them against the plain-stage tracker) and blur_rows and K3 against
+     their earlier designs bit for bit on edge shapes; any failure fails
+     the run;
   3. record the sampler's inputs as the tracker gives them on the bench
      scenario (16 frames of track_frame from rest, one chunk of
      track_frames_joint from a moving window, f32), and K2's and K3's
@@ -47,9 +51,14 @@ Phases (any failed check raises and the exit code is non-zero):
      off the staged band and off the window, and every recorded call;
      whether K1's two designs agree bit for bit; and the LM's stages K6-K8,
      recorded on the same three runs, against their plain stages on every
-     call (K6's step within 1e-5 (f32) / 1e-12 (f64) of its norm and its
-     candidate knots equal to the retraction of its own step, K7's flags,
-     decrease and mask equal, K8's next state bit for bit);
+     call (K6's step and model change, in both designs, bit for bit against
+     its order transcribed, its candidate knots equal to the retraction of
+     its own step, its refined step within kappa_2(H1) u and the
+     library's within 3 D kappa_2(H1) u of a float64 solve of the same
+     system, where that bound is under 1, both forward errors and the calls
+     left unchecked printed; K7's
+     flags, decrease and mask equal in both designs; K8's next state bit
+     for bit);
   4. the tracker in f64 on CUDA against the same tracker on the CPU, on the
      bench scenario (VGA, 512 keypoints, 3 levels, 5 virtual poses), with
      every K2, K3 and K5 call of the CUDA run held against the plain
@@ -97,7 +106,10 @@ Phases (any failed check raises and the exit code is non-zero):
      designs and yardsticks level by level; K4's and K5's targets; then K6-K8
      and their plain stages on phase 3's recorded LM calls at the frame (6K
      = 12) and the degree-4 joint chunk (42), a call, warm and cold, beside
-     the bound and, for K6, torch.linalg.cholesky_ex + cholesky_solve;
+     the bound and, for K6, torch.linalg.cholesky_ex + cholesky_solve; K6's
+     and K7's earlier designs (PR 12's block designs) beside the launched
+     ones, each design's floor (K6 at D = 6, K7 at N = 1), and K6's and K7's
+     predictions;
   8. the command line and the keyframe backend: (a) float64 on CUDA against
      the CPU at full width: detect_sparse + match_descriptors on a VGA frame
      of the bench scenario with BackendConfig's default detector (differing
@@ -168,6 +180,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -209,6 +222,9 @@ def check(cond: bool, msg: str):
 # path: each in-process path zeroes every kernel's count just before it runs
 # and reads K2's and K3's just after (K1's go to the ``launches`` dicts)
 RESIDUAL_LAUNCHES: dict = {}
+# the launches of PR 12's block designs of K6 and K7 by path, read beside
+# K2's to K8's: no path launches them, so each must read 0
+EARLIER_LAUNCHES: dict = {}
 
 
 def zero_counts(cs):
@@ -228,6 +244,7 @@ def note_residual_launches(path: str) -> dict:
 
     got = {**cr.launch_counts(), **cuda_lm.launch_counts()}
     RESIDUAL_LAUNCHES[path] = got
+    EARLIER_LAUNCHES[path] = cuda_lm.earlier_launch_counts()
     return got
 
 
@@ -290,17 +307,26 @@ def lm_probe(plain: bool = False):
 
 
 def hold_lm_calls(recorded: dict) -> dict:
-    """K6-K8 against their plain versions on every recorded call
-    (``residual_kernels.hold_lm``: a difference past the bounds raises; K6's
-    step bit for bit against its order of operations transcribed,
-    ``lm_step_kernel_order``); prints each kernel's largest differences and
-    the branches the calls took, and returns by kernel the largest
+    """K6-K8 against their plain versions on every recorded call, K6 and K7
+    in both designs (``residual_kernels.hold_lm``: a difference past the
+    bounds raises; K6's step bit for bit against its order of operations
+    transcribed, ``lm_step_kernel_order``, its block design bit for bit
+    against its shuffle design, K6's refined step within kappa_2 u and the
+    library's within 3 D kappa_2 u of a float64 solve, where that bound is
+    under 1); prints each kernel's largest differences
+    and the branches the calls took, and returns by kernel the largest
     (absolute, relative) difference: K6's step against the plain stage's
     library solve (relative to its norm; a figure, not a check), K7's mu
-    and sigma, K8's state (bit for bit: 0)."""
+    and sigma, K8's state (bit for bit: 0); under "forward" K6's forward
+    errors (the largest of each step's, each step's calls checked under a
+    bound below 1 and its largest ratio to that bound, the calls where K6's
+    step is the nearer, the calls compared, kappa_2's range)."""
     from mba_vo_tpu_torch.experiments import residual_kernels as rk
 
     worst = {}
+    fwd = {"kernel": 0.0, "library": 0.0, "share_kernel": 0.0, "share_library": 0.0,
+           "checked_kernel": 0, "checked_library": 0, "nearer": 0, "calls": 0,
+           "kappa": [math.inf, 0.0]}
     for label, by_kernel in recorded.items():
         for kernel, calls in by_kernel.items():
             check(len(calls) > 0, f"{label}: no {kernel} call was recorded")
@@ -313,16 +339,52 @@ def hold_lm_calls(recorded: dict) -> dict:
             what = {"lm_step": f"{int(sum(g.get('invalid', 0) for g in got))} invalid (the plain "
                                f"stage's: {int(sum(g.get('plain_invalid', 0) for g in got))}); "
                                f"step and model change equal to K6's order transcribed bit "
-                               f"for bit, the library solve's step within {r:.3e} of its "
-                               f"norm (a figure); the candidate equal to the retraction of "
-                               f"the kernel's step bit for bit",
+                               f"for bit in both designs, the library solve's step within "
+                               f"{r:.3e} of its norm (a figure); the candidate equal to the "
+                               f"retraction of the kernel's step bit for bit",
                     "lm_decide": f"{int(sum(g.get('success', 0) for g in got))} successes; flags, "
-                                 f"decrease and mask equal, mu and sigma within {r:.3e}",
+                                 f"decrease and mask equal in both designs, mu and sigma "
+                                 f"within {r:.3e}",
                     "lm_commit": "the next state equal bit for bit"}[kernel]
             bound = (f" (bound {rk.LM_TOLERANCE[calls[0].dtype]:.0e})"
                      if kernel == "lm_decide" else "")
             print(f"  {label}: {kernel}, {len(calls)} recorded calls ({dt}, 6K = "
                   f"{sorted({c.D for c in calls})}): {what}{bound}")
+            if kernel != "lm_step":
+                continue
+            held = [g for g in got if math.isfinite(g["fwd_kernel"])]
+            if not held:
+                continue
+            fk = [g["fwd_kernel"] for g in held]
+            fl = [g["fwd_library"] for g in held]
+            nearer = sum(g["fwd_kernel"] <= g["fwd_library"] for g in held)
+            kap = [g["kappa"] for g in held]
+            # each step's checked calls (its bound under 1) and its largest
+            # share of that bound
+            checked, share = {}, {}
+            for name in ("kernel", "library"):
+                on = [g for g in held if g[f"fwd_checked_{name}"]]
+                checked[name] = len(on)
+                share[name] = max((g[f"fwd_{name}"] / g[f"fwd_bound_{name}"] for g in on),
+                                  default=0.0)
+            print(f"    forward error against a float64 solve of the same H1 and g, "
+                  f"||step - x64|| / ||x64|| on {len(held)} calls: K6 max "
+                  f"{max(fk):.3e} (median {statistics.median(fk):.3e}), the library's max "
+                  f"{max(fl):.3e} (median {statistics.median(fl):.3e}); K6's the nearer on "
+                  f"{nearer}; kappa_2(H1) {min(kap):.3e}-{max(kap):.3e}; K6's refined step "
+                  f"within kappa_2 u on {checked['kernel']} calls (at most "
+                  f"{share['kernel']:.3e} of it), unchecked on "
+                  f"{len(held) - checked['kernel']} (kappa_2 u >= 1); the library's within "
+                  f"3 D kappa_2 u on {checked['library']} (at most {share['library']:.3e} of "
+                  f"it), unchecked on {len(held) - checked['library']} (3 D kappa_2 u >= 1)")
+            fwd.update(kernel=max(fwd["kernel"], max(fk)), library=max(fwd["library"], max(fl)),
+                       share_kernel=max(fwd["share_kernel"], share["kernel"]),
+                       share_library=max(fwd["share_library"], share["library"]),
+                       checked_kernel=fwd["checked_kernel"] + checked["kernel"],
+                       checked_library=fwd["checked_library"] + checked["library"],
+                       nearer=fwd["nearer"] + nearer, calls=fwd["calls"] + len(held),
+                       kappa=[min(fwd["kappa"][0], min(kap)), max(fwd["kappa"][1], max(kap))])
+    worst["forward"] = fwd
     return worst
 
 
@@ -1113,11 +1175,14 @@ def phase_loop_benchmark(cs, launches, root):
     and where the two f64 trajectories part."""
     from mba_vo_tpu_torch.data import datasets as ds
     from mba_vo_tpu_torch.experiments import loop_bench as lb
+    from mba_vo_tpu_torch.ops import cuda_lm
 
     t0 = time.perf_counter()
     keep = os.path.join(root, "loop")
+    cuda_lm.zero_launch_counts()
     with contextlib.redirect_stdout(io.StringIO()):
         summary = lb.run(device="cuda", keep=keep)
+    EARLIER_LAUNCHES["loop benchmark (8c)"] = cuda_lm.earlier_launch_counts()
     wall = time.perf_counter() - t0
     ref = None
     if os.path.exists(LOOP_REFERENCE):
@@ -1997,7 +2062,8 @@ def main() -> int:
         for ln in log.splitlines():
             m = re.search(r"((?:window_bilinear(?:_[a-z]+)?|warp_tangents(?:_threads)?|"
                           r"blur_rows(?:_keypoint)?|frame_layout(?:_serial)?|"
-                          r"image_bilinear(?:_branch|_interleaved)?|lm_(?:step|decide|commit))"
+                          r"image_bilinear(?:_branch|_interleaved)?|"
+                          r"lm_(?:step_shfl|step_block|decide_keypoint|decide_block|commit))"
                           r"_kernel|normal_equations_(?:partials|combine|cluster))I([fd])"
                           r"((?:Li\d+E)*)", ln)
             if "Compiling entry function" in ln and m:
@@ -2029,12 +2095,20 @@ def main() -> int:
           + f"; K4's select design: {ci.IMAGE_THREADS} threads a block, "
           f"one sample a thread, i // S by (i m) >> k (S = {S_MAIN}: "
           f"m, k = {ci.sample_divisor(S_MAIN)})")
-    print("    K6 (lm_step) dynamic shared memory, the factor in shared memory where it fits: "
-          + "; ".join(f"D = {D}: " + " / ".join(
+    print(f"    K6 (lm_step) shuffle design, {cuda_lm.LM_THREADS} threads, its sweeps in one "
+          f"warp up to D = {cuda_lm.WARP_STEP_MAX_D}; dynamic shared memory, the factor and "
+          "H1's copy there where they fit: " + "; ".join(f"D = {D}: " + " / ".join(
+              f"{(sl := cuda_lm.step_layout(D, b)).smem} B {t}"
+              + ("" if sl.shared_h1 else " (H1 read back)")
+              + ("" if sl.shared else " (factor in global memory)")
+              for t, b in item.items()) for D in (6, 12, 42, 66, 162, 240))
+          + "; the block design (PR 12's): " + "; ".join(f"D = {D}: " + " / ".join(
               f"{cuda_lm.step_smem_bytes(D, b) or cuda_lm.step_rest_bytes(D, b)} B {t}"
               + ("" if cuda_lm.step_smem_bytes(D, b) else " (factor in global memory)")
               for t, b in item.items()) for D in (12, 42, 162, 240))
-          + f"; K6-K8 one CTA of {cuda_lm.LM_THREADS} threads")
+          + f", {cuda_lm.LM_THREADS} threads; K7's keypoint design "
+          + ", ".join(f"N = {n}: {cuda_lm.decide_threads(n)} threads" for n in (1, 40, N_KP, 700))
+          + f"; K7's block design and K8 one CTA of {cuda_lm.LM_THREADS} threads")
     # the frame's calls (F = 1), a degree-4 joint chunk's (F = 4) and the widest
     for F, D in ((1, 12), (JCHUNK, 6 * (JCHUNK + 3)), (8, cr.MAX_TANGENTS)):
         M = F * N_KP * 8
@@ -2557,26 +2631,69 @@ def main() -> int:
                for label in ("tracker S=40", "joint degree 4")
                for kernel, calls in lm_calls[label].items()}
     print(f"    K6-K8 timed in {time.perf_counter() - t0:.1f} s ({card})")
+    # K6's and K7's redesigns' predictions (PERF.md section 6): K6 at most 8 us
+    # warm at the frame and 25 at the joint chunk, under the library's; K7 at
+    # most 3.5 / 5.5 us warm / cold at both
+    k6 = [lm_rows[label, "lm_step"][0] for label in ("tracker S=40", "joint degree 4")]
+    k7 = [lm_rows[label, "lm_decide"][0] for label in ("tracker S=40", "joint degree 4")]
+
+    def held(ok):
+        return "held" if ok else "missed"
+
+    print(f"    K6 predictions: frame {1e3 * k6[0]['device_ms']:.2f} us warm against 8 "
+          f"({held(k6[0]['device_ms'] <= 8e-3)}), joint chunk {1e3 * k6[1]['device_ms']:.2f} "
+          f"against 25 ({held(k6[1]['device_ms'] <= 25e-3)}) and the library's "
+          f"{1e3 * k6[1]['library_device_ms']:.2f} "
+          f"({held(k6[1]['device_ms'] < k6[1]['library_device_ms'])}); K7: " + ", ".join(
+              f"{name} {1e3 * r['device_ms']:.2f} / {1e3 * r['device_cold_ms']:.2f} against "
+              f"3.5 / 5.5 ({held(r['device_ms'] <= 3.5e-3 and r['device_cold_ms'] <= 5.5e-3)})"
+              for name, r in zip(("frame", "joint chunk"), k7)) + f"; {card}")
 
     def lm_entry(kernel):
-        def times(label):
-            k, p = lm_rows[label, kernel][0], lm_rows[label, kernel][-1]
+        def times(label, which=0):
+            rows_of = lm_rows[label, kernel]
+            k, p = rows_of[which], rows_of[-1]
             return dict(ms=k["ms"], device_ms=k["device_ms"],
                         device_cold_ms=k["device_cold_ms"], plain_ms=p["ms"],
                         plain_device_ms=p["device_ms"],
                         plain_device_cold_ms=p["device_cold_ms"], bound_ms=k["bound_ms"],
-                        bound_by=k["bound_by"], library_ms=k["library_ms"],
-                        library_device_ms=k["library_device_ms"],
-                        library_device_cold_ms=k["library_device_cold_ms"], D=k["D"],
-                        calls=k["calls"])
+                        bound_by=k["bound_by"], library_ms=rows_of[0]["library_ms"],
+                        library_device_ms=rows_of[0]["library_device_ms"],
+                        library_device_cold_ms=rows_of[0]["library_device_cold_ms"],
+                        D=k["D"], calls=k["calls"],
+                        **{f: k[f] for f in ("floor_device_ms", "floor_device_cold_ms")
+                           if f in k})
         by_path = {path: n.get(kernel, 0) for path, n in RESIDUAL_LAUNCHES.items()}
         more = {}
         if kernel == "lm_step":
             more["library"] = ("torch.linalg.cholesky_ex + torch.cholesky_solve: two calls, "
                                "the solve alone")
             more["held"] = ("step and model change bit for bit against "
-                            "residual_kernels.lm_step_kernel_order; max_abs_err and "
-                            "max_rel_err: the step against lm_step_plain's library solve")
+                            "residual_kernels.lm_step_kernel_order in both designs; "
+                            "max_abs_err and max_rel_err: the step against lm_step_plain's "
+                            "library solve; forward_error: each step against a float64 "
+                            "solve of the same system, K6's refined step within "
+                            "kappa_2 u, the library's within 3 D kappa_2 u, on the calls "
+                            "where that bound is under 1 (checked_*)")
+            more["forward_error"] = dict(f32=lm_err["forward"], f64=lm_err64["forward"])
+            more["design"] = ("shuffle: every thread takes each pivot itself, the sweeps "
+                              "by shuffles in one warp up to D = 64")
+        if kernel in rk.LM_EARLIER:
+            design_of = {"lm_step": "block: 256 threads, thread 0 takes each pivot and row, "
+                                    "block barriers (bit-equal)",
+                         "lm_decide": "block: 256 threads, four block-tree sums, three "
+                                      "passes over the patch costs"}
+            if kernel == "lm_decide":
+                more["design"] = "keypoint: a thread a keypoint, three one-barrier sums"
+            # its launches on the main path's runs, read beside the new design's
+            # (the sharded ranks run the plain stages)
+            earlier = sum(n[kernel] for n in EARLIER_LAUNCHES.values())
+            check(earlier == 0, f"a path launched {kernel}'s block design {earlier} times")
+            more["before"] = dict(name=kernel + "_block", design=design_of[kernel],
+                                  source="mba_vo_tpu_torch/csrc/lm_step.cu", route="cuda",
+                                  launches=earlier, launches_read_on=len(EARLIER_LAUNCHES),
+                                  **times("tracker S=40", 1),
+                                  joint_degree_4=times("joint degree 4", 1))
         return dict(name=kernel, route="cuda", source="mba_vo_tpu_torch/csrc/lm_step.cu",
                     replaces="mba_vo_tpu/solver/lm.py:373", launches=sum(by_path.values()),
                     max_abs_err=lm_err[kernel][0], max_rel_err=lm_err[kernel][1],

@@ -362,6 +362,11 @@ def cmd_track(args) -> int:
     if args.shard_devices > 1:
         cfg = dataclasses.replace(cfg, shard_devices=args.shard_devices)
     device = torch.device(args.device)
+    # before any process group: under the launcher local_device() would put
+    # a rank without a card on the CPU
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("track --device cuda but no CUDA device is visible; "
+                           "pass --device cpu to run on the CPU")
     # under python -m torch.distributed.run: one process per shard, each on
     # its own card (or sharing one), rank 0 writing every output
     from .parallel.distributed import initialize_from_env, local_device

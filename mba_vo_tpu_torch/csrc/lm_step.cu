@@ -24,31 +24,52 @@
 // What bounds them: latency. D = 6K is 12 at the frame and 42 at a degree-4
 // joint chunk of 4 frames, N <= 512 keypoints: each kernel moves a few
 // kilobytes and does a few thousand operations, far below a microsecond of
-// the card's memory or arithmetic rate; the time is the launch, the chain of
-// D pivots of the factorisation (three barriers each) and the two triangular
-// solves (two barriers a row). One CTA each, so every decision is made where
-// its inputs are, without a second launch or an atomic, and the host reads
-// one flag an iteration (K8's continue flag).
+// the card's memory or arithmetic rate; the time is the launch and, in K6,
+// the chain of D pivots and of the triangular sweeps' rows, each a stage
+// that waits for the one before. One CTA each, so every decision is made
+// where its inputs are, without a second launch or an atomic, and the host
+// reads one flag an iteration (K8's continue flag).
+//
+// Two designs of K6 and K7. The LM launches the shuffle design of K6 and
+// the keypoint design of K7 (below, after PR 12's). K6's time is the chain
+// of its stages (D pivots, then three sweeps of D rows), and on this card a
+// stage costs what its dependent round trips cost (shared-memory loads and
+// stores, a division, a square root, a barrier and the wait for the
+// slowest warp), not its arithmetic. The shuffle design keeps round trips
+// through one thread off the chain: every thread takes a pivot's square
+// root itself, the factorisation runs on all eight warps (two barriers a
+// pivot), and up to D = 64 the three sweeps run in one warp whose lanes
+// pass each row's entry by shuffles while each row's factor entries stay
+// with its lane; the parallel work (the load of H, the refinement's
+// residual, H1 times the step) runs on all 256 threads, the load's reads
+// issued together, H1 read back from a copy in shared memory.
+// K7's keypoint design: a thread a keypoint, each cost computed once,
+// three one-barrier sums. PR 12's block designs (lm_step_block_*,
+// lm_decide_block_*) stay callable for the harness's comparisons and
+// timings.
 //
 // Orders of the sums (not cuSOLVER's or torch.sum's, which cannot be
 // followed bit for bit): the factorisation is the right-looking Cholesky,
-// column by column, each trailing entry updated once per pivot in pivot
-// order; the solves go row by row (forward) and back, then once more on
-// the residual g - H1 x summed in double the working precision (one step
-// of refinement: the step is then close to the exact solution's rounding,
-// so it stays near LAPACK's and cuSOLVER's whatever the order); every
-// reduction over the block is each thread's strided elements in order, then
-// a tree over the 256 threads in shared memory. This order is written out in
-// torch in experiments/residual_kernels.py (lm_step_kernel_order), to which
-// the card's checks hold K6's step and model change bit for bit. The retraction follows the card's torch in
-// its order of operations (this source builds with -fmad=false, as K2, K4
-// and K5 do), so the candidate knots equal spline_retract_flat of K6's own
-// step on the card bit for bit, and K5 anchors the candidate's patches
-// exactly as it anchors the plain retraction's.
+// each entry of the factor updated once per pivot in pivot order, each
+// product rounded before its difference (this source builds with
+// -fmad=false); the solves go row by row (forward) and back, then once
+// more on the residual g - H1 x summed in double the working precision (one
+// step of refinement: the step is then close to the exact solution's
+// rounding, so it stays near LAPACK's and cuSOLVER's whatever the order);
+// the model change's two sums are each thread's strided elements in order,
+// then a tree over 256 slots. Any schedule that keeps each entry's order
+// keeps the bits: both K6 designs give the same, and that order is written
+// out in torch in experiments/residual_kernels.py (lm_step_kernel_order),
+// to which the card's checks hold K6's step and model change bit for bit.
+// The retraction follows the card's torch in its order of operations, so
+// the candidate knots equal spline_retract_flat of K6's own step on the
+// card bit for bit, and K5 anchors the candidate's patches exactly as it
+// anchors the plain retraction's. K7's residual count and live count sum
+// 0/1 values, exact in any order; its mu and sigma follow no fixed order.
 //
-// The factor lives in shared memory while D*D values fit (D up to ~165 in
-// f64, ~235 in f32; ops/cuda_lm.py's step_smem_bytes), else in a global
-// scratch matrix in the same kernel: no D leaves the kernel.
+// The factor lives in shared memory while it fits (ops/cuda_lm.py's
+// step_layout and, for the block design, step_smem_bytes), else in a
+// global scratch matrix in the same kernel: no D leaves the kernel.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -85,7 +106,7 @@ enum : int {
   S_SIZE
 };
 
-constexpr int kThreads = 256;   // ops/cuda_lm.py's LM_THREADS
+constexpr int kThreads = 256;   // ops/cuda_lm.py's LM_THREADS: the block designs' and K8's
 
 // the sum of one value a thread over the block: a tree in shared memory,
 // the same order every call
@@ -153,9 +174,36 @@ __device__ __forceinline__ T two_product(T a, T b, T& err) {
   return p;
 }
 
+// the candidate knots: the steps [all t; all omega] retracted (t + dt, q
+// exp(omega), spline_retract_flat's order), or the knots themselves where
+// the step is invalid; a knot a thread
+template <typename T>
+__device__ void retract(const T* __restrict__ knot_t, const T* __restrict__ knot_q,
+                        const T* step, bool invalid, T* __restrict__ cand_t,
+                        T* __restrict__ cand_q, int K, int tid, int nt) {
+  const T thr = sizeof(T) >= 8 ? T(1e-20) : T(1e-10);
+  for (int k = tid; k < K; k += nt) {
+    const Quat<T> qk{knot_q[4 * k], knot_q[4 * k + 1], knot_q[4 * k + 2], knot_q[4 * k + 3]};
+    if (invalid) {
+      for (int c = 0; c < 3; ++c) cand_t[3 * k + c] = knot_t[3 * k + c];
+      cand_q[4 * k] = qk.x, cand_q[4 * k + 1] = qk.y, cand_q[4 * k + 2] = qk.z,
+      cand_q[4 * k + 3] = qk.w;
+      continue;
+    }
+    for (int c = 0; c < 3; ++c) cand_t[3 * k + c] = knot_t[3 * k + c] + step[3 * k + c];
+    const T* w = step + 3 * K + 3 * k;
+    const Quat<T> r = spline::qmul(qk, spline::quat_exp(V3<T>{w[0], w[1], w[2]}, thr));
+    cand_q[4 * k] = r.x, cand_q[4 * k + 1] = r.y, cand_q[4 * k + 2] = r.z,
+    cand_q[4 * k + 3] = r.w;
+  }
+}
+
+// K6, PR 12's block design (lm_step_block_*): 256 threads; thread 0 takes
+// each pivot's square root and each row's division, the others wait at a
+// block barrier (three a pivot, two a row of each of the four sweeps)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    lm_step_kernel(const T* __restrict__ H, const T* __restrict__ g, T* sc,
+    lm_step_block_kernel(const T* __restrict__ H, const T* __restrict__ g, T* sc,
                    const T* __restrict__ knot_t, const T* __restrict__ knot_q, T* H1,
                    T* __restrict__ step, T* __restrict__ cand_t, T* __restrict__ cand_q,
                    T* scratch, int D, int K) {
@@ -248,31 +296,19 @@ __global__ void __launch_bounds__(kThreads)
   const T mcc = -(gs + T(0.5) * shs);
   const bool invalid = mcc < T(0) || nonfinite;
 
-  // the candidate knots: [all t; all omega] steps retracted, or the knots
-  const T thr = sizeof(T) >= 8 ? T(1e-20) : T(1e-10);
-  for (int k = tid; k < K; k += kThreads) {
-    const Quat<T> qk{knot_q[4 * k], knot_q[4 * k + 1], knot_q[4 * k + 2], knot_q[4 * k + 3]};
-    if (invalid) {
-      for (int c = 0; c < 3; ++c) cand_t[3 * k + c] = knot_t[3 * k + c];
-      cand_q[4 * k] = qk.x, cand_q[4 * k + 1] = qk.y, cand_q[4 * k + 2] = qk.z,
-      cand_q[4 * k + 3] = qk.w;
-      continue;
-    }
-    for (int c = 0; c < 3; ++c) cand_t[3 * k + c] = knot_t[3 * k + c] + b[3 * k + c];
-    const T* w = b + 3 * K + 3 * k;
-    const Quat<T> r = spline::qmul(qk, spline::quat_exp(V3<T>{w[0], w[1], w[2]}, thr));
-    cand_q[4 * k] = r.x, cand_q[4 * k + 1] = r.y, cand_q[4 * k + 2] = r.z,
-    cand_q[4 * k + 3] = r.w;
-  }
+  retract(knot_t, knot_q, b, invalid, cand_t, cand_q, K, tid, kThreads);
   if (tid == 0) {
     sc[S_MCC] = mcc;
     sc[S_INVALID] = invalid ? T(1) : T(0);
   }
 }
 
+// K7, PR 12's block design (lm_decide_block_*): 256 threads, four block
+// sums of nine barriers each, each keypoint's cost computed in each of
+// three passes
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    lm_decide_kernel(const T* __restrict__ cost, const T* __restrict__ patch,
+    lm_decide_block_kernel(const T* __restrict__ cost, const T* __restrict__ patch,
                      const T* __restrict__ kp_w, const T* __restrict__ kp_mask, T* sc,
                      const T* __restrict__ prior_cost, T* __restrict__ mask_out,
                      T* __restrict__ w_out, int F, int N, int P, double chi_k,
@@ -328,6 +364,493 @@ __global__ void __launch_bounds__(kThreads)
     sc[S_QUALITY] = quality;
     sc[S_SUCCESS] = success ? T(1) : T(0);
     sc[S_ACD_NEW] = acd;
+    sc[S_MU] = mu;
+    sc[S_SIGMA] = sigma;
+  }
+}
+
+// ------------------------------------------------------------------------
+// K6's shuffle design and K7's keypoint design, which the LM launches (the
+// block designs above, PR 12's, stay callable as sweep rows).
+
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
+// the width of the tree both K6 designs sum the model change over
+// (ops/cuda_lm.py's LM_TREE): the block design's threads
+constexpr int kTree = kThreads;
+// K6's shuffle design runs its sweeps in one warp up to this many unknowns,
+// two rows a lane (ops/cuda_lm.py's WARP_STEP_MAX_D)
+constexpr int kWarpStepMaxD = 2 * 32;
+// K7's keypoint design: a keypoint a thread up to this many
+// (ops/cuda_lm.py's DECIDE_MAX_THREADS), and the costs a thread keeps in
+// registers (past kDecideKeep x 512 keypoints the rest are computed again,
+// in the same order)
+constexpr int kDecideThreads = 512;
+constexpr int kDecideKeep = 4;
+
+// the factor's row stride (ops/cuda_lm.py's step_ld): odd, so that the
+// lanes of a warp, on consecutive rows of one column, hit distinct banks
+__host__ __device__ __forceinline__ int factor_ld(int D) { return D | 1; }
+
+// K6's shuffle design's dynamic shared memory (ops/cuda_lm.py's
+// step_layout): the factor [D, LD] where it lives there, the copy of H1
+// [D, LD] where it fits too, then b, y, x and the pivots [D]
+template <typename T>
+size_t step_bytes(int D, bool shared_factor, bool shared_h1) {
+  const size_t m = size_t(D) * size_t(factor_ld(D));
+  return ((shared_factor ? m : 0) + (shared_h1 ? m : 0) + 4 * size_t(D)) * sizeof(T);
+}
+
+// block_sum's order in one warp: the kTree slots' strided sums from 0
+// (slots lane + 32 m kept by the lane), the tree's levels 128, 64 and 32
+// inside the lane, then 16 ... 1 by shuffles; lane 0's is the sum. The same
+// operands meet in the same order as in block_sum, so the bits are its
+// (a -0 entry becomes +0 at its slot's first sum there and here). Eight
+// named slots, not an array, so that nothing goes to local memory.
+template <typename T>
+__device__ T tree_sum(const T* v, int D, int lane) {
+  auto slot = [&](int m) {
+    T p = T(0);
+    for (int i = lane + kWarp * m; i < D; i += kTree) p = p + v[i];
+    return p;
+  };
+  static_assert(kTree == 8 * kWarp, "eight slots a lane");
+  T q0 = slot(0), q1 = slot(1), q2 = slot(2), q3 = slot(3);
+  const T q4 = slot(4), q5 = slot(5), q6 = slot(6), q7 = slot(7);
+  q0 = q0 + q4, q1 = q1 + q5, q2 = q2 + q6, q3 = q3 + q7;   // level 128
+  q0 = q0 + q2, q1 = q1 + q3;                               // level 64
+  q0 = q0 + q1;                                             // level 32
+#pragma unroll
+  for (int s = kWarp / 2; s > 0; s >>= 1) q0 = q0 + __shfl_down_sync(kFull, q0, s);
+  return q0;
+}
+
+// The sweeps for D <= 64, in warp 0, lane l holding the entries of rows l
+// and l + 32 (v0, v1, and the pivots' square roots d0, d1) in registers:
+// each row's entry passes to every lane by a shuffle, every lane divides it
+// by the pivot itself, and the factor entries a lane needs next are loaded
+// a row ahead. L y = v forward (each lane's own factor row, column j), and
+// L^T x = v back (row j's factor entry in the lane's column, stored by
+// row j's lane before the warp's barrier); the back sweep writes x, or adds
+// to it (the refinement's x + d).
+template <typename T>
+__device__ void forward_sweep(const T* A, int LD, int D, int lane, T d0, T d1, T v0, T v1,
+                              T& y0, T& y1) {
+  const int r0 = lane, r1 = lane + kWarp;
+  const T* row0 = A + r0 * LD;
+  const T* row1 = A + r1 * LD;
+  T a0 = r0 > 0 && r0 < D ? row0[0] : T(0), a1 = r1 < D ? row1[0] : T(0);
+  for (int j = 0; j < D; ++j) {
+    const int src = j & (kWarp - 1);
+    const T dj = __shfl_sync(kFull, j < kWarp ? d0 : d1, src);
+    const T c0 = a0, c1 = a1;
+    if (j + 1 < D) {   // the next column's entries of the own rows
+      a0 = r0 > j + 1 && r0 < D ? row0[j + 1] : T(0);
+      a1 = r1 > j + 1 && r1 < D ? row1[j + 1] : T(0);
+    }
+    const T yj = __shfl_sync(kFull, j < kWarp ? v0 : v1, src) / dj;
+    if (r0 == j) y0 = yj;
+    if (r1 == j) y1 = yj;
+    if (r0 > j) v0 = v0 - c0 * yj;
+    if (r1 > j) v1 = v1 - c1 * yj;
+  }
+}
+
+template <typename T>
+__device__ void back_sweep(const T* A, int LD, int D, int lane, T d0, T d1, T v0, T v1, T& x0,
+                           T& x1, bool add) {
+  const int r0 = lane, r1 = lane + kWarp;
+  int j = D - 1;
+  T a0 = r0 < j ? A[j * LD + r0] : T(0), a1 = r1 < j ? A[j * LD + r1] : T(0);
+  for (; j >= 0; --j) {
+    const int src = j & (kWarp - 1);
+    const T dj = __shfl_sync(kFull, j < kWarp ? d0 : d1, src);
+    const T c0 = a0, c1 = a1;
+    if (j > 0) {   // row j - 1's entries in the own columns
+      a0 = r0 < j - 1 ? A[(j - 1) * LD + r0] : T(0);
+      a1 = r1 < j - 1 ? A[(j - 1) * LD + r1] : T(0);
+    }
+    const T xj = __shfl_sync(kFull, j < kWarp ? v0 : v1, src) / dj;
+    if (r0 == j) x0 = add ? x0 + xj : xj;
+    if (r1 == j) x1 = add ? x1 + xj : xj;
+    if (r0 < j) v0 = v0 - c0 * xj;
+    if (r1 < j) v1 = v1 - c1 * xj;
+  }
+}
+
+// K6's chains of stages on the factor A (shared or global memory: the
+// caller passes a pointer the compiler can see is shared where it is):
+// the factorisation on the eight warps, entry (i, j) updated by lane
+// i mod 32 of warp j mod 8, every thread taking the pivot's square root
+// itself, two block barriers a pivot, the forward sweep L y = g folded in
+// (y_k = b_k / L_kk, then b_i - L_ik y_k); then L^T x = y. D <= 64: the
+// sweep in warp 0 by shuffles; above, on the eight warps, a barrier a row.
+// Returns whether a pivot failed (not positive, or NaN: a NaN step, as
+// jnp.linalg.cholesky gives and cholesky_ex's info flags).
+template <typename T>
+__device__ bool factor_and_back(T* A, int LD, int D, T* b, T* y, T* x, T* dg) {
+  constexpr int nw = kThreads / kWarp;
+  const int tid = threadIdx.x, lane = tid & (kWarp - 1), warp = tid / kWarp;
+  for (int k = 0; k < D; ++k) {
+    const T p = A[k * LD + k];
+    if (!(p > T(0))) return true;   // every thread read the same pivot: all leave here
+    const T d = sqrt(p);
+    const T yk = b[k] / d;
+    if (tid == 0) {
+      dg[k] = d;
+      y[k] = yk;
+    }
+    const int first = k + 1 + ((lane - k - 1) & (kWarp - 1));   // this lane's first row below k
+    if (warp == (k & (nw - 1))) {
+      for (int i = first; i < D; i += kWarp) {
+        const T l = A[i * LD + k] / d;
+        A[i * LD + k] = l;
+        b[i] = b[i] - l * yk;
+      }
+    }
+    __syncthreads();
+    const int col = k + 1 + ((warp - k - 1) & (nw - 1));   // this warp's first column
+    for (int i = first; i < D; i += kWarp) {
+      const T l = A[i * LD + k];
+      for (int j = col; j <= i; j += nw) A[i * LD + j] = A[i * LD + j] - l * A[j * LD + k];
+    }
+    __syncthreads();
+  }
+  if (D <= kWarpStepMaxD) {
+    if (warp == 0) {
+      const int r0 = lane, r1 = lane + kWarp;
+      T x0 = T(0), x1 = T(0);
+      back_sweep(A, LD, D, lane, r0 < D ? dg[r0] : T(0), r1 < D ? dg[r1] : T(0),
+                 r0 < D ? y[r0] : T(0), r1 < D ? y[r1] : T(0), x0, x1, false);
+      if (r0 < D) x[r0] = x0;
+      if (r1 < D) x[r1] = x1;
+    }
+  } else {
+    // y_j's last update came a row earlier, before its barrier
+    for (int j = D - 1; j >= 0; --j) {
+      const T xj = y[j] / dg[j];
+      if (tid == 0) x[j] = xj;
+      for (int i = tid; i < j; i += kThreads) y[i] = y[i] - A[j * LD + i] * xj;
+      __syncthreads();
+    }
+  }
+  return false;
+}
+
+// the refinement's sweeps on the residual in b: L w = r, L^T d = w, x += d
+template <typename T>
+__device__ void refine_sweeps(const T* A, int LD, int D, T* b, T* y, T* x, const T* dg) {
+  const int tid = threadIdx.x, lane = tid & (kWarp - 1), warp = tid / kWarp;
+  if (D <= kWarpStepMaxD) {
+    if (warp == 0) {
+      const int r0 = lane, r1 = lane + kWarp;
+      const T d0 = r0 < D ? dg[r0] : T(0), d1 = r1 < D ? dg[r1] : T(0);
+      T w0 = T(0), w1 = T(0);
+      T x0 = r0 < D ? x[r0] : T(0), x1 = r1 < D ? x[r1] : T(0);
+      forward_sweep(A, LD, D, lane, d0, d1, r0 < D ? b[r0] : T(0), r1 < D ? b[r1] : T(0), w0,
+                    w1);
+      back_sweep(A, LD, D, lane, d0, d1, w0, w1, x0, x1, true);
+      if (r0 < D) x[r0] = x0;
+      if (r1 < D) x[r1] = x1;
+    }
+    return;
+  }
+  for (int j = 0; j < D; ++j) {
+    const T yj = b[j] / dg[j];
+    if (tid == 0) y[j] = yj;
+    for (int i = tid; i < D; i += kThreads) {
+      if (i > j) b[i] = b[i] - A[i * LD + j] * yj;
+    }
+    __syncthreads();
+  }
+  for (int j = D - 1; j >= 0; --j) {
+    const T dj = y[j] / dg[j];
+    if (tid == 0) x[j] = x[j] + dj;
+    for (int i = tid; i < j; i += kThreads) y[i] = y[i] - A[j * LD + i] * dj;
+    __syncthreads();
+  }
+}
+
+// K6, the shuffle design. 256 threads. The work that is parallel over rows
+// or entries runs on every thread: the damped load (four rows' reads
+// issued before their first store), the refinement's residual and H1 times
+// the step (a row a thread, H1 read from its copy in shared memory where it
+// fits). The chains of stages (factor_and_back, refine_sweeps) take no
+// round trip through one thread: every thread takes a pivot's square root
+// itself, and up to D = 64 the sweeps pass each row's entry by shuffles in
+// one warp. Every entry of the factor and of the right-hand side takes its
+// products in pivot order, each rounded before its difference, so this
+// design and PR 12's block design give the same bits.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    lm_step_shfl_kernel(const T* __restrict__ H, const T* __restrict__ g, T* sc,
+                        const T* __restrict__ knot_t, const T* __restrict__ knot_q, T* H1,
+                        T* __restrict__ step, T* __restrict__ cand_t, T* __restrict__ cand_q,
+                        T* scratch, int D, int K, int shared_h1) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int LD = factor_ld(D);
+  T* base = reinterpret_cast<T*>(smem_raw);
+  T* const As = base;                                     // [D, LD] the factor, when shared
+  T* const A = scratch != nullptr ? scratch : As;
+  if (scratch == nullptr) base += D * LD;
+  T* const Hs = shared_h1 ? base : nullptr;               // [D, LD] H1's copy
+  if (shared_h1) base += D * LD;
+  const T* const Hr = shared_h1 ? Hs : H1;                // H1 as the residual reads it
+  const int hld = shared_h1 ? LD : D;
+  T* const b = base;                                      // [D] g, then the residual
+  T* const y = b + D;                                     // [D] the forward sweeps' results
+  T* const x = y + D;                                     // [D] the solution, then the step
+  T* const dg = x + D;                                    // [D] the pivots' square roots
+  __shared__ int s_invalid;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & (kWarp - 1), warp = tid / kWarp, nw = nt / kWarp;
+  // the retraction's knots, on their way to L1 while the chains run
+  for (int k = tid; k < K; k += nt) {
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(knot_t + 3 * k));
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(knot_q + 4 * k));
+  }
+
+  // damp: H + diag(diag(H)) / radius (the off-diagonal adds a zero); rows
+  // over the warps, four rows' loads issued before their first store, lanes
+  // along the row
+  const T radius = sc[S_RADIUS];
+  for (int j0 = 0; j0 < D; j0 += 2 * kWarp) {
+    for (int i0 = warp; i0 < D; i0 += 4 * nw) {
+      T v[4][2];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int i = i0 + r * nw, j = j0 + lane + c * kWarp;
+          v[r][c] = (i < D && j < D) ? H[i * D + j] : T(0);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int i = i0 + r * nw, j = j0 + lane + c * kWarp;
+          if (i < D && j < D) {
+            const T h = v[r][c];
+            const T val = h + (i == j ? h / radius : T(0));
+            H1[i * D + j] = val;
+            A[i * LD + j] = val;
+            if (shared_h1) Hs[i * LD + j] = val;
+          }
+        }
+      }
+    }
+  }
+  const T g_own = tid < D ? g[tid] : T(0);   // the rows a thread owns below, when D <= 256
+  for (int i = tid; i < D; i += nt) b[i] = g[i];
+  __syncthreads();
+
+  const bool failed = scratch == nullptr ? factor_and_back(As, LD, D, b, y, x, dg)
+                                         : factor_and_back(scratch, LD, D, b, y, x, dg);
+  __syncthreads();
+  if (!failed) {
+    // one step of refinement: r = g - H1 x in double the working precision
+    // (Dekker's exact products, the sums' errors kept; a row a thread in
+    // column order), solved with the same factor, x += d
+    for (int i = tid; i < D; i += nt) {
+      T s = i == tid ? g_own : g[i], c = T(0);
+      const T* hrow = Hr + i * hld;
+      for (int j = 0; j < D; ++j) {
+        T pe;
+        const T p = two_product(hrow[j], x[j], pe);
+        const T t = s - p;
+        const T bb = t - s;
+        c = c + (((s - (t - bb)) + (-p - bb)) - pe);
+        s = t;
+      }
+      b[i] = s + c;
+    }
+    __syncthreads();
+    if (scratch == nullptr) {
+      refine_sweeps(As, LD, D, b, y, x, dg);
+    } else {
+      refine_sweeps(scratch, LD, D, b, y, x, dg);
+    }
+    __syncthreads();
+  }
+
+  // the step (NaN where the factorisation failed), then the model cost
+  // change: -(g . step + 0.5 step . (H1 step)), H1 step a row a thread in
+  // column order, both dot products by warp 0 in block_sum's order
+  for (int i = tid; i < D; i += nt) {
+    const T s = failed ? T(NAN) : -x[i];
+    x[i] = s;
+    step[i] = s;
+  }
+  __syncthreads();
+  for (int i = tid; i < D; i += nt) {
+    const T* hrow = Hr + i * hld;
+    T acc = T(0);
+    for (int j = 0; j < D; ++j) acc = acc + hrow[j] * x[j];
+    b[i] = (i == tid ? g_own : g[i]) * x[i];
+    y[i] = x[i] * acc;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const T gs = tree_sum(b, D, lane);
+    const T shs = tree_sum(y, D, lane);
+    bool nonfinite = false;
+    for (int i = lane; i < D; i += kWarp) nonfinite |= !isfinite(x[i]);
+    nonfinite = __any_sync(kFull, nonfinite);
+    if (lane == 0) {
+      const T mcc = -(gs + T(0.5) * shs);
+      const bool invalid = mcc < T(0) || nonfinite;
+      s_invalid = invalid ? 1 : 0;
+      sc[S_MCC] = mcc;
+      sc[S_INVALID] = invalid ? T(1) : T(0);
+    }
+  }
+  __syncthreads();
+  retract(knot_t, knot_q, x, s_invalid != 0, cand_t, cand_q, K, tid, nt);
+}
+
+// the sum of one value a thread, every lane of the warp getting it (the
+// butterfly's two operands commute, so each lane's bits are the same)
+template <typename T>
+__device__ __forceinline__ T warp_allsum(T v) {
+#pragma unroll
+  for (int s = kWarp / 2; s > 0; s >>= 1) v = v + __shfl_xor_sync(kFull, v, s);
+  return v;
+}
+
+// the sum over the block of one value a thread (two with block_allsum2),
+// read by every thread: each warp's by shuffles, then the warps' partials
+// in warp order; one barrier, each call with slots of its own, so no later
+// sum overwrites them while they are read
+template <typename T>
+__device__ T block_allsum(T v, T* slots) {
+  v = warp_allsum(v);
+  if ((threadIdx.x & (kWarp - 1)) == 0) slots[threadIdx.x / kWarp] = v;
+  __syncthreads();
+  v = T(0);
+  for (int w = 0; w < int(blockDim.x) / kWarp; ++w) v = v + slots[w];
+  return v;
+}
+
+template <typename T>
+__device__ void block_allsum2(T& a, T& b, T* sa, T* sb) {
+  a = warp_allsum(a);
+  b = warp_allsum(b);
+  if ((threadIdx.x & (kWarp - 1)) == 0) {
+    sa[threadIdx.x / kWarp] = a;
+    sb[threadIdx.x / kWarp] = b;
+  }
+  __syncthreads();
+  a = b = T(0);
+  for (int w = 0; w < int(blockDim.x) / kWarp; ++w) {
+    a = a + sa[w];
+    b = b + sb[w];
+  }
+}
+
+// K7, the keypoint design: a thread a keypoint (up to 512; more loop), each
+// keypoint's scaled cost computed once in frame order and kept in
+// registers; three sums over the block, each one shuffle tree and one
+// barrier: the residual count, then the live count and the live sum
+// together, then the squared deviations (PR 12's design: four 256-thread
+// trees of nine barriers each and three passes over the patch costs)
+template <typename T>
+__global__ void __launch_bounds__(kDecideThreads)
+    lm_decide_keypoint_kernel(const T* __restrict__ cost, const T* __restrict__ patch,
+                              const T* __restrict__ kp_w, const T* __restrict__ kp_mask, T* sc,
+                              const T* __restrict__ prior_cost, T* __restrict__ mask_out,
+                              T* __restrict__ w_out, int F, int N, int P, double chi_k,
+                              double min_step_quality) {
+  constexpr int kSlots = kDecideThreads / kWarp;
+  __shared__ T s_count[kSlots], s_live[kSlots], s_sum[kSlots], s_dev[kSlots];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const T c0 = sc[S_COST], cur = sc[S_CUR], ref = sc[S_REF], acc_ref = sc[S_ACC_REF],
+          mcc = sc[S_MCC];
+
+  // assemble's scale: 1 / max(sum(w) F P, 1). The weights are 0 or 1, so
+  // their sum is an integer, exact in any order: the plain version's bits
+  T count = T(0);
+  for (int n = tid; n < N; n += nt) count = count + kp_w[n];
+  T n_res = (block_allsum(count, s_count) * T(F)) * T(P);
+  n_res = n_res < T(1) ? T(1) : n_res;   // NaN stays NaN, as torch.clamp leaves it
+  const T inv_n = T(1) / n_res;
+
+  // a keypoint's cost: its frames' in frame order
+  auto cost_of = [&](int n) {
+    T c = T(0);
+    for (int f = 0; f < F; ++f) c = c + patch[f * N + n] * inv_n;
+    return c;
+  };
+  // detect_outliers: mu and sigma over the live keypoints (cost >= 1e-8,
+  // not padded); the live count is exact in any order as well
+  T kept[kDecideKeep], km[kDecideKeep];
+  T live_n = T(0), live_c = T(0);
+#pragma unroll
+  for (int m = 0; m < kDecideKeep; ++m) {
+    const int n = tid + m * nt;
+    kept[m] = km[m] = T(0);
+    if (n < N) {
+      kept[m] = cost_of(n);
+      km[m] = kp_mask[n];
+      const T live = (kept[m] >= T(1e-8) && km[m] > T(0)) ? T(1) : T(0);
+      live_n = live_n + live;
+      live_c = live_c + kept[m] * live;
+    }
+  }
+  for (int n = tid + kDecideKeep * nt; n < N; n += nt) {
+    const T c = cost_of(n);
+    const T live = (c >= T(1e-8) && kp_mask[n] > T(0)) ? T(1) : T(0);
+    live_n = live_n + live;
+    live_c = live_c + c * live;
+  }
+  block_allsum2(live_n, live_c, s_live, s_sum);
+  const T n_live = live_n < T(1) ? T(1) : live_n;
+  const T mu = live_c / n_live;
+  T dev = T(0);
+#pragma unroll
+  for (int m = 0; m < kDecideKeep; ++m) {
+    if (tid + m * nt < N) {
+      const T live = (kept[m] >= T(1e-8) && km[m] > T(0)) ? T(1) : T(0);
+      const T d = kept[m] - mu;
+      dev = dev + live * (d * d);
+    }
+  }
+  for (int n = tid + kDecideKeep * nt; n < N; n += nt) {
+    const T c = cost_of(n);
+    const T live = (c >= T(1e-8) && kp_mask[n] > T(0)) ? T(1) : T(0);
+    const T d = c - mu;
+    dev = dev + live * (d * d);
+  }
+  const T sigma = sqrt(block_allsum(dev, s_dev) / n_live);
+  const T thresh = T(chi_k) * sigma;
+#pragma unroll
+  for (int m = 0; m < kDecideKeep; ++m) {
+    const int n = tid + m * nt;
+    if (n < N) {
+      const bool outlier = fabs(kept[m] - mu) > thresh && km[m] > T(0);
+      const T mk = outlier ? T(0) : T(1);
+      mask_out[n] = mk;
+      w_out[n] = km[m] * mk;
+    }
+  }
+  for (int n = tid + kDecideKeep * nt; n < N; n += nt) {
+    const T c = cost_of(n);
+    const bool outlier = fabs(c - mu) > thresh && kp_mask[n] > T(0);
+    const T mk = outlier ? T(0) : T(1);
+    mask_out[n] = mk;
+    w_out[n] = kp_mask[n] * mk;
+  }
+  if (tid == 0) {
+    T cand = cost[0] * inv_n;
+    if (prior_cost != nullptr) cand = cand + prior_cost[0];
+    // _step_quality; torch.maximum passes a NaN through
+    const T rel = (cur - cand) / mcc;
+    const T hist = (ref - cand) / (acc_ref + mcc);
+    const T quality = rel != rel ? rel : (hist != hist ? hist : (rel > hist ? rel : hist));
+    sc[S_CAND_COST] = cand;
+    sc[S_QUALITY] = quality;
+    sc[S_SUCCESS] = (quality > T(min_step_quality) && cand < c0) ? T(1) : T(0);
+    sc[S_ACD_NEW] = c0 - cand;
     sc[S_MU] = mu;
     sc[S_SIGMA] = sigma;
   }
@@ -419,23 +942,53 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 int launch_step(const T* H, const T* g, T* sc, const T* t, const T* q, T* H1, T* step, T* ct,
-                T* cq, T* scratch, int D, int K, int smem, cudaStream_t stream) {
+                T* cq, T* scratch, int D, int K, int shared_h1, int smem, cudaStream_t stream) {
+  // the wrapper's layout (ops/cuda_lm.py's step_layout) against the kernel's
+  if (size_t(smem) != step_bytes<T>(D, scratch == nullptr, shared_h1 != 0))
+    return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lm_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        lm_step_shfl_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  lm_step_kernel<T><<<1, kThreads, smem, stream>>>(H, g, sc, t, q, H1, step, ct, cq, scratch,
-                                                   D, K);
+  lm_step_shfl_kernel<T><<<1, kThreads, smem, stream>>>(H, g, sc, t, q, H1, step, ct, cq,
+                                                        scratch, D, K, shared_h1);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_step_block(const T* H, const T* g, T* sc, const T* t, const T* q, T* H1, T* step,
+                      T* ct, T* cq, T* scratch, int D, int K, int smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lm_step_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  lm_step_block_kernel<T><<<1, kThreads, smem, stream>>>(H, g, sc, t, q, H1, step, ct, cq,
+                                                         scratch, D, K);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch_decide(const T* cost, const T* patch, const T* w, const T* kp_mask, T* sc,
                   const T* prior_cost, T* mask, T* w_out, int F, int N, int P, double chi_k,
-                  double min_q, cudaStream_t stream) {
-  lm_decide_kernel<T><<<1, kThreads, 0, stream>>>(cost, patch, w, kp_mask, sc, prior_cost,
-                                                  mask, w_out, F, N, P, chi_k, min_q);
+                  double min_q, int threads, cudaStream_t stream) {
+  // ops/cuda_lm.py's decide_threads
+  if (threads < kWarp || threads > kDecideThreads || threads % kWarp != 0)
+    return cudaErrorInvalidValue;
+  lm_decide_keypoint_kernel<T><<<1, threads, 0, stream>>>(cost, patch, w, kp_mask, sc,
+                                                          prior_cost, mask, w_out, F, N, P,
+                                                          chi_k, min_q);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_decide_block(const T* cost, const T* patch, const T* w, const T* kp_mask, T* sc,
+                        const T* prior_cost, T* mask, T* w_out, int F, int N, int P,
+                        double chi_k, double min_q, cudaStream_t stream) {
+  lm_decide_block_kernel<T><<<1, kThreads, 0, stream>>>(cost, patch, w, kp_mask, sc,
+                                                        prior_cost, mask, w_out, F, N, P, chi_k,
+                                                        min_q);
   return cudaGetLastError();
 }
 
@@ -461,15 +1014,28 @@ int lm_scalars_size() { return S_SIZE; }
 
 #define LM_ENTRIES(T, SUFFIX)                                                                   \
   int lm_step_##SUFFIX(const T* H, const T* g, T* sc, const T* t, const T* q, T* H1, T* step,  \
-                       T* ct, T* cq, T* scratch, int D, int K, int smem,                        \
+                       T* ct, T* cq, T* scratch, int D, int K, int shared_h1, int smem,         \
                        cudaStream_t stream) {                                                   \
-    return launch_step<T>(H, g, sc, t, q, H1, step, ct, cq, scratch, D, K, smem, stream);      \
+    return launch_step<T>(H, g, sc, t, q, H1, step, ct, cq, scratch, D, K, shared_h1, smem,    \
+                          stream);                                                              \
+  }                                                                                             \
+  int lm_step_block_##SUFFIX(const T* H, const T* g, T* sc, const T* t, const T* q, T* H1,     \
+                             T* step, T* ct, T* cq, T* scratch, int D, int K, int smem,         \
+                             cudaStream_t stream) {                                             \
+    return launch_step_block<T>(H, g, sc, t, q, H1, step, ct, cq, scratch, D, K, smem,         \
+                                stream);                                                        \
   }                                                                                             \
   int lm_decide_##SUFFIX(const T* cost, const T* patch, const T* w, const T* kp_mask, T* sc,   \
                          const T* prior_cost, T* mask, T* w_out, int F, int N, int P,          \
-                         double chi_k, double min_q, cudaStream_t stream) {                    \
+                         double chi_k, double min_q, int threads, cudaStream_t stream) {       \
     return launch_decide<T>(cost, patch, w, kp_mask, sc, prior_cost, mask, w_out, F, N, P,     \
-                            chi_k, min_q, stream);                                              \
+                            chi_k, min_q, threads, stream);                                     \
+  }                                                                                             \
+  int lm_decide_block_##SUFFIX(const T* cost, const T* patch, const T* w, const T* kp_mask,    \
+                               T* sc, const T* prior_cost, T* mask, T* w_out, int F, int N,    \
+                               int P, double chi_k, double min_q, cudaStream_t stream) {       \
+    return launch_decide_block<T>(cost, patch, w, kp_mask, sc, prior_cost, mask, w_out, F, N,  \
+                                  P, chi_k, min_q, stream);                                     \
   }                                                                                             \
   int lm_commit_##SUFFIX(T* t, T* q, T* H, T* g, T* sc, T* mask, T* w, T* pc, const T* H1,     \
                          const T* ct, const T* cq, const T* cost, const T* g_raw,              \

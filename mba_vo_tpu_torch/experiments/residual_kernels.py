@@ -63,9 +63,13 @@ plain stage (K8's state bit for bit, K7's mu and sigma within
 :data:`LM_TOLERANCE`) and K6's step and model change, bit for bit, to
 :func:`lm_step_kernel_order`, K6's order of operations written out in
 torch (the plain stage solves with the library, whose order no kernel
-repeats), and :func:`time_lm_rows` times kernel and plain stage, with
-``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve`` beside K6 as its
-library yardstick.
+repeats); K6's and K7's earlier designs (PR 12's block designs,
+:data:`LM_EARLIER`) are held the same way, and K6's step and the
+library's are each held to a float64 solve of the same system
+(:func:`step_forward_errors`). :func:`time_lm_rows` times kernel, earlier
+design and plain stage, with ``torch.linalg.cholesky_ex`` +
+``torch.cholesky_solve`` beside K6 as its library yardstick and a floor
+row (K6 at D = 6, K7 at N = 1) for each design.
 
 ``chip_smoke.py`` phases 3 (record and hold) and 7 (time) drive it on the
 bench scenario; ``python3 -m mba_vo_tpu_torch.experiments.residual_kernels``
@@ -83,7 +87,7 @@ import math
 import statistics
 import sys
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -866,12 +870,13 @@ def cholesky_columns(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def block_sum(v: torch.Tensor) -> torch.Tensor:
-    """The sum of a vector in the order of K6's block reduction over its
-    ``cuda_lm.LM_THREADS`` threads: each thread's strided entries in order,
-    then a tree over the threads."""
+    """The sum of a vector in the order of K6's model change: a tree over
+    ``cuda_lm.LM_TREE`` slots, each slot's strided entries summed in order
+    first (the block design's threads; the shuffle design emulates the same
+    tree in one warp)."""
     from ..ops import cuda_lm
 
-    n = cuda_lm.LM_THREADS
+    n = cuda_lm.LM_TREE
     rows = v.new_zeros(-(-v.shape[0] // n) * n)
     rows[:v.shape[0]] = v
     acc = torch.zeros_like(rows[:n])
@@ -970,19 +975,113 @@ def lm_plain_fn(kernel: str):
     return getattr(lm, f"{kernel}_plain")
 
 
+# K6's and K7's earlier designs (PR 12's block designs), by the name of their
+# wrapper in ops/cuda_lm.py; K6's gives the launched design's bits
+LM_EARLIER = {"lm_step": "lm_step_block_cuda", "lm_decide": "lm_decide_block_cuda"}
+
+
+def lm_earlier_fn(kernel: str):
+    """The earlier design of an LM stage (None where it has none), taking
+    the dispatcher's arguments."""
+    from ..ops import cuda_lm
+
+    if kernel not in LM_EARLIER:
+        return None
+    wrapper = getattr(cuda_lm, LM_EARLIER[kernel])
+    if kernel == "lm_step":
+        return lambda H, g, scalars, t, q, solver="cholesky": wrapper(H, g, scalars, t, q)
+    return lambda cost, patch, kp_w, kp_mask, scalars, P, opts, prior_cost=None: wrapper(
+        cost, patch, kp_w, kp_mask, scalars, P, opts.max_chi_square_error,
+        opts.min_step_quality, prior_cost)
+
+
+UNIT_ROUNDOFF = {torch.float32: 2.0 ** -24, torch.float64: 2.0 ** -53}
+
+
+def step_forward_errors(H1: torch.Tensor, g: torch.Tensor, steps: Dict[str, torch.Tensor],
+                        refined: Tuple[str, ...] = ()):
+    """Each step of ``steps`` against x64, the float64 solve of the same H1
+    and g (cast up; LAPACK's LU on the CPU): ||step + x64|| / ||x64|| (the
+    step is -x), with kappa_2(H1) and each step's bound, u the working
+    type's unit roundoff: 3 D kappa_2(H1) u, the forward error that a
+    backward-stable Cholesky solve allows; for a step named in ``refined``
+    (refined once, its residual summed in double the working precision)
+    kappa_2(H1) u, with no factor D. The second is an empirical bound, not a
+    theorem: one such refinement takes the error of a solve whose D
+    kappa_2 u is small down to ~u, and every recorded call of the tracker
+    leaves K6's step far under it. Returns (errors by name, kappa, bounds
+    by name); :func:`forward_verdicts` checks them."""
+    H64, g64 = H1.detach().double().cpu(), g.detach().double().cpu()
+    x64 = torch.linalg.solve(H64, g64)
+    kappa = float(torch.linalg.cond(H64))
+    u = UNIT_ROUNDOFF[H1.dtype]
+    norm = float(torch.linalg.norm(x64))
+    errs = {name: float(torch.linalg.norm(s.detach().double().cpu() + x64)) / norm
+            for name, s in steps.items()}
+    bounds = {name: kappa * u if name in refined else 3 * H1.shape[0] * kappa * u
+              for name in steps}
+    return errs, kappa, bounds
+
+
+def forward_verdicts(label: str, errs: Dict[str, float], bounds: Dict[str, float]):
+    """Each step's verdict under its bound (:func:`step_forward_errors`):
+    "held" where its error is within a bound under 1; "unchecked" where the
+    bound is 1 or more, which any step meets, a zero step (error 1)
+    included. Raises where a step is over its bound."""
+    verdicts = {}
+    for name, e in errs.items():
+        if bounds[name] >= 1.0:
+            verdicts[name] = "unchecked"
+        elif e <= bounds[name]:
+            verdicts[name] = "held"
+        else:
+            raise AssertionError(f"{label}: the {name} step's forward error {e:.3e} is over "
+                                 f"its bound {bounds[name]:.3e}")
+    return verdicts
+
+
+def _hold_decide(label: str, out, ref, bound: float) -> dict:
+    """K7's results ``out`` against the plain stage's ``ref``: the flags,
+    decrease, mask and weights equal, mu and sigma within ``bound``."""
+    from ..solver import lm
+
+    (sc, mask, w), (psc, pmask, pw) = out, ref
+    exact = (lm.S_CAND_COST, lm.S_QUALITY, lm.S_SUCCESS, lm.S_ACD_NEW)
+    if not (same_bits(sc[list(exact)], psc[list(exact)]) and torch.equal(mask, pmask)
+            and torch.equal(w, pw)):
+        raise AssertionError(f"{label}: flags, decrease or mask differ: "
+                             f"{sc[list(exact)].tolist()} {psc[list(exact)].tolist()}, "
+                             f"{int((mask != pmask).sum())} mask entries")
+    errs = {"abs": float((sc[[lm.S_MU, lm.S_SIGMA]] - psc[[lm.S_MU, lm.S_SIGMA]])
+                         .abs().max())}
+    for name, i in (("mu", lm.S_MU), ("sigma", lm.S_SIGMA)):
+        got, want = float(sc[i]), float(psc[i])
+        errs[name] = abs(got - want) / (abs(want) if want else 1.0)
+        if not errs[name] <= bound:
+            raise AssertionError(f"{label}: {name} {errs[name]:.3e} (bound {bound})")
+    return dict(errs, success=float(sc[lm.S_SUCCESS]))
+
+
 def hold_lm(call: LMCall) -> dict:
-    """The recorded call through the kernel and the plain version on fresh
-    copies; raises where they disagree: K6 its damped H by a bit from the
-    plain stage's, its step, model cost change and invalid flag by a bit
-    from :func:`lm_step_kernel_order` on that H1, its candidate knots by a
-    bit from ``spline_retract_flat`` of its own step (the knots when
-    invalid); K7 its candidate cost, quality, success, cost decrease, mask
-    or keypoint weights by a bit, mu or sigma by more than
-    :data:`LM_TOLERANCE`; K8 any part of the next state by a bit. Returns
-    the differences measured (``step``: K6's step against the plain stage's
-    library solve, relative to its norm, a figure and no check; ``mu``,
-    ``sigma``: relative; ``abs``: the largest absolute; ``invalid``,
-    ``success``: the flags)."""
+    """The recorded call through the kernel, its earlier design
+    (:data:`LM_EARLIER`) and the plain version on fresh copies; raises
+    where they disagree: K6 its damped H by a bit from the plain stage's,
+    its step, model change and invalid flag by a bit from
+    :func:`lm_step_kernel_order` on that H1, its candidate knots by a bit
+    from ``spline_retract_flat`` of its own step (the knots when invalid),
+    its earlier design by a bit in any output, and its refined step past
+    kappa_2(H1) u or the plain stage's library step past 3 D kappa_2(H1) u
+    of a float64 solve, where that bound is under 1
+    (:func:`step_forward_errors`, :func:`forward_verdicts`); K7 (both designs) its candidate cost,
+    quality, success, cost decrease, mask or keypoint weights by a bit, mu
+    or sigma by more than :data:`LM_TOLERANCE`; K8 any part of the next
+    state by a bit. Returns the differences measured (``step``: K6's step
+    against the plain stage's library solve, relative to its norm, a
+    figure and no check; ``fwd_kernel``, ``fwd_library``, ``kappa``,
+    ``fwd_bound_*``: the forward errors and their bounds, NaN on an
+    invalid step; ``fwd_checked_*``: whether the bound was under 1; ``mu``,
+    ``sigma``: relative, the larger of the two designs'; ``abs``: the
+    largest absolute; ``invalid``, ``success``: the flags)."""
     from ..core.spline import SplineKnots, spline_retract_flat
     from ..solver import lm
 
@@ -990,9 +1089,14 @@ def hold_lm(call: LMCall) -> dict:
     label = f"{call.kernel} ({str(call.dtype).split('.')[-1]}, D={call.D})"
     out = lm_kernel_fn(call.kernel)(*call.fresh())
     ref = lm_plain_fn(call.kernel)(*call.fresh())
+    earlier = lm_earlier_fn(call.kernel)
+    before = earlier(*call.fresh()) if earlier is not None else None
     if call.kernel == "lm_step":
         H1, step, ct, cq, sc = out
         pH1, pstep, _, _, psc = ref
+        if not same_bits(out, before):
+            raise AssertionError(f"{label}: the shuffle design and the block design differ: "
+                                 f"{_unequal(out, before)}")
         if not same_bits(H1, pH1):
             raise AssertionError(f"{label}: damped H differs")
         ostep, omcc = lm_step_kernel_order(H1, call.args[1])
@@ -1003,6 +1107,9 @@ def hold_lm(call: LMCall) -> dict:
             raise AssertionError(f"{label}: step, model change or invalid flag differ from "
                                  f"K6's order transcribed: {_unequal(step, ostep)}")
         err = err_abs = 0.0
+        fwd = dict(fwd_kernel=math.nan, fwd_library=math.nan, kappa=math.nan,
+                   fwd_bound_kernel=math.nan, fwd_bound_library=math.nan,
+                   fwd_checked_kernel=False, fwd_checked_library=False)
         if invalid:
             t, q = call.args[3], call.args[4]
             if not (torch.equal(ct, t) and torch.equal(cq, q)):
@@ -1016,24 +1123,22 @@ def hold_lm(call: LMCall) -> dict:
             if bool(torch.isfinite(pstep).all()):
                 err_abs = float((step - pstep).abs().max())
                 err = err_abs / float(torch.linalg.norm(pstep))
+                errs, kappa, fb = step_forward_errors(H1, call.args[1],
+                                                      {"kernel": step, "library": pstep},
+                                                      refined=("kernel",))
+                verdicts = forward_verdicts(label, errs, fb)
+                fwd = dict(fwd_kernel=errs["kernel"], fwd_library=errs["library"],
+                           kappa=kappa, fwd_bound_kernel=fb["kernel"],
+                           fwd_bound_library=fb["library"],
+                           fwd_checked_kernel=verdicts["kernel"] == "held",
+                           fwd_checked_library=verdicts["library"] == "held")
         return dict(step=err, abs=err_abs, invalid=invalid,
-                    plain_invalid=float(psc[lm.S_INVALID]))
+                    plain_invalid=float(psc[lm.S_INVALID]), **fwd)
     if call.kernel == "lm_decide":
-        (sc, mask, w), (psc, pmask, pw) = out, ref
-        exact = (lm.S_CAND_COST, lm.S_QUALITY, lm.S_SUCCESS, lm.S_ACD_NEW)
-        if not (same_bits(sc[list(exact)], psc[list(exact)]) and torch.equal(mask, pmask)
-                and torch.equal(w, pw)):
-            raise AssertionError(f"{label}: flags, decrease or mask differ: "
-                                 f"{sc[list(exact)].tolist()} {psc[list(exact)].tolist()}, "
-                                 f"{int((mask != pmask).sum())} mask entries")
-        errs = {"abs": float((sc[[lm.S_MU, lm.S_SIGMA]] - psc[[lm.S_MU, lm.S_SIGMA]])
-                             .abs().max())}
-        for name, i in (("mu", lm.S_MU), ("sigma", lm.S_SIGMA)):
-            got, want = float(sc[i]), float(psc[i])
-            errs[name] = abs(got - want) / (abs(want) if want else 1.0)
-            if not errs[name] <= bound:
-                raise AssertionError(f"{label}: {name} {errs[name]:.3e} (bound {bound})")
-        return dict(errs, success=float(sc[lm.S_SUCCESS]))
+        got = _hold_decide(label, out, ref, bound)
+        old = _hold_decide(f"{label}, the block design", before, ref, bound)
+        return dict(got, abs=max(got["abs"], old["abs"]), mu=max(got["mu"], old["mu"]),
+                    sigma=max(got["sigma"], old["sigma"]))
     # lm_commit writes its state in place and returns it
     for name, a, b in zip(lm.LMState._fields, out, ref):
         if not same_bits(a, b):
@@ -1099,15 +1204,34 @@ def _cholesky_yardstick(call: LMCall):
     return solve
 
 
+def floor_call(call: LMCall) -> LMCall:
+    """The floor of an LM stage's recorded ``call``: K6 at one knot (D = 6,
+    the leading block of the call's H, itself positive definite where H
+    is), K7 at one keypoint of one frame; the least work one launch of the
+    design does."""
+    a = call.args
+    if call.kernel == "lm_step":
+        H, g, sc, t, q = a[:5]
+        return LMCall(call.kernel, (H[:6, :6].contiguous(), g[:6].contiguous(), sc,
+                                    t[:1].contiguous(), q[:1].contiguous()) + tuple(a[5:]))
+    cost, patch, kp_w, kp_mask = a[:4]
+    return LMCall(call.kernel, (cost, patch[:1, :1].contiguous(), kp_w[:1].contiguous(),
+                                kp_mask[:1].contiguous()) + tuple(a[4:]))
+
+
 def time_lm_rows(label: str, calls: List[LMCall], reps: int = 10, inner: int = 10,
                  out=print) -> List[dict]:
-    """An LM stage's kernel and plain version timed on its recorded ``calls``
-    as :func:`time_rows` times K2-K5 (a call, warm in a replayed graph of the
+    """An LM stage's kernel, earlier design (:data:`LM_EARLIER`, where it
+    has one) and plain version timed on its recorded ``calls`` as
+    :func:`time_rows` times K2-K5 (a call, warm in a replayed graph of the
     calls in order, cold after an L2 flush on the first), on fresh copies
     of each call's arguments made once outside the timing (K8's repeated
     calls advance their copy of the state; the work does not depend on it);
-    for K6 the library's Cholesky solve beside it (:func:`_cholesky_yardstick`).
-    Returns the kernel's dict first, the plain version's last."""
+    for K6 the library's Cholesky solve beside it
+    (:func:`_cholesky_yardstick`); for K6 and K7 each design's floor
+    (:func:`floor_call`: ``floor_device_ms`` and ``floor_device_cold_ms``
+    in its row). Returns the kernel's dict first, the earlier design's
+    second where there is one, the plain version's last."""
     if not torch.cuda.is_available():
         raise RuntimeError("timing the LM's kernels needs a CUDA device")
     kernel = calls[0].kernel
@@ -1116,17 +1240,26 @@ def time_lm_rows(label: str, calls: List[LMCall], reps: int = 10, inner: int = 1
     b_ms = statistics.fmean(b for b, _ in bounds)
     b_by = max(("bytes", "operations"), key=[by for _, by in bounds].count)
     w_inner = len(warm) * math.ceil(50 / len(warm))
+    designs = [("kernel", lm_kernel_fn(kernel)), ("earlier", lm_earlier_fn(kernel)),
+               ("plain", lm_plain_fn(kernel))]
+    floor = floor_call(calls[0]) if kernel in LM_EARLIER else None
     rows = []
-    for name, fn in (("kernel", lm_kernel_fn(kernel)), ("plain", lm_plain_fn(kernel))):
+    for name, fn in designs:
+        if fn is None:
+            continue
         args = [c.fresh() for c in warm]
         first = args[0]
-        rows.append(dict(inputs=label, kernel=kernel, name=name, calls=len(calls),
-                         D=calls[0].D, dtype=str(calls[0].dtype).split(".")[-1],
-                         ms=kv.time_ms(lambda: fn(*first), reps, inner),
-                         device_ms=kv.device_ms([lambda a=a: fn(*a) for a in args], reps,
-                                                w_inner),
-                         device_cold_ms=kv.device_flushed_ms(lambda: fn(*first), reps, 20),
-                         bound_ms=b_ms, bound_by=b_by))
+        row = dict(inputs=label, kernel=kernel, name=name, calls=len(calls), D=calls[0].D,
+                   dtype=str(calls[0].dtype).split(".")[-1],
+                   ms=kv.time_ms(lambda: fn(*first), reps, inner),
+                   device_ms=kv.device_ms([lambda a=a: fn(*a) for a in args], reps, w_inner),
+                   device_cold_ms=kv.device_flushed_ms(lambda: fn(*first), reps, 20),
+                   bound_ms=b_ms, bound_by=b_by)
+        if floor is not None and name != "plain":
+            fa = floor.fresh()
+            row.update(floor_device_ms=kv.device_ms([lambda: fn(*fa)], reps, 50),
+                       floor_device_cold_ms=kv.device_flushed_ms(lambda: fn(*fa), reps, 20))
+        rows.append(row)
     k = rows[0]
     k.update(library_ms=None, library_device_ms=None, library_device_cold_ms=None)
     if kernel == "lm_step":
@@ -1136,8 +1269,11 @@ def time_lm_rows(label: str, calls: List[LMCall], reps: int = 10, inner: int = 1
                  library_device_cold_ms=kv.device_flushed_ms(lib[0], reps, 20))
 
     def us(r):
+        fl = ("" if "floor_device_ms" not in r else
+              f" (floor {1e3 * r['floor_device_ms']:.2f} / "
+              f"{1e3 * r['floor_device_cold_ms']:.2f})")
         return (f"{1e3 * r['ms']:.2f} us a call / {1e3 * r['device_ms']:.2f} warm / "
-                f"{1e3 * r['device_cold_ms']:.2f} cold")
+                f"{1e3 * r['device_cold_ms']:.2f} cold{fl}")
 
     lib_txt = ("" if k["library_ms"] is None else
                f"; cholesky_ex + cholesky_solve (two calls, the solve alone) "

@@ -16,6 +16,14 @@ K1 or K4 and K3:
   * K8 :func:`lm_commit_cuda`: the next state (accepted, rejected or
     invalid, chosen by selects) and the loop's continue flag, in place.
 
+K6 and K7 have two designs each. The LM launches the shuffle design of K6
+(:func:`lm_step_cuda`: no round trip through one thread, the sweeps by
+shuffles in one warp up to D = 64, :func:`step_layout`) and
+the keypoint design of K7 (:func:`lm_decide_cuda`: a thread a keypoint,
+:func:`decide_threads`); PR 12's block designs, :func:`lm_step_block_cuda`
+and :func:`lm_decide_block_cuda`, are launched by the harness only, to be
+compared and timed beside them. Both K6 designs give the same bits.
+
 Their plain versions are ``solver/lm.py``'s ``lm_step_plain``,
 ``lm_decide_plain`` and ``lm_commit_plain``, which CPU tensors take;
 ``solver/lm.py``'s ``lm_step``, ``lm_decide`` and ``lm_commit`` choose by
@@ -23,8 +31,10 @@ the tensors' device. The wrappers take CUDA tensors only and raise on
 anything else; they never fall back to the plain versions. The library is
 built and loaded by ``ops/cuda_build.py`` at first use; nothing here runs
 when the module is imported. ``LAUNCHES_LM_STEP``, ``LAUNCHES_LM_DECIDE``
-and ``LAUNCHES_LM_COMMIT`` count launches, one a call; a call recorded
-into a CUDA graph is not a launch and is not counted.
+and ``LAUNCHES_LM_COMMIT`` count launches, one a call
+(``LAUNCHES_LM_STEP_BLOCK`` and ``LAUNCHES_LM_DECIDE_BLOCK`` those of the
+block designs); a call recorded into a CUDA graph is not a launch and is
+not counted.
 
 The state's scalars are one vector of the working dtype, indexed by the
 ``S_*`` constants below (``lm_step.cu`` has the same enum): the cost, the
@@ -36,7 +46,7 @@ the next), then what K6, K7 and K8 write in an iteration.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -46,6 +56,8 @@ from .cuda_residual import _check, _launch
 LAUNCHES_LM_STEP = 0
 LAUNCHES_LM_DECIDE = 0
 LAUNCHES_LM_COMMIT = 0
+LAUNCHES_LM_STEP_BLOCK = 0
+LAUNCHES_LM_DECIDE_BLOCK = 0
 
 # the scalars vector: carried state
 S_COST, S_MIN, S_CUR, S_REF, S_CAND, S_ACC_REF, S_ACC_CAND, S_NONMONO = range(8)
@@ -59,22 +71,36 @@ S_CONTINUE = 19
 S_SIZE = 20
 
 # K6 keeps the factor in shared memory up to this many bytes (with the
-# right-hand side and a reduction slot a thread): the 227 KiB a block may
-# opt into, less room for the kernel's static shared memory; beyond it the
-# factor lives in a global scratch matrix the wrapper allocates, in the same
+# right-hand side and the other vectors): the 227 KiB a block may opt into,
+# less room for the kernel's static shared memory; beyond it the factor
+# lives in a global scratch matrix the wrapper allocates, in the same
 # kernel
 STEP_SMEM_LIMIT = 232448 - 1024
+# the threads of K6's designs, of K7's block design and of K8
 LM_THREADS = 256
+# the width of the tree both K6 designs sum the model change over
+# (lm_step.cu's kTree; residual_kernels.block_sum transcribes it)
+LM_TREE = 256
+# K6's shuffle design runs its sweeps in one warp, two rows a lane, up to
+# this many unknowns (lm_step.cu's kWarpStepMaxD), on all LM_THREADS
+# threads above
+WARP_STEP_MAX_D = 64
+# K7's keypoint design: a thread a keypoint up to this many
+DECIDE_MAX_THREADS = 512
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     # H, g, scalars, knot t, knot q, H1, step, cand t, cand q, scratch, D, K,
-    # shared bytes, stream
-    "lm_step": [_P] * 10 + [_I, _I, _I, _P],
+    # H1 copied to shared memory (0 or 1), shared bytes, stream
+    "lm_step": [_P] * 10 + [_I, _I, _I, _I, _P],
+    # the block design: the same without the H1 flag
+    "lm_step_block": [_P] * 10 + [_I, _I, _I, _P],
     # cost, patch, kp_w, kp_mask, scalars, prior cost, mask out, kp_w out,
-    # F, N, P, chi_k, min_step_quality, stream
-    "lm_decide": [_P] * 8 + [_I, _I, _I, _D, _D, _P],
+    # F, N, P, chi_k, min_step_quality, threads, stream
+    "lm_decide": [_P] * 8 + [_I, _I, _I, _D, _D, _I, _P],
+    # the block design: the same without the threads
+    "lm_decide_block": [_P] * 8 + [_I, _I, _I, _D, _D, _P],
     # t, q, H, g, scalars, mask, kp_w, patch_costs, H1, cand t, cand q, cost,
     # g_raw, H_raw, patch, new mask, new kp_w, prior cost, prior g, prior H,
     # D, K, F, N, P, max_nonmono, retry, more, min_radius, max_radius,
@@ -84,19 +110,56 @@ _SIGNATURES = {
 
 
 def step_rest_bytes(D: int, itemsize: int) -> int:
-    """K6's shared memory besides the factor: the right-hand side and the
-    refinement's residual [D] each and a reduction slot a thread."""
+    """K6's block design's shared memory besides the factor: the
+    right-hand side and the refinement's residual [D] each and a reduction
+    slot a thread."""
     return (2 * D + LM_THREADS) * itemsize
 
 
 def step_smem_bytes(D: int, itemsize: int) -> int:
-    """K6's shared memory at D unknowns: the factor [D, D], two vectors [D]
-    and a reduction slot a thread; 0 when that exceeds
+    """K6's block design's shared memory at D unknowns: the factor [D, D],
+    two vectors [D] and a reduction slot a thread; 0 when that exceeds
     :data:`STEP_SMEM_LIMIT` (the factor then lives in global memory, and
     shared memory holds the rest, :func:`step_rest_bytes`)."""
     rest = step_rest_bytes(D, itemsize)
     full = D * D * itemsize + rest
     return full if full <= STEP_SMEM_LIMIT else 0
+
+
+def step_ld(D: int) -> int:
+    """The row stride of K6's shuffle design's factor: D rounded up to an odd
+    count, so that a warp's lanes on consecutive rows of one column hit
+    distinct shared-memory banks (``lm_step.cu``'s ``factor_ld``)."""
+    return D | 1
+
+
+class StepLayout(NamedTuple):
+    smem: int         # dynamic shared bytes
+    shared: bool      # the factor [D, step_ld(D)] in shared memory, else a global scratch
+    shared_h1: bool   # a copy of H1 [D, step_ld(D)] in shared memory, else H1 read back
+
+
+def step_layout(D: int, itemsize: int) -> StepLayout:
+    """K6's shuffle design's shared memory at D unknowns (LM_THREADS
+    threads): four vectors [D] (the right-hand side, the forward sweeps'
+    results, the solution and the pivots' square roots), the factor [D,
+    :func:`step_ld`] where it fits :data:`STEP_SMEM_LIMIT` with them, and
+    a copy of H1 of the same shape where that fits too (the refinement's
+    residual and the model change read it; else they read H1 back from
+    global memory). The kernel refuses any other."""
+    vectors = 4 * D * itemsize
+    matrix = D * step_ld(D) * itemsize
+    if 2 * matrix + vectors <= STEP_SMEM_LIMIT:
+        return StepLayout(2 * matrix + vectors, True, True)
+    if matrix + vectors <= STEP_SMEM_LIMIT:
+        return StepLayout(matrix + vectors, True, False)
+    return StepLayout(vectors, False, False)
+
+
+def decide_threads(N: int) -> int:
+    """K7's keypoint design's threads at N keypoints: a keypoint a thread,
+    in whole warps, up to :data:`DECIDE_MAX_THREADS` (more keypoints loop)."""
+    return min(DECIDE_MAX_THREADS, 32 * max(1, -(-N // 32)))
 
 
 def _entry(name: str, dtype: torch.dtype):
@@ -126,49 +189,71 @@ def launch_counts() -> Dict[str, int]:
             "lm_commit": LAUNCHES_LM_COMMIT}
 
 
+def earlier_launch_counts() -> Dict[str, int]:
+    """The launches of PR 12's block designs of K6 and K7, which no path of
+    the tracker launches, keyed as :func:`launch_counts` keys the designs
+    it launches."""
+    return {"lm_step": LAUNCHES_LM_STEP_BLOCK, "lm_decide": LAUNCHES_LM_DECIDE_BLOCK}
+
+
 def zero_launch_counts() -> None:
     global LAUNCHES_LM_STEP, LAUNCHES_LM_DECIDE, LAUNCHES_LM_COMMIT
+    global LAUNCHES_LM_STEP_BLOCK, LAUNCHES_LM_DECIDE_BLOCK
     LAUNCHES_LM_STEP = LAUNCHES_LM_DECIDE = LAUNCHES_LM_COMMIT = 0
+    LAUNCHES_LM_STEP_BLOCK = LAUNCHES_LM_DECIDE_BLOCK = 0
 
 
-def lm_step_cuda(H: torch.Tensor, g: torch.Tensor, scalars: torch.Tensor, t: torch.Tensor,
-                 q: torch.Tensor):
-    """K6: ``solver.lm.lm_step_plain`` with the Cholesky solve, in one launch
-    of one CTA. H [D, D], g [D], scalars [S_SIZE], t [K, 3], q [K, 4] with
-    D = 6K, one float dtype, contiguous, on one device. Returns (H1, step,
-    candidate t, candidate q, scalars); MCC and INVALID are written into
-    ``scalars`` in place."""
-    global LAUNCHES_LM_STEP
-    who = "lm_step_cuda"
+def _step_check(who, H, g, scalars, t, q):
     K = t.shape[0] if t.dim() == 2 else None
     D = 6 * K if K is not None else None
     dtype = _check(who, dict(H=H, g=g, scalars=scalars, t=t, q=q),
                    dict(H=(D, D), g=(D,), scalars=(S_SIZE,), t=(K, 3), q=(K, 4)))
     if K < 1:
         raise ValueError(f"{who}: no knots")
+    return dtype, D, K
+
+
+def lm_step_cuda(H: torch.Tensor, g: torch.Tensor, scalars: torch.Tensor, t: torch.Tensor,
+                 q: torch.Tensor):
+    """K6: ``solver.lm.lm_step_plain`` with the Cholesky solve, in one launch
+    of one CTA (the shuffle design, :func:`step_layout`). H [D, D], g [D],
+    scalars [S_SIZE], t [K, 3], q [K, 4] with D = 6K, one float dtype,
+    contiguous, on one device. Returns (H1, step, candidate t, candidate q,
+    scalars); MCC and INVALID are written into ``scalars`` in place."""
+    global LAUNCHES_LM_STEP
+    dtype, D, K = _step_check("lm_step_cuda", H, g, scalars, t, q)
+    H1, step = torch.empty_like(H), torch.empty_like(g)
+    cand_t, cand_q = torch.empty_like(t), torch.empty_like(q)
+    layout = step_layout(D, H.element_size())
+    scratch = None if layout.shared else H.new_empty(D * step_ld(D))
+    LAUNCHES_LM_STEP += _launch(
+        _entry("lm_step", dtype), H.device, H.data_ptr(), g.data_ptr(), scalars.data_ptr(),
+        t.data_ptr(), q.data_ptr(), H1.data_ptr(), step.data_ptr(), cand_t.data_ptr(),
+        cand_q.data_ptr(), _ptr(scratch), D, K, int(layout.shared_h1), layout.smem)
+    return H1, step, cand_t, cand_q, scalars
+
+
+def lm_step_block_cuda(H: torch.Tensor, g: torch.Tensor, scalars: torch.Tensor,
+                       t: torch.Tensor, q: torch.Tensor):
+    """K6's block design (PR 12's): :func:`lm_step_cuda`'s arguments and
+    results, the same bits; 256 threads, thread 0 taking each pivot and
+    row. Launched by the harness only."""
+    global LAUNCHES_LM_STEP_BLOCK
+    dtype, D, K = _step_check("lm_step_block_cuda", H, g, scalars, t, q)
     H1, step = torch.empty_like(H), torch.empty_like(g)
     cand_t, cand_q = torch.empty_like(t), torch.empty_like(q)
     smem = step_smem_bytes(D, H.element_size())
     scratch = None if smem else torch.empty_like(H)
     if not smem:
         smem = step_rest_bytes(D, H.element_size())
-    LAUNCHES_LM_STEP += _launch(
-        _entry("lm_step", dtype), H.device, H.data_ptr(), g.data_ptr(), scalars.data_ptr(),
-        t.data_ptr(), q.data_ptr(), H1.data_ptr(), step.data_ptr(), cand_t.data_ptr(),
-        cand_q.data_ptr(), _ptr(scratch), D, K, smem)
+    LAUNCHES_LM_STEP_BLOCK += _launch(
+        _entry("lm_step_block", dtype), H.device, H.data_ptr(), g.data_ptr(),
+        scalars.data_ptr(), t.data_ptr(), q.data_ptr(), H1.data_ptr(), step.data_ptr(),
+        cand_t.data_ptr(), cand_q.data_ptr(), _ptr(scratch), D, K, smem)
     return H1, step, cand_t, cand_q, scalars
 
 
-def lm_decide_cuda(cost: torch.Tensor, patch: torch.Tensor, kp_w: torch.Tensor,
-                   kp_mask: torch.Tensor, scalars: torch.Tensor, P: int, chi_k: float,
-                   min_step_quality: float, prior_cost: Optional[torch.Tensor] = None):
-    """K7: ``solver.lm.lm_decide_plain`` in one launch of one CTA. cost
-    (0-dim, K3's raw sum at the candidate under ``kp_w``), patch [F, N],
-    kp_w and kp_mask [N], scalars [S_SIZE], the prior's cost (0-dim) or
-    None. Returns (scalars, new mask [N], new kp_w [N]); CAND_COST,
-    QUALITY, SUCCESS, ACD_NEW, MU and SIGMA are written into ``scalars``."""
-    global LAUNCHES_LM_DECIDE
-    who = "lm_decide_cuda"
+def _decide_check(who, cost, patch, kp_w, kp_mask, scalars, P, prior_cost):
     F, N = patch.shape if patch.dim() == 2 else (None, None)
     tensors = dict(cost=cost, patch=patch, kp_w=kp_w, kp_mask=kp_mask, scalars=scalars)
     shapes = dict(cost=(), patch=(F, N), kp_w=(N,), kp_mask=(N,), scalars=(S_SIZE,))
@@ -177,9 +262,41 @@ def lm_decide_cuda(cost: torch.Tensor, patch: torch.Tensor, kp_w: torch.Tensor,
     dtype = _check(who, tensors, shapes)
     if P < 1 or F < 1:
         raise ValueError(f"{who}: {F} frames, {P} pattern pixels")
+    return dtype, F, N
+
+
+def lm_decide_cuda(cost: torch.Tensor, patch: torch.Tensor, kp_w: torch.Tensor,
+                   kp_mask: torch.Tensor, scalars: torch.Tensor, P: int, chi_k: float,
+                   min_step_quality: float, prior_cost: Optional[torch.Tensor] = None):
+    """K7: ``solver.lm.lm_decide_plain`` in one launch of one CTA (the
+    keypoint design, :func:`decide_threads`). cost (0-dim, K3's raw sum at
+    the candidate under ``kp_w``), patch [F, N], kp_w and kp_mask [N],
+    scalars [S_SIZE], the prior's cost (0-dim) or None. Returns (scalars,
+    new mask [N], new kp_w [N]); CAND_COST, QUALITY, SUCCESS, ACD_NEW, MU
+    and SIGMA are written into ``scalars``."""
+    global LAUNCHES_LM_DECIDE
+    dtype, F, N = _decide_check("lm_decide_cuda", cost, patch, kp_w, kp_mask, scalars, P,
+                                prior_cost)
     mask, new_w = torch.empty_like(kp_w), torch.empty_like(kp_w)
     LAUNCHES_LM_DECIDE += _launch(
         _entry("lm_decide", dtype), cost.device, cost.data_ptr(), patch.data_ptr(),
+        kp_w.data_ptr(), kp_mask.data_ptr(), scalars.data_ptr(), _ptr(prior_cost),
+        mask.data_ptr(), new_w.data_ptr(), F, N, int(P), float(chi_k),
+        float(min_step_quality), decide_threads(N))
+    return scalars, mask, new_w
+
+
+def lm_decide_block_cuda(cost: torch.Tensor, patch: torch.Tensor, kp_w: torch.Tensor,
+                         kp_mask: torch.Tensor, scalars: torch.Tensor, P: int, chi_k: float,
+                         min_step_quality: float, prior_cost: Optional[torch.Tensor] = None):
+    """K7's block design (PR 12's): :func:`lm_decide_cuda`'s arguments and
+    results; 256 threads. Launched by the harness only."""
+    global LAUNCHES_LM_DECIDE_BLOCK
+    dtype, F, N = _decide_check("lm_decide_block_cuda", cost, patch, kp_w, kp_mask, scalars,
+                                P, prior_cost)
+    mask, new_w = torch.empty_like(kp_w), torch.empty_like(kp_w)
+    LAUNCHES_LM_DECIDE_BLOCK += _launch(
+        _entry("lm_decide_block", dtype), cost.device, cost.data_ptr(), patch.data_ptr(),
         kp_w.data_ptr(), kp_mask.data_ptr(), scalars.data_ptr(), _ptr(prior_cost),
         mask.data_ptr(), new_w.data_ptr(), F, N, int(P), float(chi_k),
         float(min_step_quality))

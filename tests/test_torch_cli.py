@@ -94,6 +94,23 @@ def test_cuda_device_without_a_card_raises(eth3d):
         tcli.main(track_args(eth3d, "t_cuda.txt"))
 
 
+def test_cuda_device_under_the_launcher_without_a_card_raises(eth3d, monkeypatch):
+    """Under ``torch.distributed.run``, ``track --device cuda`` with no card
+    raises as ``synth`` does, before any process group is made: the rank is
+    not moved to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    launcher = dict(MASTER_ADDR="localhost", MASTER_PORT="29531", WORLD_SIZE="2", RANK="0",
+                    LOCAL_RANK="0", LOCAL_WORLD_SIZE="2")
+    for k, v in launcher.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="track --device cuda but no CUDA device is "
+                                           "visible; pass --device cpu"):
+        tcli.main(track_args(eth3d, "t_launcher.txt", ["--shard-devices", "2"]))
+    assert not torch.distributed.is_initialized()
+    assert not (eth3d / "t_launcher.txt").exists()
+
+
 def test_backend_config_from_dict_matches_jax():
     data = {"window_size": 5, "max_hamming": 80.0,
             "detector": {"score_threshold": 2.0, "cell_h": 10, "cell_w": 10,

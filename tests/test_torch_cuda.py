@@ -1761,6 +1761,119 @@ def test_lm_step_matches_plain(cuda, D, dtype, case):
     assert torch.equal(ct, ref.t) and torch.equal(cq, ref.q)
 
 
+# K6's designs: the frame and joint chunks, the floor (one knot), the last
+# and first D of the shuffle design's one-warp and eight-warp sweeps, and a D
+# whose factor lives in global memory in both designs and both dtypes
+LM_DESIGN_DIMS = LM_DIMS + [6, 60, 66, 240]
+
+
+def _ill_conditioned(D, dtype, seed=0):
+    """An SPD H with kappa_2 ~ 1e6: eigenvalues from 1 to 1e-6 on a random
+    basis."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.normal(0, 1, (D, D)))
+    H = (Q * np.logspace(0, -6, D)) @ Q.T
+    return torch.tensor((H + H.T) / 2, dtype=dtype, device="cuda")
+
+
+@pytest.mark.parametrize("case", ["valid", "invalid", "ill-conditioned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", LM_DESIGN_DIMS)
+def test_lm_step_designs_match_kernel_order(cuda, D, dtype, case):
+    """Both K6 designs, the shuffle design the LM launches and PR 12's block
+    design, against K6's order transcribed
+    (``residual_kernels.lm_step_kernel_order``) bit for bit: the step, the
+    model cost change and the invalid flag, on a well-conditioned, a
+    negative definite (the factorisation fails: NaN step, invalid) and an
+    ill-conditioned (kappa_2 ~ 1e6) H; the two designs' every output equal
+    bit for bit; one launch of each, on its own counter."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_lm
+    from mba_vo_tpu_torch.solver import lm as tlm
+
+    H, g, sc, t, q = _lm_state(D, dtype, "invalid" if case == "invalid" else "valid")
+    if case == "ill-conditioned":
+        H = _ill_conditioned(D, dtype)
+    outs = []
+    for fn, counter in ((cuda_lm.lm_step_cuda, "LAUNCHES_LM_STEP"),
+                        (cuda_lm.lm_step_block_cuda, "LAUNCHES_LM_STEP_BLOCK")):
+        before = cuda_lm.launch_counts(), getattr(cuda_lm, counter)
+        out = fn(H, g, sc.clone(), t, q)
+        torch.cuda.synchronize()
+        assert getattr(cuda_lm, counter) == before[1] + 1
+        if counter == "LAUNCHES_LM_STEP_BLOCK":
+            assert cuda_lm.launch_counts() == before[0]   # not a launch of the LM's K6
+        H1, step, _, _, sk = out
+        ostep, omcc = rk.lm_step_kernel_order(H1, g)
+        assert rk.same_bits(step, ostep), rk._unequal(step, ostep)
+        assert rk.same_bits(sk[tlm.S_MCC], omcc)
+        oinvalid = bool(omcc < 0) or not bool(torch.isfinite(ostep).all())
+        assert float(sk[tlm.S_INVALID]) == float(oinvalid) == float(case == "invalid")
+        outs.append(out)
+    assert rk.same_bits(outs[0], outs[1]), rk._unequal(outs[0], outs[1])
+
+
+def _decide_inputs_any(F, N, dtype, seed=0):
+    """:func:`_decide_inputs` where N has room for its outlier, its
+    zero-cost keypoint, its padded slots and its earlier flag; below that
+    plain costs, every keypoint live."""
+    if N >= 10:
+        patch, kp_mask, kp_w = _decide_inputs(F, N, dtype, seed)
+        if N > 2048:
+            # past the 4 x 512 keypoints whose costs K7 keeps in registers
+            # (lm_step.cu's kDecideKeep): an outlier and a zero-cost keypoint
+            # among those whose costs it computes again
+            patch[:, 2060] = 60.0
+            patch[:, 2061] = 0.0
+        return patch, kp_mask, kp_w
+    patch = np.random.default_rng(seed).uniform(0.5, 1.5, (F, N))
+    c = lambda a: torch.tensor(a, dtype=dtype, device="cuda")   # noqa: E731
+    return c(patch), c(np.ones(N)), c(np.ones(N))
+
+
+@pytest.mark.parametrize("prior", [False, True])
+@pytest.mark.parametrize("F,N", [(1, 1), (1, 40), (4, 32), (1, 512), (4, 700), (1, 2100),
+                                 (4, 2100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lm_decide_designs_match_plain(cuda, dtype, F, N, prior):
+    """Both K7 designs, the keypoint design the LM launches and PR 12's
+    block design, against lm_decide_plain: the candidate cost, quality,
+    success and cost decrease, the new mask and keypoint weights equal, mu
+    and sigma within 1e-12 (f64) / 1e-5 (f32) of the plain version's; one
+    keypoint, fewer keypoints than a warp, a keypoint a thread up to 512 and
+    past it (700: threads loop; 2100: past the 2048 costs kept in
+    registers, the rest computed again); one launch of each, on its own
+    counter."""
+    from mba_vo_tpu_torch.ops import cuda_lm
+    from mba_vo_tpu_torch.solver import lm as tlm
+
+    patch, kp_mask, kp_w = _decide_inputs_any(F, N, dtype)
+    opts = tlm.LMOptions()
+    P = 8
+    n = float(kp_w.sum()) * F * P
+    for raw in (0.9 * 5.0 * n, 1.2 * 5.0 * n, 4.999 * n):
+        _, _, sc, _, _ = _lm_state(12, dtype)
+        sc[tlm.S_MCC] = 0.3
+        cost = torch.tensor(raw, dtype=dtype, device="cuda")
+        pc = torch.tensor(0.01, dtype=dtype, device="cuda") if prior else None
+        sp, mp, wp = tlm.lm_decide_plain(cost, patch, kp_w, kp_mask, sc, P, opts, pc)
+        for fn, counter in ((cuda_lm.lm_decide_cuda, "LAUNCHES_LM_DECIDE"),
+                            (cuda_lm.lm_decide_block_cuda, "LAUNCHES_LM_DECIDE_BLOCK")):
+            before = getattr(cuda_lm, counter)
+            sk, mk, wk = fn(cost, patch, kp_w, kp_mask, sc.clone(), P,
+                            opts.max_chi_square_error, opts.min_step_quality, pc)
+            torch.cuda.synchronize()
+            assert getattr(cuda_lm, counter) == before + 1
+            assert torch.equal(mk, mp) and torch.equal(wk, wp), counter
+            if N >= 10:
+                assert float(mk[3]) == 0.0
+            for i in (tlm.S_CAND_COST, tlm.S_QUALITY, tlm.S_SUCCESS, tlm.S_ACD_NEW):
+                assert float(sk[i]) == float(sp[i]), (counter, i)
+            for i in (tlm.S_MU, tlm.S_SIGMA):
+                assert abs(float(sk[i]) - float(sp[i])) <= LM_BOUNDS[dtype] * abs(float(sp[i])), (
+                    counter, i)
+
+
 def _decide_inputs(F, N, dtype, seed=0):
     rng = np.random.default_rng(seed)
     patch = rng.uniform(0.5, 1.5, (F, N))

@@ -387,6 +387,78 @@ def test_step_factor_placement(D, itemsize, shared):
     assert rest == (2 * D + cuda_lm.LM_THREADS) * itemsize <= cuda_lm.STEP_SMEM_LIMIT
 
 
+@pytest.mark.parametrize("D,itemsize,shared,shared_h1", [
+    (6, 4, True, True), (12, 8, True, True), (42, 8, True, True), (64, 8, True, True),
+    (66, 4, True, True), (114, 8, True, True), (120, 8, True, False), (162, 8, True, False),
+    (168, 8, False, False), (164, 4, True, True), (234, 4, True, False), (240, 4, False, False),
+    (600, 8, False, False)])
+def test_step_shuffle_layout(D, itemsize, shared, shared_h1):
+    """K6's shuffle design: the four vectors [D] always in shared memory;
+    the factor [D, LD], LD odd (D or D + 1), there while it fits the
+    block's 227 KiB with them (a 24-frame degree-4 chunk, D = 162, in f64
+    included), else in a global scratch matrix; a copy of H1 of the same
+    shape there too while both fit, else H1 read back: no D leaves the
+    kernel."""
+    from mba_vo_tpu_torch.ops import cuda_lm
+
+    lay = cuda_lm.step_layout(D, itemsize)
+    ld = cuda_lm.step_ld(D)
+    assert ld % 2 == 1 and D <= ld <= D + 1
+    assert (lay.shared, lay.shared_h1) == (shared, shared_h1)
+    vectors, matrix = 4 * D * itemsize, D * ld * itemsize
+    assert lay.smem == (shared + shared_h1) * matrix + vectors <= cuda_lm.STEP_SMEM_LIMIT
+    if not shared_h1:
+        assert 2 * matrix + vectors > cuda_lm.STEP_SMEM_LIMIT
+    if not shared:
+        assert matrix + vectors > cuda_lm.STEP_SMEM_LIMIT
+
+
+@pytest.mark.parametrize("N,threads", [(1, 32), (31, 32), (32, 32), (33, 64), (40, 64),
+                                       (500, 512), (512, 512), (513, 512), (700, 512)])
+def test_decide_threads(N, threads):
+    """K7's keypoint design: a keypoint a thread in whole warps, at most
+    512 threads (more keypoints loop)."""
+    from mba_vo_tpu_torch.ops import cuda_lm
+
+    assert cuda_lm.decide_threads(N) == threads
+    assert threads % 32 == 0 and threads <= cuda_lm.DECIDE_MAX_THREADS
+    assert min(N, cuda_lm.DECIDE_MAX_THREADS) <= threads
+
+
+@pytest.mark.parametrize("D", [1, 12, 42, 63, 64, 65, 256, 257, 600])
+def test_block_sum_tree_in_one_warp(D):
+    """The shuffle design's model-change sum (lm_step.cu's tree_sum: each lane
+    keeps slots lane + 32 m, the tree's levels 128, 64 and 32 inside the
+    lane, then 16 ... 1 across lanes) meets the same operands in the same
+    order as ``residual_kernels.block_sum``'s 256-slot tree: its
+    transcription here gives block_sum's bits, in float32, signed zeros
+    and past 256 entries included."""
+    from mba_vo_tpu_torch.ops import cuda_lm
+
+    rng = np.random.default_rng(D)
+    v = torch.tensor(rng.normal(0, 1, D) * 10.0 ** rng.integers(-6, 6, D), dtype=torch.float32)
+    v[::7] = -0.0
+    W, tree = 32, cuda_lm.LM_TREE
+    q = torch.zeros(W, tree // W, dtype=torch.float32)
+    for lane in range(W):
+        for m in range(tree // W):
+            p = torch.zeros((), dtype=torch.float32)
+            for i in range(lane + W * m, D, tree):
+                p = p + v[i]
+            q[lane, m] = p
+    h = tree // W // 2
+    while h > 0:
+        q[:, :h] = q[:, :h] + q[:, h:2 * h]
+        h //= 2
+    lanes = q[:, 0].clone()
+    s = W // 2
+    while s > 0:
+        lanes[:s] = lanes[:s] + lanes[s:2 * s]
+        s //= 2
+    want = rk.block_sum(v)
+    assert lanes[0].view(torch.int32) == want.view(torch.int32), (float(lanes[0]), float(want))
+
+
 @pytest.mark.parametrize("D", [12, 42])
 @pytest.mark.parametrize("case", ["valid", "not positive definite"])
 def test_kernel_order_solve_matches_jax(D, case):
