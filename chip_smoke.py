@@ -17,8 +17,9 @@ Phases (any failed check raises and the exit code is non-zero):
      and the earlier serial design) and K4 (csrc/image_bilinear.cu: the
      direct path's whole-image sampler, the select design, the interleaved
      row and the earlier branch design) and K6-K8 (csrc/lm_step.cu: the LM
-     iteration's step, decision and commit; K6's shuffle design and K7's
-     keypoint design, and PR 12's block designs of both) with nvcc for
+     iteration's step, decision and commit; K6's shuffle design, K7's
+     keypoint design and K8's staged design, and the earlier block designs
+     of the three) with nvcc for
      sm_90a, all seven sources at once, and print each kernel's registers,
      shared memory and spills, K5's staging, K4's block, K6's threads and
      shared memory by D and K7's threads by N;
@@ -27,7 +28,9 @@ Phases (any failed check raises and the exit code is non-zero):
      version (K4 and K5 bit for bit, the direct path on the kernels against
      its plain chain, K6-K8 against the LM's plain stages at D = 12, 30,
      42 and 162, both K6 designs against K6's order transcribed bit for
-     bit, both K7 designs against the plain stage, and the tracker's LM on
+     bit, both K7 designs against the plain stage, both K8 designs, the
+     staged one through lm_commit_cuda and through a CommitBinding, against
+     the plain stage bit for bit, and the tracker's LM on
      them against the plain-stage tracker) and blur_rows and K3 against
      their earlier designs bit for bit on edge shapes; any failure fails
      the run;
@@ -57,8 +60,9 @@ Phases (any failed check raises and the exit code is non-zero):
      library's within 3 D kappa_2(H1) u of a float64 solve of the same
      system, where that bound is under 1, both forward errors and the calls
      left unchecked printed; K7's
-     flags, decrease and mask equal in both designs; K8's next state bit
-     for bit);
+     flags, decrease and mask equal in both designs; K8's next state, in
+     both designs, the staged one through lm_commit_cuda and through a
+     CommitBinding, bit for bit);
   4. the tracker in f64 on CUDA against the same tracker on the CPU, on the
      bench scenario (VGA, 512 keypoints, 3 levels, 5 virtual poses), with
      every K2, K3 and K5 call of the CUDA run held against the plain
@@ -106,10 +110,12 @@ Phases (any failed check raises and the exit code is non-zero):
      designs and yardsticks level by level; K4's and K5's targets; then K6-K8
      and their plain stages on phase 3's recorded LM calls at the frame (6K
      = 12) and the degree-4 joint chunk (42), a call, warm and cold, beside
-     the bound and, for K6, torch.linalg.cholesky_ex + cholesky_solve; K6's
-     and K7's earlier designs (PR 12's block designs) beside the launched
-     ones, each design's floor (K6 at D = 6, K7 at N = 1), and K6's and K7's
-     predictions;
+     the bound and, for K6, torch.linalg.cholesky_ex + cholesky_solve;
+     K6's, K7's and K8's earlier designs (the block designs) beside the
+     launched ones, each design's floor (K6 at D = 6, K7 at N = 1, K8 at K
+     = F = N = 1), K8's host call through its CommitBinding beside the
+     public wrapper's, the two timed in turn, K6's and K7's predictions
+     and K8's targets;
   8. the command line and the keyframe backend: (a) float64 on CUDA against
      the CPU at full width: detect_sparse + match_descriptors on a VGA frame
      of the bench scenario with BackendConfig's default detector (differing
@@ -222,7 +228,7 @@ def check(cond: bool, msg: str):
 # path: each in-process path zeroes every kernel's count just before it runs
 # and reads K2's and K3's just after (K1's go to the ``launches`` dicts)
 RESIDUAL_LAUNCHES: dict = {}
-# the launches of PR 12's block designs of K6 and K7 by path, read beside
+# the launches of the earlier block designs of K6-K8 by path, read beside
 # K2's to K8's: no path launches them, so each must read 0
 EARLIER_LAUNCHES: dict = {}
 
@@ -270,6 +276,7 @@ def lm_probe(plain: bool = False):
     stages run their plain versions on the card's tensors: the plain-stage
     tracker that K6-K8 are held to."""
     import torch
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
     from mba_vo_tpu_torch.solver import lm
     from mba_vo_tpu_torch.tracker import blur_tracker as bt
 
@@ -297,7 +304,7 @@ def lm_probe(plain: bool = False):
     bt.optimize_level = optimize_level
     if plain:
         for k in stages:
-            setattr(lm, k, getattr(lm, f"{k}_plain"))
+            setattr(lm, k, rk.lm_plain_fn(k))
     try:
         yield probe
     finally:
@@ -345,7 +352,9 @@ def hold_lm_calls(recorded: dict) -> dict:
                     "lm_decide": f"{int(sum(g.get('success', 0) for g in got))} successes; flags, "
                                  f"decrease and mask equal in both designs, mu and sigma "
                                  f"within {r:.3e}",
-                    "lm_commit": "the next state equal bit for bit"}[kernel]
+                    "lm_commit": "the next state equal bit for bit in both designs, the staged "
+                                 "one through lm_commit_cuda and through a "
+                                 "CommitBinding"}[kernel]
             bound = (f" (bound {rk.LM_TOLERANCE[calls[0].dtype]:.0e})"
                      if kernel == "lm_decide" else "")
             print(f"  {label}: {kernel}, {len(calls)} recorded calls ({dt}, 6K = "
@@ -2063,7 +2072,8 @@ def main() -> int:
             m = re.search(r"((?:window_bilinear(?:_[a-z]+)?|warp_tangents(?:_threads)?|"
                           r"blur_rows(?:_keypoint)?|frame_layout(?:_serial)?|"
                           r"image_bilinear(?:_branch|_interleaved)?|"
-                          r"lm_(?:step_shfl|step_block|decide_keypoint|decide_block|commit))"
+                          r"lm_(?:step_shfl|step_block|decide_keypoint|decide_block|"
+                          r"commit_staged|commit_block))"
                           r"_kernel|normal_equations_(?:partials|combine|cluster))I([fd])"
                           r"((?:Li\d+E)*)", ln)
             if "Compiling entry function" in ln and m:
@@ -2108,7 +2118,8 @@ def main() -> int:
               for t, b in item.items()) for D in (12, 42, 162, 240))
           + f", {cuda_lm.LM_THREADS} threads; K7's keypoint design "
           + ", ".join(f"N = {n}: {cuda_lm.decide_threads(n)} threads" for n in (1, 40, N_KP, 700))
-          + f"; K7's block design and K8 one CTA of {cuda_lm.LM_THREADS} threads")
+          + f"; K7's block design and both K8 designs one CTA of {cuda_lm.LM_THREADS} "
+          "threads, K8's staged design with no shared memory")
     # the frame's calls (F = 1), a degree-4 joint chunk's (F = 4) and the widest
     for F, D in ((1, 12), (JCHUNK, 6 * (JCHUNK + 3)), (8, cr.MAX_TANGENTS)):
         M = F * N_KP * 8
@@ -2648,6 +2659,21 @@ def main() -> int:
               f"{name} {1e3 * r['device_ms']:.2f} / {1e3 * r['device_cold_ms']:.2f} against "
               f"3.5 / 5.5 ({held(r['device_ms'] <= 3.5e-3 and r['device_cold_ms'] <= 5.5e-3)})"
               for name, r in zip(("frame", "joint chunk"), k7)) + f"; {card}")
+    # K8's redesign's targets (PERF.md section 6): at most 3.0 / 4.5 us warm /
+    # cold at the frame and 3.3 / 5.5 at the joint chunk, a call through the
+    # level's binding at most 65 us at the frame
+    k8 = [lm_rows[label, "lm_commit"][0] for label in ("tracker S=40", "joint degree 4")]
+    k8_block = lm_rows["tracker S=40", "lm_commit"][1]
+    print("    K8 targets: " + ", ".join(
+        f"{name} {1e3 * r['device_ms']:.2f} / {1e3 * r['device_cold_ms']:.2f} us against "
+        f"{w} / {c} ({held(r['device_ms'] <= w * 1e-3)} / "
+        f"{held(r['device_cold_ms'] <= c * 1e-3)})"
+        for name, r, w, c in zip(("frame", "joint chunk"), k8, (3.0, 3.3), (4.5, 5.5)))
+        + f"; a call through the binding at the frame {1e3 * k8[0]['binding_ms']:.2f} us "
+        f"against 65 ({held(k8[0]['binding_ms'] <= 65e-3)}; the public wrapper's "
+        f"{1e3 * k8[0]['ms']:.2f}, timed in turn); floors (K = F = N = 1) " + ", ".join(
+            f"{name} {1e3 * r['floor_device_ms']:.2f} / {1e3 * r['floor_device_cold_ms']:.2f}"
+            for name, r in (("staged", k8[0]), ("block", k8_block))) + f"; {card}")
 
     def lm_entry(kernel):
         def times(label, which=0):
@@ -2661,8 +2687,8 @@ def main() -> int:
                         library_device_ms=rows_of[0]["library_device_ms"],
                         library_device_cold_ms=rows_of[0]["library_device_cold_ms"],
                         D=k["D"], calls=k["calls"],
-                        **{f: k[f] for f in ("floor_device_ms", "floor_device_cold_ms")
-                           if f in k})
+                        **{f: k[f] for f in ("floor_device_ms", "floor_device_cold_ms",
+                                             "binding_ms") if f in k})
         by_path = {path: n.get(kernel, 0) for path, n in RESIDUAL_LAUNCHES.items()}
         more = {}
         if kernel == "lm_step":
@@ -2682,9 +2708,21 @@ def main() -> int:
             design_of = {"lm_step": "block: 256 threads, thread 0 takes each pivot and row, "
                                     "block barriers (bit-equal)",
                          "lm_decide": "block: 256 threads, four block-tree sums, three "
-                                      "passes over the patch costs"}
+                                      "passes over the patch costs",
+                         "lm_commit": "block: 256 threads, the flags, then the residual "
+                                      "count by a nine-barrier tree, then the branch's "
+                                      "loads, then thread 0 reads the scalars again "
+                                      "(bit-equal)"}
             if kernel == "lm_decide":
                 more["design"] = "keypoint: a thread a keypoint, three one-barrier sums"
+            if kernel == "lm_commit":
+                more["design"] = (f"staged, {cuda_lm.LM_THREADS} threads: every load in "
+                                  "one first batch, each warp's own residual count by "
+                                  "shuffles, no barrier, the scalar tail while the stores "
+                                  "drain")
+                more["binding"] = ("binding_ms: a call through the level's CommitBinding "
+                                   "(the LM's host call); ms: lm_commit_cuda, every tensor "
+                                   "checked; the two timed in turn in one loop")
             # its launches on the main path's runs, read beside the new design's
             # (the sharded ranks run the plain stages)
             earlier = sum(n[kernel] for n in EARLIER_LAUNCHES.values())

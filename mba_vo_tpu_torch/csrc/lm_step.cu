@@ -30,8 +30,9 @@
 // where its inputs are, without a second launch or an atomic, and the host
 // reads one flag an iteration (K8's continue flag).
 //
-// Two designs of K6 and K7. The LM launches the shuffle design of K6 and
-// the keypoint design of K7 (below, after PR 12's). K6's time is the chain
+// Two designs of each. The LM launches the shuffle design of K6, the
+// keypoint design of K7 and the staged design of K8 (below, after PR
+// 12's). K6's time is the chain
 // of its stages (D pivots, then three sweeps of D rows), and on this card a
 // stage costs what its dependent round trips cost (shared-memory loads and
 // stores, a division, a square root, a barrier and the wait for the
@@ -44,9 +45,11 @@
 // residual, H1 times the step) runs on all 256 threads, the load's reads
 // issued together, H1 read back from a copy in shared memory.
 // K7's keypoint design: a thread a keypoint, each cost computed once,
-// three one-barrier sums. PR 12's block designs (lm_step_block_*,
-// lm_decide_block_*) stay callable for the harness's comparisons and
-// timings.
+// three one-barrier sums. K8's staged design: every load in one first
+// batch, each warp's own residual count, no barrier, the scalar tail while
+// the stores drain (its note below). The earlier block designs
+// (lm_step_block_*, lm_decide_block_*, lm_commit_block_*) stay callable for
+// the harness's comparisons and timings.
 //
 // Orders of the sums (not cuSOLVER's or torch.sum's, which cannot be
 // followed bit for bit): the factorisation is the right-looking Cholesky,
@@ -64,8 +67,9 @@
 // The retraction follows the card's torch in its order of operations, so
 // the candidate knots equal spline_retract_flat of K6's own step on the
 // card bit for bit, and K5 anchors the candidate's patches exactly as it
-// anchors the plain retraction's. K7's residual count and live count sum
-// 0/1 values, exact in any order; its mu and sigma follow no fixed order.
+// anchors the plain retraction's. K7's and K8's residual counts and K7's
+// live count sum 0/1 values, exact in any order; K7's mu and sigma follow
+// no fixed order.
 //
 // The factor lives in shared memory while it fits (ops/cuda_lm.py's
 // step_layout and, for the block design, step_smem_bytes), else in a
@@ -106,7 +110,7 @@ enum : int {
   S_SIZE
 };
 
-constexpr int kThreads = 256;   // ops/cuda_lm.py's LM_THREADS: the block designs' and K8's
+constexpr int kThreads = 256;   // ops/cuda_lm.py's LM_THREADS: K6's and K8's, K7's block design's
 
 // the sum of one value a thread over the block: a tree in shared memory,
 // the same order every call
@@ -856,17 +860,91 @@ __global__ void __launch_bounds__(kDecideThreads)
   }
 }
 
+// what K8's scalar tail reads: the scalars of the state and of K6 and K7,
+// K3's raw cost at the candidate and the prior's cost (0 without a prior)
+template <typename T>
+struct CommitScalars {
+  T radius, decrease, mcc, acd, acd_new, quality, minimum, reference, candidate, acc_ref,
+      acc_cand, nonmono, cost, prior_cost;
+  bool has_prior;
+};
+
+template <typename T>
+__device__ __forceinline__ CommitScalars<T> commit_scalars(const T* sc, const T* cost,
+                                                           const T* prior_cost) {
+  CommitScalars<T> s;
+  s.radius = sc[S_RADIUS], s.decrease = sc[S_DECREASE], s.mcc = sc[S_MCC], s.acd = sc[S_ACD];
+  s.acd_new = sc[S_ACD_NEW], s.quality = sc[S_QUALITY], s.minimum = sc[S_MIN];
+  s.reference = sc[S_REF], s.candidate = sc[S_CAND], s.acc_ref = sc[S_ACC_REF];
+  s.acc_cand = sc[S_ACC_CAND], s.nonmono = sc[S_NONMONO], s.cost = cost[0];
+  s.has_prior = prior_cost != nullptr;
+  s.prior_cost = s.has_prior ? prior_cost[0] : T(0);
+  return s;
+}
+
+// K8's scalar tail (one thread): the radius, the decrease factor, the step
+// evaluator advanced on success (_step_accepted: Conn-Gould-Toint with
+// Ceres' always-check step 3d), the cost decrease and the continue flag,
+// written into sc
+template <typename T>
+__device__ void commit_tail(T* sc, const CommitScalars<T>& s, T inv_n, bool success,
+                            bool invalid, int max_nonmono, int retry, int more,
+                            double min_radius, double max_radius, double min_acd) {
+  const T lo = T(min_radius), hi = T(max_radius);
+  T acd = s.acd;
+  if (success) {
+    T cost_f = s.cost * inv_n;
+    if (s.has_prior) cost_f = cost_f + s.prior_cost;
+    const T x = T(2) * s.quality - T(1);
+    T den = T(1) - (x * x) * x;
+    den = den < T(1.0 / 3.0) ? T(1.0 / 3.0) : den;
+    const T current = cost_f;
+    T acc_cand = s.acc_cand + s.mcc;
+    T acc_ref = s.acc_ref + s.mcc;
+    const bool improved = current < s.minimum;
+    const T minimum = improved ? current : s.minimum;
+    const T nonmono = improved ? T(0) : s.nonmono + T(1);
+    const bool worse = current > s.candidate;
+    const T candidate = improved ? current : (worse ? current : s.candidate);
+    if (improved || worse) acc_cand = T(0);
+    const bool hit = nonmono == T(max_nonmono);
+    const T reference = hit ? candidate : s.reference;
+    if (hit) acc_ref = acc_cand;
+    sc[S_COST] = cost_f;
+    sc[S_RADIUS] = clamp(s.radius / den, lo, hi);
+    sc[S_DECREASE] = T(2);
+    sc[S_MIN] = minimum;
+    sc[S_CUR] = current;
+    sc[S_REF] = reference;
+    sc[S_CAND] = candidate;
+    sc[S_ACC_REF] = acc_ref;
+    sc[S_ACC_CAND] = acc_cand;
+    sc[S_NONMONO] = nonmono;
+    acd = s.acd_new;
+  } else {
+    sc[S_RADIUS] = clamp(s.radius / s.decrease, lo, hi);
+    sc[S_DECREASE] = s.decrease * T(2);
+    if (!invalid && !retry) acd = s.acd_new;
+  }
+  sc[S_ACD] = acd;
+  sc[S_CONTINUE] = (more && acd >= T(min_acd)) ? T(1) : T(0);
+}
+
+// K8, the earlier block design (lm_commit_block_*): 256 threads; the flags
+// read, then the residual count by block_sum's nine-barrier tree, then the
+// accepted branch's loads, then thread 0 reads the scalars again for the
+// step evaluator's tail: three dependent trips to memory
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    lm_commit_kernel(T* t, T* q, T* H, T* g, T* sc, T* mask, T* kp_w, T* patch_costs,
-                     const T* __restrict__ H1, const T* __restrict__ cand_t,
-                     const T* __restrict__ cand_q, const T* __restrict__ cost,
-                     const T* __restrict__ g_raw, const T* __restrict__ H_raw,
-                     const T* __restrict__ patch, const T* __restrict__ new_mask,
-                     const T* __restrict__ new_w, const T* __restrict__ prior_cost,
-                     const T* __restrict__ prior_g, const T* __restrict__ prior_H, int D, int K,
-                     int F, int N, int P, int max_nonmono, int retry, int more,
-                     double min_radius, double max_radius, double min_acd) {
+    lm_commit_block_kernel(T* t, T* q, T* H, T* g, T* sc, T* mask, T* kp_w, T* patch_costs,
+                           const T* __restrict__ H1, const T* __restrict__ cand_t,
+                           const T* __restrict__ cand_q, const T* __restrict__ cost,
+                           const T* __restrict__ g_raw, const T* __restrict__ H_raw,
+                           const T* __restrict__ patch, const T* __restrict__ new_mask,
+                           const T* __restrict__ new_w, const T* __restrict__ prior_cost,
+                           const T* __restrict__ prior_g, const T* __restrict__ prior_H,
+                           int D, int K, int F, int N, int P, int max_nonmono, int retry,
+                           int more, double min_radius, double max_radius, double min_acd) {
   __shared__ T red[kThreads];
   const int tid = threadIdx.x;
   const bool invalid = sc[S_INVALID] != T(0);
@@ -897,47 +975,134 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = tid; e < F * N; e += kThreads) patch_costs[e] = patch[e] * inv_n;
   }
   if (tid != 0) return;
+  commit_tail(sc, commit_scalars(sc, cost, prior_cost), inv_n, success, invalid, max_nonmono,
+              retry, more, min_radius, max_radius, min_acd);
+}
 
-  const T lo = T(min_radius), hi = T(max_radius);
-  const T radius = sc[S_RADIUS], decrease = sc[S_DECREASE], mcc = sc[S_MCC];
-  T acd = sc[S_ACD];
-  if (success) {
-    T cost_f = cost[0] * inv_n;
-    if (prior_cost != nullptr) cost_f = cost_f + prior_cost[0];
-    const T x = T(2) * sc[S_QUALITY] - T(1);
-    T den = T(1) - (x * x) * x;
-    den = den < T(1.0 / 3.0) ? T(1.0 / 3.0) : den;
-    // _step_accepted: Conn-Gould-Toint with Ceres' always-check step 3d
-    const T current = cost_f;
-    T acc_cand = sc[S_ACC_CAND] + mcc;
-    T acc_ref = sc[S_ACC_REF] + mcc;
-    const bool improved = current < sc[S_MIN];
-    const T minimum = improved ? current : sc[S_MIN];
-    const T nonmono = improved ? T(0) : sc[S_NONMONO] + T(1);
-    const bool worse = current > sc[S_CAND];
-    const T candidate = improved ? current : (worse ? current : sc[S_CAND]);
-    if (improved || worse) acc_cand = T(0);
-    const bool hit = nonmono == T(max_nonmono);
-    const T reference = hit ? candidate : sc[S_REF];
-    if (hit) acc_ref = acc_cand;
-    sc[S_COST] = cost_f;
-    sc[S_RADIUS] = clamp(radius / den, lo, hi);
-    sc[S_DECREASE] = T(2);
-    sc[S_MIN] = minimum;
-    sc[S_CUR] = current;
-    sc[S_REF] = reference;
-    sc[S_CAND] = candidate;
-    sc[S_ACC_REF] = acc_ref;
-    sc[S_ACC_CAND] = acc_cand;
-    sc[S_NONMONO] = nonmono;
-    acd = sc[S_ACD_NEW];
-  } else {
-    sc[S_RADIUS] = clamp(radius / decrease, lo, hi);
-    sc[S_DECREASE] = decrease * T(2);
-    if (!invalid && !retry) acd = sc[S_ACD_NEW];
+// K8, the staged design, which the LM launches (lm_commit_*). K8 moves a
+// few kilobytes and does a few operations an entry; what sets its time is
+// the launch and the chain of dependent trips to memory, three in the block
+// design. Here every thread issues every load it needs in one first batch,
+// before any is used and without waiting on the flags: K6's and K7's flags,
+// its entries of H1, K3's H and the prior's H, of K3's patch costs, of K3's
+// g and the prior's g, of the candidate knots, of the new mask and weights,
+// and thread 0 the scalars that the step evaluator's tail reads with K3's
+// and the prior's cost. A rejected or invalid step loads arrays that it
+// throws away: latency, not bytes, sets the time. The residual count takes
+// no block-wide tree: each warp sums the new weights itself by shuffles
+// (from L1, in flight since the first batch), so the kernel takes no
+// barrier; the weights are 0 or 1, whose sum is exact in any order, so
+// every warp holds the bits of the plain stage's count and the block
+// design's tree. Then the selects and the stores, and thread 0 runs the
+// scalar tail after its own stores, while they drain, on the scalars of
+// the first batch.
+// 256 threads (128 and 512 were measured too: PERF.md). The first batch
+// covers kCommitMat entries a thread of [D, D] and [F, N] (D <= 45, F N <=
+// 2048), kCommitKp of [N] (N <= 512) and one of [D], [K, 3] and [K, 4];
+// arrays past that take their other entries in loops after it. Each entry
+// is the block design's arithmetic in its order: the same bits. One block
+// a multiprocessor in the launch bounds: with the default, ptxas held the
+// float instantiation to 64 registers and spilled part of the first batch
+// to local memory, a trip the design exists to take off the chain.
+constexpr int kCommitMat = 8;
+constexpr int kCommitKp = 2;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    lm_commit_staged_kernel(T* __restrict__ t, T* __restrict__ q, T* __restrict__ H,
+                            T* __restrict__ g, T* __restrict__ sc, T* __restrict__ mask,
+                            T* __restrict__ kp_w, T* __restrict__ patch_costs,
+                            const T* __restrict__ H1, const T* __restrict__ cand_t,
+                            const T* __restrict__ cand_q, const T* __restrict__ cost,
+                            const T* __restrict__ g_raw, const T* __restrict__ H_raw,
+                            const T* __restrict__ patch, const T* __restrict__ new_mask,
+                            const T* __restrict__ new_w, const T* __restrict__ prior_cost,
+                            const T* __restrict__ prior_g, const T* __restrict__ prior_H,
+                            int D, int K, int F, int N, int P, int max_nonmono, int retry,
+                            int more, double min_radius, double max_radius, double min_acd) {
+  const int tid = threadIdx.x, lane = tid & (kWarp - 1);
+  const int DD = D * D, FN = F * N, K3 = 3 * K, K4 = 4 * K;
+  const bool prior = prior_H != nullptr;
+
+  // 1. the first batch: every load issued before any is used
+  const T f_invalid = sc[S_INVALID], f_success = sc[S_SUCCESS];
+  T h1[kCommitMat], hr[kCommitMat], ph[kCommitMat], pa[kCommitMat];
+#pragma unroll
+  for (int m = 0; m < kCommitMat; ++m) {
+    const int e = tid + m * kThreads;
+    h1[m] = e < DD ? H1[e] : T(0);
+    hr[m] = e < DD ? H_raw[e] : T(0);
+    ph[m] = prior && e < DD ? prior_H[e] : T(0);
+    pa[m] = e < FN ? patch[e] : T(0);
   }
-  sc[S_ACD] = acd;
-  sc[S_CONTINUE] = (more && acd >= T(min_acd)) ? T(1) : T(0);
+  const T gr = tid < D ? g_raw[tid] : T(0);
+  const T pg = prior && tid < D ? prior_g[tid] : T(0);
+  const T ct = tid < K3 ? cand_t[tid] : T(0);
+  const T cq = tid < K4 ? cand_q[tid] : T(0);
+  T nm[kCommitKp], nw[kCommitKp];
+#pragma unroll
+  for (int m = 0; m < kCommitKp; ++m) {
+    const int n = tid + m * kThreads;
+    nm[m] = n < N ? new_mask[n] : T(0);
+    nw[m] = n < N ? new_w[n] : T(0);
+  }
+  CommitScalars<T> tail;
+  if (tid == 0) tail = commit_scalars(sc, cost, prior_cost);
+
+  // 2. assemble's scale, 1 / max(sum(w) F P, 1), each warp its own count
+  T count = T(0);
+#pragma unroll 4
+  for (int n = lane; n < N; n += kWarp) count = count + new_w[n];
+  T n_res = (warp_allsum(count) * T(F)) * T(P);
+  n_res = n_res < T(1) ? T(1) : n_res;   // NaN stays NaN, as torch.clamp leaves it
+  const T inv_n = T(1) / n_res;
+  const bool invalid = f_invalid != T(0);
+  const bool success = f_success != T(0) && !invalid;
+
+  // 3. the selects and the stores; each entry by one thread, in the block design's order
+  auto scaled = [&](T raw, T pri) {
+    T v = raw * inv_n;
+    if (prior) v = v + pri;
+    return v;
+  };
+#pragma unroll
+  for (int m = 0; m < kCommitMat; ++m) {
+    const int e = tid + m * kThreads;
+    if (e < DD) H[e] = success ? scaled(hr[m], ph[m]) : h1[m];
+  }
+  if (success) {
+#pragma unroll
+    for (int m = 0; m < kCommitMat; ++m) {
+      const int e = tid + m * kThreads;
+      if (e < FN) patch_costs[e] = pa[m] * inv_n;
+    }
+    if (tid < D) g[tid] = scaled(gr, pg);
+    if (tid < K3) t[tid] = ct;
+    if (tid < K4) q[tid] = cq;
+#pragma unroll
+    for (int m = 0; m < kCommitKp; ++m) {
+      const int n = tid + m * kThreads;
+      if (n < N) mask[n] = nm[m], kp_w[n] = nw[m];
+    }
+  }
+  // past the first batch's cover
+  for (int e = tid + kCommitMat * kThreads; e < DD; e += kThreads)
+    H[e] = success ? scaled(H_raw[e], prior ? prior_H[e] : T(0)) : H1[e];
+  if (success) {
+    for (int e = tid + kCommitMat * kThreads; e < FN; e += kThreads)
+      patch_costs[e] = patch[e] * inv_n;
+    for (int i = tid + kThreads; i < D; i += kThreads)
+      g[i] = scaled(g_raw[i], prior ? prior_g[i] : T(0));
+    for (int i = tid + kThreads; i < K3; i += kThreads) t[i] = cand_t[i];
+    for (int i = tid + kThreads; i < K4; i += kThreads) q[i] = cand_q[i];
+    for (int n = tid + kCommitKp * kThreads; n < N; n += kThreads)
+      mask[n] = new_mask[n], kp_w[n] = new_w[n];
+  }
+
+  // 4. the scalar tail, thread 0, while the stores drain
+  if (tid == 0)
+    commit_tail(sc, tail, inv_n, success, invalid, max_nonmono, retry, more, min_radius,
+                max_radius, min_acd);
 }
 
 template <typename T>
@@ -993,13 +1158,28 @@ int launch_decide_block(const T* cost, const T* patch, const T* w, const T* kp_m
 }
 
 template <typename T>
+int launch_commit_block(T* t, T* q, T* H, T* g, T* sc, T* mask, T* w, T* pc, const T* H1,
+                        const T* ct, const T* cq, const T* cost, const T* g_raw,
+                        const T* H_raw, const T* patch, const T* new_mask, const T* new_w,
+                        const T* prior_cost, const T* prior_g, const T* prior_H, int D, int K,
+                        int F, int N, int P, int max_nonmono, int retry, int more,
+                        double min_radius, double max_radius, double min_acd,
+                        cudaStream_t stream) {
+  lm_commit_block_kernel<T><<<1, kThreads, 0, stream>>>(
+      t, q, H, g, sc, mask, w, pc, H1, ct, cq, cost, g_raw, H_raw, patch, new_mask, new_w,
+      prior_cost, prior_g, prior_H, D, K, F, N, P, max_nonmono, retry, more, min_radius,
+      max_radius, min_acd);
+  return cudaGetLastError();
+}
+
+template <typename T>
 int launch_commit(T* t, T* q, T* H, T* g, T* sc, T* mask, T* w, T* pc, const T* H1,
                   const T* ct, const T* cq, const T* cost, const T* g_raw, const T* H_raw,
                   const T* patch, const T* new_mask, const T* new_w, const T* prior_cost,
                   const T* prior_g, const T* prior_H, int D, int K, int F, int N, int P,
                   int max_nonmono, int retry, int more, double min_radius, double max_radius,
                   double min_acd, cudaStream_t stream) {
-  lm_commit_kernel<T><<<1, kThreads, 0, stream>>>(
+  lm_commit_staged_kernel<T><<<1, kThreads, 0, stream>>>(
       t, q, H, g, sc, mask, w, pc, H1, ct, cq, cost, g_raw, H_raw, patch, new_mask, new_w,
       prior_cost, prior_g, prior_H, D, K, F, N, P, max_nonmono, retry, more, min_radius,
       max_radius, min_acd);
@@ -1048,6 +1228,18 @@ int lm_scalars_size() { return S_SIZE; }
                             patch, new_mask, new_w, prior_cost, prior_g, prior_H, D, K, F, N,  \
                             P, max_nonmono, retry, more, min_radius, max_radius, min_acd,      \
                             stream);                                                            \
+  }                                                                                             \
+  int lm_commit_block_##SUFFIX(T* t, T* q, T* H, T* g, T* sc, T* mask, T* w, T* pc,            \
+                               const T* H1, const T* ct, const T* cq, const T* cost,           \
+                               const T* g_raw, const T* H_raw, const T* patch,                 \
+                               const T* new_mask, const T* new_w, const T* prior_cost,         \
+                               const T* prior_g, const T* prior_H, int D, int K, int F, int N, \
+                               int P, int max_nonmono, int retry, int more, double min_radius, \
+                               double max_radius, double min_acd, cudaStream_t stream) {       \
+    return launch_commit_block<T>(t, q, H, g, sc, mask, w, pc, H1, ct, cq, cost, g_raw, H_raw, \
+                                  patch, new_mask, new_w, prior_cost, prior_g, prior_H, D, K,  \
+                                  F, N, P, max_nonmono, retry, more, min_radius, max_radius,   \
+                                  min_acd, stream);                                             \
   }
 
 LM_ENTRIES(float, f32)

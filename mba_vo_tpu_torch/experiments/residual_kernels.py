@@ -87,7 +87,7 @@ import math
 import statistics
 import sys
 import time
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -888,6 +888,26 @@ def block_sum(v: torch.Tensor) -> torch.Tensor:
     return acc[0]
 
 
+def warp_count(w: torch.Tensor) -> torch.Tensor:
+    """K8's staged design's residual count in its order (``lm_step.cu``'s
+    ``lm_commit_staged_kernel``: each warp's lane l sums entries l, l + 32,
+    ... in order, then ``warp_allsum``'s butterfly, each lane adding the
+    lane ``s`` apart for s = 16 ... 1); every lane's sum, [32]. On 0/1
+    weights every order gives the same bits."""
+    W = 32
+    lanes = torch.zeros(W, dtype=w.dtype)
+    for lane in range(W):
+        p = torch.zeros((), dtype=w.dtype)
+        for n in range(lane, w.shape[0], W):
+            p = p + w[n]
+        lanes[lane] = p
+    s = W // 2
+    while s > 0:
+        lanes = lanes + lanes[torch.arange(W) ^ s]
+        s //= 2
+    return lanes
+
+
 def lm_step_kernel_order(H1: torch.Tensor, g: torch.Tensor):
     """K6's step and model cost change from its damped H1 in the kernel's
     order of operations: (step = -:func:`cholesky_columns` (H1, g), -(g .
@@ -941,17 +961,20 @@ def record_lm_calls() -> Iterator[Dict[str, List[LMCall]]]:
     """Record every call of the LM's three stage dispatchers
     (``solver.lm.lm_step``, ``lm_decide``, ``lm_commit``, which
     ``lm_iteration`` looks up when it runs) made inside the block, by
-    kernel; the calls still run. Names restored on leaving. Record outside a
-    CUDA graph capture."""
+    kernel; the calls still run (K8's through the level's binding, which
+    is not recorded: a recorded call replays through the dispatcher's
+    other route, ``lm_commit_cuda``, and :func:`lm_commit_binding_fn` binds
+    its state again). Names restored on leaving. Record outside a CUDA
+    graph capture."""
     from ..solver import lm
 
     calls: Dict[str, List[LMCall]] = {k: [] for k in LM_KERNELS}
     originals = {k: getattr(lm, k) for k in LM_KERNELS}
 
     def recorder(kernel):
-        def recording(*args):
+        def recording(*args, **kw):
             calls[kernel].append(LMCall(kernel, _lm_copy(args)))
-            return originals[kernel](*args)
+            return originals[kernel](*args, **kw)
         return recording
 
     for k in LM_KERNELS:
@@ -970,14 +993,22 @@ def lm_kernel_fn(kernel: str):
 
 
 def lm_plain_fn(kernel: str):
+    """The plain version of an LM stage, taking its dispatcher's arguments
+    (K8's ``binding``, which the plain stage has no use for, dropped): what
+    replaces the dispatcher in the plain-stage tracker."""
     from ..solver import lm
 
-    return getattr(lm, f"{kernel}_plain")
+    fn = getattr(lm, f"{kernel}_plain")
+    if kernel == "lm_commit":
+        return lambda *args, binding=None: fn(*args)
+    return fn
 
 
-# K6's and K7's earlier designs (PR 12's block designs), by the name of their
-# wrapper in ops/cuda_lm.py; K6's gives the launched design's bits
-LM_EARLIER = {"lm_step": "lm_step_block_cuda", "lm_decide": "lm_decide_block_cuda"}
+# K6's to K8's earlier designs (the block designs), by the name of
+# their wrapper in ops/cuda_lm.py; K6's and K8's give the launched design's
+# bits
+LM_EARLIER = {"lm_step": "lm_step_block_cuda", "lm_decide": "lm_decide_block_cuda",
+              "lm_commit": "lm_commit_block_cuda"}
 
 
 def lm_earlier_fn(kernel: str):
@@ -990,9 +1021,42 @@ def lm_earlier_fn(kernel: str):
     wrapper = getattr(cuda_lm, LM_EARLIER[kernel])
     if kernel == "lm_step":
         return lambda H, g, scalars, t, q, solver="cholesky": wrapper(H, g, scalars, t, q)
+    if kernel == "lm_commit":
+        return _commit_fn(wrapper)
     return lambda cost, patch, kp_w, kp_mask, scalars, P, opts, prior_cost=None: wrapper(
         cost, patch, kp_w, kp_mask, scalars, P, opts.max_chi_square_error,
         opts.min_step_quality, prior_cost)
+
+
+def _commit_fn(wrapper):
+    """A K8 wrapper of ``ops/cuda_lm.py`` taking the dispatcher's
+    (``solver.lm.lm_commit``'s) arguments and returning the state."""
+    from ..solver import lm
+
+    def commit(s, H1, cand_t, cand_q, cost, g, H, patch, mask, kp_w, P, opts, more,
+               prior=None):
+        wrapper(*s, H1, cand_t, cand_q, cost, g, H, patch, mask, kp_w, P, more=more,
+                prior=prior, **lm.commit_options(opts))
+        return s
+    return commit
+
+
+def lm_commit_binding_fn(call: "LMCall"):
+    """K8 as the LM calls it: a ``cuda_lm.CommitBinding`` of the state of
+    ``call``'s arguments (bound here, outside any timing), called with the
+    dispatcher's arguments; a state other than the bound one is bound again
+    by the call."""
+    from ..ops import cuda_lm
+    from ..solver import lm
+
+    s, P, opts = call.args[0], call.args[10], call.args[11]
+    binding = cuda_lm.CommitBinding(s, P, **lm.commit_options(opts))
+
+    def commit(s, H1, cand_t, cand_q, cost, g, H, patch, mask, kp_w, P, opts, more,
+               prior=None):
+        return lm.lm_commit(s, H1, cand_t, cand_q, cost, g, H, patch, mask, kp_w, P, opts,
+                            more, prior, binding=binding)
+    return commit
 
 
 UNIT_ROUNDOFF = {torch.float32: 2.0 ** -24, torch.float64: 2.0 ** -53}
@@ -1075,7 +1139,9 @@ def hold_lm(call: LMCall) -> dict:
     (:func:`step_forward_errors`, :func:`forward_verdicts`); K7 (both designs) its candidate cost,
     quality, success, cost decrease, mask or keypoint weights by a bit, mu
     or sigma by more than :data:`LM_TOLERANCE`; K8 any part of the next
-    state by a bit. Returns the differences measured (``step``: K6's step
+    state by a bit, in both designs, the staged design through
+    ``lm_commit_cuda`` and through a ``CommitBinding``. Returns the
+    differences measured (``step``: K6's step
     against the plain stage's library solve, relative to its norm, a
     figure and no check; ``fwd_kernel``, ``fwd_library``, ``kappa``,
     ``fwd_bound_*``: the forward errors and their bounds, NaN on an
@@ -1140,9 +1206,15 @@ def hold_lm(call: LMCall) -> dict:
         return dict(got, abs=max(got["abs"], old["abs"]), mu=max(got["mu"], old["mu"]),
                     sigma=max(got["sigma"], old["sigma"]))
     # lm_commit writes its state in place and returns it
+    designs = {"the block design": before,
+               "the binding": lm_commit_binding_fn(call)(*call.fresh())}
     for name, a, b in zip(lm.LMState._fields, out, ref):
         if not same_bits(a, b):
             raise AssertionError(f"{label}: {name} differs: {_unequal(a, b)}")
+    for design, got in designs.items():
+        for name, a, b in zip(lm.LMState._fields, got, ref):
+            if not same_bits(a, b):
+                raise AssertionError(f"{label}, {design}: {name} differs: {_unequal(a, b)}")
     return {"abs": 0.0}
 
 
@@ -1207,16 +1279,60 @@ def _cholesky_yardstick(call: LMCall):
 def floor_call(call: LMCall) -> LMCall:
     """The floor of an LM stage's recorded ``call``: K6 at one knot (D = 6,
     the leading block of the call's H, itself positive definite where H
-    is), K7 at one keypoint of one frame; the least work one launch of the
-    design does."""
+    is), K7 at one keypoint of one frame, K8 at one knot, one frame and one
+    keypoint (K = 1, F = 1, N = 1: the state and the iteration's tensors
+    sliced as for K6 and K7, the scalars and the options as recorded); the
+    least work one launch of the design does."""
     a = call.args
     if call.kernel == "lm_step":
         H, g, sc, t, q = a[:5]
         return LMCall(call.kernel, (H[:6, :6].contiguous(), g[:6].contiguous(), sc,
                                     t[:1].contiguous(), q[:1].contiguous()) + tuple(a[5:]))
+    if call.kernel == "lm_commit":
+        from ..solver import lm
+
+        def knot(x):    # [D] or [D, D] sliced to one knot's 6 unknowns
+            return (x[:6, :6] if x.dim() == 2 else x[:6]).contiguous()
+
+        s, H1, ct, cq, cost, g, H, patch, mask, kp_w = a[:10]
+        state = lm.LMState(s.t[:1].contiguous(), s.q[:1].contiguous(),
+                           s.H[:6, :6].contiguous(), s.g[:6].contiguous(), s.scalars,
+                           s.mask[:1].contiguous(), s.kp_w[:1].contiguous(),
+                           s.patch_costs[:1, :1].contiguous())
+        prior = a[13] if len(a) > 13 else None
+        if prior is not None:
+            prior = (prior[0], knot(prior[1]), knot(prior[2]))
+        return LMCall(call.kernel, (state, knot(H1), ct[:1].contiguous(), cq[:1].contiguous(),
+                                    cost, knot(g), knot(H), patch[:1, :1].contiguous(),
+                                    mask[:1].contiguous(), kp_w[:1].contiguous())
+                      + tuple(a[10:13]) + (prior,))
     cost, patch, kp_w, kp_mask = a[:4]
     return LMCall(call.kernel, (cost, patch[:1, :1].contiguous(), kp_w[:1].contiguous(),
                                 kp_mask[:1].contiguous()) + tuple(a[4:]))
+
+
+def interleaved_ms(fns: Sequence[Callable[[], object]], reps: int = 10,
+                   inner: int = 10) -> List[float]:
+    """``kernel_variants.time_ms`` of each of ``fns`` in one loop: each rep
+    times ``inner`` calls of every function in turn, so that a drift of the
+    host's speed reaches each alike; a median over the reps each, in
+    milliseconds."""
+    for fn in fns:
+        for _ in range(kv.WARMUP):
+            fn()
+    torch.cuda.synchronize()
+    samples: List[List[float]] = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, got in zip(fns, samples):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(inner):
+                fn()
+            b.record()
+            b.synchronize()
+            got.append(a.elapsed_time(b) / inner)
+    return [statistics.median(got) for got in samples]
 
 
 def time_lm_rows(label: str, calls: List[LMCall], reps: int = 10, inner: int = 10,
@@ -1228,10 +1344,13 @@ def time_lm_rows(label: str, calls: List[LMCall], reps: int = 10, inner: int = 1
     of each call's arguments made once outside the timing (K8's repeated
     calls advance their copy of the state; the work does not depend on it);
     for K6 the library's Cholesky solve beside it
-    (:func:`_cholesky_yardstick`); for K6 and K7 each design's floor
-    (:func:`floor_call`: ``floor_device_ms`` and ``floor_device_cold_ms``
-    in its row). Returns the kernel's dict first, the earlier design's
-    second where there is one, the plain version's last."""
+    (:func:`_cholesky_yardstick`); each design's floor (:func:`floor_call`:
+    ``floor_device_ms`` and ``floor_device_cold_ms`` in its row); for K8
+    the kernel row's ``binding_ms``, a call through a ``CommitBinding`` of
+    the first call's state (the LM's host call), and its ``ms``, the public
+    wrapper's call, both from one :func:`interleaved_ms`. Returns the kernel's
+    dict first, the earlier design's second where there is one, the plain
+    version's last."""
     if not torch.cuda.is_available():
         raise RuntimeError("timing the LM's kernels needs a CUDA device")
     kernel = calls[0].kernel
@@ -1267,6 +1386,16 @@ def time_lm_rows(label: str, calls: List[LMCall], reps: int = 10, inner: int = 1
         k.update(library_ms=kv.time_ms(lib[0], reps, inner),
                  library_device_ms=kv.device_ms(lib, reps, w_inner),
                  library_device_cold_ms=kv.device_flushed_ms(lib[0], reps, 20))
+    extra = ""
+    if kernel == "lm_commit":
+        # the public wrapper's call and the binding's, timed in turn in one
+        # loop; the first replaces the row's ``ms``
+        fa, fb = calls[0].fresh(), calls[0].fresh()
+        fn, bound = lm_kernel_fn(kernel), lm_commit_binding_fn(LMCall(kernel, fb))
+        k["ms"], k["binding_ms"] = interleaved_ms([lambda: fn(*fa), lambda: bound(*fb)], reps,
+                                                  inner)
+        extra = (f"; a call through a CommitBinding {1e3 * k['binding_ms']:.2f} us, "
+                 f"lm_commit_cuda's {1e3 * k['ms']:.2f} (timed in turn)")
 
     def us(r):
         fl = ("" if "floor_device_ms" not in r else
@@ -1282,7 +1411,7 @@ def time_lm_rows(label: str, calls: List[LMCall], reps: int = 10, inner: int = 1
                f"{1e3 * k['library_device_cold_ms']:.2f} cold")
     out(f"{label} {kernel} ({len(calls)} calls, D={k['D']}, {k['dtype']}): " + "; ".join(
         f"{r['name']} {us(r)}" for r in rows) + f"; bound {1e3 * b_ms:.4f} us ({b_by})"
-        + lib_txt)
+        + lib_txt + extra)
     return rows
 
 

@@ -16,13 +16,24 @@ K1 or K4 and K3:
   * K8 :func:`lm_commit_cuda`: the next state (accepted, rejected or
     invalid, chosen by selects) and the loop's continue flag, in place.
 
-K6 and K7 have two designs each. The LM launches the shuffle design of K6
+Each has two designs. The LM launches the shuffle design of K6
 (:func:`lm_step_cuda`: no round trip through one thread, the sweeps by
-shuffles in one warp up to D = 64, :func:`step_layout`) and
-the keypoint design of K7 (:func:`lm_decide_cuda`: a thread a keypoint,
-:func:`decide_threads`); PR 12's block designs, :func:`lm_step_block_cuda`
-and :func:`lm_decide_block_cuda`, are launched by the harness only, to be
-compared and timed beside them. Both K6 designs give the same bits.
+shuffles in one warp up to D = 64, :func:`step_layout`), the keypoint
+design of K7 (:func:`lm_decide_cuda`: a thread a keypoint,
+:func:`decide_threads`) and the staged design of K8 (:func:`lm_commit_cuda`:
+every load in one first batch, each warp's own residual count, no
+barrier, :data:`LM_THREADS` threads); the earlier block designs,
+:func:`lm_step_block_cuda`, :func:`lm_decide_block_cuda` and
+:func:`lm_commit_block_cuda`, are launched by the harness only, to be
+compared and timed beside them. Both K6 designs and both K8 designs give
+the same bits.
+
+K8's host call: :func:`lm_commit_cuda` checks its 17 to 20 tensors on
+every call. The LM binds each level's state once instead
+(:class:`CommitBinding`, made by ``solver/lm.py``'s ``optimize_level``):
+the 8 tensors of the state, which K8 updates in place, are checked when
+bound and kept, and each call checks only the 9 to 12 tensors that are new
+in the iteration.
 
 Their plain versions are ``solver/lm.py``'s ``lm_step_plain``,
 ``lm_decide_plain`` and ``lm_commit_plain``, which CPU tensors take;
@@ -32,8 +43,8 @@ anything else; they never fall back to the plain versions. The library is
 built and loaded by ``ops/cuda_build.py`` at first use; nothing here runs
 when the module is imported. ``LAUNCHES_LM_STEP``, ``LAUNCHES_LM_DECIDE``
 and ``LAUNCHES_LM_COMMIT`` count launches, one a call
-(``LAUNCHES_LM_STEP_BLOCK`` and ``LAUNCHES_LM_DECIDE_BLOCK`` those of the
-block designs); a call recorded into a CUDA graph is not a launch and is
+(``LAUNCHES_LM_STEP_BLOCK``, ``LAUNCHES_LM_DECIDE_BLOCK`` and
+``LAUNCHES_LM_COMMIT_BLOCK`` those of the block designs); a call recorded into a CUDA graph is not a launch and is
 not counted.
 
 The state's scalars are one vector of the working dtype, indexed by the
@@ -58,6 +69,7 @@ LAUNCHES_LM_DECIDE = 0
 LAUNCHES_LM_COMMIT = 0
 LAUNCHES_LM_STEP_BLOCK = 0
 LAUNCHES_LM_DECIDE_BLOCK = 0
+LAUNCHES_LM_COMMIT_BLOCK = 0
 
 # the scalars vector: carried state
 S_COST, S_MIN, S_CUR, S_REF, S_CAND, S_ACC_REF, S_ACC_CAND, S_NONMONO = range(8)
@@ -76,7 +88,7 @@ S_SIZE = 20
 # lives in a global scratch matrix the wrapper allocates, in the same
 # kernel
 STEP_SMEM_LIMIT = 232448 - 1024
-# the threads of K6's designs, of K7's block design and of K8
+# the threads of K6's and K8's designs and of K7's block design
 LM_THREADS = 256
 # the width of the tree both K6 designs sum the model change over
 # (lm_step.cu's kTree; residual_kernels.block_sum transcribes it)
@@ -104,8 +116,9 @@ _SIGNATURES = {
     # t, q, H, g, scalars, mask, kp_w, patch_costs, H1, cand t, cand q, cost,
     # g_raw, H_raw, patch, new mask, new kp_w, prior cost, prior g, prior H,
     # D, K, F, N, P, max_nonmono, retry, more, min_radius, max_radius,
-    # min_acd, stream
+    # min_acd, stream (both designs)
     "lm_commit": [_P] * 20 + [_I] * 8 + [_D, _D, _D, _P],
+    "lm_commit_block": [_P] * 20 + [_I] * 8 + [_D, _D, _D, _P],
 }
 
 
@@ -190,17 +203,18 @@ def launch_counts() -> Dict[str, int]:
 
 
 def earlier_launch_counts() -> Dict[str, int]:
-    """The launches of PR 12's block designs of K6 and K7, which no path of
-    the tracker launches, keyed as :func:`launch_counts` keys the designs
-    it launches."""
-    return {"lm_step": LAUNCHES_LM_STEP_BLOCK, "lm_decide": LAUNCHES_LM_DECIDE_BLOCK}
+    """The launches of the earlier block designs of K6-K8, which no path of the
+    tracker launches, keyed as :func:`launch_counts` keys the designs it
+    launches."""
+    return {"lm_step": LAUNCHES_LM_STEP_BLOCK, "lm_decide": LAUNCHES_LM_DECIDE_BLOCK,
+            "lm_commit": LAUNCHES_LM_COMMIT_BLOCK}
 
 
 def zero_launch_counts() -> None:
     global LAUNCHES_LM_STEP, LAUNCHES_LM_DECIDE, LAUNCHES_LM_COMMIT
-    global LAUNCHES_LM_STEP_BLOCK, LAUNCHES_LM_DECIDE_BLOCK
+    global LAUNCHES_LM_STEP_BLOCK, LAUNCHES_LM_DECIDE_BLOCK, LAUNCHES_LM_COMMIT_BLOCK
     LAUNCHES_LM_STEP = LAUNCHES_LM_DECIDE = LAUNCHES_LM_COMMIT = 0
-    LAUNCHES_LM_STEP_BLOCK = LAUNCHES_LM_DECIDE_BLOCK = 0
+    LAUNCHES_LM_STEP_BLOCK = LAUNCHES_LM_DECIDE_BLOCK = LAUNCHES_LM_COMMIT_BLOCK = 0
 
 
 def _step_check(who, H, g, scalars, t, q):
@@ -303,37 +317,164 @@ def lm_decide_block_cuda(cost: torch.Tensor, patch: torch.Tensor, kp_w: torch.Te
     return scalars, mask, new_w
 
 
+_STATE = ("t", "q", "H", "g", "scalars", "mask", "kp_w", "patch_costs")
+_CALL = ("H1", "cand_t", "cand_q", "cost", "g_raw", "H_raw", "patch", "new_mask", "new_kp_w")
+_PRIOR = ("prior_cost", "prior_g", "prior_H")
+
+
+def _commit_shapes(K, F, N) -> Dict[str, tuple]:
+    """K8's tensors' shapes at K knots (D = 6K), F frames and N keypoints
+    (None: not known, any size there)."""
+    D = None if K is None else 6 * K
+    return dict(t=(K, 3), q=(K, 4), H=(D, D), g=(D,), scalars=(S_SIZE,), mask=(N,),
+                kp_w=(N,), patch_costs=(F, N), H1=(D, D), cand_t=(K, 3), cand_q=(K, 4),
+                cost=(), g_raw=(D,), H_raw=(D, D), patch=(F, N), new_mask=(N,), new_kp_w=(N,),
+                prior_cost=(), prior_g=(D,), prior_H=(D, D))
+
+
+def _commit_check(who, state, call, prior):
+    """Every tensor of a K8 call checked (:func:`_check`); returns (dtype,
+    D, K, F, N)."""
+    t, patch = state[0], call[6]
+    K = t.shape[0] if t.dim() == 2 else None
+    F, N = patch.shape if patch.dim() == 2 else (None, None)
+    tensors = dict(zip(_STATE + _CALL, tuple(state) + tuple(call)))
+    if prior is not None:
+        tensors.update(zip(_PRIOR, prior))
+    shapes = _commit_shapes(K, F, N)
+    dtype = _check(who, tensors, {k: shapes[k] for k in tensors})
+    return dtype, 6 * K, K, F, N
+
+
+def _commit_options(P, max_nonmono, retry, more, min_radius, max_radius, min_acd):
+    return (int(P), int(max_nonmono), int(bool(retry)), int(bool(more)), float(min_radius),
+            float(max_radius), float(min_acd))
+
+
 def lm_commit_cuda(t, q, H, g, scalars, mask, kp_w, patch_costs, H1, cand_t, cand_q,
                    cost, g_raw, H_raw, patch, new_mask, new_kp_w, P: int, *,
                    min_radius: float, max_radius: float, max_nonmono: int, retry: bool,
                    min_acd: float, more: bool, prior=None) -> None:
-    """K8: ``solver.lm.lm_commit_plain`` in one launch of one CTA, writing
-    the next state into t [K, 3], q [K, 4], H [D, D], g [D], scalars, mask
-    [N], kp_w [N] and patch_costs [F, N] in place. From K6: H1 and the
-    candidate knots; from K3 under the new weights: cost (0-dim), g_raw,
-    H_raw, patch [F, N]; from K7: new_mask, new_kp_w; ``prior``: the
-    prior's (cost, g, H) at the candidate or None."""
+    """K8: ``solver.lm.lm_commit_plain`` in one launch of one CTA (the
+    staged design), writing the next state into t [K, 3], q [K, 4], H [D,
+    D], g [D], scalars, mask [N], kp_w [N] and patch_costs [F, N] in place.
+    From K6:
+    H1 and the candidate knots; from K3 under the new weights: cost
+    (0-dim), g_raw, H_raw, patch [F, N]; from K7: new_mask, new_kp_w;
+    ``prior``: the prior's (cost, g, H) at the candidate or None. Checks
+    every tensor on every call; the LM's calls go through a
+    :class:`CommitBinding` instead (``solver.lm.lm_commit``'s ``binding``)."""
     global LAUNCHES_LM_COMMIT
-    who = "lm_commit_cuda"
-    K = t.shape[0] if t.dim() == 2 else None
-    D = 6 * K if K is not None else None
-    F, N = patch.shape if patch.dim() == 2 else (None, None)
-    tensors = dict(t=t, q=q, H=H, g=g, scalars=scalars, mask=mask, kp_w=kp_w,
-                   patch_costs=patch_costs, H1=H1, cand_t=cand_t, cand_q=cand_q, cost=cost,
-                   g_raw=g_raw, H_raw=H_raw, patch=patch, new_mask=new_mask,
-                   new_kp_w=new_kp_w)
-    shapes = dict(t=(K, 3), q=(K, 4), H=(D, D), g=(D,), scalars=(S_SIZE,), mask=(N,),
-                  kp_w=(N,), patch_costs=(F, N), H1=(D, D), cand_t=(K, 3), cand_q=(K, 4),
-                  cost=(), g_raw=(D,), H_raw=(D, D), patch=(F, N), new_mask=(N,),
-                  new_kp_w=(N,))
-    if prior is not None:
-        tensors.update(prior_cost=prior[0], prior_g=prior[1], prior_H=prior[2])
-        shapes.update(prior_cost=(), prior_g=(D,), prior_H=(D, D))
-    dtype = _check(who, tensors, shapes)
+    state = (t, q, H, g, scalars, mask, kp_w, patch_costs)
+    call = (H1, cand_t, cand_q, cost, g_raw, H_raw, patch, new_mask, new_kp_w)
+    dtype, D, K, F, N = _commit_check("lm_commit_cuda", state, call, prior)
     pc, pg, pH = (None, None, None) if prior is None else prior
     LAUNCHES_LM_COMMIT += _launch(
-        _entry("lm_commit", dtype), H.device,
-        *(x.data_ptr() for x in (t, q, H, g, scalars, mask, kp_w, patch_costs, H1, cand_t,
-                                 cand_q, cost, g_raw, H_raw, patch, new_mask, new_kp_w)),
-        _ptr(pc), _ptr(pg), _ptr(pH), D, K, F, N, int(P), int(max_nonmono), int(bool(retry)),
-        int(bool(more)), float(min_radius), float(max_radius), float(min_acd))
+        _entry("lm_commit", dtype), H.device, *(x.data_ptr() for x in state + call),
+        _ptr(pc), _ptr(pg), _ptr(pH), D, K, F, N,
+        *_commit_options(P, max_nonmono, retry, more, min_radius, max_radius, min_acd))
+
+
+def lm_commit_block_cuda(t, q, H, g, scalars, mask, kp_w, patch_costs, H1, cand_t, cand_q,
+                         cost, g_raw, H_raw, patch, new_mask, new_kp_w, P: int, *,
+                         min_radius: float, max_radius: float, max_nonmono: int, retry: bool,
+                         min_acd: float, more: bool, prior=None) -> None:
+    """K8's earlier block design: :func:`lm_commit_cuda`'s arguments and
+    results, the same bits; 256 threads, three dependent trips to memory.
+    Launched by the harness only."""
+    global LAUNCHES_LM_COMMIT_BLOCK
+    state = (t, q, H, g, scalars, mask, kp_w, patch_costs)
+    call = (H1, cand_t, cand_q, cost, g_raw, H_raw, patch, new_mask, new_kp_w)
+    dtype, D, K, F, N = _commit_check("lm_commit_block_cuda", state, call, prior)
+    pc, pg, pH = (None, None, None) if prior is None else prior
+    LAUNCHES_LM_COMMIT_BLOCK += _launch(
+        _entry("lm_commit_block", dtype), H.device, *(x.data_ptr() for x in state + call),
+        _ptr(pc), _ptr(pg), _ptr(pH), D, K, F, N,
+        *_commit_options(P, max_nonmono, retry, more, min_radius, max_radius, min_acd))
+
+
+class CommitBinding:
+    """K8's host call bound to one LM level's state: :func:`lm_commit_cuda`
+    with the state's checks made once.
+
+    ``state``: the level's ``LMState`` (t, q, H, g, scalars, mask, kp_w,
+    patch_costs), which K8 updates in place; checked here for device,
+    dtype, contiguity and shape (:func:`_check`, raising as it raises) and
+    kept, references and pointers, with D, K, F, N, ``P``, the options
+    (:func:`lm_commit_cuda`'s keywords) and the library's entry. A call
+    takes the state again and the iteration's new tensors, checks each of
+    those for the state's device and dtype, contiguity and its shape, and
+    raises on the first that fails, before anything launches; a state
+    whose tensors are not the bound ones (replaced, not updated in place)
+    is bound again first. One launch a call, counted in
+    ``LAUNCHES_LM_COMMIT``."""
+
+    def __init__(self, state, P: int, *, min_radius: float, max_radius: float,
+                 max_nonmono: int, retry: bool, min_acd: float):
+        self._options = (int(P), int(max_nonmono), int(bool(retry)))
+        self._radii = (float(min_radius), float(max_radius), float(min_acd))
+        self.bind(state)
+
+    def bind(self, state) -> None:
+        """Check the state's 8 tensors and keep them."""
+        state = tuple(state)
+        t, patch_costs = state[0], state[7]
+        K = t.shape[0] if t.dim() == 2 else None
+        F, N = patch_costs.shape if patch_costs.dim() == 2 else (None, None)
+        shapes = _commit_shapes(K, F, N)
+        dtype = _check("CommitBinding", dict(zip(_STATE, state)),
+                       {k: shapes[k] for k in _STATE})
+        self.state = state
+        self._ptrs = tuple(x.data_ptr() for x in state)
+        self._device, self._index, self._dtype = t.device, t.get_device(), dtype
+        self._dims = (6 * K, K, F, N)
+        self._shapes = tuple(shapes[k] for k in _CALL + _PRIOR)
+        self._fn = _entry("lm_commit", dtype)
+
+    def holds(self, state) -> bool:
+        """Whether ``state``'s tensors are the bound ones."""
+        return all(a is b for a, b in zip(state, self.state))
+
+    def _refuse(self, tensors) -> None:
+        """Raise for the first of ``tensors`` (:data:`_CALL`, then
+        :data:`_PRIOR`) that the bound call does not take."""
+        who = "CommitBinding"
+        for name, x, shape in zip(_CALL + _PRIOR, tensors, self._shapes):
+            if not x.is_cuda:
+                raise ValueError(f"{who}: {name} is on {x.device}, not CUDA")
+            if x.get_device() != self._index:
+                raise ValueError(f"{who}: {name} is on {x.device}, the state on {self._device}")
+            if x.dtype is not self._dtype:
+                raise ValueError(f"{who}: {name} is {x.dtype}, the state {self._dtype}")
+            if x.shape != shape:
+                raise ValueError(f"{who}: {name} must be {list(shape)}, got {list(x.shape)}")
+            if not x.is_contiguous():
+                raise ValueError(f"{who}: {name} is not contiguous")
+        raise AssertionError(f"{who}: no tensor refused")
+
+    def __call__(self, state, H1, cand_t, cand_q, cost, g_raw, H_raw, patch, new_mask,
+                 new_kp_w, more: bool, prior=None):
+        """K8 on ``state`` (updated in place and returned) with the
+        iteration's tensors: :func:`lm_commit_cuda`'s after ``patch_costs``
+        but ``P`` and the options, which are bound."""
+        global LAUNCHES_LM_COMMIT
+        if not self.holds(state):
+            self.bind(state)
+        tensors = (H1, cand_t, cand_q, cost, g_raw, H_raw, patch, new_mask, new_kp_w)
+        if prior is not None:
+            tensors += tuple(prior)
+            if len(tensors) != len(self._shapes):
+                raise ValueError("CommitBinding: the prior is (cost, g, H)")
+        index, dtype = self._index, self._dtype
+        ptrs = []
+        for x, shape in zip(tensors, self._shapes):
+            if (x.get_device() != index or x.dtype is not dtype or x.shape != shape
+                    or not x.is_contiguous()):
+                self._refuse(tensors)
+            ptrs.append(x.data_ptr())
+        if prior is None:
+            ptrs += (None, None, None)
+        LAUNCHES_LM_COMMIT += _launch(
+            self._fn, self._device, *self._ptrs, *ptrs, *self._dims, *self._options,
+            int(bool(more)), *self._radii)
+        return state

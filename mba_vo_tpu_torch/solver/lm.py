@@ -22,7 +22,10 @@ step runs K3 once more than the reference's branches would; both results
 are discarded by the selects, as the reference never computes them. On a
 CUDA tensor each stage is its kernel (``ops/cuda_lm.py``); on a CPU tensor
 its plain version here (``lm_step_plain``, ``lm_decide_plain``,
-``lm_commit_plain``: the same data flow as tensor ops). The scalars of the
+``lm_commit_plain``: the same data flow as tensor ops). On the card
+``optimize_level`` binds each level's state to K8 once
+(``cuda_lm.CommitBinding``: the state's tensors checked when bound, each
+iteration's new ones at each call). The scalars of the
 state live in one vector of the working dtype, laid out by
 ``ops/cuda_lm.py`` (``S_*``).
 
@@ -405,17 +408,27 @@ def lm_decide(cost, patch, kp_w, kp_mask, scalars, P: int, opts: LMOptions, prio
     return lm_decide_plain(cost, patch, kp_w, kp_mask, scalars, P, opts, prior_cost)
 
 
+def commit_options(opts: LMOptions) -> dict:
+    """K8's options from ``opts``: the keywords of ``cuda_lm.lm_commit_cuda``
+    and ``cuda_lm.CommitBinding`` besides ``more`` and ``prior``."""
+    return dict(min_radius=opts.min_radius, max_radius=opts.max_radius,
+                max_nonmono=opts.max_consecutive_nonmonotonic_steps,
+                retry=opts.retry_rejected_steps, min_acd=opts.min_abs_cost_decrease)
+
+
 def lm_commit(s: LMState, H1, cand_t, cand_q, cost, g, H, patch, mask, kp_w, P: int,
-              opts: LMOptions, more: bool, prior=None) -> LMState:
-    """K8 (:func:`lm_commit_plain`): kernel on CUDA tensors (``s`` updated in
-    place), plain version on CPU tensors."""
+              opts: LMOptions, more: bool, prior=None, binding=None) -> LMState:
+    """K8 (:func:`lm_commit_plain`): the kernel, ``s`` updated in place,
+    through ``binding`` where given (``optimize_level``'s
+    ``cuda_lm.CommitBinding`` of the level's state, made with ``P`` and
+    ``opts``: the iteration's tensors checked), else on CUDA tensors through
+    ``cuda_lm.lm_commit_cuda`` (every tensor checked); the plain version on
+    CPU tensors."""
+    if binding is not None:
+        return binding(s, H1, cand_t, cand_q, cost, g, H, patch, mask, kp_w, more, prior)
     if cost.is_cuda:
-        cuda_lm.lm_commit_cuda(
-            *s, H1, cand_t, cand_q, cost, g, H, patch, mask, kp_w, P,
-            min_radius=opts.min_radius, max_radius=opts.max_radius,
-            max_nonmono=opts.max_consecutive_nonmonotonic_steps,
-            retry=opts.retry_rejected_steps, min_acd=opts.min_abs_cost_decrease, more=more,
-            prior=prior)
+        cuda_lm.lm_commit_cuda(*s, H1, cand_t, cand_q, cost, g, H, patch, mask, kp_w, P,
+                               more=more, prior=prior, **commit_options(opts))
         return s
     return lm_commit_plain(s, H1, cand_t, cand_q, cost, g, H, patch, mask, kp_w, P, opts,
                            more, prior)
@@ -433,6 +446,9 @@ class _Level(NamedTuple):
     t0: torch.Tensor
     dt: torch.Tensor
     group: object = None   # the keypoint shards' process group
+    # K8's binding of the level's state (cuda_lm.CommitBinding) on the
+    # unsharded CUDA path, else None
+    commit: object = None
 
 
 def lm_iteration(s: LMState, lv: _Level, more: bool) -> LMState:
@@ -443,11 +459,10 @@ def lm_iteration(s: LMState, lv: _Level, more: bool) -> LMState:
     opts, data, group = lv.opts, lv.data, lv.group
     P = data.pattern.shape[0]
     if group is None:
-        step, decide, commit = lm_step, lm_decide, lm_commit
+        step, decide = lm_step, lm_decide
     else:
         step = lm_step_plain
         decide = lambda *a: lm_decide_plain(*a, group=group)    # noqa: E731
-        commit = lambda *a: lm_commit_plain(*a, group=group)    # noqa: E731
     H1, _step, cand_t, cand_q, scalars = step(s.H, s.g, s.scalars, s.t, s.q, opts.solver)
     s = s._replace(scalars=scalars)
     cand = SplineKnots(cand_t, cand_q, lv.t0, lv.dt)
@@ -467,8 +482,11 @@ def lm_iteration(s: LMState, lv: _Level, more: bool) -> LMState:
     s = s._replace(scalars=scalars)
     cost_f, patch_f, g_f, H_f = residual.normal_equations(r, J, kp_w, opts.huber_a,
                                                           opts.compensated_sum)
-    return commit(s, H1, cand_t, cand_q, cost_f, g_f, H_f, patch_f, mask, kp_w, P, opts,
-                  more, prior)
+    if group is not None:
+        return lm_commit_plain(s, H1, cand_t, cand_q, cost_f, g_f, H_f, patch_f, mask, kp_w, P,
+                               opts, more, prior, group=group)
+    return lm_commit(s, H1, cand_t, cand_q, cost_f, g_f, H_f, patch_f, mask, kp_w, P, opts,
+                     more, prior, binding=lv.commit)
 
 
 def optimize_level(
@@ -489,7 +507,8 @@ def optimize_level(
 
     The host reads the device once an iteration: the continue flag that
     :func:`lm_commit` writes. Every iteration counts one, so the host
-    counts them itself.
+    counts them itself. On the card without ``group`` the level's state is
+    bound to K8 once (``cuda_lm.CommitBinding``).
     """
     if opts.solver not in SOLVERS:
         raise ValueError(f"unknown solver {opts.solver!r}")
@@ -521,6 +540,9 @@ def optimize_level(
     # the knots are updated in place on the card: the caller's stay as given
     s = LMState(knots.t.clone(), knots.q.clone(), H0.contiguous(), g0.contiguous(), scalars,
                 mask0, data.kp_mask * mask0, ev0.patch_costs.contiguous())
+    if group is None and s.H.is_cuda:
+        lv = lv._replace(commit=cuda_lm.CommitBinding(s, data.pattern.shape[0],
+                                                      **commit_options(opts)))
     iterations = 0
     go = opts.max_iterations > 0 and 1e10 >= opts.min_abs_cost_decrease
     while go:

@@ -66,7 +66,9 @@ function.
 launches and one host read an iteration), as the tracker runs them, against
 their plain versions run on the card (``lm_step_plain`` and the others:
 the eager ops they replace), the host's time to issue one iteration's three
-stages at the frame's shape first.
+stages at the frame's shape first; then K8's host call the same way, the
+level's ``CommitBinding`` (the tracker's K8) against ``lm_commit_cuda``
+checking every tensor on every call.
 """
 
 from __future__ import annotations
@@ -420,13 +422,14 @@ def compare_direct(args) -> int:
 def _lm_design(name: str):
     """The LM iteration's stages run K6-K8 ("kernels") or their plain
     versions on the card's tensors ("plain stages") inside the block."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
     from mba_vo_tpu_torch.solver import lm
 
     stages = ("lm_step", "lm_decide", "lm_commit")
     saved = {k: getattr(lm, k) for k in stages}
     if name == "plain stages":
         for k in stages:
-            setattr(lm, k, getattr(lm, f"{k}_plain"))
+            setattr(lm, k, rk.lm_plain_fn(k))
     try:
         yield
     finally:
@@ -472,6 +475,36 @@ def compare_lm(args) -> int:
 
     _weigh_designs(args, ("kernels", "plain stages"), _lm_design, iteration,
                    "LM iteration (its three stages, no evaluation)")
+
+    # K8's host call: the level's binding against the public wrapper
+    from mba_vo_tpu_torch.ops import cuda_lm
+
+    binding = cuda_lm.CommitBinding(state, 8, **lm.commit_options(o))
+
+    @contextlib.contextmanager
+    def commit_design(name: str):
+        """K8 through the level's binding ("K8 bound", the tracker's route) or
+        through lm_commit_cuda ("K8 checked in full": the dispatcher called
+        without the binding it is given)."""
+        saved = lm.lm_commit
+        if name == "K8 checked in full":
+            lm.lm_commit = lambda *a, binding=None: saved(*a)
+        try:
+            yield
+        finally:
+            lm.lm_commit = saved
+
+    def bound_iteration():
+        st = state
+        H1, _, ct, cq, scalars = lm.lm_step(st.H, st.g, st.scalars, st.t, st.q, o.solver)
+        st = st._replace(scalars=scalars)
+        scalars, mask, w = lm.lm_decide(cost, patch, st.kp_w, ones, st.scalars, 8, o)
+        st = st._replace(scalars=scalars)
+        return lm.lm_commit(st, H1, ct, cq, cost, g * 4096, H * 4096, patch, mask, w, 8, o,
+                            True, binding=binding)
+
+    _weigh_designs(args, ("K8 bound", "K8 checked in full"), commit_design, bound_iteration,
+                   "LM iteration (its three stages, no evaluation; K8's host call)")
     return 0
 
 

@@ -1968,6 +1968,142 @@ def test_lm_commit_matches_plain(cuda, D, dtype, branch, retry, prior):
     assert K == t.shape[0]
 
 
+# K8's designs: one knot (the floor) and LM_DIMS' unknowns; one frame of one
+# keypoint, of fewer keypoints than a warp and of the frame's 512, and 4
+# frames of 96, 700 and 2100 keypoints (past the 2048 patch entries that
+# the staged design's first batch covers)
+LM_COMMIT_DIMS = LM_DIMS + [6]
+LM_COMMIT_SHAPES = [(1, 1), (1, 40), (1, 512), (4, 96), (4, 700), (4, 2100)]
+
+
+def _commit_problem(D, F, N, dtype, branch, prior, case=None, seed=1):
+    """A K8 call on the card: (the state, the iteration's tensors (H1, the
+    candidate knots, K3's raw cost, g, H and patch costs, K7's mask and
+    weights), the prior or None). ``branch``: the flags of K6 and K7 set
+    for an accepted, a rejected or an invalid step; ``case`` "nan cost": K3's
+    cost a NaN; "no weights": every new weight 0 (the count's clamp to 1)."""
+    from mba_vo_tpu_torch.solver import lm as tlm
+
+    P = 8
+    H, g, sc, t, q = _lm_state(D, dtype, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    c = lambda a: torch.tensor(a, dtype=dtype, device="cuda")   # noqa: E731
+    patch, kp_mask, kp_w = _decide_inputs_any(F, N, dtype)
+    new_mask = torch.ones(N, dtype=dtype, device="cuda")
+    if N > 3:
+        new_mask[3] = 0.0
+    new_w = kp_mask * new_mask
+    if case == "no weights":
+        new_w = torch.zeros_like(new_w)
+    state = tlm.LMState(t, q, H, g, sc, (kp_w > 0).to(dtype), kp_w, patch * 1e-3)
+    n = max(float(new_w.sum()) * F * P, 1.0)
+    cost = c(float("nan") if case == "nan cost" else 4.0 * n)
+    call = (H * 1.0001, t + 1e-3, q.flip(1), cost, c(rng.normal(0, 1, D) * n), H * n, patch,
+            new_mask, new_w)
+    pri = (c(0.25), c(rng.normal(0, 0.01, D)), H * 0.01) if prior else None
+    sc[tlm.S_MCC], sc[tlm.S_QUALITY], sc[tlm.S_ACD_NEW] = 0.7, 0.8, 0.9
+    sc[tlm.S_MIN], sc[tlm.S_NONMONO] = 3.0, 4.0
+    sc[tlm.S_INVALID] = float(branch == "invalid")
+    sc[tlm.S_SUCCESS] = float(branch in ("accepted", "invalid"))   # invalid wins over it
+    return state, call, pri
+
+
+@pytest.mark.parametrize("F,N", LM_COMMIT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", LM_COMMIT_DIMS)
+def test_lm_commit_designs_match_plain(cuda, D, dtype, F, N):
+    """Both K8 designs, the staged design the LM launches (through
+    lm_commit_cuda, and through a CommitBinding given to the dispatcher as
+    the LM calls it) and the earlier block design, against lm_commit_plain bit for bit: every
+    array and scalar of the next state and the continue flag, for an
+    accepted, a rejected and an invalid step, with and without
+    retry_rejected_steps and the knot prior, then with a NaN for K3's cost
+    and with every new weight 0; one launch each, on its design's
+    counter."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_lm
+    from mba_vo_tpu_torch.solver import lm as tlm
+
+    P = 8
+    cases = [(branch, retry, prior, None) for branch in ("accepted", "rejected", "invalid")
+             for retry in (False, True) for prior in (False, True)]
+    cases += [("accepted", False, False, "nan cost"), ("accepted", False, True, "no weights")]
+    for branch, retry, prior, case in cases:
+        state, call, pri = _commit_problem(D, F, N, dtype, branch, prior, case)
+        opts = tlm.LMOptions(retry_rejected_steps=retry)
+        kw = dict(more=True, prior=pri, **tlm.commit_options(opts))
+        plain = tlm.lm_commit_plain(state, *call, P, opts, True, pri)
+        runs = [("staged", "LAUNCHES_LM_COMMIT",
+                 lambda s: cuda_lm.lm_commit_cuda(*s, *call, P, **kw)),
+                ("block", "LAUNCHES_LM_COMMIT_BLOCK",
+                 lambda s: cuda_lm.lm_commit_block_cuda(*s, *call, P, **kw)),
+                ("binding", "LAUNCHES_LM_COMMIT",
+                 lambda s: tlm.lm_commit(s, *call, P, opts, True, pri, binding=(
+                     cuda_lm.CommitBinding(s, P, **tlm.commit_options(opts)))))]
+        for name, counter, run in runs:
+            got = tlm.LMState(*(x.clone() for x in state))
+            before = getattr(cuda_lm, counter)
+            run(got)
+            torch.cuda.synchronize()
+            assert getattr(cuda_lm, counter) == before + 1, name
+            for field, a, b in zip(tlm.LMState._fields, got, plain):
+                assert rk.same_bits(a, b), (name, branch, retry, prior, case, field,
+                                            rk._unequal(a, b))
+        assert rk.same_bits(plain.t, call[1] if branch == "accepted" else state.t)
+
+
+def _faults(x):
+    """``x`` made wrong in each way a K8 wrapper refuses: on the CPU, of the
+    other float dtype, of another shape and (not 0-dim) not contiguous."""
+    out = {"not CUDA": x.cpu(), "float": x.float() if x.dtype == torch.float64 else x.double(),
+           "must be": (x.reshape(1) if x.dim() == 0 else torch.cat([x, x[:1]]) if x.dim() == 1
+                       else x.reshape(-1))}
+    if x.dim() > 0:
+        wide = torch.zeros(tuple(x.shape) + (2,), dtype=x.dtype, device=x.device)
+        wide[..., 0] = x
+        out["not contiguous"] = wide[..., 0]
+    return out
+
+
+def test_lm_commit_binding_checks_its_inputs(cuda):
+    """The bound K8 call raises, and launches nothing, on each way of being
+    wrong of each of the state's 8 tensors when bound and of each of the
+    iteration's 9 tensors and the prior's 3 at a call; a state replaced
+    rather than updated in place is bound again, and the call gives the
+    plain stage's bits."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_lm
+    from mba_vo_tpu_torch.solver import lm as tlm
+
+    P, opts = 8, tlm.LMOptions()
+    state, call, pri = _commit_problem(12, 1, 40, torch.float64, "accepted", True)
+    options = tlm.commit_options(opts)
+    before = cuda_lm.launch_counts()
+    for i, field in enumerate(tlm.LMState._fields):
+        for match, bad in _faults(state[i]).items():
+            wrong = state._replace(**{field: bad})
+            with pytest.raises(ValueError, match=match):
+                cuda_lm.CommitBinding(wrong, P, **options)
+    binding = cuda_lm.CommitBinding(state, P, **options)
+    names = ("H1", "cand_t", "cand_q", "cost", "g_raw", "H_raw", "patch", "new_mask",
+             "new_kp_w", "prior_cost", "prior_g", "prior_H")
+    args = call + pri
+    for i, name in enumerate(names):
+        for match, bad in _faults(args[i]).items():
+            wrong = args[:i] + (bad,) + args[i + 1:]
+            with pytest.raises(ValueError, match=match):
+                binding(state, *wrong[:9], True, wrong[9:])
+    assert cuda_lm.launch_counts() == before
+    plain = tlm.lm_commit_plain(state, *call, P, opts, True, pri)
+    replaced = state._replace(H=state.H.clone())
+    out = binding(replaced, *call, True, pri)
+    torch.cuda.synchronize()
+    assert binding.holds(replaced) and binding.state[2] is replaced.H
+    assert cuda_lm.launch_counts()["lm_commit"] == before["lm_commit"] + 1
+    for field, a, b in zip(tlm.LMState._fields, out, plain):
+        assert rk.same_bits(a, b), field
+
+
 def test_lm_kernels_check_their_inputs(cuda):
     """The wrappers refuse CPU tensors, mixed dtypes and wrong shapes, and
     launch nothing then."""
@@ -2078,9 +2214,10 @@ def test_tracker_lm_runs_on_k6_k8(cuda, dtype):
     total = sum(sum(x) for x in iters)
     assert n["lm_step"] == n["lm_decide"] == n["lm_commit"] == total > 0, (n, iters)
     assert reads[0] == total, (reads, total)
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+
     saved = (tlm.lm_step, tlm.lm_decide, tlm.lm_commit)
-    tlm.lm_step, tlm.lm_decide, tlm.lm_commit = (tlm.lm_step_plain, tlm.lm_decide_plain,
-                                                 tlm.lm_commit_plain)
+    tlm.lm_step, tlm.lm_decide, tlm.lm_commit = (rk.lm_plain_fn(k) for k in rk.LM_KERNELS)
     try:
         cuda_lm.zero_launch_counts()
         iters_p, poses_p = run()

@@ -459,6 +459,156 @@ def test_block_sum_tree_in_one_warp(D):
     assert lanes[0].view(torch.int32) == want.view(torch.int32), (float(lanes[0]), float(want))
 
 
+def _commit_call(K=3, F=2, N=40, prior=True):
+    """A recorded-style K8 call (the dispatcher's arguments) on CPU tensors
+    of K knots, F frames and N keypoints, numpy inputs from a seed."""
+    D = 6 * K
+    rng = np.random.default_rng(K * F * N)
+    r = lambda *shape: t64(rng.normal(0, 1, shape))    # noqa: E731
+    ones = t64(np.ones(N))
+    s = tlm.LMState(r(K, 3), r(K, 4), t64(spd(D, 1)), r(D), scalars(success=1.0), ones,
+                    ones.clone(), t64(rng.uniform(0, 1, (F, N))))
+    pri = (t64(0.25), r(D), t64(spd(D, 2, 0.01))) if prior else None
+    return rk.LMCall("lm_commit", (s, t64(spd(D, 3)), r(K, 3), r(K, 4), t64(7.0), r(D),
+                                   t64(spd(D, 4)), t64(rng.uniform(0, 1, (F, N))), ones.clone(),
+                                   ones.clone(), 8, tlm.LMOptions(), True, pri))
+
+
+@pytest.mark.parametrize("prior", [False, True])
+def test_commit_floor_call(prior):
+    """K8's floor (``residual_kernels.floor_call``): one knot, one frame and
+    one keypoint (K = 1, F = 1, N = 1), the state and the iteration's
+    tensors sliced to their leading entries, contiguous, the scalars, P,
+    the options and ``more`` as recorded; the plain stage runs on it."""
+    call = _commit_call(prior=prior)
+    floor = rk.floor_call(call)
+    s, H1, ct, cq, cost, g, H, patch, mask, kp_w, P, opts, more, pri = floor.args
+    want = dict(t=(1, 3), q=(1, 4), H=(6, 6), g=(6,), scalars=(tlm.S_SIZE,), mask=(1,),
+                kp_w=(1,), patch_costs=(1, 1))
+    for name, x in zip(tlm.LMState._fields, s):
+        assert tuple(x.shape) == want[name] and x.is_contiguous(), name
+    got = [H1, ct, cq, cost, g, H, patch, mask, kp_w]
+    shapes = [(6, 6), (1, 3), (1, 4), (), (6,), (6, 6), (1, 1), (1,), (1,)]
+    for x, shape in zip(got, shapes):
+        assert tuple(x.shape) == shape and x.is_contiguous()
+    assert torch.equal(H, call.args[6][:6, :6]) and torch.equal(s.t, call.args[0].t[:1])
+    assert s.scalars is call.args[0].scalars and (P, opts, more) == tuple(call.args[10:13])
+    assert floor.D == 6
+    if prior:
+        assert [tuple(x.shape) for x in pri] == [(), (6,), (6, 6)]
+    else:
+        assert pri is None
+    out = tlm.lm_commit_plain(*floor.args)
+    assert torch.equal(out.t, ct)
+
+
+def test_commit_binding_refuses_cpu_tensors(level, monkeypatch):
+    """K8's binding and wrappers take CUDA tensors only: on CPU tensors they
+    raise and launch nothing, with no move to the plain stage; the
+    dispatcher given a binding calls it, whatever the device; and a level
+    on the CPU binds nothing (the plain stage commits it)."""
+    from mba_vo_tpu_torch.ops import cuda_lm
+
+    call = _commit_call()
+    s, *rest = call.args
+    iteration, P, opts, more, pri = rest[:9], rest[9], rest[10], rest[11], rest[12]
+    before = cuda_lm.launch_counts(), cuda_lm.earlier_launch_counts()
+    options = tlm.commit_options(opts)
+    with pytest.raises(ValueError, match="not CUDA"):
+        cuda_lm.CommitBinding(s, P, **options)
+    for wrapper in (cuda_lm.lm_commit_cuda, cuda_lm.lm_commit_block_cuda):
+        with pytest.raises(ValueError, match="not CUDA"):
+            wrapper(*s, *iteration, P, more=more, prior=pri, **options)
+    seen = []
+
+    def binding(*args):
+        seen.append(args)
+        return args[0]
+
+    out = tlm.lm_commit(s, *iteration, P, opts, more, pri, binding=binding)
+    assert out is s and len(seen) == 1
+    assert seen[0][1:] == tuple(iteration) + (more, pri)
+    assert (cuda_lm.launch_counts(), cuda_lm.earlier_launch_counts()) == before
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU level bound K8")
+
+    monkeypatch.setattr(cuda_lm, "CommitBinding", refuse)
+    (_, kt), (_, dt) = level
+    _, summary = tlm.optimize_level(kt, dt, 5, 2, tlm.LMOptions(
+        sampling="windowed", huber_a=10.0, max_iterations=2))
+    assert summary.num_iterations >= 1
+
+
+def test_plain_seam_takes_the_dispatchers_arguments():
+    """``residual_kernels.lm_plain_fn("lm_commit")``, which replaces K8's
+    dispatcher in the plain-stage tracker, takes the dispatcher's arguments,
+    ``binding`` among them, and gives the plain stage's state bit for bit."""
+    call = _commit_call()
+    want = tlm.lm_commit_plain(*call.fresh())
+    got = rk.lm_plain_fn("lm_commit")(*call.fresh(), binding=object())
+    for name, a, b in zip(tlm.LMState._fields, got, want):
+        assert rk.same_bits(a, b), name
+    assert rk.lm_plain_fn("lm_step") is tlm.lm_step_plain
+
+
+def test_recorded_and_plain_stages_run_a_level(level):
+    """A level run under ``record_lm_calls`` records one call a stage an
+    iteration, each with the dispatcher's positional arguments (K8's 14; its
+    ``binding`` keyword passed on, not recorded), and gives the unrecorded
+    run's knots; a level run on the plain seams (``lm_plain_fn``) gives them
+    too."""
+    (_, kt), (_, dt) = level
+    opts = tlm.LMOptions(sampling="windowed", huber_a=10.0, max_iterations=3)
+    k0, s0 = tlm.optimize_level(kt, dt, 5, 2, opts)
+    with rk.record_lm_calls() as calls:
+        k1, s1 = tlm.optimize_level(kt, dt, 5, 2, opts)
+    assert [len(calls[k]) for k in rk.LM_KERNELS] == [s0.num_iterations] * 3
+    assert all(len(c.args) == 14 for c in calls["lm_commit"])
+    saved = {k: getattr(tlm, k) for k in rk.LM_KERNELS}
+    try:
+        for k in rk.LM_KERNELS:
+            setattr(tlm, k, rk.lm_plain_fn(k))
+        k2, s2 = tlm.optimize_level(kt, dt, 5, 2, opts)
+    finally:
+        for k, fn in saved.items():
+            setattr(tlm, k, fn)
+    for k, s in ((k1, s1), (k2, s2)):
+        assert torch.equal(k.t, k0.t) and torch.equal(k.q, k0.q)
+        assert s.num_iterations == s0.num_iterations
+
+
+@pytest.mark.parametrize("N", [1, 31, 33, 40, 512, 700, 2100, 0])
+def test_commit_count_in_any_order(N):
+    """K8's staged design counts the residuals (sum of the new 0/1 weights)
+    in each warp by itself: each lane's strided entries in order, then a
+    butterfly of shuffles (``residual_kernels.warp_count``, its order
+    transcribed). In float32 every lane's count has the bits of torch's sum,
+    of three shuffled orders summed one by one and of the block design's
+    256-slot tree (``block_sum``), up to N = 2100; so has the scale
+    ``inverse_residual_count`` gives (N = 0: all weights 0 of 64, the
+    clamp to 1)."""
+    rng = np.random.default_rng(N)
+    n = N or 64
+    w = torch.tensor(rng.random(n) < 0.8, dtype=torch.float32) * float(N > 0)
+    lanes = rk.warp_count(w)
+    assert bool((lanes.view(torch.int32) == lanes[0].view(torch.int32)).all())
+    count = lanes[0]
+    orders = [w.sum(), rk.block_sum(w)]
+    for seed in range(3):
+        acc = torch.zeros((), dtype=torch.float32)
+        for x in w[torch.from_numpy(np.random.default_rng(seed).permutation(n))]:
+            acc = acc + x
+        orders.append(acc)
+    for other in orders:
+        assert other.view(torch.int32) == count.view(torch.int32), (float(other), float(count))
+    F, P = 4, 8
+    n_res = torch.clamp((count * F) * P, min=1.0)
+    want = inverse_residual_count(w, F, P)
+    assert (1.0 / n_res).view(torch.int32) == want.view(torch.int32)
+    assert float(n_res) == max(float(np.count_nonzero(w.numpy())) * F * P, 1.0)
+
+
 @pytest.mark.parametrize("D", [12, 42])
 @pytest.mark.parametrize("case", ["valid", "not positive definite"])
 def test_kernel_order_solve_matches_jax(D, case):
