@@ -19,10 +19,11 @@ Phases (any failed check raises and the exit code is non-zero):
      row and the earlier branch design) and K6-K8 (csrc/lm_step.cu: the LM
      iteration's step, decision and commit; K6's shuffle design, K7's
      keypoint design and K8's staged design, and the earlier block designs
-     of the three) with nvcc for
-     sm_90a, all seven sources at once, and print each kernel's registers,
+     of the three) and K9 (csrc/knot_prior.cu: the joint path's knot
+     prior) with nvcc for
+     sm_90a, all eight sources at once, and print each kernel's registers,
      shared memory and spills, K5's staging, K4's block, K6's threads and
-     shared memory by D and K7's threads by N;
+     shared memory by D, K7's threads by N and K9's shared memory by K;
   2b. the card tests: tests/test_torch_cuda.py under pytest (-m cuda,
      without the JAX test configuration), every kernel against its plain
      version (K4 and K5 bit for bit, the direct path on the kernels against
@@ -30,7 +31,9 @@ Phases (any failed check raises and the exit code is non-zero):
      42 and 162, both K6 designs against K6's order transcribed bit for
      bit, both K7 designs against the plain stage, both K8 designs, the
      staged one through lm_commit_cuda and through a CommitBinding, against
-     the plain stage bit for bit, and the tracker's LM on
+     the plain stage bit for bit, K9 against its plain version at K = 3,
+     7, 11 and 32 (bit for bit as the target) and through a level's
+     binding, and the tracker's LM on
      them against the plain-stage tracker) and blur_rows and K3 against
      their earlier designs bit for bit on edge shapes; any failure fails
      the run;
@@ -62,7 +65,9 @@ Phases (any failed check raises and the exit code is non-zero):
      left unchecked printed; K7's
      flags, decrease and mask equal in both designs; K8's next state, in
      both designs, the staged one through lm_commit_cuda and through a
-     CommitBinding, bit for bit);
+     CommitBinding, bit for bit); K9's calls of the joint chunk (K = 7)
+     against its plain version (bit for bit where the transcendentals round
+     alike, else within 1e-6 of each output's magnitude);
   4. the tracker in f64 on CUDA against the same tracker on the CPU, on the
      bench scenario (VGA, 512 keypoints, 3 levels, 5 virtual poses), with
      every K2, K3 and K5 call of the CUDA run held against the plain
@@ -82,8 +87,10 @@ Phases (any failed check raises and the exit code is non-zero):
      phase 4's track_frame poses in f64, inflight 1 against 2, and timed in
      f32; (b) a keyframe switch and a rejected frame inside one track_frames
      run against the per-frame run; (c) track_frames_joint at degree 4 and 2
-     in f64 on CUDA against the CPU, then timed in f32 with its launches per
-     chunk; (d) sampling="direct" and affine_brightness in f64 on CUDA
+     in f64 on CUDA against the CPU, K6-K9 held on every call of the f64
+     CUDA runs (into phase 4's f64 figures), then timed in f32 with its
+     launches per chunk and per LM evaluation, K9's launches against the
+     levels' starts and iterations; (d) sampling="direct" and affine_brightness in f64 on CUDA
      against the CPU (1e-8, ATE under 2e-3 m), with K1's to K8's launches;
      in (a), (c) and (d) the f64 LM iterations a level equal the plain-stage
      tracker's and the poses its to 1e-9;
@@ -115,7 +122,9 @@ Phases (any failed check raises and the exit code is non-zero):
      launched ones, each design's floor (K6 at D = 6, K7 at N = 1, K8 at K
      = F = N = 1), K8's host call through its CommitBinding beside the
      public wrapper's, the two timed in turn, K6's and K7's predictions
-     and K8's targets;
+     and K8's targets; K9 on the joint chunk's recorded calls beside its
+     old path (torch.func.jacfwd), its plain version, its bound and its
+     floor (K = 3), and its target;
   8. the command line and the keyframe backend: (a) float64 on CUDA against
      the CPU at full width: detect_sparse + match_descriptors on a VGA frame
      of the bench scenario with BackendConfig's default detector (differing
@@ -173,10 +182,11 @@ Phases (any failed check raises and the exit code is non-zero):
      thread, with the decoders in two threads and in two processes (the
      command line's read-ahead, `cli.READ_AHEAD`): frames/s of each, the
      TUM file equal to the filter-0 run's;
-K2's to K8's launches are counted, as K1's, on each path (5a, 6a, 6c-6e,
-8b-8d, 9b-9d; K2-K5 10a per rank, whose sharded LM runs the plain stages;
-a call of K3 launches one kernel); then one JSON line of kernel results
-(K1 to K8),
+K2's to K9's launches are counted, as K1's, on each path (5a, 6a, 6c-6e,
+8b-8d, 9b-9d; K2-K5 and K9 10a per rank, whose sharded LM runs the plain
+stages around K9; a call of K3 launches one kernel; K9 only where the
+knot prior is on, the joint path); then one JSON line of kernel results
+(K1 to K9),
 the card line again, and the final status line {"ok": true, "device":
 {...}}.
 """
@@ -244,26 +254,28 @@ def zero_counts(cs):
 
 
 def note_residual_launches(path: str) -> dict:
-    """K2's to K8's launches since :func:`zero_counts`, kept under ``path``."""
+    """K2's to K9's launches since :func:`zero_counts`, kept under ``path``."""
     from mba_vo_tpu_torch.ops import cuda_lm
     from mba_vo_tpu_torch.ops import cuda_residual as cr
 
-    got = {**cr.launch_counts(), **cuda_lm.launch_counts()}
+    got = {**cr.launch_counts(), **cuda_lm.launch_counts(),
+           "knot_prior": cuda_lm.LAUNCHES_KNOT_PRIOR}
     RESIDUAL_LAUNCHES[path] = got
     EARLIER_LAUNCHES[path] = cuda_lm.earlier_launch_counts()
     return got
 
 
-def skipped(got: dict, direct: bool = False) -> list:
+def skipped(got: dict, direct: bool = False, prior: bool = False) -> list:
     """The kernels that a path's launch counts ``got`` show it never
     launched though it should have: every path's (K2's two entries, K3, the
-    layout K5 and, where ``got`` counts them, the LM's K6-K8) and, on the
-    direct path, K4."""
+    layout K5 and, where ``got`` counts them, the LM's K6-K8), on the
+    direct path K4 and, where the knot prior is on (the joint path), K9."""
     from mba_vo_tpu_torch.ops import cuda_lm
     from mba_vo_tpu_torch.ops import cuda_residual as cr
 
     lm = tuple(k for k in cuda_lm.launch_counts() if k in got)
-    want = cr.EVERY_PATH + lm + (("image_bilinear_lk",) if direct else ())
+    want = (cr.EVERY_PATH + lm + (("image_bilinear_lk",) if direct else ())
+            + (("knot_prior",) if prior else ()))
     return [k for k in want if got.get(k, 0) == 0]
 
 
@@ -272,18 +284,21 @@ def lm_probe(plain: bool = False):
     """Inside the block every optimize_level call of the tracker is probed:
     its LM iterations are appended to ``probe["iterations"]`` in the order
     of the calls, and the host reads made during it (Tensor.item and
-    Tensor.__bool__) added to ``probe["reads"]``. With ``plain`` the LM's
-    stages run their plain versions on the card's tensors: the plain-stage
-    tracker that K6-K8 are held to."""
+    Tensor.__bool__) added to ``probe["reads"]``; ``probe["prior"]`` counts
+    the knot prior's evaluations the levels make (K9's launches on the
+    card: one at a level's start and one an iteration, where the prior is
+    on). With ``plain`` the LM's stages (K6-K9) run their plain versions on
+    the card's tensors: the plain-stage tracker that the kernels are held
+    to."""
     import torch
     from mba_vo_tpu_torch.experiments import residual_kernels as rk
     from mba_vo_tpu_torch.solver import lm
     from mba_vo_tpu_torch.tracker import blur_tracker as bt
 
-    probe = {"iterations": [], "reads": 0}
+    probe = {"iterations": [], "reads": 0, "prior": 0}
     item, boolean = torch.Tensor.item, torch.Tensor.__bool__
     original = bt.optimize_level
-    stages = ("lm_step", "lm_decide", "lm_commit")
+    stages = rk.LM_STAGES
     saved = {k: getattr(lm, k) for k in stages}
 
     def counted(fn):
@@ -299,6 +314,8 @@ def lm_probe(plain: bool = False):
         finally:
             torch.Tensor.item, torch.Tensor.__bool__ = item, boolean
         probe["iterations"].append(summary.num_iterations)
+        if lm._prior_on(args[0], args[4]):
+            probe["prior"] += 1 + summary.num_iterations
         return knots, summary
 
     bt.optimize_level = optimize_level
@@ -314,7 +331,7 @@ def lm_probe(plain: bool = False):
 
 
 def hold_lm_calls(recorded: dict) -> dict:
-    """K6-K8 against their plain versions on every recorded call, K6 and K7
+    """K6-K9 against their plain versions on every recorded call, K6 and K7
     in both designs (``residual_kernels.hold_lm``: a difference past the
     bounds raises; K6's step bit for bit against its order of operations
     transcribed, ``lm_step_kernel_order``, its block design bit for bit
@@ -324,13 +341,17 @@ def hold_lm_calls(recorded: dict) -> dict:
     and the branches the calls took, and returns by kernel the largest
     (absolute, relative) difference: K6's step against the plain stage's
     library solve (relative to its norm; a figure, not a check), K7's mu
-    and sigma, K8's state (bit for bit: 0); under "forward" K6's forward
-    errors (the largest of each step's, each step's calls checked under a
-    bound below 1 and its largest ratio to that bound, the calls where K6's
-    step is the nearer, the calls compared, kappa_2's range)."""
+    and sigma, K8's state (bit for bit: 0), K9's cost, g and H (relative to
+    each output's magnitude; within rk.PRIOR_TOLERANCE, where a
+    transcendental rounds otherwise than torch's); under "forward" K6's
+    forward errors (the largest of each step's, each step's calls checked
+    under a bound below 1 and its largest ratio to that bound, the calls
+    where K6's step is the nearer, the calls compared, kappa_2's range);
+    under "prior bits" K9's calls held, those equal bit for bit and the
+    largest difference in ulps."""
     from mba_vo_tpu_torch.experiments import residual_kernels as rk
 
-    worst = {}
+    worst = {"prior bits": {"calls": 0, "bit_equal": 0, "ulps": 0.0}}
     fwd = {"kernel": 0.0, "library": 0.0, "share_kernel": 0.0, "share_library": 0.0,
            "checked_kernel": 0, "checked_library": 0, "nearer": 0, "calls": 0,
            "kappa": [math.inf, 0.0]}
@@ -339,9 +360,14 @@ def hold_lm_calls(recorded: dict) -> dict:
             check(len(calls) > 0, f"{label}: no {kernel} call was recorded")
             got = [rk.hold_lm(c) for c in calls]
             a = max(g["abs"] for g in got)
-            r = max(max(g.get(k, 0.0) for k in ("step", "mu", "sigma")) for g in got)
+            r = max(max(g.get(k, 0.0) for k in ("step", "mu", "sigma", "prior")) for g in got)
             old = worst.get(kernel, (0.0, 0.0))
             worst[kernel] = (max(old[0], a), max(old[1], r))
+            if kernel == rk.PRIOR:
+                pb = worst["prior bits"]
+                pb.update(calls=pb["calls"] + len(got),
+                          bit_equal=pb["bit_equal"] + int(sum(g["bits"] for g in got)),
+                          ulps=max(pb["ulps"], max(g["ulps"] for g in got)))
             dt = str(calls[0].dtype).split(".")[-1]
             what = {"lm_step": f"{int(sum(g.get('invalid', 0) for g in got))} invalid (the plain "
                                f"stage's: {int(sum(g.get('plain_invalid', 0) for g in got))}); "
@@ -354,9 +380,15 @@ def hold_lm_calls(recorded: dict) -> dict:
                                  f"within {r:.3e}",
                     "lm_commit": "the next state equal bit for bit in both designs, the staged "
                                  "one through lm_commit_cuda and through a "
-                                 "CommitBinding"}[kernel]
+                                 "CommitBinding",
+                    rk.PRIOR: f"cost, g and H equal to the plain version bit for bit on "
+                              f"{int(sum(g.get('bits', 0) for g in got))}, within {r:.3e} of "
+                              f"each output's magnitude on all (worst "
+                              f"{max(g.get('ulps', 0.0) for g in got):.1f} ulps)"}[kernel]
             bound = (f" (bound {rk.LM_TOLERANCE[calls[0].dtype]:.0e})"
-                     if kernel == "lm_decide" else "")
+                     if kernel == "lm_decide" else
+                     f" (bound {rk.PRIOR_TOLERANCE[calls[0].dtype]:.0e})"
+                     if kernel == rk.PRIOR else "")
             print(f"  {label}: {kernel}, {len(calls)} recorded calls ({dt}, 6K = "
                   f"{sorted({c.D for c in calls})}): {what}{bound}")
             if kernel != "lm_step":
@@ -553,8 +585,9 @@ def record_tracker_calls(img, traj, frames):
     its calls over the chunk's 4 frames; "direct f32", 4 frames of
     track_frame with sampling="direct" (K4's and K5's calls, and K2's and
     K3's there). The layout K5 is recorded on every path, K4 on the direct
-    one. The LM's stages K6-K8 are recorded on the same three runs.
-    Returns (sampler calls, K2-K5 calls, K6-K8 calls)."""
+    one. The LM's stages K6-K8 are recorded on the same three runs, and the
+    knot prior K9 on the joint chunk's (K = 7), the one run where it is on.
+    Returns (sampler calls, K2-K5 calls, K6-K9 calls)."""
     from mba_vo_tpu_torch.experiments import kernel_variants as kv
     from mba_vo_tpu_torch.experiments import residual_kernels as rk
 
@@ -580,7 +613,19 @@ def record_tracker_calls(img, traj, frames):
                                    for k, calls in windowed(joint_rows).items()},
                 "direct f32": direct_rows}
     lm = {"tracker S=40": lm_frame, "joint degree 4": lm_joint, "direct f32": lm_direct}
-    return sampler, residual, lm
+    return sampler, residual, {label: prior_calls(label, calls, label == "joint degree 4")
+                               for label, calls in lm.items()}
+
+
+def prior_calls(label: str, calls: dict, joint: bool) -> dict:
+    """A run's recorded LM calls (``rk.record_lm_calls``) with K9's list
+    dropped where the knot prior is off: it must be empty there, and not
+    empty on a joint run."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+
+    check(bool(calls[rk.PRIOR]) == joint,
+          f"{label}: {len(calls[rk.PRIOR])} calls of the knot prior recorded")
+    return calls if joint else {k: v for k, v in calls.items() if k != rk.PRIOR}
 
 
 def windowed(calls: dict) -> dict:
@@ -642,11 +687,12 @@ def launches_an_evaluation(cfg, img, frames, plain=()) -> tuple:
     return total, evals[0], probe
 
 
-def launches_an_iteration(cfg, img, frames) -> float:
+def launches_an_iteration(cfg, img, frames, run=None) -> float:
     """Kernel launches of one LM iteration alone (``solver.lm.lm_iteration``:
-    K6, the evaluation, K3 twice, K7, K8 and whatever torch ops remain),
-    each iteration of tracking ``frames`` from rest counted under
-    torch.profiler on its own; the mean."""
+    K6, the evaluation, K3 twice, K9 where the prior is on, K7, K8 and
+    whatever torch ops remain), each iteration of tracking ``frames`` from
+    rest (or of ``run()``) counted under torch.profiler on its own; the
+    mean."""
     import torch
     from mba_vo_tpu_torch.solver import lm
 
@@ -659,7 +705,10 @@ def launches_an_iteration(cfg, img, frames) -> float:
 
     lm.lm_iteration = counted
     try:
-        run_tracker(cfg, "cuda", img, frames)
+        if run is None:
+            run_tracker(cfg, "cuda", img, frames)
+        else:
+            run()
     finally:
         lm.lm_iteration = original
     torch.cuda.synchronize()
@@ -1791,6 +1840,7 @@ def _sharded_rank(rank, world, store, inputs_path, out_dir):
         from mba_vo_tpu_torch.backend import ba
         from mba_vo_tpu_torch.experiments import kernel_variants as kv
         from mba_vo_tpu_torch.experiments import residual_kernels as rk
+        from mba_vo_tpu_torch.ops import cuda_lm
         from mba_vo_tpu_torch.ops import cuda_residual as cr
         from mba_vo_tpu_torch.ops import cuda_sampling as cs
         from mba_vo_tpu_torch.ops import window_sampling as ws
@@ -1839,6 +1889,7 @@ def _sharded_rank(rank, world, store, inputs_path, out_dir):
                 k = tr.knots
             out[method], out[f"{method} launches"] = p, cs.LAUNCHES
             out[f"{method} k23 launches"] = cr.launch_counts()
+            out[f"{method} k9 launches"] = cuda_lm.LAUNCHES_KNOT_PRIOR
             out[f"{method} knots"] = torch.cat([k.t, k.q], 1).cpu().numpy()
             check(tr.mesh is not None and tr.mesh.size == world, "the tracker built no mesh")
         zero_counts(cs)
@@ -1936,6 +1987,14 @@ def phase_sharded(root, cs, launches, img, frames, refs, fps_single, card):
               f"{len(r0[name])} frames of the bench scenario: max |pose - single-process pose| "
               f"= {diff:.3e} (bound {SHARD_TOL:g}); knots and poses equal bit for bit on every "
               f"rank; K1 launches per rank {per_rank}; K2/K3 per rank {k23}")
+        k9 = [r[f"{name} k9 launches"] for r in ranks] if name != "track_frame" else [0]
+        if name == "track_frames_joint":
+            # the prior reads only the knots, whole on every rank: K9 serves
+            # the sharded LM, whose other stages run plain
+            print(f"[10a] {name}: K9 (the knot prior) launches per rank {k9}")
+            check(all(n > 0 for n in k9), f"a rank of the sharded {name} never launched K9")
+        else:
+            check(not any(k9), f"the sharded {name} launched K9: {k9}")
         check(np.isfinite(r0[name]).all(), f"sharded {name}: non-finite poses")
         check(diff <= SHARD_TOL, f"sharded {name} differs from the single-process run by {diff}")
         check(all(n > 0 for n in per_rank), f"a rank of the sharded {name} never launched K1")
@@ -2062,7 +2121,7 @@ def main() -> int:
     # ---- 2. build
     t0 = time.perf_counter()
     libs = cuda_build.build()
-    print(f"[2] built K1, K1-v, K2, K3, K4, K5 and K6-K8 in {time.perf_counter() - t0:.2f} s -> "
+    print(f"[2] built K1, K1-v, K2, K3, K4, K5, K6-K8 and K9 in {time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(str(p) for p in libs.values())}")
     for name, log in cuda_build.BUILD_LOG.items():
         # ptxas -v: one block of lines per kernel instantiation (IfE float,
@@ -2073,7 +2132,7 @@ def main() -> int:
                           r"blur_rows(?:_keypoint)?|frame_layout(?:_serial)?|"
                           r"image_bilinear(?:_branch|_interleaved)?|"
                           r"lm_(?:step_shfl|step_block|decide_keypoint|decide_block|"
-                          r"commit_staged|commit_block))"
+                          r"commit_staged|commit_block)|knot_prior)"
                           r"_kernel|normal_equations_(?:partials|combine|cluster))I([fd])"
                           r"((?:Li\d+E)*)", ln)
             if "Compiling entry function" in ln and m:
@@ -2119,7 +2178,10 @@ def main() -> int:
           + f", {cuda_lm.LM_THREADS} threads; K7's keypoint design "
           + ", ".join(f"N = {n}: {cuda_lm.decide_threads(n)} threads" for n in (1, 40, N_KP, 700))
           + f"; K7's block design and both K8 designs one CTA of {cuda_lm.LM_THREADS} "
-          "threads, K8's staged design with no shared memory")
+          "threads, K8's staged design with no shared memory; K9 (knot_prior) one CTA of "
+          f"{cuda_lm.PRIOR_THREADS} threads, dynamic shared memory " + "; ".join(
+              f"K = {K}: " + " / ".join(f"{cuda_lm.prior_smem_bytes(K, b)} B {t}"
+                                        for t, b in item.items()) for K in (3, 7, 11, 32)))
     # the frame's calls (F = 1), a degree-4 joint chunk's (F = 4) and the widest
     for F, D in ((1, 12), (JCHUNK, 6 * (JCHUNK + 3)), (8, cr.MAX_TANGENTS)):
         M = F * N_KP * 8
@@ -2181,10 +2243,10 @@ def main() -> int:
     residual_err = hold_residual_calls(residual_calls)
     print(f"    phase 3's K2-K5 in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    print("    K6-K8 (lm_step, lm_decide, lm_commit) against the plain stages on every "
-          "recorded call")
+    print("    K6-K9 (lm_step, lm_decide, lm_commit, knot_prior) against the plain stages on "
+          "every recorded call")
     lm_err = hold_lm_calls(lm_calls)
-    print(f"    phase 3's K6-K8 in {time.perf_counter() - t0:.1f} s")
+    print(f"    phase 3's K6-K9 in {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. slice, f64: CUDA against CPU
     launches0 = cs.LAUNCHES
@@ -2193,7 +2255,7 @@ def main() -> int:
         p64, s64, _ = run_tracker(bench_config("float64"), "cuda", img, frames)
     check(cs.LAUNCHES > launches0, "the f64 CUDA run did not launch K1")
     residual_err64 = hold_residual_calls({"f64 track_frame": windowed(rows64)})
-    lm_err64 = hold_lm_calls({"f64 track_frame": lm64})
+    lm_err64 = hold_lm_calls({"f64 track_frame": prior_calls("f64 track_frame", lm64, False)})
     with lm_probe(plain=True) as plain64:
         p64p, _, _ = run_tracker(bench_config("float64"), "cuda", img, frames)
     check_plain_stage_iterations("[4] f64 track_frame", probe64, plain64)
@@ -2359,12 +2421,24 @@ def main() -> int:
         cfg_j = bench_config("float64", spline_degree=deg, max_num_iterations=4)
         win = moving_window(traj, frames, JCHUNK, deg)
         args = dict(method="track_frames_joint", window=win, chunk=JCHUNK, inflight=3)
-        with lm_probe() as probe_j:
+        with lm_probe() as probe_j, rk.record_lm_calls() as lm_j:
             jc, _, tc = run_batch(cfg_j, "cuda", img, frames[:JCHUNK], **args)
         with lm_probe(plain=True) as plain_j:
             jp, _, _ = run_batch(cfg_j, "cuda", img, frames[:JCHUNK], **args)
         check_plain_stage_iterations(f"[6c] f64 track_frames_joint degree {deg}", probe_j,
                                      plain_j)
+        # K6-K9 on every call of the f64 joint run, into phase 4's f64 figures
+        label = f"[6c] f64 track_frames_joint degree {deg}"
+        for kernel, err in hold_lm_calls({label: prior_calls(label, lm_j, True)}).items():
+            if kernel == "prior bits":
+                pb = lm_err64.setdefault(kernel, dict(err))
+                if pb is not err:
+                    pb.update(calls=pb["calls"] + err["calls"],
+                              bit_equal=pb["bit_equal"] + err["bit_equal"],
+                              ulps=max(pb["ulps"], err["ulps"]))
+            elif kernel != "forward":
+                a, r = lm_err64.get(kernel, (0.0, 0.0))
+                lm_err64[kernel] = (max(a, err[0]), max(r, err[1]))
         check(float(np.abs(jc - jp).max()) <= 1e-9, "6c: f64 poses differ from the plain "
                                                     "stages'")
         jh, _, th = run_batch(cfg_j, "cpu", img, frames[:JCHUNK], **args)
@@ -2384,13 +2458,22 @@ def main() -> int:
     k23 = note_residual_launches("track_frames_joint")
     n_chunks = LONG_FRAMES // JCHUNK
     cfg_p = bench_config("float32", max_num_iterations=4)
+    k9_before = cuda_lm.LAUNCHES_KNOT_PRIOR
     with lm_probe() as probe_jp:
         total = kernel_launches(lambda: run_batch(
             cfg_p, "cuda", img, frames[:JCHUNK], method="track_frames_joint",
             window=moving_window(traj, frames, JCHUNK, DEG), chunk=JCHUNK))
+    k9 = cuda_lm.LAUNCHES_KNOT_PRIOR - k9_before
     reads["joint"] = probe_jp["reads"] / max(sum(probe_jp["iterations"]), 1)
     check(probe_jp["reads"] == sum(probe_jp["iterations"]), f"6c: host reads {probe_jp}")
+    # K9: one launch at each level's start and one an iteration
+    check(k9 == probe_jp["prior"] > 0, f"6c: K9 launched {k9} times, the levels' starts and "
+                                       f"iterations {probe_jp['prior']}")
     evals = cs.LAUNCHES - jl
+    per_eval["joint"] = total / max(evals, 1)
+    per_iter["joint"] = launches_an_iteration(None, img, frames, run=lambda: run_batch(
+        cfg_p, "cuda", img, frames[:JCHUNK], method="track_frames_joint",
+        window=moving_window(traj, frames, JCHUNK, DEG), chunk=JCHUNK))
     print(f"[6c] track_frames_joint(chunk={JCHUNK}, inflight=3), f32, degree {DEG}: "
           f"{LONG_FRAMES} frames in {sec:.3f} s = {1e3 * sec / n_chunks:.1f} ms/chunk ({card}), "
           f"{LONG_FRAMES / sec:.3f} frames/s; K1 launches {jl} "
@@ -2399,12 +2482,16 @@ def main() -> int:
           f"{ate32:.4e} m)")
     print(f"    kernel launches of one chunk with the LM cut to 4 iterations a level, "
           f"bootstrap included (torch.profiler): {total} over {evals} LM evaluations = "
-          f"{total / max(evals, 1):.0f} per evaluation ({card}), host reads an LM iteration "
-          f"{reads['joint']:.2f}; K2-K8 launches of the timed run: " + ", ".join(
+          f"{per_eval['joint']:.1f} per evaluation ({card}), host reads an LM iteration "
+          f"{reads['joint']:.2f}; the target under 80 an evaluation "
+          f"{'held' if per_eval['joint'] < 80 else 'missed'}; launches of one LM iteration "
+          f"alone {per_iter['joint']:.1f}; K9 {k9} launches = one at the "
+          f"start of each level with the prior and one an LM iteration there "
+          f"({probe_jp['prior']}); K2-K9 launches of the timed run: " + ", ".join(
               f"{k} {n}" for k, n in k23.items()))
     check(j32.shape == (LONG_FRAMES, 7) and np.isfinite(j32).all(), "bad joint f32 poses")
     check(jl > 0, "track_frames_joint never launched K1")
-    check(not skipped(k23), f"track_frames_joint skipped K2-K8: {k23}")
+    check(not skipped(k23, prior=True), f"track_frames_joint skipped K2-K9: {k23}")
 
     # 6d. sampling="direct" and affine_brightness (frames under a gain that
     # drifts by 2 % and a bias that drifts by 1 grey level a frame), four
@@ -2636,12 +2723,13 @@ def main() -> int:
           f"({'met' if k5[1]['device_ms'] <= 3.2e-3 else 'not met'}); {card}")
 
     # K6-K8 on phase 3's recorded calls: the frame's (6K = 12) and the
-    # degree-4 joint chunk's (6K = 42)
+    # degree-4 joint chunk's (6K = 42); K9 on the joint chunk's, beside its
+    # old path
     t0 = time.perf_counter()
     lm_rows = {(label, kernel): rk.time_lm_rows(label, calls, out=indent)
                for label in ("tracker S=40", "joint degree 4")
                for kernel, calls in lm_calls[label].items()}
-    print(f"    K6-K8 timed in {time.perf_counter() - t0:.1f} s ({card})")
+    print(f"    K6-K9 timed in {time.perf_counter() - t0:.1f} s ({card})")
     # K6's and K7's redesigns' predictions (PERF.md section 6): K6 at most 8 us
     # warm at the frame and 25 at the joint chunk, under the library's; K7 at
     # most 3.5 / 5.5 us warm / cold at both
@@ -2674,6 +2762,48 @@ def main() -> int:
         f"{1e3 * k8[0]['ms']:.2f}, timed in turn); floors (K = F = N = 1) " + ", ".join(
             f"{name} {1e3 * r['floor_device_ms']:.2f} / {1e3 * r['floor_device_cold_ms']:.2f}"
             for name, r in (("staged", k8[0]), ("block", k8_block))) + f"; {card}")
+
+    # K9's target (PERF.md section 6): at most 4 us warm at the joint chunk
+    # (K = 7), beside one launch's floor at K = 3
+    k9_rows = lm_rows["joint degree 4", rk.PRIOR]
+    k9 = k9_rows[0]
+    print(f"    K9 target: joint chunk (K = {k9['D'] // 6}) {1e3 * k9['device_ms']:.2f} / "
+          f"{1e3 * k9['device_cold_ms']:.2f} us warm / cold against 4 warm "
+          f"({held(k9['device_ms'] <= 4e-3)}); its floor (K = 3) "
+          f"{1e3 * k9['floor_device_ms']:.2f} / {1e3 * k9['floor_device_cold_ms']:.2f}; the old "
+          f"path (torch.func.jacfwd) {1e3 * k9_rows[1]['device_ms']:.2f} / "
+          f"{1e3 * k9_rows[1]['device_cold_ms']:.2f}, a call {1e3 * k9_rows[1]['ms']:.2f} against "
+          f"K9's {1e3 * k9['ms']:.2f}; {card}")
+
+    def prior_entry():
+        kernel = rk.PRIOR
+        k, old, p = lm_rows["joint degree 4", kernel]
+        by_path = {path: n.get(kernel, 0) for path, n in RESIDUAL_LAUNCHES.items()}
+        # the prior is on only where the weight is > 0: the joint path
+        on = [path for path, n in by_path.items() if n]
+        check(on == ["track_frames_joint"], f"K9 launched on {on}")
+        return dict(name=kernel, route="cuda", source="mba_vo_tpu_torch/csrc/knot_prior.cu",
+                    replaces="mba_vo_tpu/solver/lm.py:253", launches=sum(by_path.values()),
+                    max_abs_err=lm_err[kernel][0], max_rel_err=lm_err[kernel][1],
+                    max_rel_err_f64=lm_err64[kernel][1],
+                    held=dict(f32=lm_err["prior bits"], f64=lm_err64["prior bits"],
+                              rule="bit for bit where the transcendentals round alike, else "
+                                   "within 1e-6 (f32) / 1e-13 (f64) of each output's "
+                                   "magnitude"),
+                    ms=k["ms"], device_ms=k["device_ms"], device_cold_ms=k["device_cold_ms"],
+                    plain_ms=p["ms"], plain_device_ms=p["device_ms"],
+                    plain_device_cold_ms=p["device_cold_ms"], bound_ms=k["bound_ms"],
+                    bound_by=k["bound_by"], library_ms=None,
+                    library="none: no single PyTorch call computes this function",
+                    floor_device_ms=k["floor_device_ms"],
+                    floor_device_cold_ms=k["floor_device_cold_ms"], D=k["D"], calls=k["calls"],
+                    design="one CTA: a thread a knot pair into shared memory, then every "
+                           "thread strided over H's and g's entries, warp 0 the cost",
+                    old_path=dict(design="torch.func.jacfwd of the prior residual, then "
+                                         "J^T p and J^T J by the library",
+                                  ms=old["ms"], device_ms=old["device_ms"],
+                                  device_cold_ms=old["device_cold_ms"]),
+                    launches_by_path={q: n for q, n in by_path.items() if n})
 
     def lm_entry(kernel):
         def times(label, which=0):
@@ -2862,7 +2992,7 @@ def main() -> int:
                            f32=residual_err["direct path"][1],
                            f64=residual_err64["direct path"][1]),
                        by_level=k4["levels"], first_call=k4["first_call"], plane=k4["plane"]),
-        lm_entry("lm_step"), lm_entry("lm_decide"), lm_entry("lm_commit"),
+        lm_entry("lm_step"), lm_entry("lm_decide"), lm_entry("lm_commit"), prior_entry(),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Kernels K2-K8 on the tracker's own inputs, on one NVIDIA GPU: record,
+"""Kernels K2-K9 on the tracker's own inputs, on one NVIDIA GPU: record,
 hold against the plain versions and the earlier designs, time.
 
 K2 is ``csrc/residual_rows.cu`` (``warp_tangents``, ``blur_rows``), K3
@@ -70,6 +70,15 @@ library's are each held to a float64 solve of the same system
 design and plain stage, with ``torch.linalg.cholesky_ex`` +
 ``torch.cholesky_solve`` beside K6 as its library yardstick and a floor
 row (K6 at D = 6, K7 at N = 1) for each design.
+
+The joint path's knot prior K9 (``csrc/knot_prior.cu``, ``solver.lm``'s
+dispatcher ``knot_prior``) is recorded with them (:data:`LM_STAGES`),
+held to its plain version (``knot_prior_plain``) bit for bit where the
+transcendentals round alike and within :data:`PRIOR_TOLERANCE` where not
+(:func:`hold_lm`), and timed beside its old path, the forward-mode
+``torch.func.jacfwd`` of the prior residual that the LM ran before K9
+(:func:`knot_prior_jacfwd`, kept here only for that row), with a floor row
+at K = 3.
 
 ``chip_smoke.py`` phases 3 (record and hold) and 7 (time) drive it on the
 bench scenario; ``python3 -m mba_vo_tpu_torch.experiments.residual_kernels``
@@ -805,8 +814,15 @@ def time_layouts(label: str, calls: List[ResidualCall], out=print) -> List[dict]
 # ------------------------------------------------ K6-K8: the LM iteration
 
 LM_KERNELS = ("lm_step", "lm_decide", "lm_commit")
+# the LM's dispatchers that record_lm_calls records: K6-K8 and the knot
+# prior K9, which runs only where the prior is on (the joint path)
+PRIOR = "knot_prior"
+LM_STAGES = LM_KERNELS + (PRIOR,)
 # K7's mu and sigma against the plain version's, relative to themselves
 LM_TOLERANCE = {torch.float32: 1e-5, torch.float64: 1e-12}
+# K9 against its plain version, relative to each output's magnitude, where a
+# transcendental (sin, cos, atan2) rounds otherwise than torch's on the card
+PRIOR_TOLERANCE = {torch.float32: 1e-6, torch.float64: 1e-13}
 
 
 def _split(a: torch.Tensor):
@@ -925,7 +941,7 @@ def lm_step_kernel_order(H1: torch.Tensor, g: torch.Tensor):
 @dataclasses.dataclass
 class LMCall:
     """One recorded call of an LM stage's dispatcher in ``solver.lm``
-    (``kernel`` one of :data:`LM_KERNELS`): copies of its positional
+    (``kernel`` one of :data:`LM_STAGES`): copies of its positional
     arguments, taken before the call (the kernels write the state in
     place)."""
     kernel: str
@@ -940,6 +956,8 @@ class LMCall:
         """The unknowns 6K (K7's calls: 0, it has none)."""
         if self.kernel == "lm_decide":
             return 0
+        if self.kernel == PRIOR:
+            return 6 * self.args[0].shape[0]
         return (self.args[0].H if self.kernel == "lm_commit" else self.args[0]).shape[0]
 
     def fresh(self) -> tuple:
@@ -958,18 +976,19 @@ def _lm_copy(a):
 
 @contextlib.contextmanager
 def record_lm_calls() -> Iterator[Dict[str, List[LMCall]]]:
-    """Record every call of the LM's three stage dispatchers
-    (``solver.lm.lm_step``, ``lm_decide``, ``lm_commit``, which
-    ``lm_iteration`` looks up when it runs) made inside the block, by
-    kernel; the calls still run (K8's through the level's binding, which
-    is not recorded: a recorded call replays through the dispatcher's
-    other route, ``lm_commit_cuda``, and :func:`lm_commit_binding_fn` binds
-    its state again). Names restored on leaving. Record outside a CUDA
-    graph capture."""
+    """Record every call of the LM's stage dispatchers (``solver.lm.lm_step``,
+    ``lm_decide``, ``lm_commit`` and ``knot_prior``, which ``lm_iteration``
+    and ``optimize_level`` look up when they run) made inside the block, by
+    kernel (:data:`LM_STAGES`; the prior's list stays empty where the
+    prior is off); the calls still run (K8's and K9's through the level's
+    binding, which is not recorded: a recorded call replays through the
+    dispatcher's other route, ``lm_commit_cuda`` and ``knot_prior_cuda``,
+    and :func:`lm_commit_binding_fn` binds its state again). Names restored
+    on leaving. Record outside a CUDA graph capture."""
     from ..solver import lm
 
-    calls: Dict[str, List[LMCall]] = {k: [] for k in LM_KERNELS}
-    originals = {k: getattr(lm, k) for k in LM_KERNELS}
+    calls: Dict[str, List[LMCall]] = {k: [] for k in LM_STAGES}
+    originals = {k: getattr(lm, k) for k in LM_STAGES}
 
     def recorder(kernel):
         def recording(*args, **kw):
@@ -977,7 +996,7 @@ def record_lm_calls() -> Iterator[Dict[str, List[LMCall]]]:
             return originals[kernel](*args, **kw)
         return recording
 
-    for k in LM_KERNELS:
+    for k in LM_STAGES:
         setattr(lm, k, recorder(k))
     try:
         yield calls
@@ -999,9 +1018,43 @@ def lm_plain_fn(kernel: str):
     from ..solver import lm
 
     fn = getattr(lm, f"{kernel}_plain")
-    if kernel == "lm_commit":
+    if kernel in ("lm_commit", PRIOR):
         return lambda *args, binding=None: fn(*args)
     return fn
+
+
+def _knot_prior_residual(knots) -> torch.Tensor:
+    """[(K-2)*6] constant-velocity violation: second differences of knot
+    translations and of consecutive relative-rotation tangents (the prior's
+    residual, which K9 and its plain version linearise in closed form)."""
+    from ..core.lie import quat_conjugate, quat_log, quat_multiply
+
+    d2t = knots.t[2:] - 2.0 * knots.t[1:-1] + knots.t[:-2]          # [K-2, 3]
+    w_rel = quat_log(quat_multiply(quat_conjugate(knots.q[:-1]), knots.q[1:]))
+    d2w = w_rel[1:] - w_rel[:-1]                                     # [K-2, 3]
+    return torch.cat([d2t.reshape(-1), d2w.reshape(-1)])
+
+
+def knot_prior_jacfwd(t: torch.Tensor, q: torch.Tensor, weight: float):
+    """The knot prior's (cost, g, H) as the LM computed it before K9: the
+    residual's Jacobian by ``torch.func.jacfwd`` through
+    ``spline_retract_flat`` at zero (eager, ~300 ops), then J^T p and J^T J
+    by the library. The old path of the harness's K9 row; no path of the
+    port runs it."""
+    from torch.func import jacfwd
+
+    from ..core.spline import SplineKnots, spline_retract_flat
+
+    knots = SplineKnots(t, q, None, None)
+    zero = t.new_zeros(6 * t.shape[0])
+
+    def prior_of(delta):
+        return _knot_prior_residual(spline_retract_flat(knots, delta))
+
+    p0 = prior_of(zero)
+    Jp = jacfwd(prior_of)(zero)   # [P, 6K]
+    cost = 0.5 * weight * torch.sum(p0 * p0)
+    return cost, weight * (Jp.T @ p0), weight * (Jp.T @ Jp)
 
 
 # K6's to K8's earlier designs (the block designs), by the name of
@@ -1126,6 +1179,36 @@ def _hold_decide(label: str, out, ref, bound: float) -> dict:
     return dict(errs, success=float(sc[lm.S_SUCCESS]))
 
 
+def _ulps(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest |out - ref| in units of the last place of ref's entry."""
+    r = ref.abs()
+    ulp = torch.nextafter(r, torch.full_like(r, math.inf)) - r
+    return float(((out - ref).abs() / ulp).max())
+
+
+def _hold_prior(call: LMCall) -> dict:
+    """K9's recorded call through the kernel and the plain version on
+    fresh copies: each output (cost, g, H) within :data:`PRIOR_TOLERANCE`
+    of its largest magnitude (raises past it, or on a NaN); returns the
+    largest relative (``prior``) and absolute (``abs``) differences, the
+    largest in units of the plain value's last place (``ulps``) and whether
+    every output was equal bit for bit (``bits``, 1.0 or 0.0)."""
+    bound = PRIOR_TOLERANCE[call.dtype]
+    label = f"{call.kernel} ({str(call.dtype).split('.')[-1]}, D={call.D})"
+    out = lm_kernel_fn(PRIOR)(*call.fresh())
+    ref = lm_plain_fn(PRIOR)(*call.fresh())
+    got = dict(prior=0.0, abs=0.0, ulps=0.0, bits=float(same_bits(out, ref)))
+    for name, o, r in zip(("cost", "g", "H"), out, ref):
+        d, scale = float((o - r).abs().max()), float(r.abs().max())
+        err = d / scale if scale else (0.0 if d == 0.0 else math.inf)
+        if not err <= bound:
+            raise AssertionError(f"{label}: {name} differs from the plain version by "
+                                 f"{err:.3e} of its magnitude (bound {bound:.0e})")
+        got.update(prior=max(got["prior"], err), abs=max(got["abs"], d),
+                   ulps=max(got["ulps"], _ulps(o, r)))
+    return got
+
+
 def hold_lm(call: LMCall) -> dict:
     """The recorded call through the kernel, its earlier design
     (:data:`LM_EARLIER`) and the plain version on fresh copies; raises
@@ -1147,10 +1230,13 @@ def hold_lm(call: LMCall) -> dict:
     ``fwd_bound_*``: the forward errors and their bounds, NaN on an
     invalid step; ``fwd_checked_*``: whether the bound was under 1; ``mu``,
     ``sigma``: relative, the larger of the two designs'; ``abs``: the
-    largest absolute; ``invalid``, ``success``: the flags)."""
+    largest absolute; ``invalid``, ``success``: the flags). K9's calls go
+    to :func:`_hold_prior`."""
     from ..core.spline import SplineKnots, spline_retract_flat
     from ..solver import lm
 
+    if call.kernel == PRIOR:
+        return _hold_prior(call)
     bound = LM_TOLERANCE[call.dtype]
     label = f"{call.kernel} ({str(call.dtype).split('.')[-1]}, D={call.D})"
     out = lm_kernel_fn(call.kernel)(*call.fresh())
@@ -1225,10 +1311,19 @@ def _lm_bound(call: LMCall):
     two solves' 2 D^2, H1 times the step's 2 D^2; K7 and K8 a few an entry)
     at the card's rate for the dtype. K8 counts what the call's branch
     moves: each state array once, as written (on a rejected or invalid
-    step only H, from H1, and the scalars)."""
+    step only H, from H1, and the scalars). K9 reads the knots and writes
+    cost, g and H; its operations: ~150 a knot pair (the product, log,
+    Jr^-1 and Jr^-1 R^T), ~500 a prior block (3 x 3 pairs of its blocks, 9
+    entries each, a dot product of 3 and a sum: 6) and the weight's product
+    an output."""
     a = call.args
     rate = F64_FLOPS_PER_S if call.dtype == torch.float64 else kv.F32_FLOPS_PER_S
-    if call.kernel == "lm_step":
+    if call.kernel == PRIOR:
+        t, q = a[:2]
+        K, D = t.shape[0], call.D
+        moved = _nbytes(t, q) + (1 + D + D * D) * t.element_size()
+        ops = 150 * (K - 1) + 500 * (K - 2) + D * D + D
+    elif call.kernel == "lm_step":
         H, g, sc, t, q = a[:5]
         D = H.shape[0]
         moved = 2 * _nbytes(H, g, t, q) + _nbytes(sc) + g.element_size() * 2
@@ -1281,9 +1376,11 @@ def floor_call(call: LMCall) -> LMCall:
     the leading block of the call's H, itself positive definite where H
     is), K7 at one keypoint of one frame, K8 at one knot, one frame and one
     keypoint (K = 1, F = 1, N = 1: the state and the iteration's tensors
-    sliced as for K6 and K7, the scalars and the options as recorded); the
-    least work one launch of the design does."""
+    sliced as for K6 and K7, the scalars and the options as recorded), K9
+    at its least, 3 knots; the least work one launch of the design does."""
     a = call.args
+    if call.kernel == PRIOR:
+        return LMCall(call.kernel, (a[0][:3].contiguous(), a[1][:3].contiguous()) + tuple(a[2:]))
     if call.kernel == "lm_step":
         H, g, sc, t, q = a[:5]
         return LMCall(call.kernel, (H[:6, :6].contiguous(), g[:6].contiguous(), sc,
@@ -1338,7 +1435,8 @@ def interleaved_ms(fns: Sequence[Callable[[], object]], reps: int = 10,
 def time_lm_rows(label: str, calls: List[LMCall], reps: int = 10, inner: int = 10,
                  out=print) -> List[dict]:
     """An LM stage's kernel, earlier design (:data:`LM_EARLIER`, where it
-    has one) and plain version timed on its recorded ``calls`` as
+    has one; for K9 its old path, :func:`knot_prior_jacfwd`) and plain
+    version timed on its recorded ``calls`` as
     :func:`time_rows` times K2-K5 (a call, warm in a replayed graph of the
     calls in order, cold after an L2 flush on the first), on fresh copies
     of each call's arguments made once outside the timing (K8's repeated
@@ -1349,8 +1447,8 @@ def time_lm_rows(label: str, calls: List[LMCall], reps: int = 10, inner: int = 1
     the kernel row's ``binding_ms``, a call through a ``CommitBinding`` of
     the first call's state (the LM's host call), and its ``ms``, the public
     wrapper's call, both from one :func:`interleaved_ms`. Returns the kernel's
-    dict first, the earlier design's second where there is one, the plain
-    version's last."""
+    dict first, the earlier design's (or old path's) second where there is
+    one, the plain version's last."""
     if not torch.cuda.is_available():
         raise RuntimeError("timing the LM's kernels needs a CUDA device")
     kernel = calls[0].kernel
@@ -1359,9 +1457,10 @@ def time_lm_rows(label: str, calls: List[LMCall], reps: int = 10, inner: int = 1
     b_ms = statistics.fmean(b for b, _ in bounds)
     b_by = max(("bytes", "operations"), key=[by for _, by in bounds].count)
     w_inner = len(warm) * math.ceil(50 / len(warm))
-    designs = [("kernel", lm_kernel_fn(kernel)), ("earlier", lm_earlier_fn(kernel)),
-               ("plain", lm_plain_fn(kernel))]
-    floor = floor_call(calls[0]) if kernel in LM_EARLIER else None
+    earlier = (("old path", knot_prior_jacfwd) if kernel == PRIOR
+               else ("earlier", lm_earlier_fn(kernel)))
+    designs = [("kernel", lm_kernel_fn(kernel)), earlier, ("plain", lm_plain_fn(kernel))]
+    floor = floor_call(calls[0]) if kernel in LM_EARLIER or kernel == PRIOR else None
     rows = []
     for name, fn in designs:
         if fn is None:
@@ -1374,7 +1473,7 @@ def time_lm_rows(label: str, calls: List[LMCall], reps: int = 10, inner: int = 1
                    device_ms=kv.device_ms([lambda a=a: fn(*a) for a in args], reps, w_inner),
                    device_cold_ms=kv.device_flushed_ms(lambda: fn(*first), reps, 20),
                    bound_ms=b_ms, bound_by=b_by)
-        if floor is not None and name != "plain":
+        if floor is not None and name in ("kernel", "earlier"):
             fa = floor.fresh()
             row.update(floor_device_ms=kv.device_ms([lambda: fn(*fa)], reps, 50),
                        floor_device_cold_ms=kv.device_flushed_ms(lambda: fn(*fa), reps, 20))
@@ -1416,7 +1515,7 @@ def time_lm_rows(label: str, calls: List[LMCall], reps: int = 10, inner: int = 1
 
 
 def main(argv=None) -> int:
-    """Record the bench scenario's K2-K8 calls (16 frames of track_frame,
+    """Record the bench scenario's K2-K9 calls (16 frames of track_frame,
     f32; one joint chunk at degree 4; 4 frames of the direct path), hold
     each against the plain version and the earlier design, and time every
     kernel (``--layouts``: K3's layout sweep instead)."""

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-Seven sources under ``mba_vo_tpu_torch/csrc/``, each compiled with ``nvcc``
+Eight sources under ``mba_vo_tpu_torch/csrc/``, each compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``:
 
@@ -16,7 +16,10 @@ for ``sm_90a`` into a shared library with a plain C interface, loaded with
   * ``image_bilinear.cu`` (K4), the direct path's whole-image sampler,
     bound in ``ops/cuda_image.py``;
   * ``lm_step.cu`` (K6-K8), the LM iteration's step, decision and commit,
-    bound in ``ops/cuda_lm.py``; it shares ``spline_pose.cuh`` too.
+    bound in ``ops/cuda_lm.py``; it shares ``spline_pose.cuh`` too;
+  * ``knot_prior.cu`` (K9), the joint path's knot prior (its cost, g and
+    H), bound in ``ops/cuda_lm.py`` too; it shares ``spline_pose.cuh``'s
+    quaternion product and log.
 
 At first use :func:`build` compiles every source not built yet, all of
 them at once (one ``nvcc`` process each), into ``build/mba_vo_tpu_torch/``
@@ -48,15 +51,18 @@ SOURCES = {
     "frame_layout": _CSRC / "frame_layout.cu",
     "image_bilinear": _CSRC / "image_bilinear.cu",
     "lm_step": _CSRC / "lm_step.cu",
+    "knot_prior": _CSRC / "knot_prior.cu",
 }
-# flags of some sources only. K2, K4, K5 and K6 round every operation as the
-# plain versions' torch ops do, one at a time: a multiply-add contracted into
+# flags of some sources only. K2, K4, K5, K6 and K9 round every operation as
+# the plain versions' torch ops do, one at a time: a multiply-add contracted into
 # one rounding moves a warped position or a patch anchor by an ulp, and on
 # the image's border or an integer pixel (where a standing start lands
 # exactly) that flips an in-image flag or picks another pixel (K6's
-# retraction makes the knots those anchors come from)
+# retraction makes the knots those anchors come from; K9 is held to its
+# plain version bit for bit)
 SOURCE_FLAGS = {name: ["-fmad=false"]
-                for name in ("residual_rows", "frame_layout", "image_bilinear", "lm_step")}
+                for name in ("residual_rows", "frame_layout", "image_bilinear", "lm_step",
+                             "knot_prior")}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mba_vo_tpu_torch"
 _libs: Dict[str, ctypes.CDLL] = {}
 

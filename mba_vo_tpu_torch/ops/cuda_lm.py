@@ -47,6 +47,15 @@ and ``LAUNCHES_LM_COMMIT`` count launches, one a call
 ``LAUNCHES_LM_COMMIT_BLOCK`` those of the block designs); a call recorded into a CUDA graph is not a launch and is
 not counted.
 
+K9, :func:`knot_prior_cuda` (``csrc/knot_prior.cu``, its own library):
+the joint path's knot prior, its cost, g [6K] and H [6K, 6K] at the
+candidate knots in one launch of one CTA (``solver/lm.py``'s
+``knot_prior_plain``, in closed form, is its plain version), counted in
+``LAUNCHES_KNOT_PRIOR``. A :class:`CommitBinding` made with ``prior=True``
+owns three buffers for it: the LM's K9 writes them every iteration
+(:meth:`CommitBinding.knot_prior`, the knots checked) and K8 reads them
+unchecked.
+
 The state's scalars are one vector of the working dtype, indexed by the
 ``S_*`` constants below (``lm_step.cu`` has the same enum): the cost, the
 step evaluator's six costs and its non-monotonic count, the radius, the
@@ -70,6 +79,7 @@ LAUNCHES_LM_COMMIT = 0
 LAUNCHES_LM_STEP_BLOCK = 0
 LAUNCHES_LM_DECIDE_BLOCK = 0
 LAUNCHES_LM_COMMIT_BLOCK = 0
+LAUNCHES_KNOT_PRIOR = 0
 
 # the scalars vector: carried state
 S_COST, S_MIN, S_CUR, S_REF, S_CAND, S_ACC_REF, S_ACC_CAND, S_NONMONO = range(8)
@@ -211,9 +221,9 @@ def earlier_launch_counts() -> Dict[str, int]:
 
 
 def zero_launch_counts() -> None:
-    global LAUNCHES_LM_STEP, LAUNCHES_LM_DECIDE, LAUNCHES_LM_COMMIT
+    global LAUNCHES_LM_STEP, LAUNCHES_LM_DECIDE, LAUNCHES_LM_COMMIT, LAUNCHES_KNOT_PRIOR
     global LAUNCHES_LM_STEP_BLOCK, LAUNCHES_LM_DECIDE_BLOCK, LAUNCHES_LM_COMMIT_BLOCK
-    LAUNCHES_LM_STEP = LAUNCHES_LM_DECIDE = LAUNCHES_LM_COMMIT = 0
+    LAUNCHES_LM_STEP = LAUNCHES_LM_DECIDE = LAUNCHES_LM_COMMIT = LAUNCHES_KNOT_PRIOR = 0
     LAUNCHES_LM_STEP_BLOCK = LAUNCHES_LM_DECIDE_BLOCK = LAUNCHES_LM_COMMIT_BLOCK = 0
 
 
@@ -317,6 +327,70 @@ def lm_decide_block_cuda(cost: torch.Tensor, patch: torch.Tensor, kp_w: torch.Te
     return scalars, mask, new_w
 
 
+# K9's entries: t, q, cost, g, H, K, weight, shared bytes, stream
+_PRIOR_SIGNATURE = [_P] * 5 + [_I, _D, _I, _P]
+# the threads of K9's one CTA (knot_prior.cu's kThreads)
+PRIOR_THREADS = 512
+
+
+def _prior_entry(dtype: torch.dtype):
+    if "knot_prior" not in _loaded:
+        lib = cuda_build.load("knot_prior")
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"knot_prior_{suffix}")
+            fn.argtypes, fn.restype = _PRIOR_SIGNATURE, ctypes.c_int
+        _loaded["knot_prior"] = lib
+    suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    return getattr(_loaded["knot_prior"], f"knot_prior_{suffix}")
+
+
+def prior_smem_bytes(K: int, itemsize: int) -> int:
+    """K9's dynamic shared memory at K knots: the translations [K, 3]; for
+    each of the K - 1 consecutive knot pairs the relative rotation's log w
+    [3], Jr^-1(w) [3, 3] and Jr^-1(w) R^T [3, 3]; for each of the K - 2
+    prior blocks its three 3 x 3 Jacobian blocks and its 6 residuals
+    (``knot_prior.cu``'s layout; the kernel refuses any other size)."""
+    return (3 * K + 21 * (K - 1) + 33 * (K - 2)) * itemsize
+
+
+def _knots_check(who, t, q):
+    K = t.shape[0] if t.dim() == 2 else None
+    dtype = _check(who, dict(t=t, q=q), dict(t=(K, 3), q=(K, 4)))
+    if K < 3:
+        raise ValueError(f"{who}: {K} knots; the prior needs at least 3")
+    return dtype, K
+
+
+def _launch_prior(device, dtype, t, q, out, K: int, weight: float) -> int:
+    # K9 writes 0 off the prior's band, the plain version weight * 0: one
+    # sign of zero at a positive weight, where the prior is on
+    if not weight > 0.0:
+        raise ValueError(f"knot prior: weight {weight}; K9 runs where the prior is on, at a "
+                         f"positive weight")
+    cost, g, H = out
+    return _launch(_prior_entry(dtype), device, t.data_ptr(), q.data_ptr(), cost.data_ptr(),
+                   g.data_ptr(), H.data_ptr(), K, float(weight),
+                   prior_smem_bytes(K, t.element_size()))
+
+
+def prior_buffers(t: torch.Tensor):
+    """K9's outputs at the knots ``t`` [K, 3]'s count, dtype and device:
+    (cost [], g [6K], H [6K, 6K]), uninitialised."""
+    D = 6 * t.shape[0]
+    return t.new_empty(()), t.new_empty(D), t.new_empty((D, D))
+
+
+def knot_prior_cuda(t: torch.Tensor, q: torch.Tensor, weight: float):
+    """K9: ``solver.lm.knot_prior_plain`` in one launch of one CTA. t [K, 3]
+    and q [K, 4] (K >= 3), one float dtype, contiguous, on one device; the
+    weight positive; returns new tensors (cost [], g [6K], H [6K, 6K])."""
+    global LAUNCHES_KNOT_PRIOR
+    dtype, K = _knots_check("knot_prior_cuda", t, q)
+    out = prior_buffers(t)
+    LAUNCHES_KNOT_PRIOR += _launch_prior(t.device, dtype, t, q, out, K, weight)
+    return out
+
+
 _STATE = ("t", "q", "H", "g", "scalars", "mask", "kp_w", "patch_costs")
 _CALL = ("H1", "cand_t", "cand_q", "cost", "g_raw", "H_raw", "patch", "new_mask", "new_kp_w")
 _PRIOR = ("prior_cost", "prior_g", "prior_H")
@@ -407,16 +481,23 @@ class CommitBinding:
     raises on the first that fails, before anything launches; a state
     whose tensors are not the bound ones (replaced, not updated in place)
     is bound again first. One launch a call, counted in
-    ``LAUNCHES_LM_COMMIT``."""
+    ``LAUNCHES_LM_COMMIT``.
+
+    With ``prior`` the binding also owns K9's outputs, ``prior_out`` (cost
+    [], g [D], H [D, D], :func:`prior_buffers`), allocated when it binds:
+    :meth:`knot_prior` launches K9 into them, and a call given them as its
+    ``prior`` (the very tuple) passes them to K8 without a check."""
 
     def __init__(self, state, P: int, *, min_radius: float, max_radius: float,
-                 max_nonmono: int, retry: bool, min_acd: float):
+                 max_nonmono: int, retry: bool, min_acd: float, prior: bool = False):
         self._options = (int(P), int(max_nonmono), int(bool(retry)))
         self._radii = (float(min_radius), float(max_radius), float(min_acd))
+        self._with_prior = bool(prior)
         self.bind(state)
 
     def bind(self, state) -> None:
-        """Check the state's 8 tensors and keep them."""
+        """Check the state's 8 tensors and keep them (and, with the prior,
+        allocate its buffers for them)."""
         state = tuple(state)
         t, patch_costs = state[0], state[7]
         K = t.shape[0] if t.dim() == 2 else None
@@ -430,6 +511,29 @@ class CommitBinding:
         self._dims = (6 * K, K, F, N)
         self._shapes = tuple(shapes[k] for k in _CALL + _PRIOR)
         self._fn = _entry("lm_commit", dtype)
+        self.prior_out = prior_buffers(t) if self._with_prior else None
+        if self._with_prior:
+            self._prior_ptrs = tuple(x.data_ptr() for x in self.prior_out)
+
+    def knot_prior(self, t: torch.Tensor, q: torch.Tensor, weight: float):
+        """K9 at the knots t [K, 3], q [K, 4] (the state's K, device and
+        dtype, contiguous; checked, raising before anything launches) into
+        :attr:`prior_out`, which it returns. One launch, counted in
+        ``LAUNCHES_KNOT_PRIOR``."""
+        global LAUNCHES_KNOT_PRIOR
+        if self.prior_out is None:
+            raise ValueError("CommitBinding: bound without the prior's buffers")
+        K = self._dims[1]
+        for name, x, shape in (("t", t, (K, 3)), ("q", q, (K, 4))):
+            if (x.get_device() != self._index or x.dtype is not self._dtype
+                    or x.shape != shape or not x.is_contiguous()):
+                # raises for x, with the state's t as the reference
+                _check("CommitBinding.knot_prior", {"state t": self.state[0], name: x},
+                       {"state t": (K, 3), name: shape})
+                raise AssertionError("CommitBinding.knot_prior: no tensor refused")
+        LAUNCHES_KNOT_PRIOR += _launch_prior(self._device, self._dtype, t, q, self.prior_out,
+                                             K, weight)
+        return self.prior_out
 
     def holds(self, state) -> bool:
         """Whether ``state``'s tensors are the bound ones."""
@@ -461,7 +565,8 @@ class CommitBinding:
         if not self.holds(state):
             self.bind(state)
         tensors = (H1, cand_t, cand_q, cost, g_raw, H_raw, patch, new_mask, new_kp_w)
-        if prior is not None:
+        bound_prior = prior is not None and prior is self.prior_out
+        if prior is not None and not bound_prior:
             tensors += tuple(prior)
             if len(tensors) != len(self._shapes):
                 raise ValueError("CommitBinding: the prior is (cost, g, H)")
@@ -474,6 +579,8 @@ class CommitBinding:
             ptrs.append(x.data_ptr())
         if prior is None:
             ptrs += (None, None, None)
+        elif bound_prior:
+            ptrs += self._prior_ptrs
         LAUNCHES_LM_COMMIT += _launch(
             self._fn, self._device, *self._ptrs, *ptrs, *self._dims, *self._options,
             int(bool(more)), *self._radii)

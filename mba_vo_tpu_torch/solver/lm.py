@@ -10,7 +10,8 @@ be, and the host reads one flag an iteration (whether to go on):
      the candidate knots (the current knots when the step is invalid);
   2. the residuals and the Jacobian at the candidate (``compute_rjv``) and
      K3's cost sums under the old outlier mask;
-  3. the knot prior at the candidate, when on;
+  3. :func:`knot_prior` (K9), when the prior is on (the joint path): its
+     cost, g and H at the candidate;
   4. :func:`lm_decide` (K7): the candidate's scaled cost, the step quality,
      success, the cost decrease and the re-detected outlier mask;
   5. K3's sums with J under the new mask (used only on success);
@@ -21,11 +22,12 @@ An invalid step thus evaluates once at the current knots and a rejected
 step runs K3 once more than the reference's branches would; both results
 are discarded by the selects, as the reference never computes them. On a
 CUDA tensor each stage is its kernel (``ops/cuda_lm.py``); on a CPU tensor
-its plain version here (``lm_step_plain``, ``lm_decide_plain``,
-``lm_commit_plain``: the same data flow as tensor ops). On the card
-``optimize_level`` binds each level's state to K8 once
+its plain version here (``lm_step_plain``, ``knot_prior_plain``,
+``lm_decide_plain``, ``lm_commit_plain``: the same data flow as tensor
+ops). On the card ``optimize_level`` binds each level's state to K8 once
 (``cuda_lm.CommitBinding``: the state's tensors checked when bound, each
-iteration's new ones at each call). The scalars of the
+iteration's new ones at each call), with K9's three output buffers, which
+K9 writes every iteration and K8 reads unchecked. The scalars of the
 state live in one vector of the working dtype, laid out by
 ``ops/cuda_lm.py`` (``S_*``).
 
@@ -47,7 +49,9 @@ With ``group`` (keypoint shards, ``parallel.sharded``) every evaluation's
 cost, g and H and the outlier statistics are all-reduced over the ranks
 inside the stages, so the plain stages run there, on the card too; the
 12x12 solve and every decision are the same on every rank, and the outlier
-mask and the patch costs stay shard-local. ``solver="lu"`` and ``"svd"``
+mask and the patch costs stay shard-local. K9 runs there too (the prior
+reads only the knots, which every rank holds whole, and needs no
+all-reduce). ``solver="lu"`` and ``"svd"``
 keep their eager solve (the plain step stage) on every device.
 """
 
@@ -57,9 +61,8 @@ import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-from torch.func import jacfwd
 
-from ..core.lie import quat_conjugate, quat_log, quat_multiply
+from ..core.lie import _sum3, quat_conjugate, quat_log, quat_multiply, quat_to_matrix
 from ..core.spline import SplineKnots, spline_retract_flat
 from ..ops import cuda_lm, residual
 # the state's scalars layout, used here and by the stages' callers
@@ -216,34 +219,125 @@ def detect_outliers(
     return inlier_mask, allreduce(outlier.sum(), group)
 
 
-def _knot_prior_residual(knots: SplineKnots) -> torch.Tensor:
-    """[(K-2)*6] constant-velocity violation: second differences of knot
-    translations and of consecutive relative-rotation tangents."""
-    d2t = knots.t[2:] - 2.0 * knots.t[1:-1] + knots.t[:-2]          # [K-2, 3]
-    w_rel = quat_log(quat_multiply(quat_conjugate(knots.q[:-1]), knots.q[1:]))
-    d2w = w_rel[1:] - w_rel[:-1]                                     # [K-2, 3]
-    return torch.cat([d2t.reshape(-1), d2w.reshape(-1)])
+def _right_jacobian_inverse(w: torch.Tensor) -> torch.Tensor:
+    """Jr^-1(w) = I + [w]x / 2 + c(theta) [w]x^2 [..., 3, 3], the inverse of
+    SO(3)'s right Jacobian at the rotation vectors w [..., 3], with
+    c(theta) = (1 - (theta/2) cot(theta/2)) / theta^2 (``backend/ba.py``'s
+    ``_log_coefficients``) in its Taylor form below theta^2 = 1e-4 (float64)
+    or 1e-2 (narrower), where the closed form cancels. Entry by entry in
+    K9's order (``csrc/knot_prior.cu``): [w]x^2 = w w^T - theta^2 I, its
+    diagonal as minus the sum of the other two squares."""
+    w0, w1, w2 = w[..., 0], w[..., 1], w[..., 2]
+    th2 = _sum3(w * w)
+    small = th2 < (1e-4 if torch.finfo(w.dtype).bits >= 64 else 1e-2)
+    th2s = torch.where(small, torch.ones_like(th2), th2)
+    h = 0.5 * torch.sqrt(th2s)
+    cot = torch.cos(h) / torch.sin(h)
+    c = torch.where(small, 1.0 / 12.0 + th2 / 720.0 + th2 * th2 / 30240.0,
+                    (1.0 - h * cot) / th2s)
+    h0, h1, h2 = 0.5 * w0, 0.5 * w1, 0.5 * w2
+    x01, x02, x12 = c * (w0 * w1), c * (w0 * w2), c * (w1 * w2)
+    m = torch.stack([
+        1.0 - c * (w1 * w1 + w2 * w2), -h2 + x01, h1 + x02,
+        h2 + x01, 1.0 - c * (w0 * w0 + w2 * w2), -h0 + x12,
+        -h1 + x02, h0 + x12, 1.0 - c * (w0 * w0 + w1 * w1),
+    ], dim=-1)
+    return m.reshape(w.shape + (3,))
+
+
+def _lane_sum(v: torch.Tensor) -> torch.Tensor:
+    """The sum of a vector in K9's order for its cost: lane l of one warp
+    sums entries l, l + 32, ... in order, then a tree halves the 32 lanes
+    (lane 0's bits after the kernel's butterfly of shuffles)."""
+    lanes = v.new_zeros(32)
+    rows = v.new_zeros(-(-v.shape[0] // 32) * 32)
+    rows[:v.shape[0]] = v
+    for row in rows.view(-1, 32):
+        lanes = lanes + row
+    while lanes.shape[0] > 1:
+        half = lanes.shape[0] // 2
+        lanes = lanes[:half] + lanes[half:]
+    return lanes[0]
 
 
 def _prior_terms(knots: SplineKnots, weight: float):
     """(cost, g [6K], H [6K,6K]) of the Gauss-Newton-linearised knot prior
-    at the current knots."""
-    zero = torch.zeros(6 * knots.num_knots, dtype=knots.t.dtype,
-                       device=knots.t.device)
+    at the current knots, K > 2: the constant-velocity violation p (the
+    second differences of the knot translations, d2t_j = t_j+2 - 2 t_j+1 +
+    t_j, and of the consecutive relative-rotation logs, d2w_j = w_j+1 -
+    w_j with w_k = log(q_k* q_k+1)) linearised through the retraction
+    ``spline_retract_flat`` ([all t; all omega]) at zero, in closed form:
+    with R_k = R(q_k* q_k+1) and N_k = Jr^-1(w_k), d2w_j moves by N_j R_j^T
+    on knot j's omega, by -N_j+1 R_j+1^T - N_j on knot j+1's and by N_j+1 on
+    knot j+2's; d2t_j by [1, -2, 1] on knots j..j+2's t; the t-omega blocks
+    are zero. cost = weight |p|^2 / 2, g = weight J^T p, H = weight J^T J.
 
-    def prior_of(delta):
-        return _knot_prior_residual(spline_retract_flat(knots, delta))
+    Written in K9's order (``csrc/knot_prior.cu``), so that the card can
+    hold the kernel to it bit for bit: each entry of g and H sums the prior
+    blocks that touch its knots in ascending order, each block's term a dot
+    product of 3 summed left to right (``_sum3``); the cost in
+    :func:`_lane_sum`'s order."""
+    t, q = knots.t, knots.q
+    K = t.shape[0]
+    d2t = t[2:] - 2.0 * t[1:-1] + t[:-2]                          # [K-2, 3]
+    q_rel = quat_multiply(quat_conjugate(q[:-1]), q[1:])           # [K-1, 4]
+    w = quat_log(q_rel)                                            # [K-1, 3]
+    d2w = w[1:] - w[:-1]                                           # [K-2, 3]
+    N = _right_jacobian_inverse(w)                                 # [K-1, 3, 3]
+    R = quat_to_matrix(q_rel)
+    M = _sum3(N[:, :, None, :] * R[:, None, :, :])                 # N R^T
+    # block (j, m): d2w_j's Jacobian on knot j + m's omega, [K-2, 3, 3 (i), 3 (r)]
+    blocks = torch.stack([M[:-1], -M[1:] - N[:-1], N[1:]], dim=1)
+    cols = blocks.transpose(-1, -2)                                # [.., m, r, i]
+    gram = _sum3(cols[:, :, None, :, None, :] * cols[:, None, :, None, :, :])
+    proj = _sum3(cols * d2w[:, None, None, :])                     # [K-2, m, r]
+    second = t.new_ones(3)        # [1, -2, 1], filled on the device (no host copy)
+    second[1:2].fill_(-2.0)
+    Hw = t.new_zeros(K, 3, K, 3)
+    gw, gt, DtD = t.new_zeros(K, 3), t.new_zeros(K, 3), t.new_zeros(K, K)
+    for j in range(K - 2):
+        Hw[j:j + 3, :, j:j + 3, :] += gram[j].permute(0, 2, 1, 3)
+        gw[j:j + 3] += proj[j]
+        gt[j:j + 3] += second[:, None] * d2t[j]
+        DtD[j:j + 3, j:j + 3] += second[:, None] * second[None, :]
+    H = t.new_zeros(2, K, 3, 2, K, 3)
+    for r in range(3):
+        H[0, :, r, 0, :, r] = weight * DtD
+    H[1, :, :, 1] = weight * Hw
+    g = torch.cat([weight * gt.reshape(-1), weight * gw.reshape(-1)])
+    p = torch.cat([d2t.reshape(-1), d2w.reshape(-1)])
+    cost = 0.5 * weight * _lane_sum(p * p)
+    return cost, g, H.reshape(6 * K, 6 * K)
 
-    p0 = prior_of(zero)
-    Jp = jacfwd(prior_of)(zero)   # [P, 6K]
-    cost = 0.5 * weight * torch.sum(p0 * p0)
-    return cost, weight * (Jp.T @ p0), weight * (Jp.T @ Jp)
+
+def knot_prior_plain(t: torch.Tensor, q: torch.Tensor, weight: float):
+    """K9's plain version: :func:`_prior_terms` of the knots (t [K, 3], q
+    [K, 4])."""
+    return _prior_terms(SplineKnots(t, q, None, None), weight)
 
 
-def _prior(k: SplineKnots, opts: LMOptions):
-    """The knot prior's (cost, g, H) at ``k``, or None when it is off."""
-    if opts.knot_prior_weight > 0.0 and k.num_knots > 2:
-        return _prior_terms(k, opts.knot_prior_weight)
+def knot_prior(t: torch.Tensor, q: torch.Tensor, weight: float, binding=None):
+    """K9 (:func:`knot_prior_plain`): the kernel, into the level's buffers
+    through ``binding`` where given (``optimize_level``'s
+    ``cuda_lm.CommitBinding``, which K8 then reads them from unchecked),
+    else on CUDA tensors through ``cuda_lm.knot_prior_cuda``; the plain
+    version on CPU tensors."""
+    if binding is not None:
+        return binding.knot_prior(t, q, weight)
+    if t.is_cuda:
+        return cuda_lm.knot_prior_cuda(t, q, weight)
+    return knot_prior_plain(t, q, weight)
+
+
+def _prior_on(k: SplineKnots, opts: LMOptions) -> bool:
+    return opts.knot_prior_weight > 0.0 and k.num_knots > 2
+
+
+def _prior(k: SplineKnots, opts: LMOptions, binding=None):
+    """The knot prior's (cost, g, H) at ``k`` (:func:`knot_prior`), or None
+    when it is off."""
+    if _prior_on(k, opts):
+        return knot_prior(k.t, k.q, opts.knot_prior_weight, binding=binding)
     return None
 
 
@@ -476,7 +570,7 @@ def lm_iteration(s: LMState, lv: _Level, more: bool) -> LMState:
     # K3 looked up in ops.residual when called, as assemble looks it up
     cost_c, patch_c, _, _ = residual.normal_equations(r, None, s.kp_w, opts.huber_a,
                                                       opts.compensated_sum)
-    prior = _prior(cand, opts)
+    prior = _prior(cand, opts, lv.commit)
     scalars, mask, kp_w = decide(cost_c, patch_c, s.kp_w, data.kp_mask, s.scalars, P, opts,
                                  None if prior is None else prior[0])
     s = s._replace(scalars=scalars)
@@ -542,6 +636,7 @@ def optimize_level(
                 mask0, data.kp_mask * mask0, ev0.patch_costs.contiguous())
     if group is None and s.H.is_cuda:
         lv = lv._replace(commit=cuda_lm.CommitBinding(s, data.pattern.shape[0],
+                                                      prior=prior0 is not None,
                                                       **commit_options(opts)))
     iterations = 0
     go = opts.max_iterations > 0 and 1e10 >= opts.min_abs_cost_decrease

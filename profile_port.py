@@ -19,12 +19,15 @@ calls, also per LM evaluation), the most frequent aten ops, device time (sum of 
 CUDA time) and the device's busy share (device time over unprofiled wall
 time). ``--out`` also writes the profiler's table there.
 
-``--joint`` profiles the joint multi-frame path instead: after the keyframe,
-``track_frames_joint`` tracks one chunk to warm up, one chunk unprofiled
-(timed on the wall clock) and the next chunk under the profiler, from a
-window that already moves
-(chip_smoke.py's ``moving_window``), and the same numbers are printed per
-chunk and per LM evaluation (one K1 launch each).
+``--joint`` profiles the joint multi-frame path instead, with the knot
+prior on K9 and on its old path (the eager ``torch.func.jacfwd``,
+``residual_kernels.knot_prior_jacfwd``), two trackers from a window that
+already moves (chip_smoke.py's ``moving_window``): after the keyframe,
+``track_frames_joint`` tracks one chunk each to warm up,
+:data:`JOINT_PAIRS` chunks unprofiled, the two trackers in turn on each (the order alternating
+a chunk; wall ms per LM evaluation, one K1 launch each, and the paired
+difference), then one chunk each under the profiler (launches and device
+time per evaluation, the busy share).
 
 ``--k3-designs`` weighs K3's two designs on the per-frame path: the cluster
 design (one launch a call), which the tracker launches, and the split
@@ -140,37 +143,82 @@ def _joint_tracker(chunks: int, chunk: int, degree: int = DEG):
     return frames, track
 
 
+# --joint: chunks timed with each knot prior design, between a chunk to warm
+# up and a profiled one (16 frames at chunk 4, as chip_smoke.py's 6c: past
+# ~2 s an f32 window's times fail the joint window's cover check, in the
+# reference as in the port)
+JOINT_PAIRS = 2
+
+
+@contextlib.contextmanager
+def _prior_design(name: str):
+    """The LM's knot prior runs K9 ("K9", the tracker's) or the old path
+    ("old path": ``residual_kernels.knot_prior_jacfwd``, the eager
+    ``torch.func.jacfwd`` the LM ran before K9) inside the block."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.solver import lm
+
+    launched = lm.knot_prior
+    if name == "old path":
+        lm.knot_prior = lambda t, q, weight, binding=None: rk.knot_prior_jacfwd(t, q, weight)
+    try:
+        yield
+    finally:
+        lm.knot_prior = launched
+
+
 def profile_joint(args) -> int:
-    """One joint chunk to warm up (the first solve initialises the dense
-    solver's library), one timed unprofiled, the next under the profiler."""
+    """Two joint trackers on the same frames, the knot prior on K9 and on
+    its old path: one chunk each to warm up (the first solve initialises the
+    dense solver's library), :data:`JOINT_PAIRS` chunks timed unprofiled, the two
+    in turn (the order alternating a chunk), then one chunk each under the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from mba_vo_tpu_torch.ops import cuda_sampling as cs
 
-    c = args.chunk
-    frames, track = _joint_tracker(3, c)
-    track(frames[:c])
-    k0, t0 = cs.LAUNCHES, time.perf_counter()
-    track(frames[c:2 * c])
-    wall_ms, evals_warm = 1e3 * (time.perf_counter() - t0), cs.LAUNCHES - k0
-    k0 = cs.LAUNCHES
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        track(frames[2 * c:])
-    evals = cs.LAUNCHES - k0
-    avgs = prof.key_averages()
-    launch, dev_ms = _launches(avgs), _device_us(avgs) / 1e3
-    print(f"joint window, f32, chunk {c}, degree {DEG}: second chunk unprofiled "
-          f"{wall_ms:.1f} ms over {evals_warm} LM evaluations = "
-          f"{wall_ms / max(evals_warm, 1):.2f} ms per evaluation")
-    print(f"profiled chunk: {evals} LM evaluations (K1 launches at S = "
-          f"{c * 40}), {launch} kernel launches = {launch / max(evals, 1):.0f} per "
-          f"evaluation; device time {dev_ms:.3f} ms = {dev_ms / max(evals, 1):.3f} ms per "
-          f"evaluation; busy share at the unprofiled cost per evaluation: "
-          f"{100 * (dev_ms / max(evals, 1)) / (wall_ms / max(evals_warm, 1)):.1f} %")
-    if dev_ms == 0:
-        print("the profiler recorded no device time")
-    if args.out:
-        _write_tables(avgs, args.out)
+    c, designs = args.chunk, ("K9", "old path")
+    tracks = {}
+    for d in designs:
+        frames, tracks[d] = _joint_tracker(JOINT_PAIRS + 2, c)
+        with _prior_design(d):
+            tracks[d](frames[:c])
+    ms_eval = {d: [] for d in designs}
+    diffs = []
+    for i in range(1, JOINT_PAIRS + 1):
+        part, got = frames[i * c:(i + 1) * c], {}
+        for d in (designs if i % 2 else designs[::-1]):
+            with _prior_design(d):
+                k0, t0 = cs.LAUNCHES, time.perf_counter()
+                tracks[d](part)
+                got[d] = (1e3 * (time.perf_counter() - t0), cs.LAUNCHES - k0)
+        for d in designs:
+            ms_eval[d].append(got[d][0] / max(got[d][1], 1))
+        diffs.append(1e3 * (ms_eval["old path"][-1] - ms_eval["K9"][-1]))
+    print(f"joint window, f32, chunk {c}, degree {DEG}, {JOINT_PAIRS} chunks unprofiled, the two "
+          f"trackers in turn: wall ms per LM evaluation (median over chunks) " + "; ".join(
+              f"{d} {statistics.median(ms_eval[d]):.3f} ({[round(x, 3) for x in ms_eval[d]]})"
+              for d in designs)
+          + f"; old path less K9, paired a chunk: median {statistics.median(diffs):.1f} us per "
+          f"evaluation ({[round(x, 1) for x in diffs]})")
+    for d in designs:
+        with _prior_design(d):
+            k0 = cs.LAUNCHES
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                tracks[d](frames[-c:])
+            evals = cs.LAUNCHES - k0
+        avgs = prof.key_averages()
+        launch, dev_ms = _launches(avgs), _device_us(avgs) / 1e3
+        wall = statistics.median(ms_eval[d])
+        print(f"profiled chunk, {d}: {evals} LM evaluations (K1 launches at S = {c * 40}), "
+              f"{launch} kernel launches = {launch / max(evals, 1):.1f} per evaluation; device "
+              f"time {dev_ms:.3f} ms = {dev_ms / max(evals, 1):.3f} ms per evaluation; busy "
+              f"share at the unprofiled cost per evaluation: "
+              f"{100 * (dev_ms / max(evals, 1)) / wall:.1f} %")
+        if dev_ms == 0:
+            print("the profiler recorded no device time")
+        if args.out and d == "K9":
+            _write_tables(avgs, args.out)
     return 0
 
 

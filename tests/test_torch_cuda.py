@@ -12,7 +12,11 @@ path's sampler K4 (csrc/image_bilinear.cu) against their plain versions bit
 for bit, K5's staged design against its serial design and K4's select
 design (at every block shape, and its interleaved row) against its branch
 design bit for bit on edge shapes, and the direct path on the kernels
-against its plain chain. Every test here carries the ``cuda`` marker and
+against its plain chain; the LM's kernels K6-K8 (csrc/lm_step.cu) against
+its plain stages, and the joint path's knot prior K9
+(csrc/knot_prior.cu) against its plain version, bit for bit as the
+target, directly and through a level's binding, with the joint tracker's
+K9 launches. Every test here carries the ``cuda`` marker and
 skips where no CUDA device is visible.
 
 The module imports only torch and numpy, so it also runs where JAX is not
@@ -2228,3 +2232,225 @@ def test_tracker_lm_runs_on_k6_k8(cuda, dtype):
     if dtype == "float64":
         for a, b in zip(poses, poses_p):
             assert float((a.t - b.t).abs().max()) <= 1e-9
+
+
+# ------------------------------------------------------ K9: the knot prior
+
+PRIOR_KNOTS = [3, 7, 11, 32]   # the least, the degree-4 chunk of 4, of 8, a long window
+PRIOR_BOUNDS = {torch.float32: 1e-6, torch.float64: 1e-13}
+
+
+def _prior_knots(K, case, dtype, seed=0):
+    """Knots t [K, 3], q [K, 4] on the card: "moving" (relative rotations
+    up to 0.5 rad), "rest" (every knot the identity at one translation: a
+    window from rest), "taylor" (relative rotations of 1e-9 rad, the Taylor
+    branches) or "large" (relative rotations of 2 rad and near pi)."""
+    rng = np.random.default_rng(seed)
+    t = np.cumsum(rng.normal(0, 0.05, (K, 3)), axis=0)
+    q = [np.array([0.0, 0.0, 0.0, 1.0])]
+    if case != "rest":
+        q[0] = rng.normal(0, 1, 4)
+        q[0] /= np.linalg.norm(q[0])
+    else:
+        t[:] = t[0]
+    for k in range(K - 1):
+        axis = rng.normal(0, 1, 3)
+        axis /= np.linalg.norm(axis)
+        angle = {"moving": rng.uniform(0, 0.5), "rest": 0.0, "taylor": 1e-9,
+                 "large": (2.0, np.pi - 1e-3)[k % 2]}[case]
+        e = np.concatenate([np.sin(angle / 2) * axis, [np.cos(angle / 2)]])
+        x, y, z, w = q[-1]
+        a, b, c, d = e
+        q.append(np.array([w * a + x * d + y * c - z * b, w * b + y * d + z * a - x * c,
+                           w * c + z * d + x * b - y * a, w * d - x * a - y * b - z * c]))
+    return (torch.tensor(t, dtype=dtype, device="cuda"),
+            torch.tensor(np.array(q), dtype=dtype, device="cuda"))
+
+
+def _ulps(out, ref):
+    r = ref.abs()
+    return float(((out - ref).abs() / (torch.nextafter(r, torch.full_like(r, np.inf)) - r)).max())
+
+
+@pytest.mark.parametrize("case", ["moving", "rest", "taylor", "large"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K", PRIOR_KNOTS)
+def test_knot_prior_matches_plain(cuda, K, dtype, case):
+    """K9 (one launch, counted) against its plain version on the card's
+    tensors: bit for bit as the target; where a transcendental rounds
+    otherwise than torch's, each output within 1e-13 (float64) / 1e-6
+    (float32) of its magnitude, the worst difference in ulps printed."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_lm
+    from mba_vo_tpu_torch.solver import lm as tlm
+
+    t, q = _prior_knots(K, case, dtype)
+    for weight in (1.0, 10.0):
+        before = cuda_lm.LAUNCHES_KNOT_PRIOR
+        out = cuda_lm.knot_prior_cuda(t, q, weight)
+        torch.cuda.synchronize()
+        assert cuda_lm.LAUNCHES_KNOT_PRIOR == before + 1
+        ref = tlm.knot_prior_plain(t, q, weight)
+        bits = rk.same_bits(out, ref)
+        for name, o, r in zip(("cost", "g", "H"), out, ref):
+            assert o.shape == r.shape and o.dtype == r.dtype
+            scale = float(r.abs().max())
+            err = float((o - r).abs().max())
+            assert err <= PRIOR_BOUNDS[dtype] * scale, (name, err, scale)
+            print(f"K = {K}, {dtype}, {case}, weight {weight}: {name} "
+                  f"{'equal bit for bit' if bits else f'worst {_ulps(o, r):.1f} ulps'}")
+
+
+def test_knot_prior_structure_on_the_card(cuda):
+    """K9's t-omega blocks are 0 and its t-t block is weight (D2^T D2 x I3),
+    exactly."""
+    from mba_vo_tpu_torch.ops import cuda_lm
+
+    K, weight = 7, 10.0
+    t, q = _prior_knots(K, "moving", torch.float64)
+    _, _, H = cuda_lm.knot_prior_cuda(t, q, weight)
+    D2 = np.zeros((K - 2, K))
+    for j in range(K - 2):
+        D2[j, j:j + 3] = [1.0, -2.0, 1.0]
+    want = weight * np.kron(D2.T @ D2, np.eye(3))
+    Hc = H.cpu().numpy()
+    assert np.array_equal(Hc[:3 * K, :3 * K], want)
+    assert not Hc[:3 * K, 3 * K:].any() and not Hc[3 * K:, :3 * K].any()
+
+
+def test_knot_prior_never_reaches_the_plain_version(cuda, monkeypatch):
+    """solver.lm's dispatcher on a CUDA tensor launches K9 (directly or
+    through a level's binding) and never calls the plain version; the
+    wrapper refuses CPU tensors, mixed dtypes, wrong shapes, fewer than 3
+    knots and a weight that is not positive, launching nothing."""
+    from mba_vo_tpu_torch.ops import cuda_lm
+    from mba_vo_tpu_torch.solver import lm as tlm
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(tlm, "knot_prior_plain", refuse)
+    monkeypatch.setattr(tlm, "_prior_terms", refuse)
+    t, q = _prior_knots(7, "moving", torch.float32)
+    before = cuda_lm.LAUNCHES_KNOT_PRIOR
+    tlm.knot_prior(t, q, 1.0)
+    torch.cuda.synchronize()
+    assert cuda_lm.LAUNCHES_KNOT_PRIOR == before + 1
+    for args, match in (((t.cpu(), q), "not CUDA"), ((t, q.double()), "float"),
+                        ((t[:, :2].contiguous(), q), "must be"),
+                        ((t[:2].contiguous(), q[:2].contiguous()), "at least 3")):
+        with pytest.raises(ValueError, match=match):
+            cuda_lm.knot_prior_cuda(*args, 1.0)
+    for weight in (0.0, -1.0, float("nan")):
+        with pytest.raises(ValueError, match="positive"):
+            cuda_lm.knot_prior_cuda(t, q, weight)
+    assert cuda_lm.LAUNCHES_KNOT_PRIOR == before + 1
+
+
+def test_knot_prior_through_the_binding(cuda):
+    """A CommitBinding made with the prior owns K9's buffers: its
+    knot_prior launches K9 into them (the plain version's results), refuses
+    knots of another count or dtype, and K8 given that very tuple reads them
+    without a check, with the bits of the same call given copies."""
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_lm
+    from mba_vo_tpu_torch.solver import lm as tlm
+
+    P, opts = 8, tlm.LMOptions()
+    state, call, _ = _commit_problem(42, 4, 96, torch.float64, "accepted", True)
+    state2 = tlm.LMState(*(x.clone() for x in state))
+    binding = cuda_lm.CommitBinding(state, P, prior=True, **tlm.commit_options(opts))
+    t, q = _prior_knots(7, "moving", torch.float64)
+    before = cuda_lm.LAUNCHES_KNOT_PRIOR
+    out = tlm.knot_prior(t, q, 1.0, binding=binding)
+    torch.cuda.synchronize()
+    assert out is binding.prior_out and cuda_lm.LAUNCHES_KNOT_PRIOR == before + 1
+    ref = cuda_lm.knot_prior_cuda(t, q, 1.0)
+    assert rk.same_bits(out, ref)
+    for bad in ((t[:6].contiguous(), q), (t, q.float()), (t.cpu(), q)):
+        with pytest.raises(ValueError):
+            binding.knot_prior(*bad, 1.0)
+    assert cuda_lm.LAUNCHES_KNOT_PRIOR == before + 2
+    got = binding(state, *call, True, out)
+    want = tlm.lm_commit_plain(state2, *call, P, opts, True, tuple(x.clone() for x in out))
+    torch.cuda.synchronize()
+    for field, a, b in zip(tlm.LMState._fields, got, want):
+        assert rk.same_bits(a, b), field
+
+
+def test_joint_tracker_lm_runs_on_k9(cuda):
+    """track_frames_joint on the card launches K9 once at the start of each
+    level with the prior and once an LM iteration there, with one host read
+    an iteration, and takes the plain stages' (K6-K9) iterations and, in
+    float64, their poses to 1e-9."""
+    from mba_vo_tpu_torch.core.spline import make_knots
+    from mba_vo_tpu_torch.data.synthetic import smooth_shapes_image, synthesize_blurred_image
+    from mba_vo_tpu_torch.experiments import residual_kernels as rk
+    from mba_vo_tpu_torch.ops import cuda_lm
+    from mba_vo_tpu_torch.solver import lm as tlm
+    from mba_vo_tpu_torch.tracker import blur_tracker as bt
+    from mba_vo_tpu_torch.tracker.detector import DetectorOptions
+
+    h, w = 96, 128
+    K = np.array([90.0, 90.0, (w - 1) / 2, (h - 1) / 2])
+    img = smooth_shapes_image(h, w, sigma=3.0, dtype=np.float64)
+    traj = make_knots(torch.tensor(np.outer(np.arange(8), [0.004, -0.002, 0.001])),
+                      torch.tensor([[0.0, 0, 0, 1]] * 8, dtype=torch.float64), 0.0, 0.1)
+    frames = [synthesize_blurred_image(torch.tensor(img), traj, 2, 0.1 * i, 0.03, 5, 2.0,
+                                       torch.tensor(K)).numpy() for i in (1, 2, 3, 4)]
+    probe = {"levels": 0, "iterations": 0, "reads": 0, "all": 0}
+    original = bt.optimize_level
+
+    def probed(*a, **k):
+        item, boolean = torch.Tensor.item, torch.Tensor.__bool__
+
+        def count(f):
+            def wrapped(self, *args):
+                probe["reads"] += 1
+                return f(self, *args)
+            return wrapped
+        torch.Tensor.item, torch.Tensor.__bool__ = count(item), count(boolean)
+        try:
+            knots, summary = original(*a, **k)
+        finally:
+            torch.Tensor.item, torch.Tensor.__bool__ = item, boolean
+        probe["all"] += summary.num_iterations
+        if tlm._prior_on(a[0], a[4]):
+            probe["levels"] += 1
+            probe["iterations"] += summary.num_iterations
+        return knots, summary
+
+    def run():
+        cfg = bt.TrackerConfig(num_pyramid_levels=2, num_virtual_poses=(5, 5),
+                               dtype="float64", max_num_iterations=4,
+                               detector=DetectorOptions(score_threshold=5.0, cell_h=8, cell_w=8,
+                                                        max_keypoints=128))
+        tracker = bt.BlurAwareTracker(cfg, K, (h, w), device="cuda")
+        tracker.track_frame(img, img, 0.0, 0.03, np.full((h, w), 2.0))
+        return tracker.track_frames_joint(frames, [0.1 * i for i in (1, 2, 3, 4)],
+                                          [0.03] * 4, chunk=2)
+
+    bt.optimize_level = probed
+    try:
+        cuda_lm.zero_launch_counts()
+        poses = run()
+        n = cuda_lm.LAUNCHES_KNOT_PRIOR
+        got = dict(probe)
+        saved = {k: getattr(tlm, k) for k in rk.LM_STAGES}
+        for k in rk.LM_STAGES:
+            setattr(tlm, k, rk.lm_plain_fn(k))
+        try:
+            probe.update(levels=0, iterations=0, reads=0, all=0)
+            cuda_lm.zero_launch_counts()
+            poses_p = run()
+        finally:
+            for k, fn in saved.items():
+                setattr(tlm, k, fn)
+    finally:
+        bt.optimize_level = original
+    assert got["levels"] > 0 and n == got["levels"] + got["iterations"], (n, got)
+    assert got["reads"] == got["all"], got
+    assert cuda_lm.LAUNCHES_KNOT_PRIOR == 0
+    assert (got["levels"], got["iterations"]) == (probe["levels"], probe["iterations"])
+    for a, b in zip(poses, poses_p):
+        assert float((a.t - b.t).abs().max()) <= 1e-9
