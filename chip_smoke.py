@@ -19,11 +19,13 @@ Phases (any failed check raises and the exit code is non-zero):
      row and the earlier branch design) and K6-K8 (csrc/lm_step.cu: the LM
      iteration's step, decision and commit; K6's shuffle design, K7's
      keypoint design and K8's staged design, and the earlier block designs
-     of the three) and K9 (csrc/knot_prior.cu: the joint path's knot
-     prior) with nvcc for
-     sm_90a, all eight sources at once, and print each kernel's registers,
+     of the three), K9 (csrc/knot_prior.cu: the joint path's knot
+     prior) and K10-K12 (csrc/bundle_adjust.cu: the backend's BA
+     iteration, its normal equations, Schur step and commit) with nvcc for
+     sm_90a, all nine sources at once, and print each kernel's registers,
      shared memory and spills, K5's staging, K4's block, K6's threads and
-     shared memory by D, K7's threads by N and K9's shared memory by K;
+     shared memory by D, K7's threads by N, K9's shared memory by K and
+     K10-K12's split of the landmarks and shared memory by window;
   2b. the card tests: tests/test_torch_cuda.py under pytest (-m cuda,
      without the JAX test configuration), every kernel against its plain
      version (K4 and K5 bit for bit, the direct path on the kernels against
@@ -35,8 +37,12 @@ Phases (any failed check raises and the exit code is non-zero):
      7, 11 and 32 (bit for bit as the target) and through a level's
      binding, and the tracker's LM on
      them against the plain-stage tracker) and blur_rows and K3 against
-     their earlier designs bit for bit on edge shapes; any failure fails
-     the run;
+     their earlier designs bit for bit on edge shapes; and
+     tests/test_torch_cuda_ba.py: K10-K12 against the BA's plain stages on
+     every iteration of runs on padded, prior-less, 8a-sized and wide
+     windows in f64 and f32, the kernels' run against the CPU's, one launch
+     of each an iteration and no plain stage, the wrapper's refusals, a NaN
+     step rejected and a done state unchanged; any failure fails the run;
   3. record the sampler's inputs as the tracker gives them on the bench
      scenario (16 frames of track_frame from rest, one chunk of
      track_frames_joint from a moving window, f32), and K2's and K3's
@@ -129,21 +135,31 @@ Phases (any failed check raises and the exit code is non-zero):
      the CPU at full width: detect_sparse + match_descriptors on a VGA frame
      of the bench scenario with BackendConfig's default detector (differing
      descriptor bits counted, float32 too), run_bundle_adjustment at window
-     7 with 512 landmark slots, optimize_pose_graph at 64 nodes, solve_pnp;
+     7 with 512 landmark slots on K10-K12 (its iterations, one launch of
+     each and one host read an iteration, every iteration held against the
+     plain stages, its time beside the plain stages' on the card, in turn),
+     optimize_pose_graph at 64 nodes, solve_pnp;
      (b) `cli track --backend ba+pg` on a small loop sequence (float64
      config) with --device cuda against --device cpu: every keyframe's
      BA/PG iterations, loop edges and landmarks, and the TUM files (1e-8
      until BA's roundoff amplification reaches it, 1e-6 over the run),
-     beside the same run on the CPU with one thread; (c) the loop benchmark at bench_loop.py's
+     beside the same run on the CPU with one thread, and K10-K12's launches
+     against its BA iterations; (c) the loop benchmark at bench_loop.py's
      defaults through experiments/loop_bench.py on the card, its ATE rule
      (ba+pg cuts the final-quarter ATE by >= 50 %) beside LOOP_r05.json's
      JAX-on-CPU figures, wall time, frames/s, K1's, K2's and K3's launches
-     (each > 0) and the backend's
+     (each > 0), K10-K12's against its BA iterations, every BA iteration
+     of its ba+pg run held against the plain stages, and the backend's
      ms per keyframe by stage, then its tracker-only run again on the CPU
      from the card's files: the per-frame TUM difference and the first
      frame over 1e-8; (d) `cli synth` at VGA, then `cli track` in
      float32 under bench options (TrackerConfig's keyframe thresholds) with
-     --chunk 8, with and without --backend ba+pg: frames/s of both;
+     --chunk 8, with and without --backend ba+pg: frames/s of both, K10-K12's
+     launches against the f32 backend's BA iterations (0 without it); then
+     K10-K12 timed on 8a's and 8c's recorded iterations (a call through the
+     binding, warm and cold on the device, beside the plain stage's call,
+     the bound and, for K11, torch.linalg.cholesky_ex + cholesky_solve on
+     the same reduced system);
   9. the models, the non-planar scene, undistortion and overlays, each
      stage under the port's StageTimer: (a) at VGA, the undistortion maps
      (rad-tan pinhole, unified xi = 0.8) in f64 CUDA against the CPU and
@@ -174,7 +190,9 @@ Phases (any failed check raises and the exit code is non-zero):
      of the sharded track_frame path, at the shard's 256 keypoints (1e-12),
      and K2 and K3 on every call of that path on every rank (1e-12 rows,
      1e-10 sums), then track_frame in f32: frames/s beside 5a's; (b)
-     run_bundle_adjustment_sharded at 8a's size against dense (1e-8); (c)
+     run_bundle_adjustment_sharded at 8a's size against dense (1e-8), the
+     dense run on K10-K12 (a launch of each an iteration) and the sharded
+     one on the plain stages (no launch); (c)
      `python -m torch.distributed.run --nproc-per-node 2 -m
      mba_vo_tpu_torch.cli track --shard-devices 2` on 8d's sequence (f64)
      against the single-process command line (1e-6); (d) `cli track` on a
@@ -182,11 +200,11 @@ Phases (any failed check raises and the exit code is non-zero):
      thread, with the decoders in two threads and in two processes (the
      command line's read-ahead, `cli.READ_AHEAD`): frames/s of each, the
      TUM file equal to the filter-0 run's;
-K2's to K9's launches are counted, as K1's, on each path (5a, 6a, 6c-6e,
+K2's to K12's launches are counted, as K1's, on each path (5a, 6a, 6c-6e,
 8b-8d, 9b-9d; K2-K5 and K9 10a per rank, whose sharded LM runs the plain
 stages around K9; a call of K3 launches one kernel; K9 only where the
-knot prior is on, the joint path); then one JSON line of kernel results
-(K1 to K9),
+knot prior is on, the joint path; K10-K12 on the backend's paths, 8a-8d
+and 10b); then one JSON line of kernel results (K1 to K12),
 the card line again, and the final status line {"ok": true, "device":
 {...}}.
 """
@@ -244,22 +262,23 @@ EARLIER_LAUNCHES: dict = {}
 
 
 def zero_counts(cs):
-    """Zero K1's launch count and K2's to K8's."""
-    from mba_vo_tpu_torch.ops import cuda_lm
+    """Zero K1's launch count and K2's to K12's."""
+    from mba_vo_tpu_torch.ops import cuda_ba, cuda_lm
     from mba_vo_tpu_torch.ops import cuda_residual as cr
 
     cs.LAUNCHES = 0
     cr.zero_launch_counts()
     cuda_lm.zero_launch_counts()
+    cuda_ba.zero_launch_counts()
 
 
 def note_residual_launches(path: str) -> dict:
-    """K2's to K9's launches since :func:`zero_counts`, kept under ``path``."""
-    from mba_vo_tpu_torch.ops import cuda_lm
+    """K2's to K12's launches since :func:`zero_counts`, kept under ``path``."""
+    from mba_vo_tpu_torch.ops import cuda_ba, cuda_lm
     from mba_vo_tpu_torch.ops import cuda_residual as cr
 
     got = {**cr.launch_counts(), **cuda_lm.launch_counts(),
-           "knot_prior": cuda_lm.LAUNCHES_KNOT_PRIOR}
+           "knot_prior": cuda_lm.LAUNCHES_KNOT_PRIOR, **cuda_ba.launch_counts()}
     RESIDUAL_LAUNCHES[path] = got
     EARLIER_LAUNCHES[path] = cuda_lm.earlier_launch_counts()
     return got
@@ -1030,6 +1049,87 @@ def pose_graph_arrays(n=64, seed=1):
     return (t, q), (i, j, t_ij, np.tile(q[:1], (len(i), 1)), w)
 
 
+# K10-K12 held against their plain versions, by the label of the run whose
+# BA iterations were recorded (experiments/ba_kernels.py's hold_ba_calls)
+BA_HELD: dict = {}
+BA_KERNELS = ("ba_build", "ba_step", "ba_commit")
+# K10-K12's launches by path, each checked against the path's BA iterations
+BA_LAUNCHES: dict = {}
+
+
+def hold_ba_recorded(label: str, calls: list) -> dict:
+    """K10-K12 against their plain versions on every recorded BA iteration
+    of a run (float64: 1e-12 of each output's magnitude, K10's sums of
+    the magnitude of their terms; K11 within what roundoff in its sums can
+    move its outputs by where that is larger, NaN steps where S is
+    indefinite beyond its roundoff, unchecked and counted where S's
+    definiteness is within it; K12's decisions equal,
+    a flip at a knife edge failing the run too), and the replay equal to
+    the run bit for bit; printed and kept in BA_HELD."""
+    from mba_vo_tpu_torch.experiments import ba_kernels as bk
+
+    check(len(calls) > 0, f"{label}: no BA iteration was recorded")
+    t0 = time.perf_counter()
+    got = bk.hold_ba_calls(calls)
+    w, n = got["worst"], got["iterations"]
+    c = calls[0]
+    print(f"    {label}: K10-K12 against their plain versions on all {n} recorded iterations "
+          f"({str(c.dtype).split('.')[-1]}, W {c.W}, M {c.M}, {len({x.run for x in calls})} "
+          f"BA runs; {got['accepted']} steps accepted, {got['done']} ending a loop, "
+          f"{got['nan_steps']} NaN steps): K10 within {w['ba_build']:.3e} and K12 within "
+          f"{w['ba_commit']:.3e} of each output's magnitude (bound "
+          f"{bk.TOLERANCE[c.dtype]:.0e}); K11 within that bound on {got['step_within']}, "
+          f"within what roundoff in its sums can move it by (ba_kernels.step_bounds; at "
+          f"most {got['step_share']:.3e} of it) on {got['step_checked'] - got['step_within']} "
+          f"where S's definiteness is beyond its roundoff ("
+          + (f"kappa_2(S) {got['kappa'][0]:.3e}-{got['kappa'][1]:.3e}, the V blocks' up to "
+             f"{got['kappa_V']:.3e}" if got["kappa"][1] > 0 else "none computed")
+          + f"), unchecked on "
+          f"{n - got['step_checked']}, largest difference {w['ba_step']:.3e} of its "
+          f"magnitude; ok and done equal on "
+          f"{n - len(got['flips'])}, flipped at a knife edge on {len(got['flips'])}; the replay "
+          f"equal to the run bit for bit on {got['replayed_equal']} of {got['transitions']} "
+          f"transitions; {time.perf_counter() - t0:.1f} s")
+    for flip in got["flips"]:
+        print(f"      knife edge: {flip}")
+    check(got["replayed_equal"] == got["transitions"], f"{label}: a replay differs from the run")
+    check(not got["flips"], f"{label}: K12's decisions differ from the plain version's")
+    BA_HELD[label] = got
+    return got
+
+
+def check_ba_launches(path: str, iterations: int) -> dict:
+    """K10-K12's launches on ``path`` (RESIDUAL_LAUNCHES) against its BA
+    iterations: one of each an iteration."""
+    got = {k: RESIDUAL_LAUNCHES[path].get(k, 0) for k in BA_KERNELS}
+    check(all(n == iterations for n in got.values()),
+          f"{path}: K10-K12 launched {got} times in {iterations} BA iterations")
+    BA_LAUNCHES[path] = got
+    return got
+
+
+@contextlib.contextmanager
+def host_reads():
+    """Counts the host reads (Tensor.item and Tensor.__bool__) made inside
+    the block into ``reads["n"]``."""
+    import torch
+
+    reads = {"n": 0}
+    item, boolean = torch.Tensor.item, torch.Tensor.__bool__
+
+    def counted(fn):
+        def call(self, *args):
+            reads["n"] += 1
+            return fn(self, *args)
+        return call
+
+    torch.Tensor.item, torch.Tensor.__bool__ = counted(item), counted(boolean)
+    try:
+        yield reads
+    finally:
+        torch.Tensor.item, torch.Tensor.__bool__ = item, boolean
+
+
 def phase_backend_solvers(img, other):
     """8a: the backend's device work, float64 on CUDA against the CPU at
     full width, and its times on the card. Returns a dict of results."""
@@ -1038,6 +1138,8 @@ def phase_backend_solvers(img, other):
     from mba_vo_tpu_torch.backend import ba, geometry, pose_graph
     from mba_vo_tpu_torch.backend.vo_backend import BackendConfig
     from mba_vo_tpu_torch.core.transform import Pose
+    from mba_vo_tpu_torch.experiments import ba_kernels as bk
+    from mba_vo_tpu_torch.ops import cuda_ba
     from mba_vo_tpu_torch.tracker.sparse_features import detect_sparse, match_descriptors
 
     det = BackendConfig().detector
@@ -1073,19 +1175,37 @@ def phase_backend_solvers(img, other):
     res["match_ms"] = median_ms(lambda: match_descriptors(fa, fb, 96.0, 0.85))
 
     a = ba_problem_arrays()
-    (rc, sc), (rh, sh) = (ba.run_bundle_adjustment(
-        interop.ba_problem_from_arrays(**a, device=d), ba.BAOptions()) for d in ("cuda", "cpu"))
+    cuda_ba.zero_launch_counts()
+    with bk.record_ba_calls() as calls, host_reads() as reads:
+        rc, sc = ba.run_bundle_adjustment(interop.ba_problem_from_arrays(**a, device="cuda"),
+                                          ba.BAOptions())
+    counts = cuda_ba.launch_counts()
+    rh, sh = ba.run_bundle_adjustment(interop.ba_problem_from_arrays(**a, device="cpu"),
+                                      ba.BAOptions())
     dpose = float((rc.poses.t.cpu() - rh.poses.t).abs().max())
     dpts = float((rc.map.points.cpu() - rh.map.points).abs().max())
     prob = interop.ba_problem_from_arrays(**a, device="cuda")
+    # the kernels and the plain stages on the card, timed in turn
     res["ba_ms"] = median_ms(lambda: ba.run_bundle_adjustment(prob, ba.BAOptions()), reps=3)
+    res["ba_plain_ms"] = median_ms(lambda: ba.run_plain_stages(prob, ba.BAOptions()), reps=3)
+    res["ba_ms_again"] = median_ms(lambda: ba.run_bundle_adjustment(prob, ba.BAOptions()), reps=3)
+    res["ba_plain_ms_again"] = median_ms(lambda: ba.run_plain_stages(prob, ba.BAOptions()),
+                                         reps=3)
     res["ba_iterations"] = (sc.num_iterations, sh.num_iterations)
-    print(f"[8a] run_bundle_adjustment, f64, window 7, 512 landmark slots (300 live): "
-          f"iterations CUDA {sc.num_iterations} / CPU {sh.num_iterations}; max |pose CUDA - "
-          f"CPU| {dpose:.3e}, points {dpts:.3e} (bound 1e-8); {res['ba_ms']:.1f} ms on the card "
-          f"({res['ba_ms'] / max(sc.num_iterations, 1):.2f} ms an iteration, one flag read each)")
+    res["ba_launches"], res["ba_calls"] = counts, calls
+    n = sc.num_iterations
+    print(f"[8a] run_bundle_adjustment, f64, window 7, 512 landmark slots (300 live), on "
+          f"K10-K12: iterations CUDA {n} / CPU {sh.num_iterations}; max |pose CUDA - "
+          f"CPU| {dpose:.3e}, points {dpts:.3e} (bound 1e-8); launches {counts}, host reads "
+          f"{reads['n']}; {res['ba_ms']:.2f} / {res['ba_ms_again']:.2f} ms on the card "
+          f"({res['ba_ms'] / max(n, 1):.3f} ms an iteration) against the plain stages on the "
+          f"card {res['ba_plain_ms']:.2f} / {res['ba_plain_ms_again']:.2f} ms, timed in turn")
     check(sc.num_iterations == sh.num_iterations, "BA iteration counts differ")
     check(dpose <= 1e-8 and dpts <= 1e-8, f"BA CUDA and CPU differ by {dpose}, {dpts}")
+    check(all(v == n for v in counts.values()), f"K10-K12 launched {counts} in {n} iterations")
+    check(reads["n"] == n, f"{reads['n']} host reads in {n} BA iterations")
+    BA_LAUNCHES["run_bundle_adjustment, f64, window 7 (8a)"] = counts
+    hold_ba_recorded("8a run_bundle_adjustment", calls)
 
     (t, q), e = pose_graph_arrays()
     outs = []
@@ -1207,6 +1327,10 @@ def phase_cli_cuda_vs_cpu(root, cs, launches):
           f"{cost:.2e}; max |TUM CUDA - TUM CPU| {per_frame.max():.3e}, first frame over "
           f"{CLI_TOL:g}: {int(over[0]) if len(over) else None}; per frame " + " ".join(
               f"{d:.0e}" for d in per_frame))
+    ba_its = sum(st["ba_iterations"] for st in out["cuda"]["stats"])
+    k1012 = check_ba_launches("cli track --backend ba+pg (8b)", ba_its)
+    print(f"    K10-K12 launches {k1012} in the CUDA run's {ba_its} BA iterations (one of each "
+          f"an iteration)")
     threads_diff = np.abs(out["cpu"]["poses"] - out["cpu 1 thread"]["poses"]).max(axis=1)
     print(f"    the same run on the CPU with {threads} threads against 1 thread (another order "
           f"of the same sums): max |TUM| difference {threads_diff.max():.3e}; per frame " + " ".join(
@@ -1235,10 +1359,12 @@ def phase_loop_benchmark(cs, launches, root):
     from mba_vo_tpu_torch.experiments import loop_bench as lb
     from mba_vo_tpu_torch.ops import cuda_lm
 
+    from mba_vo_tpu_torch.experiments import ba_kernels as bk
+
     t0 = time.perf_counter()
     keep = os.path.join(root, "loop")
     cuda_lm.zero_launch_counts()
-    with contextlib.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(io.StringIO()), bk.record_ba_calls() as ba_calls:
         summary = lb.run(device="cuda", keep=keep)
     EARLIER_LAUNCHES["loop benchmark (8c)"] = cuda_lm.earlier_launch_counts()
     wall = time.perf_counter() - t0
@@ -1250,9 +1376,10 @@ def phase_loop_benchmark(cs, launches, root):
         r = summary["runs"][name]
         path = f"loop benchmark {label} (8c)"
         launches[path] = r["k1_launches"]
-        RESIDUAL_LAUNCHES[path] = r["k2_k3_launches"]
+        RESIDUAL_LAUNCHES[path] = {**r["k2_k3_launches"], **r["k10_k12_launches"]}
         check(not skipped(r["k2_k3_launches"]),
               f"{path} never launched K2, K3 or K5: {r['k2_k3_launches']}")
+        check_ba_launches(path, r["backend"]["ba_iterations"] if name == "ba_pg" else 0)
     for name, r in summary["runs"].items():
         jr = ref["runs"][name] if ref else {}
         print(f"[8c] loop benchmark ({summary['num_frames']} frames, {summary['image']}, "
@@ -1270,6 +1397,12 @@ def phase_loop_benchmark(cs, launches, root):
           f"{b['ba_iterations_per_keyframe']:.2f} and PG iterations "
           f"{b['pg_iterations_per_keyframe']:.2f} a keyframe; host reads "
           f"{b['host_reads_per_keyframe']:.2f} a keyframe")
+    print(f"    K10-K12 launches {summary['runs']['ba_pg']['k10_k12_launches']} in the "
+          f"ba+pg run's {b['ba_iterations']} BA iterations, 0 tracker-only")
+    check(len(ba_calls) == b["ba_iterations"], f"{len(ba_calls)} BA iterations recorded of "
+                                                 f"{b['ba_iterations']}")
+    hold_ba_recorded("8c loop benchmark ba+pg", ba_calls)
+    summary["ba_calls"] = ba_calls
     imp = summary["final_segment_improvement_frac"]
     print(f"    final-quarter improvement {imp:.3f} (JAX on CPU "
           f"{ref.get('final_segment_improvement_frac') if ref else None}; rule >= 0.5, "
@@ -1334,12 +1467,16 @@ def phase_vga_cli(root, cs, launches):
         res[name] = dict(wall=wall, fps=21 / wall, launches=cs.LAUNCHES)
     with open(os.path.join(root, "vga_stats.json")) as f:
         stats = json.load(f)
+    ba_its = sum(st["ba_iterations"] for st in stats)
+    k1012 = check_ba_launches("cli track VGA --chunk 8, ba+pg (8d)", ba_its)
+    check_ba_launches("cli track VGA --chunk 8, tracker only (8d)", 0)
     ms = sum(sum(s.get("ms", {}).values()) for s in stats) / max(len(stats), 1)
     print(f"[8d] cli synth VGA (21 frames, 31 samples) {synth_s:.1f} s; cli track f32, bench "
           f"options, --chunk 8: tracker only {res['tracker only']['fps']:.3f} frames/s, "
           f"--backend ba+pg {res['ba+pg']['fps']:.3f} frames/s ({len(stats)} keyframes, "
           f"{ms:.1f} ms of backend a keyframe); K1 launches "
-          f"{res['tracker only']['launches']} / {res['ba+pg']['launches']}")
+          f"{res['tracker only']['launches']} / {res['ba+pg']['launches']}; K10-K12 launches "
+          f"{k1012} in the f32 backend's {ba_its} BA iterations")
     check(all(r["launches"] > 0 for r in res.values()), "the VGA CLI never launched K1")
     return res
 
@@ -1840,7 +1977,7 @@ def _sharded_rank(rank, world, store, inputs_path, out_dir):
         from mba_vo_tpu_torch.backend import ba
         from mba_vo_tpu_torch.experiments import kernel_variants as kv
         from mba_vo_tpu_torch.experiments import residual_kernels as rk
-        from mba_vo_tpu_torch.ops import cuda_lm
+        from mba_vo_tpu_torch.ops import cuda_ba, cuda_lm
         from mba_vo_tpu_torch.ops import cuda_residual as cr
         from mba_vo_tpu_torch.ops import cuda_sampling as cs
         from mba_vo_tpu_torch.ops import window_sampling as ws
@@ -1899,16 +2036,20 @@ def _sharded_rank(rank, world, store, inputs_path, out_dir):
         out["f32 k23 launches"] = cr.launch_counts()
 
         a = ba_problem_arrays()
+        cuda_ba.zero_launch_counts()
         dense, sd = ba.run_bundle_adjustment(
             interop.ba_problem_from_arrays(**a, device="cuda"), ba.BAOptions())
+        out["ba dense launches"] = cuda_ba.launch_counts()
         mesh = make_ba_mesh(world)
         torch.cuda.synchronize()
+        cuda_ba.zero_launch_counts()
         t0 = time.perf_counter()
         shard, ss = run_bundle_adjustment_sharded(
             shard_ba_problem(interop.ba_problem_from_arrays(**a, device="cuda"), mesh),
             ba.BAOptions(), mesh)
         torch.cuda.synchronize()
         out["ba seconds"] = time.perf_counter() - t0
+        out["ba sharded launches"] = cuda_ba.launch_counts()
         out["ba"] = dict(iterations=(ss.num_iterations, sd.num_iterations),
                          pose=float((shard.poses.t - dense.poses.t).abs().max()),
                          points=float((shard.map.points - dense.map.points).abs().max()),
@@ -2017,6 +2158,19 @@ def phase_sharded(root, cs, launches, img, frames, refs, fps_single, card):
           f"{1e3 * r0['ba seconds']:.1f} ms")
     check(b["iterations"][0] == b["iterations"][1] and b["pose"] <= 1e-8 and b["points"] <= 1e-8
           and b["points_shape"] == (512, 3), f"sharded BA differs from dense: {b}")
+    dense_l = [r["ba dense launches"] for r in ranks]
+    shard_l = [r["ba sharded launches"] for r in ranks]
+    print(f"[10b] K10-K12 launches per rank: the dense BA on the kernels {dense_l} in "
+          f"{b['iterations'][1]} iterations; the sharded BA (the plain stages, all-reduces "
+          f"between them) {shard_l}")
+    check(all(set(d.values()) == {b["iterations"][1]} for d in dense_l),
+          f"the dense BA's K10-K12 launches {dense_l}")
+    check(all(set(d.values()) == {0} for d in shard_l),
+          f"the sharded BA launched K10-K12: {shard_l}")
+    BA_LAUNCHES[f"run_bundle_adjustment_sharded, {SHARDS} ranks (10b)"] = {
+        k: sum(d[k] for d in shard_l) for k in BA_KERNELS}
+    BA_LAUNCHES["run_bundle_adjustment, dense, on each rank (10b)"] = {
+        k: sum(d[k] for d in dense_l) for k in BA_KERNELS}
     check(all(r["ba"] == b for r in ranks[1:]), "the ranks' BA results differ")
 
     # 10c: the command line under torch.distributed.run, f64, on 8d's sequence
@@ -2100,7 +2254,8 @@ def main() -> int:
     # the port itself: without it (the script alone) there is nothing to run
     from mba_vo_tpu_torch.experiments import kernel_variants as kv
     from mba_vo_tpu_torch.experiments import residual_kernels as rk
-    from mba_vo_tpu_torch.ops import cuda_build
+    from mba_vo_tpu_torch.experiments import ba_kernels as bk
+    from mba_vo_tpu_torch.ops import cuda_ba, cuda_build
     from mba_vo_tpu_torch.ops import cuda_image as ci
     from mba_vo_tpu_torch.ops import cuda_layout as cl
     from mba_vo_tpu_torch.ops import cuda_lm
@@ -2121,7 +2276,8 @@ def main() -> int:
     # ---- 2. build
     t0 = time.perf_counter()
     libs = cuda_build.build()
-    print(f"[2] built K1, K1-v, K2, K3, K4, K5, K6-K8 and K9 in {time.perf_counter() - t0:.2f} s -> "
+    print(f"[2] built K1, K1-v, K2, K3, K4, K5, K6-K8, K9 and K10-K12 in "
+          f"{time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(str(p) for p in libs.values())}")
     for name, log in cuda_build.BUILD_LOG.items():
         # ptxas -v: one block of lines per kernel instantiation (IfE float,
@@ -2132,7 +2288,7 @@ def main() -> int:
                           r"blur_rows(?:_keypoint)?|frame_layout(?:_serial)?|"
                           r"image_bilinear(?:_branch|_interleaved)?|"
                           r"lm_(?:step_shfl|step_block|decide_keypoint|decide_block|"
-                          r"commit_staged|commit_block)|knot_prior)"
+                          r"commit_staged|commit_block)|knot_prior|ba_(?:build|step|commit))"
                           r"_kernel|normal_equations_(?:partials|combine|cluster))I([fd])"
                           r"((?:Li\d+E)*)", ln)
             if "Compiling entry function" in ln and m:
@@ -2182,6 +2338,17 @@ def main() -> int:
           f"{cuda_lm.PRIOR_THREADS} threads, dynamic shared memory " + "; ".join(
               f"K = {K}: " + " / ".join(f"{cuda_lm.prior_smem_bytes(K, b)} B {t}"
                                         for t, b in item.items()) for K in (3, 7, 11, 32)))
+    print("    K10-K12 (ba_build, ba_step, ba_commit): a CTA of "
+          f"{cuda_ba.BA_THREADS} threads a slice of the landmarks, the last CTA by its ticket "
+          "combining; landmarks a CTA, CTAs at 512 slots and dynamic shared memory (K10 / K11 / "
+          "K12) by window: " + "; ".join(
+              f"W = {W}: " + " / ".join(
+                  f"{(lay := cuda_ba.ba_layout(W, 512, b)).landmarks_per_cta} a CTA, "
+                  f"{lay.ctas} CTAs, " + " / ".join(
+                      f"{cuda_ba.smem_bytes(k, W, lay.landmarks_per_cta, b, lay.s_shared)}"
+                      for k in (10, 11, 12)) + f" B {t}"
+                  + ("" if lay.s_shared else " (S in global memory)")
+                  for t, b in item.items()) for W in (7, 15, 30)))
     # the frame's calls (F = 1), a degree-4 joint chunk's (F = 4) and the widest
     for F, D in ((1, 12), (JCHUNK, 6 * (JCHUNK + 3)), (8, cr.MAX_TANGENTS)):
         M = F * N_KP * 8
@@ -2205,10 +2372,11 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     tests = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q", "-p",
-         "no:cacheprovider", os.path.join(here, "tests", "test_torch_cuda.py")],
+         "no:cacheprovider", os.path.join(here, "tests", "test_torch_cuda.py"),
+         os.path.join(here, "tests", "test_torch_cuda_ba.py")],
         cwd=here, capture_output=True, text=True, timeout=900)
     summary = [ln for ln in tests.stdout.splitlines() if " passed" in ln or " failed" in ln]
-    print(f"[2b] card tests (tests/test_torch_cuda.py, -m cuda): "
+    print(f"[2b] card tests (tests/test_torch_cuda.py and tests/test_torch_cuda_ba.py, -m cuda): "
           f"{summary[-1] if summary else 'no summary'}; {time.perf_counter() - t0:.1f} s")
     if tests.returncode != 0:
         print(tests.stdout[-6000:], tests.stderr[-3000:])
@@ -2914,6 +3082,41 @@ def main() -> int:
                     launches_by_path={p: n for p, n in by_path.items() if n}, **k1_n1, **more,
                     **extra)
 
+    def ba_entry(kernel):
+        def times(label):
+            r = ba_rows[label][kernel]
+            return {k: r[k] for k in ("ms", "device_ms", "device_cold_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms", "library_device_ms",
+                                      "library_device_cold_ms", "calls", "W", "M", "dtype")}
+        replaces = {"ba_build": "mba_vo_tpu/backend/ba.py:185",
+                    "ba_step": "mba_vo_tpu/backend/ba.py:232",
+                    "ba_commit": "mba_vo_tpu/backend/ba.py:337"}[kernel]
+        by_path = {p: n[kernel] for p, n in BA_LAUNCHES.items() if n[kernel]}
+        held = {label: dict(max_rel_err=g["worst"][kernel], iterations=g["iterations"],
+                            **({"within_1e-12": g["step_within"],
+                                "checked": g["step_checked"], "share_of_bound": g["step_share"],
+                                "kappa_2": g["kappa"], "kappa_2_V": g["kappa_V"]}
+                               if kernel == "ba_step" else {}),
+                            **({"decisions_equal": g["iterations"] - len(g["flips"])}
+                               if kernel == "ba_commit" else {}))
+                for label, g in BA_HELD.items()}
+        more = {}
+        if kernel == "ba_step":
+            more["library"] = ("torch.linalg.cholesky_ex + torch.cholesky_solve on the same "
+                               "reduced camera system S: two calls, the solve alone")
+            more["rule"] = ("within the larger of 1e-12 of each output's magnitude and "
+                            "what roundoff in K11's sums can move it by "
+                            "(experiments/ba_kernels.py's step_bounds: 2 D u times the "
+                            "magnitudes of S's and its right-hand side's terms through "
+                            "||S^-1||, and through |V^-1| and kappa_2(V) for dx) where S is "
+                            "definite beyond its roundoff; NaN where it is indefinite beyond "
+                            "it; else unchecked (counted)")
+        return dict(name=kernel, route="cuda", source="mba_vo_tpu_torch/csrc/bundle_adjust.cu",
+                    replaces=replaces, launches=sum(by_path.values()),
+                    max_abs_err=max(g["worst"][kernel] for g in BA_HELD.values()),
+                    **times("8a window 7"), loop_benchmark=times("8c loop benchmark"),
+                    launches_by_path=by_path, held=held, **more)
+
     # ---- 8. the command line and the keyframe backend
     t8 = time.perf_counter()
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "runtime"))
@@ -2922,12 +3125,17 @@ def main() -> int:
     print("    the runtime library (k-d tree) "
           + ("is built" if bindings.native_available() else
              "could not be built: the k-d tree's pure-Python path serves the same indices"))
-    phase_backend_solvers(img, cand[0][3])
+    solvers = phase_backend_solvers(img, cand[0][3])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         phase_cli_cuda_vs_cpu(root, cs, launches)
-        phase_loop_benchmark(cs, launches, root)
+        loop = phase_loop_benchmark(cs, launches, root)
         vga = phase_vga_cli(root, cs, launches)
         print(f"    phase 8 in {time.perf_counter() - t8:.1f} s")
+        # K10-K12 timed on 8a's and 8c's recorded iterations
+        t0 = time.perf_counter()
+        ba_rows = {label: bk.time_ba_rows(label, calls, out=indent) for label, calls in (
+            ("8a window 7", solvers["ba_calls"]), ("8c loop benchmark", loop["ba_calls"]))}
+        print(f"    K10-K12 timed in {time.perf_counter() - t0:.1f} s ({card})")
 
         # ---- 9. the models, the non-planar scene, undistortion, overlays
         from mba_vo_tpu_torch.utils.profiling import StageTimer
@@ -2993,6 +3201,7 @@ def main() -> int:
                            f64=residual_err64["direct path"][1]),
                        by_level=k4["levels"], first_call=k4["first_call"], plane=k4["plane"]),
         lm_entry("lm_step"), lm_entry("lm_decide"), lm_entry("lm_commit"), prior_entry(),
+        ba_entry("ba_build"), ba_entry("ba_step"), ba_entry("ba_commit"),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

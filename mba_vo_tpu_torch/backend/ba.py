@@ -18,9 +18,13 @@ Counterpart of ``mba_vo_tpu/backend/ba.py``:
     (U [W,6,6], V [M,3,3], W_blk [W,M,6,3], g_p [W,6], g_x [M,3]),
     landmark blocks are eliminated with batched 3x3 inverses and the
     reduced camera system S = U - W V^-1 W^T is solved by Cholesky;
-  * the trust-region LM loop is a host loop that reads one flag a
-    iteration (stop or go on); after the stop nothing changes, as after
-    the reference's ``lax.while_loop``.
+  * the trust-region LM loop is a host loop of three stages an iteration
+    that reads one flag a iteration (stop or go on); after the stop nothing
+    changes, as after the reference's ``lax.while_loop``. On the card the
+    stages are the kernels K10-K12 (``ops/cuda_ba.py``,
+    ``csrc/bundle_adjust.cu``); their plain versions, ``ba_build_plain``,
+    ``ba_step_plain`` and ``ba_commit_plain``, run on the CPU and on the
+    landmark-sharded path.
 
 A Cholesky or 3x3 inverse that fails gives a NaN step, which the loop
 rejects, as the reference's NaN-returning factorizations do. Gauge
@@ -52,6 +56,9 @@ from ..core.lie import (
     so3_hat,
 )
 from ..core.transform import Pose
+from ..ops import cuda_ba
+from ..ops.cuda_ba import (B_BUILD_COST, B_CAND_COST, B_COST, B_COST0, B_DONE, B_IT, B_LAM,
+                           B_OK, B_REL, B_SIZE)
 from ..utils.collectives import allreduce
 from .map import SlidingWindowMap
 
@@ -319,15 +326,11 @@ def _nan_unless(ok: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, x, torch.full_like(x, float("nan")))
 
 
-def schur_solve(U, V, Wb, g_p, g_x, lam: torch.Tensor, opts: BAOptions,
-                H_pose=None, pose_mask=None, group=None):
-    """Solve the damped GN system by eliminating the landmark blocks.
-
-    Returns (delta_pose [W,6], delta_point [M,3]). Pose 0 (and every padded
-    pose) is gauge-fixed: its rows/cols are zeroed and its diagonal block
-    replaced by the identity, so its step is exactly 0. With ``group``
-    (landmark shards) the reduced camera system and its right-hand side
-    are all-reduced and delta_point covers this rank's landmarks."""
+def reduced_camera_system(U, V, Wb, g_p, g_x, lam: torch.Tensor, opts: BAOptions,
+                          H_pose=None, pose_mask=None, group=None):
+    """The damped, gauge-fixed reduced camera system of :func:`schur_solve`:
+    (S [6W, 6W], rhs [6W], V^-1 [M, 3, 3] (NaN where the inverse fails),
+    the gauged W_blk [W, M, 6, 3], the gauge [W])."""
     Wn = Wb.shape[0]
     opts_t = dict(dtype=U.dtype, device=U.device)
     eye6 = torch.eye(6, **opts_t)
@@ -363,6 +366,21 @@ def schur_solve(U, V, Wb, g_p, g_x, lam: torch.Tensor, opts: BAOptions,
         S = S + He
 
     rhs = (g_p - allreduce(torch.einsum("wmac,mc->wa", WVi, g_x), group)).reshape(-1)
+    return S, rhs, Vinv, Wb, gauge
+
+
+def schur_solve(U, V, Wb, g_p, g_x, lam: torch.Tensor, opts: BAOptions,
+                H_pose=None, pose_mask=None, group=None):
+    """Solve the damped GN system by eliminating the landmark blocks.
+
+    Returns (delta_pose [W,6], delta_point [M,3]). Pose 0 (and every padded
+    pose) is gauge-fixed: its rows/cols are zeroed and its diagonal block
+    replaced by the identity, so its step is exactly 0. With ``group``
+    (landmark shards) the reduced camera system and its right-hand side
+    are all-reduced and delta_point covers this rank's landmarks."""
+    Wn = Wb.shape[0]
+    S, rhs, Vinv, Wb, gauge = reduced_camera_system(U, V, Wb, g_p, g_x, lam, opts, H_pose,
+                                                    pose_mask, group)
     L, info = torch.linalg.cholesky_ex(S)
     dp = -torch.cholesky_solve(rhs[:, None], L)[:, 0]
     dp = _nan_unless(info == 0, dp)
@@ -396,40 +414,130 @@ def _select(ok: torch.Tensor, a: BAProblem, b: BAProblem) -> BAProblem:
     )
 
 
+# ------------------------------------------------ the LM iteration's stages
+#
+# An iteration is three stages, each the plain version of one kernel
+# (ops/cuda_ba.py, csrc/bundle_adjust.cu): K10 ba_build, K11 ba_step, K12
+# ba_commit. The loop's state is the problem's poses and points and a
+# scalars vector of its dtype (cuda_ba.B_*: the cost, lambda, the
+# iterations, the done flag, the initial cost, the build's cost and the last
+# candidate's cost, ok flag and relative decrease).
+
+
+def ba_initial_scalars(problem: BAProblem, opts: BAOptions, group=None) -> torch.Tensor:
+    """The loop's scalars before its first iteration: the cost and the
+    initial cost both evaluate_cost at the problem, lambda
+    ``opts.initial_lambda``, every other entry 0."""
+    cost0 = evaluate_cost(problem, opts.huber_a, group)
+    scalars = cost0.new_zeros(B_SIZE)
+    scalars[B_COST] = cost0
+    scalars[B_COST0] = cost0
+    scalars[B_LAM] = opts.initial_lambda
+    return scalars
+
+
+def ba_build_plain(problem: BAProblem, huber_a: float, group=None):
+    """K10's plain version: (cost, U, V, W_blk, g_p, g_x, H_odom) of
+    :func:`build_normal_equations` at the problem. (K10 also writes the
+    loop's initial cost, :func:`evaluate_cost` at the problem, where the
+    scalars count no iteration yet: :func:`ba_initial_scalars` here.)"""
+    return build_normal_equations(problem, huber_a, group)[:7]
+
+
+def ba_step_plain(problem: BAProblem, scalars: torch.Tensor, built, opts: BAOptions,
+                  group=None):
+    """K11's plain version: the damped Schur step on ``built`` (K10's
+    outputs) at the scalars' lambda, and the candidate it gives. Returns
+    (dp [W,6], dx [M,3], cand t [W,3], cand q [W,4], cand X [M,3])."""
+    _, U, V, Wb, g_p, g_x, H_o = built
+    dp, dx = schur_solve(U, V, Wb, g_p, g_x, scalars[B_LAM], opts, H_pose=H_o,
+                         pose_mask=problem.pose_mask, group=group)
+    cand = _apply_step(problem, dp, dx)
+    return dp, dx, cand.poses.t, cand.poses.q, cand.map.points
+
+
+def ba_commit_plain(problem: BAProblem, scalars: torch.Tensor, candidate, opts: BAOptions,
+                    group=None) -> Tuple[BAProblem, torch.Tensor]:
+    """K12's plain version: the candidate's cost, the decision (the cost
+    decreases and dp and dx are finite), the next problem and scalars.
+    Where the scalars are done already nothing changes.
+
+    With ``group`` whether dx is finite is all-reduced too, so every rank
+    accepts or rejects the same steps and stops at the same iteration."""
+    dp, dx, cand_t, cand_q, cand_X = candidate
+    cand = problem._replace(poses=Pose(t=cand_t, q=cand_q),
+                            map=problem.map._replace(points=cand_X))
+    cand_cost = evaluate_cost(cand, opts.huber_a, group)
+    cost, lam, it = scalars[B_COST], scalars[B_LAM], scalars[B_IT]
+    done = scalars[B_DONE] != 0
+    live = ~done
+    dx_finite = allreduce((~torch.isfinite(dx)).sum(), group) == 0
+    ok = (cand_cost < cost) & torch.all(torch.isfinite(dp)) & dx_finite & live
+    rel_decrease = (cost - cand_cost) / torch.clamp(cost, min=1e-24)
+    new_lam = torch.where(
+        ok,
+        torch.clamp(lam * opts.lambda_down, min=opts.min_lambda),
+        torch.clamp(lam * opts.lambda_up, max=opts.max_lambda),
+    )
+    new = torch.stack([
+        torch.where(ok, cand_cost, cost),
+        torch.where(live, new_lam, lam),
+        it + live.to(it.dtype),
+        (done | (ok & (rel_decrease < opts.min_rel_decrease))).to(cost.dtype),
+        scalars[B_COST0],
+        scalars[B_BUILD_COST],
+        torch.where(live, cand_cost, scalars[B_CAND_COST]),
+        torch.where(live, ok.to(cost.dtype), scalars[B_OK]),
+        torch.where(live, rel_decrease, scalars[B_REL]),
+    ])
+    return _select(ok, cand, problem), new
+
+
 def run_bundle_adjustment(
     problem: BAProblem, opts: BAOptions, group=None
 ) -> Tuple[BAProblem, BASummary]:
-    """LM loop over the Schur-reduced system. Each iteration reads one flag
-    from the device: whether the loop stops.
+    """LM loop over the Schur-reduced system. Each iteration is three
+    stages and reads one flag from the device: whether the loop stops.
 
-    ``group``: the landmark shards' process group when ``problem.map``
-    holds this rank's landmarks (``parallel.sharded_ba``). Whether the
-    landmark step is finite is then all-reduced too, so every rank accepts
-    or rejects the same steps and stops at the same iteration."""
-    dtype = problem.poses.t.dtype
-    cost0 = evaluate_cost(problem, opts.huber_a, group)
-    cost = cost0
-    lam = torch.tensor(opts.initial_lambda, dtype=dtype, device=problem.poses.t.device)
+    On CUDA tensors without ``group`` the stages are the kernels K10-K12
+    (``ops.cuda_ba.BABinding``: the problem checked and bound once, its
+    poses and points copied, K10 writing the initial cost at the first
+    iteration). On CPU tensors, and with ``group`` (the landmark shards'
+    process group when ``problem.map`` holds this rank's landmarks,
+    ``parallel.sharded_ba``), the plain stages run, with the all-reduces
+    between them."""
+    if group is None and problem.poses.t.is_cuda:
+        binding = cuda_ba.BABinding(problem, opts)
+        if opts.max_iterations < 1:
+            binding.build()                 # its initial cost
+        it = 0
+        while it < opts.max_iterations:
+            binding.build()
+            binding.step()
+            binding.commit()
+            it += 1
+            if bool(binding.scalars[B_DONE]):
+                break
+        problem, scalars = binding.state_problem(), binding.scalars
+    else:
+        return run_plain_stages(problem, opts, group)
+    return problem, BASummary(initial_cost=scalars[B_COST0], final_cost=scalars[B_COST],
+                              num_iterations=it)
+
+
+def run_plain_stages(problem: BAProblem, opts: BAOptions,
+                     group=None) -> Tuple[BAProblem, BASummary]:
+    """The LM loop on the plain stages, whatever the device: the path of
+    :func:`run_bundle_adjustment` on CPU tensors and with ``group`` (and,
+    on the card, the yardstick the kernels are timed beside)."""
+    scalars = ba_initial_scalars(problem, opts, group)
     it = 0
     while it < opts.max_iterations:
-        _c, U, V, Wb, g_p, g_x, H_o, _ = build_normal_equations(
-            problem, opts.huber_a, group)
-        dp, dx = schur_solve(U, V, Wb, g_p, g_x, lam, opts,
-                             H_pose=H_o, pose_mask=problem.pose_mask, group=group)
-        cand = _apply_step(problem, dp, dx)
-        cand_cost = evaluate_cost(cand, opts.huber_a, group)
-        dx_finite = allreduce((~torch.isfinite(dx)).sum(), group) == 0
-        ok = (cand_cost < cost) & torch.all(torch.isfinite(dp)) & dx_finite
-        rel_decrease = (cost - cand_cost) / torch.clamp(cost, min=1e-24)
-        problem = _select(ok, cand, problem)
-        lam = torch.where(
-            ok,
-            torch.clamp(lam * opts.lambda_down, min=opts.min_lambda),
-            torch.clamp(lam * opts.lambda_up, max=opts.max_lambda),
-        )
-        done = ok & (rel_decrease < opts.min_rel_decrease)
-        cost = torch.where(ok, cand_cost, cost)
+        built = ba_build_plain(problem, opts.huber_a, group)
+        candidate = ba_step_plain(problem, scalars, built, opts, group)
+        problem, scalars = ba_commit_plain(problem, scalars, candidate, opts, group)
         it += 1
-        if done.item():
+        if bool(scalars[B_DONE]):
             break
-    return problem, BASummary(initial_cost=cost0, final_cost=cost, num_iterations=it)
+    return problem, BASummary(initial_cost=scalars[B_COST0], final_cost=scalars[B_COST],
+                              num_iterations=it)

@@ -82,6 +82,7 @@ def _backend_summary(stats) -> dict:
         keyframes=len(stats),
         ms_per_keyframe=ms,
         ms_per_keyframe_total=sum(ms.values()),
+        ba_iterations=sum(st["ba_iterations"] for st in stats),
         ba_iterations_per_keyframe=sum(st["ba_iterations"] for st in stats) / n,
         pg_iterations_per_keyframe=sum(st["pg_iterations"] for st in stats) / n,
         pose_graph_runs=sum(1 for st in stats if st["pg_iterations"] > 0),
@@ -97,6 +98,7 @@ def run(num_frames=60, height=240, width=320, noise=1.5, device="cuda", keep=Non
     import torch
 
     from .. import cli
+    from ..ops import cuda_ba
     from ..ops import cuda_residual as cr
     from ..ops import cuda_sampling as cs
 
@@ -133,6 +135,7 @@ def run(num_frames=60, height=240, width=320, noise=1.5, device="cuda", keep=Non
         out_file = os.path.join(root, f"est_{name}.txt")
         cs.LAUNCHES = 0
         cr.zero_launch_counts()
+        cuda_ba.zero_launch_counts()
         sync()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(sink):
@@ -156,6 +159,7 @@ def run(num_frames=60, height=240, width=320, noise=1.5, device="cuda", keep=Non
             "frames_per_s": frames / wall,
             "k1_launches": cs.LAUNCHES,
             "k2_k3_launches": cr.launch_counts(),
+            "k10_k12_launches": cuda_ba.launch_counts(),
         }
         if name == "ba_pg":
             with open(os.path.join(root, "backend_stats.json")) as f:

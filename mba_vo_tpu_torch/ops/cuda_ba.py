@@ -1,0 +1,330 @@
+"""Bind and launch the bundle adjustment's LM iteration, kernels K10-K12.
+
+``csrc/bundle_adjust.cu`` replaces the body of the BA's LM
+``lax.while_loop`` in ``mba_vo_tpu/backend/ba.py`` (``run_bundle_adjustment``'s
+``body``, ``:345-364``), which XLA compiles into one device program (no
+Pallas source):
+
+  * K10 ``ba_build``: the robust normal equations U, V, W_blk, g_p, g_x
+    and the odometry prior's H and cost (``build_normal_equations``), and
+    at the loop's first iteration its initial cost (``evaluate_cost``);
+  * K11 ``ba_step``: the damped Schur solve, dx by back-substitution and
+    the candidate poses and points (``schur_solve``, ``_apply_step``);
+  * K12 ``ba_commit``: the candidate's cost, the decision, the select in
+    place, lambda, the cost, the iteration count and the done flag.
+
+An iteration is K10, K11, K12 and one host read of the done flag
+(``backend/ba.py::run_bundle_adjustment`` on CUDA tensors without
+``group``). Their plain versions are ``backend/ba.py``'s ``ba_build_plain``,
+``ba_step_plain`` and ``ba_commit_plain``, which CPU tensors and the
+landmark-sharded path take. The kernels take CUDA tensors only and raise on
+anything else; nothing falls back to the plain versions.
+
+:class:`BABinding` binds one ``run_bundle_adjustment`` call: the problem's
+tensors are checked once for device, dtype, shape and contiguity, and it
+owns the state (poses, points and the scalars below, updated in place by
+K12), the kernels' outputs and their scratch, so that an iteration pays for
+three launches and no checks. :func:`ba_build_cuda`, :func:`ba_step_cuda`
+and :func:`ba_commit_cuda` are each kernel alone on given inputs (a binding
+made for the call), for the comparisons with the plain versions.
+
+``LAUNCHES_BA_BUILD``, ``LAUNCHES_BA_STEP`` and ``LAUNCHES_BA_COMMIT`` count
+launches, one a call (a call recorded into a CUDA graph is not a launch).
+The library is built and loaded by ``ops/cuda_build.py`` at first use;
+nothing here runs when the module is imported.
+
+The state's scalars are one vector of the working dtype indexed by the
+``B_*`` constants (``bundle_adjust.cu`` has the same enum): the current
+cost, lambda, the iterations made, the done flag, the initial cost, K10's
+build cost (the normal equations' cost, as ``build_normal_equations``
+returns it), and K12's candidate cost, ok flag and relative decrease.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from . import cuda_build
+from .cuda_residual import _check, _launch
+
+LAUNCHES_BA_BUILD = 0
+LAUNCHES_BA_STEP = 0
+LAUNCHES_BA_COMMIT = 0
+
+B_COST, B_LAM, B_IT, B_DONE, B_COST0, B_BUILD_COST, B_CAND_COST, B_OK, B_REL = range(9)
+B_SIZE = 9
+
+# a CTA's threads (bundle_adjust.cu's kThreads) and the most landmarks a
+# CTA takes
+BA_THREADS = 256
+MAX_LANDMARKS_PER_CTA = 32
+# K11's first phase (a slice's W_blk and W V^-1, 36 W values a landmark)
+# stays under this many bytes, which sets the landmarks a CTA at wide windows
+SLICE_SMEM_BUDGET = 96 * 1024
+# the shared memory a CTA may opt into (bundle_adjust.cu's kSmemLimit)
+SMEM_LIMIT = 232448
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_SIGNATURES = {
+    # t, q, X, scalars, obs, obs_mask, point_mask, K, odom t, odom q, odom
+    # weight, pose_mask, U, V, W_blk, g_p, g_x, H_o, partials, ticket, W, M,
+    # MB, huber_a, stream
+    "ba_build": [_P] * 20 + [_I, _I, _I, _D, _P],
+    # t, q, X, scalars, point_mask, pose_mask, U, V, W_blk, g_p, g_x, H_o,
+    # dp, dx, cand t, cand q, cand X, V^-1, partials, S scratch, ticket, W,
+    # M, MB, landmark_damping, stream
+    "ba_step": [_P] * 21 + [_I, _I, _I, _D, _P],
+    # t, q, X, scalars, obs, obs_mask, point_mask, K, odom t, odom q, odom
+    # weight, dp, dx, cand t, cand q, cand X, partials, ticket, W, M, MB,
+    # huber_a, lambda_up, lambda_down, min_lambda, max_lambda,
+    # min_rel_decrease, stream
+    "ba_commit": [_P] * 18 + [_I, _I, _I] + [_D] * 6 + [_P],
+}
+
+
+def _entry(name: str, dtype: torch.dtype):
+    if "bundle_adjust" not in _loaded:
+        lib = cuda_build.load("bundle_adjust")
+        for fn_name, signature in _SIGNATURES.items():
+            for suffix in ("f32", "f64"):
+                fn = getattr(lib, f"{fn_name}_{suffix}")
+                fn.argtypes, fn.restype = signature, ctypes.c_int
+        query = lib.ba_scalars_size
+        query.argtypes, query.restype = [], ctypes.c_int
+        if query() != B_SIZE:
+            raise RuntimeError(f"bundle_adjust.cu lays out {query()} scalars, not {B_SIZE}")
+        _loaded["bundle_adjust"] = lib
+    suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    return getattr(_loaded["bundle_adjust"], f"{name}_{suffix}")
+
+
+def launch_counts() -> Dict[str, int]:
+    """The launches of K10-K12 by kernel name."""
+    return {"ba_build": LAUNCHES_BA_BUILD, "ba_step": LAUNCHES_BA_STEP,
+            "ba_commit": LAUNCHES_BA_COMMIT}
+
+
+def zero_launch_counts() -> None:
+    global LAUNCHES_BA_BUILD, LAUNCHES_BA_STEP, LAUNCHES_BA_COMMIT
+    LAUNCHES_BA_BUILD = LAUNCHES_BA_STEP = LAUNCHES_BA_COMMIT = 0
+
+
+class BALayout(NamedTuple):
+    landmarks_per_cta: int   # MB
+    ctas: int                # C = ceil(M / MB), the grid of every kernel
+    s_shared: bool           # K11's S [6W, 6W] in shared memory, else a global scratch
+
+
+def step_smem_bytes(W: int, MB: int, itemsize: int, s_shared: bool) -> int:
+    """K11's shared memory (``bundle_adjust.cu``'s ``step_smem_elems``): the
+    larger of its first phase (a slice's W_blk and W V^-1 [W MB, 18] each,
+    V^-1 [MB, 9] and g_x [MB, 3]) and the last CTA's (S [6W, 6W] where it
+    lives there, five vectors [6W] and the gauge [W])."""
+    D = 6 * W
+    first = 36 * W * MB + 12 * MB
+    last = (D * D if s_shared else 0) + 5 * D + W + 2
+    return max(first, last) * itemsize
+
+
+def ba_layout(W: int, M: int, itemsize: int) -> BALayout:
+    """The kernels' split of M landmarks over CTAs at window W: at most
+    :data:`MAX_LANDMARKS_PER_CTA` landmarks a CTA, fewer where K11's slice
+    would pass :data:`SLICE_SMEM_BUDGET`; S in shared memory while K11's
+    last phase fits :data:`SMEM_LIMIT`."""
+    per = (36 * W + 12) * itemsize
+    MB = max(1, min(MAX_LANDMARKS_PER_CTA, SLICE_SMEM_BUDGET // per))
+    s_shared = step_smem_bytes(W, MB, itemsize, True) <= SMEM_LIMIT
+    return BALayout(MB, -(-M // MB), s_shared)
+
+
+def smem_bytes(kernel: int, W: int, MB: int, itemsize: int, s_shared: bool) -> int:
+    """The dynamic shared memory the library gives kernel 10, 11 or 12 at
+    window W, MB landmarks a CTA and the dtype's size (``bundle_adjust.cu``'s
+    ``ba_smem_bytes``; loads the library)."""
+    _entry("ba_build", torch.float32)
+    query = _loaded["bundle_adjust"].ba_smem_bytes
+    query.argtypes = [ctypes.c_int] * 5
+    query.restype = ctypes.c_longlong
+    return int(query(kernel, W, MB, itemsize, int(s_shared)))
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+class BABinding:
+    """K10-K12 bound to one bundle-adjustment problem.
+
+    ``problem``: a ``backend.ba.BAProblem`` of CUDA tensors of one float
+    dtype, contiguous, on one device: poses t [W, 3] and q [W, 4], the map's
+    points [M, 3], point_mask [M], obs_xy [W, M, 2], obs_mask [W, M], K [4],
+    the odometry prior (t [W-1, 3], q [W-1, 4], weight [W-1]) or None, and
+    pose_mask [W] or None; checked here, raising on the first tensor that
+    fails. ``opts``: the ``backend.ba.BAOptions``.
+
+    The state is :attr:`t`, :attr:`q`, :attr:`X` and :attr:`scalars`: with
+    ``own`` (the LM's call) copies of the problem's poses and points and new
+    scalars (lambda at ``opts.initial_lambda``, every other entry 0), else the
+    problem's own tensors and ``scalars`` as given (updated in place). Each
+    of :meth:`build`, :meth:`step` and :meth:`commit` is one launch into the
+    binding's buffers: :attr:`built` (K10's outputs, K11's inputs) and
+    :attr:`candidate` (K11's outputs, K12's inputs), which
+    :meth:`use_built` and :meth:`use_candidate` replace by given tensors
+    (checked)."""
+
+    def __init__(self, problem, opts, scalars: Optional[torch.Tensor] = None,
+                 own: bool = True):
+        poses, m = problem.poses, problem.map
+        W = poses.t.shape[0] if poses.t.dim() == 2 else None
+        M = m.points.shape[0] if m.points.dim() == 2 else None
+        E = None if W is None else W - 1
+        tensors = dict(t=poses.t, q=poses.q, points=m.points, point_mask=m.point_mask,
+                       obs_xy=m.obs_xy, obs_mask=m.obs_mask, K=problem.K)
+        shapes = dict(t=(W, 3), q=(W, 4), points=(M, 3), point_mask=(M,), obs_xy=(W, M, 2),
+                      obs_mask=(W, M), K=(4,))
+        if problem.odom is not None:
+            tensors.update(odom_t=problem.odom.t, odom_q=problem.odom.q,
+                           odom_weight=problem.odom.weight)
+            shapes.update(odom_t=(E, 3), odom_q=(E, 4), odom_weight=(E,))
+        if problem.pose_mask is not None:
+            tensors["pose_mask"], shapes["pose_mask"] = problem.pose_mask, (W,)
+        if scalars is not None:
+            tensors["scalars"], shapes["scalars"] = scalars, (B_SIZE,)
+        dtype = _check("BABinding", tensors, shapes)
+        if W < 1 or M < 1:
+            raise ValueError(f"BABinding: {W} poses, {M} landmark slots")
+        self.problem, self.opts, self.dtype = problem, opts, dtype
+        self.W, self.M, self.device = W, M, poses.t.device
+        self.layout = ba_layout(W, M, poses.t.element_size())
+        like = poses.t
+        if own:
+            self.t, self.q, self.X = poses.t.clone(), poses.q.clone(), m.points.clone()
+        else:
+            self.t, self.q, self.X = poses.t, poses.q, m.points
+        if scalars is None:
+            scalars = like.new_zeros(B_SIZE)
+            scalars[B_LAM] = opts.initial_lambda
+        self.scalars = scalars
+        D = 6 * W
+        self.built = (scalars[B_BUILD_COST], like.new_empty((W, 6, 6)),
+                      like.new_empty((M, 3, 3)), like.new_empty((W, M, 6, 3)),
+                      like.new_empty((W, 6)), like.new_empty((M, 3)), like.new_empty((D, D)))
+        self.candidate = (like.new_empty((W, 6)), like.new_empty((M, 3)), like.new_empty((W, 3)),
+                          like.new_empty((W, 4)), like.new_empty((M, 3)))
+        C = self.layout.ctas
+        part = max(42 * W + 2, D * (D + 1) // 2 + D, 3)
+        self._partials = like.new_empty(C * part)
+        self._vinv = like.new_empty((M, 3, 3))
+        self._s = None if self.layout.s_shared else like.new_empty((D, D))
+        self._tickets = torch.zeros(3, dtype=torch.int32, device=self.device)
+        odom = problem.odom
+        self._inputs = (_ptr(m.obs_xy), _ptr(m.obs_mask), _ptr(m.point_mask), _ptr(problem.K),
+                        None if odom is None else odom.t.data_ptr(),
+                        None if odom is None else odom.q.data_ptr(),
+                        None if odom is None else odom.weight.data_ptr())
+        self._pose_mask = _ptr(problem.pose_mask)
+        self._state = tuple(x.data_ptr() for x in (self.t, self.q, self.X, self.scalars))
+        self._dims = (W, M, self.layout.landmarks_per_cta)
+        self._fns = {k: _entry(k, dtype) for k in _SIGNATURES}
+        self._set_ptrs()
+
+    def _set_ptrs(self):
+        self._built_ptrs = tuple(x.data_ptr() for x in self.built[1:])
+        self._cand_ptrs = tuple(x.data_ptr() for x in self.candidate)
+
+    def _use(self, who: str, names, tensors, shapes):
+        tensors = tuple(tensors)
+        if len(tensors) != len(names):
+            raise ValueError(f"BABinding.{who}: {len(tensors)} tensors, not {len(names)}")
+        # checked with the state's t, for its device and dtype
+        _check(f"BABinding.{who}", dict(state_t=self.t, **dict(zip(names, tensors))),
+               dict(state_t=(self.W, 3), **dict(zip(names, shapes))))
+        return tensors
+
+    def use_built(self, built) -> None:
+        """K11's inputs from ``built`` = (cost, U [W,6,6], V [M,3,3], W_blk
+        [W,M,6,3], g_p [W,6], g_x [M,3], H_o [6W,6W]) (``ba_build_plain``'s
+        outputs; the cost is not read), checked."""
+        W, M, D = self.W, self.M, 6 * self.W
+        got = self._use("use_built", ("U", "V", "W_blk", "g_p", "g_x", "H_o"), tuple(built)[1:],
+                        ((W, 6, 6), (M, 3, 3), (W, M, 6, 3), (W, 6), (M, 3), (D, D)))
+        self.built = (self.built[0],) + got
+        self._set_ptrs()
+
+    def use_candidate(self, candidate) -> None:
+        """K12's inputs from ``candidate`` = (dp [W,6], dx [M,3], cand t
+        [W,3], cand q [W,4], cand X [M,3]) (``ba_step_plain``'s outputs),
+        checked."""
+        W, M = self.W, self.M
+        self.candidate = self._use("use_candidate", ("dp", "dx", "cand_t", "cand_q", "cand_X"),
+                                   candidate, ((W, 6), (M, 3), (W, 3), (W, 4), (M, 3)))
+        self._set_ptrs()
+
+    def build(self) -> None:
+        """K10: :attr:`built` at the state; the build's cost into the
+        scalars and, where they count no iteration yet, the initial cost."""
+        global LAUNCHES_BA_BUILD
+        LAUNCHES_BA_BUILD += _launch(
+            self._fns["ba_build"], self.device, *self._state, *self._inputs, self._pose_mask,
+            *self._built_ptrs, self._partials.data_ptr(), self._tickets[0:1].data_ptr(),
+            *self._dims, float(self.opts.huber_a))
+
+    def step(self) -> None:
+        """K11: :attr:`candidate` from :attr:`built` and the scalars' lambda."""
+        global LAUNCHES_BA_STEP
+        LAUNCHES_BA_STEP += _launch(
+            self._fns["ba_step"], self.device, *self._state, self._inputs[2], self._pose_mask,
+            *self._built_ptrs, *self._cand_ptrs, self._vinv.data_ptr(),
+            self._partials.data_ptr(), _ptr(self._s), self._tickets[1:2].data_ptr(),
+            *self._dims, float(self.opts.landmark_damping))
+
+    def commit(self) -> None:
+        """K12: the candidate's cost, the decision and the next state, in
+        place."""
+        global LAUNCHES_BA_COMMIT
+        o = self.opts
+        LAUNCHES_BA_COMMIT += _launch(
+            self._fns["ba_commit"], self.device, *self._state, *self._inputs,
+            *self._cand_ptrs, self._partials.data_ptr(), self._tickets[2:3].data_ptr(),
+            *self._dims, float(o.huber_a), float(o.lambda_up), float(o.lambda_down),
+            float(o.min_lambda), float(o.max_lambda), float(o.min_rel_decrease))
+
+    def state_problem(self):
+        """The problem at the binding's state (poses and points)."""
+        from ..core.transform import Pose
+
+        p = self.problem
+        return p._replace(poses=Pose(t=self.t, q=self.q), map=p.map._replace(points=self.X))
+
+
+def ba_build_cuda(problem, scalars: torch.Tensor, opts):
+    """K10 alone: ``backend.ba.ba_build_plain`` at ``problem``'s state, in
+    one launch. Returns (cost, U, V, W_blk, g_p, g_x, H_o) with the cost a
+    view of ``scalars`` (written in place, as are the initial cost and the
+    cost where ``scalars`` count no iteration yet)."""
+    b = BABinding(problem, opts, scalars, own=False)
+    b.build()
+    return b.built
+
+
+def ba_step_cuda(problem, scalars: torch.Tensor, built, opts):
+    """K11 alone: ``backend.ba.ba_step_plain`` on ``built`` (K10's or
+    ``ba_build_plain``'s outputs) at ``problem``'s state and the scalars'
+    lambda, in one launch. Returns (dp, dx, cand t, cand q, cand X)."""
+    b = BABinding(problem, opts, scalars, own=False)
+    b.use_built(built)
+    b.step()
+    return b.candidate
+
+
+def ba_commit_cuda(problem, scalars: torch.Tensor, candidate, opts) -> None:
+    """K12 alone: ``backend.ba.ba_commit_plain`` on ``candidate`` (K11's
+    outputs), writing the next state into ``problem``'s poses and points
+    and into ``scalars`` in place, in one launch."""
+    b = BABinding(problem, opts, scalars, own=False)
+    b.use_candidate(candidate)
+    b.commit()

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-Eight sources under ``mba_vo_tpu_torch/csrc/``, each compiled with ``nvcc``
+Nine sources under ``mba_vo_tpu_torch/csrc/``, each compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``:
 
@@ -19,7 +19,11 @@ for ``sm_90a`` into a shared library with a plain C interface, loaded with
     bound in ``ops/cuda_lm.py``; it shares ``spline_pose.cuh`` too;
   * ``knot_prior.cu`` (K9), the joint path's knot prior (its cost, g and
     H), bound in ``ops/cuda_lm.py`` too; it shares ``spline_pose.cuh``'s
-    quaternion product and log.
+    quaternion product and log;
+  * ``bundle_adjust.cu`` (K10-K12), the backend's bundle-adjustment LM
+    iteration (the normal equations, the Schur step, the decision and
+    commit), bound in ``ops/cuda_ba.py``; it shares ``spline_pose.cuh``'s
+    quaternion product, log and exp.
 
 At first use :func:`build` compiles every source not built yet, all of
 them at once (one ``nvcc`` process each), into ``build/mba_vo_tpu_torch/``
@@ -52,17 +56,19 @@ SOURCES = {
     "image_bilinear": _CSRC / "image_bilinear.cu",
     "lm_step": _CSRC / "lm_step.cu",
     "knot_prior": _CSRC / "knot_prior.cu",
+    "bundle_adjust": _CSRC / "bundle_adjust.cu",
 }
-# flags of some sources only. K2, K4, K5, K6 and K9 round every operation as
+# flags of some sources only. K2, K4, K5, K6, K9 and K10-K12 round every operation as
 # the plain versions' torch ops do, one at a time: a multiply-add contracted into
 # one rounding moves a warped position or a patch anchor by an ulp, and on
 # the image's border or an integer pixel (where a standing start lands
 # exactly) that flips an in-image flag or picks another pixel (K6's
 # retraction makes the knots those anchors come from; K9 is held to its
-# plain version bit for bit)
+# plain version bit for bit; K10-K12 round their elementwise chains as the
+# plain BA's torch ops do)
 SOURCE_FLAGS = {name: ["-fmad=false"]
                 for name in ("residual_rows", "frame_layout", "image_bilinear", "lm_step",
-                             "knot_prior")}
+                             "knot_prior", "bundle_adjust")}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mba_vo_tpu_torch"
 _libs: Dict[str, ctypes.CDLL] = {}
 
