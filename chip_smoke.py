@@ -21,11 +21,13 @@ Phases (any failed check raises and the exit code is non-zero):
      keypoint design and K8's staged design, and the earlier block designs
      of the three), K9 (csrc/knot_prior.cu: the joint path's knot
      prior) and K10-K12 (csrc/bundle_adjust.cu: the backend's BA
-     iteration, its normal equations, Schur step and commit) with nvcc for
-     sm_90a, all nine sources at once, and print each kernel's registers,
-     shared memory and spills, K5's staging, K4's block, K6's threads and
-     shared memory by D, K7's threads by N, K9's shared memory by K and
-     K10-K12's split of the landmarks and shared memory by window;
+     iteration, its normal equations, Schur step and commit; K10's band
+     design and K11's cooperative design, and the earlier ticket designs of
+     both) with nvcc for sm_90a, all nine sources at once, and print each
+     kernel's registers, shared memory and spills, K5's staging, K4's
+     block, K6's threads and shared memory by D, K7's threads by N, K9's
+     shared memory by K and K10-K12's split of the landmarks, shared
+     memory and K11's resident CTAs by window;
   2b. the card tests: tests/test_torch_cuda.py under pytest (-m cuda,
      without the JAX test configuration), every kernel against its plain
      version (K4 and K5 bit for bit, the direct path on the kernels against
@@ -39,10 +41,14 @@ Phases (any failed check raises and the exit code is non-zero):
      them against the plain-stage tracker) and blur_rows and K3 against
      their earlier designs bit for bit on edge shapes; and
      tests/test_torch_cuda_ba.py: K10-K12 against the BA's plain stages on
-     every iteration of runs on padded, prior-less, 8a-sized and wide
-     windows in f64 and f32, the kernels' run against the CPU's, one launch
-     of each an iteration and no plain stage, the wrapper's refusals, a NaN
-     step rejected and a done state unchanged; any failure fails the run;
+     every iteration of runs on padded, prior-less, 8a-sized, two-pose,
+     short-last-slice (19 CTAs) and wide windows (S in K11's global
+     scratch) in f64 and f32, the earlier ticket designs of K10 and K11
+     against the launched ones bit for bit on the same runs, the kernels'
+     run against the CPU's, one launch of each an iteration and no plain
+     stage or ticket design, the wrapper's refusals, a K11 grid too large
+     to be resident raising, K11 recorded into a CUDA graph, a NaN step
+     rejected and a done state unchanged; any failure fails the run;
   3. record the sampler's inputs as the tracker gives them on the bench
      scenario (16 frames of track_frame from rest, one chunk of
      track_frames_joint from a moving window, f32), and K2's and K3's
@@ -157,9 +163,13 @@ Phases (any failed check raises and the exit code is non-zero):
      --chunk 8, with and without --backend ba+pg: frames/s of both, K10-K12's
      launches against the f32 backend's BA iterations (0 without it); then
      K10-K12 timed on 8a's and 8c's recorded iterations (a call through the
-     binding, warm and cold on the device, beside the plain stage's call,
-     the bound and, for K11, torch.linalg.cholesky_ex + cholesky_solve on
-     the same reduced system);
+     binding, warm and cold on the device, K10 and K11 in both designs in
+     turn, the launched one and the earlier ticket design, beside the plain
+     stage's call, the bound and, for K11, torch.linalg.cholesky_ex +
+     cholesky_solve on the same reduced system), the phase split of both
+     designs of K10 and K11 from bundle_adjust.cu's harness-only build
+     (BA_PHASE_CLOCKS), and the ticket designs held against the launched
+     ones bit for bit on every recorded iteration;
   9. the models, the non-planar scene, undistortion and overlays, each
      stage under the port's StageTimer: (a) at VGA, the undistortion maps
      (rad-tan pinhole, unified xi = 0.8) in f64 CUDA against the CPU and
@@ -256,9 +266,17 @@ def check(cond: bool, msg: str):
 # path: each in-process path zeroes every kernel's count just before it runs
 # and reads K2's and K3's just after (K1's go to the ``launches`` dicts)
 RESIDUAL_LAUNCHES: dict = {}
-# the launches of the earlier block designs of K6-K8 by path, read beside
-# K2's to K8's: no path launches them, so each must read 0
+# the launches of the earlier designs by path (K6-K8's block designs, K10's
+# and K11's ticket designs), read beside K2's to K12's: no path launches
+# them, so each must read 0
 EARLIER_LAUNCHES: dict = {}
+
+
+def earlier_counts() -> dict:
+    """The earlier designs' launches (EARLIER_LAUNCHES' entries)."""
+    from mba_vo_tpu_torch.ops import cuda_ba, cuda_lm
+
+    return {**cuda_lm.earlier_launch_counts(), **cuda_ba.earlier_launch_counts()}
 
 
 def zero_counts(cs):
@@ -280,7 +298,7 @@ def note_residual_launches(path: str) -> dict:
     got = {**cr.launch_counts(), **cuda_lm.launch_counts(),
            "knot_prior": cuda_lm.LAUNCHES_KNOT_PRIOR, **cuda_ba.launch_counts()}
     RESIDUAL_LAUNCHES[path] = got
-    EARLIER_LAUNCHES[path] = cuda_lm.earlier_launch_counts()
+    EARLIER_LAUNCHES[path] = earlier_counts()
     return got
 
 
@@ -1016,24 +1034,11 @@ def median_ms(fn, reps=5) -> float:
 
 
 def ba_problem_arrays(W=7, M=512, live=300, seed=0):
-    """A BA window of W cameras over M landmark slots (`live` of them
-    observed, the rest padding): noisy, partly missing observations,
-    odometry priors, perturbed starts."""
-    rng = np.random.default_rng(seed)
-    X = np.stack([rng.uniform(-1.5, 1.5, M), rng.uniform(-1, 1, M), rng.uniform(3, 6, M)], -1)
-    ts = np.stack([[0.15 * w, 0.02 * w, 0.05 * w] for w in range(W)])
-    K = np.array([480.0, 480.0, 319.5, 239.5])
-    obs = np.stack([np.stack([(X[:, 0] - t[0]) / (X[:, 2] - t[2]) * K[0] + K[2],
-                              (X[:, 1] - t[1]) / (X[:, 2] - t[2]) * K[1] + K[3]], -1)
-                    for t in ts]) + rng.normal(0, 0.5, (W, M, 2))
-    point_mask = (np.arange(M) < live).astype(np.float64)
-    obs_mask = (rng.random((W, M)) > 0.2) * point_mask[None]
-    odom = (np.diff(ts, axis=0) + rng.normal(0, 1e-3, (W - 1, 3)),
-            np.tile([0.0, 0.0, 0.0, 1.0], (W - 1, 1)), np.full(W - 1, 1e6))
-    return dict(pose_t=ts + rng.normal(0, 0.02, ts.shape) * (np.arange(W) > 0)[:, None],
-                pose_q=np.tile([0.0, 0.0, 0.0, 1.0], (W, 1)),
-                points=X + rng.normal(0, 0.05, X.shape), obs_xy=obs, obs_mask=obs_mask, K=K,
-                point_mask=point_mask, odom=odom, pose_mask=np.ones(W))
+    """8a's BA window (experiments/ba_kernels.py's window_arrays): W cameras
+    over M landmark slots, `live` of them observed."""
+    from mba_vo_tpu_torch.experiments import ba_kernels as bk
+
+    return bk.window_arrays(W, M, live, seed)
 
 
 def pose_graph_arrays(n=64, seed=1):
@@ -1055,6 +1060,12 @@ BA_HELD: dict = {}
 BA_KERNELS = ("ba_build", "ba_step", "ba_commit")
 # K10-K12's launches by path, each checked against the path's BA iterations
 BA_LAUNCHES: dict = {}
+# the earlier ticket designs of K10 and K11 held against the launched ones, by
+# the label of the recorded run (experiments/ba_kernels.py's
+# hold_designs_calls), and each design's phase split by (label, kernel,
+# method)
+BA_DESIGNS_HELD: dict = {}
+BA_SPLIT: dict = {}
 
 
 def hold_ba_recorded(label: str, calls: list) -> dict:
@@ -1180,6 +1191,9 @@ def phase_backend_solvers(img, other):
         rc, sc = ba.run_bundle_adjustment(interop.ba_problem_from_arrays(**a, device="cuda"),
                                           ba.BAOptions())
     counts = cuda_ba.launch_counts()
+    # the BA's ticket designs only: the LM's counts are not zeroed here
+    EARLIER_LAUNCHES["run_bundle_adjustment, f64, window 7 (8a)"] = (
+        cuda_ba.earlier_launch_counts())
     rh, sh = ba.run_bundle_adjustment(interop.ba_problem_from_arrays(**a, device="cpu"),
                                       ba.BAOptions())
     dpose = float((rc.poses.t.cpu() - rh.poses.t).abs().max())
@@ -1366,7 +1380,10 @@ def phase_loop_benchmark(cs, launches, root):
     cuda_lm.zero_launch_counts()
     with contextlib.redirect_stdout(io.StringIO()), bk.record_ba_calls() as ba_calls:
         summary = lb.run(device="cuda", keep=keep)
-    EARLIER_LAUNCHES["loop benchmark (8c)"] = cuda_lm.earlier_launch_counts()
+    EARLIER_LAUNCHES["loop benchmark (8c)"] = {
+        **cuda_lm.earlier_launch_counts(),
+        **{k: sum(r["k10_k11_ticket_launches"][k] for r in summary["runs"].values())
+           for k in ("ba_build", "ba_step")}}
     wall = time.perf_counter() - t0
     ref = None
     if os.path.exists(LOOP_REFERENCE):
@@ -2338,16 +2355,28 @@ def main() -> int:
           f"{cuda_lm.PRIOR_THREADS} threads, dynamic shared memory " + "; ".join(
               f"K = {K}: " + " / ".join(f"{cuda_lm.prior_smem_bytes(K, b)} B {t}"
                                         for t, b in item.items()) for K in (3, 7, 11, 32)))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def resident(W, lay, b):
+        return sms * cuda_ba.step_blocks_per_sm(W, lay.landmarks_per_cta, b, lay.s_shared,
+                                                torch.device("cuda", 0))
     print("    K10-K12 (ba_build, ba_step, ba_commit): a CTA of "
-          f"{cuda_ba.BA_THREADS} threads a slice of the landmarks, the last CTA by its ticket "
-          "combining; landmarks a CTA, CTAs at 512 slots and dynamic shared memory (K10 / K11 / "
-          "K12) by window: " + "; ".join(
+          f"{cuda_ba.BA_THREADS} threads a slice of the landmarks; K10 (band design) and K12 "
+          "the last CTA by its ticket combining, K10 one more CTA for the prior's edges; K11 "
+          "(cooperative design) one cooperative launch, every CTA resident; landmarks a CTA, "
+          "CTAs at 512 slots, dynamic shared memory (K10 / K11 / K11's ticket design / K12) "
+          "and K11's resident CTAs (the occupancy API, on "
+          f"{sms} SMs) by window: " + "; ".join(
               f"W = {W}: " + " / ".join(
                   f"{(lay := cuda_ba.ba_layout(W, 512, b)).landmarks_per_cta} a CTA, "
                   f"{lay.ctas} CTAs, " + " / ".join(
-                      f"{cuda_ba.smem_bytes(k, W, lay.landmarks_per_cta, b, lay.s_shared)}"
-                      for k in (10, 11, 12)) + f" B {t}"
+                      f"{cuda_ba.smem_bytes(k, W, lay.landmarks_per_cta, b, s, ticket)}"
+                      for k, s, ticket in (
+                          (10, lay.s_shared, False), (11, lay.s_shared, False),
+                          (11, cuda_ba.ticket_s_shared(W, lay.landmarks_per_cta, b), True),
+                          (12, lay.s_shared, False))) + f" B {t}"
                   + ("" if lay.s_shared else " (S in global memory)")
+                  + f", {resident(W, lay, b)} resident"
                   for t, b in item.items()) for W in (7, 15, 30)))
     # the frame's calls (F = 1), a degree-4 joint chunk's (F = 4) and the widest
     for F, D in ((1, 12), (JCHUNK, 6 * (JCHUNK + 3)), (8, cr.MAX_TANGENTS)):
@@ -3023,7 +3052,7 @@ def main() -> int:
                                    "checked; the two timed in turn in one loop")
             # its launches on the main path's runs, read beside the new design's
             # (the sharded ranks run the plain stages)
-            earlier = sum(n[kernel] for n in EARLIER_LAUNCHES.values())
+            earlier = sum(n.get(kernel, 0) for n in EARLIER_LAUNCHES.values())
             check(earlier == 0, f"a path launched {kernel}'s block design {earlier} times")
             more["before"] = dict(name=kernel + "_block", design=design_of[kernel],
                                   source="mba_vo_tpu_torch/csrc/lm_step.cu", route="cuda",
@@ -3088,6 +3117,9 @@ def main() -> int:
             return {k: r[k] for k in ("ms", "device_ms", "device_cold_ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms", "library_device_ms",
                                       "library_device_cold_ms", "calls", "W", "M", "dtype")}
+
+        def split(label, method):
+            return BA_SPLIT.get((label, kernel, method))
         replaces = {"ba_build": "mba_vo_tpu/backend/ba.py:185",
                     "ba_step": "mba_vo_tpu/backend/ba.py:232",
                     "ba_commit": "mba_vo_tpu/backend/ba.py:337"}[kernel]
@@ -3101,6 +3133,36 @@ def main() -> int:
                                if kernel == "ba_commit" else {}))
                 for label, g in BA_HELD.items()}
         more = {}
+        if kernel in ("ba_build", "ba_step"):
+            # the earlier ticket design: timed beside the launched one in turn,
+            # held against it (K10 bit for bit, K11 within its roundoff
+            # bound), launched by no path
+            earlier = sum(n.get(kernel, 0) for n in EARLIER_LAUNCHES.values())
+            check(earlier == 0, f"a path launched {kernel}'s ticket design {earlier} times")
+            method = "build_ticket" if kernel == "ba_build" else "step_ticket"
+            more["design"] = ("band: the prior's edges on a CTA of their own beside the "
+                              "slices', the last CTA summing only, H_o's band only"
+                              if kernel == "ba_build" else
+                              "cooperative: grid barriers, the partials summed a share a "
+                              "CTA, S factored by 6 x 6 blocks with its right-hand side as "
+                              "a row and reciprocal pivots, every CTA back-substituting its "
+                              "own slice")
+            more["phases"] = {label: split(label, kernel[3:]) for label in ba_rows}
+            more["before"] = dict(
+                name=kernel + "_ticket", route="cuda",
+                design="ticket (the earlier design): the last CTA by an integer ticket finishing the stage",
+                source="mba_vo_tpu_torch/csrc/bundle_adjust.cu", launches=earlier,
+                launches_read_on=len(EARLIER_LAUNCHES),
+                held={label: dict(bit_equal=g[kernel + "_equal"], max_rel_err=g[kernel],
+                                  **({"within_1e-12": g["step_within"],
+                                      "checked": g["step_checked"],
+                                      "share_of_bound": g["step_share"]}
+                                     if kernel == "ba_step" else {}))
+                      for label, g in BA_DESIGNS_HELD.items()},
+                **{k: ba_rows["8a window 7"][kernel]["ticket"][k]
+                   for k in ("ms", "device_ms", "device_cold_ms")},
+                loop_benchmark=ba_rows["8c loop benchmark"][kernel]["ticket"],
+                phases={label: split(label, method) for label in ba_rows})
         if kernel == "ba_step":
             more["library"] = ("torch.linalg.cholesky_ex + torch.cholesky_solve on the same "
                                "reduced camera system S: two calls, the solve alone")
@@ -3133,9 +3195,38 @@ def main() -> int:
         print(f"    phase 8 in {time.perf_counter() - t8:.1f} s")
         # K10-K12 timed on 8a's and 8c's recorded iterations
         t0 = time.perf_counter()
-        ba_rows = {label: bk.time_ba_rows(label, calls, out=indent) for label, calls in (
-            ("8a window 7", solvers["ba_calls"]), ("8c loop benchmark", loop["ba_calls"]))}
+        recorded = (("8a window 7", solvers["ba_calls"]),
+                    ("8c loop benchmark", loop["ba_calls"]))
+        ba_rows = {label: bk.time_ba_rows(label, calls, out=indent) for label, calls in recorded}
         print(f"    K10-K12 timed in {time.perf_counter() - t0:.1f} s ({card})")
+        # where the time goes in K10 and K11, both designs, by phase
+        t0 = time.perf_counter()
+        for label, calls in recorded:
+            for kernel, methods in (("ba_build", ("build", "build_ticket")),
+                                    ("ba_step", ("step", "step_ticket"))):
+                for method in methods:
+                    got = bk.phase_split(kernel, method, calls)
+                    BA_SPLIT[label, kernel, method] = got
+                    print(f"    {label} {kernel} {method} design, phases (median over "
+                          f"{min(len(calls), 20)} launches of the harness-only build, us): "
+                          + ", ".join(f"{k} {v:.2f}" for k, v in got.items()))
+        # the earlier ticket designs against the launched ones (K10 bit for bit,
+        # K11 within its roundoff bound: hold_designs raises past it) on
+        # every 8a iteration and 8c's first 200
+        for label, calls in recorded:
+            got = bk.hold_designs_calls(calls[:200])
+            BA_DESIGNS_HELD[label] = got
+            print(f"    {label}: the ticket designs against the launched ones on "
+                  f"{got['iterations']} iterations: K10 bit-equal on {got['ba_build_equal']}; "
+                  f"K11 bit-equal on {got['ba_step_equal']}, within 1e-12 of each output's "
+                  f"magnitude on {got['step_within']}, within its roundoff bound (at most "
+                  f"{got['step_share']:.3e} of it) on "
+                  f"{got['step_checked'] - got['step_within']}, unchecked on "
+                  f"{got['iterations'] - got['step_checked']}; largest differences "
+                  f"{got['ba_build']:.3e} / {got['ba_step']:.3e} of each output's magnitude")
+            check(got["ba_build_equal"] == got["iterations"],
+                  f"{label}: K10's ticket design differs from the launched one")
+        print(f"    phase split and designs held in {time.perf_counter() - t0:.1f} s")
 
         # ---- 9. the models, the non-planar scene, undistortion, overlays
         from mba_vo_tpu_torch.utils.profiling import StageTimer

@@ -43,7 +43,8 @@
 // and does ~5 MFLOP (the Schur sums W^2 36 M 3), a fraction of a
 // microsecond at the card's rates; the time is three launches and the
 // chains inside them: the cross-CTA reductions, and in K11 the 6W pivots
-// of the Cholesky and the 2 x 6W rows of the solves.
+// of the Cholesky (a square root and a division each) and the 6W
+// divisions of each triangular solve.
 //
 // Design: the landmarks split into C = ceil(M / MB) contiguous slices of MB
 // landmarks (ops/cuda_ba.py::ba_layout: MB <= 32, fewer where the window is
@@ -51,12 +52,33 @@
 // its slice's per-observation quantities in shared memory, writes what is
 // per landmark or per observation directly, and writes its partial sums of
 // what is summed across landmarks (U and g_p; S's lower triangle and the
-// right-hand side; the rho sum and n) to a scratch buffer [C, ...]. The
-// last CTA to take an integer ticket adds the C partials in slice order,
-// finishes the stage (the prior; the Cholesky, the solves and the
-// back-substitution; the decision and the select) and resets the ticket.
+// right-hand side; the rho sum and n) to a scratch buffer [C, ...].
+//
+//   * K10 (band design) and K12: the last CTA to take an integer ticket
+//     adds the C partials in slice order and finishes the stage; K10's
+//     prior edges come from one more CTA beside the slices', so the last
+//     CTA only sums (ba_build_kernel);
+//   * K11 (cooperative design, ba_step_kernel): one cooperative launch,
+//     every CTA resident; a slice's partial S on the FP64 tensor cores;
+//     grid barriers replace the ticket, the C partials are summed by all
+//     CTAs (a share each), S is factored by 6 x 6 blocks (three barriers a
+//     block, the right-hand side a row of the factor, so the forward sweep
+//     falls out of the updates; reciprocal pivots) and every CTA
+//     back-substitutes its own slice from shared memory.
+//
+// The earlier ticket designs of K10 and K11 (ba_build_ticket_kernel,
+// ba_step_ticket_kernel) stay as sweep rows: the path launches neither.
 // The ticket decides who combines, never in what order: every sum has one
-// fixed order, so a run repeats bit for bit.
+// fixed order, so a run repeats bit for bit. K10's two designs take every
+// sum and rounding in the same order and agree bit for bit. K11's
+// cooperative design takes two new orders: in float64 a slice's partial S
+// and right-hand side are summed by the FP64 tensor cores (mma.sync
+// m8n8k4: over k = 3 ml + c in steps of four, the even steps and the odd
+// steps in two running sums added at the end, each step's four products
+// and its running sum combined as the hardware does; float32 keeps the
+// ticket design's sums), and each column of the factor is scaled by its
+// pivot's reciprocal square root where the ticket design divides by the
+// square root (factor_solve).
 //
 // Orders: a CTA's rho sum and count are lane l's observations l, l + 32,
 // ... of the slice in order, then lane 0's butterfly of shuffles, the same
@@ -66,16 +88,20 @@
 // order, then the slices in order; each product rounded (this source builds
 // with -fmad=false, ops/cuda_build.py), the terms of a Jacobian product
 // taken as torch's elementwise ops take them. The Cholesky is
-// right-looking (each entry of the factor updated once a pivot, in pivot
-// order); the solves go row by row. Neither cuBLAS's nor LAPACK's orders can
-// be followed: the kernels agree with the plain versions within the
-// roundoff of a sum, not bit for bit.
+// right-looking: each entry of the factor (and of the forward sweep)
+// updated once a pivot, in pivot order, then scaled by its pivot (the
+// ticket design divides by sqrt(d), the cooperative one multiplies by
+// rsqrt(d)); the back-substitution takes each unknown in descending order. Neither
+// cuBLAS's nor LAPACK's orders can be followed: the kernels agree with the
+// plain versions within the roundoff of a sum, not bit for bit.
 //
 // S lives in shared memory while it fits with K11's vectors, else in a
 // global scratch matrix the wrapper allocates (ops/cuda_ba.py::ba_layout).
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "spline_pose.cuh"
 
@@ -99,6 +125,7 @@ enum {
 };
 
 constexpr int kThreads = 256;
+constexpr int kBuildThreads = 384;    // K10's band design: U and g_p in one round at W = 7
 constexpr int kWarp = 32;
 constexpr size_t kSmemLimit = 232448;   // the 227 KiB a CTA may opt into
 
@@ -397,37 +424,92 @@ __device__ __forceinline__ T prior_eval_sum(const Inputs<T>& in, const T* r, int
   return s;
 }
 
+// ------------------------------------------------------- phase stamps
+
+// Where the time of a launch goes, by phase: in a build with BA_PHASE_CLOCKS
+// defined (experiments/ba_kernels.py's phase split; never the library the
+// path loads) thread 0 of each CTA stamps %globaltimer into
+// g_stamps[kernel][cta][slot] at each phase's end, after a barrier of its
+// CTA; without the macro a stamp is nothing. Kernel ids: kStamp* below.
+enum { kStampBuild = 0, kStampStep, kStampBuildTicket, kStampStepTicket, kStampKernels };
+constexpr int kStampSlots = 20;
+constexpr int kStampCtas = 1024;
+
+#ifdef BA_PHASE_CLOCKS
+__device__ unsigned long long g_stamps[kStampKernels][kStampCtas][kStampSlots];
+
+__device__ __forceinline__ void stamp(int kernel, int slot) {
+  __syncthreads();
+  if (threadIdx.x == 0 && blockIdx.x < kStampCtas) {
+    unsigned long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    g_stamps[kernel][blockIdx.x][slot] = now;
+  }
+}
+
+// sub-phases in CTA 0: thread 0's clock64 cycles since ``since``, added
+// into slot ``slot`` of ``kernel`` (K11's factorisation by sub-phase,
+// summed over the block steps, in slots 12-15; K11's phase 3 in 16; K10's
+// pose setup and observations in 16 and 17)
+__device__ __forceinline__ void add_cycles(int slot, long long& since, int kernel = kStampStep) {
+  const long long now = clock64();
+  if (threadIdx.x == 0 && blockIdx.x == 0) g_stamps[kernel][0][slot] += now - since;
+  since = now;
+}
+#else
+__device__ __forceinline__ void stamp(int, int) {}
+__device__ __forceinline__ void add_cycles(int, long long&, int = 0) {}
+#endif
+
 // ------------------------------------------------------------------ K10
 
-// shared memory (elements of T): phase 1 the poses [W, 16] and the slice's
-// observations [W MB, 23]; the last CTA's phase the edges [W - 1, 78], g_p
-// [6W] and the rho sum and count
+// shared memory (elements of T), both designs: phase 1 the poses [W, 16]
+// and the slice's observations [W MB, 23]; the last CTA's phase the edges
+// [W - 1, 78], g_p [6W] and the rho sum and count
 __host__ __device__ inline size_t build_smem_elems(int W, int MB) {
   const size_t p1 = size_t(16) * W + size_t(23) * W * MB;
   const size_t p3 = size_t(78) * (W > 1 ? W - 1 : 0) + size_t(6) * W + 4;
   return p1 > p3 ? p1 : p3;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ba_build_kernel(const T* __restrict__ t, const T* __restrict__ q, const T* __restrict__ X,
-                    T* __restrict__ sc, Inputs<T> in, T* __restrict__ U, T* __restrict__ V,
-                    T* __restrict__ Wb, T* __restrict__ g_p, T* __restrict__ g_x,
-                    T* __restrict__ H_o, T* __restrict__ partials, unsigned* __restrict__ ticket,
-                    double huber_a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_flag;
-  T* sm = reinterpret_cast<T*>(smem_raw);
+// K10's phases 1 and 2 in one CTA: each observation's residual, Jacobians
+// and weight, W_blk written; per landmark V and g_x written; the slice's
+// partial U, g_p, rho sum and count into ``part``. Phase 2 in the ticket
+// design a thread an entry; ``kTiled`` (the band design, 384 threads) a
+// thread an entry of U and g_p, all in one round, and a thread a
+// landmark's V and g_x, each entry summed in the same order, and the rho
+// sum in the last warp
+template <typename T, bool kTiled>
+__device__ __forceinline__ void build_slice(const T* __restrict__ t, const T* __restrict__ q,
+                                            const T* __restrict__ X, const Inputs<T>& in,
+                                            T* __restrict__ V, T* __restrict__ Wb,
+                                            T* __restrict__ g_x, T* __restrict__ part,
+                                            double huber_a, T* sm, int stamp_id) {
   const int W = in.W, M = in.M, tid = threadIdx.x;
   const int m0 = blockIdx.x * in.MB;
   const int mb = min(in.MB, M - m0);   // landmarks of this slice
   const int nobs = W * mb;
-  // phase 1 layout
   T* qs = sm;                  // [W, 4] q^-1
   T* ts = qs + 4 * W;          // [W, 3]
   T* Rt = ts + 3 * W;          // [W, 9] R^T
   T* ob = Rt + 9 * W;          // [W mb, 23]: Jp 12, Jx 6, r 2, wgt, rho mask, mask
 
+  // kTiled: this thread's first observation's inputs (the point, the pixel
+  // and both masks) loaded before the poses' barrier, one trip to memory
+  // fewer on the way
+  long long since = clock64();
+  T pre[7];
+  if (kTiled && tid < nobs) {
+    const int w = tid / mb, m = m0 + (tid - w * mb);
+    const size_t wm = size_t(w) * M + m;
+    pre[0] = X[3 * m];
+    pre[1] = X[3 * m + 1];
+    pre[2] = X[3 * m + 2];
+    pre[3] = in.obs[2 * wm];
+    pre[4] = in.obs[2 * wm + 1];
+    pre[5] = in.obs_mask[wm];
+    pre[6] = in.point_mask[m];
+  }
   for (int w = tid; w < W; w += blockDim.x) {
     const Quat<T> qi = spline::qconj(load_q(q, w));
     qs[4 * w] = qi.x;
@@ -447,19 +529,21 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
+  if (kTiled) add_cycles(16, since, stamp_id);
 
   // 1. each observation: r, the Jacobians, the weight; W_blk written
   for (int o = tid; o < nobs; o += blockDim.x) {
     const int w = o / mb, m = m0 + (o - w * mb);
     const Pose3<T> P{Quat<T>{qs[4 * w], qs[4 * w + 1], qs[4 * w + 2], qs[4 * w + 3]},
                      V3<T>{ts[3 * w], ts[3 * w + 1], ts[3 * w + 2]}};
-    const V3<T> Pc = camera_point(P, load_v(X, m));
     const size_t wm = size_t(w) * M + m;
+    const bool first = kTiled && o == tid;
+    const V3<T> Pc = camera_point(P, first ? V3<T>{pre[0], pre[1], pre[2]} : load_v(X, m));
     T r[2];
-    residual(Pc, in.K, in.obs[2 * wm], in.obs[2 * wm + 1], r);
+    residual(Pc, in.K, first ? pre[3] : in.obs[2 * wm], first ? pre[4] : in.obs[2 * wm + 1], r);
     T rho, w2;
     huber(r, huber_a, rho, w2);
-    const T mask = in.obs_mask[wm] * in.point_mask[m];
+    const T mask = (first ? pre[5] : in.obs_mask[wm]) * (first ? pre[6] : in.point_mask[m]);
     const T wgt = w2 * mask;
     // reprojection_jacobians: dproj [2 x 3] (zero in z where the clamp is
     // active), J_point = dproj R^T, J_pose = [-J_point, dproj [Pc]x]
@@ -497,14 +581,53 @@ __global__ void __launch_bounds__(kThreads)
       for (int b = 0; b < 3; ++b)
         wb[3 * a + b] = (s[a] * wgt) * s[12 + b] + (s[6 + a] * wgt) * s[15 + b];
   }
+  if (kTiled) add_cycles(17, since, stamp_id);
   __syncthreads();
+  stamp(stamp_id, 1);
 
   // 2. per landmark V and g_x (over the poses in order); per pose the
   // slice's partial U and g_p (over its landmarks in order)
   const int n_lm = 12 * mb, n_pose = 42 * W;
-  const size_t stride = size_t(42) * W + 2;
-  T* part = partials + blockIdx.x * stride;
-  for (int e = tid; e < n_lm + n_pose; e += blockDim.x) {
+  if (kTiled) {
+    const int lm0 = (n_pose + kWarp - 1) / kWarp * kWarp;
+    for (int u = tid; u < lm0 + mb; u += blockDim.x) {
+      if (u < n_pose) {
+        const int w = u / 42, k = u - 42 * w;
+        T acc = T(0);
+        for (int ml = 0; ml < mb; ++ml) {
+          const T* s = ob + 23 * (w * mb + ml);
+          if (k < 36) {
+            const int a = k / 6, b = k - 6 * (k / 6);
+            acc = acc + ((s[a] * s[20]) * s[b] + (s[6 + a] * s[20]) * s[6 + b]);
+          } else {
+            const int a = k - 36;
+            acc = acc + ((s[a] * s[20]) * s[18] + (s[6 + a] * s[20]) * s[19]);
+          }
+        }
+        part[u] = acc;
+      } else if (u >= lm0) {
+        const int ml = u - lm0;
+        T acc[12];
+#pragma unroll
+        for (int k = 0; k < 12; ++k) acc[k] = T(0);
+        for (int w = 0; w < W; ++w) {
+          const T* s = ob + 23 * (w * mb + ml);
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            const T pa = s[12 + a] * s[20], qa = s[15 + a] * s[20];
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+              acc[3 * a + b] = acc[3 * a + b] + (pa * s[12 + b] + qa * s[15 + b]);
+            acc[9 + a] = acc[9 + a] + (pa * s[18] + qa * s[19]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 9; ++k) V[9 * size_t(m0 + ml) + k] = acc[k];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) g_x[3 * size_t(m0 + ml) + a] = acc[9 + a];
+      }
+    }
+  } else for (int e = tid; e < n_lm + n_pose; e += blockDim.x) {
     if (e < n_lm) {
       const int ml = e / 12, k = e - 12 * ml;
       T acc = T(0);
@@ -538,11 +661,13 @@ __global__ void __launch_bounds__(kThreads)
       part[f] = acc;
     }
   }
-  // the slice's rho sum and observation count (warp 0, lane order); the
-  // observations' rho mask and mask sit at stride 23
-  if (tid < kWarp) {
+  // the slice's rho sum and observation count (warp 0, or the last warp
+  // where tiled; lane order); the observations' rho mask and mask sit at
+  // stride 23
+  const int lane = tid - (kTiled ? int(blockDim.x) - kWarp : 0);
+  if (lane >= 0 && lane < kWarp) {
     T s_rho = T(0), s_n = T(0);
-    for (int o = tid; o < nobs; o += kWarp) {
+    for (int o = lane; o < nobs; o += kWarp) {
       s_rho = s_rho + ob[23 * o + 21];
       s_n = s_n + ob[23 * o + 22];
     }
@@ -551,22 +676,42 @@ __global__ void __launch_bounds__(kThreads)
       s_rho = s_rho + __shfl_xor_sync(0xffffffffu, s_rho, k);
       s_n = s_n + __shfl_xor_sync(0xffffffffu, s_n, k);
     }
-    if (tid == 0) {
+    if (lane == 0) {
       part[n_pose] = s_rho;
       part[n_pose + 1] = s_n;
     }
   }
-  if (!last_cta(ticket, &s_flag)) return;
+  stamp(stamp_id, 2);
+}
 
-  // 3. the last CTA: the slices' partials in slice order, the prior, the
-  // costs
-  const int C = gridDim.x, E = W - 1, D = 6 * W;
-  T* edges = sm;                    // [E, 78]: r 6, J_i 36, J_j 36
-  T* gps = edges + 78 * (E > 0 ? E : 0);   // [6W] the reprojection g_p
-  T* tot = gps + 6 * W;             // rho sum, count, build cost's prior, eval prior
-  for (int f = tid; f < n_pose + 2; f += blockDim.x) {
-    T acc = T(0);
-    for (int c = 0; c < C; ++c) acc = acc + __ldcg(partials + c * stride + f);
+// sum_c x[c stride] over c < C in order; ``kBatched``: the loads issued
+// eight at a time before their adds (one trip to the L2 for eight)
+template <typename T, bool kBatched>
+__device__ __forceinline__ T sum_slices(const T* __restrict__ x, size_t stride, int C) {
+  T acc = T(0);
+  int c = 0;
+  if (kBatched) {
+    for (; c + 8 <= C; c += 8) {
+      T v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = __ldcg(x + (c + k) * stride);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc = acc + v[k];
+    }
+  }
+  for (; c < C; ++c) acc = acc + __ldcg(x + c * stride);
+  return acc;
+}
+
+// the last CTA of either K10 design: the slices' partials in slice order
+// into U, the reprojection g_p ``gps`` and ``tot`` (the rho sum and count)
+template <typename T, bool kBatched>
+__device__ __forceinline__ void build_partial_sums(const T* __restrict__ partials, int W, int C,
+                                                   T* __restrict__ U, T* gps, T* tot) {
+  const int n_pose = 42 * W;
+  const size_t stride = size_t(42) * W + 2;
+  for (int f = threadIdx.x; f < n_pose + 2; f += blockDim.x) {
+    const T acc = sum_slices<T, kBatched>(partials + f, stride, C);
     if (f >= n_pose) {
       tot[f - n_pose] = acc;
     } else {
@@ -577,6 +722,101 @@ __global__ void __launch_bounds__(kThreads)
         gps[6 * w + k - 36] = acc;
     }
   }
+}
+
+// H_o's entry (i, j) in block (p, pp), |p - pp| <= 1: sum_e J_e^T w_e J_e over
+// the edges that touch both poses, in edge order
+template <typename T>
+__device__ __forceinline__ T prior_h_entry(const Inputs<T>& in, const T* edges, int p, int a,
+                                           int pp, int b) {
+  const int E = in.W - 1;
+  T acc = T(0);
+  for (int e = max(max(p, pp) - 1, 0); e <= min(min(p, pp), E - 1); ++e) {
+    const T* x = edges + 78 * e;
+    const T* Ja = x + (p == e ? 6 : 42);
+    const T* Jb = x + (pp == e ? 6 : 42);
+    const T we = in.odom_w[e];
+    for (int k = 0; k < 6; ++k) acc = acc + (Ja[6 * k + a] * we) * Jb[6 * k + b];
+  }
+  return acc;
+}
+
+// the prior's g_o entry i (over the edges in order)
+template <typename T>
+__device__ __forceinline__ T prior_g_entry(const Inputs<T>& in, const T* edges, int i) {
+  const int E = in.W - 1, p = i / 6, a = i - 6 * p;
+  T acc = T(0);
+  for (int e = max(p - 1, 0); e <= min(p, E - 1); ++e) {
+    const T* x = edges + 78 * e;
+    const T* Ja = x + (p == e ? 6 : 42);
+    const T we = in.odom_w[e];
+    for (int k = 0; k < 6; ++k) acc = acc + Ja[6 * k + a] * (we * x[k]);
+  }
+  return acc;
+}
+
+// g_p = the reprojection g_p + the prior's g_o
+template <typename T>
+__device__ __forceinline__ void prior_gradient(const Inputs<T>& in, const T* edges, bool prior,
+                                               const T* gps, T* __restrict__ g_p) {
+  for (int i = threadIdx.x; i < 6 * in.W; i += blockDim.x)
+    g_p[i] = gps[i] + (prior ? prior_g_entry(in, edges, i) : T(0));
+}
+
+// the build's prior cost sum(w r^2), in edge order (evaluate_cost's is
+// prior_eval_sum)
+template <typename T>
+__device__ __forceinline__ T prior_build_sum(const Inputs<T>& in, const T* r, int stride) {
+  T s = T(0);
+  for (int e = 0; e < in.W - 1; ++e)
+    for (int k = 0; k < 6; ++k) {
+      const T re = r[stride * e + k];
+      s = s + in.odom_w[e] * (re * re);
+    }
+  return s;
+}
+
+// the build's cost and, at the loop's first iteration, the initial cost
+template <typename T>
+__device__ __forceinline__ void build_costs(T* __restrict__ sc, const T* tot, T c_b, T c_e) {
+  const T n = clamp_min(tot[1], T(1));
+  sc[B_BUILD_COST] = tot[0] / n + (T(0.5) * c_b) / n;
+  if (sc[B_IT] == T(0)) {
+    const T cost0 = tot[0] / n + (T(0.5) * c_e) * (T(1) / n);
+    sc[B_COST] = cost0;
+    sc[B_COST0] = cost0;
+  }
+}
+
+// The earlier ticket design: the last CTA computes the prior's E edges on E
+// threads after the ticket, writes H_o dense (a division an entry) and sums
+// both prior costs on one thread
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ba_build_ticket_kernel(const T* __restrict__ t, const T* __restrict__ q,
+                           const T* __restrict__ X, T* __restrict__ sc, Inputs<T> in,
+                           T* __restrict__ U, T* __restrict__ V, T* __restrict__ Wb,
+                           T* __restrict__ g_p, T* __restrict__ g_x, T* __restrict__ H_o,
+                           T* __restrict__ partials, unsigned* __restrict__ ticket,
+                           double huber_a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_flag;
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int W = in.W, tid = threadIdx.x;
+  stamp(kStampBuildTicket, 0);
+  build_slice<T, false>(t, q, X, in, V, Wb, g_x, partials + blockIdx.x * (size_t(42) * W + 2),
+                        huber_a, sm, kStampBuildTicket);
+  if (!last_cta(ticket, &s_flag)) return;
+  stamp(kStampBuildTicket, 3);
+
+  // 3. the last CTA: the slices' partials in slice order, the prior, the
+  // costs
+  const int E = W - 1, D = 6 * W;
+  T* edges = sm;                    // [E, 78]: r 6, J_i 36, J_j 36
+  T* gps = edges + 78 * (E > 0 ? E : 0);   // [6W] the reprojection g_p
+  T* tot = gps + 6 * W;             // rho sum, count
+  build_partial_sums<T, false>(partials, W, int(gridDim.x), U, gps, tot);
+  stamp(kStampBuildTicket, 4);
   const bool prior = in.odom_t != nullptr;
   if (prior) {
     for (int e = tid; e < E; e += blockDim.x) {
@@ -586,96 +826,110 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
+  stamp(kStampBuildTicket, 5);
   // H_o = sum_e J_e^T w_e J_e over the edges that touch both poses, in edge
-  // order; g_o likewise; every entry off the band 0
+  // order; every entry off the band 0
   for (int f = tid; f < D * D; f += blockDim.x) {
     const int i = f / D, j = f - D * (f / D);
     const int p = i / 6, a = i - 6 * p, pp = j / 6, b = j - 6 * pp;
-    T acc = T(0);
-    if (prior && abs(p - pp) <= 1) {
-      for (int e = max(max(p, pp) - 1, 0); e <= min(min(p, pp), E - 1); ++e) {
-        const T* x = edges + 78 * e;
-        const T* Ja = x + (p == e ? 6 : 42);
-        const T* Jb = x + (pp == e ? 6 : 42);
-        const T we = in.odom_w[e];
-        for (int k = 0; k < 6; ++k) acc = acc + (Ja[6 * k + a] * we) * Jb[6 * k + b];
-      }
-    }
-    H_o[f] = acc;
+    H_o[f] = prior && abs(p - pp) <= 1 ? prior_h_entry(in, edges, p, a, pp, b) : T(0);
   }
-  for (int i = tid; i < D; i += blockDim.x) {
-    const int p = i / 6, a = i - 6 * p;
-    T acc = T(0);
-    if (prior) {
-      for (int e = max(p - 1, 0); e <= min(p, E - 1); ++e) {
-        const T* x = edges + 78 * e;
-        const T* Ja = x + (p == e ? 6 : 42);
-        const T we = in.odom_w[e];
-        for (int k = 0; k < 6; ++k) acc = acc + Ja[6 * k + a] * (we * x[k]);
-      }
-    }
-    g_p[i] = gps[i] + acc;
-  }
+  prior_gradient(in, edges, prior, gps, g_p);
+  stamp(kStampBuildTicket, 6);
   if (tid == 0) {
     // the build's prior cost 0.5 sum(w r^2), evaluate_cost's 0.5 sum((w r) r)
-    T c_b = T(0);
-    if (prior) {
-      for (int e = 0; e < E; ++e)
-        for (int k = 0; k < 6; ++k) {
-          const T re = edges[78 * e + k];
-          c_b = c_b + in.odom_w[e] * (re * re);
-        }
-    }
-    const T c_e = prior ? prior_eval_sum(in, edges, 78) : T(0);
-    const T n = clamp_min(tot[1], T(1));
-    sc[B_BUILD_COST] = tot[0] / n + (T(0.5) * c_b) / n;
-    if (sc[B_IT] == T(0)) {
-      const T cost0 = tot[0] / n + (T(0.5) * c_e) * (T(1) / n);
-      sc[B_COST] = cost0;
-      sc[B_COST0] = cost0;
-    }
+    build_costs(sc, tot, prior ? prior_build_sum(in, edges, 78) : T(0),
+                prior ? prior_eval_sum(in, edges, 78) : T(0));
     *ticket = 0u;
   }
+  stamp(kStampBuildTicket, 7);
+}
+
+// The band design (launched): the prior depends on the poses and the
+// odometry only, so one more CTA than the slices (C + 1 where there is a
+// prior) computes all of it while the slices' CTAs run their phases 1 and
+// 2 on other SMs: the E edges on E threads, H_o's block band |p - pp| <= 1
+// (the blocks off it are zero from the binding's setup, and K11 reads only
+// the band), g_o and the two prior costs (two warps at once, each in edge
+// order) into a scratch [6W + 2]; it takes a ticket too. The slices' phase 2
+// runs a thread a pose row and a thread a landmark (build_slice). The last
+// CTA then only adds the slices' partials and the prior's g_o and writes
+// the scalars. Every output equals the ticket design's bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(kBuildThreads)
+    ba_build_kernel(const T* __restrict__ t, const T* __restrict__ q, const T* __restrict__ X,
+                    T* __restrict__ sc, Inputs<T> in, T* __restrict__ U, T* __restrict__ V,
+                    T* __restrict__ Wb, T* __restrict__ g_p, T* __restrict__ g_x,
+                    T* __restrict__ H_o, T* __restrict__ partials, T* __restrict__ prior_out,
+                    unsigned* __restrict__ ticket, double huber_a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_flag;
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int W = in.W, tid = threadIdx.x, E = W - 1, D = 6 * W;
+  const int C = (in.M + in.MB - 1) / in.MB;   // the slices' CTAs
+  const bool prior = in.odom_t != nullptr;
+  stamp(kStampBuild, 0);
+  if (int(blockIdx.x) >= C) {
+    T* edges = sm;                  // [E, 78]: r 6, J_i 36, J_j 36
+    for (int e = tid; e < E; e += blockDim.x) {
+      T* x = edges + 78 * e;
+      edge_jacobians(load_v(t, e), load_q(q, e), load_v(t, e + 1), load_q(q, e + 1),
+                     load_v(in.odom_t, e), load_q(in.odom_q, e), x, x + 6, x + 42);
+    }
+    __syncthreads();
+    // blocks (p, p - 1), (p, p), (p, p + 1) in order, 3W - 2 of them
+    for (int f = tid; f < 36 * (3 * W - 2); f += blockDim.x) {
+      const int blk = f / 36, ab = f - 36 * blk, a = ab / 6, b = ab - 6 * a;
+      const int p = (blk + 1) / 3, pp = p - 1 + (blk + 1 - 3 * p);
+      H_o[size_t(6 * p + a) * D + 6 * pp + b] = prior_h_entry(in, edges, p, a, pp, b);
+    }
+    for (int i = tid; i < D; i += blockDim.x) prior_out[i] = prior_g_entry(in, edges, i);
+    if (tid == 0) prior_out[D] = prior_eval_sum(in, edges, 78);
+    if (tid == kWarp) prior_out[D + 1] = prior_build_sum(in, edges, 78);
+    stamp(kStampBuild, 2);
+  } else {
+    build_slice<T, true>(t, q, X, in, V, Wb, g_x, partials + blockIdx.x * (size_t(42) * W + 2),
+                         huber_a, sm, kStampBuild);
+  }
+  if (!last_cta(ticket, &s_flag)) return;
+  stamp(kStampBuild, 3);
+
+  T* gps = sm;                      // [6W] the reprojection g_p
+  T* tot = gps + 6 * W;             // rho sum, count
+  build_partial_sums<T, true>(partials, W, C, U, gps, tot);
+  __syncthreads();
+  stamp(kStampBuild, 4);
+  for (int i = tid; i < D; i += blockDim.x)
+    g_p[i] = gps[i] + (prior ? __ldcg(prior_out + i) : T(0));
+  if (tid == 0) {
+    build_costs(sc, tot, prior ? __ldcg(prior_out + D + 1) : T(0),
+                prior ? __ldcg(prior_out + D) : T(0));
+    *ticket = 0u;
+  }
+  stamp(kStampBuild, 5);
 }
 
 // ------------------------------------------------------------------ K11
 
-// shared memory (elements of T): phase 1 the slice's W_blk and W V^-1 [W
-// MB, 18] each, V^-1 [MB, 9] and g_x [MB, 3]; the last CTA's phase S [D,
-// D] where it lives there, the right-hand side, the forward sweep, the
-// solution and the pivots [D] each, dp [D] and the gauge [W]
-__host__ __device__ inline size_t step_smem_elems(int W, int MB, bool s_shared) {
-  const size_t D = size_t(6) * W;
-  const size_t p1 = size_t(36) * W * MB + size_t(12) * MB;
-  const size_t p2 = (s_shared ? D * D : 0) + 5 * D + W + 2;
-  return p1 > p2 ? p1 : p2;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ba_step_kernel(const T* __restrict__ t, const T* __restrict__ q, const T* __restrict__ X,
-                   const T* __restrict__ sc, Inputs<T> in, const T* __restrict__ U,
-                   const T* __restrict__ V, const T* __restrict__ Wb, const T* __restrict__ g_p,
-                   const T* __restrict__ g_x, const T* __restrict__ H_o, T* __restrict__ dp,
-                   T* __restrict__ dx, T* __restrict__ cand_t, T* __restrict__ cand_q,
-                   T* __restrict__ cand_X, T* __restrict__ Vinv, T* __restrict__ partials,
-                   T* __restrict__ S_global, unsigned* __restrict__ ticket,
-                   double landmark_damping) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_flag;
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int W = in.W, M = in.M, D = 6 * W, tid = threadIdx.x;
+// each landmark of the slice: V damped, its inverse (LU with partial
+// pivoting, NaN where a pivot is 0, as inv_ex and _nan_unless) into Vi [mb,
+// 9] and Vinv, g_x into gx [mb, 3]; the gauged W_blk into Wg [W, mb, 18];
+// then W V^-1 into WV [W, mb, 18] (both designs' phases 1 and 2). The
+// ticket design a thread an entry; ``kTiled`` (the cooperative design) the
+// W_blk loads eight at a time before their stores, and W V^-1 a thread a
+// (pose, landmark) block, each entry rounded as there
+template <typename T, bool kTiled>
+__device__ __forceinline__ void step_slice(const Inputs<T>& in, T lam, double landmark_damping,
+                                           const T* __restrict__ V, const T* __restrict__ Wb,
+                                           const T* __restrict__ g_x, T* __restrict__ Vinv,
+                                           T* Wg, T* WV, T* Vi, T* gx, int stamp_id) {
+  const int W = in.W, M = in.M, tid = threadIdx.x;
   const int m0 = blockIdx.x * in.MB;
   const int mb = min(in.MB, M - m0);
-  const T lam = sc[B_LAM];
-  T* Wg = sm;                  // [W, mb, 18] W_blk * gauge
-  T* WV = Wg + 18 * W * mb;    // [W, mb, 18] W V^-1
-  T* Vi = WV + 18 * W * mb;    // [mb, 9]
-  T* gx = Vi + 9 * mb;         // [mb, 3]
-
-  // 1. each landmark's damped V and its inverse (LU with partial pivoting,
-  // NaN where a pivot is 0, as inv_ex and _nan_unless); the gauged W_blk
-  for (int ml = tid; ml < mb; ml += blockDim.x) {
+  // the inverses' threads: all (ticket design), else the last warp, while
+  // the others copy W_blk
+  const int first = kTiled ? int(blockDim.x) - kWarp : 0;
+  for (int ml = tid - first; ml >= 0 && ml < mb; ml += int(blockDim.x) - first) {
     const size_t m = size_t(m0 + ml);
     T A[9];
 #pragma unroll
@@ -733,20 +987,103 @@ __global__ void __launch_bounds__(kThreads)
     gx[3 * ml + 1] = g_x[3 * m + 1];
     gx[3 * ml + 2] = g_x[3 * m + 2];
   }
-  for (int e = tid; e < 18 * W * mb; e += blockDim.x) {
-    const int w = e / (18 * mb), r = e - 18 * mb * w, ml = r / 18, k = r - 18 * ml;
-    Wg[e] = Wb[18 * (size_t(w) * M + m0 + ml) + k] * gauge_of(in.pose_mask, w);
+  if (kTiled) {
+    // the slice's W_blk is W runs of 18 mb contiguous values
+    const int n = 18 * mb, nt = first;
+    constexpr int kBatch = 8;
+    for (int e0 = tid; tid < nt && e0 < W * n; e0 += kBatch * nt) {
+      T v[kBatch], g[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int e = e0 + k * nt;
+        if (e < W * n) {
+          const int w = e / n;
+          v[k] = Wb[18 * (size_t(w) * M + m0) + (e - w * n)];
+          g[k] = gauge_of(in.pose_mask, w);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k)
+        if (e0 + k * nt < W * n) Wg[e0 + k * nt] = v[k] * g[k];
+    }
+  } else {
+    for (int e = tid; e < 18 * W * mb; e += blockDim.x) {
+      const int w = e / (18 * mb), r = e - 18 * mb * w, ml = r / 18, k = r - 18 * ml;
+      Wg[e] = Wb[18 * (size_t(w) * M + m0 + ml) + k] * gauge_of(in.pose_mask, w);
+    }
   }
   __syncthreads();
+  stamp(stamp_id, 1);
   // 2. W V^-1
-  for (int e = tid; e < 18 * W * mb; e += blockDim.x) {
-    const int wm = e / 18, k = e - 18 * wm, a = k / 3, c = k - 3 * (k / 3);
-    const int ml = wm - mb * (wm / mb);
-    const T* x = Wg + 18 * wm + 3 * a;
-    const T* y = Vi + 9 * ml + c;
-    WV[e] = (x[0] * y[0] + x[1] * y[3]) + x[2] * y[6];
+  if (kTiled) {
+    for (int wm = tid; wm < W * mb; wm += blockDim.x) {
+      const int ml = wm - mb * (wm / mb);
+      T x[18], y[9];
+#pragma unroll
+      for (int k = 0; k < 18; ++k) x[k] = Wg[18 * wm + k];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) y[k] = Vi[9 * ml + k];
+#pragma unroll
+      for (int a = 0; a < 6; ++a)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          WV[18 * wm + 3 * a + c] =
+              (x[3 * a] * y[c] + x[3 * a + 1] * y[3 + c]) + x[3 * a + 2] * y[6 + c];
+    }
+  } else {
+    for (int e = tid; e < 18 * W * mb; e += blockDim.x) {
+      const int wm = e / 18, k = e - 18 * wm, a = k / 3, c = k - 3 * (k / 3);
+      const int ml = wm - mb * (wm / mb);
+      const T* x = Wg + 18 * wm + 3 * a;
+      const T* y = Vi + 9 * ml + c;
+      WV[e] = (x[0] * y[0] + x[1] * y[3]) + x[2] * y[6];
+    }
   }
   __syncthreads();
+  stamp(stamp_id, 2);
+}
+
+// shared memory (elements of T) of the ticket design: phase 1 the slice's
+// W_blk and W V^-1 [W MB, 18] each, V^-1 [MB, 9] and g_x [MB, 3]; the last
+// CTA's phase S [D, D] where it lives there, the right-hand side, the
+// forward sweep, the solution and the pivots [D] each, dp [D] and the
+// gauge [W]
+__host__ __device__ inline size_t step_ticket_smem_elems(int W, int MB, bool s_shared) {
+  const size_t D = size_t(6) * W;
+  const size_t p1 = size_t(36) * W * MB + size_t(12) * MB;
+  const size_t p2 = (s_shared ? D * D : 0) + 5 * D + W + 2;
+  return p1 > p2 ? p1 : p2;
+}
+
+// The earlier ticket design: the last CTA alone sums the C slices' partials of
+// S (decoding each entry's row with an f64 square root), factors S
+// right-looking with two barriers a pivot, solves in one warp and
+// back-substitutes every landmark from global memory
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ba_step_ticket_kernel(const T* __restrict__ t, const T* __restrict__ q,
+                          const T* __restrict__ X, const T* __restrict__ sc, Inputs<T> in,
+                          const T* __restrict__ U, const T* __restrict__ V,
+                          const T* __restrict__ Wb, const T* __restrict__ g_p,
+                          const T* __restrict__ g_x, const T* __restrict__ H_o,
+                          T* __restrict__ dp, T* __restrict__ dx, T* __restrict__ cand_t,
+                          T* __restrict__ cand_q, T* __restrict__ cand_X, T* __restrict__ Vinv,
+                          T* __restrict__ partials, T* __restrict__ S_global,
+                          unsigned* __restrict__ ticket, double landmark_damping) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_flag;
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int W = in.W, M = in.M, D = 6 * W, tid = threadIdx.x;
+  const int m0 = blockIdx.x * in.MB;
+  const int mb = min(in.MB, M - m0);
+  const T lam = sc[B_LAM];
+  T* Wg = sm;                  // [W, mb, 18] W_blk * gauge
+  T* WV = Wg + 18 * W * mb;    // [W, mb, 18] W V^-1
+  T* Vi = WV + 18 * W * mb;    // [mb, 9]
+  T* gx = Vi + 9 * mb;         // [mb, 3]
+  stamp(kStampStepTicket, 0);
+  step_slice<T, false>(in, lam, landmark_damping, V, Wb, g_x, Vinv, Wg, WV, Vi, gx,
+                       kStampStepTicket);
   // 3. the slice's partial sums of S's lower triangle (row-major) and of
   // the right-hand side's landmark term, over its landmarks in order
   const int nS = D * (D + 1) / 2;
@@ -775,7 +1112,9 @@ __global__ void __launch_bounds__(kThreads)
     }
     part[e] = acc;
   }
+  stamp(kStampStepTicket, 3);
   if (!last_cta(ticket, &s_flag)) return;
+  stamp(kStampStepTicket, 4);
 
   // 4. the last CTA: S = (-sum + blockdiag(U_damped)) + He, the
   // right-hand side, the Cholesky, the solves, dp, the candidate poses
@@ -819,6 +1158,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (tid == 0) *fail = 0;
   __syncthreads();
+  stamp(kStampStepTicket, 5);
   // right-looking Cholesky, two barriers a pivot; every thread takes the
   // pivot's square root itself
   for (int j = 0; j < D; ++j) {
@@ -841,6 +1181,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
   __syncthreads();
+  stamp(kStampStepTicket, 6);
   const bool failed = *fail != 0;
   if (!failed && tid < kWarp) {
     // L z = rhs, then L^T x = z, row by row in warp 0
@@ -862,6 +1203,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
+  stamp(kStampStepTicket, 7);
   for (int i = tid; i < D; i += blockDim.x) {
     const T v = failed ? T(NAN) : -x[i];
     const T d = v * gs[i / 6];
@@ -909,6 +1251,471 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if (tid == 0) *ticket = 0u;
+  stamp(kStampStepTicket, 8);
+}
+
+// A barrier of the whole grid, for a cooperative launch only (every CTA
+// resident): bar[0] counts the CTAs' arrivals and is never reset; a CTA
+// whose arrival made it n waits until it reaches the next multiple of the
+// grid's size. One atomic a CTA. Every CTA of a launch passes the same
+// barriers, so a launch leaves a multiple of its grid; the binding that
+// owns the word (zeroed at its setup) would wrap it after 2^32 / C
+// barriers.
+__device__ __forceinline__ void grid_barrier(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const unsigned n = atomicAdd(bar, 1u) + 1u;
+    const unsigned target = (n + gridDim.x - 1) / gridDim.x * gridDim.x;
+    volatile unsigned* count = bar;
+    while (*count < target) __nanosleep(32);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// d = a b + c on an 8 x 8 tile of a warp, FP64 tensor cores: lane l holds
+// A[l / 4][l % 4], B[l % 4][l / 4] and C, D[l / 4][2 (l % 4) + {0, 1}]
+__device__ __forceinline__ void dmma_8x8x4(double& d0, double& d1, double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};"
+               : "+d"(d0), "+d"(d1)
+               : "d"(a), "d"(b));
+}
+
+// K11's phase 3 on the FP64 tensor cores: the slice's partial S = WV Wg^T
+// (WV [6W, 3 mb], row i = 6w + a holding WV[w, ml, 3a + c] at k = 3 ml + c;
+// Wg likewise) and its right-hand side WV g_x, the latter as column 6W of
+// the product; 8 x 8 tiles of the lower triangle and of column 6W, row by
+// row, tile t to warp t mod warps; a warp runs up to four of its tiles at
+// once, each over k in steps of four (zero past 3 mb) in two chains, the
+// even steps' and the odd steps', added at the end; written into ``part``
+// packed
+__device__ __forceinline__ void mma_tile_of(int t, int cD, int& r, int& c) {
+  int base = 0;
+  for (r = 0;; ++r) {
+    const int nc = r + 1 + (cD > r ? 1 : 0);
+    if (t < base + nc) {
+      c = t - base <= r ? t - base : cD;
+      return;
+    }
+    base += nc;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void slice_partials_mma(const T* WV, const T* Wg, const T* gx, int W,
+                                                   int mb, T* __restrict__ part) {
+  const int D = 6 * W, K = 3 * mb, nS = D * (D + 1) / 2;
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp, g = lane >> 2, q = lane & 3;
+  const int R8 = (D + 7) / 8, cD = D / 8;   // row tiles; the tile column of column D
+  const int tiles = R8 * (R8 + 1) / 2 + min(cD, R8);
+  constexpr int kTiles = 4;
+  for (int t0 = warp; t0 < tiles; t0 += kTiles * warps) {
+    int r[kTiles], c[kTiles];
+    const T* ab[kTiles];
+    const T* bb[kTiles];
+    double d[kTiles][2][2];
+#pragma unroll
+    for (int n = 0; n < kTiles; ++n) {
+      const int t = t0 + n * warps;
+      r[n] = c[n] = 0;
+      if (t < tiles) mma_tile_of(t, cD, r[n], c[n]);
+      const int i = 8 * r[n] + g, j = 8 * c[n] + g;
+      ab[n] = i < D ? WV + 18 * (i / 6) * mb + 3 * (i % 6) : nullptr;
+      bb[n] = j < D ? Wg + 18 * (j / 6) * mb + 3 * (j % 6) : j == D ? gx : nullptr;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) d[n][h][0] = d[n][h][1] = 0.0;
+    }
+    for (int k0 = 0; k0 < K; k0 += 8) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = k0 + 4 * h + q, ml = k / 3, kc = k - 3 * ml;
+        const bool in_k = k < K;
+#pragma unroll
+        for (int n = 0; n < kTiles; ++n) {
+          if (t0 + n * warps >= tiles) continue;   // warp-uniform
+          const double av = in_k && ab[n] ? double(ab[n][18 * ml + kc]) : 0.0;
+          const double bv = !in_k || !bb[n] ? 0.0 : bb[n] == gx ? double(gx[k])
+                                                                : double(bb[n][18 * ml + kc]);
+          dmma_8x8x4(d[n][h][0], d[n][h][1], av, bv);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kTiles; ++n) {
+      if (t0 + n * warps >= tiles) continue;
+      const int oi = 8 * r[n] + g;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int oj = 8 * c[n] + 2 * q + e;
+        const T v = T(d[n][0][e] + d[n][1][e]);
+        if (oi < D && oj <= oi) part[oi * (oi + 1) / 2 + oj] = v;
+        else if (oi < D && oj == D) part[nS + oi] = v;
+      }
+    }
+  }
+}
+
+// shared memory (elements of T) of the cooperative design: the slice's
+// gauged W_blk [W MB, 18], V^-1 [MB, 9] and g_x [MB, 3], kept to the end
+// for the back-substitution; then W V^-1 [W MB, 18] in phases 2-3, the
+// same room after the grid's barrier holding S with its right-hand side as
+// row D [D + 1, D] where S lives in shared memory, the reciprocal pivots
+// and the solution [D] each and the gauge [W]
+__host__ __device__ inline size_t step_smem_elems(int W, int MB, bool s_shared) {
+  const size_t D = size_t(6) * W;
+  const size_t keep = size_t(18) * W * MB + size_t(12) * MB;
+  const size_t wv = size_t(18) * W * MB;
+  const size_t solve = (s_shared ? (D + 1) * D : 0) + 2 * D + W;
+  return keep + (wv > solve ? wv : solve);
+}
+
+// The Cholesky factor of S [D + 1, D] (row stride D, the lower triangle;
+// row D the right-hand side) in place, in W block steps of 6 columns: one
+// thread factors the diagonal block in registers, all threads solve the
+// rows below it against that block (the right-hand side's row among them),
+// and all threads update the trailing lower triangle, a warp a row. Each
+// entry takes the updates of the pivots in pivot order (a rounded product,
+// then a rounded difference), as the ticket design's; but each column is
+// scaled by the reciprocal of its pivot, r_j = rsqrt(d_j), a product where
+// the ticket design divides by sqrt(d_j): the chain of the 6W pivots is a
+// reciprocal square root and a product each, not a square root and a
+// division. The forward sweep z is row D after the last step. Then warp 0
+// solves L^T x = z block by block from the last, x_j = z_j r_j, each z_i
+// taking x_j L_ji in descending j. ``rp`` gets the reciprocal pivots, ``x``
+// the solution; *fail 1 where a pivot is not > 0 (then x is not written).
+template <typename T>
+__device__ void factor_solve(T* S, int D, T* rp, T* x, int* fail) {
+  const int tid = threadIdx.x, lane = tid & (kWarp - 1), warp = tid / kWarp;
+  const int warps = blockDim.x / kWarp;
+  long long since = clock64();
+  for (int c0 = 0; c0 < D; c0 += 6) {
+    if (tid == 0) {
+      // L[l (l + 1) / 2 + m], m <= l < 6: the diagonal block
+      T L[21];
+#pragma unroll
+      for (int l = 0; l < 6; ++l)
+#pragma unroll
+        for (int m = 0; m <= l; ++m) L[l * (l + 1) / 2 + m] = S[size_t(c0 + l) * D + c0 + m];
+      bool ok = true;
+#pragma unroll
+      for (int a = 0; a < 6; ++a) {
+        const T d = L[a * (a + 1) / 2 + a];
+        ok = ok && d > T(0);
+        const T r = rsqrt(d);
+        rp[c0 + a] = r;
+#pragma unroll
+        for (int l = a + 1; l < 6; ++l) L[l * (l + 1) / 2 + a] = L[l * (l + 1) / 2 + a] * r;
+#pragma unroll
+        for (int m = a + 1; m < 6; ++m)
+#pragma unroll
+          for (int l = m; l < 6; ++l)
+            L[l * (l + 1) / 2 + m] =
+                L[l * (l + 1) / 2 + m] - L[l * (l + 1) / 2 + a] * L[m * (m + 1) / 2 + a];
+      }
+      if (!ok) *fail = 1;
+#pragma unroll
+      for (int l = 1; l < 6; ++l)
+#pragma unroll
+        for (int m = 0; m < l; ++m) S[size_t(c0 + l) * D + c0 + m] = L[l * (l + 1) / 2 + m];
+    }
+    __syncthreads();
+    add_cycles(12, since);
+    if (*fail) return;
+    // the rows below the block (the right-hand side's row D last)
+    const T* L = S + size_t(c0) * D + c0;
+    for (int i = c0 + 6 + tid; i <= D; i += blockDim.x) {
+      T* r = S + size_t(i) * D + c0;
+      T y[6];
+#pragma unroll
+      for (int a = 0; a < 6; ++a) {
+        T s = r[a];
+#pragma unroll
+        for (int b = 0; b < a; ++b) s = s - y[b] * L[size_t(a) * D + b];
+        y[a] = s * rp[c0 + a];
+      }
+#pragma unroll
+      for (int a = 0; a < 6; ++a) r[a] = y[a];
+    }
+    __syncthreads();
+    add_cycles(13, since);
+    // the trailing lower triangle (and row D), a warp a row
+    for (int i = c0 + 6 + warp; i <= D; i += warps) {
+      const T* li = S + size_t(i) * D + c0;
+      T l[6];
+#pragma unroll
+      for (int a = 0; a < 6; ++a) l[a] = li[a];
+      const int last = i < D ? i : D - 1;
+      for (int m = c0 + 6 + lane; m <= last; m += kWarp) {
+        const T* lm = S + size_t(m) * D + c0;
+        T s = S[size_t(i) * D + m];
+#pragma unroll
+        for (int a = 0; a < 6; ++a) s = s - l[a] * lm[a];
+        S[size_t(i) * D + m] = s;
+      }
+    }
+    __syncthreads();
+    add_cycles(14, since);
+  }
+  // L^T x = z: warp 0, a block at a time from the last; lane 0 the block's
+  // six unknowns (its z, pivots and L entries loaded first, then the chain
+  // in registers), then every lane the entries of z above the block
+  if (warp == 0) {
+    T* z = S + size_t(D) * D;
+    for (int c0 = D - 6; c0 >= 0; c0 -= 6) {
+      if (lane == 0) {
+        T zb[6], rb[6], L[15];
+#pragma unroll
+        for (int a = 0; a < 6; ++a) {
+          zb[a] = z[c0 + a];
+          rb[a] = rp[c0 + a];
+        }
+#pragma unroll
+        for (int a = 1; a < 6; ++a)
+#pragma unroll
+          for (int b = 0; b < a; ++b) L[a * (a - 1) / 2 + b] = S[size_t(c0 + a) * D + c0 + b];
+#pragma unroll
+        for (int a = 5; a >= 0; --a) {
+          const T xj = zb[a] * rb[a];
+          x[c0 + a] = xj;
+#pragma unroll
+          for (int b = 0; b < a; ++b) zb[b] = zb[b] - L[a * (a - 1) / 2 + b] * xj;
+        }
+      }
+      __syncwarp();
+      for (int i = lane; i < c0; i += kWarp) {
+        T s = z[i];
+        for (int a = 5; a >= 0; --a) s = s - S[size_t(c0 + a) * D + i] * x[c0 + a];
+        z[i] = s;
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  add_cycles(15, since);
+}
+
+// The cooperative design (launched), one launch with every CTA resident
+// (ops/cuda_ba.py checks the grid against the occupancy API; the launch
+// raises where it cannot be): each CTA runs phases 1-3 on its slice (phase
+// 3, the slice's partial S, on the FP64 tensor cores in float64:
+// slice_partials_mma) and keeps its gauged W_blk, V^-1 and g_x in shared
+// memory;
+// after a grid barrier each CTA sums its share of S's entries (entry e to
+// CTA e mod C) over the C slices in slice order, assembles them and writes
+// S [D + 1, D] to a global scratch; after a second barrier every CTA (CTA 0
+// alone where S lives in global memory, then a third barrier) factors S,
+// solves for dp (factor_solve), and back-substitutes its own slice's dx and
+// candidate points; CTA 0 writes dp and the candidate poses. In float32
+// S and its right-hand side equal the ticket design's bit for bit (every
+// sum in its order); in float64 the tensor cores sum each slice's entries
+// in their own order; the factor differs from the ticket design's by the
+// reciprocal pivots (factor_solve): the step agrees with it within the
+// roundoff of its sums.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ba_step_kernel(const T* __restrict__ t, const T* __restrict__ q, const T* __restrict__ X,
+                   const T* __restrict__ sc, Inputs<T> in, const T* __restrict__ U,
+                   const T* __restrict__ V, const T* __restrict__ Wb, const T* __restrict__ g_p,
+                   const T* __restrict__ g_x, const T* __restrict__ H_o, T* __restrict__ dp,
+                   T* __restrict__ dx, T* __restrict__ cand_t, T* __restrict__ cand_q,
+                   T* __restrict__ cand_X, T* __restrict__ Vinv, T* __restrict__ partials,
+                   T* __restrict__ S_g, unsigned* __restrict__ bar, int s_shared,
+                   double landmark_damping) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_fail;
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int W = in.W, M = in.M, D = 6 * W, tid = threadIdx.x, C = gridDim.x;
+  const int m0 = blockIdx.x * in.MB;
+  const int mb = min(in.MB, M - m0);
+  const T lam = sc[B_LAM];
+  T* Wg = sm;                  // [W, mb, 18] W_blk * gauge
+  T* Vi = Wg + 18 * W * mb;    // [mb, 9]
+  T* gx = Vi + 9 * mb;         // [mb, 3]
+  T* WV = gx + 3 * mb;         // [W, mb, 18] W V^-1; then the solve's room
+  stamp(kStampStep, 0);
+  step_slice<T, true>(in, lam, landmark_damping, V, Wb, g_x, Vinv, Wg, WV, Vi, gx, kStampStep);
+  // 3. the slice's partial sums of S's lower triangle (row-major) and of
+  // the right-hand side's landmark term, over its landmarks in order: a
+  // thread a 3 x 3 tile of rows 3r..3r+2 and columns 3c..3c+2, c <= r (the
+  // tile's row and column each within one pose block), or the right-hand
+  // side's rows 3r..3r+2; a tile's row r from a float32 square root and an
+  // integer correction. Each entry sums as the ticket design's thread does.
+  const int nS = D * (D + 1) / 2, R = 2 * W, nT = R * (R + 1) / 2;
+  const size_t stride = size_t(nS) + D;
+  T* part = partials + blockIdx.x * stride;
+  long long since = clock64();
+  if constexpr (std::is_same<T, double>::value)
+    slice_partials_mma(WV, Wg, gx, W, mb, part);
+  else
+  for (int u = tid; u < nT + R; u += blockDim.x) {
+    if (u < nT) {
+      int r = int((sqrtf(float(8 * u + 1)) - 1.0f) * 0.5f);
+      while (r * (r + 1) / 2 > u) --r;
+      while ((r + 1) * (r + 2) / 2 <= u) ++r;
+      const int c = u - r * (r + 1) / 2;
+      const int w = r / 2, a0 = 3 * (r - 2 * w), v = c / 2, b0 = 3 * (c - 2 * v);
+      T acc[9];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) acc[k] = T(0);
+      for (int ml = 0; ml < mb; ++ml) {
+        const T* xp = WV + 18 * (w * mb + ml) + 3 * a0;
+        const T* yp = Wg + 18 * (v * mb + ml) + 3 * b0;
+        T x[9], y[9];
+#pragma unroll
+        for (int k = 0; k < 9; ++k) {
+          x[k] = xp[k];
+          y[k] = yp[k];
+        }
+#pragma unroll
+        for (int pa = 0; pa < 3; ++pa)
+#pragma unroll
+          for (int qb = 0; qb < 3; ++qb)
+            acc[3 * pa + qb] = acc[3 * pa + qb] + ((x[3 * pa] * y[3 * qb] +
+                                                    x[3 * pa + 1] * y[3 * qb + 1]) +
+                                                   x[3 * pa + 2] * y[3 * qb + 2]);
+      }
+#pragma unroll
+      for (int pa = 0; pa < 3; ++pa)
+#pragma unroll
+        for (int qb = 0; qb < 3; ++qb) {
+          const int i = 3 * r + pa, j = 3 * c + qb;
+          if (j <= i) part[i * (i + 1) / 2 + j] = acc[3 * pa + qb];
+        }
+    } else {
+      const int r = u - nT, w = r / 2, a0 = 3 * (r - 2 * w);
+      T acc[3] = {T(0), T(0), T(0)};
+      for (int ml = 0; ml < mb; ++ml) {
+        const T* x = WV + 18 * (w * mb + ml) + 3 * a0;
+        const T* y = gx + 3 * ml;
+#pragma unroll
+        for (int pa = 0; pa < 3; ++pa)
+          acc[pa] = acc[pa] + ((x[3 * pa] * y[0] + x[3 * pa + 1] * y[1]) + x[3 * pa + 2] * y[2]);
+      }
+#pragma unroll
+      for (int pa = 0; pa < 3; ++pa) part[nS + 3 * r + pa] = acc[pa];
+    }
+  }
+  add_cycles(16, since);
+  stamp(kStampStep, 3);
+  grid_barrier(bar);
+  stamp(kStampStep, 4);
+
+  // 4. this CTA's share of S = (-sum + blockdiag(U_damped)) + He and of the
+  // right-hand side, each entry over the slices in order, into S_g
+  for (int e = blockIdx.x + C * tid; e < nS + D; e += C * blockDim.x) {
+    const T acc = sum_slices<T, true>(partials + e, stride, C);
+    if (e < nS) {
+      int i = int((sqrtf(float(8 * e + 1)) - 1.0f) * 0.5f);
+      while (i * (i + 1) / 2 > e) --i;
+      while ((i + 1) * (i + 2) / 2 <= e) ++i;
+      const int j = e - i * (i + 1) / 2;
+      const int w = i / 6, a = i - 6 * w, v = j / 6, b = j - 6 * v;
+      const T gw = gauge_of(in.pose_mask, w), gv = gauge_of(in.pose_mask, v);
+      T s = -acc;
+      if (w == v) {
+        // U * gauge, + lam diag, + (1 - gauge) on the diagonal
+        T u = U[36 * w + 6 * a + b] * gw;
+        if (a == b) u = (u + lam * u) + (T(1) - gw);
+        s = s + u;
+      }
+      // He = H_o gauged on both sides, + lam diag(He); H_o's band only
+      T he = abs(w - v) <= 1 ? (H_o[size_t(i) * D + j] * gw) * gv : T(0);
+      if (i == j) he = he + lam * he;
+      S_g[size_t(i) * D + j] = s + he;
+    } else {
+      const int i = e - nS;
+      S_g[size_t(D) * D + i] = g_p[i] * gauge_of(in.pose_mask, i / 6) - acc;
+    }
+  }
+  stamp(kStampStep, 5);
+  grid_barrier(bar);
+  stamp(kStampStep, 6);
+
+  // 5. the factorisation and the solves: every CTA where S fits its shared
+  // memory, else CTA 0 in S_g
+  T* S = s_shared ? WV : S_g;
+  T* rp = s_shared ? WV + size_t(D + 1) * D : WV;   // the reciprocal pivots
+  T* xs = rp + D;          // the solution, then dp
+  if (s_shared || blockIdx.x == 0) {
+    if (s_shared) {
+      // eight loads in flight a thread
+      for (int e0 = tid; e0 < (D + 1) * D; e0 += 8 * blockDim.x) {
+        T v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int e = e0 + k * blockDim.x;
+          if (e < (D + 1) * D) v[k] = __ldcg(S_g + e);
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int e = e0 + k * blockDim.x;
+          if (e < (D + 1) * D) S[e] = v[k];
+        }
+      }
+    }
+    if (tid == 0) s_fail = 0;
+    __syncthreads();
+    stamp(kStampStep, 7);
+    factor_solve(S, D, rp, xs, &s_fail);
+    stamp(kStampStep, 8);
+    const bool failed = s_fail != 0;
+    for (int i = tid; i < D; i += blockDim.x) {
+      const T v = failed ? T(NAN) : -xs[i];
+      xs[i] = v * gauge_of(in.pose_mask, i / 6);
+    }
+    __syncthreads();
+    if (blockIdx.x == 0) {
+      for (int i = tid; i < D; i += blockDim.x) dp[i] = xs[i];
+      // the candidate poses t + dt, q (x) exp(dw)
+      for (int w = tid; w < W; w += blockDim.x) {
+        const T* d = xs + 6 * w;
+        cand_t[3 * w] = t[3 * w] + d[0];
+        cand_t[3 * w + 1] = t[3 * w + 1] + d[1];
+        cand_t[3 * w + 2] = t[3 * w + 2] + d[2];
+        const Quat<T> cq = spline::qmul(
+            load_q(q, w), spline::quat_exp(V3<T>{d[3], d[4], d[5]}, small_threshold<T>()));
+        cand_q[4 * w] = cq.x;
+        cand_q[4 * w + 1] = cq.y;
+        cand_q[4 * w + 2] = cq.z;
+        cand_q[4 * w + 3] = cq.w;
+      }
+    }
+  }
+  if (!s_shared) {
+    grid_barrier(bar);
+    for (int i = tid; i < D; i += blockDim.x) xs[i] = __ldcg(dp + i);
+    __syncthreads();
+  }
+  stamp(kStampStep, 9);
+  // 6. this slice's dx = -V^-1 (g_x + sum_w (W_blk gauge)^T dp), the
+  // candidate points
+  for (int ml = tid; ml < mb; ml += blockDim.x) {
+    const size_t m = size_t(m0 + ml);
+    T v[3];
+#pragma unroll
+    for (int b = 0; b < 3; ++b) v[b] = T(0);
+    for (int w = 0; w < W; ++w) {
+      const T* wb = Wg + 18 * (w * mb + ml);
+      for (int a = 0; a < 6; ++a) {
+        const T d = xs[6 * w + a];
+#pragma unroll
+        for (int b = 0; b < 3; ++b) v[b] = v[b] + wb[3 * a + b] * d;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < 3; ++b) v[b] = gx[3 * ml + b] + v[b];
+    const T* vi = Vi + 9 * ml;
+    const T pm = in.point_mask[m];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const T d = -((vi[3 * a] * v[0] + vi[3 * a + 1] * v[1]) + vi[3 * a + 2] * v[2]);
+      dx[3 * m + a] = d;
+      cand_X[3 * m + a] = X[3 * m + a] + d * pm;
+    }
+  }
+  stamp(kStampStep, 10);
 }
 
 // ------------------------------------------------------------------ K12
@@ -1059,27 +1866,86 @@ bool bad_sizes(int W, int M, int MB) { return W < 1 || M < 1 || MB < 1; }
 
 template <typename T>
 int launch_build(const T* t, const T* q, const T* X, T* sc, Inputs<T> in, T* U, T* V, T* Wb,
-                 T* g_p, T* g_x, T* H_o, T* partials, unsigned* ticket, double huber_a,
+                 T* g_p, T* g_x, T* H_o, T* partials, T* edges, unsigned* ticket, double huber_a,
                  cudaStream_t stream) {
   if (bad_sizes(in.W, in.M, in.MB)) return cudaErrorInvalidValue;
   const size_t smem = build_smem_elems(in.W, in.MB) * sizeof(T);
   cudaError_t err = opt_in(ba_build_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  ba_build_kernel<T><<<grid_of(in.M, in.MB), kThreads, smem, stream>>>(
-      t, q, X, sc, in, U, V, Wb, g_p, g_x, H_o, partials, ticket, huber_a);
+  // one more CTA for the prior's edges where there are any
+  const int extra = in.odom_t != nullptr && in.W > 1 ? 1 : 0;
+  ba_build_kernel<T><<<grid_of(in.M, in.MB) + extra, kBuildThreads, smem, stream>>>(
+      t, q, X, sc, in, U, V, Wb, g_p, g_x, H_o, partials, edges, ticket, huber_a);
   return cudaGetLastError();
 }
 
 template <typename T>
+int launch_build_ticket(const T* t, const T* q, const T* X, T* sc, Inputs<T> in, T* U, T* V,
+                        T* Wb, T* g_p, T* g_x, T* H_o, T* partials, unsigned* ticket,
+                        double huber_a, cudaStream_t stream) {
+  if (bad_sizes(in.W, in.M, in.MB)) return cudaErrorInvalidValue;
+  const size_t smem = build_smem_elems(in.W, in.MB) * sizeof(T);
+  cudaError_t err = opt_in(ba_build_ticket_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  ba_build_ticket_kernel<T><<<grid_of(in.M, in.MB), kThreads, smem, stream>>>(
+      t, q, X, sc, in, U, V, Wb, g_p, g_x, H_o, partials, ticket, huber_a);
+  return cudaGetLastError();
+}
+
+// the cooperative design's CTAs one SM holds at once (the occupancy API,
+// with the kernel's dynamic shared memory), or minus a CUDA error
+template <typename T>
+int step_blocks_per_sm(int W, int MB, bool s_shared) {
+  const size_t smem = step_smem_elems(W, MB, s_shared) * sizeof(T);
+  cudaError_t err = opt_in(ba_step_kernel<T>, smem);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, ba_step_kernel<T>, kThreads, smem);
+  return err == cudaSuccess ? n : -int(err);
+}
+
+// a cooperative launch (cudaLaunchAttributeCooperative): the runtime refuses
+// a grid that cannot be resident at once, which grid_barrier needs
+template <typename T>
 int launch_step(const T* t, const T* q, const T* X, const T* sc, Inputs<T> in, const T* U,
                 const T* V, const T* Wb, const T* g_p, const T* g_x, const T* H_o, T* dp, T* dx,
-                T* cand_t, T* cand_q, T* cand_X, T* Vinv, T* partials, T* S_global,
-                unsigned* ticket, double landmark_damping, cudaStream_t stream) {
-  if (bad_sizes(in.W, in.M, in.MB)) return cudaErrorInvalidValue;
-  const size_t smem = step_smem_elems(in.W, in.MB, S_global == nullptr) * sizeof(T);
+                T* cand_t, T* cand_q, T* cand_X, T* Vinv, T* partials, T* S_g, unsigned* bar,
+                int s_shared, double landmark_damping, cudaStream_t stream) {
+  if (bad_sizes(in.W, in.M, in.MB) || S_g == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = step_smem_elems(in.W, in.MB, s_shared != 0) * sizeof(T);
   cudaError_t err = opt_in(ba_step_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  ba_step_kernel<T><<<grid_of(in.M, in.MB), kThreads, smem, stream>>>(
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid_of(in.M, in.MB));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ba_step_kernel<T>, t, q, X, sc, in, U, V, Wb, g_p, g_x, H_o, dp,
+                           dx, cand_t, cand_q, cand_X, Vinv, partials, S_g, bar, s_shared,
+                           landmark_damping);
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // not left for the next launch's check
+    return err;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_step_ticket(const T* t, const T* q, const T* X, const T* sc, Inputs<T> in,
+                       const T* U, const T* V, const T* Wb, const T* g_p, const T* g_x,
+                       const T* H_o, T* dp, T* dx, T* cand_t, T* cand_q, T* cand_X, T* Vinv,
+                       T* partials, T* S_global, unsigned* ticket, double landmark_damping,
+                       cudaStream_t stream) {
+  if (bad_sizes(in.W, in.M, in.MB)) return cudaErrorInvalidValue;
+  const size_t smem = step_ticket_smem_elems(in.W, in.MB, S_global == nullptr) * sizeof(T);
+  cudaError_t err = opt_in(ba_step_ticket_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  ba_step_ticket_kernel<T><<<grid_of(in.M, in.MB), kThreads, smem, stream>>>(
       t, q, X, sc, in, U, V, Wb, g_p, g_x, H_o, dp, dx, cand_t, cand_q, cand_X, Vinv, partials,
       S_global, ticket, landmark_damping);
   return cudaGetLastError();
@@ -1107,36 +1973,92 @@ extern "C" {
 
 int ba_scalars_size() { return B_SIZE; }
 
-// shared bytes of each kernel at W poses, MB landmarks a CTA and the dtype's
-// size (K11 with S in shared memory when s_shared)
-long long ba_smem_bytes(int kernel, int W, int MB, int itemsize, int s_shared) {
-  const size_t e = kernel == 10 ? build_smem_elems(W, MB)
-                   : kernel == 11 ? step_smem_elems(W, MB, s_shared != 0)
+// shared bytes of kernel 10, 11 or 12 (``ticket``: the earlier design of K10
+// or K11) at W poses, MB landmarks a CTA and the dtype's size (K11 with S in
+// shared memory when s_shared)
+long long ba_smem_bytes(int kernel, int ticket, int W, int MB, int itemsize, int s_shared) {
+  const size_t e = kernel == 10   ? build_smem_elems(W, MB)
+                   : kernel == 11 ? (ticket ? step_ticket_smem_elems(W, MB, s_shared != 0)
+                                            : step_smem_elems(W, MB, s_shared != 0))
                                   : commit_smem_elems(W, MB);
   return (long long)(e * size_t(itemsize));
 }
+
+// K11's CTAs one SM of the current device holds at once, or minus a CUDA
+// error
+int ba_step_blocks_per_sm(int W, int MB, int itemsize, int s_shared) {
+  return itemsize == 8 ? step_blocks_per_sm<double>(W, MB, s_shared != 0)
+                       : step_blocks_per_sm<float>(W, MB, s_shared != 0);
+}
+
+// whether this build stamps its phases (BA_PHASE_CLOCKS), and the stamps'
+// dimensions: kernels, CTAs, slots
+int ba_phase_clocks(int which) {
+#ifdef BA_PHASE_CLOCKS
+  const int on = 1;
+#else
+  const int on = 0;
+#endif
+  return which == 0 ? on : which == 1 ? kStampKernels : which == 2 ? kStampCtas : kStampSlots;
+}
+
+#ifdef BA_PHASE_CLOCKS
+// the stamps zeroed (reset) or copied to ``out`` [kernels, CTAs, slots]
+int ba_stamps(unsigned long long* out, int reset, cudaStream_t stream) {
+  void* at = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&at, g_stamps);
+  if (err != cudaSuccess) return err;
+  if (reset) return cudaMemsetAsync(at, 0, sizeof(g_stamps), stream);
+  err = cudaMemcpyAsync(out, at, sizeof(g_stamps), cudaMemcpyDeviceToHost, stream);
+  return err != cudaSuccess ? err : cudaStreamSynchronize(stream);
+}
+#endif
 
 #define BA_ENTRIES(T, SUFFIX)                                                                  \
   int ba_build_##SUFFIX(const T* t, const T* q, const T* X, T* sc, const T* obs,              \
                         const T* obs_mask, const T* point_mask, const T* K, const T* odom_t,  \
                         const T* odom_q, const T* odom_w, const T* pose_mask, T* U, T* V,     \
-                        T* Wb, T* g_p, T* g_x, T* H_o, T* partials, unsigned* ticket, int W,  \
-                        int M, int MB, double huber_a, cudaStream_t stream) {                 \
+                        T* Wb, T* g_p, T* g_x, T* H_o, T* partials, T* edges,                 \
+                        unsigned* ticket, int W, int M, int MB, double huber_a,               \
+                        cudaStream_t stream) {                                                \
     return launch_build<T>(t, q, X, sc,                                                        \
                            inputs<T>(obs, obs_mask, point_mask, K, odom_t, odom_q, odom_w,     \
                                      pose_mask, W, M, MB),                                     \
-                           U, V, Wb, g_p, g_x, H_o, partials, ticket, huber_a, stream);        \
+                           U, V, Wb, g_p, g_x, H_o, partials, edges, ticket, huber_a, stream); \
+  }                                                                                            \
+  int ba_build_ticket_##SUFFIX(const T* t, const T* q, const T* X, T* sc, const T* obs,       \
+                               const T* obs_mask, const T* point_mask, const T* K,            \
+                               const T* odom_t, const T* odom_q, const T* odom_w,             \
+                               const T* pose_mask, T* U, T* V, T* Wb, T* g_p, T* g_x, T* H_o, \
+                               T* partials, unsigned* ticket, int W, int M, int MB,           \
+                               double huber_a, cudaStream_t stream) {                         \
+    return launch_build_ticket<T>(t, q, X, sc,                                                 \
+                                  inputs<T>(obs, obs_mask, point_mask, K, odom_t, odom_q,      \
+                                            odom_w, pose_mask, W, M, MB),                      \
+                                  U, V, Wb, g_p, g_x, H_o, partials, ticket, huber_a, stream); \
   }                                                                                            \
   int ba_step_##SUFFIX(const T* t, const T* q, const T* X, const T* sc, const T* point_mask,  \
                        const T* pose_mask, const T* U, const T* V, const T* Wb, const T* g_p,  \
                        const T* g_x, const T* H_o, T* dp, T* dx, T* cand_t, T* cand_q,         \
-                       T* cand_X, T* Vinv, T* partials, T* S_global, unsigned* ticket, int W,  \
-                       int M, int MB, double landmark_damping, cudaStream_t stream) {          \
+                       T* cand_X, T* Vinv, T* partials, T* S_g, unsigned* bar, int W, int M,   \
+                       int MB, int s_shared, double landmark_damping, cudaStream_t stream) {   \
     return launch_step<T>(t, q, X, sc,                                                         \
                           inputs<T>(nullptr, nullptr, point_mask, nullptr, nullptr, nullptr,   \
                                     nullptr, pose_mask, W, M, MB),                             \
                           U, V, Wb, g_p, g_x, H_o, dp, dx, cand_t, cand_q, cand_X, Vinv,       \
-                          partials, S_global, ticket, landmark_damping, stream);               \
+                          partials, S_g, bar, s_shared, landmark_damping, stream);             \
+  }                                                                                            \
+  int ba_step_ticket_##SUFFIX(const T* t, const T* q, const T* X, const T* sc,                \
+                              const T* point_mask, const T* pose_mask, const T* U, const T* V, \
+                              const T* Wb, const T* g_p, const T* g_x, const T* H_o, T* dp,    \
+                              T* dx, T* cand_t, T* cand_q, T* cand_X, T* Vinv, T* partials,    \
+                              T* S_global, unsigned* ticket, int W, int M, int MB,             \
+                              double landmark_damping, cudaStream_t stream) {                  \
+    return launch_step_ticket<T>(t, q, X, sc,                                                  \
+                                 inputs<T>(nullptr, nullptr, point_mask, nullptr, nullptr,     \
+                                           nullptr, nullptr, pose_mask, W, M, MB),             \
+                                 U, V, Wb, g_p, g_x, H_o, dp, dx, cand_t, cand_q, cand_X,      \
+                                 Vinv, partials, S_global, ticket, landmark_damping, stream);  \
   }                                                                                            \
   int ba_commit_##SUFFIX(T* t, T* q, T* X, T* sc, const T* obs, const T* obs_mask,            \
                          const T* point_mask, const T* K, const T* odom_t, const T* odom_q,   \

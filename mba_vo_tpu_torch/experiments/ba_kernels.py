@@ -4,7 +4,9 @@ one NVIDIA GPU: record, hold against the plain versions, time.
 K10 ``ba_build``, K11 ``ba_step`` and K12 ``ba_commit`` are
 ``csrc/bundle_adjust.cu`` (``ops/cuda_ba.py``); their plain versions are
 ``backend/ba.py``'s ``ba_build_plain``, ``ba_step_plain`` and
-``ba_commit_plain``.
+``ba_commit_plain``. On the card, ``python -m
+mba_vo_tpu_torch.experiments.ba_kernels`` runs :func:`main` on
+``chip_smoke.py`` 8a's window (:func:`window_arrays`).
 
 :func:`record_ba_calls` records every LM iteration that
 ``run_bundle_adjustment`` runs on the kernels: the problem it was bound to
@@ -38,7 +40,16 @@ binding (the loop's host call), ``device_ms`` warm in a replayed CUDA graph
 of the calls, ``device_cold_ms`` after an L2 flush, the plain version's call
 (``plain_ms``), the bound (:func:`ba_bound`) and, for K11, the library's
 Cholesky (``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve``) on the
-same reduced camera system S, a yardstick the port never calls.
+same reduced camera system S, a yardstick the port never calls. K10 and K11
+are timed in both designs, the launched one and the earlier ticket design, in
+turn (launched, ticket, ticket, launched).
+
+:func:`hold_designs` holds the ticket designs against the launched ones on a
+recorded iteration (bit for bit: the two take every sum in one order);
+:func:`phase_split` times each design's phases from the stamps of
+``bundle_adjust.cu``'s harness-only build (``BA_PHASE_CLOCKS``, a library of
+its own; the path never loads it); :func:`cholesky_solve_ordered` is K11's
+Cholesky solve in its order of operations, in torch.
 """
 
 from __future__ import annotations
@@ -46,15 +57,21 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import re
 import statistics
 from typing import Dict, Iterator, List, Tuple
 
+import numpy as np
 import torch
 
 from . import kernel_variants as kv
 from .residual_kernels import F64_FLOPS_PER_S
 
 BA_KERNELS = ("ba_build", "ba_step", "ba_commit")
+# each kernel's designs by BABinding method: the launched one first, then
+# the earlier ticket design where the kernel was redesigned
+DESIGNS = {"ba_build": ("build", "build_ticket"), "ba_step": ("step", "step_ticket"),
+           "ba_commit": ("commit",)}
 # of each output's largest magnitude (chip_smoke.py's bounds)
 TOLERANCE = {torch.float32: 1e-5, torch.float64: 1e-12}
 
@@ -101,11 +118,15 @@ def record_ba_calls() -> Iterator[List[BACall]]:
 
     calls: List[BACall] = []
     original = cuda_ba.BABinding.build
-    runs: Dict[int, int] = {}
+    runs = [0]
 
     def build(self):
-        call = BACall(self.state_problem(), self.scalars, self.opts,
-                      runs.setdefault(id(self), len(runs)))
+        # a run's number kept on its binding (an object's id() is reused once
+        # it is freed, which would join two runs)
+        if not hasattr(self, "_recorded_run"):
+            self._recorded_run = runs[0]
+            runs[0] += 1
+        call = BACall(self.state_problem(), self.scalars, self.opts, self._recorded_run)
         call.problem, call.scalars = call.fresh()
         calls.append(call)
         return original(self)
@@ -274,6 +295,50 @@ def _held_within(label: str, name: str, out: torch.Tensor, ref: torch.Tensor, bo
     return share
 
 
+def _hold_step(label: str, call: BACall, built, sk: torch.Tensor, cand, ref) -> dict:
+    """K11's outputs ``cand`` against ``ref`` (the plain version's, or another
+    design's) on ``built`` at the scalars ``sk``: within the bound of each
+    output's magnitude, else within what roundoff in K11's sums can move them
+    by (:func:`step_bounds`) where S is definite beyond its roundoff; where S
+    is indefinite beyond it both steps are NaN; at the edge unchecked.
+    Returns ba_step (the largest difference of each output's magnitude),
+    ba_step_share, ba_step_checked, step_status, kappa and kappa_V."""
+    bound = TOLERANCE[call.dtype]
+    out = dict(ba_step=max(rel_diff(a, r) for a, r in zip(cand, ref)), ba_step_share=0.0,
+               ba_step_checked=True, step_status="within the bound", kappa=None, kappa_V=None)
+    if out["ba_step"] <= bound:
+        sb = {"status": "within the bound"}
+    else:
+        sb = step_bounds(call, built, sk, ref)
+        out.update(kappa=sb["kappa"], kappa_V=sb["kappa_V"], step_status=sb["status"],
+                   ba_step_checked=sb["status"] != "edge")
+    if sb["status"] == "indefinite":
+        for name, a, r in zip(("dp", "dx", "cand t", "cand q", "cand X"), cand, ref):
+            if not torch.equal(torch.isnan(a), torch.isnan(r)):
+                raise AssertionError(f"{label}: S is indefinite; {name}'s NaN entries "
+                                     f"differ from the reference's")
+        out["ba_step"] = 0.0
+    elif sb["status"] == "definite":
+        kind = f"{label} (kappa_2(S) {sb['kappa']:.3e})"
+        t_abs = call.problem.poses.t.abs().to(torch.float64)
+        X_abs = call.problem.map.points.abs().to(torch.float64)
+        c = 2.0 * 6 * call.W * UNIT_ROUNDOFF[call.dtype]
+        for name, i, b in (("dp", 0, sb["dp"]), ("cand t", 2, sb["dp"] + c * t_abs),
+                           ("cand q", 3, sb["dp"] + c), ("dx", 1, sb["dx"]),
+                           ("cand X", 4, sb["dx"] + c * X_abs)):
+            out["ba_step_share"] = max(out["ba_step_share"],
+                                       _held_within(kind, name, cand[i], ref[i], b, bound))
+    return out
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two float tensors are equal bit for bit (NaN payloads too)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    as_int = {torch.float64: torch.int64, torch.float32: torch.int32}[a.dtype]
+    return torch.equal(a.contiguous().view(as_int), b.contiguous().view(as_int))
+
+
 def hold_ba(call: BACall) -> dict:
     """Replay one iteration through K10-K12 and their plain versions on the
     same inputs (module docstring; K10's term magnitudes and K11's
@@ -306,35 +371,7 @@ def hold_ba(call: BACall) -> dict:
             (sk[cuda_ba.B_COST0], sk[cuda_ba.B_COST]), (cost0, cost0), bound))
     cand = cuda_ba.ba_step_cuda(p, sk.clone(), built, opts)
     ref = ba.ba_step_plain(call.problem, sk, built, opts)
-    # K11 within the bound of each output's magnitude, else within what
-    # roundoff in its sums can move its outputs by (step_bounds) where S is
-    # definite beyond its roundoff; where S is indefinite beyond it both
-    # steps are NaN; at the edge unchecked
-    out["ba_step"] = max(rel_diff(a, r) for a, r in zip(cand, ref))
-    out.update(ba_step_share=0.0, ba_step_checked=True, step_status="within the bound",
-               kappa=None, kappa_V=None)
-    if out["ba_step"] <= bound:
-        sb = {"status": "within the bound"}
-    else:
-        sb = step_bounds(call, built, sk, ref)
-        out.update(kappa=sb["kappa"], kappa_V=sb["kappa_V"], step_status=sb["status"],
-                   ba_step_checked=sb["status"] != "edge")
-    if sb["status"] == "indefinite":
-        for name, a, r in zip(("dp", "dx", "cand t", "cand q", "cand X"), cand, ref):
-            if not torch.equal(torch.isnan(a), torch.isnan(r)):
-                raise AssertionError(f"{label} K11: S is indefinite; {name}'s NaN entries "
-                                     f"differ from the plain version's")
-        out["ba_step"] = 0.0
-    elif sb["status"] == "definite":
-        kind = f"{label} K11 (kappa_2(S) {sb['kappa']:.3e})"
-        t_abs = call.problem.poses.t.abs().to(torch.float64)
-        X_abs = call.problem.map.points.abs().to(torch.float64)
-        c = 2.0 * 6 * call.W * UNIT_ROUNDOFF[call.dtype]
-        for name, i, b in (("dp", 0, sb["dp"]), ("cand t", 2, sb["dp"] + c * t_abs),
-                           ("cand q", 3, sb["dp"] + c), ("dx", 1, sb["dx"]),
-                           ("cand X", 4, sb["dx"] + c * X_abs)):
-            out["ba_step_share"] = max(out["ba_step_share"],
-                                       _held_within(kind, name, cand[i], ref[i], b, bound))
+    out.update(_hold_step(label + " K11", call, built, sk, cand, ref))
     pk, sck = p, sk.clone()
     cuda_ba.ba_commit_cuda(pk, sck, cand, opts)
     pp, scp = ba.ba_commit_plain(call.problem, sk, cand, opts)
@@ -457,24 +494,23 @@ def ba_bound(kernel: str, W: int, M: int, itemsize: int, prior: bool,
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
-def _bindings(kernel: str, calls: List[BACall]):
+def _bindings(kernel: str, calls: List[BACall], method: str = "", clocked: bool = False):
     """A binding per call with its inputs in place (K11's from a K10 launch,
-    K12's from K10 and K11); returns each binding's method that launches
-    ``kernel``."""
+    K12's from K10 and K11); returns each binding's ``method`` (by default
+    the launched design's) that launches ``kernel``."""
     from ..ops import cuda_ba
 
     out = []
     for c in calls:
         p, sc = c.fresh()
-        b = cuda_ba.BABinding(p, c.opts, sc, own=False)
+        b = cuda_ba.BABinding(p, c.opts, sc, own=False, clocked=clocked)
         if kernel != "ba_build":
             b.build()
             if kernel == "ba_commit":
                 b.step()
         out.append(b)
     torch.cuda.synchronize()
-    method = {"ba_build": "build", "ba_step": "step", "ba_commit": "commit"}[kernel]
-    return [getattr(b, method) for b in out]
+    return [getattr(b, method or DESIGNS[kernel][0]) for b in out]
 
 
 def _plain_fns(kernel: str, calls: List[BACall]):
@@ -519,9 +555,11 @@ def time_ba_rows(label: str, calls: List[BACall], reps: int = 10, inner: int = 1
                  out=print) -> Dict[str, dict]:
     """Each of K10-K12 on (at most 50 of) the recorded ``calls``, timed as the
     module docstring says; returns a row by kernel with ``ms``,
-    ``device_ms``, ``device_cold_ms``, ``plain_ms``, ``bound_ms``,
-    ``bound_by`` and ``library_ms`` (with ``library_device_ms`` and
-    ``library_device_cold_ms``; None but for K11)."""
+    ``device_ms``, ``device_cold_ms`` (the launched design's; each the mean
+    of its two turns), ``ticket`` (the same of the earlier ticket design; None for
+    K12), ``plain_ms``, ``bound_ms``, ``bound_by`` and ``library_ms`` (with
+    ``library_device_ms`` and ``library_device_cold_ms``; None but for
+    K11)."""
     if not torch.cuda.is_available():
         raise RuntimeError("timing the BA's kernels needs a CUDA device")
     warm = calls[:50]
@@ -531,15 +569,22 @@ def time_ba_rows(label: str, calls: List[BACall], reps: int = 10, inner: int = 1
     w_inner = len(warm) * math.ceil(50 / len(warm))
     rows = {}
     for kernel in BA_KERNELS:
-        fns = _bindings(kernel, warm)
+        # the designs in turn: launched, ticket, ticket, launched
+        methods = DESIGNS[kernel]
+        fns = {m: _bindings(kernel, warm, m) for m in methods}
+        got = {m: [] for m in methods}
+        for m in methods + methods[::-1]:
+            got[m].append((kv.time_ms(fns[m][0], reps, inner), kv.device_ms(fns[m], reps, w_inner),
+                           kv.device_flushed_ms(fns[m][0], reps, 20)))
+        times = {m: dict(zip(("ms", "device_ms", "device_cold_ms"),
+                             (statistics.fmean(x) for x in zip(*got[m]))))
+                 for m in methods}
         plain = _plain_fns(kernel, warm[:1])[0]
         bounds = [ba_bound(kernel, c.W, c.M, c.scalars.element_size(), prior, rate)
                   for c in warm]
         row = dict(inputs=label, kernel=kernel, calls=len(calls), W=c0.W, M=c0.M,
-                   dtype=str(c0.dtype).split(".")[-1],
-                   ms=kv.time_ms(fns[0], reps, inner),
-                   device_ms=kv.device_ms(fns, reps, w_inner),
-                   device_cold_ms=kv.device_flushed_ms(fns[0], reps, 20),
+                   dtype=str(c0.dtype).split(".")[-1], **times[methods[0]],
+                   ticket=times[methods[1]] if len(methods) > 1 else None,
                    plain_ms=kv.time_ms(plain, reps, 2),
                    bound_ms=statistics.fmean(b for b, _ in bounds),
                    bound_by=max(("bytes", "operations"), key=[by for _, by in bounds].count),
@@ -554,9 +599,263 @@ def time_ba_rows(label: str, calls: List[BACall], reps: int = 10, inner: int = 1
                    f"; cholesky_ex + cholesky_solve on the same S {1e3 * row['library_ms']:.2f} "
                    f"us a call / {1e3 * row['library_device_ms']:.2f} warm / "
                    f"{1e3 * row['library_device_cold_ms']:.2f} cold")
+        t = row["ticket"]
+        ticket_txt = ("" if t is None else
+                      f"; the earlier ticket design {1e3 * t['ms']:.2f} / "
+                      f"{1e3 * t['device_ms']:.2f} / {1e3 * t['device_cold_ms']:.2f}")
         out(f"{label} {kernel} ({len(calls)} iterations, W {c0.W}, M {c0.M}, {row['dtype']}): "
             f"kernel {1e3 * row['ms']:.2f} us a call through the binding / "
-            f"{1e3 * row['device_ms']:.2f} warm / {1e3 * row['device_cold_ms']:.2f} cold; plain "
+            f"{1e3 * row['device_ms']:.2f} warm / {1e3 * row['device_cold_ms']:.2f} cold"
+            f"{ticket_txt}; plain "
             f"{1e3 * row['plain_ms']:.2f} us a call; bound {1e3 * row['bound_ms']:.4f} us "
             f"({row['bound_by']}){lib_txt}")
     return rows
+
+
+def hold_designs(call: BACall) -> dict:
+    """K10's and K11's earlier ticket designs against the launched ones
+    on one recorded iteration, on the same inputs (K11's both from the
+    launched K10's outputs). K10's two designs sum in one order: held bit
+    for bit (and, for the report, within :data:`TOLERANCE` of each output's
+    magnitude). K11's build S and its right-hand side in one order but
+    factor S with other pivot scalings: held as :func:`hold_ba` holds the
+    plain version (:func:`_hold_step`). Returns whether each kernel's
+    outputs were bit-equal, the largest difference relative to each
+    output's magnitude, and K11's status and share of its roundoff bound."""
+    from ..ops import cuda_ba
+
+    label = f"BA iteration (run {call.run}, W {call.W}, M {call.M})"
+    (pa, sa), (pb, sb) = call.fresh(), call.fresh()
+    a = cuda_ba.BABinding(pa, call.opts, sa, own=False)
+    b = cuda_ba.BABinding(pb, call.opts, sb, own=False)
+    a.build()
+    b.build_ticket()
+    out_a, out_b = (a.built[1:] + (sa,)), (b.built[1:] + (sb,))
+    out = dict(ba_build_equal=all(same_bits(x, y) for x, y in zip(out_a, out_b)))
+    out["ba_build"] = _held(label + " K10's ticket design", ("U", "V", "W_blk", "g_p", "g_x",
+                                                             "H_o", "scalars"),
+                            out_b, out_a, TOLERANCE[call.dtype])
+    b.use_built(a.built)
+    a.step()
+    b.step_ticket()
+    cand_a, cand_b = a.candidate + (a._vinv,), b.candidate + (b._vinv,)
+    out["ba_step_equal"] = all(same_bits(x, y) for x, y in zip(cand_a, cand_b))
+    out.update(_hold_step(label + " K11's ticket design", call, a.built, sa, b.candidate,
+                          a.candidate))
+    return out
+
+
+def hold_designs_calls(calls: List[BACall]) -> dict:
+    """:func:`hold_designs` on every recorded iteration: the iterations, how
+    many were bit-equal by kernel, K11's within the bound of each output's
+    magnitude and checked against its roundoff bound (its largest share),
+    and the largest difference by kernel."""
+    n = dict(iterations=0, ba_build_equal=0, ba_step_equal=0, ba_build=0.0, ba_step=0.0,
+             step_within=0, step_checked=0, step_share=0.0)
+    for call in calls:
+        got = hold_designs(call)
+        n["iterations"] += 1
+        for k in ("ba_build", "ba_step"):
+            n[k + "_equal"] += got[k + "_equal"]
+            n[k] = max(n[k], got[k])
+        n["step_within"] += got["step_status"] == "within the bound"
+        n["step_checked"] += got["ba_step_checked"]
+        n["step_share"] = max(n["step_share"], got["ba_step_share"])
+    return n
+
+
+# each design's stamp id and its phases, by the stamp slots that end them
+# (bundle_adjust.cu's kStamp* and its stamp() calls); "last" phases are the
+# last CTA's (after the ticket), "each" the mean over the slices' CTAs
+_STAMPS = {
+    ("ba_build", "build_ticket"): 2, ("ba_step", "step_ticket"): 3,
+    ("ba_build", "build"): 0, ("ba_step", "step"): 1}
+
+
+def _split_one(kernel: str, method: str, st: np.ndarray, C: int) -> Dict[str, float]:
+    """One launch's phases in microseconds from its stamps ``st`` [CTAs,
+    slots] (ns; 0 where a CTA did not stamp that slot)."""
+    us = lambda a, b: (float(b) - float(a)) * 1e-3   # noqa: E731
+    sl = st[:C].astype(np.float64)
+    t0 = sl[:, 0].min()
+    each = lambda i, j: float(np.mean(sl[:, j] - sl[:, i])) * 1e-3   # noqa: E731
+    if method == "step":
+        solver = sl[:, 7] > 0
+        return {"phase 1 (V^-1, W_blk gauged), each CTA": each(0, 1),
+                "phase 2 (W V^-1), each CTA": each(1, 2),
+                "phase 3 (S's slice partials), each CTA": each(2, 3),
+                "first start to the last CTA's phase 3": us(t0, sl[:, 3].max()),
+                "grid barrier 1": us(sl[:, 3].max(), np.median(sl[:, 4])),
+                "partial sums, a share each": each(4, 5),
+                "grid barrier 2": us(sl[:, 5].max(), np.median(sl[:, 6])),
+                "S into shared memory": float(np.mean(sl[solver, 7] - sl[solver, 6])) * 1e-3,
+                "factorisation and solves": float(np.mean(sl[solver, 8] - sl[solver, 7])) * 1e-3,
+                "dp to every CTA": float(np.mean(sl[:, 9] - np.where(solver, sl[:, 8],
+                                                                    sl[:, 6]))) * 1e-3,
+                "back-substitution, each CTA": each(9, 10),
+                "total": us(t0, sl[:, 10].max()),
+                # CTA 0's clock64 cycles in the factorisation's sub-phases
+                "factorisation cycles: diagonal blocks": float(st[0, 12]),
+                "factorisation cycles: panels": float(st[0, 13]),
+                "factorisation cycles: trailing updates": float(st[0, 14]),
+                "factorisation cycles: L^T x = z": float(st[0, 15]),
+                "phase 3 cycles (thread 0)": float(st[0, 16])}
+    if method == "build":
+        last = int(np.argmax(st[:C + 1, 3]))
+        e = st[C] if st.shape[0] > C and st[C, 0] else None
+        return {"observations, each CTA": each(0, 1), "slice sums, each CTA": each(1, 2),
+                "the prior, its own CTA": 0.0 if e is None else us(e[0], e[2]),
+                "first start to the last slice's end": us(t0, sl[:, 2].max()),
+                "ticket": us(max(sl[:, 2].max(), 0 if e is None else float(e[2])),
+                             st[last, 3]),
+                "partial sums": us(st[last, 3], st[last, 4]),
+                "g_p and the scalars": us(st[last, 4], st[last, 5]),
+                "total": us(t0, st[last, 5]),
+                # CTA 0's thread 0, clock64 cycles
+                "cycles: the poses' setup": float(st[0, 16]),
+                "cycles: thread 0's observations": float(st[0, 17])}
+    last = int(np.argmax(sl[:, 4]))
+    L = sl[last]
+    if method == "step_ticket":
+        return {"phase 1 (V^-1, W_blk gauged), each CTA": each(0, 1),
+                "phase 2 (W V^-1), each CTA": each(1, 2),
+                "phase 3 (S's slice partials), each CTA": each(2, 3),
+                "first start to the last CTA's phase 3": us(t0, L[3]),
+                "ticket": us(L[3], L[4]), "partial sums (S assembled)": us(L[4], L[5]),
+                "factorisation": us(L[5], L[6]), "solves": us(L[6], L[7]),
+                "back-substitution and candidate": us(L[7], L[8]), "total": us(t0, L[8])}
+    return {"observations, each CTA": each(0, 1), "slice sums, each CTA": each(1, 2),
+            "first start to the last CTA's slice sums": us(t0, L[2]),
+            "ticket": us(L[2], L[3]), "partial sums": us(L[3], L[4]), "edges": us(L[4], L[5]),
+            "H_o dense and g_p": us(L[5], L[6]), "costs": us(L[6], L[7]),
+            "total": us(t0, L[7])}
+
+
+def phase_split(kernel: str, method: str, calls: List[BACall], n: int = 20) -> Dict[str, float]:
+    """The median over (at most ``n`` of) the recorded ``calls`` of each
+    phase's microseconds in one launch of ``kernel``'s design ``method``,
+    from the stamps of ``bundle_adjust.cu``'s harness-only build (thread 0
+    of each CTA reading %globaltimer at a phase's end, after a barrier of
+    its CTA; the barriers the stamps add make this build a little slower
+    than the path's). Launches one at a time, each alone on the stream."""
+    import ctypes
+
+    from ..ops import cuda_ba
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the phase split needs a CUDA device")
+    lib = cuda_ba.library(clocked=True)
+    dims = tuple(lib.ba_phase_clocks(i) for i in (1, 2, 3))
+    stamps = lib.ba_stamps
+    stamps.argtypes, stamps.restype = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    buf = np.zeros(dims, dtype=np.uint64)
+    kid = _STAMPS[kernel, method]
+    rows = []
+    for call in calls[:n]:
+        launch = _bindings(kernel, [call], method, clocked=True)[0]
+        C = cuda_ba.ba_layout(call.W, call.M, call.scalars.element_size()).ctas
+        stream = torch.cuda.current_stream().cuda_stream
+        for reset in (1, 0):
+            if reset:
+                err = stamps(None, 1, stream)
+                launch()
+            else:
+                err = stamps(buf.ctypes.data, 0, stream)
+            if err:
+                raise RuntimeError(f"ba_stamps failed: CUDA error {err}")
+        rows.append(_split_one(kernel, method, buf[kid], C))
+    return {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+
+
+def cholesky_solve_ordered(S: torch.Tensor, rhs: torch.Tensor):
+    """K11's Cholesky solve of S x = rhs in its order of operations (the
+    cooperative design's ``factor_solve``): S's lower triangle with rhs as
+    row D, right-looking, each entry updated once a pivot in pivot order (a
+    rounded product, then a rounded difference) and scaled by its pivot's
+    reciprocal square root r_j, the forward sweep z the last row; then x_j =
+    z_j r_j for j from the last, each z_i taking x_j L_ji in descending j.
+    K11's 6 x 6 blocks do not change this order (torch's rsqrt may round
+    otherwise than the card's). Returns (x, ok); x is NaN where a pivot is
+    not > 0 (cholesky_ex's info != 0)."""
+    D = S.shape[0]
+    A = torch.cat([S, rhs[None, :]], 0).clone()
+    rp = S.new_empty(D)
+    for j in range(D):
+        d = A[j, j]
+        if not bool(d > 0):
+            return torch.full_like(rhs, float("nan")), False
+        rp[j] = torch.rsqrt(d)
+        A[j + 1:, j] = A[j + 1:, j] * rp[j]
+        A[j + 1:, j + 1:] = A[j + 1:, j + 1:] - A[j + 1:, j, None] * A[None, j + 1:D, j]
+    z = A[D].clone()
+    x = torch.empty_like(z)
+    for j in range(D - 1, -1, -1):
+        x[j] = z[j] * rp[j]
+        z[:j] = z[:j] - A[j, :j] * x[j]
+    return x, True
+
+
+def window_arrays(W: int = 7, M: int = 512, live: int = 300, seed: int = 0) -> dict:
+    """``chip_smoke.py`` 8a's BA window: W cameras along a line over M
+    landmark slots (``live`` of them observed, the rest padding), noisy and
+    partly missing observations, odometry priors of weight 1e6, perturbed
+    starts; the arrays of ``interop.ba_problem_from_arrays``."""
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-1.5, 1.5, M), rng.uniform(-1, 1, M), rng.uniform(3, 6, M)], -1)
+    ts = np.stack([[0.15 * w, 0.02 * w, 0.05 * w] for w in range(W)])
+    K = np.array([480.0, 480.0, 319.5, 239.5])
+    obs = np.stack([np.stack([(X[:, 0] - t[0]) / (X[:, 2] - t[2]) * K[0] + K[2],
+                              (X[:, 1] - t[1]) / (X[:, 2] - t[2]) * K[1] + K[3]], -1)
+                    for t in ts]) + rng.normal(0, 0.5, (W, M, 2))
+    point_mask = (np.arange(M) < live).astype(np.float64)
+    obs_mask = (rng.random((W, M)) > 0.2) * point_mask[None]
+    odom = (np.diff(ts, axis=0) + rng.normal(0, 1e-3, (W - 1, 3)),
+            np.tile([0.0, 0.0, 0.0, 1.0], (W - 1, 1)), np.full(W - 1, 1e6))
+    return dict(pose_t=ts + rng.normal(0, 0.02, ts.shape) * (np.arange(W) > 0)[:, None],
+                pose_q=np.tile([0.0, 0.0, 0.0, 1.0], (W, 1)),
+                points=X + rng.normal(0, 0.05, X.shape), obs_xy=obs, obs_mask=obs_mask, K=K,
+                point_mask=point_mask, odom=odom, pose_mask=np.ones(W))
+
+
+def main() -> int:
+    """On the card: 8a's window through run_bundle_adjustment on the
+    kernels, its iterations recorded; each held against the plain versions
+    and the ticket designs against the launched ones; the phase split of
+    both designs of K10 and K11; and K10-K12 timed (both designs in turn).
+    Prints the card, each result and the kernels' registers and spills."""
+    import json
+
+    from .. import interop
+    from ..backend import ba
+    from ..ops import cuda_ba, cuda_build
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("ba_kernels needs a CUDA device")
+    print(kv.card_line())
+    cuda_ba.zero_launch_counts()
+    with record_ba_calls() as calls:
+        _, summary = ba.run_bundle_adjustment(
+            interop.ba_problem_from_arrays(**window_arrays(), device="cuda"), ba.BAOptions())
+    torch.cuda.synchronize()
+    print(f"8a: {summary.num_iterations} iterations, launches {cuda_ba.launch_counts()}, "
+          f"the ticket designs' {cuda_ba.earlier_launch_counts()}")
+    name = None
+    for line in cuda_build.BUILD_LOG.get("bundle_adjust", "").splitlines():
+        found = re.search(r"Compiling entry function '_Z\w*?(ba_\w+?_kernel)I([fd])", line)
+        if found:
+            name = f"{found.group(1)}<{'float' if found.group(2) == 'f' else 'double'}>"
+        elif name and ("registers" in line or "stack frame" in line):
+            print(f"  {name}: {line.split(':', 1)[-1].strip() if 'Used' in line else line.strip()}")
+    got = hold_ba_calls(calls)
+    print("held against the plain versions:", {k: v for k, v in got.items() if k != "flips"})
+    print("the ticket designs against the launched ones:", hold_designs_calls(calls))
+    for kernel, methods in (("ba_build", DESIGNS["ba_build"]), ("ba_step", DESIGNS["ba_step"])):
+        for method in methods:
+            print(f"phases {kernel} {method} (us):",
+                  json.dumps(phase_split(kernel, method, calls)))
+    time_ba_rows("8a window 7", calls)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

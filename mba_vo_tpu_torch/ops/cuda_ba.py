@@ -9,7 +9,10 @@ Pallas source):
     and the odometry prior's H and cost (``build_normal_equations``), and
     at the loop's first iteration its initial cost (``evaluate_cost``);
   * K11 ``ba_step``: the damped Schur solve, dx by back-substitution and
-    the candidate poses and points (``schur_solve``, ``_apply_step``);
+    the candidate poses and points (``schur_solve``, ``_apply_step``), in
+    one cooperative launch (every CTA resident: :class:`BABinding` checks
+    the grid against the occupancy API and raises where it cannot be, with
+    no fallback);
   * K12 ``ba_commit``: the candidate's cost, the decision, the select in
     place, lambda, the cost, the iteration count and the done flag.
 
@@ -28,8 +31,12 @@ three launches and no checks. :func:`ba_build_cuda`, :func:`ba_step_cuda`
 and :func:`ba_commit_cuda` are each kernel alone on given inputs (a binding
 made for the call), for the comparisons with the plain versions.
 
-``LAUNCHES_BA_BUILD``, ``LAUNCHES_BA_STEP`` and ``LAUNCHES_BA_COMMIT`` count
-launches, one a call (a call recorded into a CUDA graph is not a launch).
+The earlier ticket designs of K10 and K11 stay callable as sweep rows
+(:meth:`BABinding.build_ticket`, :meth:`BABinding.step_ticket`); no path
+launches them. ``LAUNCHES_BA_BUILD``, ``LAUNCHES_BA_STEP`` and
+``LAUNCHES_BA_COMMIT`` count the launched designs' launches,
+``LAUNCHES_BA_BUILD_TICKET`` and ``LAUNCHES_BA_STEP_TICKET`` the ticket
+designs', one a call (a call recorded into a CUDA graph is not a launch).
 The library is built and loaded by ``ops/cuda_build.py`` at first use;
 nothing here runs when the module is imported.
 
@@ -53,6 +60,8 @@ from .cuda_residual import _check, _launch
 LAUNCHES_BA_BUILD = 0
 LAUNCHES_BA_STEP = 0
 LAUNCHES_BA_COMMIT = 0
+LAUNCHES_BA_BUILD_TICKET = 0
+LAUNCHES_BA_STEP_TICKET = 0
 
 B_COST, B_LAM, B_IT, B_DONE, B_COST0, B_BUILD_COST, B_CAND_COST, B_OK, B_REL = range(9)
 B_SIZE = 9
@@ -64,20 +73,32 @@ MAX_LANDMARKS_PER_CTA = 32
 # K11's first phase (a slice's W_blk and W V^-1, 36 W values a landmark)
 # stays under this many bytes, which sets the landmarks a CTA at wide windows
 SLICE_SMEM_BUDGET = 96 * 1024
-# the shared memory a CTA may opt into (bundle_adjust.cu's kSmemLimit)
+# the shared memory a CTA may opt into (bundle_adjust.cu's kSmemLimit), and
+# what an SM holds for its CTAs (1 KiB of it reserved for each) and its threads
 SMEM_LIMIT = 232448
+SM_SMEM_BYTES = 233472
+SM_THREADS = 2048
+# the macro of bundle_adjust.cu's harness-only build, whose kernels stamp
+# each phase's end (experiments/ba_kernels.py's phase split)
+PHASE_CLOCKS = "BA_PHASE_CLOCKS"
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     # t, q, X, scalars, obs, obs_mask, point_mask, K, odom t, odom q, odom
-    # weight, pose_mask, U, V, W_blk, g_p, g_x, H_o, partials, ticket, W, M,
-    # MB, huber_a, stream
-    "ba_build": [_P] * 20 + [_I, _I, _I, _D, _P],
+    # weight, pose_mask, U, V, W_blk, g_p, g_x, H_o, partials, the prior's
+    # scratch [6W + 2], ticket, W, M, MB, huber_a, stream
+    "ba_build": [_P] * 21 + [_I, _I, _I, _D, _P],
+    # the same without the prior's scratch
+    "ba_build_ticket": [_P] * 20 + [_I, _I, _I, _D, _P],
     # t, q, X, scalars, point_mask, pose_mask, U, V, W_blk, g_p, g_x, H_o,
-    # dp, dx, cand t, cand q, cand X, V^-1, partials, S scratch, ticket, W,
-    # M, MB, landmark_damping, stream
-    "ba_step": [_P] * 21 + [_I, _I, _I, _D, _P],
+    # dp, dx, cand t, cand q, cand X, V^-1, partials, S [D + 1, D], the grid
+    # barrier's count, W, M, MB, S in shared memory, landmark_damping, stream
+    "ba_step": [_P] * 21 + [_I, _I, _I, _I, _D, _P],
+    # t, q, X, scalars, point_mask, pose_mask, U, V, W_blk, g_p, g_x, H_o,
+    # dp, dx, cand t, cand q, cand X, V^-1, partials, S scratch or null,
+    # ticket, W, M, MB, landmark_damping, stream
+    "ba_step_ticket": [_P] * 21 + [_I, _I, _I, _D, _P],
     # t, q, X, scalars, obs, obs_mask, point_mask, K, odom t, odom q, odom
     # weight, dp, dx, cand t, cand q, cand X, partials, ticket, W, M, MB,
     # huber_a, lambda_up, lambda_down, min_lambda, max_lambda,
@@ -86,20 +107,36 @@ _SIGNATURES = {
 }
 
 
-def _entry(name: str, dtype: torch.dtype):
-    if "bundle_adjust" not in _loaded:
-        lib = cuda_build.load("bundle_adjust")
+def library(clocked: bool = False) -> ctypes.CDLL:
+    """``bundle_adjust.cu``'s library, its entries typed; ``clocked``: the
+    harness-only build with :data:`PHASE_CLOCKS`, whose kernels stamp their
+    phases (never the library the path launches)."""
+    key = "clocked" if clocked else "path"
+    if key not in _loaded:
+        lib = cuda_build.load("bundle_adjust", (PHASE_CLOCKS,) if clocked else ())
         for fn_name, signature in _SIGNATURES.items():
             for suffix in ("f32", "f64"):
                 fn = getattr(lib, f"{fn_name}_{suffix}")
                 fn.argtypes, fn.restype = signature, ctypes.c_int
-        query = lib.ba_scalars_size
-        query.argtypes, query.restype = [], ctypes.c_int
-        if query() != B_SIZE:
-            raise RuntimeError(f"bundle_adjust.cu lays out {query()} scalars, not {B_SIZE}")
-        _loaded["bundle_adjust"] = lib
+        for fn_name, args, res in (("ba_scalars_size", [], ctypes.c_int),
+                                   ("ba_smem_bytes", [ctypes.c_int] * 6, ctypes.c_longlong),
+                                   ("ba_step_blocks_per_sm", [ctypes.c_int] * 4, ctypes.c_int),
+                                   ("ba_phase_clocks", [ctypes.c_int], ctypes.c_int)):
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = args, res
+        if lib.ba_scalars_size() != B_SIZE:
+            raise RuntimeError(f"bundle_adjust.cu lays out {lib.ba_scalars_size()} scalars, "
+                               f"not {B_SIZE}")
+        if lib.ba_phase_clocks(0) != int(clocked):
+            raise RuntimeError(f"bundle_adjust.cu's {key} build stamps its phases: "
+                               f"{lib.ba_phase_clocks(0)}")
+        _loaded[key] = lib
+    return _loaded[key]
+
+
+def _entry(name: str, dtype: torch.dtype, clocked: bool = False):
     suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
-    return getattr(_loaded["bundle_adjust"], f"{name}_{suffix}")
+    return getattr(library(clocked), f"{name}_{suffix}")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -108,22 +145,43 @@ def launch_counts() -> Dict[str, int]:
             "ba_commit": LAUNCHES_BA_COMMIT}
 
 
+def earlier_launch_counts() -> Dict[str, int]:
+    """The launches of K10's and K11's earlier ticket designs, by the
+    kernel's name: no path launches them."""
+    return {"ba_build": LAUNCHES_BA_BUILD_TICKET, "ba_step": LAUNCHES_BA_STEP_TICKET}
+
+
 def zero_launch_counts() -> None:
     global LAUNCHES_BA_BUILD, LAUNCHES_BA_STEP, LAUNCHES_BA_COMMIT
+    global LAUNCHES_BA_BUILD_TICKET, LAUNCHES_BA_STEP_TICKET
     LAUNCHES_BA_BUILD = LAUNCHES_BA_STEP = LAUNCHES_BA_COMMIT = 0
+    LAUNCHES_BA_BUILD_TICKET = LAUNCHES_BA_STEP_TICKET = 0
 
 
 class BALayout(NamedTuple):
     landmarks_per_cta: int   # MB
-    ctas: int                # C = ceil(M / MB), the grid of every kernel
-    s_shared: bool           # K11's S [6W, 6W] in shared memory, else a global scratch
+    ctas: int                # C = ceil(M / MB), the slices (K10 adds a CTA for the prior)
+    s_shared: bool           # K11's S [6W + 1, 6W] in shared memory, else its global scratch
 
 
 def step_smem_bytes(W: int, MB: int, itemsize: int, s_shared: bool) -> int:
-    """K11's shared memory (``bundle_adjust.cu``'s ``step_smem_elems``): the
-    larger of its first phase (a slice's W_blk and W V^-1 [W MB, 18] each,
-    V^-1 [MB, 9] and g_x [MB, 3]) and the last CTA's (S [6W, 6W] where it
-    lives there, five vectors [6W] and the gauge [W])."""
+    """K11's shared memory, the cooperative design (``bundle_adjust.cu``'s
+    ``step_smem_elems``): a slice's gauged W_blk [W MB, 18], V^-1 [MB, 9]
+    and g_x [MB, 3], kept to the end, beside the larger of W V^-1 [W MB, 18]
+    and the solve's room (S with its right-hand side [6W + 1, 6W] where it
+    lives there, the pivots and the solution [6W] each, the gauge [W])."""
+    D = 6 * W
+    keep = 18 * W * MB + 12 * MB
+    solve = ((D + 1) * D if s_shared else 0) + 2 * D + W
+    return (keep + max(18 * W * MB, solve)) * itemsize
+
+
+def ticket_step_smem_bytes(W: int, MB: int, itemsize: int, s_shared: bool) -> int:
+    """K11's shared memory, the ticket design (the earlier design; ``bundle_adjust.cu``'s
+    ``step_ticket_smem_elems``): the larger of its first phase (a slice's
+    W_blk and W V^-1 [W MB, 18] each, V^-1 [MB, 9] and g_x [MB, 3]) and the
+    last CTA's (S [6W, 6W] where it lives there, five vectors [6W] and the
+    gauge [W])."""
     D = 6 * W
     first = 36 * W * MB + 12 * MB
     last = (D * D if s_shared else 0) + 5 * D + W + 2
@@ -134,22 +192,61 @@ def ba_layout(W: int, M: int, itemsize: int) -> BALayout:
     """The kernels' split of M landmarks over CTAs at window W: at most
     :data:`MAX_LANDMARKS_PER_CTA` landmarks a CTA, fewer where K11's slice
     would pass :data:`SLICE_SMEM_BUDGET`; S in shared memory while K11's
-    last phase fits :data:`SMEM_LIMIT`."""
+    shared memory fits :data:`SMEM_LIMIT` with it."""
     per = (36 * W + 12) * itemsize
     MB = max(1, min(MAX_LANDMARKS_PER_CTA, SLICE_SMEM_BUDGET // per))
     s_shared = step_smem_bytes(W, MB, itemsize, True) <= SMEM_LIMIT
     return BALayout(MB, -(-M // MB), s_shared)
 
 
-def smem_bytes(kernel: int, W: int, MB: int, itemsize: int, s_shared: bool) -> int:
-    """The dynamic shared memory the library gives kernel 10, 11 or 12 at
-    window W, MB landmarks a CTA and the dtype's size (``bundle_adjust.cu``'s
-    ``ba_smem_bytes``; loads the library)."""
-    _entry("ba_build", torch.float32)
-    query = _loaded["bundle_adjust"].ba_smem_bytes
-    query.argtypes = [ctypes.c_int] * 5
-    query.restype = ctypes.c_longlong
-    return int(query(kernel, W, MB, itemsize, int(s_shared)))
+def ticket_s_shared(W: int, MB: int, itemsize: int) -> bool:
+    """Whether the ticket design's last CTA holds S in shared memory."""
+    return ticket_step_smem_bytes(W, MB, itemsize, True) <= SMEM_LIMIT
+
+
+def smem_bytes(kernel: int, W: int, MB: int, itemsize: int, s_shared: bool,
+               ticket: bool = False) -> int:
+    """The dynamic shared memory the library gives kernel 10, 11 or 12
+    (``ticket``: the earlier design of K10 or K11) at window W, MB landmarks a
+    CTA and the dtype's size (``bundle_adjust.cu``'s ``ba_smem_bytes``;
+    loads the library)."""
+    return int(library().ba_smem_bytes(kernel, int(ticket), W, MB, itemsize, int(s_shared)))
+
+
+def smem_blocks_per_sm(smem: int) -> int:
+    """The CTAs of :data:`BA_THREADS` threads with ``smem`` bytes of dynamic
+    shared memory an SM holds by its shared memory and its threads alone
+    (the occupancy API's answer, which counts registers too, is at most
+    this)."""
+    return min(SM_SMEM_BYTES // (smem + 1024), SM_THREADS // BA_THREADS)
+
+
+def check_co_resident(ctas: int, blocks_per_sm: int, sms: int) -> int:
+    """K11's cooperative launch needs its ``ctas`` CTAs resident at once:
+    returns how many can be (``blocks_per_sm`` on each of ``sms`` SMs) and
+    raises ``ValueError`` where that is fewer."""
+    most = max(blocks_per_sm, 0) * sms
+    if ctas > most:
+        raise ValueError(f"K11's grid of {ctas} CTAs cannot be resident at once: {sms} SMs "
+                         f"hold {blocks_per_sm} each")
+    return most
+
+
+_blocks_per_sm: Dict[tuple, int] = {}
+
+
+def step_blocks_per_sm(W: int, MB: int, itemsize: int, s_shared: bool,
+                       device: torch.device) -> int:
+    """K11's CTAs one SM of ``device`` holds at once (the occupancy API with
+    the kernel's dynamic shared memory), asked once a shape and device."""
+    key = (W, MB, itemsize, s_shared, device)
+    if key not in _blocks_per_sm:
+        with torch.cuda.device(device):
+            n = library().ba_step_blocks_per_sm(W, MB, itemsize, int(s_shared))
+        if n < 0:
+            raise RuntimeError(f"the occupancy of K11 failed: CUDA error {-n}")
+        _blocks_per_sm[key] = n
+    return _blocks_per_sm[key]
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -174,10 +271,16 @@ class BABinding:
     binding's buffers: :attr:`built` (K10's outputs, K11's inputs) and
     :attr:`candidate` (K11's outputs, K12's inputs), which
     :meth:`use_built` and :meth:`use_candidate` replace by given tensors
-    (checked)."""
+    (checked). :meth:`build_ticket` and :meth:`step_ticket` launch the
+    earlier ticket designs into the same buffers (sweep rows; no path calls them).
+
+    K11's grid is checked here against the occupancy API, once a binding:
+    a grid that cannot be resident at once raises ``ValueError``.
+    ``clocked``: the harness-only build that stamps the kernels' phases
+    (``experiments/ba_kernels.py``)."""
 
     def __init__(self, problem, opts, scalars: Optional[torch.Tensor] = None,
-                 own: bool = True):
+                 own: bool = True, clocked: bool = False):
         poses, m = problem.poses, problem.map
         W = poses.t.shape[0] if poses.t.dim() == 2 else None
         M = m.points.shape[0] if m.points.dim() == 2 else None
@@ -199,7 +302,11 @@ class BABinding:
             raise ValueError(f"BABinding: {W} poses, {M} landmark slots")
         self.problem, self.opts, self.dtype = problem, opts, dtype
         self.W, self.M, self.device = W, M, poses.t.device
-        self.layout = ba_layout(W, M, poses.t.element_size())
+        itemsize = poses.t.element_size()
+        self.layout = lay = ba_layout(W, M, itemsize)
+        check_co_resident(lay.ctas, step_blocks_per_sm(W, lay.landmarks_per_cta, itemsize,
+                                                       lay.s_shared, self.device),
+                          torch.cuda.get_device_properties(self.device).multi_processor_count)
         like = poses.t
         if own:
             self.t, self.q, self.X = poses.t.clone(), poses.q.clone(), m.points.clone()
@@ -210,17 +317,23 @@ class BABinding:
             scalars[B_LAM] = opts.initial_lambda
         self.scalars = scalars
         D = 6 * W
+        # H_o's blocks off the band stay zero: K10 writes only the band
         self.built = (scalars[B_BUILD_COST], like.new_empty((W, 6, 6)),
                       like.new_empty((M, 3, 3)), like.new_empty((W, M, 6, 3)),
-                      like.new_empty((W, 6)), like.new_empty((M, 3)), like.new_empty((D, D)))
+                      like.new_empty((W, 6)), like.new_empty((M, 3)), like.new_zeros((D, D)))
         self.candidate = (like.new_empty((W, 6)), like.new_empty((M, 3)), like.new_empty((W, 3)),
                           like.new_empty((W, 4)), like.new_empty((M, 3)))
         C = self.layout.ctas
         part = max(42 * W + 2, D * (D + 1) // 2 + D, 3)
         self._partials = like.new_empty(C * part)
         self._vinv = like.new_empty((M, 3, 3))
-        self._s = None if self.layout.s_shared else like.new_empty((D, D))
-        self._tickets = torch.zeros(3, dtype=torch.int32, device=self.device)
+        self._prior = like.new_empty(D + 2)     # K10's g_o and the prior's two costs
+        self._s = like.new_empty((D + 1) * D)
+        self._s_ticket = (None if ticket_s_shared(W, lay.landmarks_per_cta, itemsize)
+                          else like.new_empty((D, D)))
+        # K10's, the ticket design of K11's and K12's tickets, then K11's
+        # grid barrier's count of arrivals
+        self._tickets = torch.zeros(4, dtype=torch.int32, device=self.device)
         odom = problem.odom
         self._inputs = (_ptr(m.obs_xy), _ptr(m.obs_mask), _ptr(m.point_mask), _ptr(problem.K),
                         None if odom is None else odom.t.data_ptr(),
@@ -229,7 +342,7 @@ class BABinding:
         self._pose_mask = _ptr(problem.pose_mask)
         self._state = tuple(x.data_ptr() for x in (self.t, self.q, self.X, self.scalars))
         self._dims = (W, M, self.layout.landmarks_per_cta)
-        self._fns = {k: _entry(k, dtype) for k in _SIGNATURES}
+        self._fns = {k: _entry(k, dtype, clocked) for k in _SIGNATURES}
         self._set_ptrs()
 
     def _set_ptrs(self):
@@ -265,21 +378,40 @@ class BABinding:
         self._set_ptrs()
 
     def build(self) -> None:
-        """K10: :attr:`built` at the state; the build's cost into the
-        scalars and, where they count no iteration yet, the initial cost."""
+        """K10 (the band design): :attr:`built` at the state; the build's
+        cost into the scalars and, where they count no iteration yet, the
+        initial cost."""
         global LAUNCHES_BA_BUILD
         LAUNCHES_BA_BUILD += _launch(
             self._fns["ba_build"], self.device, *self._state, *self._inputs, self._pose_mask,
-            *self._built_ptrs, self._partials.data_ptr(), self._tickets[0:1].data_ptr(),
-            *self._dims, float(self.opts.huber_a))
+            *self._built_ptrs, self._partials.data_ptr(), self._prior.data_ptr(),
+            self._tickets[0:1].data_ptr(), *self._dims, float(self.opts.huber_a))
+
+    def build_ticket(self) -> None:
+        """K10's earlier ticket design, as :meth:`build`."""
+        global LAUNCHES_BA_BUILD_TICKET
+        LAUNCHES_BA_BUILD_TICKET += _launch(
+            self._fns["ba_build_ticket"], self.device, *self._state, *self._inputs,
+            self._pose_mask, *self._built_ptrs, self._partials.data_ptr(),
+            self._tickets[0:1].data_ptr(), *self._dims, float(self.opts.huber_a))
 
     def step(self) -> None:
-        """K11: :attr:`candidate` from :attr:`built` and the scalars' lambda."""
+        """K11 (the cooperative design): :attr:`candidate` from :attr:`built`
+        and the scalars' lambda."""
         global LAUNCHES_BA_STEP
         LAUNCHES_BA_STEP += _launch(
             self._fns["ba_step"], self.device, *self._state, self._inputs[2], self._pose_mask,
             *self._built_ptrs, *self._cand_ptrs, self._vinv.data_ptr(),
-            self._partials.data_ptr(), _ptr(self._s), self._tickets[1:2].data_ptr(),
+            self._partials.data_ptr(), self._s.data_ptr(), self._tickets[3:4].data_ptr(),
+            *self._dims, int(self.layout.s_shared), float(self.opts.landmark_damping))
+
+    def step_ticket(self) -> None:
+        """K11's earlier ticket design, as :meth:`step`."""
+        global LAUNCHES_BA_STEP_TICKET
+        LAUNCHES_BA_STEP_TICKET += _launch(
+            self._fns["ba_step_ticket"], self.device, *self._state, self._inputs[2],
+            self._pose_mask, *self._built_ptrs, *self._cand_ptrs, self._vinv.data_ptr(),
+            self._partials.data_ptr(), _ptr(self._s_ticket), self._tickets[1:2].data_ptr(),
             *self._dims, float(self.opts.landmark_damping))
 
     def commit(self) -> None:

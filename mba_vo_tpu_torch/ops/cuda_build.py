@@ -25,6 +25,11 @@ for ``sm_90a`` into a shared library with a plain C interface, loaded with
     commit), bound in ``ops/cuda_ba.py``; it shares ``spline_pose.cuh``'s
     quaternion product, log and exp.
 
+:func:`load` with ``defines`` builds one source a second time with those
+macros set, into a library of its own name: a harness's build
+(``bundle_adjust.cu`` with ``BA_PHASE_CLOCKS``, whose kernels stamp their
+phases, for ``experiments/ba_kernels.py``), never one the path loads.
+
 At first use :func:`build` compiles every source not built yet, all of
 them at once (one ``nvcc`` process each), into ``build/mba_vo_tpu_torch/``
 at the root of the checkout, keyed by a hash of the source, the headers
@@ -41,7 +46,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 # nvcc's output per source (with -Xptxas -v: registers, shared memory, spills)
 BUILD_LOG: Dict[str, str] = {}
@@ -96,43 +101,69 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
+def _start(name: str, headers: bytes, defines: Tuple[str, ...] = ()):
+    """(the library's path, None where it is built already, else the
+    running nvcc and its temporary output) for ``SOURCES[name]`` with the
+    macros ``defines`` set (a library of its own name)."""
+    flags = nvcc_flags() + SOURCE_FLAGS.get(name, []) + [f"-D{d}" for d in defines]
+    source = SOURCES[name]
+    key = hashlib.sha256(source.read_bytes() + headers
+                         + " ".join(flags).encode()).hexdigest()[:16]
+    stem = "_".join((name,) + tuple(d.lower() for d in defines))
+    path = BUILD_DIR / f"{stem}_{key}.so"
+    if path.exists():
+        log = path.with_suffix(".log")
+        BUILD_LOG[stem] = log.read_text() if log.exists() else ""
+        return path, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen([_nvcc(), *flags, "-o", str(tmp), str(source)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return path, (stem, path, tmp, proc)
+
+
+def _finish(running) -> None:
+    failed = []
+    for stem, path, tmp, proc in running:
+        BUILD_LOG[stem], _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{stem}: nvcc failed ({proc.returncode}):\n{BUILD_LOG[stem]}")
+        else:
+            path.with_suffix(".log").write_text(BUILD_LOG[stem])
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _headers() -> bytes:
+    return b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+
+
 def build() -> Dict[str, Path]:
     """Compile every kernel library whose source was not built already, all
     compilers started together; returns the libraries' paths by name."""
     paths, running = {}, []
-    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
-    for name, source in SOURCES.items():
-        flags = nvcc_flags() + SOURCE_FLAGS.get(name, [])
-        key = hashlib.sha256(source.read_bytes() + headers
-                             + " ".join(flags).encode()).hexdigest()[:16]
-        paths[name] = BUILD_DIR / f"{name}_{key}.so"
-        if paths[name].exists():
-            log = paths[name].with_suffix(".log")
-            BUILD_LOG[name] = log.read_text() if log.exists() else ""
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *flags, "-o", str(tmp), str(source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        running.append((name, tmp, proc))
-    failed = []
-    for name, tmp, proc in running:
-        BUILD_LOG[name], _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{BUILD_LOG[name]}")
-        else:
-            paths[name].with_suffix(".log").write_text(BUILD_LOG[name])
-            os.replace(tmp, paths[name])
-    if failed:
-        raise RuntimeError("\n".join(failed))
+    headers = _headers()
+    for name in SOURCES:
+        paths[name], job = _start(name, headers)
+        if job is not None:
+            running.append(job)
+    _finish(running)
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The library built from ``SOURCES[name]`` (building every source not
-    built yet on the first call), loaded once a process."""
-    if name not in _libs:
-        _libs[name] = ctypes.CDLL(str(build()[name]))
-    return _libs[name]
+    built yet on the first call), loaded once a process. With ``defines``
+    the source is built alone a second time with those macros set, into a
+    library of its own name: a harness's build (``bundle_adjust.cu``'s
+    ``BA_PHASE_CLOCKS``), never the one the path loads."""
+    stem = "_".join((name,) + tuple(d.lower() for d in defines))
+    if stem not in _libs:
+        if defines:
+            path, job = _start(name, _headers(), tuple(defines))
+            _finish([job] if job is not None else [])
+        else:
+            path = build()[name]
+        _libs[stem] = ctypes.CDLL(str(path))
+    return _libs[stem]

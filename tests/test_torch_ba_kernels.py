@@ -304,3 +304,90 @@ def test_the_layout(W, itemsize, MB, shared):
     first = (36 * W * MB + 12 * MB) * itemsize
     assert first <= cuda_ba.SLICE_SMEM_BUDGET
     assert cuda_ba.step_smem_bytes(W, MB, itemsize, shared) <= cuda_ba.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("W,itemsize", [(7, 8), (7, 4), (30, 8), (30, 4), (60, 8)])
+def test_the_cooperative_step_fits_and_its_grid_is_checked(W, itemsize):
+    """K11's cooperative design keeps the slice's gauged W_blk, V^-1 and g_x
+    beside the room W V^-1 and then the solve share (S with its right-hand
+    side where it lives in shared memory); at 512 slots the grid is
+    resident at once by shared memory alone on 132 SMs, and the binding's
+    check raises on a grid past what the SMs hold."""
+    lay = cuda_ba.ba_layout(W, 512, itemsize)
+    MB, D = lay.landmarks_per_cta, 6 * W
+    keep = (18 * W * MB + 12 * MB) * itemsize
+    smem = cuda_ba.step_smem_bytes(W, MB, itemsize, lay.s_shared)
+    assert smem == keep + max(18 * W * MB * itemsize,
+                              (((D + 1) * D if lay.s_shared else 0) + 2 * D + W) * itemsize)
+    assert smem <= cuda_ba.SMEM_LIMIT
+    assert cuda_ba.step_smem_bytes(W, MB, itemsize, True) > cuda_ba.SMEM_LIMIT or lay.s_shared
+    # the ticket design's S is in shared memory wherever the cooperative one's is
+    assert cuda_ba.ticket_s_shared(W, MB, itemsize) or not lay.s_shared
+    per_sm = cuda_ba.smem_blocks_per_sm(smem)
+    assert 1 <= per_sm <= cuda_ba.SM_THREADS // cuda_ba.BA_THREADS
+    assert cuda_ba.check_co_resident(lay.ctas, per_sm, 132) == per_sm * 132 >= lay.ctas
+    with pytest.raises(ValueError, match="resident at once"):
+        cuda_ba.check_co_resident(per_sm * 132 + 1, per_sm, 132)
+    with pytest.raises(ValueError, match="resident at once"):
+        cuda_ba.check_co_resident(1, 0, 132)
+
+
+def test_the_default_window_keeps_the_ticket_designs_shared_memory():
+    """At the default window (W = 7, MB = 32) the cooperative K11 takes the
+    ticket design's 67,584 bytes: the slice's data kept plus W V^-1, whose
+    room then holds S [43, 42], the pivots, the solution and the gauge;
+    three CTAs an SM by shared memory, 396 on 132 SMs for 16."""
+    assert cuda_ba.step_smem_bytes(7, 32, 8, True) == 67584
+    assert cuda_ba.ticket_step_smem_bytes(7, 32, 8, True) == 67584
+    assert 43 * 42 + 2 * 42 + 7 <= 18 * 7 * 32
+    assert cuda_ba.smem_blocks_per_sm(67584) == 3
+
+
+def _reduced_system(pt, lam=1e-3, negate=False):
+    built = list(tba.ba_build_plain(pt, 2.0))
+    if negate:
+        built[1] = -10.0 * built[1]
+    S, rhs, _, _, gauge = tba.reduced_camera_system(
+        *built[1:6], torch.tensor(lam, dtype=torch.float64), tba.BAOptions(), H_pose=built[6],
+        pose_mask=pt.pose_mask)
+    return built, S, rhs, gauge
+
+
+def test_the_ordered_solve_matches_the_library(case):
+    """experiments/ba_kernels.py's cholesky_solve_ordered (K11's order of
+    operations) against torch.linalg.cholesky and cholesky_solve on the same
+    reduced camera system, float64: within 1e-9 of the solution's magnitude."""
+    from mba_vo_tpu_torch.experiments import ba_kernels as bk
+
+    _, _, pt = case
+    _, S, rhs, _ = _reduced_system(pt)
+    x, ok = bk.cholesky_solve_ordered(S, rhs)
+    want = torch.cholesky_solve(rhs[:, None], torch.linalg.cholesky(S))[:, 0]
+    assert ok
+    _close(x, npy(want), BLOCKS, "x")
+
+
+def test_the_ordered_solve_gives_jaxs_schur_step(case):
+    """The step that K11's order gives, dp = -x * gauge, against the JAX
+    package's schur_solve on the same normal equations (1e-9)."""
+    from mba_vo_tpu_torch.experiments import ba_kernels as bk
+
+    a, pj, pt = case
+    outj = _jbuild(pj, 2.0)
+    dj, _, _ = _jax_step(pj, outj, 1e-3)
+    _, S, rhs, gauge = _reduced_system(pt)
+    x, ok = bk.cholesky_solve_ordered(S, rhs)
+    dp = -x.reshape(-1, 6) * gauge[:, None]
+    _close(dp, dj, BLOCKS, "dp")
+
+
+def test_the_ordered_solve_fails_where_cholesky_ex_does(case):
+    """Negative-definite pose blocks: a pivot not > 0, a NaN solution, as
+    torch.linalg.cholesky_ex reports info != 0."""
+    from mba_vo_tpu_torch.experiments import ba_kernels as bk
+
+    _, _, pt = case
+    _, S, rhs, _ = _reduced_system(pt, lam=1e-4, negate=True)
+    x, ok = bk.cholesky_solve_ordered(S, rhs)
+    assert not ok and torch.isnan(x).all()
+    assert int(torch.linalg.cholesky_ex(S)[1]) != 0

@@ -4,10 +4,14 @@ ba_commit_plain) on the card, on windows made with numpy from a seed: every
 iteration of a run replayed through both (float64 1e-12 and float32 1e-5 of
 each output's magnitude, the decisions equal), the kernels' run against the
 plain stages' run on the CPU, the launches of the unsharded CUDA path (one
-of each kernel an iteration, no plain stage), the wrapper's refusals, a
-non-positive-definite reduced system (a NaN step that K12 rejects) and a
-state already done. Every test carries the ``cuda`` marker and skips where
-no CUDA device is visible.
+of each kernel an iteration, no plain stage, the earlier ticket designs
+never), the earlier ticket designs of K10 and K11 against the launched band
+and cooperative designs (bit for bit), the wrapper's refusals (a K11 grid
+too large to be resident at once among them), a non-positive-definite
+reduced system (a NaN step that K12 rejects) and a state already done, on
+windows from W = 2 to W = 45 (S in K11's global scratch) and a landmark
+count with a short last slice over 19 CTAs. Every test carries the
+``cuda`` marker and skips where no CUDA device is visible.
 
 The module imports only torch and numpy. Run it on a machine with the card,
 without the JAX test configuration:
@@ -99,6 +103,11 @@ CASES = {
     "converging": dict(M=512, live=300, odom_weight=1e6, outliers=0, behind=False),
     "converging, no odometry": dict(M=512, live=300, odom=False, pose_mask=False, pose_pad=0,
                                     outliers=0, behind=False),
+    # 19 CTAs of 32 landmarks, the last holding 24
+    "short last slice": dict(M=600, live=560, odom_weight=1e6),
+    "two poses": dict(W=2, M=64, live=60, pose_pad=0),
+    # K11's S in its global scratch in both dtypes (W = 30 only in float64)
+    "widest window": dict(W=45, M=40, live=40, pose_pad=3),
 }
 
 
@@ -172,6 +181,7 @@ def test_the_cuda_path_launches_each_kernel_an_iteration_and_no_plain_stage(cuda
     torch.cuda.synchronize()
     n = summary.num_iterations
     assert cuda_ba.launch_counts() == {"ba_build": n, "ba_step": n, "ba_commit": n}
+    assert cuda_ba.earlier_launch_counts() == {"ba_build": 0, "ba_step": 0}
     assert n >= 2 and float(summary.final_cost) < float(summary.initial_cost)
     # the caller's problem is left as given; padded slots and poses stay
     assert not torch.equal(out.poses.t, p.poses.t) and out.poses.t is not p.poses.t
@@ -268,3 +278,85 @@ def test_a_done_state_does_not_change(cuda):
     for a, b in zip((p.poses.t, p.poses.q, p.map.points, sc), before):
         assert torch.equal(a, b)
     assert torch.equal(scp, before[3]) and torch.equal(pp.poses.t, before[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(CASES))
+def test_the_ticket_designs_match_the_launched_ones(cuda, case, dtype):
+    """The earlier ticket designs of K10 and K11 against the launched band and
+    cooperative designs on every iteration of a run, on the same inputs
+    (experiments/ba_kernels.py's hold_designs): K10's bit for bit (its
+    designs take every sum in one order); K11's, whose factorisations
+    scale the pivots otherwise, within 1e-12 / 1e-5 of each output's
+    magnitude or else within what roundoff can move them by
+    (ba_kernels.step_bounds), as the plain version is held."""
+    from mba_vo_tpu_torch.backend import ba
+    from mba_vo_tpu_torch.experiments import ba_kernels as bk
+
+    with bk.record_ba_calls() as calls:
+        ba.run_bundle_adjustment(problem(case, dtype), ba.BAOptions(max_iterations=4))
+    got = bk.hold_designs_calls(calls)
+    assert got["iterations"] == len(calls) >= 2
+    assert got["ba_build_equal"] == len(calls), got
+    if dtype == torch.float64:
+        assert got["step_checked"] >= 1, got
+
+
+def test_a_grid_too_large_to_be_resident_raises(cuda):
+    """K11's cooperative launch needs every CTA resident: 20,000 landmark
+    slots at the default window make 625 CTAs of 67,584 bytes of shared
+    memory, more than the card's SMs hold at once; the binding raises
+    before any launch, and the occupancy API's count is at most what
+    shared memory alone allows."""
+    from mba_vo_tpu_torch import interop
+    from mba_vo_tpu_torch.backend import ba
+    from mba_vo_tpu_torch.ops import cuda_ba
+
+    big = interop.ba_problem_from_arrays(**window(M=20000, live=300), dtype=torch.float64,
+                                         device="cuda")
+    lay = cuda_ba.ba_layout(7, 20000, 8)
+    per_sm = cuda_ba.step_blocks_per_sm(7, lay.landmarks_per_cta, 8, lay.s_shared,
+                                        torch.device("cuda", torch.cuda.current_device()))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert 1 <= per_sm <= cuda_ba.smem_blocks_per_sm(cuda_ba.step_smem_bytes(
+        7, lay.landmarks_per_cta, 8, lay.s_shared))
+    assert lay.ctas == 625 > per_sm * sms
+    cuda_ba.zero_launch_counts()
+    with pytest.raises(ValueError, match="resident at once"):
+        cuda_ba.BABinding(big, ba.BAOptions())
+    with pytest.raises(ValueError, match="resident at once"):
+        ba.run_bundle_adjustment(big, ba.BAOptions())
+    assert cuda_ba.launch_counts() == {"ba_build": 0, "ba_step": 0, "ba_commit": 0}
+
+
+def test_the_step_records_into_a_cuda_graph(cuda):
+    """K11's cooperative launch inside a CUDA graph capture: recorded, not
+    counted as a launch; the graph's replay gives the direct launch's
+    outputs bit for bit."""
+    from mba_vo_tpu_torch.backend import ba
+    from mba_vo_tpu_torch.ops import cuda_ba
+
+    opts = ba.BAOptions()
+    p = problem("8a's size", torch.float64)
+    sc = p.poses.t.new_zeros(cuda_ba.B_SIZE)
+    sc[cuda_ba.B_LAM] = opts.initial_lambda
+    b = cuda_ba.BABinding(p, opts, sc, own=False)
+    b.build()
+    b.step()
+    torch.cuda.synchronize()
+    want = tuple(x.clone() for x in b.candidate)
+    for x in b.candidate:
+        x.fill_(float("nan"))
+    cuda_ba.zero_launch_counts()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph, stream=side):
+            b.step()
+    torch.cuda.current_stream().wait_stream(side)
+    assert cuda_ba.launch_counts()["ba_step"] == 0
+    graph.replay()
+    torch.cuda.synchronize()
+    for x, y in zip(b.candidate, want):
+        assert torch.equal(x, y)
