@@ -22,12 +22,13 @@ Phases (any failed check raises and the exit code is non-zero):
      of the three), K9 (csrc/knot_prior.cu: the joint path's knot
      prior) and K10-K12 (csrc/bundle_adjust.cu: the backend's BA
      iteration, its normal equations, Schur step and commit; K10's band
-     design and K11's cooperative design, and the earlier ticket designs of
-     both) with nvcc for sm_90a, all nine sources at once, and print each
-     kernel's registers, shared memory and spills, K5's staging, K4's
-     block, K6's threads and shared memory by D, K7's threads by N, K9's
-     shared memory by K and K10-K12's split of the landmarks, shared
-     memory and K11's resident CTAs by window;
+     design, K11's cooperative design and K12's cluster design, and the
+     earlier ticket designs of the three) with nvcc for sm_90a, all
+     nine sources at once, and print each kernel's registers, shared
+     memory and spills, K5's staging, K4's block, K6's threads and shared
+     memory by D, K7's threads by N, K9's shared memory by K and K10-K12's
+     split of the landmarks, shared memory, K11's resident CTAs and K12's
+     cluster by window;
   2b. the card tests: tests/test_torch_cuda.py under pytest (-m cuda,
      without the JAX test configuration), every kernel against its plain
      version (K4 and K5 bit for bit, the direct path on the kernels against
@@ -43,12 +44,13 @@ Phases (any failed check raises and the exit code is non-zero):
      tests/test_torch_cuda_ba.py: K10-K12 against the BA's plain stages on
      every iteration of runs on padded, prior-less, 8a-sized, two-pose,
      short-last-slice (19 CTAs) and wide windows (S in K11's global
-     scratch) in f64 and f32, the earlier ticket designs of K10 and K11
-     against the launched ones bit for bit on the same runs, the kernels'
-     run against the CPU's, one launch of each an iteration and no plain
-     stage or ticket design, the wrapper's refusals, a K11 grid too large
-     to be resident raising, K11 recorded into a CUDA graph, a NaN step
-     rejected and a done state unchanged; any failure fails the run;
+     scratch) in f64 and f32, the earlier ticket designs of K10-K12
+     against the launched ones on the same runs (K10 and K12 bit for bit),
+     the kernels' run against the CPU's, one launch of each an iteration
+     and no plain stage or ticket design, the wrapper's refusals, a K11
+     grid too large to be resident raising, K11 and K12 recorded into CUDA
+     graphs, a NaN step rejected and a done state unchanged; any failure
+     fails the run;
   3. record the sampler's inputs as the tracker gives them on the bench
      scenario (16 frames of track_frame from rest, one chunk of
      track_frames_joint from a moving window, f32), and K2's and K3's
@@ -163,13 +165,14 @@ Phases (any failed check raises and the exit code is non-zero):
      --chunk 8, with and without --backend ba+pg: frames/s of both, K10-K12's
      launches against the f32 backend's BA iterations (0 without it); then
      K10-K12 timed on 8a's and 8c's recorded iterations (a call through the
-     binding, warm and cold on the device, K10 and K11 in both designs in
-     turn, the launched one and the earlier ticket design, beside the plain
+     binding, warm and cold on the device, each in both designs in turn,
+     the launched one and the earlier ticket design, beside the plain
      stage's call, the bound and, for K11, torch.linalg.cholesky_ex +
      cholesky_solve on the same reduced system), the phase split of both
-     designs of K10 and K11 from bundle_adjust.cu's harness-only build
+     designs of K10, K11 and K12 from bundle_adjust.cu's harness-only build
      (BA_PHASE_CLOCKS), and the ticket designs held against the launched
-     ones bit for bit on every recorded iteration;
+     ones on every 8a iteration and 8c's first 200 (K10 and K12 bit for
+     bit);
   9. the models, the non-planar scene, undistortion and overlays, each
      stage under the port's StageTimer: (a) at VGA, the undistortion maps
      (rad-tan pinhole, unified xi = 0.8) in f64 CUDA against the CPU and
@@ -266,8 +269,8 @@ def check(cond: bool, msg: str):
 # path: each in-process path zeroes every kernel's count just before it runs
 # and reads K2's and K3's just after (K1's go to the ``launches`` dicts)
 RESIDUAL_LAUNCHES: dict = {}
-# the launches of the earlier designs by path (K6-K8's block designs, K10's
-# and K11's ticket designs), read beside K2's to K12's: no path launches
+# the launches of the earlier designs by path (K6-K8's block designs, K10's,
+# K11's and K12's ticket designs), read beside K2's to K12's: no path launches
 # them, so each must read 0
 EARLIER_LAUNCHES: dict = {}
 
@@ -1060,7 +1063,7 @@ BA_HELD: dict = {}
 BA_KERNELS = ("ba_build", "ba_step", "ba_commit")
 # K10-K12's launches by path, each checked against the path's BA iterations
 BA_LAUNCHES: dict = {}
-# the earlier ticket designs of K10 and K11 held against the launched ones, by
+# the earlier ticket designs of K10-K12 held against the launched ones, by
 # the label of the recorded run (experiments/ba_kernels.py's
 # hold_designs_calls), and each design's phase split by (label, kernel,
 # method)
@@ -1382,8 +1385,8 @@ def phase_loop_benchmark(cs, launches, root):
         summary = lb.run(device="cuda", keep=keep)
     EARLIER_LAUNCHES["loop benchmark (8c)"] = {
         **cuda_lm.earlier_launch_counts(),
-        **{k: sum(r["k10_k11_ticket_launches"][k] for r in summary["runs"].values())
-           for k in ("ba_build", "ba_step")}}
+        **{k: sum(r["k10_k12_ticket_launches"][k] for r in summary["runs"].values())
+           for k in BA_KERNELS}}
     wall = time.perf_counter() - t0
     ref = None
     if os.path.exists(LOOP_REFERENCE):
@@ -2357,15 +2360,26 @@ def main() -> int:
                                         for t, b in item.items()) for K in (3, 7, 11, 32)))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
+    dev0 = torch.device("cuda", 0)
+
     def resident(W, lay, b):
-        return sms * cuda_ba.step_blocks_per_sm(W, lay.landmarks_per_cta, b, lay.s_shared,
-                                                torch.device("cuda", 0))
+        return sms * cuda_ba.step_blocks_per_sm(W, lay.landmarks_per_cta, b, lay.s_shared, dev0)
+
+    def commit_smem(W, lay, b):
+        # the library's bytes, held to the layout's arithmetic
+        got = int(cuda_ba.library().ba_commit_smem_bytes(W, 512, lay.landmarks_per_cta, b))
+        check(got == cuda_ba.commit_smem_bytes(W, lay.landmarks_per_cta, lay.ctas, b),
+              f"K12's shared memory at W = {W}: the library's {got} B is not the layout's")
+        return got
     print("    K10-K12 (ba_build, ba_step, ba_commit): a CTA of "
-          f"{cuda_ba.BA_THREADS} threads a slice of the landmarks; K10 (band design) and K12 "
-          "the last CTA by its ticket combining, K10 one more CTA for the prior's edges; K11 "
-          "(cooperative design) one cooperative launch, every CTA resident; landmarks a CTA, "
-          "CTAs at 512 slots, dynamic shared memory (K10 / K11 / K11's ticket design / K12) "
-          "and K11's resident CTAs (the occupancy API, on "
+          f"{cuda_ba.BA_THREADS} threads a slice of the landmarks; K10 (band design) the "
+          "last CTA by its ticket combining, one more CTA for the prior's edges; K11 "
+          "(cooperative design) one cooperative launch, every CTA resident; K12 (cluster "
+          f"design) one cluster of at most {cuda_ba.MAX_COMMIT_CLUSTER} CTAs of "
+          f"{cuda_ba.COMMIT_THREADS} threads, rank k the slices k, k + G, ...; landmarks a "
+          "CTA, CTAs at 512 slots, dynamic shared memory (K10 / K11 / K11's ticket design / "
+          "K12's ticket design / K12), K11's resident CTAs and K12's cluster and the "
+          "clusters that fit at once (the occupancy API, on "
           f"{sms} SMs) by window: " + "; ".join(
               f"W = {W}: " + " / ".join(
                   f"{(lay := cuda_ba.ba_layout(W, 512, b)).landmarks_per_cta} a CTA, "
@@ -2374,9 +2388,12 @@ def main() -> int:
                       for k, s, ticket in (
                           (10, lay.s_shared, False), (11, lay.s_shared, False),
                           (11, cuda_ba.ticket_s_shared(W, lay.landmarks_per_cta, b), True),
-                          (12, lay.s_shared, False))) + f" B {t}"
+                          (12, lay.s_shared, True)))
+                  + f" / {commit_smem(W, lay, b)} B {t}"
                   + ("" if lay.s_shared else " (S in global memory)")
-                  + f", {resident(W, lay, b)} resident"
+                  + f", {resident(W, lay, b)} resident, K12 {cuda_ba.commit_cluster(lay.ctas)} "
+                  f"CTAs, {cuda_ba.commit_clusters(W, 512, lay.landmarks_per_cta, b, dev0)} "
+                  "clusters at once"
                   for t, b in item.items()) for W in (7, 15, 30)))
     # the frame's calls (F = 1), a degree-4 joint chunk's (F = 4) and the widest
     for F, D in ((1, 12), (JCHUNK, 6 * (JCHUNK + 3)), (8, cr.MAX_TANGENTS)):
@@ -3132,37 +3149,40 @@ def main() -> int:
                             **({"decisions_equal": g["iterations"] - len(g["flips"])}
                                if kernel == "ba_commit" else {}))
                 for label, g in BA_HELD.items()}
-        more = {}
-        if kernel in ("ba_build", "ba_step"):
-            # the earlier ticket design: timed beside the launched one in turn,
-            # held against it (K10 bit for bit, K11 within its roundoff
-            # bound), launched by no path
-            earlier = sum(n.get(kernel, 0) for n in EARLIER_LAUNCHES.values())
-            check(earlier == 0, f"a path launched {kernel}'s ticket design {earlier} times")
-            method = "build_ticket" if kernel == "ba_build" else "step_ticket"
-            more["design"] = ("band: the prior's edges on a CTA of their own beside the "
-                              "slices', the last CTA summing only, H_o's band only"
-                              if kernel == "ba_build" else
-                              "cooperative: grid barriers, the partials summed a share a "
-                              "CTA, S factored by 6 x 6 blocks with its right-hand side as "
-                              "a row and reciprocal pivots, every CTA back-substituting its "
-                              "own slice")
-            more["phases"] = {label: split(label, kernel[3:]) for label in ba_rows}
-            more["before"] = dict(
-                name=kernel + "_ticket", route="cuda",
-                design="ticket (the earlier design): the last CTA by an integer ticket finishing the stage",
-                source="mba_vo_tpu_torch/csrc/bundle_adjust.cu", launches=earlier,
-                launches_read_on=len(EARLIER_LAUNCHES),
-                held={label: dict(bit_equal=g[kernel + "_equal"], max_rel_err=g[kernel],
-                                  **({"within_1e-12": g["step_within"],
-                                      "checked": g["step_checked"],
-                                      "share_of_bound": g["step_share"]}
-                                     if kernel == "ba_step" else {}))
-                      for label, g in BA_DESIGNS_HELD.items()},
-                **{k: ba_rows["8a window 7"][kernel]["ticket"][k]
-                   for k in ("ms", "device_ms", "device_cold_ms")},
-                loop_benchmark=ba_rows["8c loop benchmark"][kernel]["ticket"],
-                phases={label: split(label, method) for label in ba_rows})
+        # the earlier ticket design: timed beside the launched one in turn,
+        # held against it (K10 and K12 bit for bit, K11 within its roundoff
+        # bound), launched by no path
+        earlier = sum(n.get(kernel, 0) for n in EARLIER_LAUNCHES.values())
+        check(earlier == 0, f"a path launched {kernel}'s ticket design {earlier} times")
+        launched, method = bk.DESIGNS[kernel]
+        more = dict(design={
+            "ba_build": "band: the prior's edges on a CTA of their own beside the slices', "
+                        "the last CTA summing only, H_o's band only",
+            "ba_step": "cooperative: grid barriers, the partials summed a share a CTA, S "
+                       "factored by 6 x 6 blocks with its right-hand side as a row and "
+                       "reciprocal pivots, every CTA back-substituting its own slice",
+            "ba_commit": "cluster: one thread-block cluster of min(C, 16) CTAs, no ticket; "
+                         "the prior and dp's check on a warp of their own beside the "
+                         "observations, each slice's sums stored into every rank's shared "
+                         "memory before the cluster's barrier, summed in slice order by "
+                         "every CTA, each rank committing its own slices of X"}[kernel])
+        more["phases"] = {label: split(label, launched) for label in ba_rows}
+        more["before"] = dict(
+            name=kernel + "_ticket", route="cuda",
+            design="ticket (the earlier design): the last CTA by an integer ticket finishing "
+                   "the stage",
+            source="mba_vo_tpu_torch/csrc/bundle_adjust.cu", launches=earlier,
+            launches_read_on=len(EARLIER_LAUNCHES),
+            held={label: dict(bit_equal=g[kernel + "_equal"], max_rel_err=g[kernel],
+                              **({"within_1e-12": g["step_within"],
+                                  "checked": g["step_checked"],
+                                  "share_of_bound": g["step_share"]}
+                                 if kernel == "ba_step" else {}))
+                  for label, g in BA_DESIGNS_HELD.items()},
+            **{k: ba_rows["8a window 7"][kernel]["ticket"][k]
+               for k in ("ms", "device_ms", "device_cold_ms")},
+            loop_benchmark=ba_rows["8c loop benchmark"][kernel]["ticket"],
+            phases={label: split(label, method) for label in ba_rows})
         if kernel == "ba_step":
             more["library"] = ("torch.linalg.cholesky_ex + torch.cholesky_solve on the same "
                                "reduced camera system S: two calls, the solve alone")
@@ -3199,20 +3219,19 @@ def main() -> int:
                     ("8c loop benchmark", loop["ba_calls"]))
         ba_rows = {label: bk.time_ba_rows(label, calls, out=indent) for label, calls in recorded}
         print(f"    K10-K12 timed in {time.perf_counter() - t0:.1f} s ({card})")
-        # where the time goes in K10 and K11, both designs, by phase
+        # where the time goes in K10-K12, both designs, by phase
         t0 = time.perf_counter()
         for label, calls in recorded:
-            for kernel, methods in (("ba_build", ("build", "build_ticket")),
-                                    ("ba_step", ("step", "step_ticket"))):
+            for kernel, methods in bk.DESIGNS.items():
                 for method in methods:
                     got = bk.phase_split(kernel, method, calls)
                     BA_SPLIT[label, kernel, method] = got
                     print(f"    {label} {kernel} {method} design, phases (median over "
                           f"{min(len(calls), 20)} launches of the harness-only build, us): "
                           + ", ".join(f"{k} {v:.2f}" for k, v in got.items()))
-        # the earlier ticket designs against the launched ones (K10 bit for bit,
-        # K11 within its roundoff bound: hold_designs raises past it) on
-        # every 8a iteration and 8c's first 200
+        # the earlier ticket designs against the launched ones (K10 and K12 bit
+        # for bit, K11 within its roundoff bound: hold_designs raises past it)
+        # on every 8a iteration and 8c's first 200
         for label, calls in recorded:
             got = bk.hold_designs_calls(calls[:200])
             BA_DESIGNS_HELD[label] = got
@@ -3222,10 +3241,12 @@ def main() -> int:
                   f"magnitude on {got['step_within']}, within its roundoff bound (at most "
                   f"{got['step_share']:.3e} of it) on "
                   f"{got['step_checked'] - got['step_within']}, unchecked on "
-                  f"{got['iterations'] - got['step_checked']}; largest differences "
-                  f"{got['ba_build']:.3e} / {got['ba_step']:.3e} of each output's magnitude")
-            check(got["ba_build_equal"] == got["iterations"],
-                  f"{label}: K10's ticket design differs from the launched one")
+                  f"{got['iterations'] - got['step_checked']}; K12 bit-equal on "
+                  f"{got['ba_commit_equal']}; largest differences {got['ba_build']:.3e} / "
+                  f"{got['ba_step']:.3e} / {got['ba_commit']:.3e} of each output's magnitude")
+            for kernel in ("ba_build", "ba_commit"):
+                check(got[kernel + "_equal"] == got["iterations"],
+                      f"{label}: {kernel}'s ticket design differs from the launched one")
         print(f"    phase split and designs held in {time.perf_counter() - t0:.1f} s")
 
         # ---- 9. the models, the non-planar scene, undistortion, overlays

@@ -48,29 +48,36 @@
 //
 // Design: the landmarks split into C = ceil(M / MB) contiguous slices of MB
 // landmarks (ops/cuda_ba.py::ba_layout: MB <= 32, fewer where the window is
-// wide), a CTA of 256 threads a slice, in all three kernels. A CTA stages
-// its slice's per-observation quantities in shared memory, writes what is
-// per landmark or per observation directly, and writes its partial sums of
+// wide), a CTA of 256 threads a slice in K10 and K11. A CTA stages its
+// slice's per-observation quantities in shared memory, writes what is per
+// landmark or per observation directly, and writes its partial sums of
 // what is summed across landmarks (U and g_p; S's lower triangle and the
-// right-hand side; the rho sum and n) to a scratch buffer [C, ...].
+// right-hand side) to a scratch buffer [C, ...].
 //
-//   * K10 (band design) and K12: the last CTA to take an integer ticket
-//     adds the C partials in slice order and finishes the stage; K10's
-//     prior edges come from one more CTA beside the slices', so the last
-//     CTA only sums (ba_build_kernel);
+//   * K10 (band design): the last CTA to take an integer ticket adds the C
+//     partials in slice order and finishes the stage; the prior's edges
+//     come from one more CTA beside the slices', so the last CTA only sums
+//     (ba_build_kernel);
 //   * K11 (cooperative design, ba_step_kernel): one cooperative launch,
 //     every CTA resident; a slice's partial S on the FP64 tensor cores;
 //     grid barriers replace the ticket, the C partials are summed by all
 //     CTAs (a share each), S is factored by 6 x 6 blocks (three barriers a
 //     block, the right-hand side a row of the factor, so the forward sweep
 //     falls out of the updates; reciprocal pivots) and every CTA
-//     back-substitutes its own slice from shared memory.
+//     back-substitutes its own slice from shared memory;
+//   * K12 (cluster design, ba_commit_kernel): one thread-block cluster of
+//     min(C, 16) CTAs, rank k the slices k, k + G, ...; each slice's rho
+//     sum, count and dx flag stored into every rank's shared memory before
+//     the cluster's barrier, the prior on a warp of its own beside the
+//     observations, every CTA summing the C partials in slice order and
+//     deciding, each rank committing its own slices of X.
 //
-// The earlier ticket designs of K10 and K11 (ba_build_ticket_kernel,
-// ba_step_ticket_kernel) stay as sweep rows: the path launches neither.
-// The ticket decides who combines, never in what order: every sum has one
-// fixed order, so a run repeats bit for bit. K10's two designs take every
-// sum and rounding in the same order and agree bit for bit. K11's
+// The earlier ticket designs of K10, K11 and K12 (ba_build_ticket_kernel,
+// ba_step_ticket_kernel, ba_commit_ticket_kernel) stay as sweep rows: the
+// path launches none of them. The ticket decides who combines, never in
+// what order: every sum has one fixed order, so a run repeats bit for bit.
+// K10's two designs take every sum and rounding in the same order and
+// agree bit for bit, and so do K12's. K11's
 // cooperative design takes two new orders: in float64 a slice's partial S
 // and right-hand side are summed by the FP64 tensor cores (mma.sync
 // m8n8k4: over k = 3 ml + c in steps of four, the even steps and the odd
@@ -98,6 +105,7 @@
 // S lives in shared memory while it fits with K11's vectors, else in a
 // global scratch matrix the wrapper allocates (ops/cuda_ba.py::ba_layout).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -107,6 +115,7 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using spline::Quat;
 using spline::V3;
 
@@ -430,21 +439,36 @@ __device__ __forceinline__ T prior_eval_sum(const Inputs<T>& in, const T* r, int
 // defined (experiments/ba_kernels.py's phase split; never the library the
 // path loads) thread 0 of each CTA stamps %globaltimer into
 // g_stamps[kernel][cta][slot] at each phase's end, after a barrier of its
-// CTA; without the macro a stamp is nothing. Kernel ids: kStamp* below.
-enum { kStampBuild = 0, kStampStep, kStampBuildTicket, kStampStepTicket, kStampKernels };
+// CTA (stamp_by: one thread where the CTA's warps part, K12's cluster
+// design); without the macro a stamp is nothing. Kernel ids: kStamp* below.
+enum {
+  kStampBuild = 0,
+  kStampStep,
+  kStampBuildTicket,
+  kStampStepTicket,
+  kStampCommit,
+  kStampCommitTicket,
+  kStampKernels
+};
 constexpr int kStampSlots = 20;
 constexpr int kStampCtas = 1024;
 
 #ifdef BA_PHASE_CLOCKS
 __device__ unsigned long long g_stamps[kStampKernels][kStampCtas][kStampSlots];
 
-__device__ __forceinline__ void stamp(int kernel, int slot) {
-  __syncthreads();
-  if (threadIdx.x == 0 && blockIdx.x < kStampCtas) {
+// a stamp by the calling thread where ``me``, with no barrier (where the
+// CTA's threads are not all on one path)
+__device__ __forceinline__ void stamp_by(bool me, int kernel, int slot) {
+  if (me && blockIdx.x < kStampCtas) {
     unsigned long long now;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
     g_stamps[kernel][blockIdx.x][slot] = now;
   }
+}
+
+__device__ __forceinline__ void stamp(int kernel, int slot) {
+  __syncthreads();
+  stamp_by(threadIdx.x == 0, kernel, slot);
 }
 
 // sub-phases in CTA 0: thread 0's clock64 cycles since ``since``, added
@@ -457,6 +481,7 @@ __device__ __forceinline__ void add_cycles(int slot, long long& since, int kerne
   since = now;
 }
 #else
+__device__ __forceinline__ void stamp_by(bool, int, int) {}
 __device__ __forceinline__ void stamp(int, int) {}
 __device__ __forceinline__ void add_cycles(int, long long&, int = 0) {}
 #endif
@@ -1720,24 +1745,327 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------------ K12
 
-// shared memory (elements of T): phase 1 the candidate poses [W, 7] and the
-// slice's rho mask and mask [W MB] each; the last CTA's phase the edges'
-// residuals [W - 1, 6] and the sums
-__host__ __device__ inline size_t commit_smem_elems(int W, int MB) {
+// the candidate's robust cost of one observation (K10's residual and Huber)
+// from its camera's pose (q^-1 and t), the candidate point, the pixel and
+// both masks: rho * mask and the mask
+template <typename T>
+__device__ __forceinline__ void observation_cost(const Pose3<T>& P, V3<T> X, const T* K, T ox,
+                                                 T oy, T obs_mask, T point_mask, double huber_a,
+                                                 T& rho_mask, T& mask) {
+  const V3<T> Pc = camera_point(P, X);
+  T r[2];
+  residual(Pc, K, ox, oy, r);
+  T rho, w2;
+  huber(r, huber_a, rho, w2);
+  mask = obs_mask * point_mask;
+  rho_mask = rho * mask;
+}
+
+// a slice's rho sum and observation count in one warp: lane l's
+// observations l, l + 32, ... in order, then the butterfly (K10's order);
+// every lane ends with the same bits (each step adds the same two values)
+template <typename T>
+__device__ __forceinline__ void slice_sums(const T* rm, const T* ms, int nobs, int lane, T& s_rho,
+                                           T& s_n) {
+  s_rho = T(0);
+  s_n = T(0);
+  for (int o = lane; o < nobs; o += kWarp) {
+    s_rho = s_rho + rm[o];
+    s_n = s_n + ms[o];
+  }
+#pragma unroll
+  for (int k = kWarp / 2; k > 0; k >>= 1) {
+    s_rho = s_rho + __shfl_xor_sync(0xffffffffu, s_rho, k);
+    s_n = s_n + __shfl_xor_sync(0xffffffffu, s_n, k);
+  }
+}
+
+// the LM's constants of the decision (BAOptions)
+struct CommitOptions {
+  double huber_a, lambda_up, lambda_down, min_lambda, max_lambda, min_rel_decrease;
+};
+
+// the loop body's decision from the candidate's sums (rho sum, count, the
+// slices whose dx is not finite, in slice order) and the prior's evaluate_cost
+// sum c_e at the candidate, on the scalars' cost, lambda, iteration count and
+// done flag as they stood at the launch; writes the next scalars into ``sc``
+// (null: decide only); returns ok
+template <typename T>
+__device__ __forceinline__ bool commit_decision(T rho, T count, T bad, T c_e, bool dp_bad,
+                                                T cost, T lam, T it, T done, T* sc,
+                                                const CommitOptions& o) {
+  const T n = clamp_min(count, T(1));
+  const T cand_cost = rho / n + (T(0.5) * c_e) * (T(1) / n);
+  const bool done_in = done != T(0);
+  const bool ok = (cand_cost < cost) && !dp_bad && bad == T(0) && !done_in;
+  const T rel = (cost - cand_cost) / clamp_min(cost, T(1e-24));
+  if (sc != nullptr && !done_in) {
+    sc[B_CAND_COST] = cand_cost;
+    sc[B_OK] = ok ? T(1) : T(0);
+    sc[B_REL] = rel;
+    sc[B_LAM] = ok ? clamp_min(lam * T(o.lambda_down), T(o.min_lambda))
+                   : clamp_max(lam * T(o.lambda_up), T(o.max_lambda));
+    sc[B_DONE] = (ok && rel < T(o.min_rel_decrease)) ? T(1) : T(0);
+    sc[B_IT] = it + T(1);
+    if (ok) sc[B_COST] = cand_cost;
+  }
+  return ok;
+}
+
+// The cluster design (launched): one thread-block cluster of G = min(C, 16)
+// CTAs (kMaxCluster, H100's non-portable size) and no ticket. Rank k takes
+// the slices k, k + G, ... of ba_layout's C on its first 256 threads: each
+// observation's inputs (its pose among them, read directly), dx and the
+// candidate points of the slice in one trip to memory, the costs, then
+// warp 0's sums in the lane and butterfly order, which lane r stores into
+// rank r's shared memory (every rank gets every slice's sums). Beside them
+// its last warp checks dp and computes the prior: a lane an edge's residual
+// at the candidate and its terms (w r) r, then lane 0's sum of the terms in
+// edge order. The cluster's barrier has two phases: the first (arrived at
+// the start, awaited before the first store into another rank) makes sure
+// every rank has started; the second publishes the stores. After it each
+// CTA sums the C partials in slice order from its own shared memory and
+// decides, each the same bits; rank 0 writes the scalars and t and q, every
+// rank its own slices of X, from the copies it loaded before the barrier.
+// Every CTA reads the scalars it decides on before it arrives, and no CTA
+// touches another's shared memory after the second phase, so none waits at
+// its end. Every output equals the ticket design's bit for bit.
+constexpr int kMaxCluster = 16;
+constexpr int kCommitObsThreads = 256;
+constexpr int kCommitThreads = kCommitObsThreads + kWarp;   // + the prior's warp
+
+__host__ __device__ inline int commit_cluster(int C) { return C < kMaxCluster ? C : kMaxCluster; }
+
+// shared memory (elements of T): a slice's rho mask and mask [W MB] each, the
+// prior's terms [W - 1, 6], the candidate points of the rank's slices
+// [ceil(C / G), 3 MB], the candidate poses t and q [7W] (rank 0's commit)
+// and every slice's sums [C, 3]
+__host__ __device__ inline size_t commit_smem_elems(int W, int MB, int C) {
+  const int G = commit_cluster(C);
+  return size_t(2) * W * MB + size_t(6) * (W > 1 ? W - 1 : 0) +
+         size_t(3) * MB * ((C + G - 1) / G) + size_t(7) * W + size_t(3) * C;
+}
+
+// named barrier 1 over the observations' 256 threads (the prior's warp not
+// among them)
+__device__ __forceinline__ void obs_barrier() {
+  static_assert(kCommitObsThreads == 256, "bar.sync's count");
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+// the cluster's barrier in its two halves: arrive (``release``: this
+// thread's stores into other ranks' shared memory made visible to them;
+// else relaxed) and wait
+__device__ __forceinline__ void cluster_arrive(bool release) {
+  if (release)
+    asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+  else
+    asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kCommitThreads)
+    ba_commit_kernel(T* __restrict__ t, T* __restrict__ q, T* __restrict__ X,
+                     T* __restrict__ sc, Inputs<T> in, const T* __restrict__ dp,
+                     const T* __restrict__ dx, const T* __restrict__ cand_t,
+                     const T* __restrict__ cand_q, const T* __restrict__ cand_X,
+                     CommitOptions opt) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_bad[kCommitObsThreads / kWarp];
+  __shared__ int s_dp_bad, s_ok;
+  __shared__ T s_c_e;
+  cg::cluster_group cluster = cg::this_cluster();
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int W = in.W, M = in.M, MB = in.MB, tid = threadIdx.x, lane = tid % kWarp;
+  const int E = W - 1, D = 6 * W;
+  const int C = (M + MB - 1) / MB, G = int(gridDim.x), rank = int(blockIdx.x);
+  T* rm = sm;                          // [W MB] rho mask
+  T* ms = rm + W * MB;                 // [W MB] mask
+  T* terms = ms + W * MB;              // [E, 6] the prior's (w r) r
+  T* xs = terms + 6 * (E > 0 ? E : 0); // [ceil(C / G), 3 MB] candidate points
+  T* pq = xs + 3 * MB * ((C + G - 1) / G);   // [7W] candidate t, then q
+  T* stage = pq + 7 * W;               // [C, 3] every slice's sums
+  // phase 1 of the cluster's barrier: this CTA has started
+  cluster_arrive(false);
+  // the scalars the decision reads, before this CTA arrives at phase 2
+  // (rank 0 writes them after it)
+  T cost = T(0), lam = T(0), it = T(0), done = T(0);
+  if (tid == 0) {
+    cost = sc[B_COST];
+    lam = sc[B_LAM];
+    it = sc[B_IT];
+    done = sc[B_DONE];
+  }
+  stamp(kStampCommit, 0);
+  if (tid < kCommitObsThreads) {
+    // 1. this rank's slices: the observations, dx's check, the slice's sums
+    for (int c = rank, j = 0; c < C; c += G, ++j) {
+      const int m0 = c * MB, mb = min(MB, M - m0), nobs = W * mb;
+      bool bad = false;
+      for (int base = 0; base < max(nobs, 3 * mb); base += kCommitObsThreads) {
+        // one trip: the observation's pose, point, pixel and masks, dx and
+        // the candidate point's entry
+        const int o = base + tid, e = base + tid;
+        T dxv = T(0), xv = T(0);
+        if (e < 3 * mb) {
+          dxv = dx[3 * size_t(m0) + e];
+          xv = cand_X[3 * size_t(m0) + e];
+        }
+        if (o < nobs) {
+          const int w = o / mb, m = m0 + (o - w * mb);
+          const size_t wm = size_t(w) * M + m;
+          const Pose3<T> P{spline::qconj(load_q(cand_q, w)), load_v(cand_t, w)};
+          observation_cost(P, load_v(cand_X, m), in.K, in.obs[2 * wm], in.obs[2 * wm + 1],
+                           in.obs_mask[wm], in.point_mask[m], opt.huber_a, rm[o], ms[o]);
+        }
+        if (e < 3 * mb) {
+          bad |= !isfinite(dxv);
+          xs[3 * MB * j + e] = xv;
+        }
+      }
+      bad = __any_sync(0xffffffffu, bad);
+      if (lane == 0) s_bad[tid / kWarp] = bad;
+      if (j == 0) cluster_wait();   // every rank has started: it may be stored into
+      obs_barrier();
+      stamp_by(tid == 0, kStampCommit, 1);
+      if (tid < kWarp) {
+        T s_rho, s_n;
+        slice_sums(rm, ms, nobs, lane, s_rho, s_n);
+        bool any_bad = false;
+#pragma unroll
+        for (int k = 0; k < kCommitObsThreads / kWarp; ++k) any_bad |= s_bad[k] != 0;
+        if (lane < G) {
+          T* dst = cluster.map_shared_rank(stage, lane) + 3 * c;
+          dst[0] = s_rho;
+          dst[1] = s_n;
+          dst[2] = any_bad ? T(1) : T(0);
+        }
+      }
+      stamp_by(tid == 0, kStampCommit, 2);
+      if (c + G < C) obs_barrier();   // the next slice reuses rm, ms and s_bad
+    }
+    cluster_arrive(true);
+  } else {
+    // 2. the last warp: dp's check, rank 0's copy of the candidate poses and
+    // the prior at the candidate, their loads first
+    const bool prior = in.odom_t != nullptr;
+    // dp's and (rank 0) the poses' first two rounds into registers, used
+    // after the edges (the rest, past W = 9, read there)
+    T dpv[2], pv[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int i = lane + kWarp * k;
+      dpv[k] = i < D ? dp[i] : T(0);
+      pv[k] = rank == 0 && i < 7 * W ? (i < 3 * W ? cand_t[i] : cand_q[i - 3 * W]) : T(0);
+    }
+    if (prior) {
+      for (int e = lane; e < E; e += kWarp) {
+        T r[6];
+        EdgeParts<T> p;
+        edge_residual(load_v(cand_t, e), load_q(cand_q, e), load_v(cand_t, e + 1),
+                      load_q(cand_q, e + 1), load_v(in.odom_t, e), load_q(in.odom_q, e), r, p);
+        const T we = in.odom_w[e];
+#pragma unroll
+        for (int k = 0; k < 6; ++k) terms[6 * e + k] = (we * r[k]) * r[k];
+      }
+    }
+    bool bad = false;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int i = lane + kWarp * k;
+      bad |= !isfinite(dpv[k]);
+      if (rank == 0 && i < 7 * W) pq[i] = pv[k];
+    }
+    for (int i = lane + 2 * kWarp; i < D; i += kWarp) bad |= !isfinite(dp[i]);
+    if (rank == 0)
+      for (int i = lane + 2 * kWarp; i < 7 * W; i += kWarp)
+        pq[i] = i < 3 * W ? cand_t[i] : cand_q[i - 3 * W];
+    bad = __any_sync(0xffffffffu, bad);
+    __syncwarp();
+    stamp_by(lane == 0, kStampCommit, 3);
+    // nothing of this warp's is read by another rank: it arrives before its
+    // sum, which only this CTA reads (after the barrier and a CTA barrier)
+    cluster_wait();
+    cluster_arrive(false);
+    if (lane == 0) {
+      // prior_eval_sum's order: the edges in order, each edge's six terms
+      T s = T(0);
+      if (prior) {
+        int k = 0;
+        for (; k + 8 <= 6 * E; k += 8) {
+          T v[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) v[u] = terms[k + u];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) s = s + v[u];
+        }
+        for (; k < 6 * E; ++k) s = s + terms[k];
+      }
+      s_c_e = s;
+      s_dp_bad = bad;
+      stamp_by(true, kStampCommit, 4);
+    }
+  }
+  // phase 2: every slice's sums are in every rank's stage
+  cluster_wait();
+  __syncthreads();   // and the prior's sum in this CTA's
+  stamp(kStampCommit, 5);
+  if (tid == 0) {
+    T rho = T(0), count = T(0), bad = T(0);
+#pragma unroll 4
+    for (int c = 0; c < C; ++c) {
+      rho = rho + stage[3 * c];
+      count = count + stage[3 * c + 1];
+      bad = bad + stage[3 * c + 2];
+    }
+    s_ok = commit_decision(rho, count, bad, s_c_e, s_dp_bad != 0, cost, lam, it, done,
+                           rank == 0 ? sc : static_cast<T*>(nullptr), opt);
+  }
+  __syncthreads();
+  stamp(kStampCommit, 6);
+  // 3. the select: this rank's slices of X, and rank 0 the poses
+  if (s_ok) {
+    for (int c = rank, j = 0; c < C; c += G, ++j) {
+      const int n = 3 * min(MB, M - c * MB);
+      for (int e = tid; e < n; e += kCommitThreads)
+        X[3 * size_t(c) * MB + e] = xs[3 * MB * j + e];
+    }
+    if (rank == 0)
+      for (int i = tid; i < 7 * W; i += kCommitThreads) {
+        if (i < 3 * W)
+          t[i] = pq[i];
+        else
+          q[i - 3 * W] = pq[i];
+      }
+  }
+  stamp(kStampCommit, 7);
+}
+
+// shared memory of the ticket design (elements of T): phase 1 the candidate
+// poses [W, 7] and the slice's rho mask and mask [W MB] each; the last CTA's
+// phase the edges' residuals [W - 1, 6] and the sums
+__host__ __device__ inline size_t commit_ticket_smem_elems(int W, int MB) {
   const size_t p1 = size_t(7) * W + size_t(2) * W * MB;
   const size_t p2 = size_t(6) * (W > 1 ? W - 1 : 0) + 8;
   return p1 > p2 ? p1 : p2;
 }
 
+// The earlier ticket design: a CTA a slice writes its sums to ``partials``;
+// the last CTA to take the ticket sums them in slice order, computes the
+// prior's residuals at the candidate (a thread an edge) and their sum (one
+// thread), decides and copies the whole candidate
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    ba_commit_kernel(T* __restrict__ t, T* __restrict__ q, T* __restrict__ X, T* __restrict__ sc,
-                     Inputs<T> in, const T* __restrict__ dp, const T* __restrict__ dx,
-                     const T* __restrict__ cand_t, const T* __restrict__ cand_q,
-                     const T* __restrict__ cand_X, T* __restrict__ partials,
-                     unsigned* __restrict__ ticket, double huber_a, double lambda_up,
-                     double lambda_down, double min_lambda, double max_lambda,
-                     double min_rel_decrease) {
+    ba_commit_ticket_kernel(T* __restrict__ t, T* __restrict__ q, T* __restrict__ X,
+                            T* __restrict__ sc, Inputs<T> in, const T* __restrict__ dp,
+                            const T* __restrict__ dx, const T* __restrict__ cand_t,
+                            const T* __restrict__ cand_q, const T* __restrict__ cand_X,
+                            T* __restrict__ partials, unsigned* __restrict__ ticket,
+                            CommitOptions opt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_flag;
   T* sm = reinterpret_cast<T*>(smem_raw);
@@ -1749,6 +2077,7 @@ __global__ void __launch_bounds__(kThreads)
   T* ts = qs + 4 * W;       // [W, 3]
   T* rm = ts + 3 * W;       // [W mb] rho mask
   T* ms = rm + nobs;        // [W mb] mask
+  stamp(kStampCommitTicket, 0);
   for (int w = tid; w < W; w += blockDim.x) {
     const Quat<T> qi = spline::qconj(load_q(cand_q, w));
     qs[4 * w] = qi.x;
@@ -1764,41 +2093,30 @@ __global__ void __launch_bounds__(kThreads)
   // Huber, in K10's slice and lane order)
   for (int o = tid; o < nobs; o += blockDim.x) {
     const int w = o / mb, m = m0 + (o - w * mb);
+    const size_t wm = size_t(w) * M + m;
     const Pose3<T> P{Quat<T>{qs[4 * w], qs[4 * w + 1], qs[4 * w + 2], qs[4 * w + 3]},
                      V3<T>{ts[3 * w], ts[3 * w + 1], ts[3 * w + 2]}};
-    const V3<T> Pc = camera_point(P, load_v(cand_X, m));
-    const size_t wm = size_t(w) * M + m;
-    T r[2];
-    residual(Pc, in.K, in.obs[2 * wm], in.obs[2 * wm + 1], r);
-    T rho, w2;
-    huber(r, huber_a, rho, w2);
-    const T mask = in.obs_mask[wm] * in.point_mask[m];
-    rm[o] = rho * mask;
-    ms[o] = mask;
+    observation_cost(P, load_v(cand_X, m), in.K, in.obs[2 * wm], in.obs[2 * wm + 1],
+                     in.obs_mask[wm], in.point_mask[m], opt.huber_a, rm[o], ms[o]);
   }
+  stamp(kStampCommitTicket, 1);
   // whether any of the slice's dx is not finite
   bool bad = false;
   for (int e = tid; e < 3 * mb; e += blockDim.x) bad |= !isfinite(dx[3 * size_t(m0) + e]);
   const int any_bad = __syncthreads_or(bad);
   T* part = partials + 3 * blockIdx.x;
   if (tid < kWarp) {
-    T s_rho = T(0), s_n = T(0);
-    for (int o = tid; o < nobs; o += kWarp) {
-      s_rho = s_rho + rm[o];
-      s_n = s_n + ms[o];
-    }
-#pragma unroll
-    for (int k = kWarp / 2; k > 0; k >>= 1) {
-      s_rho = s_rho + __shfl_xor_sync(0xffffffffu, s_rho, k);
-      s_n = s_n + __shfl_xor_sync(0xffffffffu, s_n, k);
-    }
+    T s_rho, s_n;
+    slice_sums(rm, ms, nobs, tid, s_rho, s_n);
     if (tid == 0) {
       part[0] = s_rho;
       part[1] = s_n;
       part[2] = any_bad ? T(1) : T(0);
     }
   }
+  stamp(kStampCommitTicket, 2);
   if (!last_cta(ticket, &s_flag)) return;
+  stamp(kStampCommitTicket, 3);
 
   // 2. the last CTA: the candidate's cost, the decision, the select
   const int C = gridDim.x, E = W - 1, D = 6 * W;
@@ -1809,38 +2127,30 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < C; ++c) acc = acc + __ldcg(partials + 3 * c + tid);
     tot[tid] = acc;
   }
+  stamp(kStampCommitTicket, 4);
   const bool prior = in.odom_t != nullptr;
   if (prior) edge_residuals(in, cand_t, cand_q, re);
   bool dp_bad = false;
   for (int i = tid; i < D; i += blockDim.x) dp_bad |= !isfinite(dp[i]);
   const int any_dp_bad = __syncthreads_or(dp_bad);
+  stamp(kStampCommitTicket, 5);
+  T c_e = T(0);
+  if (tid == 0 && prior) c_e = prior_eval_sum(in, re, 6);
+  stamp(kStampCommitTicket, 6);
   if (tid == 0) {
-    const T c_e = prior ? prior_eval_sum(in, re, 6) : T(0);
-    const T n = clamp_min(tot[1], T(1));
-    const T cand_cost = tot[0] / n + (T(0.5) * c_e) * (T(1) / n);
-    const T cost = sc[B_COST], lam = sc[B_LAM];
-    const bool done_in = sc[B_DONE] != T(0);
-    const bool ok = (cand_cost < cost) && !any_dp_bad && tot[2] == T(0) && !done_in;
-    const T rel = (cost - cand_cost) / clamp_min(cost, T(1e-24));
-    if (!done_in) {
-      sc[B_CAND_COST] = cand_cost;
-      sc[B_OK] = ok ? T(1) : T(0);
-      sc[B_REL] = rel;
-      sc[B_LAM] = ok ? clamp_min(lam * T(lambda_down), T(min_lambda))
-                     : clamp_max(lam * T(lambda_up), T(max_lambda));
-      sc[B_DONE] = (ok && rel < T(min_rel_decrease)) ? T(1) : T(0);
-      sc[B_IT] = sc[B_IT] + T(1);
-      if (ok) sc[B_COST] = cand_cost;
-    }
+    const bool ok = commit_decision(tot[0], tot[1], tot[2], c_e, any_dp_bad != 0, sc[B_COST],
+                                    sc[B_LAM], sc[B_IT], sc[B_DONE], sc, opt);
     tot[3] = ok ? T(1) : T(0);
   }
   __syncthreads();
+  stamp(kStampCommitTicket, 7);
   if (tot[3] != T(0)) {
     for (int e = tid; e < 3 * W; e += blockDim.x) t[e] = cand_t[e];
     for (int e = tid; e < 4 * W; e += blockDim.x) q[e] = cand_q[e];
     for (int e = tid; e < 3 * M; e += blockDim.x) X[e] = cand_X[e];
   }
   if (tid == 0) *ticket = 0u;
+  stamp(kStampCommitTicket, 8);
 }
 
 // ------------------------------------------------------------ launchers
@@ -1951,19 +2261,87 @@ int launch_step_ticket(const T* t, const T* q, const T* X, const T* sc, Inputs<T
   return cudaGetLastError();
 }
 
+// K12's cluster design launched by cudaLaunchKernelEx with a cluster of G
+// = min(C, 16) CTAs over the whole grid; 16 is past the portable size of 8,
+// which the kernel opts out of once a device (as normal_equations.cu's K3)
+template <typename T>
+cudaError_t commit_config(const Inputs<T>& in, cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                          cudaLaunchAttribute* attr) {
+  const int C = grid_of(in.M, in.MB);
+  const size_t smem = commit_smem_elems(in.W, in.MB, C) * sizeof(T);
+  static int ready_on = -1;   // the device whose attribute is set
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device != ready_on) {
+    err = cudaFuncSetAttribute(ba_commit_kernel<T>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    ready_on = device;
+  }
+  err = opt_in(ba_commit_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(commit_cluster(C));
+  cfg->blockDim = dim3(kCommitThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = commit_cluster(C);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// the clusters of K12's cluster design the current device holds at once
+// (the occupancy API; 0: it cannot be scheduled), or minus a CUDA error
+template <typename T>
+int commit_clusters(int W, int M, int MB) {
+  if (bad_sizes(W, M, MB)) return -int(cudaErrorInvalidValue);
+  const Inputs<T> in = inputs<T>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                 nullptr, W, M, MB);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = commit_config(in, nullptr, &cfg, attr);
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, ba_commit_kernel<T>, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -int(err);
+  }
+  return n;
+}
+
 template <typename T>
 int launch_commit(T* t, T* q, T* X, T* sc, Inputs<T> in, const T* dp, const T* dx,
-                  const T* cand_t, const T* cand_q, const T* cand_X, T* partials,
-                  unsigned* ticket, double huber_a, double lambda_up, double lambda_down,
-                  double min_lambda, double max_lambda, double min_rel_decrease,
+                  const T* cand_t, const T* cand_q, const T* cand_X, CommitOptions opt,
                   cudaStream_t stream) {
   if (bad_sizes(in.W, in.M, in.MB)) return cudaErrorInvalidValue;
-  const size_t smem = commit_smem_elems(in.W, in.MB) * sizeof(T);
-  cudaError_t err = opt_in(ba_commit_kernel<T>, smem);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = commit_config(in, stream, &cfg, attr);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&cfg, ba_commit_kernel<T>, t, q, X, sc, in, dp, dx, cand_t, cand_q,
+                             cand_X, opt);
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // not left for the next launch's check
+    return err;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_commit_ticket(T* t, T* q, T* X, T* sc, Inputs<T> in, const T* dp, const T* dx,
+                         const T* cand_t, const T* cand_q, const T* cand_X, T* partials,
+                         unsigned* ticket, CommitOptions opt, cudaStream_t stream) {
+  if (bad_sizes(in.W, in.M, in.MB)) return cudaErrorInvalidValue;
+  const size_t smem = commit_ticket_smem_elems(in.W, in.MB) * sizeof(T);
+  cudaError_t err = opt_in(ba_commit_ticket_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  ba_commit_kernel<T><<<grid_of(in.M, in.MB), kThreads, smem, stream>>>(
-      t, q, X, sc, in, dp, dx, cand_t, cand_q, cand_X, partials, ticket, huber_a, lambda_up,
-      lambda_down, min_lambda, max_lambda, min_rel_decrease);
+  ba_commit_ticket_kernel<T><<<grid_of(in.M, in.MB), kThreads, smem, stream>>>(
+      t, q, X, sc, in, dp, dx, cand_t, cand_q, cand_X, partials, ticket, opt);
   return cudaGetLastError();
 }
 
@@ -1973,15 +2351,29 @@ extern "C" {
 
 int ba_scalars_size() { return B_SIZE; }
 
-// shared bytes of kernel 10, 11 or 12 (``ticket``: the earlier design of K10
-// or K11) at W poses, MB landmarks a CTA and the dtype's size (K11 with S in
+// shared bytes of kernel 10, 11 or 12 (``ticket``: the earlier design of K10,
+// K11 or K12; K12 only that one) at W poses, MB landmarks a CTA and the dtype's size (K11 with S in
 // shared memory when s_shared)
 long long ba_smem_bytes(int kernel, int ticket, int W, int MB, int itemsize, int s_shared) {
   const size_t e = kernel == 10   ? build_smem_elems(W, MB)
                    : kernel == 11 ? (ticket ? step_ticket_smem_elems(W, MB, s_shared != 0)
                                             : step_smem_elems(W, MB, s_shared != 0))
-                                  : commit_smem_elems(W, MB);
+                                  : commit_ticket_smem_elems(W, MB);
   return (long long)(e * size_t(itemsize));
+}
+
+// K12's cluster design: its CTAs (the cluster's size) and dynamic shared
+// bytes at W poses, M landmark slots, MB a slice and the dtype's size
+int ba_commit_cluster(int W, int M, int MB) { return commit_cluster(grid_of(M, MB)); }
+
+long long ba_commit_smem_bytes(int W, int M, int MB, int itemsize) {
+  return (long long)(commit_smem_elems(W, MB, grid_of(M, MB)) * size_t(itemsize));
+}
+
+// the clusters of K12's cluster design one device holds at once, or minus a
+// CUDA error
+int ba_commit_clusters(int W, int M, int MB, int itemsize) {
+  return itemsize == 8 ? commit_clusters<double>(W, M, MB) : commit_clusters<float>(W, M, MB);
 }
 
 // K11's CTAs one SM of the current device holds at once, or minus a CUDA
@@ -2063,16 +2455,33 @@ int ba_stamps(unsigned long long* out, int reset, cudaStream_t stream) {
   int ba_commit_##SUFFIX(T* t, T* q, T* X, T* sc, const T* obs, const T* obs_mask,            \
                          const T* point_mask, const T* K, const T* odom_t, const T* odom_q,   \
                          const T* odom_w, const T* dp, const T* dx, const T* cand_t,          \
-                         const T* cand_q, const T* cand_X, T* partials, unsigned* ticket,     \
-                         int W, int M, int MB, double huber_a, double lambda_up,              \
-                         double lambda_down, double min_lambda, double max_lambda,            \
-                         double min_rel_decrease, cudaStream_t stream) {                      \
+                         const T* cand_q, const T* cand_X, int W, int M, int MB,              \
+                         double huber_a, double lambda_up, double lambda_down,                \
+                         double min_lambda, double max_lambda, double min_rel_decrease,       \
+                         cudaStream_t stream) {                                               \
     return launch_commit<T>(t, q, X, sc,                                                       \
                             inputs<T>(obs, obs_mask, point_mask, K, odom_t, odom_q, odom_w,    \
                                       nullptr, W, M, MB),                                      \
-                            dp, dx, cand_t, cand_q, cand_X, partials, ticket, huber_a,         \
-                            lambda_up, lambda_down, min_lambda, max_lambda, min_rel_decrease,  \
+                            dp, dx, cand_t, cand_q, cand_X,                                    \
+                            CommitOptions{huber_a, lambda_up, lambda_down, min_lambda,         \
+                                          max_lambda, min_rel_decrease},                       \
                             stream);                                                           \
+  }                                                                                            \
+  int ba_commit_ticket_##SUFFIX(T* t, T* q, T* X, T* sc, const T* obs, const T* obs_mask,     \
+                                const T* point_mask, const T* K, const T* odom_t,             \
+                                const T* odom_q, const T* odom_w, const T* dp, const T* dx,   \
+                                const T* cand_t, const T* cand_q, const T* cand_X,            \
+                                T* partials, unsigned* ticket, int W, int M, int MB,          \
+                                double huber_a, double lambda_up, double lambda_down,         \
+                                double min_lambda, double max_lambda,                         \
+                                double min_rel_decrease, cudaStream_t stream) {               \
+    return launch_commit_ticket<T>(t, q, X, sc,                                                \
+                                   inputs<T>(obs, obs_mask, point_mask, K, odom_t, odom_q,     \
+                                             odom_w, nullptr, W, M, MB),                       \
+                                   dp, dx, cand_t, cand_q, cand_X, partials, ticket,           \
+                                   CommitOptions{huber_a, lambda_up, lambda_down, min_lambda,  \
+                                                 max_lambda, min_rel_decrease},                \
+                                   stream);                                                    \
   }
 
 BA_ENTRIES(float, f32)

@@ -40,12 +40,15 @@ binding (the loop's host call), ``device_ms`` warm in a replayed CUDA graph
 of the calls, ``device_cold_ms`` after an L2 flush, the plain version's call
 (``plain_ms``), the bound (:func:`ba_bound`) and, for K11, the library's
 Cholesky (``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve``) on the
-same reduced camera system S, a yardstick the port never calls. K10 and K11
-are timed in both designs, the launched one and the earlier ticket design, in
-turn (launched, ticket, ticket, launched).
+same reduced camera system S, a yardstick the port never calls. Each
+kernel is timed in both designs, the launched one and the earlier ticket
+design, in turn (launched, ticket, ticket, launched). K12 writes the state
+in place, so its launches after a binding's first take the branch of a
+rejected step (or of a done state): no copy of the candidate.
 
 :func:`hold_designs` holds the ticket designs against the launched ones on a
-recorded iteration (bit for bit: the two take every sum in one order);
+recorded iteration (K10's and K12's bit for bit: each pair takes every sum
+in one order; K11's within its roundoff bound);
 :func:`phase_split` times each design's phases from the stamps of
 ``bundle_adjust.cu``'s harness-only build (``BA_PHASE_CLOCKS``, a library of
 its own; the path never loads it); :func:`cholesky_solve_ordered` is K11's
@@ -71,7 +74,7 @@ BA_KERNELS = ("ba_build", "ba_step", "ba_commit")
 # each kernel's designs by BABinding method: the launched one first, then
 # the earlier ticket design where the kernel was redesigned
 DESIGNS = {"ba_build": ("build", "build_ticket"), "ba_step": ("step", "step_ticket"),
-           "ba_commit": ("commit",)}
+           "ba_commit": ("commit", "commit_ticket")}
 # of each output's largest magnitude (chip_smoke.py's bounds)
 TOLERANCE = {torch.float32: 1e-5, torch.float64: 1e-12}
 
@@ -556,8 +559,8 @@ def time_ba_rows(label: str, calls: List[BACall], reps: int = 10, inner: int = 1
     """Each of K10-K12 on (at most 50 of) the recorded ``calls``, timed as the
     module docstring says; returns a row by kernel with ``ms``,
     ``device_ms``, ``device_cold_ms`` (the launched design's; each the mean
-    of its two turns), ``ticket`` (the same of the earlier ticket design; None for
-    K12), ``plain_ms``, ``bound_ms``, ``bound_by`` and ``library_ms`` (with
+    of its two turns), ``ticket`` (the same of the earlier ticket design),
+    ``plain_ms``, ``bound_ms``, ``bound_by`` and ``library_ms`` (with
     ``library_device_ms`` and ``library_device_cold_ms``; None but for
     K11)."""
     if not torch.cuda.is_available():
@@ -613,15 +616,17 @@ def time_ba_rows(label: str, calls: List[BACall], reps: int = 10, inner: int = 1
 
 
 def hold_designs(call: BACall) -> dict:
-    """K10's and K11's earlier ticket designs against the launched ones
-    on one recorded iteration, on the same inputs (K11's both from the
-    launched K10's outputs). K10's two designs sum in one order: held bit
-    for bit (and, for the report, within :data:`TOLERANCE` of each output's
-    magnitude). K11's build S and its right-hand side in one order but
-    factor S with other pivot scalings: held as :func:`hold_ba` holds the
-    plain version (:func:`_hold_step`). Returns whether each kernel's
-    outputs were bit-equal, the largest difference relative to each
-    output's magnitude, and K11's status and share of its roundoff bound."""
+    """The earlier ticket designs of K10, K11 and K12 against the launched
+    ones on one recorded iteration, on the same inputs (K11's both from the
+    launched K10's outputs, K12's both from the launched K11's outputs at
+    one state). K10's and K12's two designs sum in one order: held bit for
+    bit (K12's t, q, X and every scalar), K10's also, for the report,
+    within :data:`TOLERANCE` of each output's magnitude. K11's build S and
+    its right-hand side in one order but factor S with other pivot
+    scalings: held as :func:`hold_ba` holds the plain version
+    (:func:`_hold_step`). Returns whether each kernel's outputs were
+    bit-equal, the largest difference relative to each output's magnitude,
+    and K11's status and share of its roundoff bound."""
     from ..ops import cuda_ba
 
     label = f"BA iteration (run {call.run}, W {call.W}, M {call.M})"
@@ -642,7 +647,45 @@ def hold_designs(call: BACall) -> dict:
     out["ba_step_equal"] = all(same_bits(x, y) for x, y in zip(cand_a, cand_b))
     out.update(_hold_step(label + " K11's ticket design", call, a.built, sa, b.candidate,
                           a.candidate))
+    out.update(hold_commit_designs(a, b))
     return out
+
+
+def hold_commit_designs(a, b) -> dict:
+    """K12's two designs on one candidate: ``b`` (a ``BABinding``) takes
+    ``a``'s candidate and state, then ``a`` launches the cluster design and
+    ``b`` the ticket design. Returns whether t, q, X and every scalar are
+    equal bit for bit (``ba_commit_equal``) and the largest difference
+    relative to each output's magnitude (``ba_commit``)."""
+    b.use_candidate(a.candidate)
+    for x, y in zip((b.t, b.q, b.X, b.scalars), (a.t, a.q, a.X, a.scalars)):
+        x.copy_(y)
+    a.commit()
+    b.commit_ticket()
+    outs, refs = (b.t, b.q, b.X, b.scalars), (a.t, a.q, a.X, a.scalars)
+    return dict(ba_commit_equal=all(same_bits(x, y) for x, y in zip(outs, refs)),
+                ba_commit=max(rel_diff(x, y) for x, y in zip(outs, refs)))
+
+
+def hold_commit_designs_calls(calls: List[BACall]) -> dict:
+    """K12's two designs alone on every recorded iteration
+    (:func:`hold_commit_designs` on the launched K10's and K11's outputs at
+    the iteration's state): the iterations, those bit-equal and the largest
+    difference relative to each output's magnitude."""
+    from ..ops import cuda_ba
+
+    n = dict(iterations=0, ba_commit_equal=0, ba_commit=0.0)
+    for call in calls:
+        (pa, sa), (pb, sb) = call.fresh(), call.fresh()
+        a = cuda_ba.BABinding(pa, call.opts, sa, own=False)
+        b = cuda_ba.BABinding(pb, call.opts, sb, own=False)
+        a.build()
+        a.step()
+        got = hold_commit_designs(a, b)
+        n["iterations"] += 1
+        n["ba_commit_equal"] += got["ba_commit_equal"]
+        n["ba_commit"] = max(n["ba_commit"], got["ba_commit"])
+    return n
 
 
 def hold_designs_calls(calls: List[BACall]) -> dict:
@@ -650,12 +693,12 @@ def hold_designs_calls(calls: List[BACall]) -> dict:
     many were bit-equal by kernel, K11's within the bound of each output's
     magnitude and checked against its roundoff bound (its largest share),
     and the largest difference by kernel."""
-    n = dict(iterations=0, ba_build_equal=0, ba_step_equal=0, ba_build=0.0, ba_step=0.0,
-             step_within=0, step_checked=0, step_share=0.0)
+    n = dict(iterations=0, ba_build_equal=0, ba_step_equal=0, ba_commit_equal=0, ba_build=0.0,
+             ba_step=0.0, ba_commit=0.0, step_within=0, step_checked=0, step_share=0.0)
     for call in calls:
         got = hold_designs(call)
         n["iterations"] += 1
-        for k in ("ba_build", "ba_step"):
+        for k in BA_KERNELS:
             n[k + "_equal"] += got[k + "_equal"]
             n[k] = max(n[k], got[k])
         n["step_within"] += got["step_status"] == "within the bound"
@@ -669,7 +712,8 @@ def hold_designs_calls(calls: List[BACall]) -> dict:
 # last CTA's (after the ticket), "each" the mean over the slices' CTAs
 _STAMPS = {
     ("ba_build", "build_ticket"): 2, ("ba_step", "step_ticket"): 3,
-    ("ba_build", "build"): 0, ("ba_step", "step"): 1}
+    ("ba_build", "build"): 0, ("ba_step", "step"): 1,
+    ("ba_commit", "commit"): 4, ("ba_commit", "commit_ticket"): 5}
 
 
 def _split_one(kernel: str, method: str, st: np.ndarray, C: int) -> Dict[str, float]:
@@ -700,6 +744,19 @@ def _split_one(kernel: str, method: str, st: np.ndarray, C: int) -> Dict[str, fl
                 "factorisation cycles: trailing updates": float(st[0, 14]),
                 "factorisation cycles: L^T x = z": float(st[0, 15]),
                 "phase 3 cycles (thread 0)": float(st[0, 16])}
+    if method == "commit":
+        # without a barrier: thread 0 at the observations' end and at its
+        # stores of the slice sums (its arrival), the prior's lane 0 at the
+        # edges' end (its arrival) and at its sum's; the rest after one
+        arrive = max(sl[:, 2].max(), sl[:, 3].max())
+        return {"observations, each CTA": each(0, 1),
+                "slice sums and their stores to every rank, each CTA": each(1, 2),
+                "the prior's edges and dp's check, its warp": each(0, 3),
+                "the prior's sum, its lane 0": each(3, 4),
+                "first start to the last arrival": us(t0, arrive),
+                "cluster barrier": us(arrive, np.median(sl[:, 5])),
+                "partial sums and decision": each(5, 6), "commit, each CTA": each(6, 7),
+                "total": us(t0, sl[:, 7].max())}
     if method == "build":
         last = int(np.argmax(st[:C + 1, 3]))
         e = st[C] if st.shape[0] > C and st[C, 0] else None
@@ -714,6 +771,14 @@ def _split_one(kernel: str, method: str, st: np.ndarray, C: int) -> Dict[str, fl
                 # CTA 0's thread 0, clock64 cycles
                 "cycles: the poses' setup": float(st[0, 16]),
                 "cycles: thread 0's observations": float(st[0, 17])}
+    if method == "commit_ticket":
+        last = int(np.argmax(sl[:, 3]))
+        L = sl[last]
+        return {"observations, each CTA": each(0, 1), "slice sums, each CTA": each(1, 2),
+                "first start to the last CTA's slice sums": us(t0, L[2]),
+                "ticket": us(L[2], L[3]), "partial sums": us(L[3], L[4]),
+                "edges and the dp check": us(L[4], L[5]), "prior sum": us(L[5], L[6]),
+                "decision": us(L[6], L[7]), "copy": us(L[7], L[8]), "total": us(t0, L[8])}
     last = int(np.argmax(sl[:, 4]))
     L = sl[last]
     if method == "step_ticket":
@@ -821,7 +886,8 @@ def main() -> int:
     """On the card: 8a's window through run_bundle_adjustment on the
     kernels, its iterations recorded; each held against the plain versions
     and the ticket designs against the launched ones; the phase split of
-    both designs of K10 and K11; and K10-K12 timed (both designs in turn).
+    both designs of K10, K11 and K12; and K10-K12 timed (both designs in
+    turn).
     Prints the card, each result and the kernels' registers and spills."""
     import json
 
@@ -849,7 +915,7 @@ def main() -> int:
     got = hold_ba_calls(calls)
     print("held against the plain versions:", {k: v for k, v in got.items() if k != "flips"})
     print("the ticket designs against the launched ones:", hold_designs_calls(calls))
-    for kernel, methods in (("ba_build", DESIGNS["ba_build"]), ("ba_step", DESIGNS["ba_step"])):
+    for kernel, methods in DESIGNS.items():
         for method in methods:
             print(f"phases {kernel} {method} (us):",
                   json.dumps(phase_split(kernel, method, calls)))

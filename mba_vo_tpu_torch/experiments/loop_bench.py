@@ -160,7 +160,7 @@ def run(num_frames=60, height=240, width=320, noise=1.5, device="cuda", keep=Non
             "k1_launches": cs.LAUNCHES,
             "k2_k3_launches": cr.launch_counts(),
             "k10_k12_launches": cuda_ba.launch_counts(),
-            "k10_k11_ticket_launches": cuda_ba.earlier_launch_counts(),
+            "k10_k12_ticket_launches": cuda_ba.earlier_launch_counts(),
         }
         if name == "ba_pg":
             with open(os.path.join(root, "backend_stats.json")) as f:

@@ -14,7 +14,10 @@ Pallas source):
     the grid against the occupancy API and raises where it cannot be, with
     no fallback);
   * K12 ``ba_commit``: the candidate's cost, the decision, the select in
-    place, lambda, the cost, the iteration count and the done flag.
+    place, lambda, the cost, the iteration count and the done flag, in one
+    thread-block cluster of ``min(C, 16)`` CTAs (:func:`commit_cluster`;
+    :class:`BABinding` asks the occupancy API whether it can be scheduled
+    and raises where it cannot, with no fallback).
 
 An iteration is K10, K11, K12 and one host read of the done flag
 (``backend/ba.py::run_bundle_adjustment`` on CUDA tensors without
@@ -31,11 +34,12 @@ three launches and no checks. :func:`ba_build_cuda`, :func:`ba_step_cuda`
 and :func:`ba_commit_cuda` are each kernel alone on given inputs (a binding
 made for the call), for the comparisons with the plain versions.
 
-The earlier ticket designs of K10 and K11 stay callable as sweep rows
-(:meth:`BABinding.build_ticket`, :meth:`BABinding.step_ticket`); no path
-launches them. ``LAUNCHES_BA_BUILD``, ``LAUNCHES_BA_STEP`` and
-``LAUNCHES_BA_COMMIT`` count the launched designs' launches,
-``LAUNCHES_BA_BUILD_TICKET`` and ``LAUNCHES_BA_STEP_TICKET`` the ticket
+The earlier ticket designs of K10, K11 and K12 stay callable as sweep rows
+(:meth:`BABinding.build_ticket`, :meth:`BABinding.step_ticket`,
+:meth:`BABinding.commit_ticket`); no path launches them.
+``LAUNCHES_BA_BUILD``, ``LAUNCHES_BA_STEP`` and ``LAUNCHES_BA_COMMIT`` count
+the launched designs' launches, ``LAUNCHES_BA_BUILD_TICKET``,
+``LAUNCHES_BA_STEP_TICKET`` and ``LAUNCHES_BA_COMMIT_TICKET`` the ticket
 designs', one a call (a call recorded into a CUDA graph is not a launch).
 The library is built and loaded by ``ops/cuda_build.py`` at first use;
 nothing here runs when the module is imported.
@@ -62,6 +66,7 @@ LAUNCHES_BA_STEP = 0
 LAUNCHES_BA_COMMIT = 0
 LAUNCHES_BA_BUILD_TICKET = 0
 LAUNCHES_BA_STEP_TICKET = 0
+LAUNCHES_BA_COMMIT_TICKET = 0
 
 B_COST, B_LAM, B_IT, B_DONE, B_COST0, B_BUILD_COST, B_CAND_COST, B_OK, B_REL = range(9)
 B_SIZE = 9
@@ -78,6 +83,11 @@ SLICE_SMEM_BUDGET = 96 * 1024
 SMEM_LIMIT = 232448
 SM_SMEM_BYTES = 233472
 SM_THREADS = 2048
+# K12's cluster design: at most this many CTAs a cluster (H100's
+# non-portable size; bundle_adjust.cu's kMaxCluster), each of this many
+# threads (the observations' 256 and the prior's warp)
+MAX_COMMIT_CLUSTER = 16
+COMMIT_THREADS = 288
 # the macro of bundle_adjust.cu's harness-only build, whose kernels stamp
 # each phase's end (experiments/ba_kernels.py's phase split)
 PHASE_CLOCKS = "BA_PHASE_CLOCKS"
@@ -100,10 +110,11 @@ _SIGNATURES = {
     # ticket, W, M, MB, landmark_damping, stream
     "ba_step_ticket": [_P] * 21 + [_I, _I, _I, _D, _P],
     # t, q, X, scalars, obs, obs_mask, point_mask, K, odom t, odom q, odom
-    # weight, dp, dx, cand t, cand q, cand X, partials, ticket, W, M, MB,
-    # huber_a, lambda_up, lambda_down, min_lambda, max_lambda,
-    # min_rel_decrease, stream
-    "ba_commit": [_P] * 18 + [_I, _I, _I] + [_D] * 6 + [_P],
+    # weight, dp, dx, cand t, cand q, cand X, W, M, MB, huber_a, lambda_up,
+    # lambda_down, min_lambda, max_lambda, min_rel_decrease, stream
+    "ba_commit": [_P] * 16 + [_I, _I, _I] + [_D] * 6 + [_P],
+    # the same with partials and the ticket after cand X
+    "ba_commit_ticket": [_P] * 18 + [_I, _I, _I] + [_D] * 6 + [_P],
 }
 
 
@@ -121,6 +132,10 @@ def library(clocked: bool = False) -> ctypes.CDLL:
         for fn_name, args, res in (("ba_scalars_size", [], ctypes.c_int),
                                    ("ba_smem_bytes", [ctypes.c_int] * 6, ctypes.c_longlong),
                                    ("ba_step_blocks_per_sm", [ctypes.c_int] * 4, ctypes.c_int),
+                                   ("ba_commit_cluster", [ctypes.c_int] * 3, ctypes.c_int),
+                                   ("ba_commit_smem_bytes", [ctypes.c_int] * 4,
+                                    ctypes.c_longlong),
+                                   ("ba_commit_clusters", [ctypes.c_int] * 4, ctypes.c_int),
                                    ("ba_phase_clocks", [ctypes.c_int], ctypes.c_int)):
             fn = getattr(lib, fn_name)
             fn.argtypes, fn.restype = args, res
@@ -146,16 +161,18 @@ def launch_counts() -> Dict[str, int]:
 
 
 def earlier_launch_counts() -> Dict[str, int]:
-    """The launches of K10's and K11's earlier ticket designs, by the
+    """The launches of K10's, K11's and K12's earlier ticket designs, by the
     kernel's name: no path launches them."""
-    return {"ba_build": LAUNCHES_BA_BUILD_TICKET, "ba_step": LAUNCHES_BA_STEP_TICKET}
+    return {"ba_build": LAUNCHES_BA_BUILD_TICKET, "ba_step": LAUNCHES_BA_STEP_TICKET,
+            "ba_commit": LAUNCHES_BA_COMMIT_TICKET}
 
 
 def zero_launch_counts() -> None:
     global LAUNCHES_BA_BUILD, LAUNCHES_BA_STEP, LAUNCHES_BA_COMMIT
-    global LAUNCHES_BA_BUILD_TICKET, LAUNCHES_BA_STEP_TICKET
+    global LAUNCHES_BA_BUILD_TICKET, LAUNCHES_BA_STEP_TICKET, LAUNCHES_BA_COMMIT_TICKET
     LAUNCHES_BA_BUILD = LAUNCHES_BA_STEP = LAUNCHES_BA_COMMIT = 0
-    LAUNCHES_BA_BUILD_TICKET = LAUNCHES_BA_STEP_TICKET = 0
+    LAUNCHES_BA_BUILD_TICKET = LAUNCHES_BA_STEP_TICKET = LAUNCHES_BA_COMMIT_TICKET = 0
+LAUNCHES_BA_COMMIT_TICKET = 0
 
 
 class BALayout(NamedTuple):
@@ -204,12 +221,36 @@ def ticket_s_shared(W: int, MB: int, itemsize: int) -> bool:
     return ticket_step_smem_bytes(W, MB, itemsize, True) <= SMEM_LIMIT
 
 
+def commit_cluster(C: int) -> int:
+    """K12's cluster design: its CTAs, one cluster of G = min(C, 16)
+    (``bundle_adjust.cu``'s ``commit_cluster``) for C slices."""
+    return min(C, MAX_COMMIT_CLUSTER)
+
+
+def commit_slices(rank: int, C: int) -> range:
+    """The slices rank ``rank`` of K12's cluster takes, in order: rank,
+    rank + G, ... below C (its shared memory holds their sums in that
+    order)."""
+    return range(rank, C, commit_cluster(C))
+
+
+def commit_smem_bytes(W: int, MB: int, C: int, itemsize: int) -> int:
+    """K12's shared memory, the cluster design (``bundle_adjust.cu``'s
+    ``commit_smem_elems``): a slice's rho mask and mask [W MB] each, the
+    prior's terms [W - 1, 6], the candidate points of the rank's slices
+    [ceil(C / G), 3 MB], the candidate poses [7W] and every slice's sums
+    [C, 3]."""
+    G = commit_cluster(C)
+    return (2 * W * MB + 6 * max(W - 1, 0) + 3 * MB * -(-C // G) + 7 * W + 3 * C) * itemsize
+
+
 def smem_bytes(kernel: int, W: int, MB: int, itemsize: int, s_shared: bool,
                ticket: bool = False) -> int:
     """The dynamic shared memory the library gives kernel 10, 11 or 12
-    (``ticket``: the earlier design of K10 or K11) at window W, MB landmarks a
-    CTA and the dtype's size (``bundle_adjust.cu``'s ``ba_smem_bytes``;
-    loads the library)."""
+    (``ticket``: the earlier design of K10, K11 or K12; for K12 only that
+    one, :func:`commit_smem_bytes` the cluster design's) at window W, MB
+    landmarks a CTA and the dtype's size (``bundle_adjust.cu``'s
+    ``ba_smem_bytes``; loads the library)."""
     return int(library().ba_smem_bytes(kernel, int(ticket), W, MB, itemsize, int(s_shared)))
 
 
@@ -249,6 +290,31 @@ def step_blocks_per_sm(W: int, MB: int, itemsize: int, s_shared: bool,
     return _blocks_per_sm[key]
 
 
+_clusters: Dict[tuple, int] = {}
+
+
+def commit_clusters(W: int, M: int, MB: int, itemsize: int, device: torch.device) -> int:
+    """The clusters of K12's cluster design that ``device`` holds at once
+    (``cudaOccupancyMaxActiveClusters`` with the kernel's shared memory),
+    asked once a shape and device; raises ``ValueError`` where that is 0
+    (the cluster cannot be scheduled) and ``RuntimeError`` on a CUDA
+    error."""
+    key = (W, M, MB, itemsize, device)
+    if key not in _clusters:
+        with torch.cuda.device(device):
+            lib = library()
+            n = lib.ba_commit_clusters(W, M, MB, itemsize)
+            G = lib.ba_commit_cluster(W, M, MB)
+        if n < 0:
+            raise RuntimeError(f"the occupancy of K12's cluster failed: CUDA error {-n}")
+        if G != commit_cluster(-(-M // MB)) or G > MAX_COMMIT_CLUSTER:
+            raise RuntimeError(f"K12's cluster of {G} CTAs is not ba_layout's")
+        if n < 1:
+            raise ValueError(f"K12's cluster of {G} CTAs cannot be scheduled on {device}")
+        _clusters[key] = n
+    return _clusters[key]
+
+
 def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
@@ -271,11 +337,13 @@ class BABinding:
     binding's buffers: :attr:`built` (K10's outputs, K11's inputs) and
     :attr:`candidate` (K11's outputs, K12's inputs), which
     :meth:`use_built` and :meth:`use_candidate` replace by given tensors
-    (checked). :meth:`build_ticket` and :meth:`step_ticket` launch the
-    earlier ticket designs into the same buffers (sweep rows; no path calls them).
+    (checked). :meth:`build_ticket`, :meth:`step_ticket` and
+    :meth:`commit_ticket` launch the earlier ticket designs into the same
+    buffers (sweep rows; no path calls them).
 
-    K11's grid is checked here against the occupancy API, once a binding:
-    a grid that cannot be resident at once raises ``ValueError``.
+    K11's grid and K12's cluster are checked here against the occupancy
+    API, once a shape: a grid that cannot be resident at once, or a cluster
+    that cannot be scheduled, raises ``ValueError``.
     ``clocked``: the harness-only build that stamps the kernels' phases
     (``experiments/ba_kernels.py``)."""
 
@@ -307,6 +375,7 @@ class BABinding:
         check_co_resident(lay.ctas, step_blocks_per_sm(W, lay.landmarks_per_cta, itemsize,
                                                        lay.s_shared, self.device),
                           torch.cuda.get_device_properties(self.device).multi_processor_count)
+        commit_clusters(W, M, lay.landmarks_per_cta, itemsize, self.device)
         like = poses.t
         if own:
             self.t, self.q, self.X = poses.t.clone(), poses.q.clone(), m.points.clone()
@@ -331,8 +400,8 @@ class BABinding:
         self._s = like.new_empty((D + 1) * D)
         self._s_ticket = (None if ticket_s_shared(W, lay.landmarks_per_cta, itemsize)
                           else like.new_empty((D, D)))
-        # K10's, the ticket design of K11's and K12's tickets, then K11's
-        # grid barrier's count of arrivals
+        # K10's, the ticket designs' of K11 and K12 tickets, then K11's grid
+        # barrier's count of arrivals
         self._tickets = torch.zeros(4, dtype=torch.int32, device=self.device)
         odom = problem.odom
         self._inputs = (_ptr(m.obs_xy), _ptr(m.obs_mask), _ptr(m.point_mask), _ptr(problem.K),
@@ -414,16 +483,26 @@ class BABinding:
             self._partials.data_ptr(), _ptr(self._s_ticket), self._tickets[1:2].data_ptr(),
             *self._dims, float(self.opts.landmark_damping))
 
-    def commit(self) -> None:
-        """K12: the candidate's cost, the decision and the next state, in
-        place."""
-        global LAUNCHES_BA_COMMIT
+    def _options(self):
         o = self.opts
+        return (float(o.huber_a), float(o.lambda_up), float(o.lambda_down),
+                float(o.min_lambda), float(o.max_lambda), float(o.min_rel_decrease))
+
+    def commit(self) -> None:
+        """K12 (the cluster design): the candidate's cost, the decision and
+        the next state, in place."""
+        global LAUNCHES_BA_COMMIT
         LAUNCHES_BA_COMMIT += _launch(
             self._fns["ba_commit"], self.device, *self._state, *self._inputs,
+            *self._cand_ptrs, *self._dims, *self._options())
+
+    def commit_ticket(self) -> None:
+        """K12's earlier ticket design, as :meth:`commit`."""
+        global LAUNCHES_BA_COMMIT_TICKET
+        LAUNCHES_BA_COMMIT_TICKET += _launch(
+            self._fns["ba_commit_ticket"], self.device, *self._state, *self._inputs,
             *self._cand_ptrs, self._partials.data_ptr(), self._tickets[2:3].data_ptr(),
-            *self._dims, float(o.huber_a), float(o.lambda_up), float(o.lambda_down),
-            float(o.min_lambda), float(o.max_lambda), float(o.min_rel_decrease))
+            *self._dims, *self._options())
 
     def state_problem(self):
         """The problem at the binding's state (poses and points)."""

@@ -9,7 +9,8 @@ final cost 1e-9), on a padded pose, dead landmark slots, outliers past the
 Huber knee, a landmark behind the cameras (the depth clamp), no odometry
 prior, and a non-positive-definite reduced system whose NaN step the
 commit rejects. Then what the CPU can check of the kernels' binding
-(ops/cuda_ba.py): its layout and its refusal of CPU tensors. The kernels
+(ops/cuda_ba.py): its layout (K12's cluster and shared memory among it)
+and its refusal of CPU tensors. The kernels
 themselves are held to these plain versions on the card
 (tests/test_torch_cuda_ba.py, chip_smoke.py)."""
 
@@ -341,6 +342,50 @@ def test_the_default_window_keeps_the_ticket_designs_shared_memory():
     assert cuda_ba.ticket_step_smem_bytes(7, 32, 8, True) == 67584
     assert 43 * 42 + 2 * 42 + 7 <= 18 * 7 * 32
     assert cuda_ba.smem_blocks_per_sm(67584) == 3
+
+
+@pytest.mark.parametrize("C,G,per_rank", [(1, 1, 1), (16, 16, 1), (19, 16, 2), (74, 16, 5)])
+def test_the_commit_cluster_takes_every_slice_once(C, G, per_rank):
+    """K12's cluster design: one cluster of G = min(C, 16) CTAs; rank k
+    takes the slices k, k + G, ... in order, every slice exactly once, at
+    most ceil(C / G) a rank (the room its shared memory keeps for their
+    sums), and the slice c sits at rank c mod G, place c // G."""
+    assert cuda_ba.commit_cluster(C) == G
+    taken = [list(cuda_ba.commit_slices(k, C)) for k in range(G)]
+    assert sorted(c for s in taken for c in s) == list(range(C))
+    assert max(len(s) for s in taken) == per_rank == -(-C // G)
+    for k, s in enumerate(taken):
+        assert s == sorted(s) and all(c % G == k and i == c // G for i, c in enumerate(s))
+
+
+@pytest.mark.parametrize("W,itemsize,nbytes", [(2, 8, 2336), (2, 4, 1168), (7, 8, 5416),
+                                               (7, 4, 2708), (30, 8, 10272), (30, 4, 7632),
+                                               (45, 8, 12288), (45, 4, 8676)])
+def test_the_commit_clusters_shared_memory(W, itemsize, nbytes):
+    """K12's cluster design at 512 slots: a slice's rho mask and mask [W MB]
+    each, the prior's terms [W - 1, 6], the candidate points of the rank's
+    slices [ceil(C / G), 3 MB], the candidate poses [7W] and every slice's
+    sums [C, 3]; a few KiB, far under the 48 KiB a CTA takes without opting
+    in."""
+    lay = cuda_ba.ba_layout(W, 512, itemsize)
+    MB, C = lay.landmarks_per_cta, lay.ctas
+    G = cuda_ba.commit_cluster(C)
+    assert G == 16
+    want = (2 * W * MB + 6 * (W - 1) + 3 * MB * -(-C // G) + 7 * W + 3 * C) * itemsize
+    assert cuda_ba.commit_smem_bytes(W, MB, C, itemsize) == want == nbytes < 48 * 1024
+
+
+def test_the_commit_refuses_cpu_tensors():
+    """K12 alone (ba_commit_cuda) raises on a CPU problem and candidate
+    before anything is built or launched: no fallback to the plain stage."""
+    p = interop.ba_problem_from_arrays(**window())
+    W, M = p.poses.t.shape[0], p.map.points.shape[0]
+    cand = (torch.zeros(W, 6, dtype=torch.float64), torch.zeros(M, 3, dtype=torch.float64),
+            p.poses.t.clone(), p.poses.q.clone(), p.map.points.clone())
+    before = cuda_ba.LAUNCHES_BA_COMMIT, cuda_ba.LAUNCHES_BA_COMMIT_TICKET
+    with pytest.raises(ValueError, match="not CUDA"):
+        cuda_ba.ba_commit_cuda(p, p.poses.t.new_zeros(cuda_ba.B_SIZE), cand, tba.BAOptions())
+    assert (cuda_ba.LAUNCHES_BA_COMMIT, cuda_ba.LAUNCHES_BA_COMMIT_TICKET) == before
 
 
 def _reduced_system(pt, lam=1e-3, negate=False):

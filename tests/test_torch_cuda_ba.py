@@ -5,12 +5,15 @@ iteration of a run replayed through both (float64 1e-12 and float32 1e-5 of
 each output's magnitude, the decisions equal), the kernels' run against the
 plain stages' run on the CPU, the launches of the unsharded CUDA path (one
 of each kernel an iteration, no plain stage, the earlier ticket designs
-never), the earlier ticket designs of K10 and K11 against the launched band
-and cooperative designs (bit for bit), the wrapper's refusals (a K11 grid
+never), the earlier ticket designs of K10-K12 against the launched band,
+cooperative and cluster designs (K10's and K12's bit for bit; K12's on every
+iteration of whole runs), K12's cluster against the layout's arithmetic, the
+wrapper's refusals (a K11 grid
 too large to be resident at once among them), a non-positive-definite
 reduced system (a NaN step that K12 rejects) and a state already done, on
 windows from W = 2 to W = 45 (S in K11's global scratch) and a landmark
-count with a short last slice over 19 CTAs. Every test carries the
+count with a short last slice over 19 CTAs; K11 and K12 recorded into CUDA
+graphs and replayed bit for bit. Every test carries the
 ``cuda`` marker and skips where no CUDA device is visible.
 
 The module imports only torch and numpy. Run it on a machine with the card,
@@ -181,7 +184,7 @@ def test_the_cuda_path_launches_each_kernel_an_iteration_and_no_plain_stage(cuda
     torch.cuda.synchronize()
     n = summary.num_iterations
     assert cuda_ba.launch_counts() == {"ba_build": n, "ba_step": n, "ba_commit": n}
-    assert cuda_ba.earlier_launch_counts() == {"ba_build": 0, "ba_step": 0}
+    assert cuda_ba.earlier_launch_counts() == {"ba_build": 0, "ba_step": 0, "ba_commit": 0}
     assert n >= 2 and float(summary.final_cost) < float(summary.initial_cost)
     # the caller's problem is left as given; padded slots and poses stay
     assert not torch.equal(out.poses.t, p.poses.t) and out.poses.t is not p.poses.t
@@ -278,17 +281,23 @@ def test_a_done_state_does_not_change(cuda):
     for a, b in zip((p.poses.t, p.poses.q, p.map.points, sc), before):
         assert torch.equal(a, b)
     assert torch.equal(scp, before[3]) and torch.equal(pp.poses.t, before[0])
+    # the ticket design leaves it too
+    b = cuda_ba.BABinding(p, opts, sc, own=False)
+    b.use_candidate(cand)
+    b.commit_ticket()
+    for a, c in zip((p.poses.t, p.poses.q, p.map.points, sc), before):
+        assert torch.equal(a, c)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("case", list(CASES))
 def test_the_ticket_designs_match_the_launched_ones(cuda, case, dtype):
-    """The earlier ticket designs of K10 and K11 against the launched band and
-    cooperative designs on every iteration of a run, on the same inputs
-    (experiments/ba_kernels.py's hold_designs): K10's bit for bit (its
-    designs take every sum in one order); K11's, whose factorisations
-    scale the pivots otherwise, within 1e-12 / 1e-5 of each output's
-    magnitude or else within what roundoff can move them by
+    """The earlier ticket designs of K10-K12 against the launched band,
+    cooperative and cluster designs on every iteration of a run, on the same
+    inputs (experiments/ba_kernels.py's hold_designs): K10's and K12's bit
+    for bit (each pair takes every sum in one order); K11's, whose
+    factorisations scale the pivots otherwise, within 1e-12 / 1e-5 of each
+    output's magnitude or else within what roundoff can move them by
     (ba_kernels.step_bounds), as the plain version is held."""
     from mba_vo_tpu_torch.backend import ba
     from mba_vo_tpu_torch.experiments import ba_kernels as bk
@@ -297,9 +306,46 @@ def test_the_ticket_designs_match_the_launched_ones(cuda, case, dtype):
         ba.run_bundle_adjustment(problem(case, dtype), ba.BAOptions(max_iterations=4))
     got = bk.hold_designs_calls(calls)
     assert got["iterations"] == len(calls) >= 2
-    assert got["ba_build_equal"] == len(calls), got
+    assert got["ba_build_equal"] == got["ba_commit_equal"] == len(calls), got
     if dtype == torch.float64:
         assert got["step_checked"] >= 1, got
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(CASES))
+def test_the_commit_matches_its_ticket_design_on_every_iteration(cuda, case, dtype):
+    """K12's cluster design against its earlier ticket design on every
+    iteration of a whole run (experiments/ba_kernels.py's
+    hold_commit_designs_calls): t, q, X and every scalar bit for bit, on a
+    cluster of 16 CTAs over 19 slices ("short last slice": ranks 0-2 take
+    two), of 2 ("two poses") and of 16 over 74 slices of 7 ("widest
+    window", float64)."""
+    from mba_vo_tpu_torch.backend import ba
+    from mba_vo_tpu_torch.experiments import ba_kernels as bk
+
+    with bk.record_ba_calls() as calls:
+        ba.run_bundle_adjustment(problem(case, dtype), ba.BAOptions())
+    got = bk.hold_commit_designs_calls(calls)
+    assert got["iterations"] == len(calls) >= 2
+    assert got["ba_commit_equal"] == len(calls), got
+
+
+@pytest.mark.parametrize("W", [2, 7, 30, 45])
+@pytest.mark.parametrize("itemsize", [8, 4])
+def test_the_commit_cluster_is_the_layouts(cuda, W, itemsize):
+    """The library's K12 cluster (its CTAs and shared memory) equals
+    ops/cuda_ba.py's layout arithmetic at 512 slots, and the occupancy API
+    schedules it."""
+    from mba_vo_tpu_torch.ops import cuda_ba
+
+    lay = cuda_ba.ba_layout(W, 512, itemsize)
+    MB, C = lay.landmarks_per_cta, lay.ctas
+    lib = cuda_ba.library()
+    assert lib.ba_commit_cluster(W, 512, MB) == cuda_ba.commit_cluster(C)
+    assert lib.ba_commit_smem_bytes(W, 512, MB, itemsize) == cuda_ba.commit_smem_bytes(
+        W, MB, C, itemsize)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    assert cuda_ba.commit_clusters(W, 512, MB, itemsize, dev) >= 1
 
 
 def test_a_grid_too_large_to_be_resident_raises(cuda):
@@ -359,4 +405,43 @@ def test_the_step_records_into_a_cuda_graph(cuda):
     graph.replay()
     torch.cuda.synchronize()
     for x, y in zip(b.candidate, want):
+        assert torch.equal(x, y)
+
+
+def test_the_commit_records_into_a_cuda_graph(cuda):
+    """K12's cluster launch inside a CUDA graph capture: recorded, not
+    counted as a launch; the graph's replay on the same starting state
+    gives the direct launch's next state (t, q, X, scalars) bit for bit."""
+    from mba_vo_tpu_torch.backend import ba
+    from mba_vo_tpu_torch.ops import cuda_ba
+
+    opts = ba.BAOptions()
+    p = problem("short last slice", torch.float64)
+    sc = p.poses.t.new_zeros(cuda_ba.B_SIZE)
+    sc[cuda_ba.B_LAM] = opts.initial_lambda
+    b = cuda_ba.BABinding(p, opts, sc, own=False)
+    b.build()
+    b.step()
+    state = (b.t, b.q, b.X, b.scalars)
+    start = tuple(x.clone() for x in state)
+    b.commit()
+    torch.cuda.synchronize()
+    want = tuple(x.clone() for x in state)
+    assert want[3][cuda_ba.B_OK] == 1 and not torch.equal(want[2], start[2])
+    for x, y in zip(state, start):
+        x.copy_(y)
+    cuda_ba.zero_launch_counts()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph, stream=side):
+            b.commit()
+    torch.cuda.current_stream().wait_stream(side)
+    assert cuda_ba.launch_counts()["ba_commit"] == 0
+    for x, y in zip(state, start):
+        assert torch.equal(x, y)
+    graph.replay()
+    torch.cuda.synchronize()
+    for x, y in zip(state, want):
         assert torch.equal(x, y)
