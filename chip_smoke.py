@@ -283,23 +283,25 @@ def earlier_counts() -> dict:
 
 
 def zero_counts(cs):
-    """Zero K1's launch count and K2's to K12's."""
-    from mba_vo_tpu_torch.ops import cuda_ba, cuda_lm
+    """Zero K1's launch count and K2's to K15's."""
+    from mba_vo_tpu_torch.ops import cuda_ba, cuda_backend, cuda_lm
     from mba_vo_tpu_torch.ops import cuda_residual as cr
 
     cs.LAUNCHES = 0
     cr.zero_launch_counts()
     cuda_lm.zero_launch_counts()
     cuda_ba.zero_launch_counts()
+    cuda_backend.zero_launch_counts()
 
 
 def note_residual_launches(path: str) -> dict:
-    """K2's to K12's launches since :func:`zero_counts`, kept under ``path``."""
-    from mba_vo_tpu_torch.ops import cuda_ba, cuda_lm
+    """K2's to K15's launches since :func:`zero_counts`, kept under ``path``."""
+    from mba_vo_tpu_torch.ops import cuda_ba, cuda_backend, cuda_lm
     from mba_vo_tpu_torch.ops import cuda_residual as cr
 
     got = {**cr.launch_counts(), **cuda_lm.launch_counts(),
-           "knot_prior": cuda_lm.LAUNCHES_KNOT_PRIOR, **cuda_ba.launch_counts()}
+           "knot_prior": cuda_lm.LAUNCHES_KNOT_PRIOR, **cuda_ba.launch_counts(),
+           **cuda_backend.launch_counts()}
     RESIDUAL_LAUNCHES[path] = got
     EARLIER_LAUNCHES[path] = earlier_counts()
     return got
@@ -1045,16 +1047,12 @@ def ba_problem_arrays(W=7, M=512, live=300, seed=0):
 
 
 def pose_graph_arrays(n=64, seed=1):
-    """A drifted chain of n keyframes with noisy consecutive edges and two
-    loop edges of weight 5."""
-    rng = np.random.default_rng(seed)
-    t = np.cumsum(rng.normal(0, 0.1, (n, 3)), axis=0)
-    q = np.tile([0.0, 0.0, 0.0, 1.0], (n, 1))
-    i = np.concatenate([np.arange(n - 1), [0, 5]])
-    j = np.concatenate([np.arange(1, n), [n - 1, n - 2]])
-    t_ij = t[j] - t[i] + rng.normal(0, 0.01, (len(i), 3))
-    w = np.concatenate([np.ones(n - 1), [5.0, 5.0]])
-    return (t, q), (i, j, t_ij, np.tile(q[:1], (len(i), 1)), w)
+    """8a's pose graph (experiments/backend_kernels.py's pose_graph_arrays):
+    a drifted chain of n keyframes with noisy consecutive edges and two loop
+    edges of weight 5."""
+    from mba_vo_tpu_torch.experiments import backend_kernels as bek
+
+    return bek.pose_graph_arrays(n, seed)
 
 
 # K10-K12 held against their plain versions, by the label of the run whose
@@ -1122,6 +1120,82 @@ def check_ba_launches(path: str, iterations: int) -> dict:
     return got
 
 
+# K13-K15 held against their plain versions and their launches, by the label
+# of the run (experiments/backend_kernels.py's hold_pnp_calls, hold_pg_calls)
+BACKEND_HELD: dict = {}
+BACKEND_KERNELS = ("pnp_solve", "pg_build", "pg_step")
+BACKEND_LAUNCHES: dict = {}
+
+
+def hold_pnp_recorded(label: str, calls: list) -> dict:
+    """K13 against the plain version on every recorded call of a run
+    (experiments/backend_kernels.py's hold_pnp: the pose within 1e-9 in
+    float64 and 1e-5 in float32, or what roundoff in the sums can move it
+    by where that is larger; the two final costs within rtol 1e-9 / 1e-5
+    but where a point is seen through the depth clamp;
+    the cost and norms at the kernel's pose; the keep gates equal but at a
+    knife edge), and the replay equal to the run bit for bit."""
+    from mba_vo_tpu_torch.experiments import backend_kernels as bek
+
+    check(len(calls) > 0, f"{label}: no PnP call was recorded")
+    t0 = time.perf_counter()
+    got = bek.hold_pnp_calls(calls)
+    print(f"    {label}: K13 against the plain version on all {got['calls']} recorded calls "
+          f"({str(calls[0].dtype).split('.')[-1]}, {got['problems']} problems, the largest "
+          f"batch {got['largest_batch']}): pose within {got['pose']:.3e} ({got['pose_share']:.3e} "
+          f"of its bound), cost within {got['cost']:.3e} and norms {got['norms']:.3e} of the "
+          f"plain version's at the kernel's pose, the two final costs {got['cost_between']:.3e} "
+          f"apart ({got['cost_between_held']:.3e} held to {bek.COST_RTOL[calls[0].dtype]:.0e} "
+          f"on the {got['problems'] - got['clamped']} problems without a point seen through "
+          f"the depth clamp); keep gates equal on {got['gates_equal']}, flipped at a knife edge on "
+          f"{got['knife_edges']}; replayed bit for bit on {got['replayed_equal']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(got["replayed_equal"] == got["calls"], f"{label}: a K13 replay differs from the run")
+    BACKEND_HELD[label, "pnp_solve"] = got
+    return got
+
+
+def hold_pg_recorded(label: str, calls: list) -> dict:
+    """K14-K15 against the plain stages on every recorded pose-graph
+    iteration of a run (experiments/backend_kernels.py's hold_pg: K14 1e-12
+    of each output's magnitude, or of its terms' where the sums cancel; K15's
+    poses within the solve's roundoff bound, its decisions equal but at a
+    knife edge: the two candidate costs, within the bound, on the two sides
+    of the cost, or the relative decreases on the two sides of
+    min_rel_decrease, counted and printed, anything else failing the run)
+    and the replay equal to the run bit for bit."""
+    from mba_vo_tpu_torch.experiments import backend_kernels as bek
+
+    check(len(calls) > 0, f"{label}: no pose-graph iteration was recorded")
+    t0 = time.perf_counter()
+    got = bek.hold_pg_calls(calls)
+    c = calls[0]
+    print(f"    {label}: K14-K15 against the plain stages on all {got['iterations']} recorded "
+          f"iterations ({str(c.dtype).split('.')[-1]}, N {c.N}, E {c.E}, "
+          f"{len({x.run for x in calls})} runs; {got['accepted']} steps accepted, {got['done']} "
+          f"ending a loop, {got['nan_steps']} NaN steps, {got['nonfinite_builds']} non-finite "
+          f"builds): K14 within {got['pg_build']:.3e}, K15's candidate cost and poses within "
+          f"{got['pg_step']:.3e} (a share of their bound); decisions flipped at a knife edge on "
+          f"{len(got['flips'])}; replayed bit for bit on {got['replayed_equal']} of "
+          f"{got['transitions']} transitions; {time.perf_counter() - t0:.1f} s")
+    for flip in got["flips"]:
+        print(f"      knife edge: {flip}")
+    check(got["replayed_equal"] == got["transitions"], f"{label}: a K15 replay differs")
+    BACKEND_HELD[label, "pg"] = got
+    return got
+
+
+def check_backend_launches(path: str, pnp_calls: int, pg_iterations: int) -> dict:
+    """K13-K15's launches on ``path`` (RESIDUAL_LAUNCHES) against its PnP
+    calls and pose-graph iterations: one K13 a call, one K14 and one K15 an
+    iteration."""
+    got = {k: RESIDUAL_LAUNCHES[path].get(k, 0) for k in BACKEND_KERNELS}
+    want = {"pnp_solve": pnp_calls, "pg_build": pg_iterations, "pg_step": pg_iterations}
+    check(got == want, f"{path}: K13-K15 launched {got}, for {want}")
+    BACKEND_LAUNCHES[path] = got
+    return got
+
+
 @contextlib.contextmanager
 def host_reads():
     """Counts the host reads (Tensor.item and Tensor.__bool__) made inside
@@ -1153,7 +1227,8 @@ def phase_backend_solvers(img, other):
     from mba_vo_tpu_torch.backend.vo_backend import BackendConfig
     from mba_vo_tpu_torch.core.transform import Pose
     from mba_vo_tpu_torch.experiments import ba_kernels as bk
-    from mba_vo_tpu_torch.ops import cuda_ba
+    from mba_vo_tpu_torch.experiments import backend_kernels as bek
+    from mba_vo_tpu_torch.ops import cuda_ba, cuda_backend
     from mba_vo_tpu_torch.tracker.sparse_features import detect_sparse, match_descriptors
 
     det = BackendConfig().detector
@@ -1224,38 +1299,75 @@ def phase_backend_solvers(img, other):
     BA_LAUNCHES["run_bundle_adjustment, f64, window 7 (8a)"] = counts
     hold_ba_recorded("8a run_bundle_adjustment", calls)
 
+    # the pose graph: K14 and K15 and one read an iteration on the card
     (t, q), e = pose_graph_arrays()
     outs = []
+    cuda_backend.zero_launch_counts()
     for d in ("cuda", "cpu"):
         f = lambda x: torch.tensor(x, dtype=torch.float64, device=d)  # noqa: E731
         edges = interop.pose_graph_edges_from_arrays(*e, device=d)
-        outs.append(pose_graph.optimize_pose_graph_counted(Pose(f(t), f(q)), edges))
+        with bek.record_pg_calls() as pg_calls, host_reads() as pg_reads:
+            outs.append(pose_graph.optimize_pose_graph_counted(Pose(f(t), f(q)), edges))
+        if d == "cuda":
+            res["pg_calls"], reads_cuda = pg_calls, pg_reads["n"]
+            pg_counts = {k: v for k, v in cuda_backend.launch_counts().items() if k != "pnp_solve"}
     dpg = float((outs[0][0].t.cpu() - outs[1][0].t).abs().max())
     edges = interop.pose_graph_edges_from_arrays(*e, device="cuda")
     start = Pose(torch.tensor(t, device="cuda"), torch.tensor(q, device="cuda"))
-    res["pg_ms"] = median_ms(lambda: pose_graph.optimize_pose_graph(start, edges), reps=3)
-    print(f"[8a] optimize_pose_graph, f64, 64 nodes, 65 edges: iterations CUDA {outs[0][2]} / "
-          f"CPU {outs[1][2]}; max |pose CUDA - CPU| {dpg:.3e} (bound 1e-8); "
-          f"{res['pg_ms']:.1f} ms on the card")
+    # the kernels and the plain stages on the card, timed in turn
+    for key, fn in (("pg_ms", lambda: pose_graph.optimize_pose_graph(start, edges)),
+                    ("pg_plain_ms", lambda: pose_graph.run_plain_stages(start, edges)),
+                    ("pg_ms_again", lambda: pose_graph.optimize_pose_graph(start, edges)),
+                    ("pg_plain_ms_again", lambda: pose_graph.run_plain_stages(start, edges))):
+        res[key] = median_ms(fn, reps=3)
+    n_pg = outs[0][2]
+    print(f"[8a] optimize_pose_graph, f64, 64 nodes, 65 edges, on K14-K15: iterations CUDA "
+          f"{n_pg} / CPU {outs[1][2]}; max |pose CUDA - CPU| {dpg:.3e} (bound 1e-8); launches "
+          f"{pg_counts}, host reads {reads_cuda}; {res['pg_ms']:.2f} / {res['pg_ms_again']:.2f} "
+          f"ms on the card ({res['pg_ms'] / max(n_pg, 1):.3f} ms an iteration) against the "
+          f"plain stages on the card {res['pg_plain_ms']:.2f} / {res['pg_plain_ms_again']:.2f} "
+          f"ms, timed in turn")
     check(outs[0][2] == outs[1][2] and dpg <= 1e-8, f"pose graph CUDA and CPU differ by {dpg}")
+    check(all(v == n_pg for v in pg_counts.values()),
+          f"K14-K15 launched {pg_counts} in {n_pg} iterations")
+    check(reads_cuda == n_pg, f"{reads_cuda} host reads in {n_pg} pose-graph iterations")
+    BACKEND_LAUNCHES["optimize_pose_graph, f64, 64 nodes (8a)"] = pg_counts
+    hold_pg_recorded("8a optimize_pose_graph", res["pg_calls"])
 
+    # PnP: K13, one launch a call
     pts = a["points"][:256] - np.array([0.3, 0.0, 0.0])
     obs = a["obs_xy"][2, :256]
     msk = np.ones(256)
     pnp = []
+    cuda_backend.zero_launch_counts()
     for d in ("cuda", "cpu"):
         f = lambda x: torch.tensor(x, dtype=torch.float64, device=d)  # noqa: E731
-        p, c = geometry.solve_pnp(f(pts), f(obs), f(msk), f(a["K"]),
-                                  Pose(f([0.0, 0.0, 0.0]), f([0.0, 0.0, 0.0, 1.0])))
+        with bek.record_pnp_calls() as pnp_calls:
+            p, c = geometry.solve_pnp(f(pts), f(obs), f(msk), f(a["K"]),
+                                      Pose(f([0.0, 0.0, 0.0]), f([0.0, 0.0, 0.0, 1.0])))
         pnp.append(torch.cat([p.t, p.q, c[None]]).cpu())
+        if d == "cuda":
+            res["pnp_calls"] = pnp_calls
+            k13 = cuda_backend.launch_counts()["pnp_solve"]
     dpnp = float((pnp[0] - pnp[1]).abs().max())
     fd = lambda x: torch.tensor(x, dtype=torch.float64, device="cuda")  # noqa: E731
     args = (fd(pts), fd(obs), fd(msk), fd(a["K"]), Pose(fd([0.0] * 3), fd([0.0, 0.0, 0.0, 1.0])))
-    res["pnp_ms"] = median_ms(lambda: geometry.solve_pnp(*args))
-    print(f"[8a] solve_pnp, f64, 256 correspondences, 30 iterations: max |CUDA - CPU| "
-          f"{dpnp:.3e} (bound 1e-8); {res['pnp_ms']:.1f} ms on the card, no host read; "
-          f"detect {res['detect_ms']:.1f} ms, match {res['match_ms']:.2f} ms (f32, VGA)")
+    for key, fn in (("pnp_ms", lambda: geometry.solve_pnp(*args)),
+                    ("pnp_plain_ms", lambda: geometry.solve_pnp_plain(*args)),
+                    ("pnp_ms_again", lambda: geometry.solve_pnp(*args)),
+                    ("pnp_plain_ms_again", lambda: geometry.solve_pnp_plain(*args))):
+        res[key] = median_ms(fn)
+    flips = bek.pnp_decision_flips(res["pnp_calls"][0])
+    print(f"[8a] solve_pnp, f64, 256 correspondences, 30 iterations, on K13: max |CUDA - CPU| "
+          f"{dpnp:.3e} (bound 1e-8); K13 launches {k13} in 1 call; {res['pnp_ms']:.3f} / "
+          f"{res['pnp_ms_again']:.3f} ms on the card against the plain version on the card "
+          f"{res['pnp_plain_ms']:.2f} / {res['pnp_plain_ms_again']:.2f} ms, timed in turn; "
+          f"decisions that differ from the plain version's {flips} of 30; detect "
+          f"{res['detect_ms']:.1f} ms, match {res['match_ms']:.2f} ms (f32, VGA)")
     check(dpnp <= 1e-8, f"PnP CUDA and CPU differ by {dpnp}")
+    check(k13 == 1 and len(res["pnp_calls"]) == 1, f"K13 launched {k13} times in one call")
+    BACKEND_LAUNCHES["solve_pnp, f64, 256 correspondences (8a)"] = {"pnp_solve": k13}
+    hold_pnp_recorded("8a solve_pnp", res["pnp_calls"])
     return res
 
 
@@ -1296,6 +1408,7 @@ def phase_cli_cuda_vs_cpu(root, cs, launches):
     whole run. The same run on the CPU with one thread (the CPU's own sums
     in another order) shows the amplification without a device change."""
     from mba_vo_tpu_torch.data import datasets as ds
+    from mba_vo_tpu_torch.experiments import backend_kernels as bek
     from mba_vo_tpu_torch.experiments import loop_bench as lb
 
     seq = os.path.join(root, "loop_small")
@@ -1316,10 +1429,11 @@ def phase_cli_cuda_vs_cpu(root, cs, launches):
         zero_counts(cs)
         torch.set_num_threads(1 if run == "cpu 1 thread" else threads)
         try:
-            wall, _ = run_cli(track_argv(seq, os.path.join(root, f"est_{len(run)}.txt"), dev,
-                                         config, ["--backend", "ba+pg", "--backend-config",
-                                                  bconfig, "--backend-stats",
-                                                  os.path.join(root, f"stats_{len(run)}.json")]))
+            with bek.record_pnp_calls() as pnp_calls:
+                wall, _ = run_cli(track_argv(
+                    seq, os.path.join(root, f"est_{len(run)}.txt"), dev, config,
+                    ["--backend", "ba+pg", "--backend-config", bconfig, "--backend-stats",
+                     os.path.join(root, f"stats_{len(run)}.json")]))
         finally:
             torch.set_num_threads(threads)
         if dev == "cuda":
@@ -1328,7 +1442,8 @@ def phase_cli_cuda_vs_cpu(root, cs, launches):
         with open(os.path.join(root, f"stats_{len(run)}.json")) as f:
             stats = json.load(f)
         _, t, q = ds.load_tum_trajectory(os.path.join(root, f"est_{len(run)}.txt"))
-        out[run] = dict(wall=wall, poses=np.concatenate([t, q], 1), stats=stats)
+        out[run] = dict(wall=wall, poses=np.concatenate([t, q], 1), stats=stats,
+                        pnp_calls=len(pnp_calls))
     per_frame = np.abs(out["cuda"]["poses"] - out["cpu"]["poses"]).max(axis=1)
     over = np.flatnonzero(per_frame > CLI_TOL)
     fields = ("ba_iterations", "pg_iterations", "loop_edges", "landmarks")
@@ -1348,6 +1463,12 @@ def phase_cli_cuda_vs_cpu(root, cs, launches):
     k1012 = check_ba_launches("cli track --backend ba+pg (8b)", ba_its)
     print(f"    K10-K12 launches {k1012} in the CUDA run's {ba_its} BA iterations (one of each "
           f"an iteration)")
+    pg_its = sum(st["pg_iterations"] for st in out["cuda"]["stats"])
+    k1315 = check_backend_launches("cli track --backend ba+pg (8b)", out["cuda"]["pnp_calls"],
+                                   pg_its)
+    print(f"    K13-K15 launches {k1315} in the CUDA run's {out['cuda']['pnp_calls']} PnP calls "
+          f"and {pg_its} pose-graph iterations (one K13 a call, one K14 and one K15 an "
+          f"iteration)")
     threads_diff = np.abs(out["cpu"]["poses"] - out["cpu 1 thread"]["poses"]).max(axis=1)
     print(f"    the same run on the CPU with {threads} threads against 1 thread (another order "
           f"of the same sums): max |TUM| difference {threads_diff.max():.3e}; per frame " + " ".join(
@@ -1364,6 +1485,10 @@ def phase_cli_cuda_vs_cpu(root, cs, launches):
     return dict(per_frame=per_frame, counts=counts)
 
 
+# the ba+pg run's backend ms a keyframe by stage before K13-K15 ran the
+# loop closure (PERF.md section 5; NVIDIA H100 80GB HBM3, 700.00 W)
+BEFORE_K13_BACKEND_MS = {"detect": 12.65, "associate": 13.26, "ba": 14.01, "loop": 439.33,
+                   "pose_graph": 148.67, "total": 627.93}
 LOOP_PARTING_TOL = 1e-8
 LOOP_LOST_FRAME = 57    # where both packages lose the loop's closing frames on the CPU
 
@@ -1378,10 +1503,13 @@ def phase_loop_benchmark(cs, launches, root):
 
     from mba_vo_tpu_torch.experiments import ba_kernels as bk
 
+    from mba_vo_tpu_torch.experiments import backend_kernels as bek
+
     t0 = time.perf_counter()
     keep = os.path.join(root, "loop")
     cuda_lm.zero_launch_counts()
-    with contextlib.redirect_stdout(io.StringIO()), bk.record_ba_calls() as ba_calls:
+    with contextlib.redirect_stdout(io.StringIO()), bk.record_ba_calls() as ba_calls, \
+            bek.record_pnp_calls() as pnp_calls, bek.record_pg_calls() as pg_calls:
         summary = lb.run(device="cuda", keep=keep)
     EARLIER_LAUNCHES["loop benchmark (8c)"] = {
         **cuda_lm.earlier_launch_counts(),
@@ -1396,10 +1524,13 @@ def phase_loop_benchmark(cs, launches, root):
         r = summary["runs"][name]
         path = f"loop benchmark {label} (8c)"
         launches[path] = r["k1_launches"]
-        RESIDUAL_LAUNCHES[path] = {**r["k2_k3_launches"], **r["k10_k12_launches"]}
+        RESIDUAL_LAUNCHES[path] = {**r["k2_k3_launches"], **r["k10_k12_launches"],
+                                   **r["k13_k15_launches"]}
         check(not skipped(r["k2_k3_launches"]),
               f"{path} never launched K2, K3 or K5: {r['k2_k3_launches']}")
         check_ba_launches(path, r["backend"]["ba_iterations"] if name == "ba_pg" else 0)
+        check_backend_launches(path, len(pnp_calls) if name == "ba_pg" else 0,
+                               r["backend"]["pg_iterations"] if name == "ba_pg" else 0)
     for name, r in summary["runs"].items():
         jr = ref["runs"][name] if ref else {}
         print(f"[8c] loop benchmark ({summary['num_frames']} frames, {summary['image']}, "
@@ -1418,11 +1549,25 @@ def phase_loop_benchmark(cs, launches, root):
           f"{b['pg_iterations_per_keyframe']:.2f} a keyframe; host reads "
           f"{b['host_reads_per_keyframe']:.2f} a keyframe")
     print(f"    K10-K12 launches {summary['runs']['ba_pg']['k10_k12_launches']} in the "
-          f"ba+pg run's {b['ba_iterations']} BA iterations, 0 tracker-only")
+          f"ba+pg run's {b['ba_iterations']} BA iterations, 0 tracker-only; K13-K15 launches "
+          f"{summary['runs']['ba_pg']['k13_k15_launches']} in its {len(pnp_calls)} PnP calls "
+          f"and {b['pg_iterations']} pose-graph iterations")
+    print("    backend ms a keyframe by stage, this run against the figures before K13-K15 "
+          "(PERF.md section 5; NVIDIA H100 80GB HBM3, 700.00 W): " + ", ".join(
+              f"{k} {v:.2f} / {BEFORE_K13_BACKEND_MS.get(k, float('nan')):.2f}"
+              for k, v in b["ms_per_keyframe"].items())
+          + f"; total {b['ms_per_keyframe_total']:.2f} / {BEFORE_K13_BACKEND_MS['total']:.2f}")
     check(len(ba_calls) == b["ba_iterations"], f"{len(ba_calls)} BA iterations recorded of "
                                                  f"{b['ba_iterations']}")
     hold_ba_recorded("8c loop benchmark ba+pg", ba_calls)
     summary["ba_calls"] = ba_calls
+    check(len(pg_calls) == b["pg_iterations"], f"{len(pg_calls)} pose-graph iterations "
+                                               f"recorded of {b['pg_iterations']}")
+    check(len(pnp_calls) > 0 and b["pg_iterations"] > 0,
+          "the ba+pg run never launched K13 or K14-K15")
+    hold_pnp_recorded("8c loop benchmark ba+pg", pnp_calls)
+    hold_pg_recorded("8c loop benchmark ba+pg", pg_calls)
+    summary["pnp_calls"], summary["pg_calls"] = pnp_calls, pg_calls
     imp = summary["final_segment_improvement_frac"]
     print(f"    final-quarter improvement {imp:.3f} (JAX on CPU "
           f"{ref.get('final_segment_improvement_frac') if ref else None}; rule >= 0.5, "
@@ -1477,11 +1622,16 @@ def phase_vga_cli(root, cs, launches):
     run_cli(track_argv(seq, os.path.join(root, "vga_warm.txt"), "cuda", config,
                        ["--chunk", "8", "--max-frames", "9"]))
     res = {}
+    from mba_vo_tpu_torch.experiments import backend_kernels as bek
+
+    pnp = {}
     for name, extra in (("tracker only", []), ("ba+pg", [
             "--backend", "ba+pg", "--backend-stats", os.path.join(root, "vga_stats.json")])):
         zero_counts(cs)
-        wall, _ = run_cli(track_argv(seq, os.path.join(root, f"vga_{len(extra)}.txt"), "cuda",
-                                     config, ["--chunk", "8", *extra]))
+        with bek.record_pnp_calls() as pnp_calls:
+            wall, _ = run_cli(track_argv(seq, os.path.join(root, f"vga_{len(extra)}.txt"),
+                                         "cuda", config, ["--chunk", "8", *extra]))
+        pnp[name] = len(pnp_calls)
         launches[f"cli track VGA --chunk 8, {name} (8d)"] = cs.LAUNCHES
         note_residual_launches(f"cli track VGA --chunk 8, {name} (8d)")
         res[name] = dict(wall=wall, fps=21 / wall, launches=cs.LAUNCHES)
@@ -1490,13 +1640,17 @@ def phase_vga_cli(root, cs, launches):
     ba_its = sum(st["ba_iterations"] for st in stats)
     k1012 = check_ba_launches("cli track VGA --chunk 8, ba+pg (8d)", ba_its)
     check_ba_launches("cli track VGA --chunk 8, tracker only (8d)", 0)
+    pg_its = sum(st["pg_iterations"] for st in stats)
+    k1315 = check_backend_launches("cli track VGA --chunk 8, ba+pg (8d)", pnp["ba+pg"], pg_its)
+    check_backend_launches("cli track VGA --chunk 8, tracker only (8d)", 0, 0)
     ms = sum(sum(s.get("ms", {}).values()) for s in stats) / max(len(stats), 1)
     print(f"[8d] cli synth VGA (21 frames, 31 samples) {synth_s:.1f} s; cli track f32, bench "
           f"options, --chunk 8: tracker only {res['tracker only']['fps']:.3f} frames/s, "
           f"--backend ba+pg {res['ba+pg']['fps']:.3f} frames/s ({len(stats)} keyframes, "
           f"{ms:.1f} ms of backend a keyframe); K1 launches "
           f"{res['tracker only']['launches']} / {res['ba+pg']['launches']}; K10-K12 launches "
-          f"{k1012} in the f32 backend's {ba_its} BA iterations")
+          f"{k1012} in the f32 backend's {ba_its} BA iterations; K13-K15 launches {k1315} in "
+          f"its {pnp['ba+pg']} PnP calls and {pg_its} pose-graph iterations")
     check(all(r["launches"] > 0 for r in res.values()), "the VGA CLI never launched K1")
     return res
 
@@ -2275,7 +2429,8 @@ def main() -> int:
     from mba_vo_tpu_torch.experiments import kernel_variants as kv
     from mba_vo_tpu_torch.experiments import residual_kernels as rk
     from mba_vo_tpu_torch.experiments import ba_kernels as bk
-    from mba_vo_tpu_torch.ops import cuda_ba, cuda_build
+    from mba_vo_tpu_torch.experiments import backend_kernels as bek
+    from mba_vo_tpu_torch.ops import cuda_ba, cuda_backend, cuda_build
     from mba_vo_tpu_torch.ops import cuda_image as ci
     from mba_vo_tpu_torch.ops import cuda_layout as cl
     from mba_vo_tpu_torch.ops import cuda_lm
@@ -2296,7 +2451,7 @@ def main() -> int:
     # ---- 2. build
     t0 = time.perf_counter()
     libs = cuda_build.build()
-    print(f"[2] built K1, K1-v, K2, K3, K4, K5, K6-K8, K9 and K10-K12 in "
+    print(f"[2] built K1, K1-v, K2, K3, K4, K5, K6-K8, K9, K10-K12, K13 and K14-K15 in "
           f"{time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(str(p) for p in libs.values())}")
     for name, log in cuda_build.BUILD_LOG.items():
@@ -2308,7 +2463,8 @@ def main() -> int:
                           r"blur_rows(?:_keypoint)?|frame_layout(?:_serial)?|"
                           r"image_bilinear(?:_branch|_interleaved)?|"
                           r"lm_(?:step_shfl|step_block|decide_keypoint|decide_block|"
-                          r"commit_staged|commit_block)|knot_prior|ba_(?:build|step|commit))"
+                          r"commit_staged|commit_block)|knot_prior|ba_(?:build|step|commit)|"
+                          r"pnp_solve|pg_(?:build|step))"
                           r"_kernel|normal_equations_(?:partials|combine|cluster))I([fd])"
                           r"((?:Li\d+E)*)", ln)
             if "Compiling entry function" in ln and m:
@@ -2395,6 +2551,17 @@ def main() -> int:
                   f"CTAs, {cuda_ba.commit_clusters(W, 512, lay.landmarks_per_cta, b, dev0)} "
                   "clusters at once"
                   for t, b in item.items()) for W in (7, 15, 30)))
+    for n in (8, 64, 256):
+        for b in item.values():
+            got = int(cuda_backend.library("pose_graph").pg_step_smem_bytes(n, b))
+            check(got == cuda_backend.step_smem_bytes(n, b),
+                  f"K15's shared memory at N = {n}: the library's {got} B is not the binding's")
+    print(f"    K13 (pnp_solve) one CTA of {cuda_backend.PNP_THREADS} threads a PnP problem, "
+          "static shared memory only; K14 (pg_build) a CTA of 256 threads a block row of H, "
+          "static shared memory for 64 edges' Jacobians; K15 (pg_step) one CTA of 512 threads, "
+          "H's factor in a global scratch, dynamic shared memory " + "; ".join(
+              f"N = {n}: " + " / ".join(f"{cuda_backend.step_smem_bytes(n, b)} B {t}"
+                                        for t, b in item.items()) for n in (8, 64, 256)))
     # the frame's calls (F = 1), a degree-4 joint chunk's (F = 4) and the widest
     for F, D in ((1, 12), (JCHUNK, 6 * (JCHUNK + 3)), (8, cr.MAX_TANGENTS)):
         M = F * N_KP * 8
@@ -2419,10 +2586,12 @@ def main() -> int:
     tests = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q", "-p",
          "no:cacheprovider", os.path.join(here, "tests", "test_torch_cuda.py"),
-         os.path.join(here, "tests", "test_torch_cuda_ba.py")],
+         os.path.join(here, "tests", "test_torch_cuda_ba.py"),
+         os.path.join(here, "tests", "test_torch_cuda_backend_solvers.py")],
         cwd=here, capture_output=True, text=True, timeout=900)
     summary = [ln for ln in tests.stdout.splitlines() if " passed" in ln or " failed" in ln]
-    print(f"[2b] card tests (tests/test_torch_cuda.py and tests/test_torch_cuda_ba.py, -m cuda): "
+    print(f"[2b] card tests (tests/test_torch_cuda.py, tests/test_torch_cuda_ba.py and "
+          f"tests/test_torch_cuda_backend_solvers.py, -m cuda): "
           f"{summary[-1] if summary else 'no summary'}; {time.perf_counter() - t0:.1f} s")
     if tests.returncode != 0:
         print(tests.stdout[-6000:], tests.stderr[-3000:])
@@ -3199,6 +3368,45 @@ def main() -> int:
                     **times("8a window 7"), loop_benchmark=times("8c loop benchmark"),
                     launches_by_path=by_path, held=held, **more)
 
+    def backend_entry(kernel):
+        def times(label):
+            r = backend_rows[label].get(kernel)
+            return None if r is None else {
+                k: r.get(k) for k in ("ms", "device_ms", "device_cold_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms", "library_device_ms",
+                                      "library_device_cold_ms", "calls", "dtype", "B", "N",
+                                      "mean_B", "E")}
+        by_path = {p: n[kernel] for p, n in BACKEND_LAUNCHES.items() if n.get(kernel)}
+        held_key = "pnp_solve" if kernel == "pnp_solve" else "pg"
+        err_key = {"pnp_solve": "pose", "pg_build": "pg_build", "pg_step": "pg_step"}[kernel]
+        held = {label: {k: v for k, v in g.items() if k != "flips"}
+                for (label, key), g in BACKEND_HELD.items() if key == held_key}
+        source = ("mba_vo_tpu_torch/csrc/pnp.cu" if kernel == "pnp_solve"
+                  else "mba_vo_tpu_torch/csrc/pose_graph.cu")
+        replaces = {"pnp_solve": "mba_vo_tpu/backend/geometry.py:161",
+                    "pg_build": "mba_vo_tpu/backend/pose_graph.py:100",
+                    "pg_step": "mba_vo_tpu/backend/pose_graph.py:126"}[kernel]
+        design = {
+            "pnp_solve": "one CTA of 256 threads a problem: every LM iteration in one launch, "
+                         "fixed-order block sums, thread 0's 6 x 6 LU, the row [norms | cost | "
+                         "t | q] written at the end",
+            "pg_build": "a CTA a block row of H: thread 0 lists the node's edges, a thread an "
+                        "edge's Jacobians into shared memory, a thread an entry summing in edge "
+                        "order; CTA 0's first warp the cost",
+            "pg_step": "one CTA of 512 threads: Hd into a global scratch, a right-looking "
+                       "Cholesky pivot by pivot (a warp a row of the trailing update), the "
+                       "back-substitution in shared memory, the candidate, its cost and the "
+                       "decision"}[kernel]
+        main = times("8a")
+        return dict(name=kernel, route="cuda", source=source, replaces=replaces,
+                    launches=sum(by_path.values()),
+                    max_abs_err=max(g[err_key] for g in held.values()),
+                    **main, loop_benchmark=times("8c loop benchmark"),
+                    library=("torch.linalg.cholesky_ex + torch.cholesky_solve on the same Hd: "
+                             "two calls, the solve alone" if kernel == "pg_step" else
+                             "none: no single PyTorch call computes this function"),
+                    launches_by_path=by_path, held=held, design=design)
+
     # ---- 8. the command line and the keyframe backend
     t8 = time.perf_counter()
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "runtime"))
@@ -3219,6 +3427,14 @@ def main() -> int:
                     ("8c loop benchmark", loop["ba_calls"]))
         ba_rows = {label: bk.time_ba_rows(label, calls, out=indent) for label, calls in recorded}
         print(f"    K10-K12 timed in {time.perf_counter() - t0:.1f} s ({card})")
+        # K13-K15 timed on 8a's and 8c's recorded calls (K13 at 8c's largest batch)
+        t0 = time.perf_counter()
+        backend_rows = {
+            "8a": bek.time_backend_rows("8a", solvers["pnp_calls"], solvers["pg_calls"],
+                                        out=indent),
+            "8c loop benchmark": bek.time_backend_rows(
+                "8c loop benchmark", loop["pnp_calls"], loop["pg_calls"], out=indent)}
+        print(f"    K13-K15 timed in {time.perf_counter() - t0:.1f} s ({card})")
         # where the time goes in K10-K12, both designs, by phase
         t0 = time.perf_counter()
         for label, calls in recorded:
@@ -3314,6 +3530,7 @@ def main() -> int:
                        by_level=k4["levels"], first_call=k4["first_call"], plane=k4["plane"]),
         lm_entry("lm_step"), lm_entry("lm_decide"), lm_entry("lm_commit"), prior_entry(),
         ba_entry("ba_build"), ba_entry("ba_step"), ba_entry("ba_commit"),
+        backend_entry("pnp_solve"), backend_entry("pg_build"), backend_entry("pg_step"),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

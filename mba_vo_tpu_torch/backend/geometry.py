@@ -6,13 +6,19 @@ fundamental matrices, projection matrices, triangulation as one batched
 and a masked Huber PnP refinement by Levenberg-Marquardt on the 6-dim
 tangent (the Jacobian written out, as in ``ba.py``; leading axes batch
 independent problems). The PnP loop runs a fixed number of iterations and
-selects each step with ``torch.where``, so it never waits for the device;
-a step whose damped system is singular is NaN and rejected, as the
-reference's ``jnp.linalg.solve`` makes it.
+never waits for the device; a step whose damped system is singular is NaN
+and rejected, as the reference's ``jnp.linalg.solve`` makes it.
+
+On CUDA tensors :func:`solve_pnp` and :func:`pnp_rounds_row` run kernel
+K13 (``csrc/pnp.cu``, ``ops/cuda_backend.py``): every iteration of every
+problem of the batch in one launch, or the call raises. On CPU tensors
+they run the plain version, :func:`solve_pnp_plain`, which selects each
+step with ``torch.where``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -79,7 +85,7 @@ def _project_local(points, obs_xy, K, t, q):
     return _project(Pc, K)[0] - obs_xy
 
 
-def solve_pnp(
+def solve_pnp_plain(
     points: torch.Tensor,   # [..., N, 3] 3D points (any fixed frame F)
     obs_xy: torch.Tensor,   # [..., N, 2] pixel observations in the query camera
     mask: torch.Tensor,     # [..., N] 1.0 = live correspondence
@@ -139,6 +145,60 @@ def solve_pnp(
         cost = torch.where(ok, cand_cost, cost)
         lam = torch.where(ok, lam * 0.5, lam * 4.0)
     return Pose(t=t, q=q), cost
+
+
+def pnp_rounds_row(
+    points: torch.Tensor,   # [..., N, 3]
+    obs_xy: torch.Tensor,   # [..., N, 2]
+    mask: torch.Tensor,     # [..., N]
+    K: torch.Tensor,
+    init: Pose,
+    huber_a: float = 2.0,
+    max_iterations: int = 30,
+) -> torch.Tensor:
+    """One PnP round's result as one row a problem, [..., N + 8] = [residual
+    norms at the final pose (N) | final cost | t (3) | q (4)], the layout
+    the backend's loop stage reads in one copy. On CUDA tensors K13 (one
+    launch), else :func:`solve_pnp_plain` and :func:`pnp_residual_norms`."""
+    if points.is_cuda:
+        return _pnp_cuda(points, obs_xy, mask, K, init, huber_a, max_iterations)
+    pose, cost = solve_pnp_plain(points, obs_xy, mask, K, init, huber_a, max_iterations)
+    return torch.cat([pnp_residual_norms(points, obs_xy, K, pose), cost[..., None], pose.t,
+                      pose.q], dim=-1)
+
+
+def _pnp_cuda(points, obs_xy, mask, K, init, huber_a, max_iterations) -> torch.Tensor:
+    """K13 on the problems of the leading axes, flattened into one batch."""
+    from ..ops import cuda_backend
+
+    lead, N = points.shape[:-2], points.shape[-2]
+    dtype, B = points.dtype, math.prod(points.shape[:-2])
+
+    def flat(x, *tail):
+        return x.to(dtype).expand(lead + tail).reshape((B,) + tail).contiguous()
+    row = cuda_backend.pnp_solve_cuda(
+        flat(points, N, 3), flat(obs_xy, N, 2), flat(mask, N), K.to(dtype).contiguous(),
+        flat(init.t, 3), flat(init.q, 4), huber_a, max_iterations)
+    return row.reshape(lead + (N + 8,))
+
+
+def solve_pnp(
+    points: torch.Tensor,   # [..., N, 3] 3D points (any fixed frame F)
+    obs_xy: torch.Tensor,   # [..., N, 2] pixel observations in the query camera
+    mask: torch.Tensor,     # [..., N] 1.0 = live correspondence
+    K: torch.Tensor,        # [4] fx fy cx cy
+    init: Pose,             # [...] initial camera-to-F pose guess
+    huber_a: float = 2.0,
+    max_iterations: int = 30,
+) -> Tuple[Pose, torch.Tensor]:
+    """Masked robust PnP refinement (:func:`solve_pnp_plain`'s contract):
+    K13 on CUDA tensors, the plain version on CPU tensors. Returns (pose,
+    final mean Huber cost [...])."""
+    if not points.is_cuda:
+        return solve_pnp_plain(points, obs_xy, mask, K, init, huber_a, max_iterations)
+    N = points.shape[-2]
+    row = _pnp_cuda(points, obs_xy, mask, K, init, huber_a, max_iterations)
+    return Pose(t=row[..., N + 1:N + 4], q=row[..., N + 4:]), row[..., N]
 
 
 def pnp_residual_norms(

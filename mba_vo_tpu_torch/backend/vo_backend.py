@@ -53,7 +53,7 @@ from ..core.transform import Pose
 from ..tracker.detector import DetectorOptions
 from ..tracker.sparse_features import SparseFeatures, detect_sparse, match_descriptors
 from .ba import BAOptions, BAProblem, OdomPrior, run_bundle_adjustment
-from .geometry import pnp_residual_norms, projection_matrix, solve_pnp, triangulate_points
+from .geometry import pnp_rounds_row, projection_matrix, triangulate_points
 from .map import SlidingWindowMap
 from .pose_graph import PoseGraphEdge, PoseGraphOptions, optimize_pose_graph_counted
 
@@ -711,16 +711,16 @@ class VOBackend:
         live = np.arange(len(cand))
         for _round in range(2):
             rows = torch.as_tensor(live, device=self.device)
-            pose, cost = solve_pnp(ptsj[rows], oxyj[rows], self._t(solve_mask[live]), Kt,
-                                   pose, 2.0, 30)
-            out = self._host(torch.cat([pnp_residual_norms(ptsj[rows], oxyj[rows], Kt, pose),
-                                        cost[:, None], pose.t, pose.q], dim=1))
+            # one row a candidate, [norms (n_fix) | cost | t | q]: one read a round
+            solved = pnp_rounds_row(ptsj[rows], oxyj[rows], self._t(solve_mask[live]), Kt,
+                                    pose, 2.0, 30)
+            out = self._host(solved)
             inl = msk[live] * (out[:, :n_fix] < cfg.loop_inlier_px)
             keep = inl.sum(axis=1) >= cfg.loop_min_matches
             solve_mask[live] = inl
             kept = torch.as_tensor(np.flatnonzero(keep), device=self.device)
             live, out = live[keep], out[keep]
-            pose = Pose(t=pose.t[kept], q=pose.q[kept])
+            pose = Pose(t=solved[kept, n_fix + 1:n_fix + 4], q=solved[kept, n_fix + 4:])
         edges = []
         for k, row in zip(live, out.astype(np.float64)):
             if row[n_fix] > cfg.loop_max_pnp_cost:

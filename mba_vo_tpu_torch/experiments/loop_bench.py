@@ -10,7 +10,9 @@ final-quarter ATE of both. Drift accumulates from per-keyframe chaining,
 cut the final-quarter error when the camera comes back.
 
 Besides, each run reports its wall time, frames/s, keyframe count,
-loop-edge count, K1's, K2's and K3's launches, and (``cli track
+loop-edge count, K1's, K2's, K3's, K10-K12's and K13-K15's launches (the
+BA's iteration, the loop closure's PnP and the pose graph's iteration), and
+(``cli track
 --backend-stats``) the backend's milliseconds per keyframe by stage, each
 stage ended by a device synchronisation, its BA and pose-graph iterations
 and its device-to-host reads per keyframe. Stage timing adds a synchronisation per stage to the
@@ -84,6 +86,7 @@ def _backend_summary(stats) -> dict:
         ms_per_keyframe_total=sum(ms.values()),
         ba_iterations=sum(st["ba_iterations"] for st in stats),
         ba_iterations_per_keyframe=sum(st["ba_iterations"] for st in stats) / n,
+        pg_iterations=sum(st["pg_iterations"] for st in stats),
         pg_iterations_per_keyframe=sum(st["pg_iterations"] for st in stats) / n,
         pose_graph_runs=sum(1 for st in stats if st["pg_iterations"] > 0),
         loop_edges=sum(st["loop_edges"] for st in stats),
@@ -98,7 +101,7 @@ def run(num_frames=60, height=240, width=320, noise=1.5, device="cuda", keep=Non
     import torch
 
     from .. import cli
-    from ..ops import cuda_ba
+    from ..ops import cuda_ba, cuda_backend
     from ..ops import cuda_residual as cr
     from ..ops import cuda_sampling as cs
 
@@ -136,6 +139,7 @@ def run(num_frames=60, height=240, width=320, noise=1.5, device="cuda", keep=Non
         cs.LAUNCHES = 0
         cr.zero_launch_counts()
         cuda_ba.zero_launch_counts()
+        cuda_backend.zero_launch_counts()
         sync()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(sink):
@@ -161,6 +165,7 @@ def run(num_frames=60, height=240, width=320, noise=1.5, device="cuda", keep=Non
             "k2_k3_launches": cr.launch_counts(),
             "k10_k12_launches": cuda_ba.launch_counts(),
             "k10_k12_ticket_launches": cuda_ba.earlier_launch_counts(),
+            "k13_k15_launches": cuda_backend.launch_counts(),
         }
         if name == "ba_pg":
             with open(os.path.join(root, "backend_stats.json")) as f:

@@ -108,6 +108,7 @@ KERNELS = ("warp_tangents", "blur_rows", "normal_equations", "prepare_frame_layo
 # pixels pick the samples; K4 runs its plain version's operations)
 BIT_EQUAL_PLAIN = ("prepare_frame_layout", "image_bilinear_lk")
 F64_FLOPS_PER_S = 34e12      # float64 outside the tensor cores (H100 SXM data sheet)
+F64_MMA_FLOPS_PER_S = 67e12  # float64 matrix products on the tensor cores (the same)
 # largest difference of kernel and plain, relative to the magnitude of each
 # output (:func:`term_scales`), by kernel and dtype: in float64 1e-12 for
 # K2's rows and 1e-10 for K3's sums; in float32 a few units of its epsilon

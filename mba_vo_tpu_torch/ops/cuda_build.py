@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-Nine sources under ``mba_vo_tpu_torch/csrc/``, each compiled with ``nvcc``
+Eleven sources under ``mba_vo_tpu_torch/csrc/``, each compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``:
 
@@ -23,7 +23,13 @@ for ``sm_90a`` into a shared library with a plain C interface, loaded with
   * ``bundle_adjust.cu`` (K10-K12), the backend's bundle-adjustment LM
     iteration (the normal equations, the Schur step, the decision and
     commit), bound in ``ops/cuda_ba.py``; it shares ``spline_pose.cuh``'s
-    quaternion product, log and exp.
+    quaternion product, log and exp, and ``pose_geometry.cuh``'s rotation,
+    relative-pose residual and Jacobians and pinhole observation;
+  * ``pnp.cu`` (K13), the loop closure's robust PnP, every LM iteration of
+    a batch of problems in one launch, and ``pose_graph.cu`` (K14-K15), the
+    pose graph's LM iteration (its normal equations, then the step, the
+    decision and the commit), bound in ``ops/cuda_backend.py``; both share
+    ``pose_geometry.cuh`` and ``spline_pose.cuh``.
 
 :func:`load` with ``defines`` builds one source a second time with those
 macros set, into a library of its own name: a harness's build
@@ -62,18 +68,20 @@ SOURCES = {
     "lm_step": _CSRC / "lm_step.cu",
     "knot_prior": _CSRC / "knot_prior.cu",
     "bundle_adjust": _CSRC / "bundle_adjust.cu",
+    "pnp": _CSRC / "pnp.cu",
+    "pose_graph": _CSRC / "pose_graph.cu",
 }
-# flags of some sources only. K2, K4, K5, K6, K9 and K10-K12 round every operation as
+# flags of some sources only. K2, K4, K5, K6, K9 and K10-K15 round every operation as
 # the plain versions' torch ops do, one at a time: a multiply-add contracted into
 # one rounding moves a warped position or a patch anchor by an ulp, and on
 # the image's border or an integer pixel (where a standing start lands
 # exactly) that flips an in-image flag or picks another pixel (K6's
 # retraction makes the knots those anchors come from; K9 is held to its
-# plain version bit for bit; K10-K12 round their elementwise chains as the
-# plain BA's torch ops do)
+# plain version bit for bit; K10-K15 round their elementwise chains as the
+# plain BA's, PnP's and pose graph's torch ops do)
 SOURCE_FLAGS = {name: ["-fmad=false"]
                 for name in ("residual_rows", "frame_layout", "image_bilinear", "lm_step",
-                             "knot_prior", "bundle_adjust")}
+                             "knot_prior", "bundle_adjust", "pnp", "pose_graph")}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mba_vo_tpu_torch"
 _libs: Dict[str, ctypes.CDLL] = {}
 
